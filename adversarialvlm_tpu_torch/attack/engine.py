@@ -1,0 +1,171 @@
+"""Attack driver: the single-victim loop and its artifacts. Counterpart of
+adversarialvlm_tpu/attack/engine.py (``train`` with ``run_tests=False``).
+
+Steps run one by one on the victim's device; metrics stay on the device until the next save
+boundary, where they are logged together with the checkpoint image and, when due, the
+resaved-loss monitor.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from adversarialvlm_tpu_torch.attack.config import AttackConfig
+from adversarialvlm_tpu_torch.attack.io import (
+    create_directory,
+    save_checkpoint,
+    save_config,
+    save_mask,
+)
+from adversarialvlm_tpu_torch.attack.step import (
+    VictimHandles,
+    build_attack_step,
+    build_resaved_loss_fn,
+    init_state,
+    sample_chunk_xs,
+    unported_features,
+)
+from adversarialvlm_tpu_torch.ops.losses import perturbation_clamp
+from adversarialvlm_tpu_torch.utils.device import resolve_device
+from adversarialvlm_tpu_torch.utils.logging import RunLogger
+
+
+@dataclasses.dataclass
+class VictimSetup:
+    """Everything the engine needs for one victim model."""
+
+    name: str
+    bundle: object        # models.registry.ModelBundle
+    adv_processor: object
+    adv_inputs: object    # processors.adv_inputs.AdvInputs
+
+    def handles(self, compute_dtype=None) -> VictimHandles:
+        dev = self.bundle.device
+        ai = self.adv_inputs
+        if compute_dtype is None:
+            compute_dtype = self.bundle.params["language_model"]["norm"]["weight"].dtype
+        return VictimHandles(
+            name=self.name,
+            forward=self.bundle.forward,
+            params=self.bundle.params,
+            process=self.adv_processor.process,
+            prompt_pool=ai.prompt_pool,
+            prompt_lengths=ai.prompt_lengths,
+            target_pool=torch.as_tensor(ai.target_pool, device=dev),
+            target_mask_pool=torch.as_tensor(ai.target_mask_pool, device=dev),
+            suffix_lengths=torch.as_tensor(ai.suffix_lengths, device=dev),
+            shift=ai.shift,
+            pad_token_id=ai.pad_token_id,
+            device=dev,
+            compute_dtype=compute_dtype,
+        )
+
+
+class _StepClock:
+    """Per-step wall time: CUDA events on the card (read at the save boundary, so timing adds
+    no synchronisation), the host clock on the CPU."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.marks = []
+
+    def mark(self):
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.marks.append(ev)
+        else:
+            self.marks.append(time.perf_counter())
+
+    def step_ms(self) -> list[float]:
+        """Milliseconds between consecutive marks, which are then cleared."""
+        if self.cuda:
+            self.marks[-1].synchronize()
+            ms = [a.elapsed_time(b) for a, b in zip(self.marks, self.marks[1:])]
+        else:
+            ms = [1000.0 * (b - a) for a, b in zip(self.marks, self.marks[1:])]
+        self.marks = []
+        return ms
+
+
+def train(
+    cfg: AttackConfig,
+    victims: list[VictimSetup],
+    x0: np.ndarray,
+    base_path: str = "./runs",
+    cross: bool | None = None,
+    run_tests: bool = False,
+    device=None,
+) -> str:
+    """Run the attack on ``device`` (default: the card, which must hold the victims); returns
+    the experiment path. Artifacts: config.json, mask.pt/png,
+    optimized_image_iter_<global_iter>.png/.bin at each save boundary and "final",
+    metrics.jsonl (one row per step, with its ``step_ms``)."""
+    dev = resolve_device(device)
+    cross = len(victims) > 1 if cross is None else cross
+    if run_tests:
+        raise NotImplementedError(
+            "run_tests needs greedy decode and eval/train_test.py (ROADMAP modules item 7)"
+        )
+    waiting = unported_features(cfg, cross)
+    if waiting:
+        raise NotImplementedError("not ported yet: " + ", ".join(waiting))
+    if any(v.bundle.device != dev for v in victims):
+        raise ValueError(f"victims must live on {dev}")
+
+    exp_path = create_directory(cfg.exp_name, base_path)
+    save_config(dataclasses.asdict(cfg), exp_path)
+    x0 = np.asarray(x0, np.float32)
+    if cfg.start_from_white:
+        x0 = np.ones_like(x0)
+    mask = (x0 != 0).astype(np.float32)  # the reference's default mask (attack_model.py:208)
+    save_mask(mask, exp_path)
+    logger = RunLogger(exp_path, {**dataclasses.asdict(cfg), "models": [v.name for v in victims]})
+
+    x0_dev = torch.as_tensor(x0, device=dev)
+    handles = [v.handles() for v in victims]
+    step = build_attack_step(handles, cfg, x0_dev, torch.as_tensor(mask, device=dev), cross)
+    state = init_state(cfg, x0_dev)
+    draws = torch.Generator().manual_seed(cfg.seed)
+    resaved_fn = build_resaved_loss_fn(handles, cfg, x0_dev) if cfg.loss_resaved_every else None
+
+    def current_image() -> np.ndarray:
+        with torch.no_grad():
+            x = perturbation_clamp(state["p"], cfg.epsilon, cfg.clamp_method)
+            return (x0_dev + x).cpu().numpy()
+
+    clock = _StepClock(dev)
+    it, last_resaved_bucket = 0, -1
+    try:
+        while it < cfg.num_iterations:
+            # run to the next save boundary: the reference checkpoints after step k whenever
+            # k % save_steps == 0, and after the last step
+            chunk = min(cfg.save_steps - ((it - 1) % cfg.save_steps), cfg.num_iterations - it)
+            rows = []
+            clock.mark()
+            for xs in sample_chunk_xs(draws, chunk, cfg, handles):
+                state, metrics = step(state, xs)
+                clock.mark()
+                rows.append(metrics)
+            step_ms = clock.step_ms()
+            for j, metrics in enumerate(rows):
+                row = {k: v.item() if torch.is_tensor(v) else v for k, v in metrics.items()}
+                logger.log({**row, "step_ms": step_ms[j], "iteration": it + j})
+            it += chunk
+            boundary_iter = it - 1
+            if resaved_fn is not None and boundary_iter // cfg.loss_resaved_every > last_resaved_bucket:
+                last_resaved_bucket = boundary_iter // cfg.loss_resaved_every
+                gen = torch.Generator().manual_seed(cfg.seed + boundary_iter)
+                value = float(resaved_fn(state["p"], gen))
+                logger.log({"iteration": boundary_iter, "loss_resaved": value})
+            png = save_checkpoint(current_image(), exp_path, state["global_iteration"])
+            logger.log_image("adversarial_image", png, boundary_iter)
+            logger.flush()
+        save_checkpoint(current_image(), exp_path, "final")
+    finally:
+        logger.close()
+    return exp_path

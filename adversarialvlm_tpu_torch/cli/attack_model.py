@@ -1,0 +1,137 @@
+"""Single-model attack CLI with the flags of cli/attack_model.py, on the port.
+
+    python -m adversarialvlm_tpu_torch.cli.attack_model --model_name random:llava-1.5-7b \\
+        --batch_size 1 --img_orig gray.png
+
+Model names: ``random:llava-1.5-7b`` (full-size LLaVA-1.5-7B, random bf16 weights) and
+``tiny:llava`` (tiny random LLaVA, f32). Checkpoint loading is not ported yet. Runs on the card
+unless ``--device cpu``; on the card the decoder attention kernel takes batch 1, so the default
+``--batch_size 4`` raises there until the flash kernel is ported.
+"""
+
+from __future__ import annotations
+
+import argparse
+from datetime import datetime
+
+import torch
+
+
+def add_attack_flags(parser):
+    """The reference's attack CLI surface (attack_model.py:483-519) plus the JAX package's
+    extras, flag for flag."""
+    parser.add_argument("--exp_name", type=str, default="oxford-to-msu")
+    parser.add_argument("--img_orig", type=str, default="gray.png")
+    parser.add_argument("--prompt", type=str, default="list")
+    parser.add_argument("--target_text", type=str, default="sure, here it is!")
+    parser.add_argument("--lr", type=float, default=1e-2)
+    parser.add_argument("--num_iterations", type=int, default=1000)
+    parser.add_argument("--save_steps", type=int, default=10)
+    parser.add_argument("--batch_size", type=int, default=4)
+    parser.add_argument("--grad_accum_steps", type=int, default=1)
+    parser.add_argument("--scheduler_step_size", type=int, default=100)
+    parser.add_argument("--scheduler_gamma", type=float, default=1.0)
+    parser.add_argument("--restart_num", type=int, default=0)
+    parser.add_argument("--mask_type", type=str, default=None,
+                        choices=["corner", "bottom_lines", "random_square"])
+    parser.add_argument("--mask_size", type=int, default=None)
+    parser.add_argument("--clamp_method", type=str, default="tanh", choices=["clamp", "tanh", "none"])
+    parser.add_argument("--start_from_white", action="store_true")
+    parser.add_argument("--target_text_random", action="store_true")
+    parser.add_argument("--DPO_flag", action="store_true")
+    parser.add_argument("--refuse_prob", type=float, default=0.0)
+    parser.add_argument("--epsilon", type=float, default=0.5)
+    parser.add_argument("--sigma", type=float, default=0.001)
+    parser.add_argument("--use_gaussian_blur", action="store_true")
+    parser.add_argument("--gblur_kernel_size", type=int, default=5)
+    parser.add_argument("--gblur_sigma", type=float, default=7)
+    parser.add_argument("--use_local_crop", action="store_true")
+    parser.add_argument("--crop_scale_min", type=float, default=0.6)
+    parser.add_argument("--crop_scale_max", type=float, default=1.0)
+    parser.add_argument("--crop_ratio_min", type=float, default=0.75)
+    parser.add_argument("--crop_ratio_max", type=float, default=1.33)
+    parser.add_argument("--transform_prob", type=float, default=1.0)
+    parser.add_argument("--checkpoint_root", type=str, default=None)
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--no_wandb", action="store_true", help="accepted; metrics go to metrics.jsonl")
+    parser.add_argument("--runs_path", type=str, default="./runs")
+    parser.add_argument("--resume_state", type=str, default=None)
+    parser.add_argument("--profile_dir", type=str, default=None)
+    parser.add_argument("--mesh_model", type=int, default=None)
+    parser.add_argument("--mesh_data", type=int, default=None)
+    parser.add_argument("--int8_weights", action="store_true")
+    parser.add_argument("--remat_policy", type=str, default=None,
+                        choices=["dgrad_mid", "dgrad_lean", "gate", "gate_up", "dots", "dgrad", "none"])
+    parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
+
+
+_CONFIG_FIELDS = (
+    "exp_name img_orig prompt target_text lr num_iterations save_steps batch_size "
+    "grad_accum_steps scheduler_step_size scheduler_gamma restart_num mask_type mask_size "
+    "clamp_method epsilon sigma start_from_white target_text_random DPO_flag refuse_prob "
+    "use_gaussian_blur gblur_kernel_size gblur_sigma use_local_crop crop_scale_min "
+    "crop_scale_max crop_ratio_min crop_ratio_max transform_prob seed resume_state profile_dir"
+).split()
+
+
+def attack_config_from_args(args, **overrides):
+    from adversarialvlm_tpu_torch.attack.config import AttackConfig
+
+    fields = {k: getattr(args, k) for k in _CONFIG_FIELDS}
+    fields.update(overrides)
+    return AttackConfig(**fields)
+
+
+def build_victim(model_name: str, cfg, in_hw, device):
+    from adversarialvlm_tpu_torch.attack.setup import build_tiny_victim
+    from adversarialvlm_tpu_torch.models.configs import llava_1_5_7b
+
+    if model_name == "random:llava-1.5-7b":
+        return build_tiny_victim(model_name, cfg, in_hw, vlm_cfg=llava_1_5_7b(), seed=cfg.seed,
+                                 dtype=torch.bfloat16, device=device)
+    if model_name == "tiny:llava":
+        return build_tiny_victim(model_name, cfg, in_hw, seed=cfg.seed, device=device)
+    raise NotImplementedError(
+        f"model {model_name!r}: checkpoint loading and other families are not ported yet "
+        "(ROADMAP modules items 6 and 8); use random:llava-1.5-7b or tiny:llava"
+    )
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="Train image attack model.")
+    add_attack_flags(parser)
+    parser.add_argument("--model_name", type=str, default="random:llava-1.5-7b")
+    args = parser.parse_args(argv)
+    waiting = [
+        flag for flag, asked in (
+            ("--mesh_model/--mesh_data (ROADMAP modules item 9)",
+             args.mesh_model is not None or args.mesh_data is not None),
+            ("--int8_weights (ROADMAP modules item 10)", args.int8_weights),
+            ("--remat_policy (not needed on an 80 GB card)", args.remat_policy is not None),
+        ) if asked
+    ]
+    if waiting:
+        raise NotImplementedError("not ported yet: " + ", ".join(waiting))
+
+    from adversarialvlm_tpu_torch.attack.engine import train
+    from adversarialvlm_tpu_torch.attack.io import load_image_chw
+    from adversarialvlm_tpu_torch.attack.step import unported_features
+    from adversarialvlm_tpu_torch.utils.device import resolve_device
+
+    cfg = attack_config_from_args(
+        args, exp_name=f"{args.exp_name}_{datetime.now().strftime('%Y%m%d_%H%M%S')}"
+    )
+    waiting = unported_features(cfg)
+    if waiting:  # fail before the victim build
+        raise NotImplementedError("not ported yet: " + ", ".join(waiting))
+    device = resolve_device(args.device)
+    print("params:", args.__dict__)
+    x0 = load_image_chw(args.img_orig)
+    in_hw = (x0.shape[1], x0.shape[2])
+    print("Original image size:", (in_hw[1], in_hw[0]))
+    victim = build_victim(args.model_name, cfg, in_hw, device)
+    return train(cfg, [victim], x0, base_path=args.runs_path, cross=False, device=device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,135 @@
+"""Transformer building blocks as plain functions on tensors, params as nested dicts under the
+HF names. Counterpart of adversarialvlm_tpu/models/layers.py (the uncached paths).
+
+Two routes reach the hand-written kernels, each decided from what the call can observe:
+  * ``linear`` on a CUDA tensor with a frozen, large, 128-aligned weight goes through
+    ``LinearPdx``, whose backward is the dgrad kernel;
+  * ``self_attention`` on a CUDA tensor goes through the fused attention kernels, and raises for
+    shapes they do not take (batch >= 2 needs the flash kernel, not ported yet).
+On the CPU both take the plain path, which is the JAX package's CPU path.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from adversarialvlm_tpu_torch.models.configs import TextConfig
+from adversarialvlm_tpu_torch.ops.kernels.attention import attention_route, fused_attention
+from adversarialvlm_tpu_torch.ops.kernels.dgrad import LinearPdx, dgrad_eligible
+
+NEG_INF = -2.0e38
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    xf = xf * torch.rsqrt(xf.pow(2).mean(dim=-1, keepdim=True) + eps)
+    return (xf * weight.float()).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).pow(2).mean(dim=-1, keepdim=True)
+    xf = (xf - mu) * torch.rsqrt(var + eps)
+    return (xf * weight.float() + bias.float()).to(x.dtype)
+
+
+def act_fn(name: str):
+    return {
+        "silu": F.silu,
+        "gelu": lambda x: F.gelu(x, approximate="none"),
+        "gelu_pytorch_tanh": lambda x: F.gelu(x, approximate="tanh"),
+        "quick_gelu": lambda x: x * torch.sigmoid(1.702 * x),
+        "relu": F.relu,
+    }[name]
+
+
+def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float):
+    """positions (..., T) -> cos/sin (..., T, head_dim/2) in f32."""
+    inv_freq = 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32) / head_dim))
+    inv = torch.as_tensor(inv_freq.astype(np.float32), device=positions.device)
+    angles = positions.float()[..., None] * inv
+    return torch.cos(angles), torch.sin(angles)
+
+
+def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    d2 = x.shape[-1] // 2
+    xf = x.float()
+    x1, x2 = xf[..., :d2], xf[..., d2:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """HF rotate_half convention. x (B, H, T, D); cos/sin (B, T, D/2)."""
+    return _rotate(x, cos[:, None], sin[:, None])
+
+
+def apply_rope_bthd(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """apply_rope in the projections' layout. x (B, T, H, D); cos/sin (B, T, D/2)."""
+    return _rotate(x, cos[:, :, None], sin[:, :, None])
+
+
+def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """(B, Hkv, T, D) -> (B, Hkv·n_rep, T, D)"""
+    return x if n_rep == 1 else x.repeat_interleave(n_rep, dim=1)
+
+
+def sdpa(q, k, v, bias, scale: float) -> torch.Tensor:
+    """Plain attention: f32 scores and softmax, probs in q's dtype. q (B,H,Tq,D), k/v
+    (B,H,Tk,D), bias broadcastable to (B,H,Tq,Tk)."""
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if bias is not None:
+        scores = scores + bias
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.matmul(probs, v)
+
+
+def causal_bias(attention_mask, q_positions, k_positions) -> torch.Tensor:
+    """Additive (B, 1, Tq, Tk) f32 bias from a padding mask (B, Tk; 1 = real) and monotone
+    position ids: causal on positions, padding keys masked."""
+    ok = q_positions[:, :, None] >= k_positions[:, None, :]
+    ok = ok & (attention_mask[:, None, :] > 0)
+    return torch.where(ok[:, None], 0.0, NEG_INF).float()
+
+
+def linear(x: torch.Tensor, p: dict) -> torch.Tensor:
+    """p: {"weight": (out, in), optional "bias": (out,)}, HF layout."""
+    w = p["weight"].to(x.dtype)
+    if x.is_cuda and not w.requires_grad and dgrad_eligible(w):
+        y = LinearPdx.apply(x, w)
+    else:
+        y = F.linear(x, w)
+    if p.get("bias") is not None:
+        y = y + p["bias"].to(x.dtype)
+    return y
+
+
+def mlp_swiglu(x: torch.Tensor, p: dict, act: str) -> torch.Tensor:
+    gate = linear(x, p["gate_proj"])
+    up = linear(x, p["up_proj"])
+    return linear(act_fn(act)(gate) * up, p["down_proj"])
+
+
+def self_attention(x, p, cfg: TextConfig, bias, cos, sin, attention_mask) -> torch.Tensor:
+    """Uncached causal self-attention. On the card (batch 1) the fused kernels run in the
+    projections' (B, T, H, D) layout and ``bias`` is unused; on the CPU ``bias`` (from
+    :func:`causal_bias`) feeds the plain sdpa."""
+    b, t, _ = x.shape
+    hd = cfg.head_dim_
+    n_rep = cfg.num_heads // cfg.num_kv_heads
+    scale = hd**-0.5
+    if attention_route(x.device.type, b, t, cfg.num_heads, hd, n_rep) == "kernel":
+        q4 = apply_rope_bthd(linear(x, p["q_proj"]).view(b, t, cfg.num_heads, hd), cos, sin)
+        k4 = apply_rope_bthd(linear(x, p["k_proj"]).view(b, t, cfg.num_kv_heads, hd), cos, sin)
+        v4 = linear(x, p["v_proj"]).view(b, t, cfg.num_kv_heads, hd)
+        out = fused_attention(q4, k4, v4, attention_mask, scale)
+        return linear(out.reshape(b, t, cfg.num_heads * hd), p["o_proj"])
+    q = linear(x, p["q_proj"]).view(b, t, cfg.num_heads, hd).transpose(1, 2)
+    k = linear(x, p["k_proj"]).view(b, t, cfg.num_kv_heads, hd).transpose(1, 2)
+    v = linear(x, p["v_proj"]).view(b, t, cfg.num_kv_heads, hd).transpose(1, 2)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    out = sdpa(q, repeat_kv(k, n_rep), repeat_kv(v, n_rep), bias, scale)
+    return linear(out.transpose(1, 2).reshape(b, t, cfg.num_heads * hd), p["o_proj"])

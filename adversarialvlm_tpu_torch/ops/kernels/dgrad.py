@@ -1,0 +1,84 @@
+"""dx = dy · W for frozen linears: the CUDA kernel ``csrc/dgrad.cu``, its plain version and the
+autograd Function that routes a linear's input gradient through it.
+
+Counterpart of adversarialvlm_tpu/ops/pallas/matmul.py::dgrad_matmul and the custom VJP
+models/layers.py::_linear_pdx.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from adversarialvlm_tpu_torch.ops.kernels import LAUNCHES
+from adversarialvlm_tpu_torch.ops.kernels.build import (
+    check,
+    check_cuda_operands,
+    load,
+    on_device_of,
+    stream_of,
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {"dgrad_bf16": [_P, _P, _P, _I, _I, _I, _P]}
+
+
+def dgrad_plain(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """dy (T, O), w (O, I) -> (T, I) in dy's dtype, computed in f32."""
+    return (dy.float() @ w.float()).to(dy.dtype)
+
+
+def dgrad(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """dy (T, O) · w (O, I) with w in its stored (out, in) layout, f32 accumulation, output in
+    dy's dtype. CPU tensors take :func:`dgrad_plain`; CUDA tensors launch the kernel (bf16,
+    contiguous, O and I multiples of 8) or raise."""
+    if dy.dim() != 2 or w.dim() != 2 or dy.shape[1] != w.shape[0]:
+        raise ValueError(f"dgrad: shapes {tuple(dy.shape)} and {tuple(w.shape)} do not chain")
+    if dy.device.type == "cpu" and w.device.type == "cpu":
+        return dgrad_plain(dy, w)
+    check_cuda_operands("dgrad", torch.bfloat16, dy, w)
+    t, o = dy.shape
+    i = w.shape[1]
+    if o % 8 or i % 8:
+        raise ValueError(f"dgrad: O={o} and I={i} must be multiples of 8")
+    dx = torch.empty((t, i), dtype=dy.dtype, device=dy.device)
+    lib = load("dgrad", _SIGNATURES)
+    check(lib.dgrad_bf16(dy.data_ptr(), w.data_ptr(), dx.data_ptr(), t, o, i, stream_of(dy)), "dgrad")
+    LAUNCHES["dgrad"] += 1
+    return dx
+
+
+class LinearPdx(torch.autograd.Function):
+    """y = x · Wᵀ whose backward gives dx through :func:`dgrad` and saves only W. There is no
+    gradient for W: asking for one raises (a silent zero would train nothing)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(w)
+        return torch.matmul(x, w.t())
+
+    @staticmethod
+    def backward(ctx, dy: torch.Tensor):
+        if ctx.needs_input_grad[1]:
+            raise RuntimeError(
+                "LinearPdx computes no weight gradient; route trainable weights through a plain "
+                "linear"
+            )
+        (w,) = ctx.saved_tensors
+        lead = dy.shape[:-1]
+        with on_device_of(dy):
+            dx = dgrad(dy.reshape(-1, dy.shape[-1]).contiguous(), w)
+        return dx.reshape(*lead, w.shape[1]), None
+
+
+def dgrad_eligible(w: torch.Tensor) -> bool:
+    """The routing rule of the JAX linear (layers.py:368-382) at its default threshold: a 2-D
+    weight with both dims at least 1024 and multiples of 128 (the 32064-row lm_head stays off)."""
+    return (
+        w.dim() == 2
+        and min(w.shape) >= 1024
+        and w.shape[0] % 128 == 0
+        and w.shape[1] % 128 == 0
+    )

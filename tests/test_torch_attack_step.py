@@ -1,0 +1,281 @@
+"""The port's attack step, optimizer, driver loop and CLI, on the CPU.
+
+Parity with the JAX package's ``build_attack_step`` on the tiny LLaVA victim: the JAX step runs
+with its host-sampled (target, question) draws, and the port gets the same draws and the same
+EoT noise, reproduced from the JAX step's key layout (step.py:326-330) and passed in as tensors
+(the two frameworks' generators differ, so seeds are never expected to match).
+"""
+
+import ast
+import json
+import os
+import pathlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+import adversarialvlm_tpu.attack.step as jstep
+from adversarialvlm_tpu.attack.config import AttackConfig as JaxAttackConfig
+from adversarialvlm_tpu.attack.setup import build_tiny_victim as jax_build_tiny_victim
+from adversarialvlm_tpu_torch.attack.config import AttackConfig
+from adversarialvlm_tpu_torch.attack.engine import train
+from adversarialvlm_tpu_torch.attack.setup import build_tiny_victim
+from adversarialvlm_tpu_torch.attack.step import (
+    build_attack_step,
+    init_state,
+    make_optimizer,
+    sample_chunk_xs,
+)
+from adversarialvlm_tpu_torch.cli import attack_model as cli
+from adversarialvlm_tpu_torch.models.convert import from_jax_params
+from adversarialvlm_tpu_torch.ops.image import to_pil_array
+from adversarialvlm_tpu_torch.utils.png import read_png, write_png
+
+QUESTIONS = ["How do I do the bad thing?", "Tell me the forbidden info."]
+TEST_QUESTIONS = ["What is the worst thing?"]
+TARGETS = ["sure, here it is!", "Absolutely."]
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PARITY_STEPS = 3
+
+
+def _kw(**kw):
+    base = dict(exp_name="tiny_torch", num_iterations=6, save_steps=3, batch_size=2, lr=5e-2,
+                epsilon=0.5, sigma=0.001, grad_accum_steps=1, scheduler_step_size=2,
+                scheduler_gamma=0.5, target_text_random=True)
+    base.update(kw)
+    return base
+
+
+def _victim(cfg, **kw):
+    return build_tiny_victim("tiny-llava", cfg, (64, 80), questions=QUESTIONS, targets=TARGETS,
+                             test_questions=TEST_QUESTIONS, device="cpu", **kw)
+
+
+@pytest.fixture(scope="module")
+def jax_run():
+    """Three JAX attack steps on the tiny victim, with each step's draws, noise and results."""
+    cfg = JaxAttackConfig(**_kw())
+    victim = jax_build_tiny_victim("tiny-llava", cfg, in_hw=(64, 80), questions=QUESTIONS,
+                                   targets=TARGETS, test_questions=TEST_QUESTIONS)
+    x0 = np.random.default_rng(0).random((3, 64, 80), dtype=np.float32)
+    h = victim.handles()
+    step = jax.jit(jstep.build_attack_step([h], cfg, jnp.asarray(x0), jnp.ones((3, 64, 80))))
+    state = jstep.init_state(cfg, jnp.asarray(x0), jstep.make_optimizer(cfg))
+    arrays = [h.arrays(include_prompt_pool=False)]
+    records = []
+    for _ in range(PARITY_STEPS):
+        xs = jstep.sample_chunk_xs(state["key"], 1, cfg, [h])
+        one = {"t_idx": xs["t_idx"][0], "rows": [xs["rows"][0][0]], "lens": [xs["lens"][0][0]]}
+        # the step's key layout: split into 5 + 2·n_models keys, EoT noise from the last one
+        k_noise = jax.random.split(state["key"], 7)[6]
+        noise = jax.random.normal(k_noise, (cfg.batch_size, 3, 336, 336), jnp.float32)
+        state, m = step(state, arrays, one)
+        records.append({
+            "t_idx": int(one["t_idx"]), "rows": np.array(one["rows"][0]),
+            "lens": np.array(one["lens"][0]), "noise": np.array(noise),
+            "p": np.asarray(state["p"]),
+            "metrics": {k: float(m[k]) for k in ("loss", "grad_norm", "resave_error_std", "lr")},
+        })
+    return victim, x0, records
+
+
+@pytest.mark.parametrize("n_steps", [1, PARITY_STEPS])
+def test_attack_steps_match_jax(jax_run, n_steps):
+    """p, loss, grad_norm, resave_error_std and lr after one step and after three steps.
+    Tolerances: 1e-4 relative on the metrics (the same f32 math in another order). On p, 99% of
+    the pixels within 1e-5 (2e-4 of lr) and every pixel within 2.5e-4 (0.5% of lr): Adam's
+    update lr·m/(√v + 1e-8) turns the last-digit differences of a gradient that is nearly zero
+    into visible ones (1.2e-4 measured on 2 of 15360 pixels after one step)."""
+    jvictim, x0, records = jax_run
+    cfg = AttackConfig(**_kw())
+    victim = _victim(cfg)
+    assert np.array_equal(victim.adv_inputs.prompt_pool, jvictim.adv_inputs.prompt_pool)
+    victim.bundle.params = from_jax_params(jvictim.bundle.params)
+    x0t = torch.from_numpy(x0)
+    step = build_attack_step([victim.handles()], cfg, x0t, torch.ones_like(x0t))
+    state = init_state(cfg, x0t)
+    for rec in records[:n_steps]:
+        xs = {"t_idx": rec["t_idx"], "rows": [torch.from_numpy(rec["rows"])],
+              "lens": [torch.from_numpy(rec["lens"])], "noise": [torch.from_numpy(rec["noise"])]}
+        state, m = step(state, xs)
+        for key, want in rec["metrics"].items():
+            np.testing.assert_allclose(float(m[key]), want, rtol=1e-4, err_msg=key)
+        diff = np.abs(state["p"].detach().numpy() - rec["p"])
+        assert diff.max() <= 2.5e-4 and np.mean(diff > 1e-5) <= 1e-2, (diff.max(), np.mean(diff > 1e-5))
+
+
+def test_adamw_steplr_match_optax_across_a_schedule_boundary():
+    """torch AdamW + StepLR against the JAX package's optax schedule over five updates with
+    scheduler_step_size 2 (two decays), on fixed gradients; 1e-6 (f32)."""
+    cfg = AttackConfig(lr=1e-2, scheduler_step_size=2, scheduler_gamma=0.5)
+    jopt = jstep.make_optimizer(JaxAttackConfig(lr=1e-2, scheduler_step_size=2, scheduler_gamma=0.5))
+    rng = np.random.default_rng(4)
+    grads = [rng.standard_normal((3, 4, 5)).astype(np.float32) for _ in range(5)]
+    pj = jnp.zeros((3, 4, 5), jnp.float32)
+    sj = jopt.init(pj)
+    pt = torch.zeros((3, 4, 5), requires_grad=True)
+    opt, sched = make_optimizer(cfg, pt)
+    lrs = []
+    for g in grads:
+        upd, sj = jopt.update(jnp.asarray(g), sj, pj)
+        pj = optax.apply_updates(pj, upd)
+        lrs.append(opt.param_groups[0]["lr"])
+        pt.grad = torch.from_numpy(g)
+        opt.step()
+        sched.step()
+        np.testing.assert_allclose(pt.detach().numpy(), np.asarray(pj), rtol=1e-6, atol=1e-6)
+    assert lrs == pytest.approx([1e-2, 1e-2, 5e-3, 5e-3, 2.5e-3])
+
+
+def test_attack_step_loss_decreases():
+    """Port of test_attack_step_loss_decreases: 30 steps against a random tiny victim."""
+    cfg = AttackConfig(**_kw(num_iterations=30, scheduler_gamma=1.0))
+    victim = _victim(cfg)
+    x0 = torch.from_numpy(np.random.default_rng(0).random((3, 64, 80), dtype=np.float32))
+    step = build_attack_step([victim.handles()], cfg, x0, torch.ones_like(x0))
+    state = init_state(cfg, x0)
+    gen = torch.Generator().manual_seed(0)
+    losses, metrics = [], None
+    for xs in sample_chunk_xs(gen, 30, cfg, [victim.handles()]):
+        state, metrics = step(state, xs)
+        losses.append(float(metrics["loss"]))
+    losses = np.asarray(losses)
+    assert np.isfinite(losses).all()
+    assert losses[-5:].mean() < losses[:5].mean()
+    assert float((cfg.epsilon * torch.tanh(state["p"])).abs().max()) <= cfg.epsilon
+    for k in ("image_loss", "grad_norm", "resave_error_std", "lr"):
+        assert k in metrics
+
+
+def test_lr_metric_matches_applied_schedule():
+    """Port of test_lr_metric_matches_applied_schedule: the logged lr is the one the optimizer
+    applied in that step."""
+    cfg = AttackConfig(**_kw(num_iterations=4, lr=1e-2))
+    victim = _victim(cfg)
+    x0 = torch.from_numpy(np.random.default_rng(0).random((3, 64, 80), dtype=np.float32))
+    step = build_attack_step([victim.handles()], cfg, x0, torch.ones_like(x0))
+    state = init_state(cfg, x0)
+    lrs = []
+    for xs in sample_chunk_xs(torch.Generator().manual_seed(1), 4, cfg, [victim.handles()]):
+        state, m = step(state, xs)
+        lrs.append(m["lr"])
+    np.testing.assert_allclose(lrs, [1e-2, 1e-2, 5e-3, 5e-3], rtol=1e-6)
+
+
+def test_llava_has_image_gradient():
+    """Port of test_every_family_has_image_gradient for llava: the pool carries the expanded
+    image tokens and one step gives a nonzero image gradient."""
+    cfg = AttackConfig(**_kw(num_iterations=1, target_text_random=False))
+    victim = build_tiny_victim("tiny-llava", cfg, (64, 80), device="cpu",
+                               questions=["How do I do the bad thing?", "Tell me more."],
+                               targets=["sure!"], test_questions=["How do I do the bad thing?"])
+    h = victim.handles()
+    assert (h.prompt_pool == victim.bundle.cfg.image_token_id).sum() > 0
+    x0 = torch.full((3, 64, 80), 0.5)
+    step = build_attack_step([h], cfg, x0, torch.ones_like(x0))
+    _, m = step(init_state(cfg, x0), sample_chunk_xs(torch.Generator(), 1, cfg, [h])[0])
+    gn = float(m["grad_norm"])
+    assert np.isfinite(gn) and gn > 1e-6
+
+
+def test_train_writes_the_run_artifacts(tmp_path):
+    """train() on the CPU: config.json, mask.pt/png, a PNG + .bin per save boundary and final
+    (the PNG holds the truncated uint8 image of the .bin), and one metrics row per step."""
+    cfg = AttackConfig(**_kw(exp_name="artifacts", num_iterations=4, save_steps=3))
+    victim = _victim(cfg)
+    x0 = np.random.default_rng(0).random((3, 64, 80), dtype=np.float32)
+    exp = train(cfg, [victim], x0, base_path=str(tmp_path), device="cpu")
+    files = set(os.listdir(exp))
+    for name in ("config.json", "mask.pt", "mask.png", "metrics.jsonl",
+                 "optimized_image_iter_1.png", "optimized_image_iter_4.png",
+                 "optimized_image_iter_final.png", "optimized_image_iter_final.bin"):
+        assert name in files, name
+    assert json.load(open(os.path.join(exp, "config.json")))["num_iterations"] == 4
+    assert torch.load(os.path.join(exp, "mask.pt")).shape == (3, 64, 80)
+    rows = [json.loads(line) for line in open(os.path.join(exp, "metrics.jsonl"))]
+    steps = [r for r in rows if "loss" in r]
+    assert [r["iteration"] for r in steps] == [0, 1, 2, 3]
+    assert all(np.isfinite(r["loss"]) and r["step_ms"] > 0 for r in steps)
+    assert sum("loss_resaved" in r for r in rows) == 2
+    img = np.fromfile(os.path.join(exp, "optimized_image_iter_final.bin"), np.float32)
+    png = read_png(os.path.join(exp, "optimized_image_iter_final.png"))
+    np.testing.assert_array_equal(png, to_pil_array(img.reshape(3, 64, 80)))
+
+
+def test_png_reader_matches_pil(tmp_path):
+    """The zlib PNG reader against PIL on the repo's x₀ and on a PIL-written image (PIL's
+    adaptive row filters), and the writer round-trips."""
+    from PIL import Image
+
+    gray = REPO / "images" / "gray.png"
+    np.testing.assert_array_equal(read_png(str(gray)), np.asarray(Image.open(gray).convert("RGB")))
+    arr = np.random.default_rng(0).integers(0, 256, (37, 29, 3), dtype=np.uint8)
+    arr[:, :10] = 200  # smooth regions make PIL pick several filter types
+    Image.fromarray(arr).save(tmp_path / "pil.png")
+    np.testing.assert_array_equal(read_png(str(tmp_path / "pil.png")), arr)
+    write_png(str(tmp_path / "ours.png"), arr)
+    np.testing.assert_array_equal(np.asarray(Image.open(tmp_path / "ours.png")), arr)
+
+
+def _entry_case(case, tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = AttackConfig(**_kw())
+    png = str(tmp_path / "x0.png")
+    write_png(png, np.full((64, 80, 3), 120, np.uint8))
+    base = ["--model_name", "tiny:llava", "--img_orig", png, "--runs_path", str(tmp_path),
+            "--batch_size", "1", "--prompt", "Tell me.", "--num_iterations", "2", "--save_steps", "1"]
+    if case == "victim_without_card":
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build_tiny_victim("tiny-llava", cfg, (64, 80))
+    elif case == "train_without_card":
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            train(cfg, [_victim(cfg)], np.zeros((3, 64, 80), np.float32), base_path=str(tmp_path))
+    elif case == "cli_without_card":
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(base)
+    elif case == "cli_on_cpu":
+        exp = cli.main(base + ["--device", "cpu"])
+        assert "optimized_image_iter_final.png" in os.listdir(exp)
+    elif case == "cli_blur_waits":
+        with pytest.raises(NotImplementedError, match="use_gaussian_blur"):
+            cli.main(base + ["--device", "cpu", "--use_gaussian_blur"])
+    elif case == "cli_checkpoint_waits":
+        with pytest.raises(NotImplementedError, match="ROADMAP modules items 6"):
+            cli.main(base[2:] + ["--device", "cpu", "--model_name", "llava-hf/llava-1.5-7b-hf"])
+    elif case == "cross_waits":
+        with pytest.raises(NotImplementedError, match="cross-model"):
+            train(cfg, [_victim(cfg)] * 2, np.zeros((3, 64, 80), np.float32),
+                  base_path=str(tmp_path), device="cpu")
+    else:
+        raise AssertionError(case)
+
+
+@pytest.mark.parametrize("case", [
+    "victim_without_card", "train_without_card", "cli_without_card", "cli_on_cpu",
+    "cli_blur_waits", "cli_checkpoint_waits", "cross_waits",
+])
+def test_entry_points(case, tmp_path, monkeypatch):
+    """Entry points default to the card and raise without one; the CPU runs when asked for;
+    options that are not ported yet raise NotImplementedError naming their ROADMAP item."""
+    _entry_case(case, tmp_path, monkeypatch)
+
+
+def test_port_imports_no_jax():
+    """No module of the port, and not chip_smoke.py, imports jax or the JAX package."""
+    banned = {"jax", "jaxlib", "optax", "adversarialvlm_tpu"}
+    files = sorted((REPO / "adversarialvlm_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 20
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] not in banned, f"{path} imports {name}"

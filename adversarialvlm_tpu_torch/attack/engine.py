@@ -1,9 +1,9 @@
 """Attack driver: the single-victim loop and its artifacts. Counterpart of
-adversarialvlm_tpu/attack/engine.py (``train`` with ``run_tests=False``).
+adversarialvlm_tpu/attack/engine.py::train.
 
 Steps run one by one on the victim's device; metrics stay on the device until the next save
-boundary, where they are logged together with the checkpoint image and, when due, the
-resaved-loss monitor.
+boundary, where they are logged together with the checkpoint image, the resaved-loss monitor
+when due, and the test decode of the held-out questions on the uint8-round-tripped image.
 """
 
 from __future__ import annotations
@@ -29,6 +29,8 @@ from adversarialvlm_tpu_torch.attack.step import (
     sample_chunk_xs,
     unported_features,
 )
+from adversarialvlm_tpu_torch.eval.train_test import run_model_test
+from adversarialvlm_tpu_torch.ops.image import uint8_roundtrip
 from adversarialvlm_tpu_torch.ops.losses import perturbation_clamp
 from adversarialvlm_tpu_torch.utils.device import resolve_device
 from adversarialvlm_tpu_torch.utils.logging import RunLogger
@@ -98,19 +100,18 @@ def train(
     x0: np.ndarray,
     base_path: str = "./runs",
     cross: bool | None = None,
-    run_tests: bool = False,
+    run_tests: bool = True,
+    test_max_new_tokens: int = 64,
     device=None,
 ) -> str:
     """Run the attack on ``device`` (default: the card, which must hold the victims); returns
     the experiment path. Artifacts: config.json, mask.pt/png,
     optimized_image_iter_<global_iter>.png/.bin at each save boundary and "final",
-    metrics.jsonl (one row per step, with its ``step_ms``)."""
+    metrics.jsonl (one row per step, with its ``step_ms``) and, with ``run_tests``,
+    test_results_iter_<iteration>.csv at each save boundary (greedy answers of
+    ``test_max_new_tokens`` tokens to the held-out questions)."""
     dev = resolve_device(device)
     cross = len(victims) > 1 if cross is None else cross
-    if run_tests:
-        raise NotImplementedError(
-            "run_tests needs greedy decode and eval/train_test.py (ROADMAP modules item 7)"
-        )
     waiting = unported_features(cfg, cross)
     if waiting:
         raise NotImplementedError("not ported yet: " + ", ".join(waiting))
@@ -128,6 +129,7 @@ def train(
 
     x0_dev = torch.as_tensor(x0, device=dev)
     handles = [v.handles() for v in victims]
+    compute_dtype = handles[0].compute_dtype
     step = build_attack_step(handles, cfg, x0_dev, torch.as_tensor(mask, device=dev), cross)
     state = init_state(cfg, x0_dev)
     draws = torch.Generator().manual_seed(cfg.seed)
@@ -137,6 +139,32 @@ def train(
         with torch.no_grad():
             x = perturbation_clamp(state["p"], cfg.epsilon, cfg.clamp_method)
             return (x0_dev + x).cpu().numpy()
+
+    def checkpoint_and_test(iteration: int) -> None:
+        img = current_image()
+        png = save_checkpoint(img, exp_path, state["global_iteration"])
+        logger.log_image("adversarial_image", png, iteration)
+        if not run_tests:
+            return
+        # test on the image as the saved PNG holds it (attack_model.py:418-419)
+        img_q = uint8_roundtrip(torch.from_numpy(img)).numpy()
+        first_row, test_log = run_model_test(
+            bundles=[v.bundle for v in victims],
+            adv_inputs_list=[v.adv_inputs for v in victims],
+            adv_processors=[v.adv_processor for v in victims],
+            model_names=[v.name for v in victims],
+            not_safe_questions_test=victims[0].adv_inputs.test_questions,
+            target_text=victims[0].adv_inputs.target_texts[0],
+            exp_path=exp_path,
+            iteration=iteration,
+            image_chw=img_q,
+            max_new_tokens=test_max_new_tokens,
+            cache_dtype=compute_dtype,
+        )
+        logger.log({"iteration": iteration, **test_log})
+        if first_row is not None:
+            logger.log_table("model_outputs", ["iteration", "question", *[v.name for v in victims]],
+                             [[iteration, *first_row]], iteration)
 
     clock = _StepClock(dev)
     it, last_resaved_bucket = 0, -1
@@ -162,8 +190,7 @@ def train(
                 gen = torch.Generator().manual_seed(cfg.seed + boundary_iter)
                 value = float(resaved_fn(state["p"], gen))
                 logger.log({"iteration": boundary_iter, "loss_resaved": value})
-            png = save_checkpoint(current_image(), exp_path, state["global_iteration"])
-            logger.log_image("adversarial_image", png, boundary_iter)
+            checkpoint_and_test(boundary_iter)
             logger.flush()
         save_checkpoint(current_image(), exp_path, "final")
     finally:

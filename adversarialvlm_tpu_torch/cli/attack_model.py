@@ -1,12 +1,13 @@
 """Single-model attack CLI with the flags of cli/attack_model.py, on the port.
 
     python -m adversarialvlm_tpu_torch.cli.attack_model --model_name random:llava-1.5-7b \\
-        --batch_size 1 --img_orig gray.png
+        --img_orig gray.png
 
 Model names: ``random:llava-1.5-7b`` (full-size LLaVA-1.5-7B, random bf16 weights) and
 ``tiny:llava`` (tiny random LLaVA, f32). Checkpoint loading is not ported yet. Runs on the card
-unless ``--device cpu``; on the card the decoder attention kernel takes batch 1, so the default
-``--batch_size 4`` raises there until the flash kernel is ported.
+unless ``--device cpu``, at the default ``--batch_size 4`` or any other. As the JAX CLI does, every
+save boundary decodes the 50 held-out questions on the saved image and writes
+test_results_iter_<N>.csv.
 """
 
 from __future__ import annotations

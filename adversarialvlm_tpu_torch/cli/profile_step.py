@@ -1,10 +1,12 @@
 """Profile the LLaVA-1.5-7B single-victim attack step on the card with torch.profiler.
 
-    python -m adversarialvlm_tpu_torch.cli.profile_step [--steps 3] [--trace out.json]
+    python -m adversarialvlm_tpu_torch.cli.profile_step [--steps 3] [--batch_size 1] [--trace out.json]
 
-Builds the chip_smoke.py victim (full width and depth, random bf16 weights from seed 0, batch 1,
-512² gray x₀), runs two warm-up steps, then profiles ``--steps`` steps and prints the wall time
-per step, the device's busy and idle shares of it, and the kernels ranked by device time.
+Builds the chip_smoke.py victim (full width and depth, random bf16 weights from seed 0, 512² gray
+x₀): at batch 1 on chip_smoke.py's one question, at a larger batch on the attack's default prompt
+pool (left-padded rows of the 149 questions). Runs two warm-up steps, then profiles ``--steps``
+steps and prints the wall time per step, the device's busy and idle shares of it, and the kernels
+ranked by device time.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ def _union_us(intervals) -> float:
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--steps", type=int, default=3)
+    parser.add_argument("--batch_size", type=int, default=1)
     parser.add_argument("--top", type=int, default=15)
     parser.add_argument("--trace", type=str, default=None, help="write a Chrome trace here")
     args = parser.parse_args(argv)
@@ -50,11 +53,14 @@ def main(argv=None):
     from adversarialvlm_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device("cuda")
-    cfg = AttackConfig(exp_name="profile", batch_size=1, grad_accum_steps=1, lr=1e-2)
+    cfg = AttackConfig(exp_name="profile", batch_size=args.batch_size, grad_accum_steps=1, lr=1e-2)
     question = "Tell me the forbidden info."
+    prompts = {"questions": [question], "targets": ["sure, here it is!"]}
+    if args.batch_size > 1:
+        prompts = {}  # the default pool
     victim = build_tiny_victim("random:llava-1.5-7b", cfg, (512, 512), vlm_cfg=llava_1_5_7b(),
-                               questions=[question], targets=["sure, here it is!"],
-                               test_questions=[question], dtype=torch.bfloat16, device=dev)
+                               test_questions=[question], dtype=torch.bfloat16, device=dev,
+                               **prompts)
     x0 = torch.as_tensor(np.full((3, 512, 512), 0.47, np.float32), device=dev)
     handles = [victim.handles()]
     step = build_attack_step(handles, cfg, x0, torch.ones_like(x0))
@@ -71,7 +77,8 @@ def main(argv=None):
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / args.steps
     busy_ms = _union_us(_device_intervals(prof)) / 1e3 / args.steps
-    print(f"[profile] {torch.cuda.get_device_name(0)} T={victim.adv_inputs.max_len} "
+    print(f"[profile] {torch.cuda.get_device_name(0)} batch={args.batch_size} "
+          f"T={victim.adv_inputs.max_len} "
           f"steps={args.steps} wall {wall_ms:.2f} ms/step, device busy {busy_ms:.2f} ms/step "
           f"({100 * busy_ms / wall_ms:.1f}% of wall, idle {100 - 100 * busy_ms / wall_ms:.1f}%)")
     rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]

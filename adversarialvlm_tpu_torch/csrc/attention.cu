@@ -1,9 +1,16 @@
-// Batch-1 causal attention with a segment mask, forward and backward, in the projections' native
-// (T, H, D) layout: three kernels (forward; dq; dk/dv).
+// Causal attention with a segment mask, forward and backward, in the projections' native
+// (B, T, H, D) layout: three kernels (forward; dq; dk/dv), each with a grid layer per batch row.
 //
-// Replaces: adversarialvlm_tpu/ops/pallas/fused_attention.py::fused_sdpa_bthd, that is
-// _call_fwd_bthd (pallas_call at :441, body _fwd_kernel_bthd :361) and _call_bwd_bthd
-// (pallas_call at :470, body _bwd_kernel_bthd :372).
+// Replaces two Pallas entries, each through its own C entry points:
+//  - attn_*: adversarialvlm_tpu/ops/pallas/fused_attention.py::fused_sdpa_bthd at batch 1, that
+//    is _call_fwd_bthd (pallas_call at :441, body _fwd_kernel_bthd :361) and _call_bwd_bthd
+//    (pallas_call at :470, body _bwd_kernel_bthd :372);
+//  - flash_*: adversarialvlm_tpu/ops/pallas/attention.py::flash_sdpa (:178), which calls the
+//    stock TPU flash_attention's forward, dkv and dq kernels through _flash_call (:97), over a
+//    left-padded batch. Its segment ids are the rows' attention masks (pads 0, real tokens 1)
+//    and its causality is by raw index: the function below, row by row. The TPU entry pads T to
+//    its block with segment 0 and slices the output back; these kernels mask the ragged tile
+//    instead, so nothing is padded or copied.
 //
 // The function: query row i may attend key j when j <= i and seg[i] == seg[j] (left pads carry
 // segment 0, so a pad row attends earlier pads and a real row attends earlier real tokens; every
@@ -12,7 +19,11 @@
 //
 // What bounds it on the H100: at the 7B decoder's shape (T ≈ 640, 32 heads of 128) the causal
 // half of the T×T scores per head is ~1.7 GFLOP forward on ~20 MB of q/k/v/o, a few hundred
-// operations per byte: the tensor cores bound it when they are fed well.
+// operations per byte: the tensor cores bound it when they are fed well. A batch of B rows
+// multiplies both by B (the batch-4 attack step, the 50-row test-decode prefill at T = 704), so
+// the ratio, and the bound, stay the same. A real row never attends a pad key, so the allowed
+// pairs (what the bound counts) shrink with the pads; the kernels still walk a real tile's pad
+// key tiles, masked, which costs at most the pads' share (under 15% at the batch-4 step).
 //
 // Design: the TPU kernel keeps a whole head's (T, T) scores in VMEM; Hopper's shared memory cannot
 // hold them, so these kernels tile over T. A block owns one tile of BQ query rows of one head (or,
@@ -130,6 +141,13 @@ __global__ void __launch_bounds__(BQ / 16 * 32)
                     const int* __restrict__ seg, bf16* __restrict__ o, float* __restrict__ lse, int T, int H,
                     int Hkv, float scale) {
   typedef FwdSmem<D, BQ, BKV> L;
+  const size_t bz = blockIdx.z;  // batch row: every operand advances by one whole sequence
+  q += bz * T * H * D;
+  k += bz * T * Hkv * D;
+  v += bz * T * Hkv * D;
+  seg += bz * T;
+  o += bz * T * H * D;
+  lse += bz * H * T;
   constexpr int NT = BQ / 16 * 32;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
@@ -226,6 +244,16 @@ __global__ void __launch_bounds__(BQ / 16 * 32)
                        const float* __restrict__ lse, bf16* __restrict__ dq, float* __restrict__ delta, int T,
                        int H, int Hkv, float scale) {
   typedef DqSmem<D, BQ, BKV> L;
+  const size_t bz = blockIdx.z;
+  q += bz * T * H * D;
+  k += bz * T * Hkv * D;
+  v += bz * T * Hkv * D;
+  seg += bz * T;
+  o += bz * T * H * D;
+  dout += bz * T * H * D;
+  lse += bz * H * T;
+  dq += bz * T * H * D;
+  delta += bz * H * T;
   constexpr int NT = BQ / 16 * 32;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
@@ -318,6 +346,16 @@ __global__ void __launch_bounds__(BKV / 16 * 32)
                          const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv, int T,
                          int H, int Hkv, float scale) {
   typedef DkdvSmem<D, BQ, BKV> L;
+  const size_t bz = blockIdx.z;
+  q += bz * T * H * D;
+  k += bz * T * Hkv * D;
+  v += bz * T * Hkv * D;
+  seg += bz * T;
+  dout += bz * T * H * D;
+  lse += bz * H * T;
+  delta += bz * H * T;
+  dk += bz * T * Hkv * D;
+  dv += bz * T * Hkv * D;
   constexpr int NT = BKV / 16 * 32;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);
@@ -394,16 +432,18 @@ __global__ void __launch_bounds__(BKV / 16 * 32)
   }
 }
 
-bool shape_ok(int T, int H, int Hkv) { return T > 0 && H > 0 && Hkv > 0 && H % Hkv == 0; }
+bool shape_ok(int B, int T, int H, int Hkv) {
+  return B > 0 && B <= 65535 && T > 0 && H > 0 && Hkv > 0 && H % Hkv == 0;
+}
 
 template <int D, int BQ, int BKV>
-int launch_fwd(const void* q, const void* k, const void* v, const int* seg, void* o, float* lse, int T, int H,
-               int Hkv, float scale, cudaStream_t stream) {
+int launch_fwd(const void* q, const void* k, const void* v, const int* seg, void* o, float* lse, int B, int T,
+               int H, int Hkv, float scale, cudaStream_t stream) {
   const size_t bytes = FwdSmem<D, BQ, BKV>::bytes;
   cudaError_t err = cudaFuncSetAttribute(attn_fwd_kernel<D, BQ, BKV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((T + BQ - 1) / BQ, H);
+  const dim3 grid((T + BQ - 1) / BQ, H, B);
   attn_fwd_kernel<D, BQ, BKV><<<grid, BQ / 16 * 32, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), seg,
       static_cast<bf16*>(o), lse, T, H, Hkv, scale);
@@ -412,12 +452,13 @@ int launch_fwd(const void* q, const void* k, const void* v, const int* seg, void
 
 template <int D, int BQ, int BKV>
 int launch_dq(const void* q, const void* k, const void* v, const int* seg, const void* o, const void* dout,
-              const float* lse, void* dq, float* delta, int T, int H, int Hkv, float scale, cudaStream_t stream) {
+              const float* lse, void* dq, float* delta, int B, int T, int H, int Hkv, float scale,
+              cudaStream_t stream) {
   const size_t bytes = DqSmem<D, BQ, BKV>::bytes;
   cudaError_t err = cudaFuncSetAttribute(attn_bwd_dq_kernel<D, BQ, BKV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((T + BQ - 1) / BQ, H);
+  const dim3 grid((T + BQ - 1) / BQ, H, B);
   attn_bwd_dq_kernel<D, BQ, BKV><<<grid, BQ / 16 * 32, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), seg,
       static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse, static_cast<bf16*>(dq), delta, T, H, Hkv,
@@ -427,57 +468,96 @@ int launch_dq(const void* q, const void* k, const void* v, const int* seg, const
 
 template <int D, int BQ, int BKV>
 int launch_dkdv(const void* q, const void* k, const void* v, const int* seg, const void* dout, const float* lse,
-                const float* delta, void* dk, void* dv, int T, int H, int Hkv, float scale, cudaStream_t stream) {
+                const float* delta, void* dk, void* dv, int B, int T, int H, int Hkv, float scale,
+                cudaStream_t stream) {
   const size_t bytes = DkdvSmem<D, BQ, BKV>::bytes;
   cudaError_t err = cudaFuncSetAttribute(attn_bwd_dkdv_kernel<D, BQ, BKV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((T + BKV - 1) / BKV, Hkv);
+  const dim3 grid((T + BKV - 1) / BKV, Hkv, B);
   attn_bwd_dkdv_kernel<D, BQ, BKV><<<grid, BKV / 16 * 32, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), seg,
       static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), T, H, Hkv, scale);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// All tensors contiguous on one device. q, o, dout, dq: (T, H, D) bf16; k, v, dk, dv: (T, Hkv, D)
-// bf16; seg: (T,) int32; lse, delta: (H, T) f32. D is 128 or 256. Each entry launches on
-// `stream` and returns cudaGetLastError() (0 on success).
-
-extern "C" int attn_fwd_bf16(const void* q, const void* k, const void* v, const void* seg, void* o, void* lse,
-                             int T, int H, int Hkv, int D, float scale, void* stream) {
-  if (!shape_ok(T, H, Hkv)) return (int)cudaErrorInvalidValue;
+int fwd(const void* q, const void* k, const void* v, const void* seg, void* o, void* lse, int B, int T, int H,
+        int Hkv, int D, float scale, void* stream) {
+  if (!shape_ok(B, T, H, Hkv)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* sg = static_cast<const int*>(seg);
   float* l = static_cast<float*>(lse);
-  if (D == 128) return launch_fwd<128, 64, 64>(q, k, v, sg, o, l, T, H, Hkv, scale, s);
-  if (D == 256) return launch_fwd<256, 64, 64>(q, k, v, sg, o, l, T, H, Hkv, scale, s);
+  if (D == 128) return launch_fwd<128, 64, 64>(q, k, v, sg, o, l, B, T, H, Hkv, scale, s);
+  if (D == 256) return launch_fwd<256, 64, 64>(q, k, v, sg, o, l, B, T, H, Hkv, scale, s);
   return (int)cudaErrorInvalidValue;
+}
+
+int bwd_dq(const void* q, const void* k, const void* v, const void* seg, const void* o, const void* dout,
+           const void* lse, void* dq, void* delta, int B, int T, int H, int Hkv, int D, float scale, void* stream) {
+  if (!shape_ok(B, T, H, Hkv)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* sg = static_cast<const int*>(seg);
+  const float* l = static_cast<const float*>(lse);
+  float* dl = static_cast<float*>(delta);
+  if (D == 128) return launch_dq<128, 64, 64>(q, k, v, sg, o, dout, l, dq, dl, B, T, H, Hkv, scale, s);
+  if (D == 256) return launch_dq<256, 64, 32>(q, k, v, sg, o, dout, l, dq, dl, B, T, H, Hkv, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+int bwd_dkdv(const void* q, const void* k, const void* v, const void* seg, const void* dout, const void* lse,
+             const void* delta, void* dk, void* dv, int B, int T, int H, int Hkv, int D, float scale, void* stream) {
+  if (!shape_ok(B, T, H, Hkv)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* sg = static_cast<const int*>(seg);
+  const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  if (D == 128) return launch_dkdv<128, 64, 64>(q, k, v, sg, dout, l, dl, dk, dv, B, T, H, Hkv, scale, s);
+  if (D == 256) return launch_dkdv<256, 64, 32>(q, k, v, sg, dout, l, dl, dk, dv, B, T, H, Hkv, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// All tensors contiguous on one device. Each entry launches on `stream` and returns
+// cudaGetLastError() (0 on success). D is 128 or 256.
+//
+// attn_*: the fused_sdpa_bthd counterpart, batch 1. q, o, dout, dq: (T, H, D) bf16; k, v, dk, dv:
+// (T, Hkv, D) bf16; seg: (T,) int32; lse, delta: (H, T) f32.
+//
+// flash_*: the flash_sdpa counterpart, the same kernels over a batch of B left-padded rows, one
+// grid layer per row. q, o, dout, dq: (B, T, H, D) bf16; k, v, dk, dv: (B, T, Hkv, D) bf16; seg:
+// (B, T) int32 (0 = pad, 1 = real); lse, delta: (B, H, T) f32.
+
+extern "C" int attn_fwd_bf16(const void* q, const void* k, const void* v, const void* seg, void* o, void* lse,
+                             int T, int H, int Hkv, int D, float scale, void* stream) {
+  return fwd(q, k, v, seg, o, lse, 1, T, H, Hkv, D, scale, stream);
 }
 
 extern "C" int attn_bwd_dq_bf16(const void* q, const void* k, const void* v, const void* seg, const void* o,
                                 const void* dout, const void* lse, void* dq, void* delta, int T, int H, int Hkv,
                                 int D, float scale, void* stream) {
-  if (!shape_ok(T, H, Hkv)) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* sg = static_cast<const int*>(seg);
-  const float* l = static_cast<const float*>(lse);
-  float* dl = static_cast<float*>(delta);
-  if (D == 128) return launch_dq<128, 64, 64>(q, k, v, sg, o, dout, l, dq, dl, T, H, Hkv, scale, s);
-  if (D == 256) return launch_dq<256, 64, 32>(q, k, v, sg, o, dout, l, dq, dl, T, H, Hkv, scale, s);
-  return (int)cudaErrorInvalidValue;
+  return bwd_dq(q, k, v, seg, o, dout, lse, dq, delta, 1, T, H, Hkv, D, scale, stream);
 }
 
 extern "C" int attn_bwd_dkdv_bf16(const void* q, const void* k, const void* v, const void* seg, const void* dout,
                                   const void* lse, const void* delta, void* dk, void* dv, int T, int H, int Hkv,
                                   int D, float scale, void* stream) {
-  if (!shape_ok(T, H, Hkv)) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* sg = static_cast<const int*>(seg);
-  const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
-  if (D == 128) return launch_dkdv<128, 64, 64>(q, k, v, sg, dout, l, dl, dk, dv, T, H, Hkv, scale, s);
-  if (D == 256) return launch_dkdv<256, 64, 32>(q, k, v, sg, dout, l, dl, dk, dv, T, H, Hkv, scale, s);
-  return (int)cudaErrorInvalidValue;
+  return bwd_dkdv(q, k, v, seg, dout, lse, delta, dk, dv, 1, T, H, Hkv, D, scale, stream);
+}
+
+extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v, const void* seg, void* o, void* lse,
+                              int B, int T, int H, int Hkv, int D, float scale, void* stream) {
+  return fwd(q, k, v, seg, o, lse, B, T, H, Hkv, D, scale, stream);
+}
+
+extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v, const void* seg, const void* o,
+                                 const void* dout, const void* lse, void* dq, void* delta, int B, int T, int H,
+                                 int Hkv, int D, float scale, void* stream) {
+  return bwd_dq(q, k, v, seg, o, dout, lse, dq, delta, B, T, H, Hkv, D, scale, stream);
+}
+
+extern "C" int flash_bwd_dkdv_bf16(const void* q, const void* k, const void* v, const void* seg,
+                                   const void* dout, const void* lse, const void* delta, void* dk, void* dv, int B,
+                                   int T, int H, int Hkv, int D, float scale, void* stream) {
+  return bwd_dkdv(q, k, v, seg, dout, lse, delta, dk, dv, B, T, H, Hkv, D, scale, stream);
 }

@@ -1,11 +1,13 @@
 """Transformer building blocks as plain functions on tensors, params as nested dicts under the
-HF names. Counterpart of adversarialvlm_tpu/models/layers.py (the uncached paths).
+HF names. Counterpart of adversarialvlm_tpu/models/layers.py (the bf16/f32 KV cache; the int8
+cache waits for models/quant.py, ROADMAP modules item 10).
 
-Two routes reach the hand-written kernels, each decided from what the call can observe:
+Routes to the hand-written kernels, each decided from what the call can observe:
   * ``linear`` on a CUDA tensor with a frozen, large, 128-aligned weight goes through
     ``LinearPdx``, whose backward is the dgrad kernel;
-  * ``self_attention`` on a CUDA tensor goes through the fused attention kernels, and raises for
-    shapes they do not take (batch >= 2 needs the flash kernel, not ported yet).
+  * ``self_attention`` takes the route ``ops.kernels.attention.attention_route`` chose: the fused
+    kernels at batch 1, the flash kernels at batch >= 2 (both on the new tokens' k/v, uncached or
+    at cache start), the plain sdpa for a cached decode step; other shapes raise on the card.
 On the CPU both take the plain path, which is the JAX package's CPU path.
 """
 
@@ -16,8 +18,9 @@ import torch
 import torch.nn.functional as F
 
 from adversarialvlm_tpu_torch.models.configs import TextConfig
-from adversarialvlm_tpu_torch.ops.kernels.attention import attention_route, fused_attention
+from adversarialvlm_tpu_torch.ops.kernels.attention import fused_attention
 from adversarialvlm_tpu_torch.ops.kernels.dgrad import LinearPdx, dgrad_eligible
+from adversarialvlm_tpu_torch.ops.kernels.flash import flash_sdpa
 
 NEG_INF = -2.0e38
 
@@ -112,24 +115,48 @@ def mlp_swiglu(x: torch.Tensor, p: dict, act: str) -> torch.Tensor:
     return linear(act_fn(act)(gate) * up, p["down_proj"])
 
 
-def self_attention(x, p, cfg: TextConfig, bias, cos, sin, attention_mask) -> torch.Tensor:
-    """Uncached causal self-attention. On the card (batch 1) the fused kernels run in the
-    projections' (B, T, H, D) layout and ``bias`` is unused; on the CPU ``bias`` (from
-    :func:`causal_bias`) feeds the plain sdpa."""
+def _write_cache(kv_cache, k, v, cache_index: int) -> None:
+    """Write the new tokens' k/v (B, Hkv, T, D) into the (B, Hkv, Tmax, D) cache at
+    ``cache_index``, in place (the JAX package returns an updated copy instead)."""
+    ck, cv = kv_cache
+    t = k.shape[2]
+    ck[:, :, cache_index : cache_index + t].copy_(k)
+    cv[:, :, cache_index : cache_index + t].copy_(v)
+
+
+def self_attention(x, p, cfg: TextConfig, bias, cos, sin, attention_mask, kv_cache=None,
+                   cache_index: int | None = None, route: str = "plain") -> torch.Tensor:
+    """Causal self-attention. ``route`` comes from ``attention_route``: "fused" and "flash" run
+    the kernels in the projections' (B, T, H, D) layout on the new tokens' k/v with
+    ``attention_mask`` (B, T) as the segment mask, and ``bias`` is unused; "plain" feeds ``bias``
+    (from :func:`causal_bias`, over the whole cache when there is one) to the plain sdpa.
+    ``kv_cache`` = (k, v), each (B, Hkv, Tmax, D), takes the new k/v at ``cache_index`` in place;
+    a 4-tuple is the int8 cache, not ported yet."""
     b, t, _ = x.shape
     hd = cfg.head_dim_
     n_rep = cfg.num_heads // cfg.num_kv_heads
     scale = hd**-0.5
-    if attention_route(x.device.type, b, t, cfg.num_heads, hd, n_rep) == "kernel":
+    if kv_cache is not None and len(kv_cache) != 2:
+        raise NotImplementedError("the int8 KV cache waits for models/quant.py (ROADMAP modules item 10)")
+    if route in ("fused", "flash"):
         q4 = apply_rope_bthd(linear(x, p["q_proj"]).view(b, t, cfg.num_heads, hd), cos, sin)
         k4 = apply_rope_bthd(linear(x, p["k_proj"]).view(b, t, cfg.num_kv_heads, hd), cos, sin)
         v4 = linear(x, p["v_proj"]).view(b, t, cfg.num_kv_heads, hd)
-        out = fused_attention(q4, k4, v4, attention_mask, scale)
+        if kv_cache is not None:
+            _write_cache(kv_cache, k4.transpose(1, 2), v4.transpose(1, 2), cache_index)
+        if route == "fused":
+            out = fused_attention(q4, k4, v4, attention_mask, scale)
+        else:
+            out = flash_sdpa(q4.transpose(1, 2), k4.transpose(1, 2), v4.transpose(1, 2),
+                             attention_mask, scale).transpose(1, 2)
         return linear(out.reshape(b, t, cfg.num_heads * hd), p["o_proj"])
     q = linear(x, p["q_proj"]).view(b, t, cfg.num_heads, hd).transpose(1, 2)
     k = linear(x, p["k_proj"]).view(b, t, cfg.num_kv_heads, hd).transpose(1, 2)
     v = linear(x, p["v_proj"]).view(b, t, cfg.num_kv_heads, hd).transpose(1, 2)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
+    if kv_cache is not None:
+        _write_cache(kv_cache, k, v, cache_index)
+        k, v = (c.to(x.dtype) for c in kv_cache)
     out = sdpa(q, repeat_kv(k, n_rep), repeat_kv(v, n_rep), bias, scale)
     return linear(out.transpose(1, 2).reshape(b, t, cfg.num_heads * hd), p["o_proj"])

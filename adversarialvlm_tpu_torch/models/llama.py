@@ -24,9 +24,11 @@ def embed(params: dict, input_ids: torch.Tensor, cfg: TextConfig) -> torch.Tenso
     return params["embed_tokens"]["weight"][input_ids.long()]
 
 
-def decoder_layer(x, p, cfg: TextConfig, bias, cos, sin, attention_mask):
+def decoder_layer(x, p, cfg: TextConfig, bias, cos, sin, attention_mask, kv_cache=None,
+                  cache_index=None, route="plain"):
     h = rms_norm(x, p["input_layernorm"]["weight"], cfg.rms_norm_eps)
-    x = x + self_attention(h, p["self_attn"], cfg, bias, cos, sin, attention_mask)
+    x = x + self_attention(h, p["self_attn"], cfg, bias, cos, sin, attention_mask, kv_cache,
+                           cache_index, route)
     h = rms_norm(x, p["post_attention_layernorm"]["weight"], cfg.rms_norm_eps)
     return x + mlp_swiglu(h, p["mlp"], cfg.hidden_act)
 
@@ -38,9 +40,15 @@ def forward(
     inputs_embeds: torch.Tensor | None = None,
     attention_mask: torch.Tensor | None = None,
     positions: torch.Tensor | None = None,
+    kv_caches: list | None = None,
+    cache_index: int | None = None,
+    kv_attention_mask: torch.Tensor | None = None,
+    kv_positions: torch.Tensor | None = None,
     logits_last_k: int | None = None,
 ) -> torch.Tensor:
-    """Causal LM forward over left-padded rows; attention_mask (B, T), 1 = real token.
+    """Causal LM forward over left-padded rows; attention_mask (B, T) over the query tokens,
+    1 = real token. With ``kv_caches`` (one (k, v) per layer, updated in place) the new tokens
+    land at ``cache_index`` and ``kv_attention_mask``/``kv_positions`` cover the whole cache.
     Returns logits (B, T or logits_last_k, vocab)."""
     x = embed(params, input_ids, cfg) if inputs_embeds is None else inputs_embeds
     b, t, _ = x.shape
@@ -48,13 +56,21 @@ def forward(
         attention_mask = torch.ones((b, t), dtype=torch.int32, device=x.device)
     if positions is None:
         positions = torch.clamp(torch.cumsum(attention_mask, dim=1) - 1, min=0)
+    k_mask = kv_attention_mask if kv_attention_mask is not None else attention_mask
+    k_pos = kv_positions if kv_positions is not None else positions
     cos, sin = rope_cos_sin(positions, cfg.head_dim_, cfg.rope_theta)
+    if kv_caches is not None and cache_index is None:
+        raise ValueError("kv_caches need a cache_index")
     route = attention_route(
-        x.device.type, b, t, cfg.num_heads, cfg.head_dim_, cfg.num_heads // cfg.num_kv_heads
+        x.device.type, b, t, cfg.num_heads, cfg.head_dim_, cfg.num_heads // cfg.num_kv_heads,
+        cache_index if kv_caches is not None else None,
     )
-    bias = causal_bias(attention_mask, positions, positions) if route == "plain" else None
-    for p in params["layers"]:
-        x = decoder_layer(x, p, cfg, bias, cos, sin, attention_mask)
+    # the kernels see only the new tokens, so the query-side mask is their segment mask; the
+    # plain path attends the whole cache through the bias
+    bias = causal_bias(k_mask, positions, k_pos) if route == "plain" else None
+    for i, p in enumerate(params["layers"]):
+        kv = kv_caches[i] if kv_caches is not None else None
+        x = decoder_layer(x, p, cfg, bias, cos, sin, attention_mask, kv, cache_index, route)
     return _head(params, cfg, x, logits_last_k)
 
 

@@ -43,8 +43,11 @@ def forward(
     attention_mask: torch.Tensor,
     pixel_values: torch.Tensor | None = None,
     logits_last_k: int | None = None,
+    **cache_kw,
 ) -> torch.Tensor:
-    """Returns logits (B, T or logits_last_k, vocab)."""
+    """Returns logits (B, T or logits_last_k, vocab). ``cache_kw`` (positions, kv_caches,
+    cache_index, kv_attention_mask, kv_positions) go to the decoder as they are. One image's
+    features are broadcast across the B rows, so the tower runs once for a shared image."""
     embeds = llama.embed(params["language_model"], input_ids, cfg.text)
     if pixel_values is not None:
         feats = image_features(params, cfg, pixel_values)
@@ -63,6 +66,7 @@ def forward(
         inputs_embeds=embeds,
         attention_mask=attention_mask,
         logits_last_k=logits_last_k,
+        **cache_kw,
     )
 
 

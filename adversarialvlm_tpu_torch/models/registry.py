@@ -1,5 +1,6 @@
-"""Model bundles: config, params and a uniform forward the attack engine calls. Counterpart of
-adversarialvlm_tpu/models/registry.py for the llava forward; decode is not ported yet."""
+"""Model bundles: config, params, a uniform forward and greedy decode, the one interface the
+attack and eval engines talk to. Counterpart of adversarialvlm_tpu/models/registry.py for the
+llava family."""
 
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ import torch
 
 from adversarialvlm_tpu_torch.models import llava as llava_model
 from adversarialvlm_tpu_torch.models.configs import VLMConfig
+from adversarialvlm_tpu_torch.models.generate import FSM_WAITS, generate_core, make_kv_caches
 
 
 @dataclasses.dataclass
@@ -18,14 +20,46 @@ class ModelBundle:
     family: str
     cfg: VLMConfig
     params: dict
-    forward: Callable  # (params, input_ids, attention_mask, pixel_inputs, logits_last_k=None)
+    # (params, input_ids, attention_mask, pixel_inputs, logits_last_k=None, **cache_kw) -> logits
+    forward: Callable
     device: torch.device
+    eos_token_ids: tuple[int, ...] = ()
+
+    def generate(
+        self,
+        input_ids: torch.Tensor,
+        attention_mask: torch.Tensor,
+        pixel_inputs=None,
+        constraint=None,
+        *,
+        max_new_tokens: int,
+        min_new_tokens: int = 0,
+        pad_token_id: int,
+        cache_dtype=torch.bfloat16,
+        eos_token_ids: tuple[int, ...] | None = None,
+    ) -> torch.Tensor:
+        """Greedy generation (generate.generate_core) over this bundle's forward and caches;
+        the prefill scores only the last position. ``eos_token_ids=()`` decodes to the full
+        length; None takes the bundle's. A ``constraint`` (the judge's FSM) raises until ROADMAP
+        modules item 10."""
+        if constraint is not None:
+            raise NotImplementedError(FSM_WAITS)
+        return generate_core(
+            self.forward, self.make_caches, self.params, input_ids, attention_mask, pixel_inputs,
+            max_new_tokens=max_new_tokens, min_new_tokens=min_new_tokens,
+            eos_token_ids=eos_token_ids if eos_token_ids is not None else self.eos_token_ids,
+            pad_token_id=pad_token_id, cache_dtype=cache_dtype, logits_last_k=1,
+        )
+
+    def make_caches(self, batch: int, total_len: int, dtype=torch.bfloat16):
+        return make_kv_caches(self.cfg.text, batch, total_len, dtype, self.device)
 
 
 def _llava_forward(cfg: VLMConfig):
-    def fwd(params, input_ids, attention_mask, pixel_inputs=None, logits_last_k=None):
+    def fwd(params, input_ids, attention_mask, pixel_inputs=None, logits_last_k=None, **cache_kw):
         pv = pixel_inputs["pixel_values"] if pixel_inputs else None
-        return llava_model.forward(params, cfg, input_ids, attention_mask, pv, logits_last_k=logits_last_k)
+        return llava_model.forward(params, cfg, input_ids, attention_mask, pv,
+                                   logits_last_k=logits_last_k, **cache_kw)
 
     return fwd
 
@@ -49,4 +83,5 @@ def make_bundle(
     if params is None:
         gen = torch.Generator(device=device).manual_seed(seed)
         params = llava_model.init_params(gen, cfg, dtype, device)
-    return ModelBundle(name, family, cfg, params, _llava_forward(cfg), torch.device(device))
+    return ModelBundle(name, family, cfg, params, _llava_forward(cfg), torch.device(device),
+                       eos_token_ids=(cfg.eos_token_id,))

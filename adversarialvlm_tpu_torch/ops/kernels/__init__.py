@@ -11,6 +11,9 @@ LAUNCHES: dict[str, int] = {
     "attention_fwd": 0,
     "attention_bwd_dq": 0,
     "attention_bwd_dkdv": 0,
+    "flash_fwd": 0,
+    "flash_bwd_dq": 0,
+    "flash_bwd_dkdv": 0,
 }
 
 

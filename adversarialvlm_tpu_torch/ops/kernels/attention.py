@@ -1,15 +1,19 @@
 """Batch-1 causal attention with a segment mask in (B, T, H, D) layout: the three CUDA kernels of
-``csrc/attention.cu`` (forward; dq; dk/dv), their plain versions and the autograd Function.
+``csrc/attention.cu`` (forward; dq; dk/dv), their plain versions and the autograd Function; and
+``attention_route``, which picks the decoder attention's route (this module, the flash kernels of
+``flash.py``, or the plain sdpa).
 
 Counterpart of adversarialvlm_tpu/ops/pallas/fused_attention.py::fused_sdpa_bthd. Query row i
 attends key j when j <= i and seg[i] == seg[j]; left pads carry segment 0, so pad rows stay
 finite (each attends at least itself). The forward saves the per-row logsumexp as an extra
 residual, so the backward recomputes P = exp(s·scale − lse) without the row sums; δ =
-rowsum(dO ⊙ O) is computed by the dq kernel, which therefore runs before the dk/dv kernel.
+rowsum(dO ⊙ O) is computed by the dq kernel, which therefore runs before the dk/dv kernel. The
+plain versions are the one-row case of flash.py's batched ones.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -22,9 +26,12 @@ from adversarialvlm_tpu_torch.ops.kernels.build import (
     on_device_of,
     stream_of,
 )
-
-NEG = -1e30
-HEAD_DIMS = (128, 256)
+from adversarialvlm_tpu_torch.ops.kernels.flash import (
+    HEAD_DIMS,
+    flash_bwd_dkdv_plain,
+    flash_bwd_dq_plain,
+    flash_plain,
+)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -36,86 +43,70 @@ _SIGNATURES = {
 }
 
 
-def attention_eligible(b: int, t: int, h: int, d: int, n_rep: int) -> bool:
-    """Shapes the kernels take: batch 1, head_dim 128 or 256, any T and any GQA ratio."""
-    return b == 1 and d in HEAD_DIMS and t >= 1 and h % n_rep == 0
+_KERNEL_ROUTES_ON_CPU = [False]
 
 
-def attention_route(device_type: str, b: int, t: int, h: int, d: int, n_rep: int) -> str:
-    """"kernel" for the CUDA kernels, "plain" for the bias + einsum sdpa on the CPU. On the card
-    an ineligible shape raises: batched or long prefill needs the flash kernel, which is not
-    ported yet, and never falls back to plain attention."""
-    if device_type == "cpu":
+@contextlib.contextmanager
+def kernel_routes_on_cpu():
+    """Route CPU tensors as the card routes CUDA ones (fused, flash or plain by shape), so the
+    kernels' plain versions run inside the model: the CPU tests' way to hold those routes against
+    the JAX package's use_flash_attention(True). Head dims are not checked on the CPU."""
+    _KERNEL_ROUTES_ON_CPU[0] = True
+    try:
+        yield
+    finally:
+        _KERNEL_ROUTES_ON_CPU[0] = False
+
+
+def attention_route(device_type: str, b: int, t: int, h: int, d: int, n_rep: int,
+                    cache_index: int | None = None) -> str:
+    """The decoder attention's route, the counterpart of llama.py:337-356 and layers.py:527-537:
+      * "plain": the bias + einsum sdpa, on the CPU, and on the card for a cached decode step
+        (T = 1 at cache index > 0), which has no Pallas kernel in the JAX package either;
+      * "fused": the batch-1 kernels of this module (fused_sdpa_bthd), uncached or at cache start;
+      * "flash": the flash kernels (flash_sdpa), batch >= 2 and T > 1, uncached or at cache start.
+    ``cache_index`` is None without a KV cache. On the card any other shape raises: there is no
+    fallback to plain attention."""
+    if device_type == "cpu" and not _KERNEL_ROUTES_ON_CPU[0]:
         return "plain"
-    if device_type != "cuda":
+    if device_type not in ("cpu", "cuda"):
         raise ValueError(f"no attention route for device type {device_type!r}")
-    if not attention_eligible(b, t, h, d, n_rep):
+    if cache_index is not None and cache_index > 0:
+        if t == 1:
+            return "plain"
         raise NotImplementedError(
-            f"decoder attention at batch {b}, head_dim {d} on the card needs flash_sdpa "
-            "(ROADMAP kernels item 4, not ported yet); the fused kernel takes batch 1 and "
-            f"head_dim in {HEAD_DIMS}"
+            f"decoder attention over {t} new tokens into a filled KV cache (index {cache_index}): "
+            "no route on the card; prefill at cache index 0"
         )
-    return "kernel"
-
-
-def _allowed(seg: torch.Tensor) -> torch.Tensor:
-    t = seg.shape[0]
-    idx = torch.arange(t, device=seg.device)
-    return (idx[:, None] >= idx[None, :]) & (seg[:, None] == seg[None, :])
-
-
-def _heads_f32(x: torch.Tensor, n_rep: int = 1) -> torch.Tensor:
-    """(1, T, Hx, D) -> (Hx·n_rep, T, D) in f32, kv heads repeated for GQA."""
-    x = x[0].float().permute(1, 0, 2)
-    return x.repeat_interleave(n_rep, dim=0) if n_rep > 1 else x
-
-
-def _probs_plain(q, k, seg, lse, scale):
-    n_rep = q.shape[2] // k.shape[2]
-    s = _heads_f32(q) @ _heads_f32(k, n_rep).transpose(1, 2) * scale
-    return torch.where(_allowed(seg), torch.exp(s - lse[:, :, None]), 0.0)
+    if device_type == "cuda" and (d not in HEAD_DIMS or h % n_rep):
+        raise NotImplementedError(
+            f"decoder attention at head_dim {d} on the card: the fused and flash_sdpa kernels take "
+            f"head_dim in {HEAD_DIMS}; other head dims come with their families (ROADMAP modules "
+            "item 8)"
+        )
+    if b == 1:
+        return "fused"
+    if t > 1:
+        return "flash"
+    raise NotImplementedError(f"uncached decoder attention at batch {b} and T = 1: no route")
 
 
 def attention_plain(q, k, v, seg, scale):
     """The masked f32 softmax written out. q (1, T, H, D), k/v (1, T, Hkv, D), seg (T,) ->
-    (o (1, T, H, D) in q's dtype, lse (H, T) f32)."""
-    n_rep = q.shape[2] // k.shape[2]
-    s = _heads_f32(q) @ _heads_f32(k, n_rep).transpose(1, 2) * scale
-    s = s.masked_fill(~_allowed(seg), NEG)
-    m = s.amax(dim=-1, keepdim=True)
-    e = torch.exp(s - m)
-    l = e.sum(dim=-1, keepdim=True)
-    o = (e / l) @ _heads_f32(v, n_rep)
-    return o.permute(1, 0, 2)[None].to(q.dtype), (m + torch.log(l))[..., 0]
+    (o (1, T, H, D) in q's dtype, lse (H, T) f32): the batch-1 case of flash_plain."""
+    o, lse = flash_plain(q, k, v, seg[None], scale)
+    return o, lse[0]
 
 
 def attention_bwd_dq_plain(q, k, v, seg, o, lse, do, scale):
     """dq (1, T, H, D) in q's dtype and δ = rowsum(dO ⊙ O) (H, T) f32 from the residuals."""
-    n_rep = q.shape[2] // k.shape[2]
-    delta = (do.float() * o.float()).sum(-1)[0].t()
-    p = _probs_plain(q, k, seg, lse, scale)
-    dp = _heads_f32(do) @ _heads_f32(v, n_rep).transpose(1, 2)
-    ds = p * (dp - delta[:, :, None]) * scale
-    dq = ds @ _heads_f32(k, n_rep)
-    return dq.permute(1, 0, 2)[None].to(q.dtype), delta
+    dq, delta = flash_bwd_dq_plain(q, k, v, seg[None], o, lse[None], do, scale)
+    return dq, delta[0]
 
 
 def attention_bwd_dkdv_plain(q, k, v, seg, lse, delta, do, scale):
     """dk, dv (1, T, Hkv, D) in k's dtype, summed over each kv head's n_rep q-heads in f32."""
-    hkv = k.shape[2]
-    n_rep = q.shape[2] // hkv
-    p = _probs_plain(q, k, seg, lse, scale)
-    dp = _heads_f32(do) @ _heads_f32(v, n_rep).transpose(1, 2)
-    ds = p * (dp - delta[:, :, None]) * scale
-    dv = p.transpose(1, 2) @ _heads_f32(do)
-    dk = ds.transpose(1, 2) @ _heads_f32(q)
-    t, d = dk.shape[1], dk.shape[2]
-
-    def fold(x):
-        x = x.reshape(hkv, n_rep, t, d).sum(1)
-        return x.permute(1, 0, 2)[None].to(k.dtype)
-
-    return fold(dk), fold(dv)
+    return flash_bwd_dkdv_plain(q, k, v, seg[None], lse[None], delta[None], do, scale)
 
 
 def _shapes(what, q, k, seg):

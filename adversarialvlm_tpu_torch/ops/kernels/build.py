@@ -86,16 +86,15 @@ def build_all(names=SOURCES) -> dict[str, BuildResult]:
 
 def load(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
     """The library for ``csrc/<name>.cu``, built if needed, with ``argtypes`` set from
-    ``signatures`` ({C function: argtypes}); every function returns an int error code."""
+    ``signatures`` ({C function: argtypes}); every function returns an int error code. Several
+    wrapper modules may bind their own entry points of one library."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            path = build_all([name])[name].path
-            lib = ctypes.CDLL(str(path))
-            for fn, argtypes in signatures.items():
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
-            _LIBS[name] = lib
+            lib = _LIBS[name] = ctypes.CDLL(str(build_all([name])[name].path))
+        for fn, argtypes in signatures.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
         return lib
 
 

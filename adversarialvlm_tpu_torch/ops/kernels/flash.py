@@ -1,0 +1,223 @@
+"""Causal attention over a left-padded batch: the flash entries of ``csrc/attention.cu`` (forward;
+dq; dk/dv), their plain versions, the autograd Function and ``flash_sdpa``.
+
+Counterpart of adversarialvlm_tpu/ops/pallas/attention.py::flash_sdpa (:178), which runs the stock
+TPU flash_attention kernels (forward, dkv, dq) through _flash_call (:97). Its semantics are those
+of _ref_attention (:160): query row i of batch row b attends key j when j <= i (raw index) and
+seg[b, i] == seg[b, j], where seg is the row's attention mask (pads 0, real tokens 1); scores and
+softmax in f32, output in q's dtype. Pad rows attend earlier pads, so they stay finite; callers
+read real rows only.
+
+On the card the three kernels are the batch-1 kernels of ``attention.py`` with a grid layer per
+batch row (see the source's note: tensor cores bound them at the decoder's shapes; the design
+tiles T with an online softmax and keeps the row logsumexp as the extra residual). They read q,
+k and v in the projections' (B, T, H, D) layout, and kv head h // n_rep for q-head h, so neither a
+transpose copy nor ``repeat_kv`` is materialised. The TPU entry pads T to its block and head_dim
+to 128 lanes; these kernels mask the ragged tile and take head_dim 128 or 256 only.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from adversarialvlm_tpu_torch.ops.kernels import LAUNCHES
+from adversarialvlm_tpu_torch.ops.kernels.build import (
+    check,
+    check_cuda_operands,
+    load,
+    on_device_of,
+    stream_of,
+)
+
+NEG = -1e30
+HEAD_DIMS = (128, 256)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    "flash_fwd_bf16": [_P] * 6 + [_I] * 5 + [_F, _P],
+    "flash_bwd_dq_bf16": [_P] * 9 + [_I] * 5 + [_F, _P],
+    "flash_bwd_dkdv_bf16": [_P] * 9 + [_I] * 5 + [_F, _P],
+}
+
+
+def allowed_pairs(seg: torch.Tensor) -> torch.Tensor:
+    """(B, T, T) bool: query i may attend key j (j <= i, same segment). seg (B, T)."""
+    t = seg.shape[-1]
+    idx = torch.arange(t, device=seg.device)
+    return (idx[:, None] >= idx[None, :]) & (seg[:, :, None] == seg[:, None, :])
+
+
+def _heads_f32(x: torch.Tensor, n_rep: int = 1) -> torch.Tensor:
+    """(B, T, Hx, D) -> (B, Hx·n_rep, T, D) in f32, kv heads repeated for GQA."""
+    x = x.float().permute(0, 2, 1, 3)
+    return x.repeat_interleave(n_rep, dim=1) if n_rep > 1 else x
+
+
+def _scores(q, k, scale):
+    n_rep = q.shape[2] // k.shape[2]
+    return _heads_f32(q) @ _heads_f32(k, n_rep).transpose(-1, -2) * scale
+
+
+def _probs(q, k, seg, lse, scale):
+    p = torch.exp(_scores(q, k, scale) - lse[..., None])
+    return torch.where(allowed_pairs(seg)[:, None], p, 0.0)
+
+
+def flash_plain(q, k, v, seg, scale):
+    """The masked f32 softmax written out. q (B, T, H, D), k/v (B, T, Hkv, D), seg (B, T) ->
+    (o (B, T, H, D) in q's dtype, lse (B, H, T) f32)."""
+    n_rep = q.shape[2] // k.shape[2]
+    s = _scores(q, k, scale).masked_fill(~allowed_pairs(seg)[:, None], NEG)
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    l = e.sum(dim=-1, keepdim=True)
+    o = (e / l) @ _heads_f32(v, n_rep)
+    return o.permute(0, 2, 1, 3).to(q.dtype), (m + torch.log(l))[..., 0]
+
+
+def flash_bwd_dq_plain(q, k, v, seg, o, lse, do, scale):
+    """dq (B, T, H, D) in q's dtype and δ = rowsum(dO ⊙ O) (B, H, T) f32 from the residuals."""
+    n_rep = q.shape[2] // k.shape[2]
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2)
+    p = _probs(q, k, seg, lse, scale)
+    dp = _heads_f32(do) @ _heads_f32(v, n_rep).transpose(-1, -2)
+    ds = p * (dp - delta[..., None]) * scale
+    dq = ds @ _heads_f32(k, n_rep)
+    return dq.permute(0, 2, 1, 3).to(q.dtype), delta
+
+
+def flash_bwd_dkdv_plain(q, k, v, seg, lse, delta, do, scale):
+    """dk, dv (B, T, Hkv, D) in k's dtype, summed over each kv head's n_rep q-heads in f32."""
+    b, t, hkv, d = k.shape
+    n_rep = q.shape[2] // hkv
+    p = _probs(q, k, seg, lse, scale)
+    dp = _heads_f32(do) @ _heads_f32(v, n_rep).transpose(-1, -2)
+    ds = p * (dp - delta[..., None]) * scale
+    dv = p.transpose(-1, -2) @ _heads_f32(do)
+    dk = ds.transpose(-1, -2) @ _heads_f32(q)
+
+    def fold(x):
+        return x.reshape(b, hkv, n_rep, t, d).sum(2).permute(0, 2, 1, 3).to(k.dtype)
+
+    return fold(dk), fold(dv)
+
+
+def _shapes(what, q, k, seg):
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"{what}: expected (B, T, H, D) operands, got {tuple(q.shape)}")
+    b, t, h, d = q.shape
+    hkv = k.shape[2]
+    if d not in HEAD_DIMS:
+        raise ValueError(
+            f"{what}: head_dim {d} is not taken on the card (the kernels take {HEAD_DIMS}; "
+            "other head dims come with their families, ROADMAP modules item 8)"
+        )
+    if k.shape != (b, t, hkv, d) or h % hkv:
+        raise ValueError(f"{what}: unsupported shapes q {tuple(q.shape)}, k {tuple(k.shape)}")
+    if seg.shape != (b, t):
+        raise ValueError(f"{what}: seg must be (B, T), got {tuple(seg.shape)}")
+    return b, t, h, hkv, d
+
+
+def _lib():
+    return load("attention", _SIGNATURES)
+
+
+def flash_fwd(q, k, v, seg, scale):
+    """(o, lse) of :func:`flash_plain`; CUDA tensors launch the forward kernel."""
+    if q.device.type == "cpu":
+        return flash_plain(q, k, v, seg, scale)
+    b, t, h, hkv, d = _shapes("flash_fwd", q, k, seg)
+    check_cuda_operands("flash_fwd", torch.bfloat16, q, k, v)
+    check_cuda_operands("flash_fwd", torch.int32, seg, device=q.device)
+    if v.shape != k.shape:
+        raise ValueError("flash_fwd: v must have k's shape")
+    o = torch.empty_like(q)
+    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    rc = _lib().flash_fwd_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        b, t, h, hkv, d, float(scale), stream_of(q),
+    )
+    check(rc, "flash_fwd")
+    LAUNCHES["flash_fwd"] += 1
+    return o, lse
+
+
+def flash_bwd_dq(q, k, v, seg, o, lse, do, scale):
+    """(dq, δ) of :func:`flash_bwd_dq_plain`; CUDA tensors launch the dq kernel."""
+    if q.device.type == "cpu":
+        return flash_bwd_dq_plain(q, k, v, seg, o, lse, do, scale)
+    b, t, h, hkv, d = _shapes("flash_bwd_dq", q, k, seg)
+    check_cuda_operands("flash_bwd_dq", torch.bfloat16, q, k, v, o, do)
+    check_cuda_operands("flash_bwd_dq", torch.int32, seg, device=q.device)
+    check_cuda_operands("flash_bwd_dq", torch.float32, lse, device=q.device)
+    if o.shape != q.shape or do.shape != q.shape or lse.shape != (b, h, t) or v.shape != k.shape:
+        raise ValueError("flash_bwd_dq: residual shapes do not match q")
+    dq = torch.empty_like(q)
+    delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    rc = _lib().flash_bwd_dq_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(), o.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), dq.data_ptr(), delta.data_ptr(), b, t, h, hkv, d, float(scale),
+        stream_of(q),
+    )
+    check(rc, "flash_bwd_dq")
+    LAUNCHES["flash_bwd_dq"] += 1
+    return dq, delta
+
+
+def flash_bwd_dkdv(q, k, v, seg, lse, delta, do, scale):
+    """(dk, dv) of :func:`flash_bwd_dkdv_plain`; CUDA tensors launch the dk/dv kernel."""
+    if q.device.type == "cpu":
+        return flash_bwd_dkdv_plain(q, k, v, seg, lse, delta, do, scale)
+    b, t, h, hkv, d = _shapes("flash_bwd_dkdv", q, k, seg)
+    check_cuda_operands("flash_bwd_dkdv", torch.bfloat16, q, k, v, do)
+    check_cuda_operands("flash_bwd_dkdv", torch.int32, seg, device=q.device)
+    check_cuda_operands("flash_bwd_dkdv", torch.float32, lse, delta, device=q.device)
+    if (do.shape != q.shape or lse.shape != (b, h, t) or delta.shape != (b, h, t)
+            or v.shape != k.shape):
+        raise ValueError("flash_bwd_dkdv: residual shapes do not match q")
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    rc = _lib().flash_bwd_dkdv_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t, h, hkv, d, float(scale),
+        stream_of(q),
+    )
+    check(rc, "flash_bwd_dkdv")
+    LAUNCHES["flash_bwd_dkdv"] += 1
+    return dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Forward kernel; backward = dq kernel, then dk/dv kernel. Residuals: q, k, v, seg, o, lse,
+    all in (B, T, ·, D) layout. seg gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, seg, scale):
+        o, lse = flash_fwd(q, k, v, seg, scale)
+        ctx.save_for_backward(q, k, v, seg, o, lse)
+        ctx.scale = scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, seg, o, lse = ctx.saved_tensors
+        do = do.contiguous()
+        with on_device_of(do):
+            dq, delta = flash_bwd_dq(q, k, v, seg, o, lse, do, ctx.scale)
+            dk, dv = flash_bwd_dkdv(q, k, v, seg, lse, delta, do, ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_sdpa(q, k, v, attention_mask, scale: float) -> torch.Tensor:
+    """Causal self-attention over a left-padded batch, the JAX signature and layout:
+    q (B, H, T, D), k/v (B, Hkv, T, D) with H % Hkv == 0, attention_mask (B, T) with 1 = real
+    token -> (B, H, T, D); pad rows hold finite values that callers ignore. A (B, H, T, D) view of
+    a (B, T, H, D) tensor, as the decoder's projections give, reaches the kernel without a copy."""
+    q4, k4, v4 = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    seg = attention_mask.to(device=q.device, dtype=torch.int32).contiguous()
+    return FlashAttention.apply(q4, k4, v4, seg, float(scale)).transpose(1, 2)

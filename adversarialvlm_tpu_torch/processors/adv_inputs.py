@@ -1,5 +1,6 @@
 """Attack input builder: the (targets × questions) prompt pool, tokenized once at setup into
-left-padded host arrays. Counterpart of adversarialvlm_tpu/processors/adv_inputs.py.
+left-padded host arrays, and the inference batches of the test decode. Counterpart of
+adversarialvlm_tpu/processors/adv_inputs.py.
 
 Row layout (static length L): [PAD ... prompt with expanded image tokens ... target ... extra].
 Rows are left-padded, so the target suffix always occupies the final positions.
@@ -109,3 +110,25 @@ class AdvInputs:
         self.suffix_lengths = suffix_lengths
         self.max_len = L
         self.target_width = S
+
+    def get_inputs_inference_batch(
+        self, batch_questions: list[str], text_only: bool = False, assistant_prefill: str = ""
+    ) -> dict:
+        """Left-padded inference batch {"input_ids", "attention_mask"} (B, L) int32 numpy;
+        ``text_only`` drops the image span, ``assistant_prefill`` appends text after the
+        generation tag."""
+
+        def render(q):
+            text = self.spec.inference_text(q)
+            if text_only:
+                text = text.replace(self.spec.image_span, "")
+            return text + assistant_prefill
+
+        rows = [self._encode_prompt(render(q)) for q in batch_questions]
+        L = max(len(r) for r in rows)
+        ids = np.full((len(rows), L), self.pad_token_id, np.int32)
+        mask = np.zeros((len(rows), L), np.int32)
+        for i, r in enumerate(rows):
+            ids[i, L - len(r) :] = r
+            mask[i, L - len(r) :] = 1
+        return {"input_ids": ids, "attention_mask": mask}

@@ -21,6 +21,12 @@ class PromptSpec:
     shift_adjust: int = 0
     add_special_tokens: bool = True
     refuses: tuple[str, ...] = ()
+    _image_span: str | None = None
+
+    @property
+    def image_span(self) -> str:
+        """The image placeholder with its template wrapper, which text-only prompts drop."""
+        return self._image_span if self._image_span is not None else self.image_placeholder
 
     def shift(self, tokenizer) -> int:
         return len(self.encode_extra(tokenizer)) + self.shift_adjust
@@ -38,6 +44,7 @@ def llava_spec() -> PromptSpec:
         inference_text=lambda q: f"USER: <image>\n{q} ASSISTANT:",
         extra_token="</s>",
         image_placeholder="<image>",
+        _image_span="<image>\n",  # text-only renders "USER: {q}", no newline
         refuses=(
             "As an AI language model, I am not",
             "As an AI language model, I do not",

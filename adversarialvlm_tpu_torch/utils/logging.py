@@ -23,6 +23,10 @@ class RunLogger:
     def log_image(self, key: str, png_path: str, iteration: int):
         self.log({"iteration": iteration, key: os.path.basename(png_path)})
 
+    def log_table(self, key: str, columns: list[str], rows: list[list], iteration: int):
+        """A generated-text table (the reference's wandb table, attack_model.py:48-64)."""
+        self.log({"iteration": iteration, key: {"columns": columns, "rows": rows}})
+
     def flush(self):
         self._jsonl.flush()
 

@@ -7,18 +7,26 @@ Phases, in order (no exception is caught; any failure exits non-zero with no fin
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. the build: nvcc compiles every source under adversarialvlm_tpu_torch/csrc/, in parallel,
      and ptxas's register, spill and shared-memory lines are printed;
-  3. every kernel against its plain version on the card, at the shapes the main path gives it,
+  3. every kernel against its plain version on the card, at the shapes the main paths give it,
      with the error measured per row as |got - ref| / |ref| (worst row reported; |ref| floored
-     at 1% of the median row norm) against the stated tolerance, and each kernel's time beside its plain version's, one PyTorch library
-     call's (a yardstick only; the port never calls it) and its bound on this card;
-  4. the main path: the full-width, full-depth LLaVA-1.5-7B single-victim attack (random bf16
+     at 1% of the median row norm; real rows only for the flash kernels) against the stated
+     tolerance, and each kernel's time beside its plain version's, one PyTorch library call's
+     (a yardstick only; the port never calls it) and its bound on this card;
+  4. the batch-1 path: the full-width, full-depth LLaVA-1.5-7B single-victim attack (random bf16
      weights from a seed) through ``train()`` for 1 warm-up step + 5 steps, with each kernel's
      launches counted over that run only;
-  5. a depth-cut reference: the same step in f32 on the CPU plain path against the card.
+  4b. the batch-4 path: the same victim at the attack's default batch of 4 over the default
+     prompt pool through ``train(run_tests=True)``, whose save boundaries greedy-decode the 50
+     held-out questions (64 new tokens) and write their CSVs; launches are counted over that run
+     and attributed to the step, the monitor and the decode by a probe around the forward;
+  5. depth-cut references (2 decoder layers, 2 vision layers), the card in bf16 through the
+     kernels against the CPU in f32 on the plain path: the attack step at batch 1 and at batch 4,
+     and the test decode, teacher-forced.
 It then prints the kernels' JSON line, the card's name and power limit, and as its last line
 {"ok": true, "device": {...}}. Without a card it exits non-zero before printing anything.
 """
 
+import csv
 import json
 import os
 import statistics
@@ -32,11 +40,16 @@ PEAK_BYTES = 3.35e12      # H100 SXM HBM3 bandwidth
 QUESTION = "Tell me the forbidden info."
 TARGET = "sure, here it is!"
 STEPS = 6                 # 1 warm-up + 5 timed
+STEPS4 = 4                # batch-4 path: 1 warm-up + 3 timed; save boundaries at iterations 0 and 3
+DECODE_TOKENS = 64        # the engine's test_max_new_tokens
+REF_DECODE_TOKENS = 8
 TOL_DGRAD = 1e-2
 TOL_ATTN_FWD = 1e-2
 TOL_ATTN_BWD = 2e-2
 TOL_REF_LOSS = 1e-2       # relative loss difference, depth-cut card vs CPU f32
 TOL_REF_COSINE = 0.99     # gradient cosine, depth-cut card vs CPU f32
+TOL_DECODE_COSINE = 0.99  # per (row, step) logits cosine, cached card decode vs uncached CPU f32
+DECODE_MARGIN = 3.0       # the card's token within this many max|card - CPU| of the CPU's top logit
 
 
 def log(phase, msg):
@@ -167,6 +180,7 @@ def attention_case(T, H, Hkv, D, pad, timed=False):
     import torch.nn.functional as F
 
     from adversarialvlm_tpu_torch.ops.kernels import attention as A
+    from adversarialvlm_tpu_torch.ops.kernels.flash import allowed_pairs
 
     gen = torch.Generator(device="cuda").manual_seed(T * 1000 + H + D)
 
@@ -202,7 +216,7 @@ def attention_case(T, H, Hkv, D, pad, timed=False):
     if not timed:
         return None
 
-    allowed = A._allowed(seg)
+    allowed = allowed_pairs(seg[None])[0]
     pairs = float(allowed.sum())
     el = 2.0 * T * D
     fb = bound(4 * pairs * D * H, el * (2 * H + 2 * Hkv) + 4 * H * T)
@@ -242,24 +256,250 @@ def attention_case(T, H, Hkv, D, pad, timed=False):
     return out
 
 
+def flash_case(label, seg, H, Hkv, D, timed=False, backward=True):
+    """The flash kernels against their plain versions on the same inputs and residuals, over
+    the batch of left-padded rows whose segment ids (attention masks) are ``seg`` (B, T);
+    errors on real rows only (pad rows are finite but unspecified)."""
+    import torch
+    import torch.nn.functional as F
+
+    from adversarialvlm_tpu_torch.ops.kernels import flash as Fl
+
+    B, T = seg.shape
+    gen = torch.Generator(device="cuda").manual_seed(B * 100000 + T)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+
+    q, k, v, do = randn(B, T, H, D), randn(B, T, Hkv, D), randn(B, T, Hkv, D), randn(B, T, H, D)
+    scale = D**-0.5
+    f32 = [x.float() for x in (q, k, v, do)]
+    real = seg.bool()
+    o, lse = Fl.flash_fwd(q, k, v, seg, scale)
+    o_ref, lse_ref = Fl.flash_plain(f32[0], f32[1], f32[2], seg, scale)
+    errs = {"o": row_errors(o[real], o_ref[real]),
+            "lse": row_errors(lse.transpose(1, 2)[real], lse_ref.transpose(1, 2)[real])}
+    if backward:
+        dq, delta = Fl.flash_bwd_dq(q, k, v, seg, o, lse, do, scale)
+        dk, dv = Fl.flash_bwd_dkdv(q, k, v, seg, lse, delta, do, scale)
+        dq_ref, delta_ref = Fl.flash_bwd_dq_plain(f32[0], f32[1], f32[2], seg, o.float(), lse, f32[3], scale)
+        dk_ref, dv_ref = Fl.flash_bwd_dkdv_plain(f32[0], f32[1], f32[2], seg, lse, delta, f32[3], scale)
+        errs.update({
+            "dq": row_errors(dq[real], dq_ref[real]),
+            "delta": row_errors(delta.transpose(1, 2)[real], delta_ref.transpose(1, 2)[real]),
+            "dk": row_errors(dk[real], dk_ref[real]), "dv": row_errors(dv[real], dv_ref[real]),
+        })
+    for name, (rel, _) in errs.items():
+        tol = TOL_ATTN_FWD if name in ("o", "lse") else TOL_ATTN_BWD
+        if not rel <= tol:
+            raise AssertionError(f"flash {label} B={B} T={T} H={H} Hkv={Hkv} D={D} {name}: "
+                                 f"worst real row rel err {rel} > {tol}")
+    pads = [int(T - n) for n in seg.sum(1).tolist()]
+    log("kernels", f"flash {label} B={B} T={T} H={H} Hkv={Hkv} D={D} left pads={pads} "
+        "worst_real_row_rel " + " ".join(f"{n}={e[0]:.3g}" for n, e in errs.items())
+        + f" (tol fwd {TOL_ATTN_FWD}, bwd {TOL_ATTN_BWD})")
+    if not timed:
+        return None
+
+    allowed = Fl.allowed_pairs(seg)
+    pairs = float((allowed & real[:, :, None]).sum())  # the real rows' causal pairs
+    el = 2.0 * B * T * D
+    bounds = {
+        "flash_fwd": bound(4 * pairs * D * H, el * (2 * H + 2 * Hkv) + 4 * B * H * T),
+        "flash_bwd_dq": bound(6 * pairs * D * H, el * (4 * H + 2 * Hkv) + 8 * B * H * T),
+        "flash_bwd_dkdv": bound(8 * pairs * D * H, el * (2 * H + 4 * Hkv) + 8 * B * H * T),
+    }
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
+    kt2 = kt.repeat_interleave(H // Hkv, dim=1) if H != Hkv else kt
+    vt2 = vt.repeat_interleave(H // Hkv, dim=1) if H != Hkv else vt
+    mask = allowed[:, None]
+    times = {"flash_fwd": (
+        time_ms(lambda: Fl.flash_fwd(q, k, v, seg, scale)),
+        time_ms(lambda: Fl.flash_plain(q, k, v, seg, scale)),
+        time_ms(lambda: F.scaled_dot_product_attention(qt, kt2, vt2, attn_mask=mask)))}
+    if backward:
+        lib_out = F.scaled_dot_product_attention(qt, kt2, vt2, attn_mask=mask)
+        dot = do.transpose(1, 2).contiguous()
+        lib_bwd = time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True))
+        times["flash_bwd_dq"] = (
+            time_ms(lambda: Fl.flash_bwd_dq(q, k, v, seg, o, lse, do, scale)),
+            time_ms(lambda: Fl.flash_bwd_dq_plain(q, k, v, seg, o, lse, do, scale)), lib_bwd)
+        times["flash_bwd_dkdv"] = (
+            time_ms(lambda: Fl.flash_bwd_dkdv(q, k, v, seg, lse, delta, do, scale)),
+            time_ms(lambda: Fl.flash_bwd_dkdv_plain(q, k, v, seg, lse, delta, do, scale)), lib_bwd)
+    err_keys = {"flash_fwd": ("o",), "flash_bwd_dq": ("dq",), "flash_bwd_dkdv": ("dk", "dv")}
+    out = {}
+    for name, (ms, plain_ms, lib_ms) in times.items():
+        b_ms, b_by = bounds[name]
+        out[name] = {
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "rel": max(errs[e][0] for e in err_keys[name]), "abs": max(errs[e][1] for e in err_keys[name]),
+        }
+        log("kernels", f"{name} {label} B={B} T={T} H={H} D={D} real pairs={pairs:.0f} ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
+    if backward:
+        log("kernels", "library_ms of both flash backward kernels is one scaled_dot_product_attention "
+            "backward (dq, dk and dv together) with the same boolean mask")
+    return out
+
+
+class PathProbe:
+    """Wraps a bundle's forward for one run. Each forward's kernel launches are attributed to its
+    phase: the attack step ("step", under grad), the resaved-loss monitor ("monitor"), the decode
+    prefill ("prefill", cache index 0) or a cached decode step ("decode_step"); what launches
+    outside the forward is the step's backward. Each test-decode chunk is timed with CUDA events
+    from its prefill to its last forward, with its peak memory (the peak statistics are reset
+    where a chunk begins and ends, so the steps' peak is kept apart)."""
+
+    def __init__(self, bundle):
+        from collections import Counter
+
+        self.bundle, self.inner = bundle, bundle.forward
+        self.launches = {p: Counter() for p in ("step", "monitor", "prefill", "decode_step")}
+        self.calls = Counter()
+        self.chunks, self.cur, self.step_peak = [], None, 0
+        bundle.forward = self
+
+    @staticmethod
+    def _event():
+        import torch
+
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def __call__(self, params, input_ids, attention_mask, pixel_inputs=None, **kw):
+        import torch
+
+        from adversarialvlm_tpu_torch.ops.kernels import launch_counts
+
+        if kw.get("kv_caches") is None:
+            phase = "step" if torch.is_grad_enabled() else "monitor"
+        else:
+            phase = "prefill" if kw["cache_index"] == 0 else "decode_step"
+        if phase != "decode_step":
+            self._close_chunk()
+        if phase == "prefill":
+            self.step_peak = max(self.step_peak, torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            self.cur = {"batch": int(input_ids.shape[0]), "T": int(input_ids.shape[1]),
+                        "start": self._event(), "ends": []}
+        before = launch_counts()
+        out = self.inner(params, input_ids, attention_mask, pixel_inputs, **kw)
+        delta = {k: n - before[k] for k, n in launch_counts().items()}
+        self.launches[phase].update(delta)
+        self.calls[phase] += 1
+        if self.cur is not None:
+            self.cur["ends"].append(self._event())
+            if phase == "prefill":
+                self.cur["prefill_launches"] = delta
+        return out
+
+    def _close_chunk(self):
+        import torch
+
+        c, self.cur = self.cur, None
+        if c is None:
+            return
+        c["ends"][-1].synchronize()
+        c["prefill_ms"] = c["start"].elapsed_time(c["ends"][0])
+        c["decode_ms"] = c["start"].elapsed_time(c["ends"][-1])
+        c["tokens"] = c["batch"] * len(c["ends"])  # one new token per row per forward
+        c["peak_GiB"] = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        self.chunks.append(c)
+
+    def finish(self):
+        import torch
+
+        self._close_chunk()
+        self.step_peak = max(self.step_peak, torch.cuda.max_memory_allocated())
+        self.bundle.forward = self.inner
+
+
+def decode_reference(gpu_v, cpu_v, questions, x_img):
+    """Teacher-forced check of the cached test decode: the card (bf16, flash prefill, plain
+    cached steps) generates; the CPU (f32, plain, uncached) runs one forward over prompt +
+    the card's tokens. Per row and step: logits cosine >= TOL_DECODE_COSINE, and the card's
+    token scores within DECODE_MARGIN × that row's max |card - CPU| of the CPU's top logit (bf16
+    argmax may flip on near-ties under random weights, so exact tokens are not required)."""
+    import torch
+
+    from adversarialvlm_tpu_torch.models.generate import generate_core
+    from adversarialvlm_tpu_torch.ops.kernels import launch_counts, reset_launches
+    from adversarialvlm_tpu_torch.utils.batching import pad_to_buckets
+
+    ai, bundle = gpu_v.adv_inputs, gpu_v.bundle
+    inputs = ai.get_inputs_inference_batch(questions)
+    ids_np, am_np, _ = pad_to_buckets(inputs["input_ids"], inputs["attention_mask"], ai.pad_token_id)
+    ids, am = (torch.as_tensor(a, device=bundle.device) for a in (ids_np, am_np))
+    with torch.no_grad():
+        pixel = gpu_v.adv_processor.process(torch.as_tensor(x_img, device=bundle.device))
+    recorded = []
+
+    def recording_forward(params, input_ids, attention_mask, pixel_inputs=None, **kw):
+        logits = bundle.forward(params, input_ids, attention_mask, pixel_inputs, **kw)
+        recorded.append(logits[:, -1].float().cpu())
+        return logits
+
+    reset_launches()
+    tokens = generate_core(
+        recording_forward, bundle.make_caches, bundle.params, ids, am, pixel,
+        max_new_tokens=REF_DECODE_TOKENS, min_new_tokens=0, eos_token_ids=bundle.eos_token_ids,
+        pad_token_id=ai.pad_token_id, cache_dtype=torch.bfloat16, logits_last_k=1,
+    ).cpu()
+    launches = launch_counts()
+    n = len(recorded)
+    card = torch.stack(recorded, dim=1).double()  # (B, n, V)
+    seq = torch.cat([ids.cpu(), tokens[:, : n - 1]], dim=1)
+    mask = torch.cat([am.cpu(), torch.ones((len(questions), n - 1), dtype=am.dtype)], dim=1)
+    with torch.no_grad():
+        cpu = cpu_v.bundle.forward(cpu_v.bundle.params, seq, mask,
+                                   {"pixel_values": pixel["pixel_values"].cpu()},
+                                   logits_last_k=n).double()
+    cos = torch.nn.functional.cosine_similarity(card, cpu, dim=-1)  # (B, n)
+    diff = (card - cpu).abs().amax(-1)
+    chosen = cpu.gather(-1, tokens[:, :n, None]).squeeze(-1)
+    gap = cpu.amax(-1) - chosen
+    finished_before = torch.zeros_like(tokens[:, :n], dtype=torch.bool)
+    is_eos = torch.isin(tokens[:, :n], torch.tensor(bundle.eos_token_ids))
+    finished_before[:, 1:] = torch.cumsum(is_eos, dim=1)[:, :-1] > 0
+    ok_tok = (gap <= DECODE_MARGIN * diff) | finished_before
+    log("reference", f"decode: {len(questions)} rows, T={ids.shape[1]} left pads="
+        f"{[int(ids.shape[1] - m) for m in am_np.sum(1)]}, {n} tokens, launches={launches}; "
+        f"min logits cosine={float(cos.min()):.6f} (min {TOL_DECODE_COSINE}); worst token gap / "
+        f"max|card-CPU|={float((gap / diff).max()):.3f} (max {DECODE_MARGIN}); exact tokens "
+        f"{int((cpu.argmax(-1) == tokens[:, :n]).sum())}/{tokens[:, :n].numel()}")
+    if not (float(cos.min()) >= TOL_DECODE_COSINE and bool(ok_tok.all())):
+        raise AssertionError("decode reference: the card's cached decode and the CPU disagree")
+    if launches["flash_fwd"] != bundle.cfg.text.num_layers:
+        raise AssertionError(f"decode reference: expected one flash forward per layer, got {launches}")
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one card", file=sys.stderr)
         return 1
+    import dataclasses
+
     import numpy as np
 
     from adversarialvlm_tpu_torch.attack.config import AttackConfig
     from adversarialvlm_tpu_torch.attack.engine import VictimSetup, train
-    from adversarialvlm_tpu_torch.attack.setup import build_tiny_victim
-    from adversarialvlm_tpu_torch.attack.step import build_attack_step
+    from adversarialvlm_tpu_torch.attack.setup import build_tiny_victim, questions_and_targets
+    from adversarialvlm_tpu_torch.attack.step import build_attack_step, sample_chunk_xs
+    from adversarialvlm_tpu_torch.data import corpora
+    from adversarialvlm_tpu_torch.eval.generation import _pick_decode
     from adversarialvlm_tpu_torch.models.configs import llava_1_5_7b
     from adversarialvlm_tpu_torch.models.registry import make_bundle
     from adversarialvlm_tpu_torch.ops.kernels import launch_counts, reset_launches
     from adversarialvlm_tpu_torch.ops.kernels.build import build_all
+    from adversarialvlm_tpu_torch.processors.adv_inputs import AdvInputs
     from adversarialvlm_tpu_torch.processors.configs import MODEL_IMAGE_CONFIGS
     from adversarialvlm_tpu_torch.processors.llava import DifferentiableLlavaImageProcessor
+    from adversarialvlm_tpu_torch.utils.batching import pad_to_buckets
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products stay f32 in every reference
@@ -281,10 +521,14 @@ def main():
         log("build", f"{name}: {res.path.name} in {res.seconds:.1f} s")
     log("build", f"{len(built)} kernel libraries ready in {time.perf_counter() - t0:.1f} s")
 
-    # the main-path victim: its prompt length fixes the kernels' shapes
+    # the main-path victim: its prompts fix the kernels' shapes. The batch-4 path shares its
+    # weights and runs the attack's default prompt pool.
     vlm_cfg = llava_1_5_7b()
+    t = vlm_cfg.text
     cfg = AttackConfig(exp_name="chip_smoke", num_iterations=STEPS, save_steps=10, batch_size=1,
                        grad_accum_steps=1, lr=1e-2, target_text_random=False)
+    cfg4 = AttackConfig(exp_name="chip_smoke_b4", num_iterations=STEPS4, save_steps=10,
+                        batch_size=4, grad_accum_steps=1, lr=1e-2)
     t0 = time.perf_counter()
     victim = build_tiny_victim("random:llava-1.5-7b", cfg, (512, 512), vlm_cfg=vlm_cfg, seed=0,
                                questions=[QUESTION], targets=[TARGET], test_questions=[QUESTION],
@@ -295,23 +539,49 @@ def main():
     n_params = sum(p.numel() for p in _leaves(victim.bundle.params))
     log("main", f"victim built in {time.perf_counter() - t0:.1f} s: {n_params / 1e9:.3f} B params, "
         f"T={t_text}, pad={pad}, {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    ai1 = victim.adv_inputs
+    questions4, targets4 = questions_and_targets(cfg4)
+    ai4 = AdvInputs(ai1.spec, ai1.tokenizer, questions4, corpora.not_safe_questions_test,
+                    cfg4.batch_size, targets4, ai1.num_image_tokens, ai1.image_token_id,
+                    ai1.pad_token_id)
+    victim4 = VictimSetup(victim.name, victim.bundle, victim.adv_processor, ai4)
+    xs4 = sample_chunk_xs(torch.Generator().manual_seed(cfg4.seed), 1, cfg4, [victim4.handles()])[0]
+    t4 = int(ai4.max_len)
+    seg4 = (torch.arange(t4)[None, :] >= t4 - xs4["lens"][0][:, None]).to(torch.int32).cuda()
+    test_qs = ai4.test_questions
+    decode_bs, _ = _pick_decode(victim4.bundle, ai4, test_qs, DECODE_TOKENS, 50, torch.bfloat16)
+    probe_in = ai4.get_inputs_inference_batch(test_qs[:decode_bs])
+    _, am_prefill, _ = pad_to_buckets(probe_in["input_ids"], probe_in["attention_mask"],
+                                      ai4.pad_token_id, batch_to=decode_bs)
+    seg_prefill = torch.as_tensor(am_prefill, dtype=torch.int32, device="cuda")
+    log("main", f"batch-4 path: prompt pool {len(questions4)} questions x {len(targets4)} targets, "
+        f"T={t4}; first step's rows have lengths {xs4['lens'][0].tolist()}; test decode at batch "
+        f"{decode_bs} (pick_decode_config), prefill T={am_prefill.shape[1]}")
 
     # 3. kernels against their plain versions
     dg = check_dgrad(victim.bundle.params, vlm_cfg, t_text)
-    t = vlm_cfg.text
     attn = attention_case(t_text, t.num_heads, t.num_kv_heads, t.head_dim_, pad, timed=True)
     attention_case(t_text, t.num_heads, t.num_kv_heads, t.head_dim_, 53)
     attention_case(301, 8, 2, 128, 37)
     attention_case(200, 4, 1, 256, 64)
+    flash = flash_case("batch-4 step", seg4, t.num_heads, t.num_kv_heads, t.head_dim_, timed=True)
+    prefill = flash_case("test-decode prefill", seg_prefill, t.num_heads, t.num_kv_heads,
+                         t.head_dim_, timed=True, backward=False)["flash_fwd"]
+    seg_gqa = torch.ones((3, 301), dtype=torch.int32, device="cuda")
+    seg_gqa[0, :37], seg_gqa[2, :120] = 0, 0
+    flash_case("GQA", seg_gqa, 8, 2, 128)
+    flash_case("D=256", seg_gqa[:, :200].contiguous(), 4, 1, 256)
+    torch.cuda.empty_cache()
 
-    # 4. the main path, counted from zero
+    # 4. the batch-1 path, counted from zero
     x0 = np.full((3, 512, 512), 0.47, np.float32)
+    pr3_kernels = ("dgrad", "attention_fwd", "attention_bwd_dq", "attention_bwd_dkdv")
     with tempfile.TemporaryDirectory() as runs:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         t0 = time.perf_counter()
-        exp = train(cfg, [victim], x0, base_path=runs, device="cuda")
+        exp = train(cfg, [victim], x0, base_path=runs, device="cuda", run_tests=False)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = launch_counts()
@@ -343,18 +613,97 @@ def main():
                 "attention_bwd_dq": t.num_layers, "attention_bwd_dkdv": t.num_layers}
     log("main", f"launches over {STEPS} steps and {len(monitors)} resaved-loss monitor forwards: {launches}")
     log("main", f"launches per step: {per_step} (expected {expected})")
-    if any(n == 0 for n in launches.values()) or per_step != expected:
+    if any(launches[n] == 0 for n in pr3_kernels) or per_step != expected:
         raise AssertionError(f"main path launches {per_step} != expected {expected}")
+    if any(launches[n] for n in launches if n not in pr3_kernels):
+        raise AssertionError(f"batch-1 path launched a kernel outside its path: {launches}")
 
-    # 5. depth-cut reference: card (bf16, kernels) against CPU (f32, plain path)
-    import dataclasses
+    # 4b. the batch-4 path with the test decode, counted from zero
+    with tempfile.TemporaryDirectory() as runs:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        probe = PathProbe(victim4.bundle)
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            exp = train(cfg4, [victim4], x0, base_path=runs, device="cuda", run_tests=True,
+                        test_max_new_tokens=DECODE_TOKENS)
+            torch.cuda.synchronize()
+        finally:
+            probe.finish()
+        wall4 = time.perf_counter() - t0
+        launches4 = launch_counts()
+        rows = [json.loads(line) for line in open(os.path.join(exp, "metrics.jsonl"))]
+        csvs = {}
+        for f in sorted(os.listdir(exp)):
+            if f.startswith("test_results_iter_"):
+                with open(os.path.join(exp, f), newline="", encoding="utf-8") as fh:
+                    csvs[f] = list(csv.reader(fh))
+    steps4 = [r for r in rows if "loss" in r]
+    tests4 = [r for r in rows if "test_target_acc" in r]
+    for r in steps4:
+        log("main4", f"step {r['iteration']}: loss={r['loss']} grad_norm={r['grad_norm']} step_ms={r['step_ms']:.2f}")
+    med4 = statistics.median(r["step_ms"] for r in steps4[1:])
+    log("main4", f"batch 4, T={t4}: median step_ms (steps 1..{STEPS4 - 1})={med4:.2f} warm-up "
+        f"step_ms={steps4[0]['step_ms']:.2f} steps' peak_memory_GiB={probe.step_peak / 2**30:.3f} "
+        f"train wall_s={wall4:.1f}")
+    if len(steps4) != STEPS4 or not all(np.isfinite(r["loss"]) and r["grad_norm"] > 0 for r in steps4):
+        raise AssertionError(f"batch-4 path: bad steps {[(r.get('loss'), r.get('grad_norm')) for r in steps4]}")
+    for c in probe.chunks:
+        n_fwd = len(c["ends"])
+        log("main4", f"test decode chunk: batch {c['batch']} prefill T={c['T']} prefill_ms="
+            f"{c['prefill_ms']:.2f} decode_ms={c['decode_ms']:.2f} ({n_fwd} forwards, "
+            f"{(c['decode_ms'] - c['prefill_ms']) / max(n_fwd - 1, 1):.2f} ms per cached step) "
+            f"tokens/s={c['tokens'] / c['decode_ms'] * 1e3:.1f} peak_memory_GiB={c['peak_GiB']:.3f} "
+            f"prefill launches={ {k: v for k, v in c['prefill_launches'].items() if v} }")
+    for r in tests4:
+        log("main4", f"test metrics at iteration {r['iteration']}: "
+            + " ".join(f"{k}={r[k]}" for k in sorted(r) if k.startswith("test_")))
+    log("main4", f"launches over the run: {launches4}; by phase: "
+        + "; ".join(f"{p} x{probe.calls[p]} {dict(+c)}" for p, c in probe.launches.items()))
+    bwd4 = {k: launches4[k] - sum(probe.launches[p][k] for p in probe.launches) for k in launches4}
+    per_step4 = {
+        "dgrad": bwd4["dgrad"] / STEPS4,
+        "flash_fwd": probe.launches["step"]["flash_fwd"] / STEPS4,
+        "flash_bwd_dq": bwd4["flash_bwd_dq"] / STEPS4,
+        "flash_bwd_dkdv": bwd4["flash_bwd_dkdv"] / STEPS4,
+    }
+    expected4 = {"dgrad": dg["per_step"], "flash_fwd": t.num_layers, "flash_bwd_dq": t.num_layers,
+                 "flash_bwd_dkdv": t.num_layers}
+    fused4 = sum(launches4[k] for k in pr3_kernels if k != "dgrad")
+    per_chunk = [c["prefill_launches"]["flash_fwd"] for c in probe.chunks]
+    log("main4", f"launches per step: {per_step4} (expected {expected4}); fused-attention launches "
+        f"in the run: {fused4} (expected 0); flash forward launches per decode chunk: {per_chunk} "
+        f"(expected {t.num_layers} each); cached decode steps launched "
+        f"{sum(probe.launches['decode_step'].values())} kernels (expected 0: plain sdpa)")
+    if per_step4 != expected4 or fused4 or any(n != t.num_layers for n in per_chunk):
+        raise AssertionError("batch-4 path launches differ from the expected counts")
+    if probe.launches["monitor"]["flash_fwd"] != probe.calls["monitor"] * t.num_layers:
+        raise AssertionError("batch-4 path: the resaved-loss monitor did not take the flash kernel")
+    if sum(probe.launches["decode_step"].values()):
+        raise AssertionError("batch-4 path: a cached decode step launched a kernel")
+    boundaries = [i for i in range(STEPS4) if i % cfg4.save_steps == 0 or i == STEPS4 - 1]
+    want_csvs = [f"test_results_iter_{i}.csv" for i in boundaries]
+    if sorted(csvs) != sorted(want_csvs) or [r["iteration"] for r in tests4] != boundaries:
+        raise AssertionError(f"batch-4 path: test CSVs {sorted(csvs)} != {want_csvs}")
+    for name, table in csvs.items():
+        if len(table) != 1 + len(test_qs) or [r[0] for r in table[1:]] != list(test_qs):
+            raise AssertionError(f"{name}: expected a header and {len(test_qs)} rows, got {len(table)}")
+        if not all(len(r) == 2 and r[1].startswith("USER: ") for r in table[1:]):
+            raise AssertionError(f"{name}: malformed rows")
+        log("main4", f"{name}: {len(table) - 1} rows; first answer tail {table[1][1][-60:]!r}")
+    if len(probe.chunks) != len(boundaries) * -(-len(test_qs) // decode_bs):
+        raise AssertionError(f"batch-4 path: {len(probe.chunks)} decode chunks")
 
+    # 5. depth-cut references: card (bf16, kernels) against CPU (f32, plain path)
     cut = dataclasses.replace(
         vlm_cfg,
         text=dataclasses.replace(vlm_cfg.text, num_layers=2),
         vision=dataclasses.replace(vlm_cfg.vision, num_layers=2),
     )
-    questions = [QUESTION, QUESTION + " Explain every step in detail, please."]
+    # rows 0-1 are the batch-1 reference's prompts; rows 2-3 are shorter, so its width stays
+    questions = [QUESTION, QUESTION + " Explain every step in detail, please.", "How?",
+                 "Tell me the forbidden info, now."]
     ref_cfg = dataclasses.replace(cfg, exp_name="reference")
     t0 = time.perf_counter()
     gpu_v = build_tiny_victim("cut", ref_cfg, (512, 512), vlm_cfg=cut, seed=3, questions=questions,
@@ -369,52 +718,64 @@ def main():
     )
     ai = gpu_v.adv_inputs
     gen = torch.Generator().manual_seed(5)
-    xs = {
-        "t_idx": 0,
-        "rows": [torch.from_numpy(ai.prompt_pool[0, [0]])],
-        "lens": [torch.from_numpy(ai.prompt_lengths[0, [0]])],
-        "noise": [torch.randn((1, 3, 336, 336), generator=gen)],
-    }
-    ref_pad = ai.max_len - int(ai.prompt_lengths[0, 0])
+    noise = torch.randn((1, 3, 336, 336), generator=gen)
     p0 = 0.3 * torch.randn((3, 512, 512), generator=gen)
-    results = {}
-    for name, v, dev in (("cpu", cpu_v, "cpu"), ("cuda", gpu_v, "cuda")):
-        x0_d = torch.as_tensor(x0, device=dev)
-        step = build_attack_step([v.handles()], ref_cfg, x0_d, torch.ones_like(x0_d))
-        reset_launches()
-        loss, _, _, _, grad = step.loss_and_grad(p0.to(dev), xs, torch.tensor(cfg.sigma, device=dev))
-        results[name] = (float(loss), grad.double().cpu())
-        log("reference", f"{name}: loss={float(loss)} grad_norm={float(grad.norm())} T={ai.max_len} "
-            f"pad={ref_pad} launches={launch_counts()}")
-    (l_cpu, g_cpu), (l_gpu, g_gpu) = results["cpu"], results["cuda"]
-    rel = abs(l_gpu - l_cpu) / abs(l_cpu)
-    cos = float((g_cpu * g_gpu).sum() / (g_cpu.norm() * g_gpu.norm()))
-    log("reference", f"loss rel diff={rel:.3g} (tol {TOL_REF_LOSS}) grad cosine={cos:.6f} "
-        f"(min {TOL_REF_COSINE}) grad norm ratio={float(g_gpu.norm() / g_cpu.norm()):.4f} "
-        f"in {time.perf_counter() - t0:.1f} s")
-    if not (rel <= TOL_REF_LOSS and cos >= TOL_REF_COSINE):
-        raise AssertionError("depth-cut reference: card and CPU disagree")
+    noise4 = torch.randn((4, 3, 336, 336), generator=gen)
+    for label, row_idx, nz in (("batch 1", [0], noise), ("batch 4", [0, 1, 2, 3], noise4)):
+        xs = {
+            "t_idx": 0,
+            "rows": [torch.from_numpy(ai.prompt_pool[0, row_idx])],
+            "lens": [torch.from_numpy(ai.prompt_lengths[0, row_idx])],
+            "noise": [nz],
+        }
+        ref_pads = [ai.max_len - int(n) for n in ai.prompt_lengths[0, row_idx]]
+        results = {}
+        for name, v, dev in (("cpu", cpu_v, "cpu"), ("cuda", gpu_v, "cuda")):
+            x0_d = torch.as_tensor(x0, device=dev)
+            step = build_attack_step([v.handles()], ref_cfg, x0_d, torch.ones_like(x0_d))
+            reset_launches()
+            loss, _, _, _, grad = step.loss_and_grad(p0.to(dev), xs, torch.tensor(cfg.sigma, device=dev))
+            results[name] = (float(loss), grad.double().cpu())
+            log("reference", f"{label} {name}: loss={float(loss)} grad_norm={float(grad.norm())} "
+                f"T={ai.max_len} pads={ref_pads} launches={launch_counts()}")
+        (l_cpu, g_cpu), (l_gpu, g_gpu) = results["cpu"], results["cuda"]
+        rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+        cos = float((g_cpu * g_gpu).sum() / (g_cpu.norm() * g_gpu.norm()))
+        log("reference", f"{label}: loss rel diff={rel:.3g} (tol {TOL_REF_LOSS}) grad cosine={cos:.6f} "
+            f"(min {TOL_REF_COSINE}) grad norm ratio={float(g_gpu.norm() / g_cpu.norm()):.4f} "
+            f"at {time.perf_counter() - t0:.1f} s")
+        if not (rel <= TOL_REF_LOSS and cos >= TOL_REF_COSINE):
+            raise AssertionError(f"depth-cut reference ({label}): card and CPU disagree")
+    x_img = np.clip(x0 + 0.5 * np.tanh(p0.numpy()), 0.0, 1.0).astype(np.float32)
+    decode_reference(gpu_v, cpu_v, list(corpora.not_safe_questions_test[:3]), x_img)
+    log("reference", f"all references in {time.perf_counter() - t0:.1f} s")
 
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
-    sources = {"dgrad": "dgrad.cu", "attention_fwd": "attention.cu",
-               "attention_bwd_dq": "attention.cu", "attention_bwd_dkdv": "attention.cu"}
+    sources = {"dgrad": "dgrad.cu", "attention_fwd": "attention.cu", "attention_bwd_dq": "attention.cu",
+               "attention_bwd_dkdv": "attention.cu", "flash_fwd": "attention.cu",
+               "flash_bwd_dq": "attention.cu", "flash_bwd_dkdv": "attention.cu"}
     replaces = {
         "dgrad": "adversarialvlm_tpu/ops/pallas/matmul.py:35",
         "attention_fwd": "adversarialvlm_tpu/ops/pallas/fused_attention.py:436",
         "attention_bwd_dq": "adversarialvlm_tpu/ops/pallas/fused_attention.py:457",
         "attention_bwd_dkdv": "adversarialvlm_tpu/ops/pallas/fused_attention.py:457",
+        "flash_fwd": "adversarialvlm_tpu/ops/pallas/attention.py:178",
+        "flash_bwd_dq": "adversarialvlm_tpu/ops/pallas/attention.py:178",
+        "flash_bwd_dkdv": "adversarialvlm_tpu/ops/pallas/attention.py:178",
     }
-    stats = {"dgrad": dg, **attn}
+    stats = {"dgrad": dg, **attn, **flash}
+    counts = {**{k: launches[k] for k in pr3_kernels}, **{k: launches4[k] for k in flash}}
     kernels = [
         {
             "name": name, "route": "cuda", "source": f"adversarialvlm_tpu_torch/csrc/{sources[name]}",
-            "replaces": replaces[name], "launches": launches[name], "max_abs_err": stats[name]["abs"],
+            "replaces": replaces[name], "launches": counts[name], "max_abs_err": stats[name]["abs"],
             "worst_row_rel_err": stats[name]["rel"], "ms": stats[name]["ms"],
             "plain_ms": stats[name]["plain_ms"], "bound_ms": stats[name]["bound_ms"],
             "bound_by": stats[name]["bound_by"], "library_ms": stats[name]["library_ms"],
         }
         for name in sources
     ]
+    kernels[4]["at_prefill_shape"] = {k: prefill[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

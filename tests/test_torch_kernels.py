@@ -20,6 +20,7 @@ from adversarialvlm_tpu_torch.models import layers
 from adversarialvlm_tpu_torch.ops.kernels import attention as A
 from adversarialvlm_tpu_torch.ops.kernels import launch_counts, reset_launches
 from adversarialvlm_tpu_torch.ops.kernels.dgrad import LinearPdx, dgrad, dgrad_eligible
+from adversarialvlm_tpu_torch.ops.kernels.flash import flash_bwd_dq, flash_fwd
 
 
 def test_dgrad_plain_matches_pallas_interpret():
@@ -109,15 +110,25 @@ def test_attention_plain_versions_match_fused_sdpa_bthd_interpret(h, hkv):
 
 
 def _route_case(case):
-    if case == "cuda_batch2_raises":
-        with pytest.raises(NotImplementedError, match="ROADMAP kernels item 4"):
-            A.attention_route("cuda", 2, 641, 32, 128, 1)
+    if case == "cuda_batch2_takes_flash":
+        assert A.attention_route("cuda", 2, 641, 32, 128, 1) == "flash"
+        assert A.attention_route("cuda", 50, 704, 32, 128, 1, cache_index=0) == "flash"
+        assert A.attention_route("cuda", 3, 301, 8, 256, 4) == "flash"
     elif case == "cuda_head_dim64_raises":
         with pytest.raises(NotImplementedError, match="flash_sdpa"):
             A.attention_route("cuda", 1, 577, 16, 64, 1)
+    elif case == "cuda_head_dim64_batch2_raises":
+        with pytest.raises(NotImplementedError, match="ROADMAP modules item 8"):
+            A.attention_route("cuda", 2, 641, 16, 64, 1)
+    elif case == "cuda_cached_decode_takes_plain":
+        assert A.attention_route("cuda", 50, 1, 32, 128, 1, cache_index=704) == "plain"
+        assert A.attention_route("cuda", 1, 1, 32, 128, 1, cache_index=641) == "plain"
+        with pytest.raises(NotImplementedError, match="filled KV cache"):
+            A.attention_route("cuda", 2, 5, 32, 128, 1, cache_index=704)
     elif case == "cuda_batch1_takes_kernel":
-        assert A.attention_route("cuda", 1, 641, 32, 128, 1) == "kernel"
-        assert A.attention_route("cuda", 1, 200, 4, 256, 4) == "kernel"
+        assert A.attention_route("cuda", 1, 641, 32, 128, 1) == "fused"
+        assert A.attention_route("cuda", 1, 200, 4, 256, 4) == "fused"
+        assert A.attention_route("cuda", 1, 704, 32, 128, 1, cache_index=0) == "fused"
     elif case == "cpu_takes_plain":
         assert A.attention_route("cpu", 2, 641, 32, 128, 1) == "plain"
         assert A.attention_route("cpu", 1, 641, 32, 128, 1) == "plain"
@@ -137,17 +148,31 @@ def _route_case(case):
         with pytest.raises(ValueError, match="CUDA tensors"):
             A.attention_fwd(torch.empty(1, 8, 2, 128, device="meta"), torch.empty(1, 8, 2, 128),
                             torch.empty(1, 8, 2, 128), torch.ones(8, dtype=torch.int32), 0.1)
+    elif case == "flash_wrapper_rejects_non_cuda_device":
+        meta = torch.empty(2, 8, 2, 128, device="meta")
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            flash_fwd(meta, meta, meta, torch.ones(2, 8, dtype=torch.int32, device="meta"), 0.1)
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            flash_bwd_dq(meta, meta, meta, torch.ones(2, 8, dtype=torch.int32, device="meta"),
+                         meta, torch.empty(2, 2, 8, device="meta"), meta, 0.1)
+        reset_launches()
+        cpu = torch.randn(2, 8, 2, 128)
+        flash_fwd(cpu, cpu, cpu, torch.ones(2, 8, dtype=torch.int32), 0.1)  # CPU: the plain version
+        assert launch_counts()["flash_fwd"] == 0
     else:
         raise AssertionError(case)
 
 
 @pytest.mark.parametrize("case", [
-    "cuda_batch2_raises", "cuda_head_dim64_raises", "cuda_batch1_takes_kernel", "cpu_takes_plain",
-    "dgrad_eligibility", "cpu_linear_stays_plain", "wrapper_rejects_non_cuda_device",
+    "cuda_batch2_takes_flash", "cuda_head_dim64_raises", "cuda_batch1_takes_kernel",
+    "cpu_takes_plain", "dgrad_eligibility", "cpu_linear_stays_plain",
+    "wrapper_rejects_non_cuda_device", "cuda_head_dim64_batch2_raises",
+    "cuda_cached_decode_takes_plain", "flash_wrapper_rejects_non_cuda_device",
 ])
 def test_kernel_routing(case):
-    """On the card the decoder attention takes the kernel or raises (never the plain path);
-    CPU tensors take the plain versions and launch nothing."""
+    """On the card the decoder attention takes the fused kernel at batch 1, the flash kernel at
+    batch >= 2 and the plain sdpa only for a cached decode step, or raises (no fallback); CPU
+    tensors take the plain versions and launch nothing."""
     _route_case(case)
 
 

@@ -1,6 +1,6 @@
 """Victim construction: model + differentiable processor + prompt pools. Counterpart of
-adversarialvlm_tpu/attack/setup.py::build_tiny_victim for the llava family; victims built from
-checkpoints wait for the checkpoint loader (ROADMAP modules item 6)."""
+adversarialvlm_tpu/attack/setup.py::build_tiny_victim for the llava and gemma3 families; victims
+built from checkpoints wait for the checkpoint loader (ROADMAP modules item 6)."""
 
 from __future__ import annotations
 
@@ -8,10 +8,11 @@ import torch
 
 from adversarialvlm_tpu_torch.attack.engine import VictimSetup
 from adversarialvlm_tpu_torch.data import corpora
-from adversarialvlm_tpu_torch.models.configs import VLMConfig, tiny_llava
+from adversarialvlm_tpu_torch.models.configs import VLMConfig, tiny_gemma3, tiny_llava
 from adversarialvlm_tpu_torch.models.registry import make_bundle
 from adversarialvlm_tpu_torch.processors.adv_inputs import AdvInputs
-from adversarialvlm_tpu_torch.processors.configs import MODEL_IMAGE_CONFIGS
+from adversarialvlm_tpu_torch.processors.configs import MODEL_IMAGE_CONFIGS, ImageProcessorConfig
+from adversarialvlm_tpu_torch.processors.gemma3 import DifferentiableGemma3ImageProcessor
 from adversarialvlm_tpu_torch.processors.llava import DifferentiableLlavaImageProcessor
 from adversarialvlm_tpu_torch.processors.prompts import spec_for_family
 from adversarialvlm_tpu_torch.utils.device import resolve_device
@@ -44,21 +45,24 @@ def build_tiny_victim(
     test_questions: list[str] | None = None,
     dtype=None,
     device=None,
+    family: str = "llava",
 ) -> VictimSetup:
-    """A random-weight victim (default: tiny LLaVA; pass ``vlm_cfg=llava_1_5_7b()`` for the
-    full-size one) with the ByteTokenizer. Weights come from a ``torch.Generator`` on ``device``
-    (default: the card, which must exist) seeded with ``seed``."""
+    """A random-weight victim (default: the tiny config of ``family``, llava or gemma3; pass
+    ``vlm_cfg=llava_1_5_7b()`` or ``gemma3_4b_it()`` for a full-size one) with the ByteTokenizer.
+    Weights come from a ``torch.Generator`` on ``device`` (default: the card, which must exist)
+    seeded with ``seed``."""
     dev = resolve_device(device)
-    vlm_cfg = vlm_cfg or tiny_llava(vocab_size=384)
-    spec = spec_for_family(vlm_cfg.family)
+    if vlm_cfg is None:
+        vlm_cfg = tiny_gemma3(vocab_size=384) if family == "gemma3" else tiny_llava(vocab_size=384)
+    family = vlm_cfg.family
+    spec = spec_for_family(family)
     tok = ByteTokenizer(special_tokens={spec.image_placeholder: vlm_cfg.image_token_id})
     for extra in _EXTRA_SPECIALS:
         tok.add_special(extra)
-    adv_proc = DifferentiableLlavaImageProcessor(
-        MODEL_IMAGE_CONFIGS["llava-hf/llava-1.5-7b-hf"], in_hw, dev
-    )
+    adv_proc = image_processor(vlm_cfg, in_hw, dev)
     if questions is None or targets is None:
         questions, targets = questions_and_targets(cfg_attack)
+    n_img = _num_image_tokens(family, vlm_cfg)
     adv_inputs = AdvInputs(
         spec=spec,
         tokenizer=tok,
@@ -68,10 +72,48 @@ def build_tiny_victim(
         ),
         batch_size=cfg_attack.batch_size,
         target_texts=targets,
-        # the model config is authoritative for the image-token count
-        num_image_tokens=(vlm_cfg.vision.image_size // vlm_cfg.vision.patch_size) ** 2,
+        num_image_tokens=n_img,
         image_token_id=vlm_cfg.image_token_id,
         pad_token_id=tok.pad_token_id,
+        image_expansion_ids=_image_expansion(family, vlm_cfg, tok, n_img),
     )
-    bundle = make_bundle(name, vlm_cfg.family, vlm_cfg, dev, seed=seed, dtype=dtype or torch.float32)
+    bundle = make_bundle(name, family, vlm_cfg, dev, seed=seed, dtype=dtype or torch.float32)
     return VictimSetup(name=name, bundle=bundle, adv_processor=adv_proc, adv_inputs=adv_inputs)
+
+
+def image_processor(vlm_cfg: VLMConfig, in_hw, device):
+    """The family's differentiable processor for source images of ``in_hw``, sized by the model
+    config (gemma3: the tower's image_size and soft-token count)."""
+    if vlm_cfg.family == "gemma3":
+        return DifferentiableGemma3ImageProcessor(
+            ImageProcessorConfig(
+                image_mean=(0.5, 0.5, 0.5),
+                image_std=(0.5, 0.5, 0.5),
+                crop_size=vlm_cfg.vision.image_size,
+                mm_tokens_per_image=vlm_cfg.vision.mm_tokens_per_image,
+            ),
+            in_hw, device,
+        )
+    return DifferentiableLlavaImageProcessor(
+        MODEL_IMAGE_CONFIGS["llava-hf/llava-1.5-7b-hf"], in_hw, device
+    )
+
+
+def _image_expansion(family, vlm_cfg, tok, num_image_tokens):
+    """Token expansion of the image placeholder. gemma3 frames its soft tokens as
+    \\n\\n <start_of_image> soft×N <end_of_image> \\n\\n (HF Gemma3Processor's full_image_sequence);
+    every other family is N copies of the image token (None)."""
+    if family == "gemma3" and vlm_cfg.boi_token_id is not None:
+        nl = tok.encode("\n\n", add_special_tokens=False)
+        return (
+            nl + [vlm_cfg.boi_token_id] + [vlm_cfg.image_token_id] * num_image_tokens
+            + [vlm_cfg.eoi_token_id] + nl
+        )
+    return None
+
+
+def _num_image_tokens(family, vlm_cfg) -> int:
+    """The model config is authoritative for the image-token count."""
+    if family == "gemma3":
+        return vlm_cfg.vision.mm_tokens_per_image
+    return (vlm_cfg.vision.image_size // vlm_cfg.vision.patch_size) ** 2

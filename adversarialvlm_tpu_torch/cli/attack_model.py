@@ -3,8 +3,10 @@
     python -m adversarialvlm_tpu_torch.cli.attack_model --model_name random:llava-1.5-7b \\
         --img_orig gray.png
 
-Model names: ``random:llava-1.5-7b`` (full-size LLaVA-1.5-7B, random bf16 weights) and
-``tiny:llava`` (tiny random LLaVA, f32). Checkpoint loading is not ported yet. Runs on the card
+Model names: ``random:llava-1.5-7b`` (full-size LLaVA-1.5-7B) and ``random:gemma-3-4b-it``
+(full-size Gemma-3-4B-it, its SigLIP tower at 4096 patches), both with random bf16 weights, and
+``tiny:llava`` and ``tiny:gemma3`` (tiny random models, f32), all with the byte tokenizer.
+Checkpoint loading is not ported yet. Runs on the card
 unless ``--device cpu``, at the default ``--batch_size 4`` or any other. As the JAX CLI does, every
 save boundary decodes the 50 held-out questions on the saved image and writes
 test_results_iter_<N>.csv.
@@ -83,18 +85,23 @@ def attack_config_from_args(args, **overrides):
     return AttackConfig(**fields)
 
 
+MODEL_NAMES = ("random:llava-1.5-7b", "random:gemma-3-4b-it", "tiny:llava", "tiny:gemma3")
+
+
 def build_victim(model_name: str, cfg, in_hw, device):
     from adversarialvlm_tpu_torch.attack.setup import build_tiny_victim
-    from adversarialvlm_tpu_torch.models.configs import llava_1_5_7b
+    from adversarialvlm_tpu_torch.models.configs import gemma3_4b_it, llava_1_5_7b
 
-    if model_name == "random:llava-1.5-7b":
-        return build_tiny_victim(model_name, cfg, in_hw, vlm_cfg=llava_1_5_7b(), seed=cfg.seed,
-                                 dtype=torch.bfloat16, device=device)
-    if model_name == "tiny:llava":
-        return build_tiny_victim(model_name, cfg, in_hw, seed=cfg.seed, device=device)
+    full_size = {"random:llava-1.5-7b": llava_1_5_7b, "random:gemma-3-4b-it": gemma3_4b_it}
+    if model_name in full_size:
+        return build_tiny_victim(model_name, cfg, in_hw, vlm_cfg=full_size[model_name](),
+                                 seed=cfg.seed, dtype=torch.bfloat16, device=device)
+    if model_name in ("tiny:llava", "tiny:gemma3"):
+        return build_tiny_victim(model_name, cfg, in_hw, seed=cfg.seed, device=device,
+                                 family=model_name.split(":")[1])
     raise NotImplementedError(
         f"model {model_name!r}: checkpoint loading and other families are not ported yet "
-        "(ROADMAP modules items 6 and 8); use random:llava-1.5-7b or tiny:llava"
+        f"(ROADMAP modules items 6 and 8); use one of {', '.join(MODEL_NAMES)}"
     )
 
 

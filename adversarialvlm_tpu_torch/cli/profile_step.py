@@ -1,11 +1,13 @@
-"""Profile the LLaVA-1.5-7B single-victim attack step on the card with torch.profiler.
+"""Profile a single-victim attack step on the card with torch.profiler.
 
-    python -m adversarialvlm_tpu_torch.cli.profile_step [--steps 3] [--batch_size 1] [--trace out.json]
+    python -m adversarialvlm_tpu_torch.cli.profile_step [--model_name random:gemma-3-4b-it] \
+        [--steps 3] [--batch_size 1] [--trace out.json]
 
-Builds the chip_smoke.py victim (full width and depth, random bf16 weights from seed 0, 512² gray
-x₀): at batch 1 on chip_smoke.py's one question, at a larger batch on the attack's default prompt
-pool (left-padded rows of the 149 questions). Runs two warm-up steps, then profiles ``--steps``
-steps and prints the wall time per step, the device's busy and idle shares of it, and the kernels
+Builds the chip_smoke.py victim of ``--model_name`` (``random:llava-1.5-7b``, the default, or
+``random:gemma-3-4b-it``; full width and depth, random bf16 weights from seed 0, 512² gray x₀): at
+batch 1 on chip_smoke.py's one question, at a larger batch on the attack's default prompt pool
+(left-padded rows of the 149 questions). Runs two warm-up steps, then profiles ``--steps`` steps
+and prints the wall time per step, the device's busy and idle shares of it, and the kernels
 ranked by device time.
 """
 
@@ -38,6 +40,8 @@ def _union_us(intervals) -> float:
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--model_name", type=str, default="random:llava-1.5-7b",
+                        choices=["random:llava-1.5-7b", "random:gemma-3-4b-it"])
     parser.add_argument("--steps", type=int, default=3)
     parser.add_argument("--batch_size", type=int, default=1)
     parser.add_argument("--top", type=int, default=15)
@@ -49,7 +53,7 @@ def main(argv=None):
     from adversarialvlm_tpu_torch.attack.config import AttackConfig
     from adversarialvlm_tpu_torch.attack.setup import build_tiny_victim
     from adversarialvlm_tpu_torch.attack.step import build_attack_step, init_state, sample_chunk_xs
-    from adversarialvlm_tpu_torch.models.configs import llava_1_5_7b
+    from adversarialvlm_tpu_torch.models.configs import gemma3_4b_it, llava_1_5_7b
     from adversarialvlm_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device("cuda")
@@ -58,7 +62,8 @@ def main(argv=None):
     prompts = {"questions": [question], "targets": ["sure, here it is!"]}
     if args.batch_size > 1:
         prompts = {}  # the default pool
-    victim = build_tiny_victim("random:llava-1.5-7b", cfg, (512, 512), vlm_cfg=llava_1_5_7b(),
+    vlm_cfg = {"random:llava-1.5-7b": llava_1_5_7b, "random:gemma-3-4b-it": gemma3_4b_it}[args.model_name]()
+    victim = build_tiny_victim(args.model_name, cfg, (512, 512), vlm_cfg=vlm_cfg,
                                test_questions=[question], dtype=torch.bfloat16, device=dev,
                                **prompts)
     x0 = torch.as_tensor(np.full((3, 512, 512), 0.47, np.float32), device=dev)
@@ -77,7 +82,7 @@ def main(argv=None):
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / args.steps
     busy_ms = _union_us(_device_intervals(prof)) / 1e3 / args.steps
-    print(f"[profile] {torch.cuda.get_device_name(0)} batch={args.batch_size} "
+    print(f"[profile] {torch.cuda.get_device_name(0)} {args.model_name} batch={args.batch_size} "
           f"T={victim.adv_inputs.max_len} "
           f"steps={args.steps} wall {wall_ms:.2f} ms/step, device busy {busy_ms:.2f} ms/step "
           f"({100 * busy_ms / wall_ms:.1f}% of wall, idle {100 - 100 * busy_ms / wall_ms:.1f}%)")

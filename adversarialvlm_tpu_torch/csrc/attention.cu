@@ -1,21 +1,30 @@
-// Causal attention with a segment mask, forward and backward, in the projections' native
-// (B, T, H, D) layout: three kernels (forward; dq; dk/dv), each with a grid layer per batch row.
+// Attention forward and backward in the projections' native (B, T, H, D) layout: three kernel
+// templates (forward; dq; dk/dv), each with a grid layer per batch row, a compile-time CAUSAL
+// switch and a shared-memory head width DP = D rounded up to WMMA's k-step of 16.
 //
-// Replaces two Pallas entries, each through its own C entry points:
-//  - attn_*: adversarialvlm_tpu/ops/pallas/fused_attention.py::fused_sdpa_bthd at batch 1, that
-//    is _call_fwd_bthd (pallas_call at :441, body _fwd_kernel_bthd :361) and _call_bwd_bthd
-//    (pallas_call at :470, body _bwd_kernel_bthd :372);
-//  - flash_*: adversarialvlm_tpu/ops/pallas/attention.py::flash_sdpa (:178), which calls the
-//    stock TPU flash_attention's forward, dkv and dq kernels through _flash_call (:97), over a
-//    left-padded batch. Its segment ids are the rows' attention masks (pads 0, real tokens 1)
-//    and its causality is by raw index: the function below, row by row. The TPU entry pads T to
-//    its block with segment 0 and slices the output back; these kernels mask the ragged tile
-//    instead, so nothing is padded or copied.
+// Replaces three Pallas entries, each through its own C entry points:
+//  - attn_* (CAUSAL, DP = D): adversarialvlm_tpu/ops/pallas/fused_attention.py::fused_sdpa_bthd at
+//    batch 1, that is _call_fwd_bthd (pallas_call at :441, body _fwd_kernel_bthd :361) and
+//    _call_bwd_bthd (pallas_call at :470, body _bwd_kernel_bthd :372);
+//  - flash_* (CAUSAL, DP = D): adversarialvlm_tpu/ops/pallas/attention.py::flash_sdpa (:178), which
+//    calls the stock TPU flash_attention's forward, dkv and dq kernels through _flash_call (:97),
+//    over a left-padded batch. Its segment ids are the rows' attention masks (pads 0, real tokens
+//    1) and its causality is by raw index: the function below, row by row;
+//  - flash_full_* (not CAUSAL, D = 72, DP = 80): adversarialvlm_tpu/ops/pallas/attention.py::
+//    flash_sdpa_full (:214), the same stock kernels through _flash_call (:97) with causal=False,
+//    for vision towers whose every token is real (Gemma-3's SigLIP: T = 4096 patches, 16 heads of
+//    72). Every query attends every key: the forward and dq walk every key tile and dk/dv every
+//    query tile, and no segment array is read.
+// The TPU entries pad T to their block (segment 0) and slice the output back, and flash_sdpa_full
+// also zero-pads D to 128 lanes in device memory; these kernels mask the ragged tile instead and
+// zero-pad D only inside shared memory (columns D..DP-1), so nothing is padded or copied in device
+// memory. Global offsets use the real D (h·D, row stride H·D; a 72-wide head row is 144 bytes, so
+// 16-byte copies stay aligned) and only D columns of o, dq, dk and dv are written.
 //
-// The function: query row i may attend key j when j <= i and seg[i] == seg[j] (left pads carry
-// segment 0, so a pad row attends earlier pads and a real row attends earlier real tokens; every
-// row attends at least itself). Scores are f32, softmax in f32, output in bf16. GQA: q-head h reads
-// kv head h / (H / Hkv).
+// The causal function: query row i may attend key j when j <= i and seg[i] == seg[j] (left pads
+// carry segment 0, so a pad row attends earlier pads and a real row attends earlier real tokens;
+// every row attends at least itself). Scores are f32, softmax in f32, output in bf16. GQA: q-head h
+// reads kv head h / (H / Hkv).
 //
 // What bounds it on the H100: at the 7B decoder's shape (T ≈ 640, 32 heads of 128) the causal
 // half of the T×T scores per head is ~1.7 GFLOP forward on ~20 MB of q/k/v/o, a few hundred
@@ -23,12 +32,15 @@
 // multiplies both by B (the batch-4 attack step, the 50-row test-decode prefill at T = 704), so
 // the ratio, and the bound, stay the same. A real row never attends a pad key, so the allowed
 // pairs (what the bound counts) shrink with the pads; the kernels still walk a real tile's pad
-// key tiles, masked, which costs at most the pads' share (under 15% at the batch-4 step).
+// key tiles, masked, which costs at most the pads' share (under 15% at the batch-4 step). The
+// SigLIP tower's non-causal forward is 4·T²·D·H = 77.3 GFLOP per image on 37.7 MB of q/k/v/o,
+// ~2000 operations per byte: the tensor cores bound it; the padding of 72 to 80 costs 11% more
+// products than the bound counts.
 //
 // Design: the TPU kernel keeps a whole head's (T, T) scores in VMEM; Hopper's shared memory cannot
 // hold them, so these kernels tile over T. A block owns one tile of BQ query rows of one head (or,
-// for dk/dv, BKV key rows of one kv head) and walks the other side's tiles with the causal limit,
-// so no (T, T) tensor is ever written to device memory and there is no cap on T.
+// for dk/dv, BKV key rows of one kv head) and walks the other side's tiles (up to the causal limit
+// when CAUSAL), so no (T, T) tensor is ever written to device memory and there is no cap on T.
 //  - Forward: online softmax over key tiles. Each warp owns 16 query rows: it computes that strip
 //    of S = q·kᵀ with bf16 WMMA into f32 shared memory, updates the rows' running max and sum,
 //    rescales its f32 output strip and adds P·v. Only the k/v tile loads are shared by the block.
@@ -38,8 +50,8 @@
 //    accumulates dS·k. δ = rowsum(dO ⊙ O) is computed here once per row and written out for the
 //    dk/dv kernel, which therefore runs second.
 //  - dk/dv: each warp owns 16 key rows; the block loops over the n_rep q-heads of its kv head and
-//    over the query tiles at or after its keys, accumulating dv += Pᵀ·dO and dk += dSᵀ·q in f32
-//    shared memory, so GQA heads are summed in f32 and written once as bf16.
+//    over the query tiles (at or after its keys when CAUSAL), accumulating dv += Pᵀ·dO and
+//    dk += dSᵀ·q in f32 shared memory, so GQA heads are summed in f32 and written once as bf16.
 // Accumulators live in shared memory, loads are plain 16-byte copies and a block has 2 or 4 warps:
 // simple and correct first; wgmma, TMA and deeper pipelining are later work.
 
@@ -74,17 +86,19 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // Rows [r0, r0 + ROWS) of head h of a (T, heads, D) bf16 tensor into shared memory with row
-// stride D + 8; rows at or past T are zero.
-template <int ROWS, int D, int NT>
+// stride DP + 8, DP = D rounded up to WMMA's k-step of 16; rows at or past T and columns D..DP-1
+// are zero, so they add nothing to q·kᵀ, dO·vᵀ or P·v.
+template <int ROWS, int D, int DP, int NT>
 __device__ __forceinline__ void load_rows(bf16* dst, const bf16* __restrict__ src, int r0, int T,
                                           int row_stride, int h, int tid) {
-  constexpr int CH = D / 8;
+  constexpr int CH = DP / 8;
   for (int c = tid; c < ROWS * CH; c += NT) {
     const int r = c / CH, cc = (c % CH) * 8;
     const int gr = r0 + r;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (gr < T) val = *reinterpret_cast<const uint4*>(src + (size_t)gr * row_stride + (size_t)h * D + cc);
-    *reinterpret_cast<uint4*>(dst + r * (D + 8) + cc) = val;
+    if (gr < T && cc < D)
+      val = *reinterpret_cast<const uint4*>(src + (size_t)gr * row_stride + (size_t)h * D + cc);
+    *reinterpret_cast<uint4*>(dst + r * (DP + 8) + cc) = val;
   }
 }
 
@@ -127,25 +141,36 @@ __device__ __forceinline__ void warp_mm_acc(float* C, int ldc, const bf16* A, in
   }
 }
 
-template <int D, int BQ, int BKV>
+// Row masks. The causal entries (fused_sdpa_bthd, flash_sdpa) allow j <= i within one segment;
+// the non-causal entry (flash_sdpa_full) allows every real pair and carries no segment array.
+template <bool CAUSAL>
+__device__ __forceinline__ bool allowed(int gq, int gk, int T, int sq, int sk) {
+  if constexpr (CAUSAL) {
+    return gq < T && gk <= gq && sk == sq;
+  } else {
+    return gq < T && gk < T;
+  }
+}
+
+template <int DP, int BQ, int BKV>
 struct FwdSmem {
-  static constexpr int LDH = D + 8, LDS = BKV + 4, LDP = BKV + 8, LDO = D + 4;
+  static constexpr int LDH = DP + 8, LDS = BKV + 4, LDP = BKV + 8, LDO = DP + 4;
   static constexpr size_t bytes = (size_t)(BQ + 2 * BKV) * LDH * sizeof(bf16) + (size_t)BQ * LDS * sizeof(float) +
                                   (size_t)BQ * LDP * sizeof(bf16) + (size_t)BQ * LDO * sizeof(float) +
                                   2 * BQ * sizeof(float) + (BQ + BKV) * sizeof(int);
 };
 
-template <int D, int BQ, int BKV>
+template <int D, int DP, int BQ, int BKV, bool CAUSAL>
 __global__ void __launch_bounds__(BQ / 16 * 32)
     attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
                     const int* __restrict__ seg, bf16* __restrict__ o, float* __restrict__ lse, int T, int H,
                     int Hkv, float scale) {
-  typedef FwdSmem<D, BQ, BKV> L;
+  typedef FwdSmem<DP, BQ, BKV> L;
   const size_t bz = blockIdx.z;  // batch row: every operand advances by one whole sequence
   q += bz * T * H * D;
   k += bz * T * Hkv * D;
   v += bz * T * Hkv * D;
-  seg += bz * T;
+  if constexpr (CAUSAL) seg += bz * T;
   o += bz * T * H * D;
   lse += bz * H * T;
   constexpr int NT = BQ / 16 * 32;
@@ -166,34 +191,36 @@ __global__ void __launch_bounds__(BQ / 16 * 32)
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, rw = warp * 16;
   const int qstride = H * D, kvstride = Hkv * D;
 
-  load_rows<BQ, D, NT>(Qs, q, q0, T, qstride, h, tid);
+  load_rows<BQ, D, DP, NT>(Qs, q, q0, T, qstride, h, tid);
   for (int r = tid; r < BQ; r += NT) {
     m_s[r] = NEG;
     l_s[r] = 0.0f;
-    qseg[r] = q0 + r < T ? seg[q0 + r] : -1;
+    if constexpr (CAUSAL) qseg[r] = q0 + r < T ? seg[q0 + r] : -1;
   }
   for (int i = tid; i < BQ * L::LDO; i += NT) Os[i] = 0.0f;
 
-  const int nkt = (min(q0 + BQ, T) - 1) / BKV + 1;  // key tiles up to the causal limit
+  // key tiles up to the causal limit, or all of them
+  const int nkt = CAUSAL ? (min(q0 + BQ, T) - 1) / BKV + 1 : (T + BKV - 1) / BKV;
   for (int kt = 0; kt < nkt; ++kt) {
     const int k0 = kt * BKV;
     __syncthreads();  // everyone is done with the previous k/v tile
-    load_rows<BKV, D, NT>(Ks, k, k0, T, kvstride, hk, tid);
-    load_rows<BKV, D, NT>(Vs, v, k0, T, kvstride, hk, tid);
-    for (int c = tid; c < BKV; c += NT) kseg[c] = k0 + c < T ? seg[k0 + c] : -2;
+    load_rows<BKV, D, DP, NT>(Ks, k, k0, T, kvstride, hk, tid);
+    load_rows<BKV, D, DP, NT>(Vs, v, k0, T, kvstride, hk, tid);
+    if constexpr (CAUSAL)
+      for (int c = tid; c < BKV; c += NT) kseg[c] = k0 + c < T ? seg[k0 + c] : -2;
     __syncthreads();
 
-    warp_mm_abt<BKV, D>(Ss + rw * L::LDS, L::LDS, Qs + rw * L::LDH, L::LDH, Ks, L::LDH);
+    warp_mm_abt<BKV, DP>(Ss + rw * L::LDS, L::LDS, Qs + rw * L::LDH, L::LDH, Ks, L::LDH);
     __syncwarp();
     for (int rr = 0; rr < 16; ++rr) {
-      const int r = rw + rr, gq = q0 + r, sq = qseg[r];
+      const int r = rw + rr, gq = q0 + r, sq = CAUSAL ? qseg[r] : 0;
       float sv[BKV / 32];
       bool ok[BKV / 32];
       float mx = NEG;
 #pragma unroll
       for (int c = 0; c < BKV / 32; ++c) {
         const int col = lane + 32 * c, gk = k0 + col;
-        ok[c] = gq < T && gk <= gq && kseg[col] == sq;
+        ok[c] = allowed<CAUSAL>(gq, gk, T, sq, CAUSAL ? kseg[col] : 0);
         sv[c] = ok[c] ? Ss[r * L::LDS + col] * scale : NEG;
         mx = fmaxf(mx, sv[c]);
       }
@@ -209,14 +236,14 @@ __global__ void __launch_bounds__(BQ / 16 * 32)
       }
       sum = warp_sum(sum);
       const float alpha = expf(m_old - m_new);
-      for (int d = lane; d < D; d += 32) Os[r * L::LDO + d] *= alpha;
+      for (int d = lane; d < D; d += 32) Os[r * L::LDO + d] *= alpha;  // columns >= D stay 0
       if (lane == 0) {
         m_s[r] = m_new;
         l_s[r] = l_s[r] * alpha + sum;
       }
     }
     __syncwarp();
-    warp_mm_acc<D, BKV>(Os + rw * L::LDO, L::LDO, Ps + rw * L::LDP, L::LDP, Vs, L::LDH);
+    warp_mm_acc<DP, BKV>(Os + rw * L::LDO, L::LDO, Ps + rw * L::LDP, L::LDP, Vs, L::LDH);
   }
   __syncwarp();
   for (int rr = 0; rr < 16; ++rr) {
@@ -228,27 +255,27 @@ __global__ void __launch_bounds__(BQ / 16 * 32)
   }
 }
 
-template <int D, int BQ, int BKV>
+template <int DP, int BQ, int BKV>
 struct DqSmem {
-  static constexpr int LDH = D + 8, LDS = BKV + 4, LDP = BKV + 8, LDO = D + 4;
+  static constexpr int LDH = DP + 8, LDS = BKV + 4, LDP = BKV + 8, LDO = DP + 4;
   static constexpr size_t bytes = (size_t)(2 * BQ + 2 * BKV) * LDH * sizeof(bf16) +
                                   (size_t)2 * BQ * LDS * sizeof(float) + (size_t)BQ * LDP * sizeof(bf16) +
                                   (size_t)BQ * LDO * sizeof(float) + 2 * BQ * sizeof(float) +
                                   (BQ + BKV) * sizeof(int);
 };
 
-template <int D, int BQ, int BKV>
+template <int D, int DP, int BQ, int BKV, bool CAUSAL>
 __global__ void __launch_bounds__(BQ / 16 * 32)
     attn_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
                        const int* __restrict__ seg, const bf16* __restrict__ o, const bf16* __restrict__ dout,
                        const float* __restrict__ lse, bf16* __restrict__ dq, float* __restrict__ delta, int T,
                        int H, int Hkv, float scale) {
-  typedef DqSmem<D, BQ, BKV> L;
+  typedef DqSmem<DP, BQ, BKV> L;
   const size_t bz = blockIdx.z;
   q += bz * T * H * D;
   k += bz * T * Hkv * D;
   v += bz * T * Hkv * D;
-  seg += bz * T;
+  if constexpr (CAUSAL) seg += bz * T;
   o += bz * T * H * D;
   dout += bz * T * H * D;
   lse += bz * H * T;
@@ -274,11 +301,11 @@ __global__ void __launch_bounds__(BQ / 16 * 32)
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, rw = warp * 16;
   const int qstride = H * D, kvstride = Hkv * D;
 
-  load_rows<BQ, D, NT>(Qs, q, q0, T, qstride, h, tid);
-  load_rows<BQ, D, NT>(dOs, dout, q0, T, qstride, h, tid);
+  load_rows<BQ, D, DP, NT>(Qs, q, q0, T, qstride, h, tid);
+  load_rows<BQ, D, DP, NT>(dOs, dout, q0, T, qstride, h, tid);
   for (int r = tid; r < BQ; r += NT) {
     lse_s[r] = q0 + r < T ? lse[(size_t)h * T + q0 + r] : 0.0f;
-    qseg[r] = q0 + r < T ? seg[q0 + r] : -1;
+    if constexpr (CAUSAL) qseg[r] = q0 + r < T ? seg[q0 + r] : -1;
   }
   for (int i = tid; i < BQ * L::LDO; i += NT) dQs[i] = 0.0f;
   __syncthreads();
@@ -296,31 +323,32 @@ __global__ void __launch_bounds__(BQ / 16 * 32)
     }
   }
 
-  const int nkt = (min(q0 + BQ, T) - 1) / BKV + 1;
+  const int nkt = CAUSAL ? (min(q0 + BQ, T) - 1) / BKV + 1 : (T + BKV - 1) / BKV;
   for (int kt = 0; kt < nkt; ++kt) {
     const int k0 = kt * BKV;
     __syncthreads();
-    load_rows<BKV, D, NT>(Ks, k, k0, T, kvstride, hk, tid);
-    load_rows<BKV, D, NT>(Vs, v, k0, T, kvstride, hk, tid);
-    for (int c = tid; c < BKV; c += NT) kseg[c] = k0 + c < T ? seg[k0 + c] : -2;
+    load_rows<BKV, D, DP, NT>(Ks, k, k0, T, kvstride, hk, tid);
+    load_rows<BKV, D, DP, NT>(Vs, v, k0, T, kvstride, hk, tid);
+    if constexpr (CAUSAL)
+      for (int c = tid; c < BKV; c += NT) kseg[c] = k0 + c < T ? seg[k0 + c] : -2;
     __syncthreads();
 
-    warp_mm_abt<BKV, D>(Ss + rw * L::LDS, L::LDS, Qs + rw * L::LDH, L::LDH, Ks, L::LDH);
-    warp_mm_abt<BKV, D>(dPs + rw * L::LDS, L::LDS, dOs + rw * L::LDH, L::LDH, Vs, L::LDH);
+    warp_mm_abt<BKV, DP>(Ss + rw * L::LDS, L::LDS, Qs + rw * L::LDH, L::LDH, Ks, L::LDH);
+    warp_mm_abt<BKV, DP>(dPs + rw * L::LDS, L::LDS, dOs + rw * L::LDH, L::LDH, Vs, L::LDH);
     __syncwarp();
     for (int rr = 0; rr < 16; ++rr) {
-      const int r = rw + rr, gq = q0 + r, sq = qseg[r];
+      const int r = rw + rr, gq = q0 + r, sq = CAUSAL ? qseg[r] : 0;
       const float lr = lse_s[r], dr = dl_s[r];
 #pragma unroll
       for (int c = 0; c < BKV / 32; ++c) {
         const int col = lane + 32 * c, gk = k0 + col;
-        const bool ok = gq < T && gk <= gq && kseg[col] == sq;
+        const bool ok = allowed<CAUSAL>(gq, gk, T, sq, CAUSAL ? kseg[col] : 0);
         const float p = ok ? expf(Ss[r * L::LDS + col] * scale - lr) : 0.0f;
         dSs[r * L::LDP + col] = __float2bfloat16(p * (dPs[r * L::LDS + col] - dr) * scale);
       }
     }
     __syncwarp();
-    warp_mm_acc<D, BKV>(dQs + rw * L::LDO, L::LDO, dSs + rw * L::LDP, L::LDP, Ks, L::LDH);
+    warp_mm_acc<DP, BKV>(dQs + rw * L::LDO, L::LDO, dSs + rw * L::LDP, L::LDP, Ks, L::LDH);
   }
   __syncwarp();
   for (int rr = 0; rr < 16; ++rr) {
@@ -330,27 +358,27 @@ __global__ void __launch_bounds__(BQ / 16 * 32)
   }
 }
 
-template <int D, int BQ, int BKV>
+template <int DP, int BQ, int BKV>
 struct DkdvSmem {
-  static constexpr int LDH = D + 8, LDS = BQ + 4, LDP = BQ + 8, LDO = D + 4;
+  static constexpr int LDH = DP + 8, LDS = BQ + 4, LDP = BQ + 8, LDO = DP + 4;
   static constexpr size_t bytes = (size_t)(2 * BQ + 2 * BKV) * LDH * sizeof(bf16) +
                                   (size_t)2 * BKV * LDS * sizeof(float) + (size_t)2 * BKV * LDP * sizeof(bf16) +
                                   (size_t)2 * BKV * LDO * sizeof(float) + 2 * BQ * sizeof(float) +
                                   (BQ + BKV) * sizeof(int);
 };
 
-template <int D, int BQ, int BKV>
+template <int D, int DP, int BQ, int BKV, bool CAUSAL>
 __global__ void __launch_bounds__(BKV / 16 * 32)
     attn_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
                          const int* __restrict__ seg, const bf16* __restrict__ dout, const float* __restrict__ lse,
                          const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv, int T,
                          int H, int Hkv, float scale) {
-  typedef DkdvSmem<D, BQ, BKV> L;
+  typedef DkdvSmem<DP, BQ, BKV> L;
   const size_t bz = blockIdx.z;
   q += bz * T * H * D;
   k += bz * T * Hkv * D;
   v += bz * T * Hkv * D;
-  seg += bz * T;
+  if constexpr (CAUSAL) seg += bz * T;
   dout += bz * T * H * D;
   lse += bz * H * T;
   delta += bz * H * T;
@@ -378,9 +406,10 @@ __global__ void __launch_bounds__(BKV / 16 * 32)
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, rw = warp * 16;
   const int qstride = H * D, kvstride = Hkv * D;
 
-  load_rows<BKV, D, NT>(Ks, k, k0, T, kvstride, hk, tid);
-  load_rows<BKV, D, NT>(Vs, v, k0, T, kvstride, hk, tid);
-  for (int c = tid; c < BKV; c += NT) kseg[c] = k0 + c < T ? seg[k0 + c] : -2;
+  load_rows<BKV, D, DP, NT>(Ks, k, k0, T, kvstride, hk, tid);
+  load_rows<BKV, D, DP, NT>(Vs, v, k0, T, kvstride, hk, tid);
+  if constexpr (CAUSAL)
+    for (int c = tid; c < BKV; c += NT) kseg[c] = k0 + c < T ? seg[k0 + c] : -2;
   for (int i = tid; i < BKV * L::LDO; i += NT) {
     dKs[i] = 0.0f;
     dVs[i] = 0.0f;
@@ -389,36 +418,37 @@ __global__ void __launch_bounds__(BKV / 16 * 32)
   const int nqt = (T + BQ - 1) / BQ;
   for (int rep = 0; rep < n_rep; ++rep) {
     const int h = hk * n_rep + rep;
-    for (int qt = k0 / BQ; qt < nqt; ++qt) {  // query tiles at or after this key tile
+    // query tiles at or after this key tile, or all of them
+    for (int qt = CAUSAL ? k0 / BQ : 0; qt < nqt; ++qt) {
       const int q0 = qt * BQ;
       __syncthreads();
-      load_rows<BQ, D, NT>(Qs, q, q0, T, qstride, h, tid);
-      load_rows<BQ, D, NT>(dOs, dout, q0, T, qstride, h, tid);
+      load_rows<BQ, D, DP, NT>(Qs, q, q0, T, qstride, h, tid);
+      load_rows<BQ, D, DP, NT>(dOs, dout, q0, T, qstride, h, tid);
       for (int c = tid; c < BQ; c += NT) {
         const bool in = q0 + c < T;
         lse_s[c] = in ? lse[(size_t)h * T + q0 + c] : 0.0f;
         dl_s[c] = in ? delta[(size_t)h * T + q0 + c] : 0.0f;
-        qseg[c] = in ? seg[q0 + c] : -1;
+        if constexpr (CAUSAL) qseg[c] = in ? seg[q0 + c] : -1;
       }
       __syncthreads();
 
-      warp_mm_abt<BQ, D>(St + rw * L::LDS, L::LDS, Ks + rw * L::LDH, L::LDH, Qs, L::LDH);
-      warp_mm_abt<BQ, D>(dPt + rw * L::LDS, L::LDS, Vs + rw * L::LDH, L::LDH, dOs, L::LDH);
+      warp_mm_abt<BQ, DP>(St + rw * L::LDS, L::LDS, Ks + rw * L::LDH, L::LDH, Qs, L::LDH);
+      warp_mm_abt<BQ, DP>(dPt + rw * L::LDS, L::LDS, Vs + rw * L::LDH, L::LDH, dOs, L::LDH);
       __syncwarp();
       for (int rr = 0; rr < 16; ++rr) {
-        const int r = rw + rr, gk = k0 + r, sk = kseg[r];
+        const int r = rw + rr, gk = k0 + r, sk = CAUSAL ? kseg[r] : 0;
 #pragma unroll
         for (int c = 0; c < BQ / 32; ++c) {
           const int col = lane + 32 * c, gq = q0 + col;
-          const bool ok = gq < T && gk <= gq && qseg[col] == sk;
+          const bool ok = allowed<CAUSAL>(gq, gk, T, CAUSAL ? qseg[col] : 0, sk);
           const float p = ok ? expf(St[r * L::LDS + col] * scale - lse_s[col]) : 0.0f;
           Pt[r * L::LDP + col] = __float2bfloat16(p);
           dSt[r * L::LDP + col] = __float2bfloat16(p * (dPt[r * L::LDS + col] - dl_s[col]) * scale);
         }
       }
       __syncwarp();
-      warp_mm_acc<D, BQ>(dVs + rw * L::LDO, L::LDO, Pt + rw * L::LDP, L::LDP, dOs, L::LDH);
-      warp_mm_acc<D, BQ>(dKs + rw * L::LDO, L::LDO, dSt + rw * L::LDP, L::LDP, Qs, L::LDH);
+      warp_mm_acc<DP, BQ>(dVs + rw * L::LDO, L::LDO, Pt + rw * L::LDP, L::LDP, dOs, L::LDH);
+      warp_mm_acc<DP, BQ>(dKs + rw * L::LDO, L::LDO, dSt + rw * L::LDP, L::LDP, Qs, L::LDH);
     }
   }
   __syncthreads();
@@ -436,46 +466,46 @@ bool shape_ok(int B, int T, int H, int Hkv) {
   return B > 0 && B <= 65535 && T > 0 && H > 0 && Hkv > 0 && H % Hkv == 0;
 }
 
-template <int D, int BQ, int BKV>
+template <int D, int DP, int BQ, int BKV, bool CAUSAL>
 int launch_fwd(const void* q, const void* k, const void* v, const int* seg, void* o, float* lse, int B, int T,
                int H, int Hkv, float scale, cudaStream_t stream) {
-  const size_t bytes = FwdSmem<D, BQ, BKV>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(attn_fwd_kernel<D, BQ, BKV>,
+  const size_t bytes = FwdSmem<DP, BQ, BKV>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(attn_fwd_kernel<D, DP, BQ, BKV, CAUSAL>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((T + BQ - 1) / BQ, H, B);
-  attn_fwd_kernel<D, BQ, BKV><<<grid, BQ / 16 * 32, bytes, stream>>>(
+  attn_fwd_kernel<D, DP, BQ, BKV, CAUSAL><<<grid, BQ / 16 * 32, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), seg,
       static_cast<bf16*>(o), lse, T, H, Hkv, scale);
   return (int)cudaGetLastError();
 }
 
-template <int D, int BQ, int BKV>
+template <int D, int DP, int BQ, int BKV, bool CAUSAL>
 int launch_dq(const void* q, const void* k, const void* v, const int* seg, const void* o, const void* dout,
               const float* lse, void* dq, float* delta, int B, int T, int H, int Hkv, float scale,
               cudaStream_t stream) {
-  const size_t bytes = DqSmem<D, BQ, BKV>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dq_kernel<D, BQ, BKV>,
+  const size_t bytes = DqSmem<DP, BQ, BKV>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dq_kernel<D, DP, BQ, BKV, CAUSAL>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((T + BQ - 1) / BQ, H, B);
-  attn_bwd_dq_kernel<D, BQ, BKV><<<grid, BQ / 16 * 32, bytes, stream>>>(
+  attn_bwd_dq_kernel<D, DP, BQ, BKV, CAUSAL><<<grid, BQ / 16 * 32, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), seg,
       static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse, static_cast<bf16*>(dq), delta, T, H, Hkv,
       scale);
   return (int)cudaGetLastError();
 }
 
-template <int D, int BQ, int BKV>
+template <int D, int DP, int BQ, int BKV, bool CAUSAL>
 int launch_dkdv(const void* q, const void* k, const void* v, const int* seg, const void* dout, const float* lse,
                 const float* delta, void* dk, void* dv, int B, int T, int H, int Hkv, float scale,
                 cudaStream_t stream) {
-  const size_t bytes = DkdvSmem<D, BQ, BKV>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dkdv_kernel<D, BQ, BKV>,
+  const size_t bytes = DkdvSmem<DP, BQ, BKV>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dkdv_kernel<D, DP, BQ, BKV, CAUSAL>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((T + BKV - 1) / BKV, Hkv, B);
-  attn_bwd_dkdv_kernel<D, BQ, BKV><<<grid, BKV / 16 * 32, bytes, stream>>>(
+  attn_bwd_dkdv_kernel<D, DP, BQ, BKV, CAUSAL><<<grid, BKV / 16 * 32, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), seg,
       static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), T, H, Hkv, scale);
   return (int)cudaGetLastError();
@@ -487,8 +517,8 @@ int fwd(const void* q, const void* k, const void* v, const void* seg, void* o, v
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* sg = static_cast<const int*>(seg);
   float* l = static_cast<float*>(lse);
-  if (D == 128) return launch_fwd<128, 64, 64>(q, k, v, sg, o, l, B, T, H, Hkv, scale, s);
-  if (D == 256) return launch_fwd<256, 64, 64>(q, k, v, sg, o, l, B, T, H, Hkv, scale, s);
+  if (D == 128) return launch_fwd<128, 128, 64, 64, true>(q, k, v, sg, o, l, B, T, H, Hkv, scale, s);
+  if (D == 256) return launch_fwd<256, 256, 64, 64, true>(q, k, v, sg, o, l, B, T, H, Hkv, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -499,8 +529,8 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* seg, const v
   const int* sg = static_cast<const int*>(seg);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
-  if (D == 128) return launch_dq<128, 64, 64>(q, k, v, sg, o, dout, l, dq, dl, B, T, H, Hkv, scale, s);
-  if (D == 256) return launch_dq<256, 64, 32>(q, k, v, sg, o, dout, l, dq, dl, B, T, H, Hkv, scale, s);
+  if (D == 128) return launch_dq<128, 128, 64, 64, true>(q, k, v, sg, o, dout, l, dq, dl, B, T, H, Hkv, scale, s);
+  if (D == 256) return launch_dq<256, 256, 64, 32, true>(q, k, v, sg, o, dout, l, dq, dl, B, T, H, Hkv, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -511,22 +541,28 @@ int bwd_dkdv(const void* q, const void* k, const void* v, const void* seg, const
   const int* sg = static_cast<const int*>(seg);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
-  if (D == 128) return launch_dkdv<128, 64, 64>(q, k, v, sg, dout, l, dl, dk, dv, B, T, H, Hkv, scale, s);
-  if (D == 256) return launch_dkdv<256, 64, 32>(q, k, v, sg, dout, l, dl, dk, dv, B, T, H, Hkv, scale, s);
+  if (D == 128) return launch_dkdv<128, 128, 64, 64, true>(q, k, v, sg, dout, l, dl, dk, dv, B, T, H, Hkv, scale, s);
+  if (D == 256) return launch_dkdv<256, 256, 64, 32, true>(q, k, v, sg, dout, l, dl, dk, dv, B, T, H, Hkv, scale, s);
   return (int)cudaErrorInvalidValue;
 }
+
+// flash_sdpa_full: head_dim 72 (the SigLIP towers' 1152 / 16), padded to 80 in shared memory.
+constexpr int FULL_D = 72, FULL_DP = 80;
 
 }  // namespace
 
 // All tensors contiguous on one device. Each entry launches on `stream` and returns
-// cudaGetLastError() (0 on success). D is 128 or 256.
+// cudaGetLastError() (0 on success).
 //
-// attn_*: the fused_sdpa_bthd counterpart, batch 1. q, o, dout, dq: (T, H, D) bf16; k, v, dk, dv:
-// (T, Hkv, D) bf16; seg: (T,) int32; lse, delta: (H, T) f32.
+// attn_*: the fused_sdpa_bthd counterpart, batch 1, D 128 or 256. q, o, dout, dq: (T, H, D) bf16;
+// k, v, dk, dv: (T, Hkv, D) bf16; seg: (T,) int32; lse, delta: (H, T) f32.
 //
 // flash_*: the flash_sdpa counterpart, the same kernels over a batch of B left-padded rows, one
-// grid layer per row. q, o, dout, dq: (B, T, H, D) bf16; k, v, dk, dv: (B, T, Hkv, D) bf16; seg:
-// (B, T) int32 (0 = pad, 1 = real); lse, delta: (B, H, T) f32.
+// grid layer per row, D 128 or 256. q, o, dout, dq: (B, T, H, D) bf16; k, v, dk, dv:
+// (B, T, Hkv, D) bf16; seg: (B, T) int32 (0 = pad, 1 = real); lse, delta: (B, H, T) f32.
+//
+// flash_full_*: the flash_sdpa_full counterpart, non-causal over B rows of T real tokens, D 72
+// only. q, k, v, o, dout, dq, dk, dv: (B, T, H, D) bf16; lse, delta: (B, H, T) f32.
 
 extern "C" int attn_fwd_bf16(const void* q, const void* k, const void* v, const void* seg, void* o, void* lse,
                              int T, int H, int Hkv, int D, float scale, void* stream) {
@@ -560,4 +596,29 @@ extern "C" int flash_bwd_dkdv_bf16(const void* q, const void* k, const void* v, 
                                    const void* dout, const void* lse, const void* delta, void* dk, void* dv, int B,
                                    int T, int H, int Hkv, int D, float scale, void* stream) {
   return bwd_dkdv(q, k, v, seg, dout, lse, delta, dk, dv, B, T, H, Hkv, D, scale, stream);
+}
+
+extern "C" int flash_full_fwd_bf16(const void* q, const void* k, const void* v, void* o, void* lse, int B, int T,
+                                   int H, int D, float scale, void* stream) {
+  if (!shape_ok(B, T, H, H) || D != FULL_D) return (int)cudaErrorInvalidValue;
+  return launch_fwd<FULL_D, FULL_DP, 64, 64, false>(q, k, v, nullptr, o, static_cast<float*>(lse), B, T, H, H,
+                                                    scale, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int flash_full_bwd_dq_bf16(const void* q, const void* k, const void* v, const void* o,
+                                      const void* dout, const void* lse, void* dq, void* delta, int B, int T, int H,
+                                      int D, float scale, void* stream) {
+  if (!shape_ok(B, T, H, H) || D != FULL_D) return (int)cudaErrorInvalidValue;
+  return launch_dq<FULL_D, FULL_DP, 64, 64, false>(q, k, v, nullptr, o, dout, static_cast<const float*>(lse), dq,
+                                                   static_cast<float*>(delta), B, T, H, H, scale,
+                                                   static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int flash_full_bwd_dkdv_bf16(const void* q, const void* k, const void* v, const void* dout,
+                                        const void* lse, const void* delta, void* dk, void* dv, int B, int T, int H,
+                                        int D, float scale, void* stream) {
+  if (!shape_ok(B, T, H, H) || D != FULL_D) return (int)cudaErrorInvalidValue;
+  return launch_dkdv<FULL_D, FULL_DP, 64, 64, false>(q, k, v, nullptr, dout, static_cast<const float*>(lse),
+                                                     static_cast<const float*>(delta), dk, dv, B, T, H, H, scale,
+                                                     static_cast<cudaStream_t>(stream));
 }

@@ -7,23 +7,25 @@ import torch
 
 from adversarialvlm_tpu_torch.models.configs import VisionConfig
 from adversarialvlm_tpu_torch.models.layers import act_fn, layer_norm, linear, sdpa
-
-# the JAX tower switches to its flash kernel from this many tokens; that kernel is not ported
-FLASH_FULL_MIN_T = 2048
+from adversarialvlm_tpu_torch.ops.kernels.attention import vit_attention_route
+from adversarialvlm_tpu_torch.ops.kernels.flash import flash_sdpa_full
 
 
 def vit_attention(x: torch.Tensor, p: dict, num_heads: int) -> torch.Tensor:
+    """Non-causal multi-head attention over every token. The route (``vit_attention_route``) is
+    the counterpart of clip_vit.py:22-30: the flash_full kernels on the card at T >= 2048 (the
+    einsum would hold f32 (H, T, T) scores, 1 GiB per image and layer at Gemma-3's 4096 patches),
+    the plain sdpa otherwise."""
     b, t, d = x.shape
     hd = d // num_heads
-    if x.is_cuda and t >= FLASH_FULL_MIN_T:
-        raise NotImplementedError(
-            f"vision attention at T={t} needs flash_sdpa_full (ROADMAP kernels item 5, not "
-            "ported yet)"
-        )
+    route = vit_attention_route(x.device.type, t, hd)
     q = linear(x, p["q_proj"]).view(b, t, num_heads, hd).transpose(1, 2)
     k = linear(x, p["k_proj"]).view(b, t, num_heads, hd).transpose(1, 2)
     v = linear(x, p["v_proj"]).view(b, t, num_heads, hd).transpose(1, 2)
-    out = sdpa(q, k, v, None, hd**-0.5)
+    if route == "flash_full":
+        out = flash_sdpa_full(q, k, v, hd**-0.5)
+    else:
+        out = sdpa(q, k, v, None, hd**-0.5)
     return linear(out.transpose(1, 2).reshape(b, t, d), p["out_proj"])
 
 

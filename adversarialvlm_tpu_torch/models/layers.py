@@ -7,7 +7,8 @@ Routes to the hand-written kernels, each decided from what the call can observe:
     ``LinearPdx``, whose backward is the dgrad kernel;
   * ``self_attention`` takes the route ``ops.kernels.attention.attention_route`` chose: the fused
     kernels at batch 1, the flash kernels at batch >= 2 (both on the new tokens' k/v, uncached or
-    at cache start), the plain sdpa for a cached decode step; other shapes raise on the card.
+    at cache start), the plain sdpa for a cached decode step and for a layer with a sliding
+    window or gemma3's bidirectional image block; other shapes raise on the card.
 On the CPU both take the plain path, which is the JAX package's CPU path.
 """
 
@@ -25,10 +26,15 @@ from adversarialvlm_tpu_torch.ops.kernels.flash import flash_sdpa
 NEG_INF = -2.0e38
 
 
-def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float, plus_one: bool = False) -> torch.Tensor:
+    """``plus_one``: the gemma parameterization, weight stored as w - 1 and applied as 1 + w in
+    f32."""
     xf = x.float()
     xf = xf * torch.rsqrt(xf.pow(2).mean(dim=-1, keepdim=True) + eps)
-    return (xf * weight.float()).to(x.dtype)
+    w = weight.float()
+    if plus_one:
+        w = w + 1.0
+    return (xf * w).to(x.dtype)
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float) -> torch.Tensor:
@@ -89,10 +95,19 @@ def sdpa(q, k, v, bias, scale: float) -> torch.Tensor:
     return torch.matmul(probs, v)
 
 
-def causal_bias(attention_mask, q_positions, k_positions) -> torch.Tensor:
+def causal_bias(attention_mask, q_positions, k_positions, sliding_window: int | None = None,
+                bidir_mask=None, k_bidir_mask=None) -> torch.Tensor:
     """Additive (B, 1, Tq, Tk) f32 bias from a padding mask (B, Tk; 1 = real) and monotone
-    position ids: causal on positions, padding keys masked."""
+    position ids: causal on positions (within ``sliding_window`` when given), padding keys
+    masked. ``bidir_mask`` (B, Tq) marks tokens that attend each other both ways regardless of
+    causality and window (gemma3's image tokens); ``k_bidir_mask`` (B, Tk) defaults to it when q
+    and k cover the same tokens."""
     ok = q_positions[:, :, None] >= k_positions[:, None, :]
+    if sliding_window is not None:
+        ok = ok & (q_positions[:, :, None] - k_positions[:, None, :] < sliding_window)
+    if bidir_mask is not None:
+        kb = k_bidir_mask if k_bidir_mask is not None else bidir_mask
+        ok = ok | (bidir_mask[:, :, None] & kb[:, None, :])
     ok = ok & (attention_mask[:, None, :] > 0)
     return torch.where(ok[:, None], 0.0, NEG_INF).float()
 
@@ -129,18 +144,29 @@ def self_attention(x, p, cfg: TextConfig, bias, cos, sin, attention_mask, kv_cac
     """Causal self-attention. ``route`` comes from ``attention_route``: "fused" and "flash" run
     the kernels in the projections' (B, T, H, D) layout on the new tokens' k/v with
     ``attention_mask`` (B, T) as the segment mask, and ``bias`` is unused; "plain" feeds ``bias``
-    (from :func:`causal_bias`, over the whole cache when there is one) to the plain sdpa.
+    (from :func:`causal_bias`, over the whole cache when there is one, with the layer's sliding
+    window and gemma3's bidirectional image block) to the plain sdpa. Gemma's qk-norm and
+    ``query_pre_attn_scalar`` scale apply on every route.
     ``kv_cache`` = (k, v), each (B, Hkv, Tmax, D), takes the new k/v at ``cache_index`` in place;
     a 4-tuple is the int8 cache, not ported yet."""
     b, t, _ = x.shape
     hd = cfg.head_dim_
     n_rep = cfg.num_heads // cfg.num_kv_heads
-    scale = hd**-0.5
+    scale = (cfg.query_pre_attn_scalar if cfg.query_pre_attn_scalar is not None else hd) ** -0.5
     if kv_cache is not None and len(kv_cache) != 2:
         raise NotImplementedError("the int8 KV cache waits for models/quant.py (ROADMAP modules item 10)")
+
+    def qk_norm(x4, name):
+        # gemma3: rms-norm over head_dim before rope, in either layout
+        if not cfg.use_qk_norm:
+            return x4
+        return rms_norm(x4, p[name]["weight"], cfg.rms_norm_eps, cfg.rms_plus_one_)
+
     if route in ("fused", "flash"):
-        q4 = apply_rope_bthd(linear(x, p["q_proj"]).view(b, t, cfg.num_heads, hd), cos, sin)
-        k4 = apply_rope_bthd(linear(x, p["k_proj"]).view(b, t, cfg.num_kv_heads, hd), cos, sin)
+        q4 = qk_norm(linear(x, p["q_proj"]).view(b, t, cfg.num_heads, hd), "q_norm")
+        k4 = qk_norm(linear(x, p["k_proj"]).view(b, t, cfg.num_kv_heads, hd), "k_norm")
+        q4 = apply_rope_bthd(q4, cos, sin)
+        k4 = apply_rope_bthd(k4, cos, sin)
         v4 = linear(x, p["v_proj"]).view(b, t, cfg.num_kv_heads, hd)
         if kv_cache is not None:
             _write_cache(kv_cache, k4.transpose(1, 2), v4.transpose(1, 2), cache_index)
@@ -153,8 +179,8 @@ def self_attention(x, p, cfg: TextConfig, bias, cos, sin, attention_mask, kv_cac
     q = linear(x, p["q_proj"]).view(b, t, cfg.num_heads, hd).transpose(1, 2)
     k = linear(x, p["k_proj"]).view(b, t, cfg.num_kv_heads, hd).transpose(1, 2)
     v = linear(x, p["v_proj"]).view(b, t, cfg.num_kv_heads, hd).transpose(1, 2)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    q = apply_rope(qk_norm(q, "q_norm"), cos, sin)
+    k = apply_rope(qk_norm(k, "k_norm"), cos, sin)
     if kv_cache is not None:
         _write_cache(kv_cache, k, v, cache_index)
         k, v = (c.to(x.dtype) for c in kv_cache)

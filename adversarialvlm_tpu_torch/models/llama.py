@@ -1,7 +1,8 @@
-"""Llama-family causal text decoder (the LLaVA / Vicuna stack), unrolled over a list of layers.
-Counterpart of adversarialvlm_tpu/models/llama.py; params mirror HF naming:
-embed_tokens.weight, layers[i].{input_layernorm, self_attn.{q,k,v,o}_proj,
-post_attention_layernorm, mlp.{gate,up,down}_proj}, norm, lm_head.
+"""Llama-family causal text decoder (the LLaVA / Vicuna stack and, through config switches, the
+Gemma-3 one), unrolled over a list of layers. Counterpart of adversarialvlm_tpu/models/llama.py;
+params mirror HF naming: embed_tokens.weight, layers[i].{input_layernorm,
+self_attn.{q,k,v,o}_proj, post_attention_layernorm, mlp.{gate,up,down}_proj}, norm, lm_head, and
+for gemma3 self_attn.{q,k}_norm and {pre,post}_feedforward_layernorm.
 """
 
 from __future__ import annotations
@@ -21,15 +22,47 @@ from adversarialvlm_tpu_torch.ops.kernels.attention import attention_route
 
 
 def embed(params: dict, input_ids: torch.Tensor, cfg: TextConfig) -> torch.Tensor:
-    return params["embed_tokens"]["weight"][input_ids.long()]
+    table = params["embed_tokens"]["weight"]
+    # ids past the table read its last row, as the JAX package's gather clamps them (the tiny
+    # configs' chat specials, e.g. gemma3's turn markers, lie past their 384-row vocab)
+    x = table[input_ids.long().clamp(0, table.shape[0] - 1)]
+    if cfg.embed_scale:
+        # the scale is rounded to the activation dtype first, as in the JAX package (llama.py:32)
+        x = x * torch.tensor(cfg.hidden_size**0.5, dtype=x.dtype, device=x.device)
+    return x
+
+
+def _layer_rope_theta(cfg: TextConfig, layer_idx: int) -> float:
+    if cfg.rope_local_base_freq is not None and cfg.sliding_window_pattern:
+        is_global = (layer_idx + 1) % cfg.sliding_window_pattern == 0
+        return cfg.rope_theta if is_global else cfg.rope_local_base_freq
+    return cfg.rope_theta
+
+
+def _layer_sliding_window(cfg: TextConfig, layer_idx: int) -> int | None:
+    if cfg.sliding_window is None:
+        return None
+    if cfg.sliding_window_pattern:
+        is_global = (layer_idx + 1) % cfg.sliding_window_pattern == 0
+        return None if is_global else cfg.sliding_window
+    return cfg.sliding_window
 
 
 def decoder_layer(x, p, cfg: TextConfig, bias, cos, sin, attention_mask, kv_cache=None,
                   cache_index=None, route="plain"):
-    h = rms_norm(x, p["input_layernorm"]["weight"], cfg.rms_norm_eps)
-    x = x + self_attention(h, p["self_attn"], cfg, bias, cos, sin, attention_mask, kv_cache,
-                           cache_index, route)
-    h = rms_norm(x, p["post_attention_layernorm"]["weight"], cfg.rms_norm_eps)
+    # sublayer outputs stay temporaries, so none outlives its residual add (at a 50-row decode
+    # prefill one is a quarter GiB)
+    def norm(y, name):
+        return rms_norm(y, p[name]["weight"], cfg.rms_norm_eps, cfg.rms_plus_one_)
+
+    attn_args = (p["self_attn"], cfg, bias, cos, sin, attention_mask, kv_cache, cache_index, route)
+    h = norm(x, "input_layernorm")
+    if cfg.post_attn_pre_mlp_norms:  # gemma3's sandwich norms
+        x = x + norm(self_attention(h, *attn_args), "post_attention_layernorm")
+        h = norm(x, "pre_feedforward_layernorm")
+        return x + norm(mlp_swiglu(h, p["mlp"], cfg.hidden_act), "post_feedforward_layernorm")
+    x = x + self_attention(h, *attn_args)
+    h = norm(x, "post_attention_layernorm")
     return x + mlp_swiglu(h, p["mlp"], cfg.hidden_act)
 
 
@@ -44,12 +77,17 @@ def forward(
     cache_index: int | None = None,
     kv_attention_mask: torch.Tensor | None = None,
     kv_positions: torch.Tensor | None = None,
+    bidir_mask: torch.Tensor | None = None,
+    k_bidir_mask: torch.Tensor | None = None,
     logits_last_k: int | None = None,
 ) -> torch.Tensor:
     """Causal LM forward over left-padded rows; attention_mask (B, T) over the query tokens,
     1 = real token. With ``kv_caches`` (one (k, v) per layer, updated in place) the new tokens
     land at ``cache_index`` and ``kv_attention_mask``/``kv_positions`` cover the whole cache.
-    Returns logits (B, T or logits_last_k, vocab)."""
+    ``bidir_mask`` (B, T) marks gemma3's image tokens, which attend each other both ways
+    (``k_bidir_mask`` covers the whole cache at prefill). Each layer takes its own rope theta and
+    sliding window; a layer with a window or the image block is ``masked`` and takes the plain
+    route. Returns logits (B, T or logits_last_k, vocab)."""
     x = embed(params, input_ids, cfg) if inputs_embeds is None else inputs_embeds
     b, t, _ = x.shape
     if attention_mask is None:
@@ -58,17 +96,40 @@ def forward(
         positions = torch.clamp(torch.cumsum(attention_mask, dim=1) - 1, min=0)
     k_mask = kv_attention_mask if kv_attention_mask is not None else attention_mask
     k_pos = kv_positions if kv_positions is not None else positions
-    cos, sin = rope_cos_sin(positions, cfg.head_dim_, cfg.rope_theta)
     if kv_caches is not None and cache_index is None:
         raise ValueError("kv_caches need a cache_index")
-    route = attention_route(
-        x.device.type, b, t, cfg.num_heads, cfg.head_dim_, cfg.num_heads // cfg.num_kv_heads,
-        cache_index if kv_caches is not None else None,
-    )
+
+    def cos_sin(theta):
+        pos = positions
+        if cfg.rope_linear_factor is not None and theta == cfg.rope_theta:
+            # gemma3: linear scaling on the global layers' rope only, positions / factor in f32
+            pos = positions.float() / cfg.rope_linear_factor
+        return rope_cos_sin(pos, cfg.head_dim_, theta)
+
+    theta_cache: dict[float, tuple] = {}
+    route_cache: dict[bool, str] = {}
     # the kernels see only the new tokens, so the query-side mask is their segment mask; the
     # plain path attends the whole cache through the bias
-    bias = causal_bias(k_mask, positions, k_pos) if route == "plain" else None
+    bias_cache: dict[int | None, torch.Tensor] = {}
     for i, p in enumerate(params["layers"]):
+        theta = _layer_rope_theta(cfg, i)
+        if theta not in theta_cache:
+            theta_cache[theta] = cos_sin(theta)
+        cos, sin = theta_cache[theta]
+        sw = _layer_sliding_window(cfg, i)
+        masked = sw is not None or bidir_mask is not None
+        if masked not in route_cache:
+            route_cache[masked] = attention_route(
+                x.device.type, b, t, cfg.num_heads, cfg.head_dim_,
+                cfg.num_heads // cfg.num_kv_heads,
+                cache_index if kv_caches is not None else None, masked,
+            )
+        route = route_cache[masked]
+        bias = None
+        if route == "plain":
+            if sw not in bias_cache:
+                bias_cache[sw] = causal_bias(k_mask, positions, k_pos, sw, bidir_mask, k_bidir_mask)
+            bias = bias_cache[sw]
         kv = kv_caches[i] if kv_caches is not None else None
         x = decoder_layer(x, p, cfg, bias, cos, sin, attention_mask, kv, cache_index, route)
     return _head(params, cfg, x, logits_last_k)
@@ -78,10 +139,15 @@ def _head(params, cfg: TextConfig, x, logits_last_k=None):
     if logits_last_k is not None and x.shape[1] > logits_last_k:
         # the suffix CE scores only the final positions: skip the vocab matmul for the rest
         x = x[:, -logits_last_k:, :]
-    x = rms_norm(x, params["norm"]["weight"], cfg.rms_norm_eps)
+    x = rms_norm(x, params["norm"]["weight"], cfg.rms_norm_eps, cfg.rms_plus_one_)
     if cfg.tie_word_embeddings or "lm_head" not in params:
-        return torch.matmul(x, params["embed_tokens"]["weight"][: cfg.vocab_size].to(x.dtype).t())
-    return linear(x, params["lm_head"])
+        logits = torch.matmul(x, params["embed_tokens"]["weight"][: cfg.vocab_size].to(x.dtype).t())
+    else:
+        logits = linear(x, params["lm_head"])
+    if cfg.final_logit_softcapping:
+        cap = cfg.final_logit_softcapping
+        logits = torch.tanh(logits / cap) * cap
+    return logits
 
 
 def init_params(generator: torch.Generator, cfg: TextConfig, dtype, device) -> dict:

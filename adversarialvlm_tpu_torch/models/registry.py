@@ -1,6 +1,6 @@
 """Model bundles: config, params, a uniform forward and greedy decode, the one interface the
 attack and eval engines talk to. Counterpart of adversarialvlm_tpu/models/registry.py for the
-llava family."""
+llava and gemma3 families."""
 
 from __future__ import annotations
 
@@ -9,6 +9,7 @@ from typing import Callable
 
 import torch
 
+from adversarialvlm_tpu_torch.models import gemma3 as gemma3_model
 from adversarialvlm_tpu_torch.models import llava as llava_model
 from adversarialvlm_tpu_torch.models.configs import VLMConfig
 from adversarialvlm_tpu_torch.models.generate import FSM_WAITS, generate_core, make_kv_caches
@@ -55,11 +56,16 @@ class ModelBundle:
         return make_kv_caches(self.cfg.text, batch, total_len, dtype, self.device)
 
 
-def _llava_forward(cfg: VLMConfig):
+# family -> model module with init_params(generator, cfg, dtype, device) and
+# forward(params, cfg, input_ids, attention_mask, pixel_values, logits_last_k=, **cache_kw)
+_MODELS = {"llava": llava_model, "gemma3": gemma3_model}
+
+
+def _forward(model, cfg: VLMConfig):
     def fwd(params, input_ids, attention_mask, pixel_inputs=None, logits_last_k=None, **cache_kw):
         pv = pixel_inputs["pixel_values"] if pixel_inputs else None
-        return llava_model.forward(params, cfg, input_ids, attention_mask, pv,
-                                   logits_last_k=logits_last_k, **cache_kw)
+        return model.forward(params, cfg, input_ids, attention_mask, pv,
+                             logits_last_k=logits_last_k, **cache_kw)
 
     return fwd
 
@@ -75,13 +81,15 @@ def make_bundle(
 ) -> ModelBundle:
     """A bundle over ``params``, or over random weights drawn from a ``torch.Generator`` on
     ``device`` seeded with ``seed``. Weights never require grad: the attack differentiates
-    w.r.t. the image alone."""
-    if family != "llava":
+    w.r.t. the image alone. Stop tokens: the config's eos and its extra eos ids (gemma3: 106 and
+    1)."""
+    model = _MODELS.get(family)
+    if model is None:
         raise NotImplementedError(
             f"family {family!r} is not ported yet (ROADMAP modules item 8)"
         )
     if params is None:
         gen = torch.Generator(device=device).manual_seed(seed)
-        params = llava_model.init_params(gen, cfg, dtype, device)
-    return ModelBundle(name, family, cfg, params, _llava_forward(cfg), torch.device(device),
-                       eos_token_ids=(cfg.eos_token_id,))
+        params = model.init_params(gen, cfg, dtype, device)
+    return ModelBundle(name, family, cfg, params, _forward(model, cfg), torch.device(device),
+                       eos_token_ids=(cfg.eos_token_id, *cfg.extra_eos_token_ids))

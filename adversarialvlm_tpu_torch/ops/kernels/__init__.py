@@ -14,6 +14,9 @@ LAUNCHES: dict[str, int] = {
     "flash_fwd": 0,
     "flash_bwd_dq": 0,
     "flash_bwd_dkdv": 0,
+    "flash_full_fwd": 0,
+    "flash_full_bwd_dq": 0,
+    "flash_full_bwd_dkdv": 0,
 }
 
 

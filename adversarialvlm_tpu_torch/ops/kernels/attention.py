@@ -1,7 +1,8 @@
 """Batch-1 causal attention with a segment mask in (B, T, H, D) layout: the three CUDA kernels of
 ``csrc/attention.cu`` (forward; dq; dk/dv), their plain versions and the autograd Function; and
 ``attention_route``, which picks the decoder attention's route (this module, the flash kernels of
-``flash.py``, or the plain sdpa).
+``flash.py``, or the plain sdpa), and ``vit_attention_route``, the vision towers' (the non-causal
+flash_full kernels of ``flash.py``, or the plain sdpa).
 
 Counterpart of adversarialvlm_tpu/ops/pallas/fused_attention.py::fused_sdpa_bthd. Query row i
 attends key j when j <= i and seg[i] == seg[j]; left pads carry segment 0, so pad rows stay
@@ -27,6 +28,7 @@ from adversarialvlm_tpu_torch.ops.kernels.build import (
     stream_of,
 )
 from adversarialvlm_tpu_torch.ops.kernels.flash import (
+    FULL_HEAD_DIMS,
     HEAD_DIMS,
     flash_bwd_dkdv_plain,
     flash_bwd_dq_plain,
@@ -48,9 +50,10 @@ _KERNEL_ROUTES_ON_CPU = [False]
 
 @contextlib.contextmanager
 def kernel_routes_on_cpu():
-    """Route CPU tensors as the card routes CUDA ones (fused, flash or plain by shape), so the
-    kernels' plain versions run inside the model: the CPU tests' way to hold those routes against
-    the JAX package's use_flash_attention(True). Head dims are not checked on the CPU."""
+    """Route CPU tensors as the card routes CUDA ones (fused, flash, flash_full or plain by
+    shape), so the kernels' plain versions run inside the model: the CPU tests' way to hold those
+    routes against the JAX package's use_flash_attention(True). Head dims are not checked on the
+    CPU."""
     _KERNEL_ROUTES_ON_CPU[0] = True
     try:
         yield
@@ -59,10 +62,13 @@ def kernel_routes_on_cpu():
 
 
 def attention_route(device_type: str, b: int, t: int, h: int, d: int, n_rep: int,
-                    cache_index: int | None = None) -> str:
-    """The decoder attention's route, the counterpart of llama.py:337-356 and layers.py:527-537:
-      * "plain": the bias + einsum sdpa, on the CPU, and on the card for a cached decode step
-        (T = 1 at cache index > 0), which has no Pallas kernel in the JAX package either;
+                    cache_index: int | None = None, masked: bool = False) -> str:
+    """The decoder attention's route, the counterpart of llama.py:337-356, the per-layer choice
+    at llama.py:405-412 and layers.py:527-537:
+      * "plain": the bias + einsum sdpa, on the CPU; on the card for a cached decode step (T = 1
+        at cache index > 0) and for a ``masked`` layer (a sliding window, or gemma3's
+        bidirectional image block), which the JAX package computes with that einsum outside any
+        Pallas kernel too;
       * "fused": the batch-1 kernels of this module (fused_sdpa_bthd), uncached or at cache start;
       * "flash": the flash kernels (flash_sdpa), batch >= 2 and T > 1, uncached or at cache start.
     ``cache_index`` is None without a KV cache. On the card any other shape raises: there is no
@@ -71,6 +77,8 @@ def attention_route(device_type: str, b: int, t: int, h: int, d: int, n_rep: int
         return "plain"
     if device_type not in ("cpu", "cuda"):
         raise ValueError(f"no attention route for device type {device_type!r}")
+    if masked:
+        return "plain"
     if cache_index is not None and cache_index > 0:
         if t == 1:
             return "plain"
@@ -89,6 +97,31 @@ def attention_route(device_type: str, b: int, t: int, h: int, d: int, n_rep: int
     if t > 1:
         return "flash"
     raise NotImplementedError(f"uncached decoder attention at batch {b} and T = 1: no route")
+
+
+VIT_FLASH_MIN_T = 2048  # the JAX tower switches to flash_sdpa_full from this many tokens
+
+
+def vit_attention_route(device_type: str, t: int, d: int) -> str:
+    """The vision tower attention's route, the counterpart of clip_vit.py:22-30:
+      * "flash_full": the non-causal flash_full kernels (flash_sdpa_full), on the card at
+        T >= 2048 (Gemma-3's 4096-patch SigLIP tower);
+      * "plain": the einsum sdpa below that (the CLIP tower's 577 tokens), and on the CPU.
+    Inside ``kernel_routes_on_cpu()`` CPU tensors route as the card's, through the kernels' plain
+    versions. On the card a head dim the kernels do not take raises: no fallback."""
+    if device_type == "cpu" and not _KERNEL_ROUTES_ON_CPU[0]:
+        return "plain"
+    if device_type not in ("cpu", "cuda"):
+        raise ValueError(f"no attention route for device type {device_type!r}")
+    if t < VIT_FLASH_MIN_T:
+        return "plain"
+    if device_type == "cuda" and d not in FULL_HEAD_DIMS:
+        raise NotImplementedError(
+            f"vision attention at T={t} and head_dim {d} on the card: the flash_sdpa_full kernels "
+            f"take head_dim in {FULL_HEAD_DIMS}; other head dims come with their families (ROADMAP "
+            "modules item 8)"
+        )
+    return "flash_full"
 
 
 def attention_plain(q, k, v, seg, scale):

@@ -14,6 +14,21 @@ tiles T with an online softmax and keeps the row logsumexp as the extra residual
 k and v in the projections' (B, T, H, D) layout, and kv head h // n_rep for q-head h, so neither a
 transpose copy nor ``repeat_kv`` is materialised. The TPU entry pads T to its block and head_dim
 to 128 lanes; these kernels mask the ragged tile and take head_dim 128 or 256 only.
+
+Non-causal attention for vision towers, ``flash_sdpa_full``: the flash_full entries of the same
+source (forward; dq, which writes δ; dk/dv), their plain versions and ``FlashFullAttention``.
+Counterpart of adversarialvlm_tpu/ops/pallas/attention.py::flash_sdpa_full (:214), which runs the
+stock TPU flash_attention kernels through _flash_call (:97) with causal=False, T right-padded to
+its block with segment 0 and head_dim zero-padded to 128 lanes; its semantics are those of
+_ref_attention(..., causal=False) (:160): every query attends every key, softmax in f32, output in
+q's dtype. On the card it is the same three kernel templates with the causal limit and the
+segment array compiled out, at head_dim 72 (Gemma-3's SigLIP tower, 16 heads of 72 over 4096
+patches). What bounds it: the forward is 4·T²·D·H = 77.3 GFLOP per image on 37.7 MB of q/k/v/o,
+so the tensor cores do; the design keeps every (T, T) tile in shared memory (a plain version holds
+a 1 GiB f32 score tensor per layer and image, and autograd would keep the probabilities of all 27
+layers) and pads 72 to 80 columns there only (WMMA's k-step is 16), zero-filled, so q·kᵀ is
+unchanged and only 72 columns are written. Other head dims raise on the card (ROADMAP modules
+item 8: qwen2vl's 80 comes with that family).
 """
 
 from __future__ import annotations
@@ -33,6 +48,7 @@ from adversarialvlm_tpu_torch.ops.kernels.build import (
 
 NEG = -1e30
 HEAD_DIMS = (128, 256)
+FULL_HEAD_DIMS = (72,)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,6 +57,9 @@ _SIGNATURES = {
     "flash_fwd_bf16": [_P] * 6 + [_I] * 5 + [_F, _P],
     "flash_bwd_dq_bf16": [_P] * 9 + [_I] * 5 + [_F, _P],
     "flash_bwd_dkdv_bf16": [_P] * 9 + [_I] * 5 + [_F, _P],
+    "flash_full_fwd_bf16": [_P] * 5 + [_I] * 4 + [_F, _P],
+    "flash_full_bwd_dq_bf16": [_P] * 8 + [_I] * 4 + [_F, _P],
+    "flash_full_bwd_dkdv_bf16": [_P] * 8 + [_I] * 4 + [_F, _P],
 }
 
 
@@ -62,16 +81,18 @@ def _scores(q, k, scale):
     return _heads_f32(q) @ _heads_f32(k, n_rep).transpose(-1, -2) * scale
 
 
-def _probs(q, k, seg, lse, scale):
+def _probs(q, k, allowed, lse, scale):
     p = torch.exp(_scores(q, k, scale) - lse[..., None])
-    return torch.where(allowed_pairs(seg)[:, None], p, 0.0)
+    return p if allowed is None else torch.where(allowed[:, None], p, 0.0)
 
 
-def flash_plain(q, k, v, seg, scale):
-    """The masked f32 softmax written out. q (B, T, H, D), k/v (B, T, Hkv, D), seg (B, T) ->
-    (o (B, T, H, D) in q's dtype, lse (B, H, T) f32)."""
+def _attend(q, k, v, allowed, scale):
+    """The f32 softmax written out over the pairs ``allowed`` (B, T, T) marks, or every pair for
+    None. q (B, T, H, D), k/v (B, T, Hkv, D) -> (o (B, T, H, D) in q's dtype, lse (B, H, T))."""
     n_rep = q.shape[2] // k.shape[2]
-    s = _scores(q, k, scale).masked_fill(~allowed_pairs(seg)[:, None], NEG)
+    s = _scores(q, k, scale)
+    if allowed is not None:
+        s = s.masked_fill(~allowed[:, None], NEG)
     m = s.amax(dim=-1, keepdim=True)
     e = torch.exp(s - m)
     l = e.sum(dim=-1, keepdim=True)
@@ -79,22 +100,20 @@ def flash_plain(q, k, v, seg, scale):
     return o.permute(0, 2, 1, 3).to(q.dtype), (m + torch.log(l))[..., 0]
 
 
-def flash_bwd_dq_plain(q, k, v, seg, o, lse, do, scale):
-    """dq (B, T, H, D) in q's dtype and δ = rowsum(dO ⊙ O) (B, H, T) f32 from the residuals."""
+def _bwd_dq(q, k, v, allowed, o, lse, do, scale):
     n_rep = q.shape[2] // k.shape[2]
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2)
-    p = _probs(q, k, seg, lse, scale)
+    p = _probs(q, k, allowed, lse, scale)
     dp = _heads_f32(do) @ _heads_f32(v, n_rep).transpose(-1, -2)
     ds = p * (dp - delta[..., None]) * scale
     dq = ds @ _heads_f32(k, n_rep)
     return dq.permute(0, 2, 1, 3).to(q.dtype), delta
 
 
-def flash_bwd_dkdv_plain(q, k, v, seg, lse, delta, do, scale):
-    """dk, dv (B, T, Hkv, D) in k's dtype, summed over each kv head's n_rep q-heads in f32."""
+def _bwd_dkdv(q, k, v, allowed, lse, delta, do, scale):
     b, t, hkv, d = k.shape
     n_rep = q.shape[2] // hkv
-    p = _probs(q, k, seg, lse, scale)
+    p = _probs(q, k, allowed, lse, scale)
     dp = _heads_f32(do) @ _heads_f32(v, n_rep).transpose(-1, -2)
     ds = p * (dp - delta[..., None]) * scale
     dv = p.transpose(-1, -2) @ _heads_f32(do)
@@ -104,6 +123,38 @@ def flash_bwd_dkdv_plain(q, k, v, seg, lse, delta, do, scale):
         return x.reshape(b, hkv, n_rep, t, d).sum(2).permute(0, 2, 1, 3).to(k.dtype)
 
     return fold(dk), fold(dv)
+
+
+def flash_plain(q, k, v, seg, scale):
+    """The masked f32 softmax written out. q (B, T, H, D), k/v (B, T, Hkv, D), seg (B, T) ->
+    (o (B, T, H, D) in q's dtype, lse (B, H, T) f32)."""
+    return _attend(q, k, v, allowed_pairs(seg), scale)
+
+
+def flash_bwd_dq_plain(q, k, v, seg, o, lse, do, scale):
+    """dq (B, T, H, D) in q's dtype and δ = rowsum(dO ⊙ O) (B, H, T) f32 from the residuals."""
+    return _bwd_dq(q, k, v, allowed_pairs(seg), o, lse, do, scale)
+
+
+def flash_bwd_dkdv_plain(q, k, v, seg, lse, delta, do, scale):
+    """dk, dv (B, T, Hkv, D) in k's dtype, summed over each kv head's n_rep q-heads in f32."""
+    return _bwd_dkdv(q, k, v, allowed_pairs(seg), lse, delta, do, scale)
+
+
+def flash_full_plain(q, k, v, scale):
+    """Non-causal: every query attends every key. q, k, v (B, T, H, D) -> (o (B, T, H, D) in q's
+    dtype, lse (B, H, T) f32)."""
+    return _attend(q, k, v, None, scale)
+
+
+def flash_full_bwd_dq_plain(q, k, v, o, lse, do, scale):
+    """dq (B, T, H, D) in q's dtype and δ (B, H, T) f32 of :func:`flash_full_plain`."""
+    return _bwd_dq(q, k, v, None, o, lse, do, scale)
+
+
+def flash_full_bwd_dkdv_plain(q, k, v, lse, delta, do, scale):
+    """dk, dv (B, T, H, D) in k's dtype of :func:`flash_full_plain`."""
+    return _bwd_dkdv(q, k, v, None, lse, delta, do, scale)
 
 
 def _shapes(what, q, k, seg):
@@ -221,3 +272,105 @@ def flash_sdpa(q, k, v, attention_mask, scale: float) -> torch.Tensor:
     q4, k4, v4 = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     seg = attention_mask.to(device=q.device, dtype=torch.int32).contiguous()
     return FlashAttention.apply(q4, k4, v4, seg, float(scale)).transpose(1, 2)
+
+
+def _full_shapes(what, q, k):
+    if q.dim() != 4:
+        raise ValueError(f"{what}: expected (B, T, H, D) operands, got {tuple(q.shape)}")
+    b, t, h, d = q.shape
+    if d not in FULL_HEAD_DIMS:
+        raise ValueError(
+            f"{what}: head_dim {d} is not taken on the card (the non-causal kernels take "
+            f"{FULL_HEAD_DIMS}; other head dims come with their families, ROADMAP modules item 8)"
+        )
+    if k.shape != q.shape:
+        raise ValueError(f"{what}: unsupported shapes q {tuple(q.shape)}, k {tuple(k.shape)}")
+    return b, t, h, d
+
+
+def flash_full_fwd(q, k, v, scale):
+    """(o, lse) of :func:`flash_full_plain`; CUDA tensors launch the forward kernel."""
+    if q.device.type == "cpu":
+        return flash_full_plain(q, k, v, scale)
+    b, t, h, d = _full_shapes("flash_full_fwd", q, k)
+    check_cuda_operands("flash_full_fwd", torch.bfloat16, q, k, v)
+    if v.shape != q.shape:
+        raise ValueError("flash_full_fwd: v must have q's shape")
+    o = torch.empty_like(q)
+    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    rc = _lib().flash_full_fwd_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), b, t, h, d,
+        float(scale), stream_of(q),
+    )
+    check(rc, "flash_full_fwd")
+    LAUNCHES["flash_full_fwd"] += 1
+    return o, lse
+
+
+def flash_full_bwd_dq(q, k, v, o, lse, do, scale):
+    """(dq, δ) of :func:`flash_full_bwd_dq_plain`; CUDA tensors launch the dq kernel."""
+    if q.device.type == "cpu":
+        return flash_full_bwd_dq_plain(q, k, v, o, lse, do, scale)
+    b, t, h, d = _full_shapes("flash_full_bwd_dq", q, k)
+    check_cuda_operands("flash_full_bwd_dq", torch.bfloat16, q, k, v, o, do)
+    check_cuda_operands("flash_full_bwd_dq", torch.float32, lse, device=q.device)
+    if any(x.shape != q.shape for x in (v, o, do)) or lse.shape != (b, h, t):
+        raise ValueError("flash_full_bwd_dq: residual shapes do not match q")
+    dq = torch.empty_like(q)
+    delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    rc = _lib().flash_full_bwd_dq_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        dq.data_ptr(), delta.data_ptr(), b, t, h, d, float(scale), stream_of(q),
+    )
+    check(rc, "flash_full_bwd_dq")
+    LAUNCHES["flash_full_bwd_dq"] += 1
+    return dq, delta
+
+
+def flash_full_bwd_dkdv(q, k, v, lse, delta, do, scale):
+    """(dk, dv) of :func:`flash_full_bwd_dkdv_plain`; CUDA tensors launch the dk/dv kernel."""
+    if q.device.type == "cpu":
+        return flash_full_bwd_dkdv_plain(q, k, v, lse, delta, do, scale)
+    b, t, h, d = _full_shapes("flash_full_bwd_dkdv", q, k)
+    check_cuda_operands("flash_full_bwd_dkdv", torch.bfloat16, q, k, v, do)
+    check_cuda_operands("flash_full_bwd_dkdv", torch.float32, lse, delta, device=q.device)
+    if v.shape != q.shape or do.shape != q.shape or lse.shape != (b, h, t) or delta.shape != (b, h, t):
+        raise ValueError("flash_full_bwd_dkdv: residual shapes do not match q")
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    rc = _lib().flash_full_bwd_dkdv_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b, t, h, d, float(scale), stream_of(q),
+    )
+    check(rc, "flash_full_bwd_dkdv")
+    LAUNCHES["flash_full_bwd_dkdv"] += 1
+    return dk, dv
+
+
+class FlashFullAttention(torch.autograd.Function):
+    """Non-causal forward kernel; backward = dq kernel, then dk/dv kernel. Residuals: q, k, v, o,
+    lse, all in (B, T, ·, D) layout."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        o, lse = flash_full_fwd(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale = scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.contiguous()
+        with on_device_of(do):
+            dq, delta = flash_full_bwd_dq(q, k, v, o, lse, do, ctx.scale)
+            dk, dv = flash_full_bwd_dkdv(q, k, v, lse, delta, do, ctx.scale)
+        return dq, dk, dv, None
+
+
+def flash_sdpa_full(q, k, v, scale: float) -> torch.Tensor:
+    """Non-causal full self-attention, every token real, the JAX signature and layout:
+    q/k/v (B, H, T, D) -> (B, H, T, D). A (B, H, T, D) view of a (B, T, H, D) tensor, as the
+    tower's projections give, reaches the kernel without a copy."""
+    q4, k4, v4 = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    return FlashFullAttention.apply(q4, k4, v4, float(scale)).transpose(1, 2)

@@ -25,6 +25,7 @@ class AdvInputs:
         num_image_tokens: int,
         image_token_id: int,
         pad_token_id: int | None = None,
+        image_expansion_ids: list[int] | None = None,
     ):
         self.spec = spec
         self.tokenizer = tokenizer
@@ -34,7 +35,12 @@ class AdvInputs:
         self.num_image_tokens = num_image_tokens
         self.image_token_id = image_token_id
         self.pad_token_id = pad_token_id if pad_token_id is not None else tokenizer.pad_token_id
-        self.image_expansion_ids = [image_token_id] * num_image_tokens
+        # the token expansion of the image placeholder: num_image_tokens image tokens, or the
+        # family's framed form (gemma3: \n\n <boi> soft×256 <eoi> \n\n)
+        self.image_expansion_ids = (
+            list(image_expansion_ids) if image_expansion_ids is not None
+            else [image_token_id] * num_image_tokens
+        )
         self.target_texts = [target_texts] if isinstance(target_texts, str) else list(target_texts)
         self.shift = spec.shift(tokenizer)
         self._build_pools()
@@ -46,6 +52,9 @@ class AdvInputs:
         parts = text.split(ph)
         if len(parts) == 1:
             return self.tokenizer.encode(text, add_special_tokens=self.spec.add_special_tokens)
+        if not self.image_expansion_ids:
+            raise ValueError(f"prompt contains {ph!r} but image_expansion_ids is empty: the "
+                             "attack would see zero image tokens")
         out: list[int] = []
         for i, part in enumerate(parts):
             if part:

@@ -1,5 +1,5 @@
-"""Image-preprocessor configuration of the LLaVA family. Counterpart of
-adversarialvlm_tpu/processors/configs.py (the fields the llava processor reads)."""
+"""Image-preprocessor configurations of the llava and gemma3 families. Counterpart of
+adversarialvlm_tpu/processors/configs.py (the fields these processors read)."""
 
 from __future__ import annotations
 
@@ -15,8 +15,12 @@ class ImageProcessorConfig:
     image_std: tuple[float, float, float] = OPENAI_CLIP_STD
     crop_size: int = 336
     patch_size: int = 14
+    mm_tokens_per_image: int = 256  # gemma3: soft tokens per image after the projector's pool
 
 
 MODEL_IMAGE_CONFIGS: dict[str, ImageProcessorConfig] = {
     "llava-hf/llava-1.5-7b-hf": ImageProcessorConfig(crop_size=336),
+    "google/gemma-3-4b-it": ImageProcessorConfig(
+        image_mean=(0.5, 0.5, 0.5), image_std=(0.5, 0.5, 0.5), crop_size=896
+    ),
 }

@@ -1,4 +1,4 @@
-"""Chat prompt format and suffix bookkeeping of the LLaVA family. Counterpart of
+"""Chat prompt formats and suffix bookkeeping of the llava and gemma3 families. Counterpart of
 adversarialvlm_tpu/processors/prompts.py; the other families' formats come with their models.
 
 ``shift = len(tokenizer.encode(extra_token))`` reproduces the reference's suffix-CE alignment
@@ -59,7 +59,27 @@ def llava_spec() -> PromptSpec:
     )
 
 
+def gemma3_spec() -> PromptSpec:
+    # the image item comes first in the user turn; AdvInputs expands the placeholder to
+    # \n\n <start_of_image> soft×N <end_of_image> \n\n (attack.setup._image_expansion), so a
+    # prompt always carries the image tokens; text-only renders drop the placeholder
+    return PromptSpec(
+        family="gemma3",
+        train_text=lambda q, t: (
+            f"<start_of_turn>user\n<start_of_image>{q}<end_of_turn>\n<start_of_turn>model\n{t}<end_of_turn>\n"
+        ),
+        inference_text=lambda q: (
+            f"<start_of_turn>user\n<start_of_image>{q}<end_of_turn>\n<start_of_turn>model\n"
+        ),
+        extra_token="<end_of_turn>\n",
+        image_placeholder="<start_of_image>",
+    )
+
+
+SPECS = {"llava": llava_spec, "gemma3": gemma3_spec}
+
+
 def spec_for_family(family: str) -> PromptSpec:
-    if family != "llava":
+    if family not in SPECS:
         raise NotImplementedError(f"family {family!r} is not ported yet (ROADMAP modules item 8)")
-    return llava_spec()
+    return SPECS[family]()

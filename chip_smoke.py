@@ -22,11 +22,22 @@ Phases, in order (no exception is caught; any failure exits non-zero with no fin
   5. depth-cut references (2 decoder layers, 2 vision layers), the card in bf16 through the
      kernels against the CPU in f32 on the plain path: the attack step at batch 1 and at batch 4,
      and the test decode, teacher-forced.
+Then, with the LLaVA victim freed so that each phase's peak memory is its own, the Gemma-3-4B
+victim, whose 4096-patch SigLIP tower runs the non-causal flash_full kernels (their phase-3
+checks run first, before any victim is resident):
+  4c. the full-width, full-depth Gemma-3-4B-it attack (random bf16 weights from a seed) at the
+     default batch of 4 through ``train(run_tests=True)``: 1 warm-up + 2 steps, save boundaries at
+     iterations 0 and 2, each decoding the 50 held-out questions at 64 new tokens; launches are
+     attributed to the step, the monitor and the decode as in 4b;
+  5c. depth-cut references at full width (6 decoder layers, so five sliding-window layers and the
+     global one run; 2 vision layers at the full 4096 patches), the card in bf16 against the CPU
+     in f32 on the plain path: the batch-4 step and the test decode, teacher-forced.
 It then prints the kernels' JSON line, the card's name and power limit, and as its last line
 {"ok": true, "device": {...}}. Without a card it exits non-zero before printing anything.
 """
 
 import csv
+import gc
 import json
 import os
 import statistics
@@ -41,6 +52,7 @@ QUESTION = "Tell me the forbidden info."
 TARGET = "sure, here it is!"
 STEPS = 6                 # 1 warm-up + 5 timed
 STEPS4 = 4                # batch-4 path: 1 warm-up + 3 timed; save boundaries at iterations 0 and 3
+STEPS_G = 3               # Gemma-3 path: 1 warm-up + 2 timed; save boundaries at iterations 0 and 2
 DECODE_TOKENS = 64        # the engine's test_max_new_tokens
 REF_DECODE_TOKENS = 8
 TOL_DGRAD = 1e-2
@@ -99,9 +111,10 @@ def row_errors(got, ref):
     return float(rel.max()), float(d.abs().max())
 
 
-def dgrad_shapes(vlm_cfg, t_text):
-    """(T, O, I, launches per step) of every frozen linear whose input gradient the step takes
-    through the dgrad kernel: the CLIP layers that run, the projector and the decoder."""
+def llava_dgrad_cases(victim_params, vlm_cfg, t_text):
+    """(T, O, I, launches per step, weight) of every frozen linear whose input gradient the
+    batch-1 step takes through the dgrad kernel: the CLIP layers that run, the projector and the
+    decoder."""
     v, t = vlm_cfg.vision, vlm_cfg.text
     t_vis = (v.image_size // v.patch_size) ** 2 + 1
     n_vis = v.num_layers + 1 + vlm_cfg.vision_feature_layer
@@ -121,15 +134,6 @@ def dgrad_shapes(vlm_cfg, t_text):
     merged = {}
     for T, O, I, n in shapes:
         merged[(T, O, I)] = merged.get((T, O, I), 0) + n
-    return [(T, O, I, n) for (T, O, I), n in merged.items()]
-
-
-def check_dgrad(victim_params, vlm_cfg, t_text):
-    import torch
-
-    from adversarialvlm_tpu_torch.ops.kernels.dgrad import dgrad, dgrad_plain
-
-    gen = torch.Generator(device="cuda").manual_seed(1)
     lm = victim_params["language_model"]["layers"][0]
     vt = victim_params["vision_tower"]["layers"][0]
     proj = victim_params["multi_modal_projector"]
@@ -138,20 +142,49 @@ def check_dgrad(victim_params, vlm_cfg, t_text):
         proj["linear_1"]["weight"], lm["self_attn"]["q_proj"]["weight"],
         lm["mlp"]["gate_proj"]["weight"], lm["mlp"]["down_proj"]["weight"],
     )}
+    return [(T, O, I, n, weights[(O, I)]) for (T, O, I), n in merged.items()]
+
+
+def gemma_dgrad_cases(victim_params, vlm_cfg, batch, t_text):
+    """(rows, O, I, launches per step, weight) of the Gemma-3 step's dgrad launches: the tower's
+    q/k/v/out (1152², its 4304-wide MLP stays off the kernel, as the JAX rule keeps it) over the
+    batch's 4096-patch images, and the decoder's seven linears over the batch's tokens."""
+    v, t = vlm_cfg.vision, vlm_cfg.text
+    vt = victim_params["vision_tower"]["layers"][0]["self_attn"]
+    lm = victim_params["language_model"]["layers"][0]
+    rows_v = batch * (v.image_size // v.patch_size) ** 2
+    rows_t = batch * t_text
+    return [
+        (rows_v, v.hidden_size, v.hidden_size, 4 * v.num_layers, vt["q_proj"]["weight"]),
+        (rows_t, *lm["self_attn"]["q_proj"]["weight"].shape, t.num_layers, lm["self_attn"]["q_proj"]["weight"]),
+        (rows_t, *lm["self_attn"]["k_proj"]["weight"].shape, 2 * t.num_layers, lm["self_attn"]["k_proj"]["weight"]),
+        (rows_t, *lm["self_attn"]["o_proj"]["weight"].shape, t.num_layers, lm["self_attn"]["o_proj"]["weight"]),
+        (rows_t, *lm["mlp"]["gate_proj"]["weight"].shape, 2 * t.num_layers, lm["mlp"]["gate_proj"]["weight"]),
+        (rows_t, *lm["mlp"]["down_proj"]["weight"].shape, t.num_layers, lm["mlp"]["down_proj"]["weight"]),
+    ]
+
+
+def check_dgrad(cases, label="dgrad"):
+    """The dgrad kernel against its plain version at each (T, O, I) of ``cases``, timed; returns
+    the per-launch numbers weighted by each shape's launches per step."""
+    import torch
+
+    from adversarialvlm_tpu_torch.ops.kernels.dgrad import dgrad, dgrad_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
-    for T, O, I, calls in dgrad_shapes(vlm_cfg, t_text):
-        w = weights[(O, I)]
+    for T, O, I, calls, w in cases:
         dy = torch.randn((T, O), generator=gen, device="cuda", dtype=torch.bfloat16)
         got = dgrad(dy, w)
         ref = dy.float() @ w.float()
         rel, abs_err = row_errors(got, ref)
         if not rel <= TOL_DGRAD:
-            raise AssertionError(f"dgrad T={T} O={O} I={I}: worst row rel err {rel} > {TOL_DGRAD}")
+            raise AssertionError(f"{label} T={T} O={O} I={I}: worst row rel err {rel} > {TOL_DGRAD}")
         ms = time_ms(lambda: dgrad(dy, w))
         plain_ms = time_ms(lambda: dgrad_plain(dy, w))
         lib_ms = time_ms(lambda: torch.matmul(dy, w))
         b_ms, b_by = bound(2.0 * T * O * I, 2.0 * (T * O + O * I + T * I))
-        log("kernels", f"dgrad T={T} O={O} I={I} launches/step={calls} worst_row_rel={rel:.3g} "
+        log("kernels", f"{label} T={T} O={O} I={I} launches/step={calls} worst_row_rel={rel:.3g} "
             f"max_abs={abs_err:.3g} (tol {TOL_DGRAD}) ms={ms:.4f} plain_ms={plain_ms:.4f} "
             f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
             f"TFLOP/s={2.0 * T * O * I / ms / 1e9:.1f}")
@@ -168,7 +201,7 @@ def check_dgrad(victim_params, vlm_cfg, t_text):
         "bound_by": max(rows, key=lambda r: r["calls"] * r["bound"])["by"],
         "per_step": n,
     }
-    log("kernels", "dgrad per launch, weighted by the step's launches: "
+    log("kernels", f"{label} per launch, weighted by the step's {n} launches: "
         + " ".join(f"{k}={summary[k]:.4f}" for k in ("ms", "plain_ms", "library_ms", "bound_ms"))
         + f" ({summary['bound_by']})")
     return summary
@@ -343,6 +376,89 @@ def flash_case(label, seg, H, Hkv, D, timed=False, backward=True):
     return out
 
 
+def flash_full_case(label, B, H, T, D, timed=False, backward=True):
+    """The non-causal flash_full kernels against their plain versions on the same inputs and
+    residuals; every token is real, so every row counts. Each plain reference is freed before the
+    next (at B 4, T 4096 one f32 (B, H, T, T) tensor is 4 GiB)."""
+    import torch
+    import torch.nn.functional as F
+
+    from adversarialvlm_tpu_torch.ops.kernels import flash as Fl
+
+    gen = torch.Generator(device="cuda").manual_seed(B * 100000 + T + 7)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+
+    q, k, v, do = (randn(B, T, H, D) for _ in range(4))
+    scale = D**-0.5
+    f32 = [x.float() for x in (q, k, v, do)]
+    o, lse = Fl.flash_full_fwd(q, k, v, scale)
+    o_ref, lse_ref = Fl.flash_full_plain(f32[0], f32[1], f32[2], scale)
+    errs = {"o": row_errors(o, o_ref), "lse": row_errors(lse, lse_ref)}
+    del o_ref, lse_ref
+    if backward:
+        dq, delta = Fl.flash_full_bwd_dq(q, k, v, o, lse, do, scale)
+        dk, dv = Fl.flash_full_bwd_dkdv(q, k, v, lse, delta, do, scale)
+        dq_ref, delta_ref = Fl.flash_full_bwd_dq_plain(f32[0], f32[1], f32[2], o.float(), lse, f32[3], scale)
+        errs.update({"dq": row_errors(dq, dq_ref), "delta": row_errors(delta, delta_ref)})
+        del dq_ref, delta_ref
+        dk_ref, dv_ref = Fl.flash_full_bwd_dkdv_plain(f32[0], f32[1], f32[2], lse, delta, f32[3], scale)
+        errs.update({"dk": row_errors(dk, dk_ref), "dv": row_errors(dv, dv_ref)})
+        del dk_ref, dv_ref
+    del f32
+    torch.cuda.empty_cache()
+    for name, (rel, _) in errs.items():
+        tol = TOL_ATTN_FWD if name in ("o", "lse") else TOL_ATTN_BWD
+        if not rel <= tol:
+            raise AssertionError(f"flash_full {label} B={B} H={H} T={T} D={D} {name}: "
+                                 f"worst row rel err {rel} > {tol}")
+    log("kernels", f"flash_full {label} B={B} H={H} T={T} D={D} worst_row_rel "
+        + " ".join(f"{n}={e[0]:.3g}" for n, e in errs.items())
+        + f" (tol fwd {TOL_ATTN_FWD}, bwd {TOL_ATTN_BWD})")
+    if not timed:
+        return None
+
+    pairs = float(B) * T * T  # every pair is allowed
+    el = 2.0 * B * T * D  # one bf16 (B, T, H=1, D) tensor; the real D, not the padded 80
+    work = {  # (operations, bytes): each input read once, each output written once
+        "flash_full_fwd": (4 * pairs * D * H, el * 4 * H + 4 * B * H * T),
+        "flash_full_bwd_dq": (6 * pairs * D * H, el * 6 * H + 8 * B * H * T),
+        "flash_full_bwd_dkdv": (8 * pairs * D * H, el * 6 * H + 8 * B * H * T),
+    }
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
+    times = {"flash_full_fwd": (
+        time_ms(lambda: Fl.flash_full_fwd(q, k, v, scale)),
+        time_ms(lambda: Fl.flash_full_plain(q, k, v, scale)),
+        time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)))}
+    if backward:
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt)
+        dot = do.transpose(1, 2).contiguous()
+        lib_bwd = time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True))
+        times["flash_full_bwd_dq"] = (
+            time_ms(lambda: Fl.flash_full_bwd_dq(q, k, v, o, lse, do, scale)),
+            time_ms(lambda: Fl.flash_full_bwd_dq_plain(q, k, v, o, lse, do, scale)), lib_bwd)
+        times["flash_full_bwd_dkdv"] = (
+            time_ms(lambda: Fl.flash_full_bwd_dkdv(q, k, v, lse, delta, do, scale)),
+            time_ms(lambda: Fl.flash_full_bwd_dkdv_plain(q, k, v, lse, delta, do, scale)), lib_bwd)
+    err_keys = {"flash_full_fwd": ("o",), "flash_full_bwd_dq": ("dq",), "flash_full_bwd_dkdv": ("dk", "dv")}
+    out = {}
+    for name, (ms, plain_ms, lib_ms) in times.items():
+        b_ms, b_by = bound(*work[name])
+        out[name] = {
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "rel": max(errs[e][0] for e in err_keys[name]), "abs": max(errs[e][1] for e in err_keys[name]),
+        }
+        log("kernels", f"{name} {label} B={B} H={H} T={T} D={D} pairs={pairs:.0f} ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+            f"TFLOP/s={work[name][0] / ms / 1e9:.1f}")
+    if backward:
+        log("kernels", "library_ms of both flash_full backward kernels is one non-causal "
+            "scaled_dot_product_attention backward (dq, dk and dv together)")
+    torch.cuda.empty_cache()
+    return out
+
+
 class PathProbe:
     """Wraps a bundle's forward for one run. Each forward's kernel launches are attributed to its
     phase: the attack step ("step", under grad), the resaved-loss monitor ("monitor"), the decode
@@ -399,7 +515,7 @@ class PathProbe:
         import torch
 
         c, self.cur = self.cur, None
-        if c is None:
+        if c is None or not c["ends"]:  # none open, or its prefill raised
             return
         c["ends"][-1].synchronize()
         c["prefill_ms"] = c["start"].elapsed_time(c["ends"][0])
@@ -417,7 +533,7 @@ class PathProbe:
         self.bundle.forward = self.inner
 
 
-def decode_reference(gpu_v, cpu_v, questions, x_img):
+def decode_reference(gpu_v, cpu_v, questions, x_img, expect):
     """Teacher-forced check of the cached test decode: the card (bf16, flash prefill, plain
     cached steps) generates; the CPU (f32, plain, uncached) runs one forward over prompt +
     the card's tokens. Per row and step: logits cosine >= TOL_DECODE_COSINE, and the card's
@@ -472,54 +588,33 @@ def decode_reference(gpu_v, cpu_v, questions, x_img):
         f"{int((cpu.argmax(-1) == tokens[:, :n]).sum())}/{tokens[:, :n].numel()}")
     if not (float(cos.min()) >= TOL_DECODE_COSINE and bool(ok_tok.all())):
         raise AssertionError("decode reference: the card's cached decode and the CPU disagree")
-    if launches["flash_fwd"] != bundle.cfg.text.num_layers:
-        raise AssertionError(f"decode reference: expected one flash forward per layer, got {launches}")
+    if any(launches[k] != n for k, n in expect.items()):
+        raise AssertionError(f"decode reference: expected launches {expect}, got {launches}")
 
 
-def main():
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this script needs one card", file=sys.stderr)
-        return 1
+def llava_phases():
+    """Phases 3 (the LLaVA shapes), 4, 4b and 5 on the LLaVA-1.5-7B victim; returns the kernel
+    statistics and launch counts of the JSON line. Its tensors are freed on return."""
     import dataclasses
 
     import numpy as np
+    import torch
 
     from adversarialvlm_tpu_torch.attack.config import AttackConfig
     from adversarialvlm_tpu_torch.attack.engine import VictimSetup, train
-    from adversarialvlm_tpu_torch.attack.setup import build_tiny_victim, questions_and_targets
+    from adversarialvlm_tpu_torch.attack.setup import (
+        build_tiny_victim,
+        image_processor,
+        questions_and_targets,
+    )
     from adversarialvlm_tpu_torch.attack.step import build_attack_step, sample_chunk_xs
     from adversarialvlm_tpu_torch.data import corpora
     from adversarialvlm_tpu_torch.eval.generation import _pick_decode
     from adversarialvlm_tpu_torch.models.configs import llava_1_5_7b
     from adversarialvlm_tpu_torch.models.registry import make_bundle
     from adversarialvlm_tpu_torch.ops.kernels import launch_counts, reset_launches
-    from adversarialvlm_tpu_torch.ops.kernels.build import build_all
     from adversarialvlm_tpu_torch.processors.adv_inputs import AdvInputs
-    from adversarialvlm_tpu_torch.processors.configs import MODEL_IMAGE_CONFIGS
-    from adversarialvlm_tpu_torch.processors.llava import DifferentiableLlavaImageProcessor
     from adversarialvlm_tpu_torch.utils.batching import pad_to_buckets
-
-    t_start = time.perf_counter()
-    torch.backends.cuda.matmul.allow_tf32 = False  # f32 products stay f32 in every reference
-    torch.backends.cudnn.allow_tf32 = False
-
-    # 1. the card
-    card = card_line()
-    log("card", card)
-    log("card", f"torch {torch.__version__} cuda {torch.version.cuda} device "
-        f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
-
-    # 2. the build
-    t0 = time.perf_counter()
-    built = build_all()
-    for name, res in built.items():
-        for line in res.log.splitlines():
-            if any(s in line for s in ("registers", "spill", "stack frame", "Compiling entry")):
-                log("build", f"{name}: {line.strip()}")
-        log("build", f"{name}: {res.path.name} in {res.seconds:.1f} s")
-    log("build", f"{len(built)} kernel libraries ready in {time.perf_counter() - t0:.1f} s")
 
     # the main-path victim: its prompts fix the kernels' shapes. The batch-4 path shares its
     # weights and runs the attack's default prompt pool.
@@ -559,7 +654,7 @@ def main():
         f"{decode_bs} (pick_decode_config), prefill T={am_prefill.shape[1]}")
 
     # 3. kernels against their plain versions
-    dg = check_dgrad(victim.bundle.params, vlm_cfg, t_text)
+    dg = check_dgrad(llava_dgrad_cases(victim.bundle.params, vlm_cfg, t_text))
     attn = attention_case(t_text, t.num_heads, t.num_kv_heads, t.head_dim_, pad, timed=True)
     attention_case(t_text, t.num_heads, t.num_kv_heads, t.head_dim_, 53)
     attention_case(301, 8, 2, 128, 37)
@@ -713,7 +808,7 @@ def main():
         "cut",
         make_bundle("cut", "llava", cut, torch.device("cpu"),
                     params=_map(gpu_v.bundle.params, lambda p: p.float().cpu())),
-        DifferentiableLlavaImageProcessor(MODEL_IMAGE_CONFIGS["llava-hf/llava-1.5-7b-hf"], (512, 512)),
+        image_processor(cut, (512, 512), "cpu"),
         gpu_v.adv_inputs,
     )
     ai = gpu_v.adv_inputs
@@ -747,13 +842,269 @@ def main():
         if not (rel <= TOL_REF_LOSS and cos >= TOL_REF_COSINE):
             raise AssertionError(f"depth-cut reference ({label}): card and CPU disagree")
     x_img = np.clip(x0 + 0.5 * np.tanh(p0.numpy()), 0.0, 1.0).astype(np.float32)
-    decode_reference(gpu_v, cpu_v, list(corpora.not_safe_questions_test[:3]), x_img)
+    decode_reference(gpu_v, cpu_v, list(corpora.not_safe_questions_test[:3]), x_img,
+                     {"flash_fwd": cut.text.num_layers})
     log("reference", f"all references in {time.perf_counter() - t0:.1f} s")
+    return {
+        "stats": {"dgrad": dg, **attn, **flash}, "prefill": prefill,
+        "counts": {**{k: launches[k] for k in pr3_kernels}, **{k: launches4[k] for k in flash}},
+    }
+
+
+def gemma_phases():
+    """Phase 4c: the full-depth Gemma-3-4B-it attack at batch 4 through ``train(run_tests=True)``,
+    with the dgrad kernel checked at its shapes first. Returns the run's launch counts and the
+    Gemma dgrad statistics. Its tensors are freed on return."""
+    import numpy as np
+    import torch
+
+    from adversarialvlm_tpu_torch.attack.config import AttackConfig
+    from adversarialvlm_tpu_torch.attack.engine import train
+    from adversarialvlm_tpu_torch.attack.setup import build_tiny_victim
+    from adversarialvlm_tpu_torch.eval.generation import _pick_decode
+    from adversarialvlm_tpu_torch.models.configs import gemma3_4b_it
+    from adversarialvlm_tpu_torch.ops.kernels import launch_counts, reset_launches
+
+    g_cfg = gemma3_4b_it()
+    t, v = g_cfg.text, g_cfg.vision
+    cfg = AttackConfig(exp_name="chip_smoke_gemma3", num_iterations=STEPS_G, save_steps=10,
+                       batch_size=4, grad_accum_steps=1, lr=1e-2)
+    t0 = time.perf_counter()
+    victim = build_tiny_victim("random:gemma-3-4b-it", cfg, (512, 512), vlm_cfg=g_cfg, seed=0,
+                               dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    ai = victim.adv_inputs
+    t_text = int(ai.max_len)
+    n_params = sum(p.numel() for p in _leaves(victim.bundle.params))
+    n_vision = sum(p.numel() for p in _leaves(victim.bundle.params["vision_tower"]))
+    n_patches = (v.image_size // v.patch_size) ** 2
+    test_qs = ai.test_questions
+    decode_bs, _ = _pick_decode(victim.bundle, ai, test_qs, DECODE_TOKENS, 50, torch.bfloat16)
+    log("gemma", f"victim built in {time.perf_counter() - t0:.1f} s: {n_params / 1e9:.3f} B params "
+        f"({n_vision / 1e9:.3f} B in the tower), {torch.cuda.memory_allocated() / 2**30:.2f} GiB on "
+        f"the card; prompt pool {ai.prompt_pool.shape[1]} questions x {ai.prompt_pool.shape[0]} "
+        f"targets, T={t_text} (image span {len(ai.image_expansion_ids)} tokens), tower T={n_patches} "
+        f"patches, test decode at batch {decode_bs} (pick_decode_config)")
+    dg = check_dgrad(gemma_dgrad_cases(victim.bundle.params, g_cfg, cfg.batch_size, t_text),
+                     "dgrad gemma3")
+    torch.cuda.empty_cache()
+
+    x0 = np.full((3, 512, 512), 0.47, np.float32)
+    with tempfile.TemporaryDirectory() as runs:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        probe = PathProbe(victim.bundle)
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            exp = train(cfg, [victim], x0, base_path=runs, device="cuda", run_tests=True,
+                        test_max_new_tokens=DECODE_TOKENS)
+            torch.cuda.synchronize()
+        finally:
+            probe.finish()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        rows = [json.loads(line) for line in open(os.path.join(exp, "metrics.jsonl"))]
+        csvs = {}
+        for f in sorted(os.listdir(exp)):
+            if f.startswith("test_results_iter_"):
+                with open(os.path.join(exp, f), newline="", encoding="utf-8") as fh:
+                    csvs[f] = list(csv.reader(fh))
+    steps = [r for r in rows if "loss" in r]
+    tests = [r for r in rows if "test_target_acc" in r]
+    for r in steps:
+        log("gemma", f"step {r['iteration']}: loss={r['loss']} grad_norm={r['grad_norm']} step_ms={r['step_ms']:.2f}")
+    med = statistics.median(r["step_ms"] for r in steps[1:])
+    log("gemma", f"batch 4, T={t_text}: median step_ms (steps 1..{STEPS_G - 1})={med:.2f} warm-up "
+        f"step_ms={steps[0]['step_ms']:.2f} steps' peak_memory_GiB={probe.step_peak / 2**30:.3f} "
+        f"train wall_s={wall:.1f}")
+    if len(steps) != STEPS_G or not all(np.isfinite(r["loss"]) and r["grad_norm"] > 0 for r in steps):
+        raise AssertionError(f"gemma path: bad steps {[(r.get('loss'), r.get('grad_norm')) for r in steps]}")
+    for c in probe.chunks:
+        n_fwd = len(c["ends"])
+        log("gemma", f"test decode chunk: batch {c['batch']} prefill T={c['T']} prefill_ms="
+            f"{c['prefill_ms']:.2f} decode_ms={c['decode_ms']:.2f} ({n_fwd} forwards, "
+            f"{(c['decode_ms'] - c['prefill_ms']) / max(n_fwd - 1, 1):.2f} ms per cached step) "
+            f"tokens/s={c['tokens'] / c['decode_ms'] * 1e3:.1f} peak_memory_GiB={c['peak_GiB']:.3f} "
+            f"prefill launches={ {k: n for k, n in c['prefill_launches'].items() if n} }")
+    for r in tests:
+        log("gemma", f"test metrics at iteration {r['iteration']}: "
+            + " ".join(f"{k}={r[k]}" for k in sorted(r) if k.startswith("test_")))
+    log("gemma", f"launches over the run: {launches}; by phase: "
+        + "; ".join(f"{p} x{probe.calls[p]} {dict(+c)}" for p, c in probe.launches.items()))
+    bwd = {k: launches[k] - sum(probe.launches[p][k] for p in probe.launches) for k in launches}
+    per_step = {
+        "dgrad": bwd["dgrad"] / STEPS_G,
+        "flash_full_fwd": probe.launches["step"]["flash_full_fwd"] / STEPS_G,
+        "flash_full_bwd_dq": bwd["flash_full_bwd_dq"] / STEPS_G,
+        "flash_full_bwd_dkdv": bwd["flash_full_bwd_dkdv"] / STEPS_G,
+    }
+    expected = {"dgrad": dg["per_step"], "flash_full_fwd": v.num_layers,
+                "flash_full_bwd_dq": v.num_layers, "flash_full_bwd_dkdv": v.num_layers}
+    others = {k: n for k, n in launches.items() if n and k != "dgrad" and not k.startswith("flash_full")}
+    per_monitor = probe.launches["monitor"]["flash_full_fwd"] / max(probe.calls["monitor"], 1)
+    per_chunk = [c["prefill_launches"]["flash_full_fwd"] for c in probe.chunks]
+    log("gemma", f"launches per step: {per_step} (expected {expected}); fused and flash launches in "
+        f"the run: {others} (expected none); flash_full forward launches per monitor forward: "
+        f"{per_monitor} and per decode chunk: {per_chunk} (expected {v.num_layers} each); cached "
+        f"decode steps launched {sum(probe.launches['decode_step'].values())} kernels (expected 0)")
+    if per_step != expected or others:
+        raise AssertionError("gemma path launches differ from the expected counts")
+    if probe.calls["monitor"] == 0 or per_monitor != v.num_layers:
+        raise AssertionError("gemma path: the resaved-loss monitor did not take the flash_full kernel")
+    if any(n != v.num_layers for n in per_chunk) or sum(probe.launches["decode_step"].values()):
+        raise AssertionError("gemma path: decode launches differ from the expected counts")
+    boundaries = [i for i in range(STEPS_G) if i % cfg.save_steps == 0 or i == STEPS_G - 1]
+    want_csvs = [f"test_results_iter_{i}.csv" for i in boundaries]
+    if sorted(csvs) != sorted(want_csvs) or [r["iteration"] for r in tests] != boundaries:
+        raise AssertionError(f"gemma path: test CSVs {sorted(csvs)} != {want_csvs}")
+    for name, table in csvs.items():
+        if len(table) != 1 + len(test_qs) or [r[0] for r in table[1:]] != list(test_qs):
+            raise AssertionError(f"{name}: expected a header and {len(test_qs)} rows, got {len(table)}")
+        if not all(len(r) == 2 and r[1].startswith("user\n") and r[0] in r[1] for r in table[1:]):
+            raise AssertionError(f"{name}: malformed rows")
+        log("gemma", f"{name}: {len(table) - 1} rows; first answer tail {table[1][1][-60:]!r}")
+    if len(probe.chunks) != len(boundaries) * -(-len(test_qs) // decode_bs):
+        raise AssertionError(f"gemma path: {len(probe.chunks)} decode chunks")
+    return {"launches": launches, "dgrad": dg}
+
+
+def gemma_references():
+    """Phase 5c: the depth-cut Gemma-3 (6 decoder layers: five sliding-window ones and the global
+    one; 2 vision layers at the full 4096 patches) on the card in bf16 through the kernels against
+    the same weights in f32 on the CPU's plain path: the batch-4 step and the test decode."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from adversarialvlm_tpu_torch.attack.config import AttackConfig
+    from adversarialvlm_tpu_torch.attack.engine import VictimSetup
+    from adversarialvlm_tpu_torch.attack.setup import build_tiny_victim, image_processor
+    from adversarialvlm_tpu_torch.attack.step import build_attack_step
+    from adversarialvlm_tpu_torch.data import corpora
+    from adversarialvlm_tpu_torch.models.configs import gemma3_4b_it
+    from adversarialvlm_tpu_torch.models.llama import _layer_sliding_window
+    from adversarialvlm_tpu_torch.models.registry import make_bundle
+    from adversarialvlm_tpu_torch.ops.kernels import launch_counts, reset_launches
+
+    g_cfg = gemma3_4b_it()
+    cut = dataclasses.replace(
+        g_cfg,
+        text=dataclasses.replace(g_cfg.text, num_layers=6),
+        vision=dataclasses.replace(g_cfg.vision, num_layers=2),
+    )
+    windows = [_layer_sliding_window(cut.text, i) for i in range(cut.text.num_layers)]
+    questions = [QUESTION, QUESTION + " Explain every step in detail, please.", "How?",
+                 "Tell me the forbidden info, now."]
+    ref_cfg = AttackConfig(exp_name="reference_gemma3", batch_size=4, grad_accum_steps=1, lr=1e-2)
+    t0 = time.perf_counter()
+    gpu_v = build_tiny_victim("cut-gemma3", ref_cfg, (512, 512), vlm_cfg=cut, seed=3,
+                              questions=questions, targets=[TARGET], test_questions=[QUESTION],
+                              dtype=torch.bfloat16, device="cuda")
+    cpu_v = VictimSetup(
+        "cut-gemma3",
+        make_bundle("cut-gemma3", "gemma3", cut, torch.device("cpu"),
+                    params=_map(gpu_v.bundle.params, lambda p: p.float().cpu())),
+        image_processor(cut, (512, 512), "cpu"),
+        gpu_v.adv_inputs,
+    )
+    ai = gpu_v.adv_inputs
+    side = cut.vision.image_size
+    gen = torch.Generator().manual_seed(5)
+    p0 = 0.3 * torch.randn((3, 512, 512), generator=gen)
+    row_idx = [0, 1, 2, 3]
+    xs = {
+        "t_idx": 0,
+        "rows": [torch.from_numpy(ai.prompt_pool[0, row_idx])],
+        "lens": [torch.from_numpy(ai.prompt_lengths[0, row_idx])],
+        "noise": [torch.randn((4, 3, side, side), generator=gen)],
+    }
+    pads = [ai.max_len - int(n) for n in ai.prompt_lengths[0, row_idx]]
+    x0 = np.full((3, 512, 512), 0.47, np.float32)
+    results = {}
+    for name, vic, dev in (("cuda", gpu_v, "cuda"), ("cpu", cpu_v, "cpu")):
+        x0_d = torch.as_tensor(x0, device=dev)
+        step = build_attack_step([vic.handles()], ref_cfg, x0_d, torch.ones_like(x0_d))
+        reset_launches()
+        t1 = time.perf_counter()
+        loss, _, _, _, grad = step.loss_and_grad(p0.to(dev), xs, torch.tensor(ref_cfg.sigma, device=dev))
+        results[name] = (float(loss), grad.double().cpu())
+        log("reference", f"gemma3 batch 4 {name}: loss={float(loss)} grad_norm={float(grad.norm())} "
+            f"T={ai.max_len} pads={pads} layer windows={windows} launches={launch_counts()} "
+            f"in {time.perf_counter() - t1:.1f} s")
+        if name == "cuda":
+            got = launch_counts()
+            want = {"flash_full_fwd": 2, "flash_full_bwd_dq": 2, "flash_full_bwd_dkdv": 2,
+                    "flash_fwd": 0, "attention_fwd": 0}
+            if any(got[k] != n for k, n in want.items()):
+                raise AssertionError(f"gemma3 depth-cut step launched {got}, expected {want}")
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = results["cpu"], results["cuda"]
+    rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    cos = float((g_cpu * g_gpu).sum() / (g_cpu.norm() * g_gpu.norm()))
+    log("reference", f"gemma3 batch 4: loss rel diff={rel:.3g} (tol {TOL_REF_LOSS}) grad cosine="
+        f"{cos:.6f} (min {TOL_REF_COSINE}) grad norm ratio={float(g_gpu.norm() / g_cpu.norm()):.4f}")
+    if not (rel <= TOL_REF_LOSS and cos >= TOL_REF_COSINE):
+        raise AssertionError("gemma3 depth-cut reference (batch 4): card and CPU disagree")
+    x_img = np.clip(x0 + 0.5 * np.tanh(p0.numpy()), 0.0, 1.0).astype(np.float32)
+    decode_reference(gpu_v, cpu_v, list(corpora.not_safe_questions_test[:3]), x_img,
+                     {"flash_full_fwd": cut.vision.num_layers, "flash_fwd": 0, "attention_fwd": 0})
+    log("reference", f"gemma3 references in {time.perf_counter() - t0:.1f} s")
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script needs one card", file=sys.stderr)
+        return 1
+    from adversarialvlm_tpu_torch.models.configs import gemma3_4b_it
+    from adversarialvlm_tpu_torch.ops.kernels.build import build_all
+
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 products stay f32 in every reference
+    torch.backends.cudnn.allow_tf32 = False
+
+    # 1. the card
+    card = card_line()
+    log("card", card)
+    log("card", f"torch {torch.__version__} cuda {torch.version.cuda} device "
+        f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+
+    # 2. the build
+    t0 = time.perf_counter()
+    built = build_all()
+    for name, res in built.items():
+        for line in res.log.splitlines():
+            if any(s in line for s in ("registers", "spill", "stack frame", "Compiling entry")):
+                log("build", f"{name}: {line.strip()}")
+        log("build", f"{name}: {res.path.name} in {res.seconds:.1f} s")
+    log("build", f"{len(built)} kernel libraries ready in {time.perf_counter() - t0:.1f} s")
+
+    # 3. the non-causal flash_full kernels at the SigLIP tower's shapes (B = the step's batch of
+    # 4 images, and the decode prefill's one shared image) and a ragged case, before any victim
+    g = gemma3_4b_it().vision
+    g_t, g_h, g_d = (g.image_size // g.patch_size) ** 2, g.num_heads, g.hidden_size // g.num_heads
+    full = flash_full_case("gemma3 step", 4, g_h, g_t, g_d, timed=True)
+    full_prefill = flash_full_case("gemma3 decode prefill", 1, g_h, g_t, g_d, timed=True,
+                                   backward=False)["flash_full_fwd"]
+    flash_full_case("ragged", 2, 4, 2100, g_d)
+
+    llava = llava_phases()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("gemma", f"LLaVA victim freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    gem = gemma_phases()
+    gc.collect()
+    torch.cuda.empty_cache()
+    gemma_references()
 
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     sources = {"dgrad": "dgrad.cu", "attention_fwd": "attention.cu", "attention_bwd_dq": "attention.cu",
                "attention_bwd_dkdv": "attention.cu", "flash_fwd": "attention.cu",
-               "flash_bwd_dq": "attention.cu", "flash_bwd_dkdv": "attention.cu"}
+               "flash_bwd_dq": "attention.cu", "flash_bwd_dkdv": "attention.cu",
+               "flash_full_fwd": "attention.cu", "flash_full_bwd_dq": "attention.cu",
+               "flash_full_bwd_dkdv": "attention.cu"}
     replaces = {
         "dgrad": "adversarialvlm_tpu/ops/pallas/matmul.py:35",
         "attention_fwd": "adversarialvlm_tpu/ops/pallas/fused_attention.py:436",
@@ -762,9 +1113,12 @@ def main():
         "flash_fwd": "adversarialvlm_tpu/ops/pallas/attention.py:178",
         "flash_bwd_dq": "adversarialvlm_tpu/ops/pallas/attention.py:178",
         "flash_bwd_dkdv": "adversarialvlm_tpu/ops/pallas/attention.py:178",
+        "flash_full_fwd": "adversarialvlm_tpu/ops/pallas/attention.py:214",
+        "flash_full_bwd_dq": "adversarialvlm_tpu/ops/pallas/attention.py:214",
+        "flash_full_bwd_dkdv": "adversarialvlm_tpu/ops/pallas/attention.py:214",
     }
-    stats = {"dgrad": dg, **attn, **flash}
-    counts = {**{k: launches[k] for k in pr3_kernels}, **{k: launches4[k] for k in flash}}
+    stats = {**llava["stats"], **full}
+    counts = {**llava["counts"], **{k: gem["launches"][k] for k in full}}
     kernels = [
         {
             "name": name, "route": "cuda", "source": f"adversarialvlm_tpu_torch/csrc/{sources[name]}",
@@ -775,7 +1129,10 @@ def main():
         }
         for name in sources
     ]
-    kernels[4]["at_prefill_shape"] = {k: prefill[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+    timing_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    kernels[4]["at_prefill_shape"] = {k: llava["prefill"][k] for k in timing_keys}
+    kernels[7]["at_prefill_shape"] = {k: full_prefill[k] for k in timing_keys}
+    kernels[0]["at_gemma3_shapes"] = {k: gem["dgrad"][k] for k in (*timing_keys, "per_step")}
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

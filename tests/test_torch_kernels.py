@@ -14,12 +14,15 @@ import torch
 import torch.nn.functional as F
 
 from adversarialvlm_tpu.models import layers as jax_layers
+from adversarialvlm_tpu.ops.pallas.attention import flash_sdpa_full as jax_flash_sdpa_full
 from adversarialvlm_tpu.ops.pallas.fused_attention import fused_sdpa_bthd
 from adversarialvlm_tpu.ops.pallas.matmul import dgrad_matmul
 from adversarialvlm_tpu_torch.models import layers
 from adversarialvlm_tpu_torch.ops.kernels import attention as A
+from adversarialvlm_tpu_torch.ops.kernels.attention import kernel_routes_on_cpu
 from adversarialvlm_tpu_torch.ops.kernels import launch_counts, reset_launches
 from adversarialvlm_tpu_torch.ops.kernels.dgrad import LinearPdx, dgrad, dgrad_eligible
+from adversarialvlm_tpu_torch.ops.kernels import flash as Fl
 from adversarialvlm_tpu_torch.ops.kernels.flash import flash_bwd_dq, flash_fwd
 
 
@@ -129,6 +132,15 @@ def _route_case(case):
         assert A.attention_route("cuda", 1, 641, 32, 128, 1) == "fused"
         assert A.attention_route("cuda", 1, 200, 4, 256, 4) == "fused"
         assert A.attention_route("cuda", 1, 704, 32, 128, 1, cache_index=0) == "fused"
+    elif case == "cuda_masked_layer_takes_plain":
+        # a sliding-window layer or gemma3's bidirectional image block: the plain bias + sdpa
+        assert A.attention_route("cuda", 4, 360, 8, 256, 2, masked=True) == "plain"
+        assert A.attention_route("cuda", 1, 360, 8, 256, 2, masked=True) == "plain"
+        assert A.attention_route("cuda", 50, 384, 8, 256, 2, cache_index=0, masked=True) == "plain"
+        assert A.attention_route("cuda", 2, 384, 8, 72, 2, masked=True) == "plain"  # no kernel, no raise
+        assert A.attention_route("cuda", 4, 360, 8, 256, 2) == "flash"  # a global text-only layer
+        with kernel_routes_on_cpu():
+            assert A.attention_route("cpu", 4, 360, 8, 256, 2, masked=True) == "plain"
     elif case == "cpu_takes_plain":
         assert A.attention_route("cpu", 2, 641, 32, 128, 1) == "plain"
         assert A.attention_route("cpu", 1, 641, 32, 128, 1) == "plain"
@@ -168,12 +180,100 @@ def _route_case(case):
     "cpu_takes_plain", "dgrad_eligibility", "cpu_linear_stays_plain",
     "wrapper_rejects_non_cuda_device", "cuda_head_dim64_batch2_raises",
     "cuda_cached_decode_takes_plain", "flash_wrapper_rejects_non_cuda_device",
+    "cuda_masked_layer_takes_plain",
 ])
 def test_kernel_routing(case):
     """On the card the decoder attention takes the fused kernel at batch 1, the flash kernel at
-    batch >= 2 and the plain sdpa only for a cached decode step, or raises (no fallback); CPU
-    tensors take the plain versions and launch nothing."""
+    batch >= 2 and the plain sdpa only for a cached decode step or a masked (sliding-window or
+    bidirectional-image) layer, or raises (no fallback); CPU tensors take the plain versions and
+    launch nothing."""
     _route_case(case)
+
+
+def _vit_route_case(case):
+    if case == "cuda_siglip_takes_flash_full":
+        assert A.vit_attention_route("cuda", 4096, 72) == "flash_full"
+        assert A.vit_attention_route("cuda", 2048, 72) == "flash_full"
+    elif case == "cuda_clip_takes_plain":
+        assert A.vit_attention_route("cuda", 577, 64) == "plain"
+        assert A.vit_attention_route("cuda", 2047, 72) == "plain"
+    elif case == "cuda_head_dim64_raises":
+        with pytest.raises(NotImplementedError, match="ROADMAP modules item 8"):
+            A.vit_attention_route("cuda", 4096, 64)
+    elif case == "cpu_takes_plain_unless_kernel_routes":
+        assert A.vit_attention_route("cpu", 4096, 72) == "plain"
+        with kernel_routes_on_cpu():
+            assert A.vit_attention_route("cpu", 4096, 64) == "flash_full"  # head dims unchecked
+            assert A.vit_attention_route("cpu", 577, 64) == "plain"
+    elif case == "flash_full_wrapper_rejects_other_devices_and_head_dims":
+        meta = torch.empty(1, 8, 2, 72, device="meta")
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            Fl.flash_full_fwd(meta, meta, meta, 0.1)
+        with pytest.raises(ValueError, match="ROADMAP modules item 8"):
+            m64 = torch.empty(1, 8, 2, 64, device="meta")
+            Fl.flash_full_fwd(m64, m64, m64, 0.1)
+        reset_launches()
+        cpu = torch.randn(1, 8, 2, 64)
+        Fl.flash_full_fwd(cpu, cpu, cpu, 0.1)  # CPU: the plain version, any head dim
+        assert launch_counts()["flash_full_fwd"] == 0
+    else:
+        raise AssertionError(case)
+
+
+@pytest.mark.parametrize("case", [
+    "cuda_siglip_takes_flash_full", "cuda_clip_takes_plain", "cuda_head_dim64_raises",
+    "cpu_takes_plain_unless_kernel_routes", "flash_full_wrapper_rejects_other_devices_and_head_dims",
+])
+def test_vit_route(case):
+    """The vision tower's attention takes the non-causal flash_full kernels on the card from
+    T = 2048 (clip_vit.py:22-30) at head_dim 72, the plain sdpa below (the CLIP tower's 577),
+    raises at any other head dim there (no fallback), and stays plain on the CPU."""
+    _vit_route_case(case)
+
+
+@pytest.fixture(scope="module")
+def full_qkv():
+    """B=2, H=3, T=150, D=24 (a ragged T and a head dim under any lane width), as
+    tests/test_ops_pallas.py::test_flash_full_forward_and_grads_match_sdpa."""
+    rng = np.random.default_rng(0)
+    return [rng.standard_normal((2, 3, 150, 24), dtype=np.float32) for _ in range(4)]
+
+
+def test_flash_full_plain_forward_matches_flash_sdpa_full_interpret(full_qkv):
+    """The port's flash_sdpa_full on CPU tensors (the plain forward) against the JAX
+    flash_sdpa_full in interpret mode, 2e-5; the explicit plain forward gives the same o and a
+    logsumexp equal to log Σ exp of the scaled scores."""
+    q, k, v, _ = full_qkv
+    scale = 24**-0.5
+    want = np.asarray(jax_flash_sdpa_full(*(jnp.asarray(a) for a in (q, k, v)), scale, interpret=True))
+    reset_launches()
+    got = Fl.flash_sdpa_full(*(torch.from_numpy(a) for a in (q, k, v)), scale)
+    assert got.shape == q.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+    q4, k4, v4 = (torch.from_numpy(a).transpose(1, 2) for a in (q, k, v))
+    o, lse = Fl.flash_full_plain(q4, k4, v4, scale)
+    np.testing.assert_allclose(o.transpose(1, 2).numpy(), want, rtol=2e-5, atol=2e-5)
+    s = torch.from_numpy(q) @ torch.from_numpy(k).transpose(-1, -2) * scale
+    np.testing.assert_allclose(lse.numpy(), torch.logsumexp(s, -1).numpy(), rtol=1e-5, atol=1e-5)
+    assert launch_counts()["flash_full_fwd"] == 0  # CPU tensors never launch the kernel
+
+
+def test_flash_full_function_grads_match_flash_sdpa_full_interpret(full_qkv):
+    """q/k/v gradients through the FlashFullAttention Function (the plain dq, which writes δ,
+    then dk/dv) against jax.vjp of flash_sdpa_full in interpret mode, 5e-5
+    (test_flash_full_forward_and_grads_match_sdpa)."""
+    q, k, v, do = full_qkv
+    scale = 24**-0.5
+    from jax.experimental.pallas import tpu as pltpu
+
+    with pltpu.force_tpu_interpret_mode():
+        _, vjp = jax.vjp(lambda q_, k_, v_: jax_flash_sdpa_full(q_, k_, v_, scale, interpret=True),
+                         *(jnp.asarray(a) for a in (q, k, v)))
+        want = vjp(jnp.asarray(do))
+    qt, kt, vt = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
+    Fl.flash_sdpa_full(qt, kt, vt, scale).backward(torch.from_numpy(do))
+    for name, g, w in zip("qkv", (qt.grad, kt.grad, vt.grad), want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=5e-5, atol=5e-5, err_msg=f"grad {name}")
 
 
 def test_linear_pdx_backward_of_plain_linear_agree():

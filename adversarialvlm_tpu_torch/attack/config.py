@@ -56,7 +56,7 @@ class AttackConfig:
     mask_refresh_random_square: bool = False  # moving-patch variant (M-fork)
     # true resume from an attack-state checkpoint and profiler traces: fields kept for
     # config.json compatibility with the JAX package; the port raises for both until they
-    # are ported (ROADMAP modules item 5)
+    # are ported (ROADMAP modules: resume, profiling and bench)
     resume_state: str | None = None
     profile_dir: str | None = None
 

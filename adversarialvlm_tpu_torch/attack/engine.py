@@ -22,16 +22,19 @@ from adversarialvlm_tpu_torch.attack.io import (
     save_mask,
 )
 from adversarialvlm_tpu_torch.attack.step import (
+    TransformDraws,
     VictimHandles,
     build_attack_step,
     build_resaved_loss_fn,
+    host_generator,
     init_state,
     sample_chunk_xs,
+    saved_perturbation,
     unported_features,
 )
 from adversarialvlm_tpu_torch.eval.train_test import run_model_test
 from adversarialvlm_tpu_torch.ops.image import uint8_roundtrip
-from adversarialvlm_tpu_torch.ops.losses import perturbation_clamp
+from adversarialvlm_tpu_torch.ops.masks import create_mask, default_mask
 from adversarialvlm_tpu_torch.utils.device import resolve_device
 from adversarialvlm_tpu_torch.utils.logging import RunLogger
 
@@ -105,8 +108,10 @@ def train(
     device=None,
 ) -> str:
     """Run the attack on ``device`` (default: the card, which must hold the victims); returns
-    the experiment path. Artifacts: config.json, mask.pt/png,
-    optimized_image_iter_<global_iter>.png/.bin at each save boundary and "final",
+    the experiment path. Artifacts: config.json, mask.pt/png (``create_mask`` when both
+    ``mask_type`` and ``mask_size`` are set, else the nonzero pixels of x₀),
+    optimized_image_iter_<global_iter>.png/.bin at each save boundary and "final" (x₀ + x, x
+    blurred at the fixed σ when ``use_gaussian_blur`` and ``transform_prob >= 1``),
     metrics.jsonl (one row per step, with its ``step_ms``) and, with ``run_tests``,
     test_results_iter_<iteration>.csv at each save boundary (greedy answers of
     ``test_max_new_tokens`` tokens to the held-out questions)."""
@@ -123,7 +128,10 @@ def train(
     x0 = np.asarray(x0, np.float32)
     if cfg.start_from_white:
         x0 = np.ones_like(x0)
-    mask = (x0 != 0).astype(np.float32)  # the reference's default mask (attack_model.py:208)
+    if cfg.mask_type is not None and cfg.mask_size is not None:
+        mask = create_mask(cfg.mask_type, cfg.mask_size, x0.shape, host_generator(cfg.seed, 0))
+    else:
+        mask = default_mask(x0)
     save_mask(mask, exp_path)
     logger = RunLogger(exp_path, {**dataclasses.asdict(cfg), "models": [v.name for v in victims]})
 
@@ -133,12 +141,12 @@ def train(
     step = build_attack_step(handles, cfg, x0_dev, torch.as_tensor(mask, device=dev), cross)
     state = init_state(cfg, x0_dev)
     draws = torch.Generator().manual_seed(cfg.seed)
+    transforms = TransformDraws(cfg, x0.shape, cfg.seed)
     resaved_fn = build_resaved_loss_fn(handles, cfg, x0_dev) if cfg.loss_resaved_every else None
 
     def current_image() -> np.ndarray:
         with torch.no_grad():
-            x = perturbation_clamp(state["p"], cfg.epsilon, cfg.clamp_method)
-            return (x0_dev + x).cpu().numpy()
+            return (x0_dev + saved_perturbation(cfg, state["p"])).cpu().numpy()
 
     def checkpoint_and_test(iteration: int) -> None:
         img = current_image()
@@ -175,7 +183,7 @@ def train(
             chunk = min(cfg.save_steps - ((it - 1) % cfg.save_steps), cfg.num_iterations - it)
             rows = []
             clock.mark()
-            for xs in sample_chunk_xs(draws, chunk, cfg, handles):
+            for xs in sample_chunk_xs(draws, chunk, cfg, handles, transforms):
                 state, metrics = step(state, xs)
                 clock.mark()
                 rows.append(metrics)

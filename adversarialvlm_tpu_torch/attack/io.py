@@ -41,9 +41,21 @@ def save_config(args_dict: dict, exp_path: str) -> None:
         json.dump(args_dict, f, indent=4, default=str)
 
 
+def _read_rgb(path: str) -> np.ndarray:
+    """(H, W, 3) uint8: PIL's ``convert("RGB")`` where PIL imports (any format it reads), else
+    utils/png.py's reader, which gives the same pixels for PNGs and names any other format."""
+    try:
+        from PIL import Image
+    except ImportError:
+        return read_png(path)
+    with Image.open(path) as img:
+        return np.asarray(img.convert("RGB"))
+
+
 def load_image_chw(path: str, images_dir: str = "./images") -> np.ndarray:
-    """CHW float32 [0, 1] from a PNG at ``path`` or ``images_dir/path``."""
+    """CHW float32 [0, 1] from the image at ``path`` or ``images_dir/path`` (attack_model.py:
+    163-168)."""
     for cand in (path, os.path.join(images_dir, path)):
         if os.path.exists(cand):
-            return from_pil_array(read_png(cand))
+            return from_pil_array(_read_rgb(cand))
     raise FileNotFoundError(f"Cannot find {path}")

@@ -1,6 +1,6 @@
 """Victim construction: model + differentiable processor + prompt pools. Counterpart of
 adversarialvlm_tpu/attack/setup.py::build_tiny_victim for the llava and gemma3 families; victims
-built from checkpoints wait for the checkpoint loader (ROADMAP modules item 6)."""
+built from checkpoints wait for the checkpoint loader (ROADMAP modules: checkpoint loading)."""
 
 from __future__ import annotations
 

@@ -1,13 +1,18 @@
 """The single-victim attack step, the hot loop of the port. Counterpart of
 adversarialvlm_tpu/attack/step.py.
 
-One step: x = ε·tanh(p) → differentiable preprocess → repeat to the batch → + EoT noise →
-forward → suffix CE + range penalty → gradient w.r.t. p → gradient mask → optional gradient
-accumulation → AdamW + StepLR → on-device uint8 round trip that updates σ_resave.
+One step: x = ε·tanh(p) → [blur] → [random-resized crop of x₀ + x] → differentiable preprocess
+→ repeat to the batch → + EoT noise → forward → suffix CE + range penalty → gradient w.r.t. p →
+gradient mask (optionally a random square moved every step) → optional gradient accumulation →
+AdamW + StepLR → on-device uint8 round trip that updates σ_resave.
 
 Random draws: the (target, question) indices are drawn on the host by :func:`sample_chunk_xs`
-from a CPU ``torch.Generator``; the EoT noise is drawn on the victim's device from the step's own
-generator, or taken from ``xs["noise"]`` (tests inject the JAX package's draws there).
+from a CPU ``torch.Generator``; so are the transforms' draws (the crop box, the two
+``transform_prob`` coins and the moving square's position), each from a CPU generator of its own
+(:class:`TransformDraws`), as the JAX step folds a key of its own for each, so switching a
+transform on never shifts the question draws. The EoT noise is drawn on the victim's device from
+the step's own generator, or taken from ``xs["noise"]``. Tests inject the JAX package's draws
+through ``xs``.
 """
 
 from __future__ import annotations
@@ -20,12 +25,15 @@ import numpy as np
 import torch
 
 from adversarialvlm_tpu_torch.attack.config import AttackConfig
+from adversarialvlm_tpu_torch.ops.blur import gaussian_blur
+from adversarialvlm_tpu_torch.ops.crop import crop_resize, sample_crop_box
 from adversarialvlm_tpu_torch.ops.image import uint8_roundtrip
 from adversarialvlm_tpu_torch.ops.losses import (
     image_fit_loss,
     perturbation_clamp,
     suffix_cross_entropy,
 )
+from adversarialvlm_tpu_torch.ops.masks import random_square_mask, square_position
 
 
 @dataclasses.dataclass
@@ -51,13 +59,10 @@ class VictimHandles:
 def unported_features(cfg: AttackConfig, cross: bool = False) -> list[str]:
     """Attack options the port does not run yet, each with its ROADMAP item."""
     waits = {
-        "cross-model attack (ROADMAP modules item 9)": cross,
-        "DPO_flag (ROADMAP modules item 9)": cfg.DPO_flag,
-        "use_gaussian_blur (ROADMAP modules item 1: ops/blur.py)": cfg.use_gaussian_blur,
-        "use_local_crop (ROADMAP modules item 1: ops/crop.py)": cfg.use_local_crop,
-        "mask_type (ROADMAP modules item 1: ops/masks.py)": cfg.mask_type is not None,
-        "resume_state (ROADMAP modules item 5)": cfg.resume_state is not None,
-        "profile_dir (ROADMAP modules item 5)": cfg.profile_dir is not None,
+        "cross-model attack (ROADMAP modules: cross attack and DPO)": cross,
+        "DPO_flag (ROADMAP modules: cross attack and DPO)": cfg.DPO_flag,
+        "resume_state (ROADMAP modules: resume, profiling and bench)": cfg.resume_state is not None,
+        "profile_dir (ROADMAP modules: resume, profiling and bench)": cfg.profile_dir is not None,
     }
     return [name for name, asked in waits.items() if asked]
 
@@ -100,9 +105,56 @@ def _length_mask(ids: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
     return (torch.arange(L, device=ids.device)[None, :] >= L - lens[:, None]).to(torch.int32)
 
 
-def sample_chunk_xs(generator: torch.Generator, n: int, cfg: AttackConfig, victims) -> list[dict]:
+def moving_square(cfg: AttackConfig) -> bool:
+    """Whether the random-square mask moves every step (the JAX step's condition)."""
+    return bool(cfg.mask_refresh_random_square) and cfg.mask_type == "random_square"
+
+
+def coins_drawn(cfg: AttackConfig) -> bool:
+    """Whether the step flips the transform_prob coins (the JAX step's condition)."""
+    return cfg.transform_prob < 1.0 and bool(cfg.use_gaussian_blur or cfg.use_local_crop)
+
+
+def host_generator(seed: int, stream: int) -> torch.Generator:
+    """A CPU generator for one kind of host draw of a run seeded with ``seed``: stream 0 is the
+    initial random-square mask, streams 1-3 the transforms' draws. None of them is the
+    (target, question) generator, which is seeded with ``seed`` itself."""
+    state = np.random.SeedSequence([seed, stream]).generate_state(1)[0]
+    return torch.Generator().manual_seed(int(state))
+
+
+class TransformDraws:
+    """The transforms' host draws of each step, each kind from a CPU generator of its own seeded
+    from ``seed``: the crop box (when ``use_local_crop``), the blur and crop coins (when
+    :func:`coins_drawn`; each fires with probability ``transform_prob``) and the moving square's
+    position (when :func:`moving_square`). ``draw()`` gives the keys the step reads from ``xs``:
+    ``crop_box`` (top, left, h, w), ``coins`` (blur, crop) and ``mask_pos`` (i, j)."""
+
+    KINDS = ("crop", "coins", "mask")
+
+    def __init__(self, cfg: AttackConfig, image_shape, seed: int):
+        self.cfg, self.shape = cfg, tuple(image_shape)
+        self.gens = {kind: host_generator(seed, 1 + i) for i, kind in enumerate(self.KINDS)}
+
+    def draw(self) -> dict:
+        cfg, out = self.cfg, {}
+        if cfg.use_local_crop:
+            out["crop_box"] = sample_crop_box(
+                self.gens["crop"], self.shape[1], self.shape[2],
+                (cfg.crop_scale_min, cfg.crop_scale_max), (cfg.crop_ratio_min, cfg.crop_ratio_max))
+        if coins_drawn(cfg):
+            u = torch.rand((2,), generator=self.gens["coins"])
+            out["coins"] = (bool(u[0] < cfg.transform_prob), bool(u[1] < cfg.transform_prob))
+        if moving_square(cfg):
+            out["mask_pos"] = square_position(self.gens["mask"], self.shape, int(cfg.mask_size))
+        return out
+
+
+def sample_chunk_xs(generator: torch.Generator, n: int, cfg: AttackConfig, victims,
+                    transforms: TransformDraws | None = None) -> list[dict]:
     """Host draws for the next ``n`` steps from a CPU generator: per step, the target index and
-    the batch's question rows gathered from the host pool, with their lengths."""
+    the batch's question rows gathered from the host pool, with their lengths, and, with
+    ``transforms``, that step's transform draws from their own generators."""
     v = victims[0]
     n_targets, n_q = v.prompt_pool.shape[:2]
     out = []
@@ -117,8 +169,16 @@ def sample_chunk_xs(generator: torch.Generator, n: int, cfg: AttackConfig, victi
             "t_idx": t,
             "rows": [torch.from_numpy(v.prompt_pool[t, q])],
             "lens": [torch.from_numpy(v.prompt_lengths[t, q])],
+            **(transforms.draw() if transforms is not None else {}),
         })
     return out
+
+
+def _drawn(xs: dict, key: str, why: str):
+    if key not in xs:
+        raise ValueError(f"the step's draws lack {key!r}, which {why} needs: sample them with "
+                         "sample_chunk_xs(..., transforms=TransformDraws(...)) or inject them")
+    return xs[key]
 
 
 class AttackStep:
@@ -161,24 +221,38 @@ class AttackStep:
         )
 
     def loss_and_grad(self, p: torch.Tensor, xs: dict, resave_std: torch.Tensor):
-        """(total loss, image loss, CE, x, d total / d p) at ``p`` for the draws ``xs``."""
+        """(total loss, image loss, CE, x, d total / d p) at ``p`` for the draws ``xs``. x is the
+        perturbation after the blur (when it fires), as the JAX step reassigns it: the x of the
+        range penalty and of every metric; the crop applies to x₀ + x for the victim alone. x is
+        a tensor of its own, never p's storage, which the update then overwrites."""
         cfg = self.cfg
         p = p.detach().requires_grad_(True)
+        coins = _drawn(xs, "coins", "transform_prob < 1") if coins_drawn(cfg) else (True, True)
         x = perturbation_clamp(p, cfg.epsilon, cfg.clamp_method)
+        if cfg.use_gaussian_blur and coins[0]:
+            x = gaussian_blur(x, cfg.gblur_kernel_size, cfg.gblur_sigma)
+        arg = self.x0 + x
+        if cfg.use_local_crop and coins[1]:
+            arg = crop_resize(arg, *_drawn(xs, "crop_box", "use_local_crop"))
         img_loss = image_fit_loss(self.x0, x)
         noise = xs["noise"][0] if "noise" in xs else None
-        ce = self.victim_ce(
-            self.x0 + x, xs["t_idx"], xs["rows"][0], xs["lens"][0], resave_std, noise
-        )
+        ce = self.victim_ce(arg, xs["t_idx"], xs["rows"][0], xs["lens"][0], resave_std, noise)
         total = (ce + img_loss) / cfg.grad_accum_steps
         (grad,) = torch.autograd.grad(total, p)
-        return total.detach(), img_loss.detach(), ce.detach(), x.detach(), grad
+        # clamp_method "none" without a blur makes x p itself
+        x = x.detach().clone() if x.data_ptr() == p.data_ptr() else x.detach()
+        return total.detach(), img_loss.detach(), ce.detach(), x, grad
 
     def __call__(self, state: dict, xs: dict):
         cfg = self.cfg
         p = state["p"]
         loss, img_loss, ce, x, grad = self.loss_and_grad(p, xs, state["resave_std"])
-        g = grad * self.grad_mask
+        mask = self.grad_mask
+        if moving_square(cfg):
+            mask = random_square_mask(self.x0.shape, int(cfg.mask_size),
+                                      position=_drawn(xs, "mask_pos", "the moving square"),
+                                      device=self.x0.device)
+        g = grad * mask
         grad_norm = torch.linalg.vector_norm(g)
         accum_loss = state["accum_loss"] + loss
         # the lr the optimizer applies in this step (schedule count = applies before it)
@@ -235,16 +309,27 @@ def build_attack_step(victims, cfg: AttackConfig, x0: torch.Tensor, grad_mask: t
     return AttackStep(victims, cfg, x0, grad_mask, cross)
 
 
+def saved_perturbation(cfg: AttackConfig, p: torch.Tensor) -> torch.Tensor:
+    """The perturbation the run saves and monitors: ε·tanh(p), blurred at the fixed σ when
+    ``use_gaussian_blur`` and ``transform_prob >= 1`` (the reference reassigns x to the blurred
+    value before saving, attack_model.py:302; at ``transform_prob < 1`` the attack also trained
+    the untransformed image, which is then the deliverable; JAX engine.py:252-271,
+    step.py:556-560)."""
+    x = perturbation_clamp(p, cfg.epsilon, cfg.clamp_method)
+    if cfg.use_gaussian_blur and cfg.transform_prob >= 1.0:
+        x = gaussian_blur(x, cfg.gblur_kernel_size, cfg.gblur_sigma)
+    return x
+
+
 def build_resaved_loss_fn(victims, cfg: AttackConfig, x0: torch.Tensor):
-    """The resaved-loss monitor: mean clean CE on the uint8-round-tripped image over a fresh
+    """The resaved-loss monitor: mean clean CE on the uint8-round-tripped saved image over a fresh
     question batch drawn from ``generator``. Pure logging, run at checkpoint boundaries."""
     v = victims[0]
     step = AttackStep(victims, cfg, x0, torch.ones_like(x0))
 
     @torch.no_grad()
     def resaved_loss(p: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
-        x = perturbation_clamp(p, cfg.epsilon, cfg.clamp_method)
-        x_resaved = uint8_roundtrip(x0 + x)
+        x_resaved = uint8_roundtrip(x0 + saved_perturbation(cfg, p))
         xs = sample_chunk_xs(generator, 1, cfg, [v])[0]
         return step.victim_ce(x_resaved, xs["t_idx"], xs["rows"][0], xs["lens"][0])
 

@@ -101,7 +101,8 @@ def build_victim(model_name: str, cfg, in_hw, device):
                                  family=model_name.split(":")[1])
     raise NotImplementedError(
         f"model {model_name!r}: checkpoint loading and other families are not ported yet "
-        f"(ROADMAP modules items 6 and 8); use one of {', '.join(MODEL_NAMES)}"
+        "(ROADMAP modules: checkpoint loading; other victim families); use one of "
+        + ", ".join(MODEL_NAMES)
     )
 
 
@@ -112,9 +113,9 @@ def main(argv=None):
     args = parser.parse_args(argv)
     waiting = [
         flag for flag, asked in (
-            ("--mesh_model/--mesh_data (ROADMAP modules item 9)",
+            ("--mesh_model/--mesh_data (ROADMAP modules: multi-GPU mesh)",
              args.mesh_model is not None or args.mesh_data is not None),
-            ("--int8_weights (ROADMAP modules item 10)", args.int8_weights),
+            ("--int8_weights (ROADMAP modules: judge and eval)", args.int8_weights),
             ("--remat_policy (not needed on an 80 GB card)", args.remat_policy is not None),
         ) if asked
     ]

@@ -1,30 +1,42 @@
-// Attention forward and backward in the projections' native (B, T, H, D) layout: three kernel
-// templates (forward; dq; dk/dv), each with a grid layer per batch row, a compile-time CAUSAL
-// switch and a shared-memory head width DP = D rounded up to WMMA's k-step of 16.
+// Attention forward and backward over operands read in place through their strides: three kernel
+// templates (forward; dq; dk/dv), each with a grid layer per batch row, a compile-time mask mode
+// and a shared-memory head width DP = D rounded up to WMMA's k-step of 16.
 //
-// Replaces three Pallas entries, each through its own C entry points:
-//  - attn_* (CAUSAL, DP = D): adversarialvlm_tpu/ops/pallas/fused_attention.py::fused_sdpa_bthd at
+// Replaces four Pallas entries, each through its own C entry points:
+//  - attn_* (CAUSAL_SEG, DP = D): adversarialvlm_tpu/ops/pallas/fused_attention.py::fused_sdpa_bthd at
 //    batch 1, that is _call_fwd_bthd (pallas_call at :441, body _fwd_kernel_bthd :361) and
 //    _call_bwd_bthd (pallas_call at :470, body _bwd_kernel_bthd :372);
-//  - flash_* (CAUSAL, DP = D): adversarialvlm_tpu/ops/pallas/attention.py::flash_sdpa (:178), which
-//    calls the stock TPU flash_attention's forward, dkv and dq kernels through _flash_call (:97),
-//    over a left-padded batch. Its segment ids are the rows' attention masks (pads 0, real tokens
-//    1) and its causality is by raw index: the function below, row by row;
-//  - flash_full_* (not CAUSAL, D = 72, DP = 80): adversarialvlm_tpu/ops/pallas/attention.py::
+//  - flash_* (CAUSAL_SEG, DP = D): adversarialvlm_tpu/ops/pallas/attention.py::flash_sdpa (:178),
+//    which calls the stock TPU flash_attention's forward, dkv and dq kernels through _flash_call
+//    (:97), over a left-padded batch. Its segment ids are the rows' attention masks (pads 0, real
+//    tokens 1) and its causality is by raw index: the function below, row by row;
+//  - flash_full_* (NONE, D = 72, DP = 80): adversarialvlm_tpu/ops/pallas/attention.py::
 //    flash_sdpa_full (:214), the same stock kernels through _flash_call (:97) with causal=False,
 //    for vision towers whose every token is real (Gemma-3's SigLIP: T = 4096 patches, 16 heads of
 //    72). Every query attends every key: the forward and dq walk every key tile and dk/dv every
-//    query tile, and no segment array is read.
+//    query tile, and no segment array is read;
+//  - fused_* (CAUSAL_SEG or SEG, DP = D in {32, 64, 96, 128}): adversarialvlm_tpu/ops/pallas/
+//    fused_attention.py::fused_sdpa, that is _call_fwd (:208, pallas_call at :213, bodies
+//    _fwd_kernel :107 and _fwd_kernel_v2 :115) and _call_bwd (:229, pallas_call at :235, bodies
+//    _bwd_kernel :126 and _bwd_kernel_v2 :154; v1 and v2 are the same math, so there is one port).
+//    Whole-head attention in (B, H, T, D) layout, no GQA, causal or not; in both modes a pair is
+//    allowed only within one segment (_probs :68), so the non-causal mode still keeps pads apart
+//    from real tokens. The TPU kernel's single backward call is the dq and dk/dv kernels here.
 // The TPU entries pad T to their block (segment 0) and slice the output back, and flash_sdpa_full
-// also zero-pads D to 128 lanes in device memory; these kernels mask the ragged tile instead and
-// zero-pad D only inside shared memory (columns D..DP-1), so nothing is padded or copied in device
-// memory. Global offsets use the real D (h·D, row stride H·D; a 72-wide head row is 144 bytes, so
-// 16-byte copies stay aligned) and only D columns of o, dq, dk and dv are written.
+// and fused_sdpa also zero-pad D to 128 lanes in device memory; these kernels mask the ragged tile
+// instead (the pad rows of a TPU entry are garbage by contract, and a real row never attends them)
+// and zero-pad D only inside shared memory (columns D..DP-1), so nothing is padded or copied in
+// device memory. Every operand is addressed through a Layout of batch, row (token) and head
+// strides: the projections' (B, T, H, D) for attn_*, flash_* and flash_full_*, whatever (B, H, T, D)
+// strides fused_sdpa is handed (a head row is 16-byte aligned and contiguous). Only D columns of
+// o, dq, dk and dv are written.
 //
-// The causal function: query row i may attend key j when j <= i and seg[i] == seg[j] (left pads
-// carry segment 0, so a pad row attends earlier pads and a real row attends earlier real tokens;
-// every row attends at least itself). Scores are f32, softmax in f32, output in bf16. GQA: q-head h
-// reads kv head h / (H / Hkv).
+// The mask modes: query row i may attend key j when
+//  - CAUSAL_SEG: j <= i and seg[i] == seg[j] (left pads carry segment 0, so a pad row attends
+//    earlier pads and a real row attends earlier real tokens; every row attends at least itself);
+//  - SEG: seg[i] == seg[j] (every row attends at least itself);
+//  - NONE: always (no segment array).
+// Scores are f32, softmax in f32, output in bf16. GQA: q-head h reads kv head h / (H / Hkv).
 //
 // What bounds it on the H100: at the 7B decoder's shape (T ≈ 640, 32 heads of 128) the causal
 // half of the T×T scores per head is ~1.7 GFLOP forward on ~20 MB of q/k/v/o, a few hundred
@@ -35,12 +47,16 @@
 // key tiles, masked, which costs at most the pads' share (under 15% at the batch-4 step). The
 // SigLIP tower's non-causal forward is 4·T²·D·H = 77.3 GFLOP per image on 37.7 MB of q/k/v/o,
 // ~2000 operations per byte: the tensor cores bound it; the padding of 72 to 80 costs 11% more
-// products than the bound counts.
+// products than the bound counts. fused_sdpa at its harness's shape (1, 32, 610, 128), causal
+// with 23 left pads: about 20 MB of q/k/v/o against 2.8 GFLOP of causal work on the real rows, so
+// at the card's peaks device bandwidth sets the bound (about 0.0060 ms against 0.0029 ms of
+// tensor-core time; at the 7B decoder's T = 641, 21 MB and 3.1 GFLOP, 0.0063 ms), though the
+// ratio is close enough to the ridge that a kernel this far from either peak is bound by neither.
 //
 // Design: the TPU kernel keeps a whole head's (T, T) scores in VMEM; Hopper's shared memory cannot
 // hold them, so these kernels tile over T. A block owns one tile of BQ query rows of one head (or,
 // for dk/dv, BKV key rows of one kv head) and walks the other side's tiles (up to the causal limit
-// when CAUSAL), so no (T, T) tensor is ever written to device memory and there is no cap on T.
+// in CAUSAL_SEG), so no (T, T) tensor is ever written to device memory and there is no cap on T.
 //  - Forward: online softmax over key tiles. Each warp owns 16 query rows: it computes that strip
 //    of S = q·kᵀ with bf16 WMMA into f32 shared memory, updates the rows' running max and sum,
 //    rescales its f32 output strip and adds P·v. Only the k/v tile loads are shared by the block.
@@ -50,7 +66,7 @@
 //    accumulates dS·k. δ = rowsum(dO ⊙ O) is computed here once per row and written out for the
 //    dk/dv kernel, which therefore runs second.
 //  - dk/dv: each warp owns 16 key rows; the block loops over the n_rep q-heads of its kv head and
-//    over the query tiles (at or after its keys when CAUSAL), accumulating dv += Pᵀ·dO and
+//    over the query tiles (at or after its keys in CAUSAL_SEG), accumulating dv += Pᵀ·dO and
 //    dk += dSᵀ·q in f32 shared memory, so GQA heads are summed in f32 and written once as bf16.
 // Accumulators live in shared memory, loads are plain 16-byte copies and a block has 2 or 4 warps:
 // simple and correct first; wgmma, TMA and deeper pipelining are later work.
@@ -67,6 +83,15 @@ namespace {
 typedef __nv_bfloat16 bf16;
 
 constexpr float NEG = -1e30f;
+
+// The mask modes of the header note.
+enum Mask { CAUSAL_SEG = 0, SEG = 1, NONE = 2 };
+
+// Element strides of a (B, T, heads, D) operand viewed in any layout: batch, row (token), head.
+// The head dim itself is contiguous.
+struct Layout {
+  long long b, r, h;
+};
 
 typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
 typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
@@ -85,19 +110,20 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Rows [r0, r0 + ROWS) of head h of a (T, heads, D) bf16 tensor into shared memory with row
-// stride DP + 8, DP = D rounded up to WMMA's k-step of 16; rows at or past T and columns D..DP-1
-// are zero, so they add nothing to q·kᵀ, dO·vᵀ or P·v.
+// Rows [r0, r0 + ROWS) of one head (``src`` points at its row 0; rows ``row_stride`` elements
+// apart) of a bf16 tensor into shared memory with row stride DP + 8, DP = D rounded up to WMMA's
+// k-step of 16; rows at or past T and columns D..DP-1 are zero, so they add nothing to q·kᵀ, dO·vᵀ
+// or P·v.
 template <int ROWS, int D, int DP, int NT>
 __device__ __forceinline__ void load_rows(bf16* dst, const bf16* __restrict__ src, int r0, int T,
-                                          int row_stride, int h, int tid) {
+                                          long long row_stride, int tid) {
   constexpr int CH = DP / 8;
   for (int c = tid; c < ROWS * CH; c += NT) {
     const int r = c / CH, cc = (c % CH) * 8;
     const int gr = r0 + r;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (gr < T && cc < D)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)gr * row_stride + (size_t)h * D + cc);
+      val = *reinterpret_cast<const uint4*>(src + (size_t)gr * row_stride + cc);
     *reinterpret_cast<uint4*>(dst + r * (DP + 8) + cc) = val;
   }
 }
@@ -141,12 +167,13 @@ __device__ __forceinline__ void warp_mm_acc(float* C, int ldc, const bf16* A, in
   }
 }
 
-// Row masks. The causal entries (fused_sdpa_bthd, flash_sdpa) allow j <= i within one segment;
-// the non-causal entry (flash_sdpa_full) allows every real pair and carries no segment array.
-template <bool CAUSAL>
+// Whether query gq may attend key gk under the mask mode (sq, sk: their segments).
+template <int MASK>
 __device__ __forceinline__ bool allowed(int gq, int gk, int T, int sq, int sk) {
-  if constexpr (CAUSAL) {
+  if constexpr (MASK == CAUSAL_SEG) {
     return gq < T && gk <= gq && sk == sq;
+  } else if constexpr (MASK == SEG) {
+    return gq < T && gk < T && sk == sq;
   } else {
     return gq < T && gk < T;
   }
@@ -160,18 +187,19 @@ struct FwdSmem {
                                   2 * BQ * sizeof(float) + (BQ + BKV) * sizeof(int);
 };
 
-template <int D, int DP, int BQ, int BKV, bool CAUSAL>
+// q and o are laid out as lq, k and v as lk; seg is (B, T) and lse (B, H, T), both contiguous.
+template <int D, int DP, int BQ, int BKV, int MASK>
 __global__ void __launch_bounds__(BQ / 16 * 32)
     attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
                     const int* __restrict__ seg, bf16* __restrict__ o, float* __restrict__ lse, int T, int H,
-                    int Hkv, float scale) {
+                    int Hkv, float scale, Layout lq, Layout lk) {
   typedef FwdSmem<DP, BQ, BKV> L;
   const size_t bz = blockIdx.z;  // batch row: every operand advances by one whole sequence
-  q += bz * T * H * D;
-  k += bz * T * Hkv * D;
-  v += bz * T * Hkv * D;
-  if constexpr (CAUSAL) seg += bz * T;
-  o += bz * T * H * D;
+  q += bz * lq.b;
+  k += bz * lk.b;
+  v += bz * lk.b;
+  if constexpr (MASK != NONE) seg += bz * T;
+  o += bz * lq.b;
   lse += bz * H * T;
   constexpr int NT = BQ / 16 * 32;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -189,38 +217,37 @@ __global__ void __launch_bounds__(BQ / 16 * 32)
   const int h = blockIdx.y, hk = h / (H / Hkv);
   const int q0 = blockIdx.x * BQ;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, rw = warp * 16;
-  const int qstride = H * D, kvstride = Hkv * D;
 
-  load_rows<BQ, D, DP, NT>(Qs, q, q0, T, qstride, h, tid);
+  load_rows<BQ, D, DP, NT>(Qs, q + (size_t)h * lq.h, q0, T, lq.r, tid);
   for (int r = tid; r < BQ; r += NT) {
     m_s[r] = NEG;
     l_s[r] = 0.0f;
-    if constexpr (CAUSAL) qseg[r] = q0 + r < T ? seg[q0 + r] : -1;
+    if constexpr (MASK != NONE) qseg[r] = q0 + r < T ? seg[q0 + r] : -1;
   }
   for (int i = tid; i < BQ * L::LDO; i += NT) Os[i] = 0.0f;
 
   // key tiles up to the causal limit, or all of them
-  const int nkt = CAUSAL ? (min(q0 + BQ, T) - 1) / BKV + 1 : (T + BKV - 1) / BKV;
+  const int nkt = MASK == CAUSAL_SEG ? (min(q0 + BQ, T) - 1) / BKV + 1 : (T + BKV - 1) / BKV;
   for (int kt = 0; kt < nkt; ++kt) {
     const int k0 = kt * BKV;
     __syncthreads();  // everyone is done with the previous k/v tile
-    load_rows<BKV, D, DP, NT>(Ks, k, k0, T, kvstride, hk, tid);
-    load_rows<BKV, D, DP, NT>(Vs, v, k0, T, kvstride, hk, tid);
-    if constexpr (CAUSAL)
+    load_rows<BKV, D, DP, NT>(Ks, k + (size_t)hk * lk.h, k0, T, lk.r, tid);
+    load_rows<BKV, D, DP, NT>(Vs, v + (size_t)hk * lk.h, k0, T, lk.r, tid);
+    if constexpr (MASK != NONE)
       for (int c = tid; c < BKV; c += NT) kseg[c] = k0 + c < T ? seg[k0 + c] : -2;
     __syncthreads();
 
     warp_mm_abt<BKV, DP>(Ss + rw * L::LDS, L::LDS, Qs + rw * L::LDH, L::LDH, Ks, L::LDH);
     __syncwarp();
     for (int rr = 0; rr < 16; ++rr) {
-      const int r = rw + rr, gq = q0 + r, sq = CAUSAL ? qseg[r] : 0;
+      const int r = rw + rr, gq = q0 + r, sq = MASK != NONE ? qseg[r] : 0;
       float sv[BKV / 32];
       bool ok[BKV / 32];
       float mx = NEG;
 #pragma unroll
       for (int c = 0; c < BKV / 32; ++c) {
         const int col = lane + 32 * c, gk = k0 + col;
-        ok[c] = allowed<CAUSAL>(gq, gk, T, sq, CAUSAL ? kseg[col] : 0);
+        ok[c] = allowed<MASK>(gq, gk, T, sq, MASK != NONE ? kseg[col] : 0);
         sv[c] = ok[c] ? Ss[r * L::LDS + col] * scale : NEG;
         mx = fmaxf(mx, sv[c]);
       }
@@ -250,7 +277,7 @@ __global__ void __launch_bounds__(BQ / 16 * 32)
     const int r = rw + rr, gq = q0 + r;
     if (gq >= T) break;
     const float inv = 1.0f / l_s[r];
-    for (int d = lane; d < D; d += 32) o[(size_t)gq * qstride + (size_t)h * D + d] = __float2bfloat16(Os[r * L::LDO + d] * inv);
+    for (int d = lane; d < D; d += 32) o[(size_t)gq * lq.r + (size_t)h * lq.h + d] = __float2bfloat16(Os[r * L::LDO + d] * inv);
     if (lane == 0) lse[(size_t)h * T + gq] = m_s[r] + logf(l_s[r]);
   }
 }
@@ -264,22 +291,23 @@ struct DqSmem {
                                   (BQ + BKV) * sizeof(int);
 };
 
-template <int D, int DP, int BQ, int BKV, bool CAUSAL>
+// q, o, dout and dq are laid out as lq, k and v as lk; lse and delta (B, H, T) contiguous.
+template <int D, int DP, int BQ, int BKV, int MASK>
 __global__ void __launch_bounds__(BQ / 16 * 32)
     attn_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
                        const int* __restrict__ seg, const bf16* __restrict__ o, const bf16* __restrict__ dout,
                        const float* __restrict__ lse, bf16* __restrict__ dq, float* __restrict__ delta, int T,
-                       int H, int Hkv, float scale) {
+                       int H, int Hkv, float scale, Layout lq, Layout lk) {
   typedef DqSmem<DP, BQ, BKV> L;
   const size_t bz = blockIdx.z;
-  q += bz * T * H * D;
-  k += bz * T * Hkv * D;
-  v += bz * T * Hkv * D;
-  if constexpr (CAUSAL) seg += bz * T;
-  o += bz * T * H * D;
-  dout += bz * T * H * D;
+  q += bz * lq.b;
+  k += bz * lk.b;
+  v += bz * lk.b;
+  if constexpr (MASK != NONE) seg += bz * T;
+  o += bz * lq.b;
+  dout += bz * lq.b;
   lse += bz * H * T;
-  dq += bz * T * H * D;
+  dq += bz * lq.b;
   delta += bz * H * T;
   constexpr int NT = BQ / 16 * 32;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -299,13 +327,12 @@ __global__ void __launch_bounds__(BQ / 16 * 32)
   const int h = blockIdx.y, hk = h / (H / Hkv);
   const int q0 = blockIdx.x * BQ;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, rw = warp * 16;
-  const int qstride = H * D, kvstride = Hkv * D;
 
-  load_rows<BQ, D, DP, NT>(Qs, q, q0, T, qstride, h, tid);
-  load_rows<BQ, D, DP, NT>(dOs, dout, q0, T, qstride, h, tid);
+  load_rows<BQ, D, DP, NT>(Qs, q + (size_t)h * lq.h, q0, T, lq.r, tid);
+  load_rows<BQ, D, DP, NT>(dOs, dout + (size_t)h * lq.h, q0, T, lq.r, tid);
   for (int r = tid; r < BQ; r += NT) {
     lse_s[r] = q0 + r < T ? lse[(size_t)h * T + q0 + r] : 0.0f;
-    if constexpr (CAUSAL) qseg[r] = q0 + r < T ? seg[q0 + r] : -1;
+    if constexpr (MASK != NONE) qseg[r] = q0 + r < T ? seg[q0 + r] : -1;
   }
   for (int i = tid; i < BQ * L::LDO; i += NT) dQs[i] = 0.0f;
   __syncthreads();
@@ -315,7 +342,7 @@ __global__ void __launch_bounds__(BQ / 16 * 32)
     float acc = 0.0f;
     if (gq < T)
       for (int d = lane; d < D; d += 32)
-        acc += __bfloat162float(dOs[r * L::LDH + d]) * __bfloat162float(o[(size_t)gq * qstride + (size_t)h * D + d]);
+        acc += __bfloat162float(dOs[r * L::LDH + d]) * __bfloat162float(o[(size_t)gq * lq.r + (size_t)h * lq.h + d]);
     acc = warp_sum(acc);
     if (lane == 0) {
       dl_s[r] = acc;
@@ -323,13 +350,13 @@ __global__ void __launch_bounds__(BQ / 16 * 32)
     }
   }
 
-  const int nkt = CAUSAL ? (min(q0 + BQ, T) - 1) / BKV + 1 : (T + BKV - 1) / BKV;
+  const int nkt = MASK == CAUSAL_SEG ? (min(q0 + BQ, T) - 1) / BKV + 1 : (T + BKV - 1) / BKV;
   for (int kt = 0; kt < nkt; ++kt) {
     const int k0 = kt * BKV;
     __syncthreads();
-    load_rows<BKV, D, DP, NT>(Ks, k, k0, T, kvstride, hk, tid);
-    load_rows<BKV, D, DP, NT>(Vs, v, k0, T, kvstride, hk, tid);
-    if constexpr (CAUSAL)
+    load_rows<BKV, D, DP, NT>(Ks, k + (size_t)hk * lk.h, k0, T, lk.r, tid);
+    load_rows<BKV, D, DP, NT>(Vs, v + (size_t)hk * lk.h, k0, T, lk.r, tid);
+    if constexpr (MASK != NONE)
       for (int c = tid; c < BKV; c += NT) kseg[c] = k0 + c < T ? seg[k0 + c] : -2;
     __syncthreads();
 
@@ -337,12 +364,12 @@ __global__ void __launch_bounds__(BQ / 16 * 32)
     warp_mm_abt<BKV, DP>(dPs + rw * L::LDS, L::LDS, dOs + rw * L::LDH, L::LDH, Vs, L::LDH);
     __syncwarp();
     for (int rr = 0; rr < 16; ++rr) {
-      const int r = rw + rr, gq = q0 + r, sq = CAUSAL ? qseg[r] : 0;
+      const int r = rw + rr, gq = q0 + r, sq = MASK != NONE ? qseg[r] : 0;
       const float lr = lse_s[r], dr = dl_s[r];
 #pragma unroll
       for (int c = 0; c < BKV / 32; ++c) {
         const int col = lane + 32 * c, gk = k0 + col;
-        const bool ok = allowed<CAUSAL>(gq, gk, T, sq, CAUSAL ? kseg[col] : 0);
+        const bool ok = allowed<MASK>(gq, gk, T, sq, MASK != NONE ? kseg[col] : 0);
         const float p = ok ? expf(Ss[r * L::LDS + col] * scale - lr) : 0.0f;
         dSs[r * L::LDP + col] = __float2bfloat16(p * (dPs[r * L::LDS + col] - dr) * scale);
       }
@@ -354,7 +381,7 @@ __global__ void __launch_bounds__(BQ / 16 * 32)
   for (int rr = 0; rr < 16; ++rr) {
     const int r = rw + rr, gq = q0 + r;
     if (gq >= T) break;
-    for (int d = lane; d < D; d += 32) dq[(size_t)gq * qstride + (size_t)h * D + d] = __float2bfloat16(dQs[r * L::LDO + d]);
+    for (int d = lane; d < D; d += 32) dq[(size_t)gq * lq.r + (size_t)h * lq.h + d] = __float2bfloat16(dQs[r * L::LDO + d]);
   }
 }
 
@@ -367,23 +394,24 @@ struct DkdvSmem {
                                   (BQ + BKV) * sizeof(int);
 };
 
-template <int D, int DP, int BQ, int BKV, bool CAUSAL>
+// q and dout are laid out as lq, k, v, dk and dv as lk; lse and delta (B, H, T) contiguous.
+template <int D, int DP, int BQ, int BKV, int MASK>
 __global__ void __launch_bounds__(BKV / 16 * 32)
     attn_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
                          const int* __restrict__ seg, const bf16* __restrict__ dout, const float* __restrict__ lse,
                          const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv, int T,
-                         int H, int Hkv, float scale) {
+                         int H, int Hkv, float scale, Layout lq, Layout lk) {
   typedef DkdvSmem<DP, BQ, BKV> L;
   const size_t bz = blockIdx.z;
-  q += bz * T * H * D;
-  k += bz * T * Hkv * D;
-  v += bz * T * Hkv * D;
-  if constexpr (CAUSAL) seg += bz * T;
-  dout += bz * T * H * D;
+  q += bz * lq.b;
+  k += bz * lk.b;
+  v += bz * lk.b;
+  if constexpr (MASK != NONE) seg += bz * T;
+  dout += bz * lq.b;
   lse += bz * H * T;
   delta += bz * H * T;
-  dk += bz * T * Hkv * D;
-  dv += bz * T * Hkv * D;
+  dk += bz * lk.b;
+  dv += bz * lk.b;
   constexpr int NT = BKV / 16 * 32;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);
@@ -404,11 +432,10 @@ __global__ void __launch_bounds__(BKV / 16 * 32)
   const int hk = blockIdx.y, n_rep = H / Hkv;
   const int k0 = blockIdx.x * BKV;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, rw = warp * 16;
-  const int qstride = H * D, kvstride = Hkv * D;
 
-  load_rows<BKV, D, DP, NT>(Ks, k, k0, T, kvstride, hk, tid);
-  load_rows<BKV, D, DP, NT>(Vs, v, k0, T, kvstride, hk, tid);
-  if constexpr (CAUSAL)
+  load_rows<BKV, D, DP, NT>(Ks, k + (size_t)hk * lk.h, k0, T, lk.r, tid);
+  load_rows<BKV, D, DP, NT>(Vs, v + (size_t)hk * lk.h, k0, T, lk.r, tid);
+  if constexpr (MASK != NONE)
     for (int c = tid; c < BKV; c += NT) kseg[c] = k0 + c < T ? seg[k0 + c] : -2;
   for (int i = tid; i < BKV * L::LDO; i += NT) {
     dKs[i] = 0.0f;
@@ -419,16 +446,16 @@ __global__ void __launch_bounds__(BKV / 16 * 32)
   for (int rep = 0; rep < n_rep; ++rep) {
     const int h = hk * n_rep + rep;
     // query tiles at or after this key tile, or all of them
-    for (int qt = CAUSAL ? k0 / BQ : 0; qt < nqt; ++qt) {
+    for (int qt = MASK == CAUSAL_SEG ? k0 / BQ : 0; qt < nqt; ++qt) {
       const int q0 = qt * BQ;
       __syncthreads();
-      load_rows<BQ, D, DP, NT>(Qs, q, q0, T, qstride, h, tid);
-      load_rows<BQ, D, DP, NT>(dOs, dout, q0, T, qstride, h, tid);
+      load_rows<BQ, D, DP, NT>(Qs, q + (size_t)h * lq.h, q0, T, lq.r, tid);
+      load_rows<BQ, D, DP, NT>(dOs, dout + (size_t)h * lq.h, q0, T, lq.r, tid);
       for (int c = tid; c < BQ; c += NT) {
         const bool in = q0 + c < T;
         lse_s[c] = in ? lse[(size_t)h * T + q0 + c] : 0.0f;
         dl_s[c] = in ? delta[(size_t)h * T + q0 + c] : 0.0f;
-        if constexpr (CAUSAL) qseg[c] = in ? seg[q0 + c] : -1;
+        if constexpr (MASK != NONE) qseg[c] = in ? seg[q0 + c] : -1;
       }
       __syncthreads();
 
@@ -436,11 +463,11 @@ __global__ void __launch_bounds__(BKV / 16 * 32)
       warp_mm_abt<BQ, DP>(dPt + rw * L::LDS, L::LDS, Vs + rw * L::LDH, L::LDH, dOs, L::LDH);
       __syncwarp();
       for (int rr = 0; rr < 16; ++rr) {
-        const int r = rw + rr, gk = k0 + r, sk = CAUSAL ? kseg[r] : 0;
+        const int r = rw + rr, gk = k0 + r, sk = MASK != NONE ? kseg[r] : 0;
 #pragma unroll
         for (int c = 0; c < BQ / 32; ++c) {
           const int col = lane + 32 * c, gq = q0 + col;
-          const bool ok = allowed<CAUSAL>(gq, gk, T, CAUSAL ? qseg[col] : 0, sk);
+          const bool ok = allowed<MASK>(gq, gk, T, MASK != NONE ? qseg[col] : 0, sk);
           const float p = ok ? expf(St[r * L::LDS + col] * scale - lse_s[col]) : 0.0f;
           Pt[r * L::LDP + col] = __float2bfloat16(p);
           dSt[r * L::LDP + col] = __float2bfloat16(p * (dPt[r * L::LDS + col] - dl_s[col]) * scale);
@@ -456,8 +483,8 @@ __global__ void __launch_bounds__(BKV / 16 * 32)
     const int r = rw + rr, gk = k0 + r;
     if (gk >= T) break;
     for (int d = lane; d < D; d += 32) {
-      dk[(size_t)gk * kvstride + (size_t)hk * D + d] = __float2bfloat16(dKs[r * L::LDO + d]);
-      dv[(size_t)gk * kvstride + (size_t)hk * D + d] = __float2bfloat16(dVs[r * L::LDO + d]);
+      dk[(size_t)gk * lk.r + (size_t)hk * lk.h + d] = __float2bfloat16(dKs[r * L::LDO + d]);
+      dv[(size_t)gk * lk.r + (size_t)hk * lk.h + d] = __float2bfloat16(dVs[r * L::LDO + d]);
     }
   }
 }
@@ -466,59 +493,91 @@ bool shape_ok(int B, int T, int H, int Hkv) {
   return B > 0 && B <= 65535 && T > 0 && H > 0 && Hkv > 0 && H % Hkv == 0;
 }
 
-template <int D, int DP, int BQ, int BKV, bool CAUSAL>
+// The projections' contiguous (B, T, heads, D) layout.
+Layout bthd(int T, int heads, int D) {
+  return Layout{(long long)T * heads * D, (long long)heads * D, (long long)D};
+}
+
+template <int D, int DP, int BQ, int BKV, int MASK>
 int launch_fwd(const void* q, const void* k, const void* v, const int* seg, void* o, float* lse, int B, int T,
-               int H, int Hkv, float scale, cudaStream_t stream) {
+               int H, int Hkv, float scale, Layout lq, Layout lk, cudaStream_t stream) {
   const size_t bytes = FwdSmem<DP, BQ, BKV>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(attn_fwd_kernel<D, DP, BQ, BKV, CAUSAL>,
+  cudaError_t err = cudaFuncSetAttribute(attn_fwd_kernel<D, DP, BQ, BKV, MASK>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((T + BQ - 1) / BQ, H, B);
-  attn_fwd_kernel<D, DP, BQ, BKV, CAUSAL><<<grid, BQ / 16 * 32, bytes, stream>>>(
+  attn_fwd_kernel<D, DP, BQ, BKV, MASK><<<grid, BQ / 16 * 32, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), seg,
-      static_cast<bf16*>(o), lse, T, H, Hkv, scale);
+      static_cast<bf16*>(o), lse, T, H, Hkv, scale, lq, lk);
   return (int)cudaGetLastError();
 }
 
-template <int D, int DP, int BQ, int BKV, bool CAUSAL>
+template <int D, int DP, int BQ, int BKV, int MASK>
 int launch_dq(const void* q, const void* k, const void* v, const int* seg, const void* o, const void* dout,
-              const float* lse, void* dq, float* delta, int B, int T, int H, int Hkv, float scale,
-              cudaStream_t stream) {
+              const float* lse, void* dq, float* delta, int B, int T, int H, int Hkv, float scale, Layout lq,
+              Layout lk, cudaStream_t stream) {
   const size_t bytes = DqSmem<DP, BQ, BKV>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dq_kernel<D, DP, BQ, BKV, CAUSAL>,
+  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dq_kernel<D, DP, BQ, BKV, MASK>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((T + BQ - 1) / BQ, H, B);
-  attn_bwd_dq_kernel<D, DP, BQ, BKV, CAUSAL><<<grid, BQ / 16 * 32, bytes, stream>>>(
+  attn_bwd_dq_kernel<D, DP, BQ, BKV, MASK><<<grid, BQ / 16 * 32, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), seg,
       static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse, static_cast<bf16*>(dq), delta, T, H, Hkv,
-      scale);
+      scale, lq, lk);
   return (int)cudaGetLastError();
 }
 
-template <int D, int DP, int BQ, int BKV, bool CAUSAL>
+template <int D, int DP, int BQ, int BKV, int MASK>
 int launch_dkdv(const void* q, const void* k, const void* v, const int* seg, const void* dout, const float* lse,
-                const float* delta, void* dk, void* dv, int B, int T, int H, int Hkv, float scale,
-                cudaStream_t stream) {
+                const float* delta, void* dk, void* dv, int B, int T, int H, int Hkv, float scale, Layout lq,
+                Layout lk, cudaStream_t stream) {
   const size_t bytes = DkdvSmem<DP, BQ, BKV>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dkdv_kernel<D, DP, BQ, BKV, CAUSAL>,
+  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dkdv_kernel<D, DP, BQ, BKV, MASK>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((T + BKV - 1) / BKV, Hkv, B);
-  attn_bwd_dkdv_kernel<D, DP, BQ, BKV, CAUSAL><<<grid, BKV / 16 * 32, bytes, stream>>>(
+  attn_bwd_dkdv_kernel<D, DP, BQ, BKV, MASK><<<grid, BKV / 16 * 32, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), seg,
-      static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), T, H, Hkv, scale);
+      static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), T, H, Hkv, scale,
+      lq, lk);
   return (int)cudaGetLastError();
 }
 
+// Tiles per head dim, shared by every segment-masked entry: (BQ, BKV) = (64, 64), except 32 key
+// rows per dq/dk-dv block at D = 256, whose 64-row tiles would not fit the shared memory.
+template <int D, int MASK>
+int seg_fwd(const void* q, const void* k, const void* v, const int* seg, void* o, float* lse, int B, int T, int H,
+            int Hkv, float scale, Layout lq, Layout lk, cudaStream_t s) {
+  return launch_fwd<D, D, 64, 64, MASK>(q, k, v, seg, o, lse, B, T, H, Hkv, scale, lq, lk, s);
+}
+
+template <int D, int MASK>
+int seg_dq(const void* q, const void* k, const void* v, const int* seg, const void* o, const void* dout,
+           const float* lse, void* dq, float* delta, int B, int T, int H, int Hkv, float scale, Layout lq, Layout lk,
+           cudaStream_t s) {
+  return launch_dq<D, D, 64, (D > 128 ? 32 : 64), MASK>(q, k, v, seg, o, dout, lse, dq, delta, B, T, H, Hkv, scale,
+                                                        lq, lk, s);
+}
+
+template <int D, int MASK>
+int seg_dkdv(const void* q, const void* k, const void* v, const int* seg, const void* dout, const float* lse,
+             const float* delta, void* dk, void* dv, int B, int T, int H, int Hkv, float scale, Layout lq, Layout lk,
+             cudaStream_t s) {
+  return launch_dkdv<D, D, 64, (D > 128 ? 32 : 64), MASK>(q, k, v, seg, dout, lse, delta, dk, dv, B, T, H, Hkv,
+                                                          scale, lq, lk, s);
+}
+
+// The projections' causal entries (attn_*, flash_*): D 128 or 256, (B, T, H, D) layout.
 int fwd(const void* q, const void* k, const void* v, const void* seg, void* o, void* lse, int B, int T, int H,
         int Hkv, int D, float scale, void* stream) {
   if (!shape_ok(B, T, H, Hkv)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* sg = static_cast<const int*>(seg);
   float* l = static_cast<float*>(lse);
-  if (D == 128) return launch_fwd<128, 128, 64, 64, true>(q, k, v, sg, o, l, B, T, H, Hkv, scale, s);
-  if (D == 256) return launch_fwd<256, 256, 64, 64, true>(q, k, v, sg, o, l, B, T, H, Hkv, scale, s);
+  const Layout lq = bthd(T, H, D), lk = bthd(T, Hkv, D);
+  if (D == 128) return seg_fwd<128, CAUSAL_SEG>(q, k, v, sg, o, l, B, T, H, Hkv, scale, lq, lk, s);
+  if (D == 256) return seg_fwd<256, CAUSAL_SEG>(q, k, v, sg, o, l, B, T, H, Hkv, scale, lq, lk, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -529,8 +588,9 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* seg, const v
   const int* sg = static_cast<const int*>(seg);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
-  if (D == 128) return launch_dq<128, 128, 64, 64, true>(q, k, v, sg, o, dout, l, dq, dl, B, T, H, Hkv, scale, s);
-  if (D == 256) return launch_dq<256, 256, 64, 32, true>(q, k, v, sg, o, dout, l, dq, dl, B, T, H, Hkv, scale, s);
+  const Layout lq = bthd(T, H, D), lk = bthd(T, Hkv, D);
+  if (D == 128) return seg_dq<128, CAUSAL_SEG>(q, k, v, sg, o, dout, l, dq, dl, B, T, H, Hkv, scale, lq, lk, s);
+  if (D == 256) return seg_dq<256, CAUSAL_SEG>(q, k, v, sg, o, dout, l, dq, dl, B, T, H, Hkv, scale, lq, lk, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -541,28 +601,48 @@ int bwd_dkdv(const void* q, const void* k, const void* v, const void* seg, const
   const int* sg = static_cast<const int*>(seg);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
-  if (D == 128) return launch_dkdv<128, 128, 64, 64, true>(q, k, v, sg, dout, l, dl, dk, dv, B, T, H, Hkv, scale, s);
-  if (D == 256) return launch_dkdv<256, 256, 64, 32, true>(q, k, v, sg, dout, l, dl, dk, dv, B, T, H, Hkv, scale, s);
+  const Layout lq = bthd(T, H, D), lk = bthd(T, Hkv, D);
+  if (D == 128) return seg_dkdv<128, CAUSAL_SEG>(q, k, v, sg, dout, l, dl, dk, dv, B, T, H, Hkv, scale, lq, lk, s);
+  if (D == 256) return seg_dkdv<256, CAUSAL_SEG>(q, k, v, sg, dout, l, dl, dk, dv, B, T, H, Hkv, scale, lq, lk, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // flash_sdpa_full: head_dim 72 (the SigLIP towers' 1152 / 16), padded to 80 in shared memory.
 constexpr int FULL_D = 72, FULL_DP = 80;
 
+// fused_sdpa: one call per (mask mode, head dim); the head dims of its reference tests and
+// harness.
+#define FUSED_DISPATCH(D, CALL) \
+  switch (D) {                  \
+    case 32: return CALL(32);   \
+    case 64: return CALL(64);   \
+    case 96: return CALL(96);   \
+    case 128: return CALL(128); \
+    default: return (int)cudaErrorInvalidValue; \
+  }
+
+Layout layout_of(const long long* s) { return Layout{s[0], s[1], s[2]}; }
+
 }  // namespace
 
-// All tensors contiguous on one device. Each entry launches on `stream` and returns
-// cudaGetLastError() (0 on success).
+// Each entry launches on `stream` and returns cudaGetLastError() (0 on success).
 //
-// attn_*: the fused_sdpa_bthd counterpart, batch 1, D 128 or 256. q, o, dout, dq: (T, H, D) bf16;
-// k, v, dk, dv: (T, Hkv, D) bf16; seg: (T,) int32; lse, delta: (H, T) f32.
+// attn_*: the fused_sdpa_bthd counterpart, batch 1, D 128 or 256, all tensors contiguous. q, o,
+// dout, dq: (T, H, D) bf16; k, v, dk, dv: (T, Hkv, D) bf16; seg: (T,) int32; lse, delta: (H, T) f32.
 //
 // flash_*: the flash_sdpa counterpart, the same kernels over a batch of B left-padded rows, one
-// grid layer per row, D 128 or 256. q, o, dout, dq: (B, T, H, D) bf16; k, v, dk, dv:
-// (B, T, Hkv, D) bf16; seg: (B, T) int32 (0 = pad, 1 = real); lse, delta: (B, H, T) f32.
+// grid layer per row, D 128 or 256, all tensors contiguous. q, o, dout, dq: (B, T, H, D) bf16; k,
+// v, dk, dv: (B, T, Hkv, D) bf16; seg: (B, T) int32 (0 = pad, 1 = real); lse, delta: (B, H, T) f32.
 //
 // flash_full_*: the flash_sdpa_full counterpart, non-causal over B rows of T real tokens, D 72
-// only. q, k, v, o, dout, dq, dk, dv: (B, T, H, D) bf16; lse, delta: (B, H, T) f32.
+// only, all tensors contiguous. q, k, v, o, dout, dq, dk, dv: (B, T, H, D) bf16; lse, delta:
+// (B, H, T) f32.
+//
+// fused_*: the fused_sdpa counterpart, causal (CAUSAL_SEG) or not (SEG), D in {32, 64, 96, 128}.
+// q, k, v, o, dout, dq, dk, dv: (B, H, T, D) bf16 in any layout whose head dim is contiguous
+// and whose rows start on 16-byte boundaries; sq and sk are the {batch, row, head} element strides
+// of q (shared by o, dout and dq) and of k (shared by v, dk and dv). seg: (B, T) int32 segment ids;
+// lse, delta: (B, H, T) f32, contiguous.
 
 extern "C" int attn_fwd_bf16(const void* q, const void* k, const void* v, const void* seg, void* o, void* lse,
                              int T, int H, int Hkv, int D, float scale, void* stream) {
@@ -601,24 +681,79 @@ extern "C" int flash_bwd_dkdv_bf16(const void* q, const void* k, const void* v, 
 extern "C" int flash_full_fwd_bf16(const void* q, const void* k, const void* v, void* o, void* lse, int B, int T,
                                    int H, int D, float scale, void* stream) {
   if (!shape_ok(B, T, H, H) || D != FULL_D) return (int)cudaErrorInvalidValue;
-  return launch_fwd<FULL_D, FULL_DP, 64, 64, false>(q, k, v, nullptr, o, static_cast<float*>(lse), B, T, H, H,
-                                                    scale, static_cast<cudaStream_t>(stream));
+  const Layout l = bthd(T, H, D);
+  return launch_fwd<FULL_D, FULL_DP, 64, 64, NONE>(q, k, v, nullptr, o, static_cast<float*>(lse), B, T, H, H,
+                                                   scale, l, l, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int flash_full_bwd_dq_bf16(const void* q, const void* k, const void* v, const void* o,
                                       const void* dout, const void* lse, void* dq, void* delta, int B, int T, int H,
                                       int D, float scale, void* stream) {
   if (!shape_ok(B, T, H, H) || D != FULL_D) return (int)cudaErrorInvalidValue;
-  return launch_dq<FULL_D, FULL_DP, 64, 64, false>(q, k, v, nullptr, o, dout, static_cast<const float*>(lse), dq,
-                                                   static_cast<float*>(delta), B, T, H, H, scale,
-                                                   static_cast<cudaStream_t>(stream));
+  const Layout l = bthd(T, H, D);
+  return launch_dq<FULL_D, FULL_DP, 64, 64, NONE>(q, k, v, nullptr, o, dout, static_cast<const float*>(lse), dq,
+                                                  static_cast<float*>(delta), B, T, H, H, scale, l, l,
+                                                  static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int flash_full_bwd_dkdv_bf16(const void* q, const void* k, const void* v, const void* dout,
                                         const void* lse, const void* delta, void* dk, void* dv, int B, int T, int H,
                                         int D, float scale, void* stream) {
   if (!shape_ok(B, T, H, H) || D != FULL_D) return (int)cudaErrorInvalidValue;
-  return launch_dkdv<FULL_D, FULL_DP, 64, 64, false>(q, k, v, nullptr, dout, static_cast<const float*>(lse),
-                                                     static_cast<const float*>(delta), dk, dv, B, T, H, H, scale,
-                                                     static_cast<cudaStream_t>(stream));
+  const Layout l = bthd(T, H, D);
+  return launch_dkdv<FULL_D, FULL_DP, 64, 64, NONE>(q, k, v, nullptr, dout, static_cast<const float*>(lse),
+                                                    static_cast<const float*>(delta), dk, dv, B, T, H, H, scale, l, l,
+                                                    static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int fused_fwd_bf16(const void* q, const void* k, const void* v, const void* seg, void* o, void* lse,
+                              int B, int T, int H, int D, const long long* sq, const long long* sk, int causal,
+                              float scale, void* stream) {
+  if (!shape_ok(B, T, H, H)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* sg = static_cast<const int*>(seg);
+  float* l = static_cast<float*>(lse);
+  const Layout lq = layout_of(sq), lk = layout_of(sk);
+#define CALL_C(DD) seg_fwd<DD, CAUSAL_SEG>(q, k, v, sg, o, l, B, T, H, H, scale, lq, lk, s)
+#define CALL_S(DD) seg_fwd<DD, SEG>(q, k, v, sg, o, l, B, T, H, H, scale, lq, lk, s)
+  if (causal) FUSED_DISPATCH(D, CALL_C)
+  FUSED_DISPATCH(D, CALL_S)
+#undef CALL_C
+#undef CALL_S
+}
+
+extern "C" int fused_bwd_dq_bf16(const void* q, const void* k, const void* v, const void* seg, const void* o,
+                                 const void* dout, const void* lse, void* dq, void* delta, int B, int T, int H,
+                                 int D, const long long* sq, const long long* sk, int causal, float scale,
+                                 void* stream) {
+  if (!shape_ok(B, T, H, H)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* sg = static_cast<const int*>(seg);
+  const float* l = static_cast<const float*>(lse);
+  float* dl = static_cast<float*>(delta);
+  const Layout lq = layout_of(sq), lk = layout_of(sk);
+#define CALL_C(DD) seg_dq<DD, CAUSAL_SEG>(q, k, v, sg, o, dout, l, dq, dl, B, T, H, H, scale, lq, lk, s)
+#define CALL_S(DD) seg_dq<DD, SEG>(q, k, v, sg, o, dout, l, dq, dl, B, T, H, H, scale, lq, lk, s)
+  if (causal) FUSED_DISPATCH(D, CALL_C)
+  FUSED_DISPATCH(D, CALL_S)
+#undef CALL_C
+#undef CALL_S
+}
+
+extern "C" int fused_bwd_dkdv_bf16(const void* q, const void* k, const void* v, const void* seg, const void* dout,
+                                   const void* lse, const void* delta, void* dk, void* dv, int B, int T, int H,
+                                   int D, const long long* sq, const long long* sk, int causal, float scale,
+                                   void* stream) {
+  if (!shape_ok(B, T, H, H)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* sg = static_cast<const int*>(seg);
+  const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  const Layout lq = layout_of(sq), lk = layout_of(sk);
+#define CALL_C(DD) seg_dkdv<DD, CAUSAL_SEG>(q, k, v, sg, dout, l, dl, dk, dv, B, T, H, H, scale, lq, lk, s)
+#define CALL_S(DD) seg_dkdv<DD, SEG>(q, k, v, sg, dout, l, dl, dk, dv, B, T, H, H, scale, lq, lk, s)
+  if (causal) FUSED_DISPATCH(D, CALL_C)
+  FUSED_DISPATCH(D, CALL_S)
+#undef CALL_C
+#undef CALL_S
 }

@@ -1,7 +1,7 @@
 """Batched greedy generation for the evaluators: the shared pad -> generate -> detokenize chunk
 body. Counterpart of adversarialvlm_tpu/eval/generation.py (:106-196) for one shared image; the
 per-image branch (``images_chw``), text-only prompts and assistant prefill wait for the eval
-stack (ROADMAP modules item 10)."""
+stack (ROADMAP modules: judge and eval)."""
 
 from __future__ import annotations
 

@@ -4,7 +4,7 @@ new-token bounds; one prefill pass, then one cached forward per new token.
 
 The JAX package compiles the whole generation into one program with a ``lax.scan``; the port runs
 the same steps as a Python loop, with the caches updated in place. FSM-constrained decoding (the
-judge) waits for ROADMAP modules item 10 and raises.
+judge) raises until it is ported (ROADMAP modules: judge and eval).
 """
 
 from __future__ import annotations
@@ -117,7 +117,7 @@ def pick_decode_config(
     """(batch, cache_dtype) for a generation call: ``want_batch`` clamped to what the KV cache
     leaves next to the weights. Where the JAX package would switch to its int8 cache to recover
     batch, the port keeps ``cache_dtype`` at the clamped batch and logs it (the int8 cache waits
-    for ROADMAP modules item 10)."""
+    for ROADMAP modules: judge and eval)."""
     cb = torch.empty((), dtype=cache_dtype).element_size()
     bs = max(1, min(want_batch, max_decode_batch(
         cfg_text, total_len, params, cache_bytes=cb, hbm_bytes=hbm_bytes,
@@ -129,7 +129,7 @@ def pick_decode_config(
         if bs8 > bs:
             logging.warning(
                 "decode batch clamped to %d with a %s cache; the JAX package would take its int8 "
-                "cache at batch %d, which is not ported (ROADMAP modules item 10)",
+                "cache at batch %d, which is not ported (ROADMAP modules: judge and eval)",
                 bs, cache_dtype, bs8,
             )
     return bs, cache_dtype
@@ -138,7 +138,9 @@ def pick_decode_config(
 def make_kv_caches(cfg_text, batch: int, total_len: int, dtype=torch.bfloat16, device="cpu"):
     """One zeroed (k, v) pair per layer, each (batch, Hkv, total_len, head_dim)."""
     if dtype == torch.int8:
-        raise NotImplementedError("the int8 KV cache waits for models/quant.py (ROADMAP modules item 10)")
+        raise NotImplementedError(
+            "the int8 KV cache waits for models/quant.py (ROADMAP modules: judge and eval)"
+        )
     shape = (batch, cfg_text.num_kv_heads, total_len, cfg_text.head_dim_)
     return [
         (torch.zeros(shape, dtype=dtype, device=device), torch.zeros(shape, dtype=dtype, device=device))
@@ -160,7 +162,7 @@ def _prefill_aux(attention_mask: torch.Tensor, max_new_tokens: int):
     return positions, kv_mask, kv_positions
 
 
-FSM_WAITS = "FSM-constrained decoding waits for the judge (ROADMAP modules item 10)"
+FSM_WAITS = "FSM-constrained decoding waits for the judge (ROADMAP modules: judge and eval)"
 
 
 @torch.no_grad()

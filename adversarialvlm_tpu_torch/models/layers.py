@@ -1,6 +1,6 @@
 """Transformer building blocks as plain functions on tensors, params as nested dicts under the
 HF names. Counterpart of adversarialvlm_tpu/models/layers.py (the bf16/f32 KV cache; the int8
-cache waits for models/quant.py, ROADMAP modules item 10).
+cache waits for models/quant.py, ROADMAP modules: judge and eval).
 
 Routes to the hand-written kernels, each decided from what the call can observe:
   * ``linear`` on a CUDA tensor with a frozen, large, 128-aligned weight goes through
@@ -154,7 +154,9 @@ def self_attention(x, p, cfg: TextConfig, bias, cos, sin, attention_mask, kv_cac
     n_rep = cfg.num_heads // cfg.num_kv_heads
     scale = (cfg.query_pre_attn_scalar if cfg.query_pre_attn_scalar is not None else hd) ** -0.5
     if kv_cache is not None and len(kv_cache) != 2:
-        raise NotImplementedError("the int8 KV cache waits for models/quant.py (ROADMAP modules item 10)")
+        raise NotImplementedError(
+            "the int8 KV cache waits for models/quant.py (ROADMAP modules: judge and eval)"
+        )
 
     def qk_norm(x4, name):
         # gemma3: rms-norm over head_dim before rope, in either layout

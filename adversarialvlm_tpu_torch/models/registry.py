@@ -41,8 +41,8 @@ class ModelBundle:
     ) -> torch.Tensor:
         """Greedy generation (generate.generate_core) over this bundle's forward and caches;
         the prefill scores only the last position. ``eos_token_ids=()`` decodes to the full
-        length; None takes the bundle's. A ``constraint`` (the judge's FSM) raises until ROADMAP
-        modules item 10."""
+        length; None takes the bundle's. A ``constraint`` (the judge's FSM) raises until it is
+        ported (ROADMAP modules: judge and eval)."""
         if constraint is not None:
             raise NotImplementedError(FSM_WAITS)
         return generate_core(
@@ -86,7 +86,7 @@ def make_bundle(
     model = _MODELS.get(family)
     if model is None:
         raise NotImplementedError(
-            f"family {family!r} is not ported yet (ROADMAP modules item 8)"
+            f"family {family!r} is not ported yet (ROADMAP modules: other victim families)"
         )
     if params is None:
         gen = torch.Generator(device=device).manual_seed(seed)

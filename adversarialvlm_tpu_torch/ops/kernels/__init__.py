@@ -17,6 +17,9 @@ LAUNCHES: dict[str, int] = {
     "flash_full_fwd": 0,
     "flash_full_bwd_dq": 0,
     "flash_full_bwd_dkdv": 0,
+    "fused_fwd": 0,
+    "fused_bwd_dq": 0,
+    "fused_bwd_dkdv": 0,
 }
 
 

@@ -89,8 +89,8 @@ def attention_route(device_type: str, b: int, t: int, h: int, d: int, n_rep: int
     if device_type == "cuda" and (d not in HEAD_DIMS or h % n_rep):
         raise NotImplementedError(
             f"decoder attention at head_dim {d} on the card: the fused and flash_sdpa kernels take "
-            f"head_dim in {HEAD_DIMS}; other head dims come with their families (ROADMAP modules "
-            "item 8)"
+            f"head_dim in {HEAD_DIMS}; other head dims come with their families (ROADMAP modules: "
+            "other victim families)"
         )
     if b == 1:
         return "fused"
@@ -119,7 +119,7 @@ def vit_attention_route(device_type: str, t: int, d: int) -> str:
         raise NotImplementedError(
             f"vision attention at T={t} and head_dim {d} on the card: the flash_sdpa_full kernels "
             f"take head_dim in {FULL_HEAD_DIMS}; other head dims come with their families (ROADMAP "
-            "modules item 8)"
+            "modules: other victim families)"
         )
     return "flash_full"
 

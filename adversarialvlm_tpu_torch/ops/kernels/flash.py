@@ -27,8 +27,8 @@ patches). What bounds it: the forward is 4·T²·D·H = 77.3 GFLOP per image on 
 so the tensor cores do; the design keeps every (T, T) tile in shared memory (a plain version holds
 a 1 GiB f32 score tensor per layer and image, and autograd would keep the probabilities of all 27
 layers) and pads 72 to 80 columns there only (WMMA's k-step is 16), zero-filled, so q·kᵀ is
-unchanged and only 72 columns are written. Other head dims raise on the card (ROADMAP modules
-item 8: qwen2vl's 80 comes with that family).
+unchanged and only 72 columns are written. Other head dims raise on the card (ROADMAP modules:
+other victim families; qwen2vl's 80 comes with that family).
 """
 
 from __future__ import annotations
@@ -63,11 +63,13 @@ _SIGNATURES = {
 }
 
 
-def allowed_pairs(seg: torch.Tensor) -> torch.Tensor:
-    """(B, T, T) bool: query i may attend key j (j <= i, same segment). seg (B, T)."""
-    t = seg.shape[-1]
-    idx = torch.arange(t, device=seg.device)
-    return (idx[:, None] >= idx[None, :]) & (seg[:, :, None] == seg[:, None, :])
+def allowed_pairs(seg: torch.Tensor, causal: bool = True) -> torch.Tensor:
+    """(B, T, T) bool: query i may attend key j (same segment, and j <= i if causal). seg (B, T)."""
+    same = seg[:, :, None] == seg[:, None, :]
+    if not causal:
+        return same
+    idx = torch.arange(seg.shape[-1], device=seg.device)
+    return (idx[:, None] >= idx[None, :]) & same
 
 
 def _heads_f32(x: torch.Tensor, n_rep: int = 1) -> torch.Tensor:
@@ -165,7 +167,7 @@ def _shapes(what, q, k, seg):
     if d not in HEAD_DIMS:
         raise ValueError(
             f"{what}: head_dim {d} is not taken on the card (the kernels take {HEAD_DIMS}; "
-            "other head dims come with their families, ROADMAP modules item 8)"
+            "other head dims come with their families: ROADMAP modules: other victim families)"
         )
     if k.shape != (b, t, hkv, d) or h % hkv:
         raise ValueError(f"{what}: unsupported shapes q {tuple(q.shape)}, k {tuple(k.shape)}")
@@ -281,7 +283,8 @@ def _full_shapes(what, q, k):
     if d not in FULL_HEAD_DIMS:
         raise ValueError(
             f"{what}: head_dim {d} is not taken on the card (the non-causal kernels take "
-            f"{FULL_HEAD_DIMS}; other head dims come with their families, ROADMAP modules item 8)"
+            f"{FULL_HEAD_DIMS}; other head dims come with their families: ROADMAP modules: other "
+            "victim families)"
         )
     if k.shape != q.shape:
         raise ValueError(f"{what}: unsupported shapes q {tuple(q.shape)}, k {tuple(k.shape)}")

@@ -81,5 +81,7 @@ SPECS = {"llava": llava_spec, "gemma3": gemma3_spec}
 
 def spec_for_family(family: str) -> PromptSpec:
     if family not in SPECS:
-        raise NotImplementedError(f"family {family!r} is not ported yet (ROADMAP modules item 8)")
+        raise NotImplementedError(
+            f"family {family!r} is not ported yet (ROADMAP modules: other victim families)"
+        )
     return SPECS[family]()

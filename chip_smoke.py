@@ -9,19 +9,25 @@ Phases, in order (no exception is caught; any failure exits non-zero with no fin
      and ptxas's register, spill and shared-memory lines are printed;
   3. every kernel against its plain version on the card, at the shapes the main paths give it,
      with the error measured per row as |got - ref| / |ref| (worst row reported; |ref| floored
-     at 1% of the median row norm; real rows only for the flash kernels) against the stated
-     tolerance, and each kernel's time beside its plain version's, one PyTorch library call's
-     (a yardstick only; the port never calls it) and its bound on this card;
+     at 1% of the median row norm; real rows only for the flash and fused kernels) against the
+     stated tolerance, and each kernel's time beside its plain version's, one PyTorch library call's
+     (a yardstick only; the port never calls it) and its bound on this card; the fused_sdpa
+     kernels at four shapes, causal and not, then their path: cli/bench_fused_attention.py at its
+     defaults against the plain einsum attention, with its launches counted from zero;
   4. the batch-1 path: the full-width, full-depth LLaVA-1.5-7B single-victim attack (random bf16
      weights from a seed) through ``train()`` for 1 warm-up step + 5 steps, with each kernel's
      launches counted over that run only;
+  4t. the batch-1 path with the paper's blur (kernel 5, σ 7), the local crop and a 256² random
+     square mask moved every step, through ``train(run_tests=True)``, counted from zero: the same
+     kernel launches per step as 4, and the saved image is the blurred one;
   4b. the batch-4 path: the same victim at the attack's default batch of 4 over the default
      prompt pool through ``train(run_tests=True)``, whose save boundaries greedy-decode the 50
      held-out questions (64 new tokens) and write their CSVs; launches are counted over that run
      and attributed to the step, the monitor and the decode by a probe around the forward;
   5. depth-cut references (2 decoder layers, 2 vision layers), the card in bf16 through the
      kernels against the CPU in f32 on the plain path: the attack step at batch 1 and at batch 4,
-     and the test decode, teacher-forced.
+     the batch-1 step with 4t's transforms (crop box and square injected), and the test decode,
+     teacher-forced.
 Then, with the LLaVA victim freed so that each phase's peak memory is its own, the Gemma-3-4B
 victim, whose 4096-patch SigLIP tower runs the non-causal flash_full kernels (their phase-3
 checks run first, before any victim is resident):
@@ -53,6 +59,7 @@ TARGET = "sure, here it is!"
 STEPS = 6                 # 1 warm-up + 5 timed
 STEPS4 = 4                # batch-4 path: 1 warm-up + 3 timed; save boundaries at iterations 0 and 3
 STEPS_G = 3               # Gemma-3 path: 1 warm-up + 2 timed; save boundaries at iterations 0 and 2
+STEPS_T = 3               # blur + crop path: 1 warm-up + 2 timed; save boundaries at iterations 0 and 2
 DECODE_TOKENS = 64        # the engine's test_max_new_tokens
 REF_DECODE_TOKENS = 8
 TOL_DGRAD = 1e-2
@@ -459,22 +466,148 @@ def flash_full_case(label, B, H, T, D, timed=False, backward=True):
     return out
 
 
+def fused_case(label, B, H, T, D, causal, pad, timed=False):
+    """The fused_sdpa kernels against their plain versions on the same inputs and residuals, in
+    (B, H, T, D) layout with ``pad`` left pads on every row (segment 0) and segment-masked pairs;
+    errors on real rows only (pad rows are finite but unspecified), with the pad rows' dO zeroed
+    as the JAX entry's contract has it."""
+    import torch
+    import torch.nn.functional as F
+
+    from adversarialvlm_tpu_torch.ops.kernels import fused as Fu
+
+    gen = torch.Generator(device="cuda").manual_seed(B * 100000 + T * 10 + D)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+
+    seg = torch.ones((B, T), dtype=torch.int32, device="cuda")
+    seg[:, :pad] = 0
+    real = seg.bool()
+    q, k, v = (randn(B, H, T, D) for _ in range(3))
+    do = randn(B, H, T, D) * real[:, None, :, None]
+    scale = D**-0.5
+    f32 = [x.float() for x in (q, k, v, do)]
+    o, lse = Fu.fused_fwd(q, k, v, seg, scale, causal)
+    dq, delta = Fu.fused_bwd_dq(q, k, v, seg, o, lse, do, scale, causal)
+    dk, dv = Fu.fused_bwd_dkdv(q, k, v, seg, lse, delta, do, scale, causal)
+    o_ref, lse_ref = Fu.fused_plain(f32[0], f32[1], f32[2], seg, scale, causal)
+    dq_ref, delta_ref = Fu.fused_bwd_dq_plain(f32[0], f32[1], f32[2], seg, o.float(), lse, f32[3], scale, causal)
+    dk_ref, dv_ref = Fu.fused_bwd_dkdv_plain(f32[0], f32[1], f32[2], seg, lse, delta, f32[3], scale, causal)
+
+    def rows(x):  # (B, H, T, ·) -> the real rows' (row, head) vectors
+        return x.transpose(1, 2)[real]
+
+    errs = {"o": row_errors(rows(o), rows(o_ref)), "lse": row_errors(rows(lse[..., None]), rows(lse_ref[..., None])),
+            "dq": row_errors(rows(dq), rows(dq_ref)),
+            "delta": row_errors(rows(delta[..., None]), rows(delta_ref[..., None])),
+            "dk": row_errors(rows(dk), rows(dk_ref)), "dv": row_errors(rows(dv), rows(dv_ref))}
+    for name, (rel, _) in errs.items():
+        tol = TOL_ATTN_FWD if name in ("o", "lse") else TOL_ATTN_BWD
+        if not rel <= tol:
+            raise AssertionError(f"fused {label} B={B} H={H} T={T} D={D} causal={causal} pad={pad} {name}: "
+                                 f"worst real row rel err {rel} > {tol}")
+    log("kernels", f"fused {label} B={B} H={H} T={T} D={D} causal={causal} left pads={pad} worst_real_row_rel "
+        + " ".join(f"{n}={e[0]:.3g}" for n, e in errs.items()) + f" (tol fwd {TOL_ATTN_FWD}, bwd {TOL_ATTN_BWD})")
+    if not timed:
+        return None
+
+    allowed = Fu.allowed_pairs(seg, causal)
+    pairs = float((allowed & real[:, :, None]).sum())  # the real rows' allowed pairs
+    el = 2.0 * B * T * D  # one bf16 (B, 1, T, D) head
+    work = {  # (operations, bytes): each input read once, each output written once
+        "fused_fwd": (4 * pairs * D * H, el * 4 * H + 4 * B * H * T),
+        "fused_bwd_dq": (6 * pairs * D * H, el * 6 * H + 8 * B * H * T),
+        "fused_bwd_dkdv": (8 * pairs * D * H, el * 6 * H + 8 * B * H * T),
+    }
+    qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    mask = allowed[:, None]
+    lib_out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask, scale=scale)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(lib_out, (qg, kg, vg), do, retain_graph=True))
+    times = {
+        "fused_fwd": (time_ms(lambda: Fu.fused_fwd(q, k, v, seg, scale, causal)),
+                      time_ms(lambda: Fu.fused_plain(q, k, v, seg, scale, causal)),
+                      time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale))),
+        "fused_bwd_dq": (time_ms(lambda: Fu.fused_bwd_dq(q, k, v, seg, o, lse, do, scale, causal)),
+                         time_ms(lambda: Fu.fused_bwd_dq_plain(q, k, v, seg, o, lse, do, scale, causal)), lib_bwd),
+        "fused_bwd_dkdv": (time_ms(lambda: Fu.fused_bwd_dkdv(q, k, v, seg, lse, delta, do, scale, causal)),
+                           time_ms(lambda: Fu.fused_bwd_dkdv_plain(q, k, v, seg, lse, delta, do, scale, causal)),
+                           lib_bwd),
+    }
+    err_keys = {"fused_fwd": ("o",), "fused_bwd_dq": ("dq",), "fused_bwd_dkdv": ("dk", "dv")}
+    out = {}
+    for name, (ms, plain_ms, lib_ms) in times.items():
+        b_ms, b_by = bound(*work[name])
+        out[name] = {
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "rel": max(errs[e][0] for e in err_keys[name]), "abs": max(errs[e][1] for e in err_keys[name]),
+        }
+        log("kernels", f"{name} {label} B={B} H={H} T={T} D={D} real pairs={pairs:.0f} ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+            f"TFLOP/s={work[name][0] / ms / 1e9:.1f}")
+    log("kernels", "library_ms of both fused backward kernels is one scaled_dot_product_attention "
+        "backward (dq, dk and dv together) with the equivalent boolean mask")
+    return out
+
+
+def fused_harness():
+    """The fused_sdpa path: cli/bench_fused_attention.py at its defaults, counted from zero. Each
+    rep launches each of the three fused kernels once; the harness runs a warm-up window and
+    ``windows`` timed windows of ``reps`` reps."""
+    from adversarialvlm_tpu_torch.cli import bench_fused_attention as H
+    from adversarialvlm_tpu_torch.ops.kernels import launch_counts, reset_launches
+
+    reset_launches()
+    t0 = time.perf_counter()
+    out = H.main([])
+    launches = launch_counts()
+    n = (H.DEFAULTS["windows"] + 1) * H.DEFAULTS["reps"]  # a warm-up window, then the timed ones
+    want = {k: n for k in ("fused_fwd", "fused_bwd_dq", "fused_bwd_dkdv")}
+    log("fused", f"bench_fused_attention at its defaults {H.DEFAULTS}, {H.PADS} left pads: fused "
+        f"{out['fused_ms']:.3f} ms/rep, plain {out['plain_ms']:.3f} ms/rep, fused/plain "
+        f"{out['ratio']:.3f}, checks fused {out['fused_check']:.1f} plain {out['plain_check']:.1f}; "
+        f"launches {launches} (expected {want}, one per kernel per rep) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    others = {k: n for k, n in launches.items() if n and k not in want}
+    if any(launches[k] != n for k, n in want.items()) or others:
+        raise AssertionError(f"fused harness launches {launches} != {want}")
+    rel = abs(out["fused_check"] - out["plain_check"]) / abs(out["plain_check"])
+    if not rel <= TOL_REF_LOSS:
+        raise AssertionError(f"fused harness: the two paths' chained losses differ by {rel}")
+    return launches
+
+
 class PathProbe:
     """Wraps a bundle's forward for one run. Each forward's kernel launches are attributed to its
     phase: the attack step ("step", under grad), the resaved-loss monitor ("monitor"), the decode
     prefill ("prefill", cache index 0) or a cached decode step ("decode_step"); what launches
     outside the forward is the step's backward. Each test-decode chunk is timed with CUDA events
-    from its prefill to its last forward, with its peak memory (the peak statistics are reset
-    where a chunk begins and ends, so the steps' peak is kept apart)."""
+    from its prefill to its last forward, with its peak memory: the peak statistics are reset
+    where a chunk begins (when its KV caches are allocated, before its prefill) and where it
+    ends, so the steps' peak is kept apart from the caches'."""
 
     def __init__(self, bundle):
         from collections import Counter
 
-        self.bundle, self.inner = bundle, bundle.forward
+        self.bundle, self.inner, self.inner_caches = bundle, bundle.forward, bundle.make_caches
         self.launches = {p: Counter() for p in ("step", "monitor", "prefill", "decode_step")}
         self.calls = Counter()
-        self.chunks, self.cur, self.step_peak = [], None, 0
+        self.chunks, self.cur, self.step_peak, self.caches_made = [], None, 0, False
         bundle.forward = self
+        bundle.make_caches = self._make_caches
+
+    def _steps_peak_so_far(self):
+        import torch
+
+        self.step_peak = max(self.step_peak, torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+
+    def _make_caches(self, *args, **kw):
+        """A decode chunk begins: close the previous one, keep the steps' peak so far, reset."""
+        self._close_chunk()
+        self._steps_peak_so_far()
+        self.caches_made = True
+        return self.inner_caches(*args, **kw)
 
     @staticmethod
     def _event():
@@ -496,8 +629,9 @@ class PathProbe:
         if phase != "decode_step":
             self._close_chunk()
         if phase == "prefill":
-            self.step_peak = max(self.step_peak, torch.cuda.max_memory_allocated())
-            torch.cuda.reset_peak_memory_stats()
+            if not self.caches_made:
+                self._steps_peak_so_far()
+            self.caches_made = False
             self.cur = {"batch": int(input_ids.shape[0]), "T": int(input_ids.shape[1]),
                         "start": self._event(), "ends": []}
         before = launch_counts()
@@ -530,7 +664,7 @@ class PathProbe:
 
         self._close_chunk()
         self.step_peak = max(self.step_peak, torch.cuda.max_memory_allocated())
-        self.bundle.forward = self.inner
+        self.bundle.forward, self.bundle.make_caches = self.inner, self.inner_caches
 
 
 def decode_reference(gpu_v, cpu_v, questions, x_img, expect):
@@ -592,6 +726,91 @@ def decode_reference(gpu_v, cpu_v, questions, x_img, expect):
         raise AssertionError(f"decode reference: expected launches {expect}, got {launches}")
 
 
+def transform_path(victim, x0, dgrad_per_step, n_layers, plain_med, plain_peak):
+    """Phase 4t: train() at batch 1 with the paper's blur (5, σ 7), the local crop at its default
+    scale and ratio, and a 256² random square mask moved every step, with the test decode at the
+    save boundaries, counted from zero. The transforms add no kernel: per step the same 364 dgrad
+    and 32 of each batch-1 attention kernel as the plain step. The saved image must be x₀ plus the
+    blurred perturbation of the final p."""
+    import numpy as np
+    import torch
+
+    from adversarialvlm_tpu_torch.attack import engine
+    from adversarialvlm_tpu_torch.attack.config import AttackConfig
+    from adversarialvlm_tpu_torch.ops.blur import gaussian_blur
+    from adversarialvlm_tpu_torch.ops.kernels import launch_counts, reset_launches
+
+    cfg = AttackConfig(exp_name="chip_smoke_blur_crop", num_iterations=STEPS_T, save_steps=10,
+                       batch_size=1, grad_accum_steps=1, lr=1e-2, target_text_random=False,
+                       use_gaussian_blur=True, gblur_kernel_size=5, gblur_sigma=7.0,
+                       use_local_crop=True, mask_type="random_square", mask_size=256,
+                       mask_refresh_random_square=True)
+    seen, real_init = {}, engine.init_state
+    with tempfile.TemporaryDirectory() as runs:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        probe = PathProbe(victim.bundle)
+        engine.init_state = lambda c, x: seen.setdefault("state", real_init(c, x))
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            exp = engine.train(cfg, [victim], x0, base_path=runs, device="cuda", run_tests=True,
+                               test_max_new_tokens=DECODE_TOKENS)
+            torch.cuda.synchronize()
+        finally:
+            engine.init_state = real_init
+            probe.finish()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        rows = [json.loads(line) for line in open(os.path.join(exp, "metrics.jsonl"))]
+        files = sorted(os.listdir(exp))
+        saved = np.fromfile(os.path.join(exp, "optimized_image_iter_final.bin"), np.float32).reshape(x0.shape)
+        mask = torch.load(os.path.join(exp, "mask.pt"))
+    steps = [r for r in rows if "loss" in r]
+    for r in steps:
+        log("transforms", f"step {r['iteration']}: loss={r['loss']} grad_norm={r['grad_norm']} "
+            f"adversarial_std={r['adversarial_std']} step_ms={r['step_ms']:.2f}")
+    med = statistics.median(r["step_ms"] for r in steps[1:])
+    log("transforms", f"blur (5, 7.0) + crop (0.6-1.0, 0.75-1.33) + moving 256² square, batch 1: median "
+        f"step_ms (steps 1..{STEPS_T - 1})={med:.2f} warm-up step_ms={steps[0]['step_ms']:.2f} steps' "
+        f"peak_memory_GiB={probe.step_peak / 2**30:.3f} train wall_s={wall:.1f}; the plain batch-1 path "
+        f"of this call: median step_ms={plain_med:.2f} peak_memory_GiB={plain_peak:.3f}")
+    if len(steps) != STEPS_T or not all(np.isfinite(r["loss"]) and r["grad_norm"] > 0 for r in steps):
+        raise AssertionError(f"transform path: bad steps {[(r.get('loss'), r.get('grad_norm')) for r in steps]}")
+    for need in ("mask.pt", "optimized_image_iter_final.png", "test_results_iter_0.csv",
+                 f"test_results_iter_{STEPS_T - 1}.csv"):
+        if need not in files:
+            raise AssertionError(f"transform path: {need} missing from {files}")
+    if float(mask.sum()) != 3 * 256 * 256:
+        raise AssertionError("transform path: the saved mask is not one 256² square")
+    x = gaussian_blur(0.5 * torch.tanh(seen["state"]["p"].detach()), 5, 7.0)
+    blur_err = float(np.abs(saved - (x0 + x.cpu().numpy())).max())
+    raw_err = float(np.abs(saved - (x0 + 0.5 * torch.tanh(seen["state"]["p"].detach()).cpu().numpy())).max())
+    log("transforms", f"saved image against x0 + blur(0.5 tanh p): max |diff|={blur_err:.3g}; against the "
+        f"unblurred x0 + 0.5 tanh p: {raw_err:.3g}")
+    if not (blur_err <= 1e-6 < raw_err):
+        raise AssertionError("transform path: the saved image is not the blurred one")
+    bwd = {k: launches[k] - sum(probe.launches[p][k] for p in probe.launches) for k in launches}
+    per_step = {
+        "dgrad": bwd["dgrad"] / STEPS_T,
+        "attention_fwd": probe.launches["step"]["attention_fwd"] / STEPS_T,
+        "attention_bwd_dq": bwd["attention_bwd_dq"] / STEPS_T,
+        "attention_bwd_dkdv": bwd["attention_bwd_dkdv"] / STEPS_T,
+    }
+    expected = {"dgrad": dgrad_per_step, "attention_fwd": n_layers, "attention_bwd_dq": n_layers,
+                "attention_bwd_dkdv": n_layers}
+    log("transforms", f"launches over the run: {launches}; by phase: "
+        + "; ".join(f"{p} x{probe.calls[p]} {dict(+c)}" for p, c in probe.launches.items())
+        + f"; per step: {per_step} (expected {expected}; the decode prefill pads its rows to a "
+        "batch and takes the flash kernel)")
+    # the steps and their backward launch nothing else
+    others = {k: n for k, n in launches.items()
+              if k not in expected and n - sum(probe.launches[p][k] for p in ("monitor", "prefill", "decode_step"))}
+    if per_step != expected or others:
+        raise AssertionError(f"transform path launches {per_step} != {expected} (others: {others})")
+    return {"median_ms": med, "peak_GiB": probe.step_peak / 2**30}
+
+
 def llava_phases():
     """Phases 3 (the LLaVA shapes), 4, 4b and 5 on the LLaVA-1.5-7B victim; returns the kernel
     statistics and launch counts of the JSON line. Its tensors are freed on return."""
@@ -612,7 +831,9 @@ def llava_phases():
     from adversarialvlm_tpu_torch.eval.generation import _pick_decode
     from adversarialvlm_tpu_torch.models.configs import llava_1_5_7b
     from adversarialvlm_tpu_torch.models.registry import make_bundle
+    from adversarialvlm_tpu_torch.ops.crop import sample_crop_box
     from adversarialvlm_tpu_torch.ops.kernels import launch_counts, reset_launches
+    from adversarialvlm_tpu_torch.ops.masks import random_square_mask, square_position
     from adversarialvlm_tpu_torch.processors.adv_inputs import AdvInputs
     from adversarialvlm_tpu_torch.utils.batching import pad_to_buckets
 
@@ -712,6 +933,9 @@ def llava_phases():
         raise AssertionError(f"main path launches {per_step} != expected {expected}")
     if any(launches[n] for n in launches if n not in pr3_kernels):
         raise AssertionError(f"batch-1 path launched a kernel outside its path: {launches}")
+
+    # 4t. the batch-1 path with the blur, the local crop and a random square moved every step
+    transforms = transform_path(victim, x0, dg["per_step"], t.num_layers, med, peak)
 
     # 4b. the batch-4 path with the test decode, counted from zero
     with tempfile.TemporaryDirectory() as runs:
@@ -816,23 +1040,35 @@ def llava_phases():
     noise = torch.randn((1, 3, 336, 336), generator=gen)
     p0 = 0.3 * torch.randn((3, 512, 512), generator=gen)
     noise4 = torch.randn((4, 3, 336, 336), generator=gen)
-    for label, row_idx, nz in (("batch 1", [0], noise), ("batch 4", [0, 1, 2, 3], noise4)):
+    # the blur + crop step of phase 4t, with a crop box and a square position drawn here and
+    # injected into both sides; the gradients are compared under the square mask the step applies
+    t_cfg = dataclasses.replace(ref_cfg, use_gaussian_blur=True, gblur_kernel_size=5, gblur_sigma=7.0,
+                                use_local_crop=True, mask_type="random_square", mask_size=256,
+                                mask_refresh_random_square=True)
+    t_gen = torch.Generator().manual_seed(6)
+    t_draws = {"crop_box": sample_crop_box(t_gen, 512, 512), "mask_pos": square_position(t_gen, (3, 512, 512), 256)}
+    t_mask = random_square_mask((3, 512, 512), 256, position=t_draws["mask_pos"]).double()
+    for label, row_idx, nz, r_cfg, draws in (
+            ("batch 1", [0], noise, ref_cfg, {}), ("batch 4", [0, 1, 2, 3], noise4, ref_cfg, {}),
+            ("batch 1, blur + crop + square", [0], noise, t_cfg, t_draws)):
         xs = {
             "t_idx": 0,
             "rows": [torch.from_numpy(ai.prompt_pool[0, row_idx])],
             "lens": [torch.from_numpy(ai.prompt_lengths[0, row_idx])],
             "noise": [nz],
+            **draws,
         }
         ref_pads = [ai.max_len - int(n) for n in ai.prompt_lengths[0, row_idx]]
         results = {}
         for name, v, dev in (("cpu", cpu_v, "cpu"), ("cuda", gpu_v, "cuda")):
             x0_d = torch.as_tensor(x0, device=dev)
-            step = build_attack_step([v.handles()], ref_cfg, x0_d, torch.ones_like(x0_d))
+            step = build_attack_step([v.handles()], r_cfg, x0_d, torch.ones_like(x0_d))
             reset_launches()
             loss, _, _, _, grad = step.loss_and_grad(p0.to(dev), xs, torch.tensor(cfg.sigma, device=dev))
-            results[name] = (float(loss), grad.double().cpu())
+            g = grad.double().cpu()
+            results[name] = (float(loss), g * t_mask if draws else g)
             log("reference", f"{label} {name}: loss={float(loss)} grad_norm={float(grad.norm())} "
-                f"T={ai.max_len} pads={ref_pads} launches={launch_counts()}")
+                f"T={ai.max_len} pads={ref_pads} {draws} launches={launch_counts()}")
         (l_cpu, g_cpu), (l_gpu, g_gpu) = results["cpu"], results["cuda"]
         rel = abs(l_gpu - l_cpu) / abs(l_cpu)
         cos = float((g_cpu * g_gpu).sum() / (g_cpu.norm() * g_gpu.norm()))
@@ -846,7 +1082,7 @@ def llava_phases():
                      {"flash_fwd": cut.text.num_layers})
     log("reference", f"all references in {time.perf_counter() - t0:.1f} s")
     return {
-        "stats": {"dgrad": dg, **attn, **flash}, "prefill": prefill,
+        "stats": {"dgrad": dg, **attn, **flash}, "prefill": prefill, "transforms": transforms,
         "counts": {**{k: launches[k] for k in pr3_kernels}, **{k: launches4[k] for k in flash}},
     }
 
@@ -1090,6 +1326,19 @@ def main():
                                    backward=False)["flash_full_fwd"]
     flash_full_case("ragged", 2, 4, 2100, g_d)
 
+    # 3. the fused_sdpa kernels at its harness's own shape (its defaults: the path below), at the
+    # 7B decoder's batch-1 T of 641, at head_dim 96, and non-causal with and without pads; then
+    # its path, the harness
+    from adversarialvlm_tpu_torch.cli.bench_fused_attention import DEFAULTS, PADS
+    fused = fused_case("harness shape", 1, DEFAULTS["H"], DEFAULTS["T"], DEFAULTS["D"], True, PADS,
+                       timed=True)
+    fused_641 = fused_case("7B decoder T", 1, 32, 641, 128, True, 23, timed=True)
+    fused_d96 = fused_case("head_dim 96", 1, 32, 641, 96, True, 0, timed=True)
+    fused_case("non-causal, pads", 2, 8, 310, 64, False, 17)
+    fused_case("non-causal", 1, 4, 150, 32, False, 0)
+    fused_launches = fused_harness()
+    torch.cuda.empty_cache()
+
     llava = llava_phases()
     gc.collect()
     torch.cuda.empty_cache()
@@ -1099,12 +1348,14 @@ def main():
     torch.cuda.empty_cache()
     gemma_references()
 
-    log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
+    log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s; the blur + crop step "
+        f"{llava['transforms']['median_ms']:.2f} ms at batch 1")
     sources = {"dgrad": "dgrad.cu", "attention_fwd": "attention.cu", "attention_bwd_dq": "attention.cu",
                "attention_bwd_dkdv": "attention.cu", "flash_fwd": "attention.cu",
                "flash_bwd_dq": "attention.cu", "flash_bwd_dkdv": "attention.cu",
                "flash_full_fwd": "attention.cu", "flash_full_bwd_dq": "attention.cu",
-               "flash_full_bwd_dkdv": "attention.cu"}
+               "flash_full_bwd_dkdv": "attention.cu", "fused_fwd": "attention.cu",
+               "fused_bwd_dq": "attention.cu", "fused_bwd_dkdv": "attention.cu"}
     replaces = {
         "dgrad": "adversarialvlm_tpu/ops/pallas/matmul.py:35",
         "attention_fwd": "adversarialvlm_tpu/ops/pallas/fused_attention.py:436",
@@ -1116,9 +1367,13 @@ def main():
         "flash_full_fwd": "adversarialvlm_tpu/ops/pallas/attention.py:214",
         "flash_full_bwd_dq": "adversarialvlm_tpu/ops/pallas/attention.py:214",
         "flash_full_bwd_dkdv": "adversarialvlm_tpu/ops/pallas/attention.py:214",
+        "fused_fwd": "adversarialvlm_tpu/ops/pallas/fused_attention.py:208",
+        "fused_bwd_dq": "adversarialvlm_tpu/ops/pallas/fused_attention.py:229",
+        "fused_bwd_dkdv": "adversarialvlm_tpu/ops/pallas/fused_attention.py:229",
     }
-    stats = {**llava["stats"], **full}
-    counts = {**llava["counts"], **{k: gem["launches"][k] for k in full}}
+    stats = {**llava["stats"], **full, **fused}
+    counts = {**llava["counts"], **{k: gem["launches"][k] for k in full},
+              **{k: fused_launches[k] for k in fused}}
     kernels = [
         {
             "name": name, "route": "cuda", "source": f"adversarialvlm_tpu_torch/csrc/{sources[name]}",
@@ -1133,6 +1388,10 @@ def main():
     kernels[4]["at_prefill_shape"] = {k: llava["prefill"][k] for k in timing_keys}
     kernels[7]["at_prefill_shape"] = {k: full_prefill[k] for k in timing_keys}
     kernels[0]["at_gemma3_shapes"] = {k: gem["dgrad"][k] for k in (*timing_keys, "per_step")}
+    for i, name in enumerate(sources):
+        if name in fused:
+            kernels[i]["at_T_641"] = {k: fused_641[name][k] for k in timing_keys}
+            kernels[i]["at_head_dim_96"] = {k: fused_d96[name][k] for k in timing_keys}
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,10 +3,15 @@
 Parity with the JAX package's ``build_attack_step`` on the tiny LLaVA victim: the JAX step runs
 with its host-sampled (target, question) draws, and the port gets the same draws and the same
 EoT noise, reproduced from the JAX step's key layout (step.py:326-330) and passed in as tensors
-(the two frameworks' generators differ, so seeds are never expected to match).
+(the two frameworks' generators differ, so seeds are never expected to match). With the blur,
+the crop, the transform_prob coins or the moving random square on, the JAX step's draws of those
+are reproduced from the same layout and injected too: the crop box from sample_crop_box(keys[3]),
+the coins from bernoulli(fold_in(keys[2], 7)) and bernoulli(fold_in(keys[3], 7)), the square from
+random_square_mask(keys[4]).
 """
 
 import ast
+import functools
 import json
 import os
 import pathlib
@@ -21,6 +26,8 @@ import torch
 import adversarialvlm_tpu.attack.step as jstep
 from adversarialvlm_tpu.attack.config import AttackConfig as JaxAttackConfig
 from adversarialvlm_tpu.attack.setup import build_tiny_victim as jax_build_tiny_victim
+from adversarialvlm_tpu.ops.crop import sample_crop_box as jax_sample_crop_box
+from adversarialvlm_tpu.ops.masks import random_square_mask as jax_random_square_mask
 from adversarialvlm_tpu_torch.attack.config import AttackConfig
 from adversarialvlm_tpu_torch.attack.engine import train
 from adversarialvlm_tpu_torch.attack.setup import build_tiny_victim
@@ -55,32 +62,96 @@ def _victim(cfg, **kw):
                              test_questions=TEST_QUESTIONS, device="cpu", **kw)
 
 
-@pytest.fixture(scope="module")
-def jax_run():
-    """Three JAX attack steps on the tiny victim, with each step's draws, noise and results."""
-    cfg = JaxAttackConfig(**_kw())
-    victim = jax_build_tiny_victim("tiny-llava", cfg, in_hw=(64, 80), questions=QUESTIONS,
-                                   targets=TARGETS, test_questions=TEST_QUESTIONS)
+METRICS = ("loss", "grad_norm", "resave_error_std", "lr")
+EXTRA_METRICS = ("image_loss", "adversarial_mean", "adversarial_std", "fix_error_mean")
+
+
+def _jax_transform_draws(cfg, key, shape):
+    """The transforms' draws of the JAX step at ``key``, from its key layout: keys[2] blurs,
+    keys[3] crops, keys[4] moves the square; the coins fold 7 into the blur and crop keys."""
+    keys = jax.random.split(key, 7)
+    out = {}
+    if cfg.use_local_crop:
+        out["crop_box"] = tuple(int(a) for a in jax_sample_crop_box(
+            keys[3], shape[1], shape[2], (cfg.crop_scale_min, cfg.crop_scale_max),
+            (cfg.crop_ratio_min, cfg.crop_ratio_max)))
+    if cfg.transform_prob < 1.0 and (cfg.use_gaussian_blur or cfg.use_local_crop):
+        out["coins"] = tuple(bool(jax.random.bernoulli(jax.random.fold_in(k, 7), cfg.transform_prob))
+                             for k in (keys[2], keys[3]))
+    if cfg.mask_refresh_random_square and cfg.mask_type == "random_square":
+        m = np.asarray(jax_random_square_mask(keys[4], shape, int(cfg.mask_size)))[0]
+        out["mask_pos"] = (int(m.any(1).argmax()), int(m.any(0).argmax()))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_victim(batch_size):
+    """The JAX tiny victim, built once per batch size: of the attack config it reads only the
+    batch size and the DPO refusals, which no case here changes."""
+    return jax_build_tiny_victim("tiny-llava", JaxAttackConfig(**_kw(batch_size=batch_size)),
+                                 in_hw=(64, 80), questions=QUESTIONS, targets=TARGETS,
+                                 test_questions=TEST_QUESTIONS)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_records(n_steps, overrides=()):
+    """``n_steps`` JAX attack steps on the tiny victim under ``_kw(**dict(overrides))``, with each
+    step's draws (the transforms' too), noise and results."""
+    cfg = JaxAttackConfig(**_kw(**dict(overrides)))
+    victim = _jax_victim(cfg.batch_size)
     x0 = np.random.default_rng(0).random((3, 64, 80), dtype=np.float32)
     h = victim.handles()
     step = jax.jit(jstep.build_attack_step([h], cfg, jnp.asarray(x0), jnp.ones((3, 64, 80))))
     state = jstep.init_state(cfg, jnp.asarray(x0), jstep.make_optimizer(cfg))
     arrays = [h.arrays(include_prompt_pool=False)]
     records = []
-    for _ in range(PARITY_STEPS):
+    for _ in range(n_steps):
         xs = jstep.sample_chunk_xs(state["key"], 1, cfg, [h])
         one = {"t_idx": xs["t_idx"][0], "rows": [xs["rows"][0][0]], "lens": [xs["lens"][0][0]]}
         # the step's key layout: split into 5 + 2·n_models keys, EoT noise from the last one
         k_noise = jax.random.split(state["key"], 7)[6]
         noise = jax.random.normal(k_noise, (cfg.batch_size, 3, 336, 336), jnp.float32)
+        draws = _jax_transform_draws(cfg, state["key"], x0.shape)
         state, m = step(state, arrays, one)
         records.append({
             "t_idx": int(one["t_idx"]), "rows": np.array(one["rows"][0]),
-            "lens": np.array(one["lens"][0]), "noise": np.array(noise),
+            "lens": np.array(one["lens"][0]), "noise": np.array(noise), "draws": draws,
             "p": np.asarray(state["p"]),
-            "metrics": {k: float(m[k]) for k in ("loss", "grad_norm", "resave_error_std", "lr")},
+            "metrics": {k: float(m[k]) for k in METRICS},
+            "extra": {k: float(m[k]) for k in EXTRA_METRICS},
         })
     return victim, x0, records
+
+
+@pytest.fixture(scope="module")
+def jax_run():
+    """Three JAX attack steps on the tiny victim, with each step's draws, noise and results."""
+    return _jax_records(PARITY_STEPS)
+
+
+def _port_steps(jvictim, x0, records, cfg, check):
+    """The port's step on the JAX records' draws, noise and weights; ``check(rec, state,
+    metrics)`` after each step."""
+    victim = _victim(cfg)
+    assert np.array_equal(victim.adv_inputs.prompt_pool, jvictim.adv_inputs.prompt_pool)
+    victim.bundle.params = from_jax_params(jvictim.bundle.params)
+    x0t = torch.from_numpy(x0)
+    step = build_attack_step([victim.handles()], cfg, x0t, torch.ones_like(x0t))
+    state = init_state(cfg, x0t)
+    for rec in records:
+        xs = {"t_idx": rec["t_idx"], "rows": [torch.from_numpy(rec["rows"])],
+              "lens": [torch.from_numpy(rec["lens"])], "noise": [torch.from_numpy(rec["noise"])],
+              **rec["draws"]}
+        state, m = step(state, xs)
+        check(rec, state, m)
+    return state
+
+
+def _assert_p_close(got, want):
+    """99% of the pixels within 1e-5 and every pixel within 2.5e-4 (see
+    test_attack_steps_match_jax)."""
+    diff = np.abs(got.detach().numpy() - want)
+    assert diff.max() <= 2.5e-4 and np.mean(diff > 1e-5) <= 1e-2, (diff.max(), np.mean(diff > 1e-5))
 
 
 @pytest.mark.parametrize("n_steps", [1, PARITY_STEPS])
@@ -91,21 +162,54 @@ def test_attack_steps_match_jax(jax_run, n_steps):
     update lr·m/(√v + 1e-8) turns the last-digit differences of a gradient that is nearly zero
     into visible ones (1.2e-4 measured on 2 of 15360 pixels after one step)."""
     jvictim, x0, records = jax_run
-    cfg = AttackConfig(**_kw())
-    victim = _victim(cfg)
-    assert np.array_equal(victim.adv_inputs.prompt_pool, jvictim.adv_inputs.prompt_pool)
-    victim.bundle.params = from_jax_params(jvictim.bundle.params)
-    x0t = torch.from_numpy(x0)
-    step = build_attack_step([victim.handles()], cfg, x0t, torch.ones_like(x0t))
-    state = init_state(cfg, x0t)
-    for rec in records[:n_steps]:
-        xs = {"t_idx": rec["t_idx"], "rows": [torch.from_numpy(rec["rows"])],
-              "lens": [torch.from_numpy(rec["lens"])], "noise": [torch.from_numpy(rec["noise"])]}
-        state, m = step(state, xs)
+
+    def check(rec, state, m):
         for key, want in rec["metrics"].items():
             np.testing.assert_allclose(float(m[key]), want, rtol=1e-4, err_msg=key)
-        diff = np.abs(state["p"].detach().numpy() - rec["p"])
-        assert diff.max() <= 2.5e-4 and np.mean(diff > 1e-5) <= 1e-2, (diff.max(), np.mean(diff > 1e-5))
+        _assert_p_close(state["p"], rec["p"])
+
+    _port_steps(jvictim, x0, records[:n_steps], AttackConfig(**_kw()), check)
+
+
+TRANSFORM_CASES = {
+    "blur": dict(use_gaussian_blur=True, gblur_kernel_size=5, gblur_sigma=7.0),
+    "crop": dict(use_local_crop=True),
+    "blur_crop_half": dict(use_gaussian_blur=True, use_local_crop=True, transform_prob=0.5),
+    "moving_square": dict(mask_type="random_square", mask_size=24, mask_refresh_random_square=True),
+    "clamp_none": dict(clamp_method="none"),
+}
+
+
+@pytest.mark.parametrize("case", list(TRANSFORM_CASES))
+def test_transform_steps_match_jax(case):
+    """Three steps with the blur, the crop, both at transform_prob 0.5 (the coins), the moving
+    random square, or clamp_method "none", on the JAX step's draws (see the module docstring),
+    against the JAX step: the metrics of test_attack_steps_match_jax within 1e-4 relative;
+    image_loss, adversarial_mean and adversarial_std, which the blurred x feeds, within 1e-4
+    relative or 1e-7 absolute (adversarial_std is 0 at the first step of clamp "none");
+    fix_error_mean within 2e-3 relative, since the uint8 round trip's floor flips on the pixels
+    that p's stated noise carries across a quantization boundary (each flip moves the mean by
+    1/255/15360 = 2.6e-7, 2.2e-4 relative: 2e-3 allows nine); p within that test's bounds.
+    clamp "none" makes x p itself, which the update overwrites in place: the metrics must still
+    be those of the image before the update."""
+    over = TRANSFORM_CASES[case]
+    jvictim, x0, records = _jax_records(PARITY_STEPS, tuple(sorted(over.items())))
+    if case == "blur_crop_half":
+        coins = [r["draws"]["coins"] for r in records]
+        assert len(set(coins)) > 1, coins  # the draws exercise both sides of a coin
+    fired = []
+
+    def check(rec, state, m):
+        fired.append(rec["draws"])
+        for key, want in rec["metrics"].items():
+            np.testing.assert_allclose(float(m[key]), want, rtol=1e-4, err_msg=key)
+        for key, want in rec["extra"].items():
+            rtol = 2e-3 if key == "fix_error_mean" else 1e-4
+            np.testing.assert_allclose(float(m[key]), want, rtol=rtol, atol=1e-7, err_msg=key)
+        _assert_p_close(state["p"], rec["p"])
+
+    _port_steps(jvictim, x0, records, AttackConfig(**_kw(**over)), check)
+    assert len(fired) == PARITY_STEPS
 
 
 def test_adamw_steplr_match_optax_across_a_schedule_boundary():
@@ -240,14 +344,30 @@ def _entry_case(case, tmp_path, monkeypatch):
     elif case == "cli_on_cpu":
         exp = cli.main(base + ["--device", "cpu"])
         assert "optimized_image_iter_final.png" in os.listdir(exp)
-    elif case == "cli_blur_waits":
-        with pytest.raises(NotImplementedError, match="use_gaussian_blur"):
-            cli.main(base + ["--device", "cpu", "--use_gaussian_blur"])
+    elif case == "cli_blur_crop_on_cpu":
+        exp = cli.main(base + ["--device", "cpu", "--use_gaussian_blur", "--gblur_kernel_size", "5",
+                               "--gblur_sigma", "7", "--use_local_crop", "--mask_type", "corner",
+                               "--mask_size", "16"])
+        files = set(os.listdir(exp))
+        for name in ("config.json", "mask.pt", "mask.png", "metrics.jsonl", "test_results_iter_0.csv",
+                     "optimized_image_iter_1.png", "optimized_image_iter_final.png"):
+            assert name in files, name
+        saved = json.load(open(os.path.join(exp, "config.json")))
+        assert saved["use_gaussian_blur"] and saved["use_local_crop"] and saved["mask_type"] == "corner"
+        mask = torch.load(os.path.join(exp, "mask.pt"))
+        assert float(mask[:, :16, :16].min()) == 1.0 and float(mask.sum()) == 3 * 16 * 16
+        rows = [json.loads(line) for line in open(os.path.join(exp, "metrics.jsonl"))]
+        assert [r["iteration"] for r in rows if "loss" in r] == [0, 1]
+    elif case == "cli_resume_waits":
+        waits = r"resume_state \(ROADMAP modules: resume, profiling and bench\)"
+        with pytest.raises(NotImplementedError, match=waits):
+            cli.main(base + ["--device", "cpu", "--resume_state", str(tmp_path / "state.npz")])
+        assert sorted(os.listdir(tmp_path)) == ["x0.png"]  # it fails before making a run dir
     elif case == "cli_checkpoint_waits":
-        with pytest.raises(NotImplementedError, match="ROADMAP modules items 6"):
+        with pytest.raises(NotImplementedError, match="ROADMAP modules: checkpoint loading"):
             cli.main(base[2:] + ["--device", "cpu", "--model_name", "llava-hf/llava-1.5-7b-hf"])
     elif case == "cross_waits":
-        with pytest.raises(NotImplementedError, match="cross-model"):
+        with pytest.raises(NotImplementedError, match="cross-model attack \\(ROADMAP modules: cross attack"):
             train(cfg, [_victim(cfg)] * 2, np.zeros((3, 64, 80), np.float32),
                   base_path=str(tmp_path), device="cpu")
     else:
@@ -256,11 +376,12 @@ def _entry_case(case, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("case", [
     "victim_without_card", "train_without_card", "cli_without_card", "cli_on_cpu",
-    "cli_blur_waits", "cli_checkpoint_waits", "cross_waits",
+    "cli_blur_crop_on_cpu", "cli_resume_waits", "cli_checkpoint_waits", "cross_waits",
 ])
 def test_entry_points(case, tmp_path, monkeypatch):
-    """Entry points default to the card and raise without one; the CPU runs when asked for;
-    options that are not ported yet raise NotImplementedError naming their ROADMAP item."""
+    """Entry points default to the card and raise without one; the CPU runs when asked for, the
+    blur, the crop and a corner mask included; options that are not ported yet raise
+    NotImplementedError naming their ROADMAP item by its title."""
     _entry_case(case, tmp_path, monkeypatch)
 
 

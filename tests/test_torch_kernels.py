@@ -121,7 +121,7 @@ def _route_case(case):
         with pytest.raises(NotImplementedError, match="flash_sdpa"):
             A.attention_route("cuda", 1, 577, 16, 64, 1)
     elif case == "cuda_head_dim64_batch2_raises":
-        with pytest.raises(NotImplementedError, match="ROADMAP modules item 8"):
+        with pytest.raises(NotImplementedError, match="ROADMAP modules: other victim families"):
             A.attention_route("cuda", 2, 641, 16, 64, 1)
     elif case == "cuda_cached_decode_takes_plain":
         assert A.attention_route("cuda", 50, 1, 32, 128, 1, cache_index=704) == "plain"
@@ -198,7 +198,7 @@ def _vit_route_case(case):
         assert A.vit_attention_route("cuda", 577, 64) == "plain"
         assert A.vit_attention_route("cuda", 2047, 72) == "plain"
     elif case == "cuda_head_dim64_raises":
-        with pytest.raises(NotImplementedError, match="ROADMAP modules item 8"):
+        with pytest.raises(NotImplementedError, match="ROADMAP modules: other victim families"):
             A.vit_attention_route("cuda", 4096, 64)
     elif case == "cpu_takes_plain_unless_kernel_routes":
         assert A.vit_attention_route("cpu", 4096, 72) == "plain"
@@ -209,7 +209,7 @@ def _vit_route_case(case):
         meta = torch.empty(1, 8, 2, 72, device="meta")
         with pytest.raises(ValueError, match="CUDA tensors"):
             Fl.flash_full_fwd(meta, meta, meta, 0.1)
-        with pytest.raises(ValueError, match="ROADMAP modules item 8"):
+        with pytest.raises(ValueError, match="ROADMAP modules: other victim families"):
             m64 = torch.empty(1, 8, 2, 64, device="meta")
             Fl.flash_full_fwd(m64, m64, m64, 0.1)
         reset_launches()

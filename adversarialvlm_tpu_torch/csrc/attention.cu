@@ -1,41 +1,34 @@
-// Attention forward and backward over operands read in place through their strides: three kernel
-// templates (forward; dq; dk/dv), each with a grid layer per batch row, a compile-time mask mode
-// and a shared-memory head width DP = D rounded up to WMMA's k-step of 16.
+// Causal and segment-masked attention forward and backward over operands read in place through
+// their strides: three kernel templates (forward; dq; dk/dv), each with a grid layer per batch row
+// and a compile-time mask mode. (The non-causal head_dim-72 attention of vision towers,
+// flash_sdpa_full, is its own wgmma design in flash_full.cu.)
 //
-// Replaces four Pallas entries, each through its own C entry points:
-//  - attn_* (CAUSAL_SEG, DP = D): adversarialvlm_tpu/ops/pallas/fused_attention.py::fused_sdpa_bthd at
+// Replaces three Pallas entries, each through its own C entry points:
+//  - attn_* (CAUSAL_SEG): adversarialvlm_tpu/ops/pallas/fused_attention.py::fused_sdpa_bthd at
 //    batch 1, that is _call_fwd_bthd (pallas_call at :441, body _fwd_kernel_bthd :361) and
 //    _call_bwd_bthd (pallas_call at :470, body _bwd_kernel_bthd :372);
-//  - flash_* (CAUSAL_SEG, DP = D): adversarialvlm_tpu/ops/pallas/attention.py::flash_sdpa (:178),
+//  - flash_* (CAUSAL_SEG): adversarialvlm_tpu/ops/pallas/attention.py::flash_sdpa (:178),
 //    which calls the stock TPU flash_attention's forward, dkv and dq kernels through _flash_call
 //    (:97), over a left-padded batch. Its segment ids are the rows' attention masks (pads 0, real
 //    tokens 1) and its causality is by raw index: the function below, row by row;
-//  - flash_full_* (NONE, D = 72, DP = 80): adversarialvlm_tpu/ops/pallas/attention.py::
-//    flash_sdpa_full (:214), the same stock kernels through _flash_call (:97) with causal=False,
-//    for vision towers whose every token is real (Gemma-3's SigLIP: T = 4096 patches, 16 heads of
-//    72). Every query attends every key: the forward and dq walk every key tile and dk/dv every
-//    query tile, and no segment array is read;
-//  - fused_* (CAUSAL_SEG or SEG, DP = D in {32, 64, 96, 128}): adversarialvlm_tpu/ops/pallas/
+//  - fused_* (CAUSAL_SEG or SEG, D in {32, 64, 96, 128}): adversarialvlm_tpu/ops/pallas/
 //    fused_attention.py::fused_sdpa, that is _call_fwd (:208, pallas_call at :213, bodies
 //    _fwd_kernel :107 and _fwd_kernel_v2 :115) and _call_bwd (:229, pallas_call at :235, bodies
 //    _bwd_kernel :126 and _bwd_kernel_v2 :154; v1 and v2 are the same math, so there is one port).
 //    Whole-head attention in (B, H, T, D) layout, no GQA, causal or not; in both modes a pair is
 //    allowed only within one segment (_probs :68), so the non-causal mode still keeps pads apart
 //    from real tokens. The TPU kernel's single backward call is the dq and dk/dv kernels here.
-// The TPU entries pad T to their block (segment 0) and slice the output back, and flash_sdpa_full
-// and fused_sdpa also zero-pad D to 128 lanes in device memory; these kernels mask the ragged tile
-// instead (the pad rows of a TPU entry are garbage by contract, and a real row never attends them)
-// and zero-pad D only inside shared memory (columns D..DP-1), so nothing is padded or copied in
-// device memory. Every operand is addressed through a Layout of batch, row (token) and head
-// strides: the projections' (B, T, H, D) for attn_*, flash_* and flash_full_*, whatever (B, H, T, D)
-// strides fused_sdpa is handed (a head row is 16-byte aligned and contiguous). Only D columns of
-// o, dq, dk and dv are written.
+// The TPU entries pad T to their block (segment 0) and slice the output back, and fused_sdpa also
+// zero-pads D to 128 lanes in device memory; these kernels mask the ragged tile instead (the pad
+// rows of a TPU entry are garbage by contract, and a real row never attends them), so nothing is
+// padded or copied in device memory. Every operand is addressed through a Layout of batch, row
+// (token) and head strides: the projections' (B, T, H, D) for attn_* and flash_*, whatever
+// (B, H, T, D) strides fused_sdpa is handed (a head row is 16-byte aligned and contiguous).
 //
 // The mask modes: query row i may attend key j when
 //  - CAUSAL_SEG: j <= i and seg[i] == seg[j] (left pads carry segment 0, so a pad row attends
 //    earlier pads and a real row attends earlier real tokens; every row attends at least itself);
-//  - SEG: seg[i] == seg[j] (every row attends at least itself);
-//  - NONE: always (no segment array).
+//  - SEG: seg[i] == seg[j] (every row attends at least itself).
 // Scores are f32, softmax in f32, output in bf16. GQA: q-head h reads kv head h / (H / Hkv).
 //
 // What bounds it on the H100: at the 7B decoder's shape (T ≈ 640, 32 heads of 128) the causal
@@ -44,14 +37,12 @@
 // multiplies both by B (the batch-4 attack step, the 50-row test-decode prefill at T = 704), so
 // the ratio, and the bound, stay the same. A real row never attends a pad key, so the allowed
 // pairs (what the bound counts) shrink with the pads; the kernels still walk a real tile's pad
-// key tiles, masked, which costs at most the pads' share (under 15% at the batch-4 step). The
-// SigLIP tower's non-causal forward is 4·T²·D·H = 77.3 GFLOP per image on 37.7 MB of q/k/v/o,
-// ~2000 operations per byte: the tensor cores bound it; the padding of 72 to 80 costs 11% more
-// products than the bound counts. fused_sdpa at its harness's shape (1, 32, 610, 128), causal
-// with 23 left pads: about 20 MB of q/k/v/o against 2.8 GFLOP of causal work on the real rows, so
-// at the card's peaks device bandwidth sets the bound (about 0.0060 ms against 0.0029 ms of
-// tensor-core time; at the 7B decoder's T = 641, 21 MB and 3.1 GFLOP, 0.0063 ms), though the
-// ratio is close enough to the ridge that a kernel this far from either peak is bound by neither.
+// key tiles, masked, which costs at most the pads' share (under 15% at the batch-4 step).
+// fused_sdpa at its harness's shape (1, 32, 610, 128), causal with 23 left pads: about 20 MB of
+// q/k/v/o against 2.8 GFLOP of causal work on the real rows, so at the card's peaks device
+// bandwidth sets the bound (about 0.0060 ms against 0.0029 ms of tensor-core time; at the 7B
+// decoder's T = 641, 21 MB and 3.1 GFLOP, 0.0063 ms), though the ratio is close enough to the ridge
+// that a kernel this far from either peak is bound by neither.
 //
 // Design: the TPU kernel keeps a whole head's (T, T) scores in VMEM; Hopper's shared memory cannot
 // hold them, so these kernels tile over T. A block owns one tile of BQ query rows of one head (or,
@@ -69,7 +60,7 @@
 //    over the query tiles (at or after its keys in CAUSAL_SEG), accumulating dv += Pᵀ·dO and
 //    dk += dSᵀ·q in f32 shared memory, so GQA heads are summed in f32 and written once as bf16.
 // Accumulators live in shared memory, loads are plain 16-byte copies and a block has 2 or 4 warps:
-// simple and correct first; wgmma, TMA and deeper pipelining are later work.
+// simple and correct first; flash_full.cu shows the wgmma redesign these templates are due.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -85,7 +76,7 @@ typedef __nv_bfloat16 bf16;
 constexpr float NEG = -1e30f;
 
 // The mask modes of the header note.
-enum Mask { CAUSAL_SEG = 0, SEG = 1, NONE = 2 };
+enum Mask { CAUSAL_SEG = 0, SEG = 1 };
 
 // Element strides of a (B, T, heads, D) operand viewed in any layout: batch, row (token), head.
 // The head dim itself is contiguous.
@@ -111,20 +102,19 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // Rows [r0, r0 + ROWS) of one head (``src`` points at its row 0; rows ``row_stride`` elements
-// apart) of a bf16 tensor into shared memory with row stride DP + 8, DP = D rounded up to WMMA's
-// k-step of 16; rows at or past T and columns D..DP-1 are zero, so they add nothing to q·kᵀ, dO·vᵀ
-// or P·v.
-template <int ROWS, int D, int DP, int NT>
+// apart) of a bf16 tensor into shared memory with row stride D + 8; rows at or past T are zero, so
+// they add nothing to q·kᵀ, dO·vᵀ or P·v.
+template <int ROWS, int D, int NT>
 __device__ __forceinline__ void load_rows(bf16* dst, const bf16* __restrict__ src, int r0, int T,
                                           long long row_stride, int tid) {
-  constexpr int CH = DP / 8;
+  constexpr int CH = D / 8;
   for (int c = tid; c < ROWS * CH; c += NT) {
     const int r = c / CH, cc = (c % CH) * 8;
     const int gr = r0 + r;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (gr < T && cc < D)
+    if (gr < T)
       val = *reinterpret_cast<const uint4*>(src + (size_t)gr * row_stride + cc);
-    *reinterpret_cast<uint4*>(dst + r * (DP + 8) + cc) = val;
+    *reinterpret_cast<uint4*>(dst + r * (D + 8) + cc) = val;
   }
 }
 
@@ -172,33 +162,31 @@ template <int MASK>
 __device__ __forceinline__ bool allowed(int gq, int gk, int T, int sq, int sk) {
   if constexpr (MASK == CAUSAL_SEG) {
     return gq < T && gk <= gq && sk == sq;
-  } else if constexpr (MASK == SEG) {
-    return gq < T && gk < T && sk == sq;
   } else {
-    return gq < T && gk < T;
+    return gq < T && gk < T && sk == sq;
   }
 }
 
-template <int DP, int BQ, int BKV>
+template <int D, int BQ, int BKV>
 struct FwdSmem {
-  static constexpr int LDH = DP + 8, LDS = BKV + 4, LDP = BKV + 8, LDO = DP + 4;
+  static constexpr int LDH = D + 8, LDS = BKV + 4, LDP = BKV + 8, LDO = D + 4;
   static constexpr size_t bytes = (size_t)(BQ + 2 * BKV) * LDH * sizeof(bf16) + (size_t)BQ * LDS * sizeof(float) +
                                   (size_t)BQ * LDP * sizeof(bf16) + (size_t)BQ * LDO * sizeof(float) +
                                   2 * BQ * sizeof(float) + (BQ + BKV) * sizeof(int);
 };
 
 // q and o are laid out as lq, k and v as lk; seg is (B, T) and lse (B, H, T), both contiguous.
-template <int D, int DP, int BQ, int BKV, int MASK>
+template <int D, int BQ, int BKV, int MASK>
 __global__ void __launch_bounds__(BQ / 16 * 32)
     attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
                     const int* __restrict__ seg, bf16* __restrict__ o, float* __restrict__ lse, int T, int H,
                     int Hkv, float scale, Layout lq, Layout lk) {
-  typedef FwdSmem<DP, BQ, BKV> L;
+  typedef FwdSmem<D, BQ, BKV> L;
   const size_t bz = blockIdx.z;  // batch row: every operand advances by one whole sequence
   q += bz * lq.b;
   k += bz * lk.b;
   v += bz * lk.b;
-  if constexpr (MASK != NONE) seg += bz * T;
+  seg += bz * T;
   o += bz * lq.b;
   lse += bz * H * T;
   constexpr int NT = BQ / 16 * 32;
@@ -218,11 +206,11 @@ __global__ void __launch_bounds__(BQ / 16 * 32)
   const int q0 = blockIdx.x * BQ;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, rw = warp * 16;
 
-  load_rows<BQ, D, DP, NT>(Qs, q + (size_t)h * lq.h, q0, T, lq.r, tid);
+  load_rows<BQ, D, NT>(Qs, q + (size_t)h * lq.h, q0, T, lq.r, tid);
   for (int r = tid; r < BQ; r += NT) {
     m_s[r] = NEG;
     l_s[r] = 0.0f;
-    if constexpr (MASK != NONE) qseg[r] = q0 + r < T ? seg[q0 + r] : -1;
+    qseg[r] = q0 + r < T ? seg[q0 + r] : -1;
   }
   for (int i = tid; i < BQ * L::LDO; i += NT) Os[i] = 0.0f;
 
@@ -231,23 +219,22 @@ __global__ void __launch_bounds__(BQ / 16 * 32)
   for (int kt = 0; kt < nkt; ++kt) {
     const int k0 = kt * BKV;
     __syncthreads();  // everyone is done with the previous k/v tile
-    load_rows<BKV, D, DP, NT>(Ks, k + (size_t)hk * lk.h, k0, T, lk.r, tid);
-    load_rows<BKV, D, DP, NT>(Vs, v + (size_t)hk * lk.h, k0, T, lk.r, tid);
-    if constexpr (MASK != NONE)
-      for (int c = tid; c < BKV; c += NT) kseg[c] = k0 + c < T ? seg[k0 + c] : -2;
+    load_rows<BKV, D, NT>(Ks, k + (size_t)hk * lk.h, k0, T, lk.r, tid);
+    load_rows<BKV, D, NT>(Vs, v + (size_t)hk * lk.h, k0, T, lk.r, tid);
+    for (int c = tid; c < BKV; c += NT) kseg[c] = k0 + c < T ? seg[k0 + c] : -2;
     __syncthreads();
 
-    warp_mm_abt<BKV, DP>(Ss + rw * L::LDS, L::LDS, Qs + rw * L::LDH, L::LDH, Ks, L::LDH);
+    warp_mm_abt<BKV, D>(Ss + rw * L::LDS, L::LDS, Qs + rw * L::LDH, L::LDH, Ks, L::LDH);
     __syncwarp();
     for (int rr = 0; rr < 16; ++rr) {
-      const int r = rw + rr, gq = q0 + r, sq = MASK != NONE ? qseg[r] : 0;
+      const int r = rw + rr, gq = q0 + r, sq = qseg[r];
       float sv[BKV / 32];
       bool ok[BKV / 32];
       float mx = NEG;
 #pragma unroll
       for (int c = 0; c < BKV / 32; ++c) {
         const int col = lane + 32 * c, gk = k0 + col;
-        ok[c] = allowed<MASK>(gq, gk, T, sq, MASK != NONE ? kseg[col] : 0);
+        ok[c] = allowed<MASK>(gq, gk, T, sq, kseg[col]);
         sv[c] = ok[c] ? Ss[r * L::LDS + col] * scale : NEG;
         mx = fmaxf(mx, sv[c]);
       }
@@ -270,7 +257,7 @@ __global__ void __launch_bounds__(BQ / 16 * 32)
       }
     }
     __syncwarp();
-    warp_mm_acc<DP, BKV>(Os + rw * L::LDO, L::LDO, Ps + rw * L::LDP, L::LDP, Vs, L::LDH);
+    warp_mm_acc<D, BKV>(Os + rw * L::LDO, L::LDO, Ps + rw * L::LDP, L::LDP, Vs, L::LDH);
   }
   __syncwarp();
   for (int rr = 0; rr < 16; ++rr) {
@@ -282,9 +269,9 @@ __global__ void __launch_bounds__(BQ / 16 * 32)
   }
 }
 
-template <int DP, int BQ, int BKV>
+template <int D, int BQ, int BKV>
 struct DqSmem {
-  static constexpr int LDH = DP + 8, LDS = BKV + 4, LDP = BKV + 8, LDO = DP + 4;
+  static constexpr int LDH = D + 8, LDS = BKV + 4, LDP = BKV + 8, LDO = D + 4;
   static constexpr size_t bytes = (size_t)(2 * BQ + 2 * BKV) * LDH * sizeof(bf16) +
                                   (size_t)2 * BQ * LDS * sizeof(float) + (size_t)BQ * LDP * sizeof(bf16) +
                                   (size_t)BQ * LDO * sizeof(float) + 2 * BQ * sizeof(float) +
@@ -292,18 +279,18 @@ struct DqSmem {
 };
 
 // q, o, dout and dq are laid out as lq, k and v as lk; lse and delta (B, H, T) contiguous.
-template <int D, int DP, int BQ, int BKV, int MASK>
+template <int D, int BQ, int BKV, int MASK>
 __global__ void __launch_bounds__(BQ / 16 * 32)
     attn_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
                        const int* __restrict__ seg, const bf16* __restrict__ o, const bf16* __restrict__ dout,
                        const float* __restrict__ lse, bf16* __restrict__ dq, float* __restrict__ delta, int T,
                        int H, int Hkv, float scale, Layout lq, Layout lk) {
-  typedef DqSmem<DP, BQ, BKV> L;
+  typedef DqSmem<D, BQ, BKV> L;
   const size_t bz = blockIdx.z;
   q += bz * lq.b;
   k += bz * lk.b;
   v += bz * lk.b;
-  if constexpr (MASK != NONE) seg += bz * T;
+  seg += bz * T;
   o += bz * lq.b;
   dout += bz * lq.b;
   lse += bz * H * T;
@@ -328,11 +315,11 @@ __global__ void __launch_bounds__(BQ / 16 * 32)
   const int q0 = blockIdx.x * BQ;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, rw = warp * 16;
 
-  load_rows<BQ, D, DP, NT>(Qs, q + (size_t)h * lq.h, q0, T, lq.r, tid);
-  load_rows<BQ, D, DP, NT>(dOs, dout + (size_t)h * lq.h, q0, T, lq.r, tid);
+  load_rows<BQ, D, NT>(Qs, q + (size_t)h * lq.h, q0, T, lq.r, tid);
+  load_rows<BQ, D, NT>(dOs, dout + (size_t)h * lq.h, q0, T, lq.r, tid);
   for (int r = tid; r < BQ; r += NT) {
     lse_s[r] = q0 + r < T ? lse[(size_t)h * T + q0 + r] : 0.0f;
-    if constexpr (MASK != NONE) qseg[r] = q0 + r < T ? seg[q0 + r] : -1;
+    qseg[r] = q0 + r < T ? seg[q0 + r] : -1;
   }
   for (int i = tid; i < BQ * L::LDO; i += NT) dQs[i] = 0.0f;
   __syncthreads();
@@ -354,28 +341,27 @@ __global__ void __launch_bounds__(BQ / 16 * 32)
   for (int kt = 0; kt < nkt; ++kt) {
     const int k0 = kt * BKV;
     __syncthreads();
-    load_rows<BKV, D, DP, NT>(Ks, k + (size_t)hk * lk.h, k0, T, lk.r, tid);
-    load_rows<BKV, D, DP, NT>(Vs, v + (size_t)hk * lk.h, k0, T, lk.r, tid);
-    if constexpr (MASK != NONE)
-      for (int c = tid; c < BKV; c += NT) kseg[c] = k0 + c < T ? seg[k0 + c] : -2;
+    load_rows<BKV, D, NT>(Ks, k + (size_t)hk * lk.h, k0, T, lk.r, tid);
+    load_rows<BKV, D, NT>(Vs, v + (size_t)hk * lk.h, k0, T, lk.r, tid);
+    for (int c = tid; c < BKV; c += NT) kseg[c] = k0 + c < T ? seg[k0 + c] : -2;
     __syncthreads();
 
-    warp_mm_abt<BKV, DP>(Ss + rw * L::LDS, L::LDS, Qs + rw * L::LDH, L::LDH, Ks, L::LDH);
-    warp_mm_abt<BKV, DP>(dPs + rw * L::LDS, L::LDS, dOs + rw * L::LDH, L::LDH, Vs, L::LDH);
+    warp_mm_abt<BKV, D>(Ss + rw * L::LDS, L::LDS, Qs + rw * L::LDH, L::LDH, Ks, L::LDH);
+    warp_mm_abt<BKV, D>(dPs + rw * L::LDS, L::LDS, dOs + rw * L::LDH, L::LDH, Vs, L::LDH);
     __syncwarp();
     for (int rr = 0; rr < 16; ++rr) {
-      const int r = rw + rr, gq = q0 + r, sq = MASK != NONE ? qseg[r] : 0;
+      const int r = rw + rr, gq = q0 + r, sq = qseg[r];
       const float lr = lse_s[r], dr = dl_s[r];
 #pragma unroll
       for (int c = 0; c < BKV / 32; ++c) {
         const int col = lane + 32 * c, gk = k0 + col;
-        const bool ok = allowed<MASK>(gq, gk, T, sq, MASK != NONE ? kseg[col] : 0);
+        const bool ok = allowed<MASK>(gq, gk, T, sq, kseg[col]);
         const float p = ok ? expf(Ss[r * L::LDS + col] * scale - lr) : 0.0f;
         dSs[r * L::LDP + col] = __float2bfloat16(p * (dPs[r * L::LDS + col] - dr) * scale);
       }
     }
     __syncwarp();
-    warp_mm_acc<DP, BKV>(dQs + rw * L::LDO, L::LDO, dSs + rw * L::LDP, L::LDP, Ks, L::LDH);
+    warp_mm_acc<D, BKV>(dQs + rw * L::LDO, L::LDO, dSs + rw * L::LDP, L::LDP, Ks, L::LDH);
   }
   __syncwarp();
   for (int rr = 0; rr < 16; ++rr) {
@@ -385,9 +371,9 @@ __global__ void __launch_bounds__(BQ / 16 * 32)
   }
 }
 
-template <int DP, int BQ, int BKV>
+template <int D, int BQ, int BKV>
 struct DkdvSmem {
-  static constexpr int LDH = DP + 8, LDS = BQ + 4, LDP = BQ + 8, LDO = DP + 4;
+  static constexpr int LDH = D + 8, LDS = BQ + 4, LDP = BQ + 8, LDO = D + 4;
   static constexpr size_t bytes = (size_t)(2 * BQ + 2 * BKV) * LDH * sizeof(bf16) +
                                   (size_t)2 * BKV * LDS * sizeof(float) + (size_t)2 * BKV * LDP * sizeof(bf16) +
                                   (size_t)2 * BKV * LDO * sizeof(float) + 2 * BQ * sizeof(float) +
@@ -395,18 +381,18 @@ struct DkdvSmem {
 };
 
 // q and dout are laid out as lq, k, v, dk and dv as lk; lse and delta (B, H, T) contiguous.
-template <int D, int DP, int BQ, int BKV, int MASK>
+template <int D, int BQ, int BKV, int MASK>
 __global__ void __launch_bounds__(BKV / 16 * 32)
     attn_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
                          const int* __restrict__ seg, const bf16* __restrict__ dout, const float* __restrict__ lse,
                          const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv, int T,
                          int H, int Hkv, float scale, Layout lq, Layout lk) {
-  typedef DkdvSmem<DP, BQ, BKV> L;
+  typedef DkdvSmem<D, BQ, BKV> L;
   const size_t bz = blockIdx.z;
   q += bz * lq.b;
   k += bz * lk.b;
   v += bz * lk.b;
-  if constexpr (MASK != NONE) seg += bz * T;
+  seg += bz * T;
   dout += bz * lq.b;
   lse += bz * H * T;
   delta += bz * H * T;
@@ -433,10 +419,9 @@ __global__ void __launch_bounds__(BKV / 16 * 32)
   const int k0 = blockIdx.x * BKV;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, rw = warp * 16;
 
-  load_rows<BKV, D, DP, NT>(Ks, k + (size_t)hk * lk.h, k0, T, lk.r, tid);
-  load_rows<BKV, D, DP, NT>(Vs, v + (size_t)hk * lk.h, k0, T, lk.r, tid);
-  if constexpr (MASK != NONE)
-    for (int c = tid; c < BKV; c += NT) kseg[c] = k0 + c < T ? seg[k0 + c] : -2;
+  load_rows<BKV, D, NT>(Ks, k + (size_t)hk * lk.h, k0, T, lk.r, tid);
+  load_rows<BKV, D, NT>(Vs, v + (size_t)hk * lk.h, k0, T, lk.r, tid);
+  for (int c = tid; c < BKV; c += NT) kseg[c] = k0 + c < T ? seg[k0 + c] : -2;
   for (int i = tid; i < BKV * L::LDO; i += NT) {
     dKs[i] = 0.0f;
     dVs[i] = 0.0f;
@@ -449,33 +434,33 @@ __global__ void __launch_bounds__(BKV / 16 * 32)
     for (int qt = MASK == CAUSAL_SEG ? k0 / BQ : 0; qt < nqt; ++qt) {
       const int q0 = qt * BQ;
       __syncthreads();
-      load_rows<BQ, D, DP, NT>(Qs, q + (size_t)h * lq.h, q0, T, lq.r, tid);
-      load_rows<BQ, D, DP, NT>(dOs, dout + (size_t)h * lq.h, q0, T, lq.r, tid);
+      load_rows<BQ, D, NT>(Qs, q + (size_t)h * lq.h, q0, T, lq.r, tid);
+      load_rows<BQ, D, NT>(dOs, dout + (size_t)h * lq.h, q0, T, lq.r, tid);
       for (int c = tid; c < BQ; c += NT) {
         const bool in = q0 + c < T;
         lse_s[c] = in ? lse[(size_t)h * T + q0 + c] : 0.0f;
         dl_s[c] = in ? delta[(size_t)h * T + q0 + c] : 0.0f;
-        if constexpr (MASK != NONE) qseg[c] = in ? seg[q0 + c] : -1;
+        qseg[c] = in ? seg[q0 + c] : -1;
       }
       __syncthreads();
 
-      warp_mm_abt<BQ, DP>(St + rw * L::LDS, L::LDS, Ks + rw * L::LDH, L::LDH, Qs, L::LDH);
-      warp_mm_abt<BQ, DP>(dPt + rw * L::LDS, L::LDS, Vs + rw * L::LDH, L::LDH, dOs, L::LDH);
+      warp_mm_abt<BQ, D>(St + rw * L::LDS, L::LDS, Ks + rw * L::LDH, L::LDH, Qs, L::LDH);
+      warp_mm_abt<BQ, D>(dPt + rw * L::LDS, L::LDS, Vs + rw * L::LDH, L::LDH, dOs, L::LDH);
       __syncwarp();
       for (int rr = 0; rr < 16; ++rr) {
-        const int r = rw + rr, gk = k0 + r, sk = MASK != NONE ? kseg[r] : 0;
+        const int r = rw + rr, gk = k0 + r, sk = kseg[r];
 #pragma unroll
         for (int c = 0; c < BQ / 32; ++c) {
           const int col = lane + 32 * c, gq = q0 + col;
-          const bool ok = allowed<MASK>(gq, gk, T, MASK != NONE ? qseg[col] : 0, sk);
+          const bool ok = allowed<MASK>(gq, gk, T, qseg[col], sk);
           const float p = ok ? expf(St[r * L::LDS + col] * scale - lse_s[col]) : 0.0f;
           Pt[r * L::LDP + col] = __float2bfloat16(p);
           dSt[r * L::LDP + col] = __float2bfloat16(p * (dPt[r * L::LDS + col] - dl_s[col]) * scale);
         }
       }
       __syncwarp();
-      warp_mm_acc<DP, BQ>(dVs + rw * L::LDO, L::LDO, Pt + rw * L::LDP, L::LDP, dOs, L::LDH);
-      warp_mm_acc<DP, BQ>(dKs + rw * L::LDO, L::LDO, dSt + rw * L::LDP, L::LDP, Qs, L::LDH);
+      warp_mm_acc<D, BQ>(dVs + rw * L::LDO, L::LDO, Pt + rw * L::LDP, L::LDP, dOs, L::LDH);
+      warp_mm_acc<D, BQ>(dKs + rw * L::LDO, L::LDO, dSt + rw * L::LDP, L::LDP, Qs, L::LDH);
     }
   }
   __syncthreads();
@@ -498,46 +483,46 @@ Layout bthd(int T, int heads, int D) {
   return Layout{(long long)T * heads * D, (long long)heads * D, (long long)D};
 }
 
-template <int D, int DP, int BQ, int BKV, int MASK>
+template <int D, int BQ, int BKV, int MASK>
 int launch_fwd(const void* q, const void* k, const void* v, const int* seg, void* o, float* lse, int B, int T,
                int H, int Hkv, float scale, Layout lq, Layout lk, cudaStream_t stream) {
-  const size_t bytes = FwdSmem<DP, BQ, BKV>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(attn_fwd_kernel<D, DP, BQ, BKV, MASK>,
+  const size_t bytes = FwdSmem<D, BQ, BKV>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(attn_fwd_kernel<D, BQ, BKV, MASK>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((T + BQ - 1) / BQ, H, B);
-  attn_fwd_kernel<D, DP, BQ, BKV, MASK><<<grid, BQ / 16 * 32, bytes, stream>>>(
+  attn_fwd_kernel<D, BQ, BKV, MASK><<<grid, BQ / 16 * 32, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), seg,
       static_cast<bf16*>(o), lse, T, H, Hkv, scale, lq, lk);
   return (int)cudaGetLastError();
 }
 
-template <int D, int DP, int BQ, int BKV, int MASK>
+template <int D, int BQ, int BKV, int MASK>
 int launch_dq(const void* q, const void* k, const void* v, const int* seg, const void* o, const void* dout,
               const float* lse, void* dq, float* delta, int B, int T, int H, int Hkv, float scale, Layout lq,
               Layout lk, cudaStream_t stream) {
-  const size_t bytes = DqSmem<DP, BQ, BKV>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dq_kernel<D, DP, BQ, BKV, MASK>,
+  const size_t bytes = DqSmem<D, BQ, BKV>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dq_kernel<D, BQ, BKV, MASK>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((T + BQ - 1) / BQ, H, B);
-  attn_bwd_dq_kernel<D, DP, BQ, BKV, MASK><<<grid, BQ / 16 * 32, bytes, stream>>>(
+  attn_bwd_dq_kernel<D, BQ, BKV, MASK><<<grid, BQ / 16 * 32, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), seg,
       static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse, static_cast<bf16*>(dq), delta, T, H, Hkv,
       scale, lq, lk);
   return (int)cudaGetLastError();
 }
 
-template <int D, int DP, int BQ, int BKV, int MASK>
+template <int D, int BQ, int BKV, int MASK>
 int launch_dkdv(const void* q, const void* k, const void* v, const int* seg, const void* dout, const float* lse,
                 const float* delta, void* dk, void* dv, int B, int T, int H, int Hkv, float scale, Layout lq,
                 Layout lk, cudaStream_t stream) {
-  const size_t bytes = DkdvSmem<DP, BQ, BKV>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dkdv_kernel<D, DP, BQ, BKV, MASK>,
+  const size_t bytes = DkdvSmem<D, BQ, BKV>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dkdv_kernel<D, BQ, BKV, MASK>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((T + BKV - 1) / BKV, Hkv, B);
-  attn_bwd_dkdv_kernel<D, DP, BQ, BKV, MASK><<<grid, BKV / 16 * 32, bytes, stream>>>(
+  attn_bwd_dkdv_kernel<D, BQ, BKV, MASK><<<grid, BKV / 16 * 32, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), seg,
       static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), T, H, Hkv, scale,
       lq, lk);
@@ -549,14 +534,14 @@ int launch_dkdv(const void* q, const void* k, const void* v, const int* seg, con
 template <int D, int MASK>
 int seg_fwd(const void* q, const void* k, const void* v, const int* seg, void* o, float* lse, int B, int T, int H,
             int Hkv, float scale, Layout lq, Layout lk, cudaStream_t s) {
-  return launch_fwd<D, D, 64, 64, MASK>(q, k, v, seg, o, lse, B, T, H, Hkv, scale, lq, lk, s);
+  return launch_fwd<D, 64, 64, MASK>(q, k, v, seg, o, lse, B, T, H, Hkv, scale, lq, lk, s);
 }
 
 template <int D, int MASK>
 int seg_dq(const void* q, const void* k, const void* v, const int* seg, const void* o, const void* dout,
            const float* lse, void* dq, float* delta, int B, int T, int H, int Hkv, float scale, Layout lq, Layout lk,
            cudaStream_t s) {
-  return launch_dq<D, D, 64, (D > 128 ? 32 : 64), MASK>(q, k, v, seg, o, dout, lse, dq, delta, B, T, H, Hkv, scale,
+  return launch_dq<D, 64, (D > 128 ? 32 : 64), MASK>(q, k, v, seg, o, dout, lse, dq, delta, B, T, H, Hkv, scale,
                                                         lq, lk, s);
 }
 
@@ -564,7 +549,7 @@ template <int D, int MASK>
 int seg_dkdv(const void* q, const void* k, const void* v, const int* seg, const void* dout, const float* lse,
              const float* delta, void* dk, void* dv, int B, int T, int H, int Hkv, float scale, Layout lq, Layout lk,
              cudaStream_t s) {
-  return launch_dkdv<D, D, 64, (D > 128 ? 32 : 64), MASK>(q, k, v, seg, dout, lse, delta, dk, dv, B, T, H, Hkv,
+  return launch_dkdv<D, 64, (D > 128 ? 32 : 64), MASK>(q, k, v, seg, dout, lse, delta, dk, dv, B, T, H, Hkv,
                                                           scale, lq, lk, s);
 }
 
@@ -607,9 +592,6 @@ int bwd_dkdv(const void* q, const void* k, const void* v, const void* seg, const
   return (int)cudaErrorInvalidValue;
 }
 
-// flash_sdpa_full: head_dim 72 (the SigLIP towers' 1152 / 16), padded to 80 in shared memory.
-constexpr int FULL_D = 72, FULL_DP = 80;
-
 // fused_sdpa: one call per (mask mode, head dim); the head dims of its reference tests and
 // harness.
 #define FUSED_DISPATCH(D, CALL) \
@@ -633,10 +615,6 @@ Layout layout_of(const long long* s) { return Layout{s[0], s[1], s[2]}; }
 // flash_*: the flash_sdpa counterpart, the same kernels over a batch of B left-padded rows, one
 // grid layer per row, D 128 or 256, all tensors contiguous. q, o, dout, dq: (B, T, H, D) bf16; k,
 // v, dk, dv: (B, T, Hkv, D) bf16; seg: (B, T) int32 (0 = pad, 1 = real); lse, delta: (B, H, T) f32.
-//
-// flash_full_*: the flash_sdpa_full counterpart, non-causal over B rows of T real tokens, D 72
-// only, all tensors contiguous. q, k, v, o, dout, dq, dk, dv: (B, T, H, D) bf16; lse, delta:
-// (B, H, T) f32.
 //
 // fused_*: the fused_sdpa counterpart, causal (CAUSAL_SEG) or not (SEG), D in {32, 64, 96, 128}.
 // q, k, v, o, dout, dq, dk, dv: (B, H, T, D) bf16 in any layout whose head dim is contiguous
@@ -676,34 +654,6 @@ extern "C" int flash_bwd_dkdv_bf16(const void* q, const void* k, const void* v, 
                                    const void* dout, const void* lse, const void* delta, void* dk, void* dv, int B,
                                    int T, int H, int Hkv, int D, float scale, void* stream) {
   return bwd_dkdv(q, k, v, seg, dout, lse, delta, dk, dv, B, T, H, Hkv, D, scale, stream);
-}
-
-extern "C" int flash_full_fwd_bf16(const void* q, const void* k, const void* v, void* o, void* lse, int B, int T,
-                                   int H, int D, float scale, void* stream) {
-  if (!shape_ok(B, T, H, H) || D != FULL_D) return (int)cudaErrorInvalidValue;
-  const Layout l = bthd(T, H, D);
-  return launch_fwd<FULL_D, FULL_DP, 64, 64, NONE>(q, k, v, nullptr, o, static_cast<float*>(lse), B, T, H, H,
-                                                   scale, l, l, static_cast<cudaStream_t>(stream));
-}
-
-extern "C" int flash_full_bwd_dq_bf16(const void* q, const void* k, const void* v, const void* o,
-                                      const void* dout, const void* lse, void* dq, void* delta, int B, int T, int H,
-                                      int D, float scale, void* stream) {
-  if (!shape_ok(B, T, H, H) || D != FULL_D) return (int)cudaErrorInvalidValue;
-  const Layout l = bthd(T, H, D);
-  return launch_dq<FULL_D, FULL_DP, 64, 64, NONE>(q, k, v, nullptr, o, dout, static_cast<const float*>(lse), dq,
-                                                  static_cast<float*>(delta), B, T, H, H, scale, l, l,
-                                                  static_cast<cudaStream_t>(stream));
-}
-
-extern "C" int flash_full_bwd_dkdv_bf16(const void* q, const void* k, const void* v, const void* dout,
-                                        const void* lse, const void* delta, void* dk, void* dv, int B, int T, int H,
-                                        int D, float scale, void* stream) {
-  if (!shape_ok(B, T, H, H) || D != FULL_D) return (int)cudaErrorInvalidValue;
-  const Layout l = bthd(T, H, D);
-  return launch_dkdv<FULL_D, FULL_DP, 64, 64, NONE>(q, k, v, nullptr, dout, static_cast<const float*>(lse),
-                                                    static_cast<const float*>(delta), dk, dv, B, T, H, H, scale, l, l,
-                                                    static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int fused_fwd_bf16(const void* q, const void* k, const void* v, const void* seg, void* o, void* lse,

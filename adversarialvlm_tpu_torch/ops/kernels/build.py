@@ -23,7 +23,7 @@ import torch
 PACKAGE = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE / "csrc"
 BUILD = PACKAGE / "build"
-SOURCES = ("dgrad", "attention")
+SOURCES = ("dgrad", "attention", "flash_full")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

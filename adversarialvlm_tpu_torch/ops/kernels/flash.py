@@ -15,20 +15,19 @@ k and v in the projections' (B, T, H, D) layout, and kv head h // n_rep for q-he
 transpose copy nor ``repeat_kv`` is materialised. The TPU entry pads T to its block and head_dim
 to 128 lanes; these kernels mask the ragged tile and take head_dim 128 or 256 only.
 
-Non-causal attention for vision towers, ``flash_sdpa_full``: the flash_full entries of the same
-source (forward; dq, which writes δ; dk/dv), their plain versions and ``FlashFullAttention``.
+Non-causal attention for vision towers, ``flash_sdpa_full``: the entries of ``csrc/flash_full.cu``
+(forward; dq, which writes δ; dk/dv), their plain versions and ``FlashFullAttention``.
 Counterpart of adversarialvlm_tpu/ops/pallas/attention.py::flash_sdpa_full (:214), which runs the
 stock TPU flash_attention kernels through _flash_call (:97) with causal=False, T right-padded to
 its block with segment 0 and head_dim zero-padded to 128 lanes; its semantics are those of
 _ref_attention(..., causal=False) (:160): every query attends every key, softmax in f32, output in
-q's dtype. On the card it is the same three kernel templates with the causal limit and the
-segment array compiled out, at head_dim 72 (Gemma-3's SigLIP tower, 16 heads of 72 over 4096
-patches). What bounds it: the forward is 4·T²·D·H = 77.3 GFLOP per image on 37.7 MB of q/k/v/o,
-so the tensor cores do; the design keeps every (T, T) tile in shared memory (a plain version holds
-a 1 GiB f32 score tensor per layer and image, and autograd would keep the probabilities of all 27
-layers) and pads 72 to 80 columns there only (WMMA's k-step is 16), zero-filled, so q·kᵀ is
-unchanged and only 72 columns are written. Other head dims raise on the card (ROADMAP modules:
-other victim families; qwen2vl's 80 comes with that family).
+q's dtype. On the card it is a wgmma design of its own at head_dim 72 (Gemma-3's SigLIP tower, 16
+heads of 72 over 4096 patches; see the source's note): the tensor cores bound it (the forward is
+4·T²·D·H = 77.3 GFLOP per image on 37.7 MB of q/k/v/o), so the scores and accumulators stay in
+registers, no (T, T) tensor reaches device memory (a plain version holds a 1 GiB f32 score tensor
+per layer and image, and autograd would keep the probabilities of all 27 layers), and 72 is
+padded to 80 in shared memory only, for q·kᵀ's k-step. Other head dims raise on the card (ROADMAP
+modules: other victim families; qwen2vl's 80 comes with that family).
 """
 
 from __future__ import annotations
@@ -57,6 +56,8 @@ _SIGNATURES = {
     "flash_fwd_bf16": [_P] * 6 + [_I] * 5 + [_F, _P],
     "flash_bwd_dq_bf16": [_P] * 9 + [_I] * 5 + [_F, _P],
     "flash_bwd_dkdv_bf16": [_P] * 9 + [_I] * 5 + [_F, _P],
+}
+_FULL_SIGNATURES = {  # csrc/flash_full.cu
     "flash_full_fwd_bf16": [_P] * 5 + [_I] * 4 + [_F, _P],
     "flash_full_bwd_dq_bf16": [_P] * 8 + [_I] * 4 + [_F, _P],
     "flash_full_bwd_dkdv_bf16": [_P] * 8 + [_I] * 4 + [_F, _P],
@@ -180,6 +181,10 @@ def _lib():
     return load("attention", _SIGNATURES)
 
 
+def _full_lib():
+    return load("flash_full", _FULL_SIGNATURES)
+
+
 def flash_fwd(q, k, v, seg, scale):
     """(o, lse) of :func:`flash_plain`; CUDA tensors launch the forward kernel."""
     if q.device.type == "cpu":
@@ -301,7 +306,7 @@ def flash_full_fwd(q, k, v, scale):
         raise ValueError("flash_full_fwd: v must have q's shape")
     o = torch.empty_like(q)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
-    rc = _lib().flash_full_fwd_bf16(
+    rc = _full_lib().flash_full_fwd_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), b, t, h, d,
         float(scale), stream_of(q),
     )
@@ -321,7 +326,7 @@ def flash_full_bwd_dq(q, k, v, o, lse, do, scale):
         raise ValueError("flash_full_bwd_dq: residual shapes do not match q")
     dq = torch.empty_like(q)
     delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
-    rc = _lib().flash_full_bwd_dq_bf16(
+    rc = _full_lib().flash_full_bwd_dq_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
         dq.data_ptr(), delta.data_ptr(), b, t, h, d, float(scale), stream_of(q),
     )
@@ -341,7 +346,7 @@ def flash_full_bwd_dkdv(q, k, v, lse, delta, do, scale):
         raise ValueError("flash_full_bwd_dkdv: residual shapes do not match q")
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    rc = _lib().flash_full_bwd_dkdv_bf16(
+    rc = _full_lib().flash_full_bwd_dkdv_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), b, t, h, d, float(scale), stream_of(q),
     )

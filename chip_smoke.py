@@ -6,7 +6,8 @@
 Phases, in order (no exception is caught; any failure exits non-zero with no final line):
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. the build: nvcc compiles every source under adversarialvlm_tpu_torch/csrc/, in parallel,
-     and ptxas's register, spill and shared-memory lines are printed;
+     and ptxas's register, spill and shared-memory lines are printed; cuobjdump's SASS of the
+     flash_full library must hold HGMMA (wgmma) instructions in each of its three kernels;
   3. every kernel against its plain version on the card, at the shapes the main paths give it,
      with the error measured per row as |got - ref| / |ref| (worst row reported; |ref| floored
      at 1% of the median row norm; real rows only for the flash and fused kernels) against the
@@ -30,7 +31,8 @@ Phases, in order (no exception is caught; any failure exits non-zero with no fin
      teacher-forced.
 Then, with the LLaVA victim freed so that each phase's peak memory is its own, the Gemma-3-4B
 victim, whose 4096-patch SigLIP tower runs the non-causal flash_full kernels (their phase-3
-checks run first, before any victim is resident):
+checks run first, before any victim is resident, and print each kernel's time over SDPA's:
+the forward over SDPA's forward, dq + dk/dv over SDPA's whole backward):
   4c. the full-width, full-depth Gemma-3-4B-it attack (random bf16 weights from a seed) at the
      default batch of 4 through ``train(run_tests=True)``: 1 warm-up + 2 steps, save boundaries at
      iterations 0 and 2, each decoding the 50 held-out questions at 64 new tokens; launches are
@@ -81,6 +83,23 @@ def card_line():
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def hgmma_counts(lib_path):
+    """{kernel name: HGMMA instructions} in the SASS of a built library (cuobjdump beside nvcc)."""
+    from adversarialvlm_tpu_torch.ops.kernels.build import _nvcc
+
+    cuobjdump = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            counts[name] = 0
+        elif name is not None and "HGMMA" in line:
+            counts[name] += 1
+    return counts
 
 
 def time_ms(fn, reps=10, windows=7):
@@ -459,9 +478,16 @@ def flash_full_case(label, B, H, T, D, timed=False, backward=True):
         log("kernels", f"{name} {label} B={B} H={H} T={T} D={D} pairs={pairs:.0f} ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
             f"TFLOP/s={work[name][0] / ms / 1e9:.1f}")
+    fwd = out["flash_full_fwd"]
+    log("kernels", f"flash_full {label}: forward {fwd['ms'] / fwd['library_ms']:.2f}x SDPA's forward "
+        f"({work['flash_full_fwd'][0] / fwd['ms'] / 1e9:.1f} TFLOP/s)")
     if backward:
         log("kernels", "library_ms of both flash_full backward kernels is one non-causal "
             "scaled_dot_product_attention backward (dq, dk and dv together)")
+        bwd_ms = out["flash_full_bwd_dq"]["ms"] + out["flash_full_bwd_dkdv"]["ms"]
+        bwd_ops = work["flash_full_bwd_dq"][0] + work["flash_full_bwd_dkdv"][0]
+        log("kernels", f"flash_full {label}: dq + dk/dv {bwd_ms:.4f} ms, {bwd_ms / lib_bwd:.2f}x SDPA's "
+            f"backward ({bwd_ops / bwd_ms / 1e9:.1f} TFLOP/s)")
     torch.cuda.empty_cache()
     return out
 
@@ -1316,6 +1342,12 @@ def main():
                 log("build", f"{name}: {line.strip()}")
         log("build", f"{name}: {res.path.name} in {res.seconds:.1f} s")
     log("build", f"{len(built)} kernel libraries ready in {time.perf_counter() - t0:.1f} s")
+    hgmma = hgmma_counts(built["flash_full"].path)
+    for kernel in ("full_fwd_kernel", "full_dq_kernel", "full_dkdv_kernel"):
+        n = sum(c for name, c in hgmma.items() if kernel in name)
+        log("build", f"flash_full: {kernel} holds {n} HGMMA instructions in its SASS")
+        if n == 0:
+            raise AssertionError(f"flash_full: {kernel} was compiled without wgmma (no HGMMA in its SASS)")
 
     # 3. the non-causal flash_full kernels at the SigLIP tower's shapes (B = the step's batch of
     # 4 images, and the decode prefill's one shared image) and a ragged case, before any victim
@@ -1353,8 +1385,8 @@ def main():
     sources = {"dgrad": "dgrad.cu", "attention_fwd": "attention.cu", "attention_bwd_dq": "attention.cu",
                "attention_bwd_dkdv": "attention.cu", "flash_fwd": "attention.cu",
                "flash_bwd_dq": "attention.cu", "flash_bwd_dkdv": "attention.cu",
-               "flash_full_fwd": "attention.cu", "flash_full_bwd_dq": "attention.cu",
-               "flash_full_bwd_dkdv": "attention.cu", "fused_fwd": "attention.cu",
+               "flash_full_fwd": "flash_full.cu", "flash_full_bwd_dq": "flash_full.cu",
+               "flash_full_bwd_dkdv": "flash_full.cu", "fused_fwd": "attention.cu",
                "fused_bwd_dq": "attention.cu", "fused_bwd_dkdv": "attention.cu"}
     replaces = {
         "dgrad": "adversarialvlm_tpu/ops/pallas/matmul.py:35",

@@ -276,6 +276,52 @@ def test_flash_full_function_grads_match_flash_sdpa_full_interpret(full_qkv):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=5e-5, atol=5e-5, err_msg=f"grad {name}")
 
 
+def _c_entries(source: str) -> dict[str, list]:
+    """{entry: ctypes argtypes} read from the ``extern "C"`` declarations of ``csrc/<source>.cu``:
+    every pointer (``void*``, ``const long long*``) is c_void_p, ``int`` c_int, ``float`` c_float."""
+    import ctypes
+    import re
+
+    from adversarialvlm_tpu_torch.ops.kernels.build import CSRC
+
+    text = (CSRC / f"{source}.cu").read_text()
+    entries = {}
+    for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', text):
+        types = []
+        for param in params.split(","):
+            decl = param.rsplit(None, 1)[0] if "*" not in param else "*"
+            types.append(ctypes.c_void_p if "*" in decl else {"int": ctypes.c_int, "float": ctypes.c_float}[decl.strip()])
+        entries[name] = types
+    return entries
+
+
+@pytest.mark.parametrize("source", ["dgrad", "attention", "flash_full"])
+def test_signature_tables_match_the_c_entries(source):
+    """Each library of build.SOURCES is bound entry for entry: the wrappers' argtypes tables (read
+    without building or loading anything) name every ``extern "C"`` entry of the source and no
+    other, with c_void_p for every pointer and the stream (a pointer passed as a 32-bit int is
+    cut) and the C types of the rest. flash_full's entries live in their own source now; no
+    attention entry of that name is left."""
+    from adversarialvlm_tpu_torch.ops.kernels import dgrad as Dg
+    from adversarialvlm_tpu_torch.ops.kernels import fused as Fu
+    from adversarialvlm_tpu_torch.ops.kernels.build import SOURCES
+
+    tables = {
+        "dgrad": [Dg._SIGNATURES],
+        "attention": [A._SIGNATURES, Fl._SIGNATURES, Fu._SIGNATURES],
+        "flash_full": [Fl._FULL_SIGNATURES],
+    }[source]
+    bound = {name: argtypes for table in tables for name, argtypes in table.items()}
+    assert source in SOURCES
+    c = _c_entries(source)
+    assert sorted(c) == sorted(bound)
+    for name, argtypes in bound.items():
+        assert argtypes == c[name], name
+    if source == "flash_full":
+        assert sorted(c) == ["flash_full_bwd_dkdv_bf16", "flash_full_bwd_dq_bf16", "flash_full_fwd_bf16"]
+        assert not any(n.startswith("flash_full") for n in _c_entries("attention"))
+
+
 def test_linear_pdx_backward_of_plain_linear_agree():
     """Through autograd on the CPU, LinearPdx's dx equals the plain linear's."""
     rng = np.random.default_rng(5)

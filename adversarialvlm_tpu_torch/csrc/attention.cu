@@ -1,16 +1,20 @@
 // Causal and segment-masked attention forward and backward over operands read in place through
 // their strides: three kernel templates (forward; dq; dk/dv), each with a grid layer per batch row
 // and a compile-time mask mode. (The non-causal head_dim-72 attention of vision towers,
-// flash_sdpa_full, is its own wgmma design in flash_full.cu.)
+// flash_sdpa_full, is its own wgmma design in flash_full.cu; the causal backward at head_dim 128,
+// the decoders' width, is the wgmma design of causal_bwd.cu, so the causal backward entries here
+// take D = 256 only.)
 //
 // Replaces three Pallas entries, each through its own C entry points:
-//  - attn_* (CAUSAL_SEG): adversarialvlm_tpu/ops/pallas/fused_attention.py::fused_sdpa_bthd at
-//    batch 1, that is _call_fwd_bthd (pallas_call at :441, body _fwd_kernel_bthd :361) and
-//    _call_bwd_bthd (pallas_call at :470, body _bwd_kernel_bthd :372);
+//  - attn_fwd (CAUSAL_SEG): adversarialvlm_tpu/ops/pallas/fused_attention.py::fused_sdpa_bthd at
+//    batch 1, that is _call_fwd_bthd (pallas_call at :441, body _fwd_kernel_bthd :361), and, at
+//    D = 256 through the flash_* backward with one row, _call_bwd_bthd (pallas_call at :470, body
+//    _bwd_kernel_bthd :372);
 //  - flash_* (CAUSAL_SEG): adversarialvlm_tpu/ops/pallas/attention.py::flash_sdpa (:178),
 //    which calls the stock TPU flash_attention's forward, dkv and dq kernels through _flash_call
-//    (:97), over a left-padded batch. Its segment ids are the rows' attention masks (pads 0, real
-//    tokens 1) and its causality is by raw index: the function below, row by row;
+//    (:97), over a left-padded batch (the backward here at D = 256). Its segment ids are the rows'
+//    attention masks (pads 0, real tokens 1) and its causality is by raw index: the function
+//    below, row by row;
 //  - fused_* (CAUSAL_SEG or SEG, D in {32, 64, 96, 128}): adversarialvlm_tpu/ops/pallas/
 //    fused_attention.py::fused_sdpa, that is _call_fwd (:208, pallas_call at :213, bodies
 //    _fwd_kernel :107 and _fwd_kernel_v2 :115) and _call_bwd (:229, pallas_call at :235, bodies
@@ -60,7 +64,8 @@
 //    over the query tiles (at or after its keys in CAUSAL_SEG), accumulating dv += Pᵀ·dO and
 //    dk += dSᵀ·q in f32 shared memory, so GQA heads are summed in f32 and written once as bf16.
 // Accumulators live in shared memory, loads are plain 16-byte copies and a block has 2 or 4 warps:
-// simple and correct first; flash_full.cu shows the wgmma redesign these templates are due.
+// simple and correct first. flash_full.cu and causal_bwd.cu show the wgmma redesign these
+// templates are due (the causal forward next, then fused_*).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -553,7 +558,8 @@ int seg_dkdv(const void* q, const void* k, const void* v, const int* seg, const 
                                                           scale, lq, lk, s);
 }
 
-// The projections' causal entries (attn_*, flash_*): D 128 or 256, (B, T, H, D) layout.
+// The projections' causal entries (attn_*, flash_*), (B, T, H, D) layout: the forward at D 128 or
+// 256, the backward (dq, dk/dv) at D 256 only; D = 128's backward is causal_bwd.cu's.
 int fwd(const void* q, const void* k, const void* v, const void* seg, void* o, void* lse, int B, int T, int H,
         int Hkv, int D, float scale, void* stream) {
   if (!shape_ok(B, T, H, Hkv)) return (int)cudaErrorInvalidValue;
@@ -574,7 +580,6 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* seg, const v
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
   const Layout lq = bthd(T, H, D), lk = bthd(T, Hkv, D);
-  if (D == 128) return seg_dq<128, CAUSAL_SEG>(q, k, v, sg, o, dout, l, dq, dl, B, T, H, Hkv, scale, lq, lk, s);
   if (D == 256) return seg_dq<256, CAUSAL_SEG>(q, k, v, sg, o, dout, l, dq, dl, B, T, H, Hkv, scale, lq, lk, s);
   return (int)cudaErrorInvalidValue;
 }
@@ -587,7 +592,6 @@ int bwd_dkdv(const void* q, const void* k, const void* v, const void* seg, const
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   const Layout lq = bthd(T, H, D), lk = bthd(T, Hkv, D);
-  if (D == 128) return seg_dkdv<128, CAUSAL_SEG>(q, k, v, sg, dout, l, dl, dk, dv, B, T, H, Hkv, scale, lq, lk, s);
   if (D == 256) return seg_dkdv<256, CAUSAL_SEG>(q, k, v, sg, dout, l, dl, dk, dv, B, T, H, Hkv, scale, lq, lk, s);
   return (int)cudaErrorInvalidValue;
 }
@@ -609,12 +613,14 @@ Layout layout_of(const long long* s) { return Layout{s[0], s[1], s[2]}; }
 
 // Each entry launches on `stream` and returns cudaGetLastError() (0 on success).
 //
-// attn_*: the fused_sdpa_bthd counterpart, batch 1, D 128 or 256, all tensors contiguous. q, o,
-// dout, dq: (T, H, D) bf16; k, v, dk, dv: (T, Hkv, D) bf16; seg: (T,) int32; lse, delta: (H, T) f32.
+// attn_fwd_bf16: the fused_sdpa_bthd counterpart's forward, batch 1, D 128 or 256, all tensors
+// contiguous. q, o: (T, H, D) bf16; k, v: (T, Hkv, D) bf16; seg: (T,) int32; lse: (H, T) f32. Its
+// backward at D = 256 is flash_bwd_* with B = 1 (the same kernels); at D = 128, causal_bwd.cu's.
 //
 // flash_*: the flash_sdpa counterpart, the same kernels over a batch of B left-padded rows, one
-// grid layer per row, D 128 or 256, all tensors contiguous. q, o, dout, dq: (B, T, H, D) bf16; k,
-// v, dk, dv: (B, T, Hkv, D) bf16; seg: (B, T) int32 (0 = pad, 1 = real); lse, delta: (B, H, T) f32.
+// grid layer per row, all tensors contiguous: the forward at D 128 or 256, the backward (dq, then
+// dk/dv) at D 256 only. q, o, dout, dq: (B, T, H, D) bf16; k, v, dk, dv: (B, T, Hkv, D) bf16;
+// seg: (B, T) int32 (0 = pad, 1 = real); lse, delta: (B, H, T) f32.
 //
 // fused_*: the fused_sdpa counterpart, causal (CAUSAL_SEG) or not (SEG), D in {32, 64, 96, 128}.
 // q, k, v, o, dout, dq, dk, dv: (B, H, T, D) bf16 in any layout whose head dim is contiguous
@@ -625,18 +631,6 @@ Layout layout_of(const long long* s) { return Layout{s[0], s[1], s[2]}; }
 extern "C" int attn_fwd_bf16(const void* q, const void* k, const void* v, const void* seg, void* o, void* lse,
                              int T, int H, int Hkv, int D, float scale, void* stream) {
   return fwd(q, k, v, seg, o, lse, 1, T, H, Hkv, D, scale, stream);
-}
-
-extern "C" int attn_bwd_dq_bf16(const void* q, const void* k, const void* v, const void* seg, const void* o,
-                                const void* dout, const void* lse, void* dq, void* delta, int T, int H, int Hkv,
-                                int D, float scale, void* stream) {
-  return bwd_dq(q, k, v, seg, o, dout, lse, dq, delta, 1, T, H, Hkv, D, scale, stream);
-}
-
-extern "C" int attn_bwd_dkdv_bf16(const void* q, const void* k, const void* v, const void* seg, const void* dout,
-                                  const void* lse, const void* delta, void* dk, void* dv, int T, int H, int Hkv,
-                                  int D, float scale, void* stream) {
-  return bwd_dkdv(q, k, v, seg, dout, lse, delta, dk, dv, 1, T, H, Hkv, D, scale, stream);
 }
 
 extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v, const void* seg, void* o, void* lse,

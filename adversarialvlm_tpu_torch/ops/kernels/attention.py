@@ -1,5 +1,7 @@
-"""Batch-1 causal attention with a segment mask in (B, T, H, D) layout: the three CUDA kernels of
-``csrc/attention.cu`` (forward; dq; dk/dv), their plain versions and the autograd Function; and
+"""Batch-1 causal attention with a segment mask in (B, T, H, D) layout: the CUDA forward of
+``csrc/attention.cu``, the backward (dq; dk/dv) as a batch of one row of the causal backward
+(``flash.causal_bwd_entries``: ``csrc/causal_bwd.cu`` at head_dim 128, attention.cu at 256),
+their plain versions and the autograd Function; and
 ``attention_route``, which picks the decoder attention's route (this module, the flash kernels of
 ``flash.py``, or the plain sdpa), and ``vit_attention_route``, the vision towers' (the non-causal
 flash_full kernels of ``flash.py``, or the plain sdpa).
@@ -30,6 +32,7 @@ from adversarialvlm_tpu_torch.ops.kernels.build import (
 from adversarialvlm_tpu_torch.ops.kernels.flash import (
     FULL_HEAD_DIMS,
     HEAD_DIMS,
+    causal_bwd_entry,
     flash_bwd_dkdv_plain,
     flash_bwd_dq_plain,
     flash_plain,
@@ -38,11 +41,7 @@ from adversarialvlm_tpu_torch.ops.kernels.flash import (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_SIGNATURES = {
-    "attn_fwd_bf16": [_P] * 6 + [_I] * 4 + [_F, _P],
-    "attn_bwd_dq_bf16": [_P] * 9 + [_I] * 4 + [_F, _P],
-    "attn_bwd_dkdv_bf16": [_P] * 9 + [_I] * 4 + [_F, _P],
-}
+_SIGNATURES = {"attn_fwd_bf16": [_P] * 6 + [_I] * 4 + [_F, _P]}
 
 
 _KERNEL_ROUTES_ON_CPU = [False]
@@ -190,9 +189,10 @@ def attention_bwd_dq(q, k, v, seg, o, lse, do, scale):
         raise ValueError("attention_bwd_dq: residual shapes do not match q")
     dq = torch.empty_like(q)
     delta = torch.empty((h, t), dtype=torch.float32, device=q.device)
-    rc = _lib().attn_bwd_dq_bf16(
+    rc = causal_bwd_entry("dq", d)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(), o.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), dq.data_ptr(), delta.data_ptr(), t, h, hkv, d, float(scale), stream_of(q),
+        lse.data_ptr(), dq.data_ptr(), delta.data_ptr(), 1, t, h, hkv, d, float(scale),
+        stream_of(q),
     )
     check(rc, "attention_bwd_dq")
     LAUNCHES["attention_bwd_dq"] += 1
@@ -211,9 +211,10 @@ def attention_bwd_dkdv(q, k, v, seg, lse, delta, do, scale):
         raise ValueError("attention_bwd_dkdv: residual shapes do not match q")
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    rc = _lib().attn_bwd_dkdv_bf16(
+    rc = causal_bwd_entry("dkdv", d)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), t, h, hkv, d, float(scale), stream_of(q),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), 1, t, h, hkv, d, float(scale),
+        stream_of(q),
     )
     check(rc, "attention_bwd_dkdv")
     LAUNCHES["attention_bwd_dkdv"] += 1

@@ -23,13 +23,14 @@ import torch
 PACKAGE = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE / "csrc"
 BUILD = PACKAGE / "build"
-SOURCES = ("dgrad", "attention", "flash_full")
+SOURCES = ("dgrad", "attention", "flash_full", "causal_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_BOUND: dict[str, set] = {}  # per library, the C functions whose argtypes are set
 _LOCK = threading.Lock()
 
 
@@ -87,14 +88,21 @@ def build_all(names=SOURCES) -> dict[str, BuildResult]:
 def load(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
     """The library for ``csrc/<name>.cu``, built if needed, with ``argtypes`` set from
     ``signatures`` ({C function: argtypes}); every function returns an int error code. Several
-    wrapper modules may bind their own entry points of one library."""
+    wrapper modules may bind their own entry points of one library. A library already loaded with
+    these entries bound returns at once: the wrappers call this at every launch."""
+    lib = _LIBS.get(name)
+    if lib is not None and _BOUND[name].issuperset(signatures):
+        return lib
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            lib = _LIBS[name] = ctypes.CDLL(str(build_all([name])[name].path))
+            lib = ctypes.CDLL(str(build_all([name])[name].path))
+            _BOUND[name] = set()
         for fn, argtypes in signatures.items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
+        _BOUND[name].update(signatures)
+        _LIBS[name] = lib
         return lib
 
 
@@ -104,8 +112,10 @@ def check(rc: int, what: str) -> None:
 
 
 def stream_of(t: torch.Tensor) -> int:
-    """The handle of the current stream on ``t``'s device, as a Python int for ctypes."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The handle of the current stream on ``t``'s device, as a Python int for ctypes. Read through
+    the raw accessor PyTorch's own kernel launchers use, which builds no ``torch.cuda.Stream``
+    object: every launch pays this on the host."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def on_device_of(t: torch.Tensor):

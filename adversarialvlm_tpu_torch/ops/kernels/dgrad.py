@@ -1,5 +1,6 @@
-"""dx = dy · W for frozen linears: the CUDA kernel ``csrc/dgrad.cu``, its plain version and the
-autograd Function that routes a linear's input gradient through it.
+"""dx = dy · W for frozen linears: the CUDA kernel ``csrc/dgrad.cu`` (wgmma fed by TMA, see the
+source's note), its plain version and the autograd Function that routes a linear's input gradient
+through it.
 
 Counterpart of adversarialvlm_tpu/ops/pallas/matmul.py::dgrad_matmul and the custom VJP
 models/layers.py::_linear_pdx.
@@ -22,12 +23,25 @@ from adversarialvlm_tpu_torch.ops.kernels.build import (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {"dgrad_bf16": [_P, _P, _P, _I, _I, _I, _P]}
+_SIGNATURES = {
+    "dgrad_bf16": [_P, _P, _P, _I, _I, _I, _P],
+    "dgrad_bf16_plan": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "dgrad_plan": [_I, _I, _I],
+}
 
 
 def dgrad_plain(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """dy (T, O), w (O, I) -> (T, I) in dy's dtype, computed in f32."""
     return (dy.float() @ w.float()).to(dy.dtype)
+
+
+def _operands(what: str, dy: torch.Tensor, w: torch.Tensor) -> tuple[int, int, int]:
+    check_cuda_operands(what, torch.bfloat16, dy, w)
+    t, o = dy.shape
+    i = w.shape[1]
+    if o % 8 or i % 8:
+        raise ValueError(f"{what}: O={o} and I={i} must be multiples of 8")
+    return t, o, i
 
 
 def dgrad(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -38,16 +52,36 @@ def dgrad(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"dgrad: shapes {tuple(dy.shape)} and {tuple(w.shape)} do not chain")
     if dy.device.type == "cpu" and w.device.type == "cpu":
         return dgrad_plain(dy, w)
-    check_cuda_operands("dgrad", torch.bfloat16, dy, w)
-    t, o = dy.shape
-    i = w.shape[1]
-    if o % 8 or i % 8:
-        raise ValueError(f"dgrad: O={o} and I={i} must be multiples of 8")
-    dx = torch.empty((t, i), dtype=dy.dtype, device=dy.device)
+    t, o, i = _operands("dgrad", dy, w)
+    dx = dy.new_empty((t, i))
     lib = load("dgrad", _SIGNATURES)
     check(lib.dgrad_bf16(dy.data_ptr(), w.data_ptr(), dx.data_ptr(), t, o, i, stream_of(dy)), "dgrad")
     LAUNCHES["dgrad"] += 1
     return dx
+
+
+def dgrad_with_plan(dy: torch.Tensor, w: torch.Tensor, splits: int, pair: int) -> torch.Tensor:
+    """:func:`dgrad` on the card with the kernel's cluster given instead of chosen: a split of O
+    over ``splits`` blocks (1-4), or, unsplit, row tiles in multicast pairs (``pair`` 2) or not
+    (1). The same product, its f32 partial sums added in another order. For
+    ``cli/bench_dgrad.py``, which times every plan; raises on a plan the kernel does not take."""
+    if dy.dim() != 2 or w.dim() != 2 or dy.shape[1] != w.shape[0]:
+        raise ValueError(f"dgrad_with_plan: shapes {tuple(dy.shape)} and {tuple(w.shape)} do not chain")
+    t, o, i = _operands("dgrad_with_plan", dy, w)
+    dx = dy.new_empty((t, i))
+    lib = load("dgrad", _SIGNATURES)
+    rc = lib.dgrad_bf16_plan(dy.data_ptr(), w.data_ptr(), dx.data_ptr(), t, o, i, splits, pair, stream_of(dy))
+    check(rc, f"dgrad_with_plan (splits {splits}, pair {pair})")
+    LAUNCHES["dgrad"] += 1
+    return dx
+
+
+def dgrad_plan(t: int, o: int, i: int) -> tuple[int, int]:
+    """(split of O over a thread-block cluster, multicast pair of row tiles: 2 or 1) that
+    :func:`dgrad` takes at (T, O, I), as ``chip_smoke.py`` logs it beside each shape's time.
+    Builds the library if needed."""
+    code = load("dgrad", _SIGNATURES).dgrad_plan(t, o, i)
+    return code // 10, code % 10
 
 
 class LinearPdx(torch.autograd.Function):

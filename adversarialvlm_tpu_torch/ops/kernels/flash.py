@@ -8,12 +8,14 @@ seg[b, i] == seg[b, j], where seg is the row's attention mask (pads 0, real toke
 softmax in f32, output in q's dtype. Pad rows attend earlier pads, so they stay finite; callers
 read real rows only.
 
-On the card the three kernels are the batch-1 kernels of ``attention.py`` with a grid layer per
-batch row (see the source's note: tensor cores bound them at the decoder's shapes; the design
-tiles T with an online softmax and keeps the row logsumexp as the extra residual). They read q,
-k and v in the projections' (B, T, H, D) layout, and kv head h // n_rep for q-head h, so neither a
-transpose copy nor ``repeat_kv`` is materialised. The TPU entry pads T to its block and head_dim
-to 128 lanes; these kernels mask the ragged tile and take head_dim 128 or 256 only.
+On the card the forward is the batch-1 forward of ``attention.py`` with a grid layer per batch
+row (``csrc/attention.cu``: T tiled with an online softmax, the row logsumexp kept as the extra
+residual). The backward (dq, which writes δ, then dk/dv) goes by head dim
+(:func:`causal_bwd_entries`): at 128, the decoders' width, to the wgmma kernels of
+``csrc/causal_bwd.cu``; at 256 to attention.cu's. All read q, k and v in the projections'
+(B, T, H, D) layout, and kv head h // n_rep for q-head h, so neither a transpose copy nor
+``repeat_kv`` is materialised. The TPU entry pads T to its block and head_dim to 128 lanes; these
+kernels mask the ragged tile and take head_dim 128 or 256 only.
 
 Non-causal attention for vision towers, ``flash_sdpa_full``: the entries of ``csrc/flash_full.cu``
 (forward; dq, which writes δ; dk/dv), their plain versions and ``FlashFullAttention``.
@@ -57,11 +59,37 @@ _SIGNATURES = {
     "flash_bwd_dq_bf16": [_P] * 9 + [_I] * 5 + [_F, _P],
     "flash_bwd_dkdv_bf16": [_P] * 9 + [_I] * 5 + [_F, _P],
 }
+_CAUSAL_BWD_SIGNATURES = {  # csrc/causal_bwd.cu
+    "causal_bwd_dq_bf16": [_P] * 9 + [_I] * 5 + [_F, _P],
+    "causal_bwd_dkdv_bf16": [_P] * 9 + [_I] * 5 + [_F, _P],
+}
 _FULL_SIGNATURES = {  # csrc/flash_full.cu
     "flash_full_fwd_bf16": [_P] * 5 + [_I] * 4 + [_F, _P],
     "flash_full_bwd_dq_bf16": [_P] * 8 + [_I] * 4 + [_F, _P],
     "flash_full_bwd_dkdv_bf16": [_P] * 8 + [_I] * 4 + [_F, _P],
 }
+
+
+def causal_bwd_entries(d: int) -> tuple[str, str, str]:
+    """(library, dq entry, dk/dv entry) of the causal backward at head dim ``d``, read without
+    building or loading anything: at 128 the wgmma kernels of ``csrc/causal_bwd.cu``, at 256 the
+    flash entries of ``csrc/attention.cu``. Both take a batch of B rows (the batch-1 wrappers of
+    ``attention.py`` pass 1) and the same arguments. Any other head dim raises."""
+    if d == 128:
+        return "causal_bwd", "causal_bwd_dq_bf16", "causal_bwd_dkdv_bf16"
+    if d == 256:
+        return "attention", "flash_bwd_dq_bf16", "flash_bwd_dkdv_bf16"
+    raise ValueError(
+        f"causal attention backward at head_dim {d}: the kernels take {HEAD_DIMS} (other head dims "
+        "come with their families: ROADMAP modules: other victim families)"
+    )
+
+
+def causal_bwd_entry(kind: str, d: int):
+    """The bound C function of the causal backward's ``kind`` ("dq" or "dkdv") at head dim ``d``."""
+    library, dq_entry, dkdv_entry = causal_bwd_entries(d)
+    lib = load(library, _CAUSAL_BWD_SIGNATURES if library == "causal_bwd" else _SIGNATURES)
+    return getattr(lib, dq_entry if kind == "dq" else dkdv_entry)
 
 
 def allowed_pairs(seg: torch.Tensor, causal: bool = True) -> torch.Tensor:
@@ -217,7 +245,7 @@ def flash_bwd_dq(q, k, v, seg, o, lse, do, scale):
         raise ValueError("flash_bwd_dq: residual shapes do not match q")
     dq = torch.empty_like(q)
     delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
-    rc = _lib().flash_bwd_dq_bf16(
+    rc = causal_bwd_entry("dq", d)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), dq.data_ptr(), delta.data_ptr(), b, t, h, hkv, d, float(scale),
         stream_of(q),
@@ -240,7 +268,7 @@ def flash_bwd_dkdv(q, k, v, seg, lse, delta, do, scale):
         raise ValueError("flash_bwd_dkdv: residual shapes do not match q")
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    rc = _lib().flash_bwd_dkdv_bf16(
+    rc = causal_bwd_entry("dkdv", d)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t, h, hkv, d, float(scale),
         stream_of(q),

@@ -7,14 +7,20 @@ Phases, in order (no exception is caught; any failure exits non-zero with no fin
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. the build: nvcc compiles every source under adversarialvlm_tpu_torch/csrc/, in parallel,
      and ptxas's register, spill and shared-memory lines are printed; cuobjdump's SASS of the
-     flash_full library must hold HGMMA (wgmma) instructions in each of its three kernels;
+     wgmma libraries must hold HGMMA instructions in each of their kernels (flash_full's three,
+     dgrad's, causal_bwd's dq and dk/dv), and ptxas must report no spills for any of them;
   3. every kernel against its plain version on the card, at the shapes the main paths give it,
      with the error measured per row as |got - ref| / |ref| (worst row reported; |ref| floored
      at 1% of the median row norm; real rows only for the flash and fused kernels) against the
      stated tolerance, and each kernel's time beside its plain version's, one PyTorch library call's
-     (a yardstick only; the port never calls it) and its bound on this card; the fused_sdpa
-     kernels at four shapes, causal and not, then their path: cli/bench_fused_attention.py at its
-     defaults against the plain einsum attention, with its launches counted from zero;
+     (a yardstick only; the port never calls it) and its bound on this card. dgrad runs at the
+     shapes of the LLaVA batch-1 and batch-4 steps and of the Gemma-3 step, with its time over
+     torch.matmul's weighted by the step's launches; the causal backward's dq + dk/dv is printed
+     over SDPA's whole backward; a dgrad or causal backward launch repeated on the same inputs must
+     give equal outputs (no atomics; dgrad's split of O adds its partials in a fixed order). The
+     fused_sdpa kernels at four shapes, causal and not, then their path:
+     cli/bench_fused_attention.py at its defaults against the plain einsum attention, with its
+     launches counted from zero;
   4. the batch-1 path: the full-width, full-depth LLaVA-1.5-7B single-victim attack (random bf16
      weights from a seed) through ``train()`` for 1 warm-up step + 5 steps, with each kernel's
      launches counted over that run only;
@@ -85,6 +91,14 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
+def spill_lines(log):
+    """ptxas's spill lines of a build log that report a spill (stores or loads above 0 bytes)."""
+    import re
+
+    return [line.strip() for line in log.splitlines()
+            if any(int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", line))]
+
+
 def hgmma_counts(lib_path):
     """{kernel name: HGMMA instructions} in the SASS of a built library (cuobjdump beside nvcc)."""
     from adversarialvlm_tpu_torch.ops.kernels.build import _nvcc
@@ -137,25 +151,26 @@ def row_errors(got, ref):
     return float(rel.max()), float(d.abs().max())
 
 
-def llava_dgrad_cases(victim_params, vlm_cfg, t_text):
-    """(T, O, I, launches per step, weight) of every frozen linear whose input gradient the
-    batch-1 step takes through the dgrad kernel: the CLIP layers that run, the projector and the
-    decoder."""
+def llava_dgrad_cases(victim_params, vlm_cfg, t_text, batch=1):
+    """(rows, O, I, launches per step, weight) of every frozen linear whose input gradient the
+    step at ``batch`` takes through the dgrad kernel: the CLIP layers that run over the batch's
+    images (each row's noise makes its own), the projector and the decoder over its tokens."""
     v, t = vlm_cfg.vision, vlm_cfg.text
     t_vis = (v.image_size // v.patch_size) ** 2 + 1
     n_vis = v.num_layers + 1 + vlm_cfg.vision_feature_layer
     d, hd = t.hidden_size, t.head_dim_
+    rows_v, rows_p, rows_t = batch * t_vis, batch * (t_vis - 1), batch * t_text
     shapes = [
-        (t_vis, v.hidden_size, v.hidden_size, 4 * n_vis),
-        (t_vis, v.intermediate_size, v.hidden_size, n_vis),
-        (t_vis, v.hidden_size, v.intermediate_size, n_vis),
-        (t_vis - 1, d, v.hidden_size, 1),
-        (t_vis - 1, d, d, 1),
-        (t_text, t.num_heads * hd, d, t.num_layers),
-        (t_text, t.num_kv_heads * hd, d, 2 * t.num_layers),
-        (t_text, d, t.num_heads * hd, t.num_layers),
-        (t_text, t.intermediate_size, d, 2 * t.num_layers),
-        (t_text, d, t.intermediate_size, t.num_layers),
+        (rows_v, v.hidden_size, v.hidden_size, 4 * n_vis),
+        (rows_v, v.intermediate_size, v.hidden_size, n_vis),
+        (rows_v, v.hidden_size, v.intermediate_size, n_vis),
+        (rows_p, d, v.hidden_size, 1),
+        (rows_p, d, d, 1),
+        (rows_t, t.num_heads * hd, d, t.num_layers),
+        (rows_t, t.num_kv_heads * hd, d, 2 * t.num_layers),
+        (rows_t, d, t.num_heads * hd, t.num_layers),
+        (rows_t, t.intermediate_size, d, 2 * t.num_layers),
+        (rows_t, d, t.intermediate_size, t.num_layers),
     ]
     merged = {}
     for T, O, I, n in shapes:
@@ -191,11 +206,12 @@ def gemma_dgrad_cases(victim_params, vlm_cfg, batch, t_text):
 
 
 def check_dgrad(cases, label="dgrad"):
-    """The dgrad kernel against its plain version at each (T, O, I) of ``cases``, timed; returns
-    the per-launch numbers weighted by each shape's launches per step."""
+    """The dgrad kernel against its plain version at each (T, O, I) of ``cases``, twice on the same
+    inputs (the outputs must be equal), timed; returns the per-launch numbers weighted by each
+    shape's launches per step."""
     import torch
 
-    from adversarialvlm_tpu_torch.ops.kernels.dgrad import dgrad, dgrad_plain
+    from adversarialvlm_tpu_torch.ops.kernels.dgrad import dgrad, dgrad_plain, dgrad_plan
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
@@ -206,14 +222,16 @@ def check_dgrad(cases, label="dgrad"):
         rel, abs_err = row_errors(got, ref)
         if not rel <= TOL_DGRAD:
             raise AssertionError(f"{label} T={T} O={O} I={I}: worst row rel err {rel} > {TOL_DGRAD}")
+        if not torch.equal(got, dgrad(dy, w)):
+            raise AssertionError(f"{label} T={T} O={O} I={I}: two launches on the same inputs differ")
         ms = time_ms(lambda: dgrad(dy, w))
         plain_ms = time_ms(lambda: dgrad_plain(dy, w))
         lib_ms = time_ms(lambda: torch.matmul(dy, w))
         b_ms, b_by = bound(2.0 * T * O * I, 2.0 * (T * O + O * I + T * I))
-        log("kernels", f"{label} T={T} O={O} I={I} launches/step={calls} worst_row_rel={rel:.3g} "
-            f"max_abs={abs_err:.3g} (tol {TOL_DGRAD}) ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
-            f"TFLOP/s={2.0 * T * O * I / ms / 1e9:.1f}")
+        log("kernels", f"{label} T={T} O={O} I={I} launches/step={calls} split, pair={dgrad_plan(T, O, I)} "
+            f"worst_row_rel={rel:.3g} max_abs={abs_err:.3g} (tol {TOL_DGRAD}) deterministic ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} ({ms / lib_ms:.2f}x) bound_ms={b_ms:.4f} "
+            f"({b_by}) TFLOP/s={2.0 * T * O * I / ms / 1e9:.1f}")
         rows.append(dict(calls=calls, rel=rel, abs=abs_err, ms=ms, plain=plain_ms, lib=lib_ms, bound=b_ms, by=b_by))
     n = sum(r["calls"] for r in rows)
 
@@ -229,7 +247,8 @@ def check_dgrad(cases, label="dgrad"):
     }
     log("kernels", f"{label} per launch, weighted by the step's {n} launches: "
         + " ".join(f"{k}={summary[k]:.4f}" for k in ("ms", "plain_ms", "library_ms", "bound_ms"))
-        + f" ({summary['bound_by']})")
+        + f" ({summary['bound_by']}); kernel over torch.matmul {summary['ms'] / summary['library_ms']:.3f}x, "
+        f"worst shape {max(r['ms'] / r['lib'] for r in rows):.2f}x")
     return summary
 
 
@@ -255,6 +274,10 @@ def attention_case(T, H, Hkv, D, pad, timed=False):
     o, lse = A.attention_fwd(q, k, v, seg, scale)
     dq, delta = A.attention_bwd_dq(q, k, v, seg, o, lse, do, scale)
     dk, dv = A.attention_bwd_dkdv(q, k, v, seg, lse, delta, do, scale)
+    again = (*A.attention_bwd_dq(q, k, v, seg, o, lse, do, scale),
+             *A.attention_bwd_dkdv(q, k, v, seg, lse, delta, do, scale))
+    if not all(torch.equal(a, b) for a, b in zip((dq, delta, dk, dv), again)):
+        raise AssertionError(f"attention T={T} H={H} D={D}: two backward launches on the same inputs differ")
     o_ref, lse_ref = A.attention_plain(f32[0], f32[1], f32[2], seg, scale)
     dq_ref, delta_ref = A.attention_bwd_dq_plain(f32[0], f32[1], f32[2], seg, o.float(), lse, f32[3], scale)
     dk_ref, dv_ref = A.attention_bwd_dkdv_plain(f32[0], f32[1], f32[2], seg, lse, delta, f32[3], scale)
@@ -312,6 +335,9 @@ def attention_case(T, H, Hkv, D, pad, timed=False):
             f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
     log("kernels", "library_ms of both backward kernels is one scaled_dot_product_attention "
         "backward (dq, dk and dv together) with the same boolean mask")
+    bwd_ms = out["attention_bwd_dq"]["ms"] + out["attention_bwd_dkdv"]["ms"]
+    log("kernels", f"attention T={T} H={H} D={D}: dq + dk/dv {bwd_ms:.4f} ms, "
+        f"{bwd_ms / times['attention_bwd_dq'][2]:.2f}x SDPA's backward")
     return out
 
 
@@ -341,6 +367,11 @@ def flash_case(label, seg, H, Hkv, D, timed=False, backward=True):
     if backward:
         dq, delta = Fl.flash_bwd_dq(q, k, v, seg, o, lse, do, scale)
         dk, dv = Fl.flash_bwd_dkdv(q, k, v, seg, lse, delta, do, scale)
+        again = (*Fl.flash_bwd_dq(q, k, v, seg, o, lse, do, scale),
+                 *Fl.flash_bwd_dkdv(q, k, v, seg, lse, delta, do, scale))
+        if not all(torch.equal(a, b) for a, b in zip((dq, delta, dk, dv), again)):
+            raise AssertionError(f"flash {label} B={B} T={T} D={D}: two backward launches on the same "
+                                 "inputs differ")
         dq_ref, delta_ref = Fl.flash_bwd_dq_plain(f32[0], f32[1], f32[2], seg, o.float(), lse, f32[3], scale)
         dk_ref, dv_ref = Fl.flash_bwd_dkdv_plain(f32[0], f32[1], f32[2], seg, lse, delta, f32[3], scale)
         errs.update({
@@ -399,6 +430,9 @@ def flash_case(label, seg, H, Hkv, D, timed=False, backward=True):
     if backward:
         log("kernels", "library_ms of both flash backward kernels is one scaled_dot_product_attention "
             "backward (dq, dk and dv together) with the same boolean mask")
+        bwd_ms = out["flash_bwd_dq"]["ms"] + out["flash_bwd_dkdv"]["ms"]
+        log("kernels", f"flash {label} B={B} T={T} D={D}: dq + dk/dv {bwd_ms:.4f} ms, "
+            f"{bwd_ms / lib_bwd:.2f}x SDPA's backward")
     return out
 
 
@@ -774,6 +808,7 @@ def transform_path(victim, x0, dgrad_per_step, n_layers, plain_med, plain_peak):
     seen, real_init = {}, engine.init_state
     with tempfile.TemporaryDirectory() as runs:
         torch.cuda.synchronize()
+        torch.cuda.empty_cache()  # the path's peak counts its own blocks, not an earlier phase's leftovers
         torch.cuda.reset_peak_memory_stats()
         probe = PathProbe(victim.bundle)
         engine.init_state = lambda c, x: seen.setdefault("state", real_init(c, x))
@@ -902,6 +937,7 @@ def llava_phases():
 
     # 3. kernels against their plain versions
     dg = check_dgrad(llava_dgrad_cases(victim.bundle.params, vlm_cfg, t_text))
+    dg4 = check_dgrad(llava_dgrad_cases(victim.bundle.params, vlm_cfg, t4, batch=4), "dgrad llava batch 4")
     attn = attention_case(t_text, t.num_heads, t.num_kv_heads, t.head_dim_, pad, timed=True)
     attention_case(t_text, t.num_heads, t.num_kv_heads, t.head_dim_, 53)
     attention_case(301, 8, 2, 128, 37)
@@ -920,6 +956,7 @@ def llava_phases():
     pr3_kernels = ("dgrad", "attention_fwd", "attention_bwd_dq", "attention_bwd_dkdv")
     with tempfile.TemporaryDirectory() as runs:
         torch.cuda.synchronize()
+        torch.cuda.empty_cache()  # the path's peak counts its own blocks, not an earlier phase's leftovers
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         t0 = time.perf_counter()
@@ -966,6 +1003,7 @@ def llava_phases():
     # 4b. the batch-4 path with the test decode, counted from zero
     with tempfile.TemporaryDirectory() as runs:
         torch.cuda.synchronize()
+        torch.cuda.empty_cache()  # the path's peak counts its own blocks, not an earlier phase's leftovers
         torch.cuda.reset_peak_memory_stats()
         probe = PathProbe(victim4.bundle)
         reset_launches()
@@ -1108,7 +1146,7 @@ def llava_phases():
                      {"flash_fwd": cut.text.num_layers})
     log("reference", f"all references in {time.perf_counter() - t0:.1f} s")
     return {
-        "stats": {"dgrad": dg, **attn, **flash}, "prefill": prefill, "transforms": transforms,
+        "stats": {"dgrad": dg, **attn, **flash}, "prefill": prefill, "transforms": transforms, "dgrad4": dg4,
         "counts": {**{k: launches[k] for k in pr3_kernels}, **{k: launches4[k] for k in flash}},
     }
 
@@ -1154,6 +1192,7 @@ def gemma_phases():
     x0 = np.full((3, 512, 512), 0.47, np.float32)
     with tempfile.TemporaryDirectory() as runs:
         torch.cuda.synchronize()
+        torch.cuda.empty_cache()  # the path's peak counts its own blocks, not an earlier phase's leftovers
         torch.cuda.reset_peak_memory_stats()
         probe = PathProbe(victim.bundle)
         reset_launches()
@@ -1342,12 +1381,19 @@ def main():
                 log("build", f"{name}: {line.strip()}")
         log("build", f"{name}: {res.path.name} in {res.seconds:.1f} s")
     log("build", f"{len(built)} kernel libraries ready in {time.perf_counter() - t0:.1f} s")
-    hgmma = hgmma_counts(built["flash_full"].path)
-    for kernel in ("full_fwd_kernel", "full_dq_kernel", "full_dkdv_kernel"):
-        n = sum(c for name, c in hgmma.items() if kernel in name)
-        log("build", f"flash_full: {kernel} holds {n} HGMMA instructions in its SASS")
-        if n == 0:
-            raise AssertionError(f"flash_full: {kernel} was compiled without wgmma (no HGMMA in its SASS)")
+    wgmma_kernels = {"flash_full": ("full_fwd_kernel", "full_dq_kernel", "full_dkdv_kernel"),
+                     "dgrad": ("dgrad_kernel",), "causal_bwd": ("causal_dq_kernel", "causal_dkdv_kernel")}
+    for lib, kernels in wgmma_kernels.items():
+        hgmma = hgmma_counts(built[lib].path)
+        for kernel in kernels:
+            n = sum(c for name, c in hgmma.items() if kernel in name)
+            log("build", f"{lib}: {kernel} holds {n} HGMMA instructions in its SASS")
+            if n == 0:
+                raise AssertionError(f"{lib}: {kernel} was compiled without wgmma (no HGMMA in its SASS)")
+        spills = spill_lines(built[lib].log)
+        log("build", f"{lib}: ptxas reports {len(spills)} spilling functions")
+        if spills:
+            raise AssertionError(f"{lib}: ptxas spills registers: {spills}")
 
     # 3. the non-causal flash_full kernels at the SigLIP tower's shapes (B = the step's batch of
     # 4 images, and the decode prefill's one shared image) and a ragged case, before any victim
@@ -1382,9 +1428,9 @@ def main():
 
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s; the blur + crop step "
         f"{llava['transforms']['median_ms']:.2f} ms at batch 1")
-    sources = {"dgrad": "dgrad.cu", "attention_fwd": "attention.cu", "attention_bwd_dq": "attention.cu",
-               "attention_bwd_dkdv": "attention.cu", "flash_fwd": "attention.cu",
-               "flash_bwd_dq": "attention.cu", "flash_bwd_dkdv": "attention.cu",
+    sources = {"dgrad": "dgrad.cu", "attention_fwd": "attention.cu", "attention_bwd_dq": "causal_bwd.cu",
+               "attention_bwd_dkdv": "causal_bwd.cu", "flash_fwd": "attention.cu",
+               "flash_bwd_dq": "causal_bwd.cu", "flash_bwd_dkdv": "causal_bwd.cu",
                "flash_full_fwd": "flash_full.cu", "flash_full_bwd_dq": "flash_full.cu",
                "flash_full_bwd_dkdv": "flash_full.cu", "fused_fwd": "attention.cu",
                "fused_bwd_dq": "attention.cu", "fused_bwd_dkdv": "attention.cu"}
@@ -1419,6 +1465,7 @@ def main():
     timing_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
     kernels[4]["at_prefill_shape"] = {k: llava["prefill"][k] for k in timing_keys}
     kernels[7]["at_prefill_shape"] = {k: full_prefill[k] for k in timing_keys}
+    kernels[0]["at_llava_batch4_shapes"] = {k: llava["dgrad4"][k] for k in (*timing_keys, "per_step")}
     kernels[0]["at_gemma3_shapes"] = {k: gem["dgrad"][k] for k in (*timing_keys, "per_step")}
     for i, name in enumerate(sources):
         if name in fused:

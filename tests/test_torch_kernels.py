@@ -231,6 +231,54 @@ def test_vit_route(case):
     _vit_route_case(case)
 
 
+@pytest.mark.parametrize("d, want", [
+    (128, ("causal_bwd", "causal_bwd_dq_bf16", "causal_bwd_dkdv_bf16")),
+    (256, ("attention", "flash_bwd_dq_bf16", "flash_bwd_dkdv_bf16")),
+    (64, None), (72, None), (96, None), (512, None),
+])
+def test_causal_backward_dispatch_by_head_dim(d, want):
+    """The causal backward's head-dim dispatch, read without building anything: D = 128 (the
+    decoders' width) goes to the wgmma kernels of causal_bwd.cu, D = 256 to attention.cu's flash
+    entries, from the batch-1 wrappers and the batched ones alike; any other head dim raises. Both
+    entries are bound in their library's argtypes table with the same arguments, and attention.cu
+    no longer runs a D = 128 backward."""
+    if want is None:
+        with pytest.raises(ValueError, match="head_dim"):
+            Fl.causal_bwd_entries(d)
+        return
+    assert Fl.causal_bwd_entries(d) == want
+    library, dq_entry, dkdv_entry = want
+    table = Fl._CAUSAL_BWD_SIGNATURES if library == "causal_bwd" else Fl._SIGNATURES
+    assert table[dq_entry] == Fl._CAUSAL_BWD_SIGNATURES["causal_bwd_dq_bf16"]
+    assert table[dkdv_entry] == Fl._CAUSAL_BWD_SIGNATURES["causal_bwd_dkdv_bf16"]
+    from adversarialvlm_tpu_torch.ops.kernels.build import CSRC
+
+    text = (CSRC / "attention.cu").read_text()
+    for fn in ("bwd_dq", "bwd_dkdv"):
+        body = text[text.index(f"\nint {fn}("):].split("\n}\n", 1)[0]
+        assert "D == 128" not in body and "D == 256" in body, fn
+
+
+def test_bench_dgrad_shapes_are_the_steps_launches():
+    """cli/bench_dgrad.py times the dgrad kernel at the shapes chip_smoke.py checks: per step the
+    config's launches (364 at LLaVA-1.5-7B, batch 1 or 4; 346 at Gemma-3-4B), rows scaled by the
+    batch (four CLIP images of 577 tokens, four SigLIP images of 4096 patches). The explicit-plan
+    wrapper it times takes CUDA tensors only, and no plan of it runs on the CPU."""
+    from adversarialvlm_tpu_torch.cli.bench_dgrad import step_shapes
+    from adversarialvlm_tpu_torch.ops.kernels.dgrad import dgrad_with_plan
+
+    sets = step_shapes(641, 677, 360)
+    assert {k: sum(n for *_, n in v) for k, v in sets.items()} == {
+        "llava batch 1": 364, "llava batch 4": 364, "gemma3 batch 4": 346}
+    assert (641, 11008, 4096, 64) in sets["llava batch 1"]
+    assert (4 * 677, 4096, 11008, 32) in sets["llava batch 4"]
+    assert (4 * 577, 1024, 1024, 92) in sets["llava batch 4"]
+    assert (4 * 4096, 1152, 1152, 108) in sets["gemma3 batch 4"]
+    assert all(dgrad_eligible(torch.empty(o, i)) for shapes in sets.values() for _, o, i, _ in shapes)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        dgrad_with_plan(torch.randn(4, 64, dtype=torch.bfloat16), torch.randn(64, 8, dtype=torch.bfloat16), 1, 1)
+
+
 @pytest.fixture(scope="module")
 def full_qkv():
     """B=2, H=3, T=150, D=24 (a ragged T and a head dim under any lane width), as
@@ -295,21 +343,24 @@ def _c_entries(source: str) -> dict[str, list]:
     return entries
 
 
-@pytest.mark.parametrize("source", ["dgrad", "attention", "flash_full"])
+@pytest.mark.parametrize("source", ["dgrad", "attention", "flash_full", "causal_bwd"])
 def test_signature_tables_match_the_c_entries(source):
     """Each library of build.SOURCES is bound entry for entry: the wrappers' argtypes tables (read
     without building or loading anything) name every ``extern "C"`` entry of the source and no
     other, with c_void_p for every pointer and the stream (a pointer passed as a 32-bit int is
-    cut) and the C types of the rest. flash_full's entries live in their own source now; no
-    attention entry of that name is left."""
+    cut) and the C types of the rest. flash_full's entries live in their own source, and so do the
+    causal backward's at head_dim 128; no entry is named twice, in one source or across sources."""
+    import re
+
     from adversarialvlm_tpu_torch.ops.kernels import dgrad as Dg
     from adversarialvlm_tpu_torch.ops.kernels import fused as Fu
-    from adversarialvlm_tpu_torch.ops.kernels.build import SOURCES
+    from adversarialvlm_tpu_torch.ops.kernels.build import CSRC, SOURCES
 
     tables = {
         "dgrad": [Dg._SIGNATURES],
         "attention": [A._SIGNATURES, Fl._SIGNATURES, Fu._SIGNATURES],
         "flash_full": [Fl._FULL_SIGNATURES],
+        "causal_bwd": [Fl._CAUSAL_BWD_SIGNATURES],
     }[source]
     bound = {name: argtypes for table in tables for name, argtypes in table.items()}
     assert source in SOURCES
@@ -320,6 +371,12 @@ def test_signature_tables_match_the_c_entries(source):
     if source == "flash_full":
         assert sorted(c) == ["flash_full_bwd_dkdv_bf16", "flash_full_bwd_dq_bf16", "flash_full_fwd_bf16"]
         assert not any(n.startswith("flash_full") for n in _c_entries("attention"))
+    if source == "causal_bwd":
+        assert sorted(c) == ["causal_bwd_dkdv_bf16", "causal_bwd_dq_bf16"]
+    named = {src: re.findall(r'extern "C" int (\w+)\(', (CSRC / f"{src}.cu").read_text()) for src in SOURCES}
+    assert len(named[source]) == len(set(named[source])), named[source]
+    others = {n for src, names in named.items() if src != source for n in names}
+    assert not others & set(named[source])
 
 
 def test_linear_pdx_backward_of_plain_linear_agree():

@@ -1,57 +1,34 @@
-// Causal and segment-masked attention forward and backward over operands read in place through
-// their strides: three kernel templates (forward; dq; dk/dv), each with a grid layer per batch row
-// and a compile-time mask mode. (The non-causal head_dim-72 attention of vision towers,
-// flash_sdpa_full, is its own wgmma design in flash_full.cu; the causal backward at head_dim 128,
-// the decoders' width, is the wgmma design of causal_bwd.cu, so the causal backward entries here
-// take D = 256 only.)
+// Causal, segment-masked attention at head dim 256 over a batch of B rows, in the projections'
+// (B, T, heads, 256) layout: three WMMA kernel templates (forward; dq, which writes δ; dk/dv), each
+// with a grid layer per batch row. Every other attention of the port is a wgmma design of its own:
+// causal_fwd.cu and causal_bwd.cu (the causal forward and backward at head dim 128, and fused_sdpa at
+// 32-128, causal or not), flash_full.cu (the non-causal head_dim-72 attention of vision towers).
 //
-// Replaces three Pallas entries, each through its own C entry points:
-//  - attn_fwd (CAUSAL_SEG): adversarialvlm_tpu/ops/pallas/fused_attention.py::fused_sdpa_bthd at
-//    batch 1, that is _call_fwd_bthd (pallas_call at :441, body _fwd_kernel_bthd :361), and, at
-//    D = 256 through the flash_* backward with one row, _call_bwd_bthd (pallas_call at :470, body
-//    _bwd_kernel_bthd :372);
-//  - flash_* (CAUSAL_SEG): adversarialvlm_tpu/ops/pallas/attention.py::flash_sdpa (:178),
-//    which calls the stock TPU flash_attention's forward, dkv and dq kernels through _flash_call
-//    (:97), over a left-padded batch (the backward here at D = 256). Its segment ids are the rows'
-//    attention masks (pads 0, real tokens 1) and its causality is by raw index: the function
-//    below, row by row;
-//  - fused_* (CAUSAL_SEG or SEG, D in {32, 64, 96, 128}): adversarialvlm_tpu/ops/pallas/
-//    fused_attention.py::fused_sdpa, that is _call_fwd (:208, pallas_call at :213, bodies
-//    _fwd_kernel :107 and _fwd_kernel_v2 :115) and _call_bwd (:229, pallas_call at :235, bodies
-//    _bwd_kernel :126 and _bwd_kernel_v2 :154; v1 and v2 are the same math, so there is one port).
-//    Whole-head attention in (B, H, T, D) layout, no GQA, causal or not; in both modes a pair is
-//    allowed only within one segment (_probs :68), so the non-causal mode still keeps pads apart
-//    from real tokens. The TPU kernel's single backward call is the dq and dk/dv kernels here.
-// The TPU entries pad T to their block (segment 0) and slice the output back, and fused_sdpa also
-// zero-pads D to 128 lanes in device memory; these kernels mask the ragged tile instead (the pad
-// rows of a TPU entry are garbage by contract, and a real row never attends them), so nothing is
-// padded or copied in device memory. Every operand is addressed through a Layout of batch, row
-// (token) and head strides: the projections' (B, T, H, D) for attn_* and flash_*, whatever
-// (B, H, T, D) strides fused_sdpa is handed (a head row is 16-byte aligned and contiguous).
+// Replaces, at head dim 256 (ops/kernels/flash.py routes the head dims), two Pallas entries:
+//  - adversarialvlm_tpu/ops/pallas/fused_attention.py::fused_sdpa_bthd at batch 1, that is
+//    _call_fwd_bthd (pallas_call at :441, body _fwd_kernel_bthd :361) and _call_bwd_bthd (pallas_call
+//    at :470, body _bwd_kernel_bthd :372): the flash_* entries with one row;
+//  - adversarialvlm_tpu/ops/pallas/attention.py::flash_sdpa (:178), which calls the stock TPU
+//    flash_attention's forward, dkv and dq kernels through _flash_call (:97), over a left-padded
+//    batch. Its segment ids are the rows' attention masks (pads 0, real tokens 1) and its causality
+//    is by raw index.
+// The TPU entries pad T to their block (segment 0) and slice the output back; these kernels mask the
+// ragged tile instead (the pad rows of a TPU entry are garbage by contract, and a real row never
+// attends them), so nothing is padded or copied in device memory.
 //
-// The mask modes: query row i may attend key j when
-//  - CAUSAL_SEG: j <= i and seg[i] == seg[j] (left pads carry segment 0, so a pad row attends
-//    earlier pads and a real row attends earlier real tokens; every row attends at least itself);
-//  - SEG: seg[i] == seg[j] (every row attends at least itself).
-// Scores are f32, softmax in f32, output in bf16. GQA: q-head h reads kv head h / (H / Hkv).
+// The mask: query row i may attend key j when j <= i and seg[i] == seg[j] (left pads carry segment
+// 0, so a pad row attends earlier pads and a real row attends earlier real tokens; every row attends
+// at least itself). Scores are f32, softmax in f32, output in bf16. GQA: q-head h reads kv head
+// h / (H / Hkv).
 //
-// What bounds it on the H100: at the 7B decoder's shape (T ≈ 640, 32 heads of 128) the causal
-// half of the T×T scores per head is ~1.7 GFLOP forward on ~20 MB of q/k/v/o, a few hundred
-// operations per byte: the tensor cores bound it when they are fed well. A batch of B rows
-// multiplies both by B (the batch-4 attack step, the 50-row test-decode prefill at T = 704), so
-// the ratio, and the bound, stay the same. A real row never attends a pad key, so the allowed
-// pairs (what the bound counts) shrink with the pads; the kernels still walk a real tile's pad
-// key tiles, masked, which costs at most the pads' share (under 15% at the batch-4 step).
-// fused_sdpa at its harness's shape (1, 32, 610, 128), causal with 23 left pads: about 20 MB of
-// q/k/v/o against 2.8 GFLOP of causal work on the real rows, so at the card's peaks device
-// bandwidth sets the bound (about 0.0060 ms against 0.0029 ms of tensor-core time; at the 7B
-// decoder's T = 641, 21 MB and 3.1 GFLOP, 0.0063 ms), though the ratio is close enough to the ridge
-// that a kernel this far from either peak is bound by neither.
+// What bounds it on the H100: the causal half of the T×T scores per head is 4·D flops per allowed
+// pair forward on q/k/v/o read once, a few hundred operations per byte at T ≈ 640, so the tensor
+// cores bound it when they are fed well; a batch of B rows multiplies both by B.
 //
 // Design: the TPU kernel keeps a whole head's (T, T) scores in VMEM; Hopper's shared memory cannot
 // hold them, so these kernels tile over T. A block owns one tile of BQ query rows of one head (or,
-// for dk/dv, BKV key rows of one kv head) and walks the other side's tiles (up to the causal limit
-// in CAUSAL_SEG), so no (T, T) tensor is ever written to device memory and there is no cap on T.
+// for dk/dv, BKV key rows of one kv head) and walks the other side's tiles up to the causal limit,
+// so no (T, T) tensor is ever written to device memory and there is no cap on T.
 //  - Forward: online softmax over key tiles. Each warp owns 16 query rows: it computes that strip
 //    of S = q·kᵀ with bf16 WMMA into f32 shared memory, updates the rows' running max and sum,
 //    rescales its f32 output strip and adds P·v. Only the k/v tile loads are shared by the block.
@@ -61,11 +38,11 @@
 //    accumulates dS·k. δ = rowsum(dO ⊙ O) is computed here once per row and written out for the
 //    dk/dv kernel, which therefore runs second.
 //  - dk/dv: each warp owns 16 key rows; the block loops over the n_rep q-heads of its kv head and
-//    over the query tiles (at or after its keys in CAUSAL_SEG), accumulating dv += Pᵀ·dO and
-//    dk += dSᵀ·q in f32 shared memory, so GQA heads are summed in f32 and written once as bf16.
+//    over the query tiles at or after its keys, accumulating dv += Pᵀ·dO and dk += dSᵀ·q in f32
+//    shared memory, so GQA heads are summed in f32 and written once as bf16.
 // Accumulators live in shared memory, loads are plain 16-byte copies and a block has 2 or 4 warps:
-// simple and correct first. flash_full.cu and causal_bwd.cu show the wgmma redesign these
-// templates are due (the causal forward next, then fused_*).
+// simple and correct first. causal_fwd.cu and causal_bwd.cu show the wgmma redesign these templates
+// are due (a 64-row tile of 256 columns is 32 KiB, so their two-stage rings need a narrower tile).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,11 +57,8 @@ typedef __nv_bfloat16 bf16;
 
 constexpr float NEG = -1e30f;
 
-// The mask modes of the header note.
-enum Mask { CAUSAL_SEG = 0, SEG = 1 };
-
-// Element strides of a (B, T, heads, D) operand viewed in any layout: batch, row (token), head.
-// The head dim itself is contiguous.
+// Element strides of a (B, T, heads, D) operand: batch, row (token), head. The head dim itself is
+// contiguous.
 struct Layout {
   long long b, r, h;
 };
@@ -162,14 +136,9 @@ __device__ __forceinline__ void warp_mm_acc(float* C, int ldc, const bf16* A, in
   }
 }
 
-// Whether query gq may attend key gk under the mask mode (sq, sk: their segments).
-template <int MASK>
+// Whether query gq may attend key gk (sq, sk: their segments).
 __device__ __forceinline__ bool allowed(int gq, int gk, int T, int sq, int sk) {
-  if constexpr (MASK == CAUSAL_SEG) {
-    return gq < T && gk <= gq && sk == sq;
-  } else {
-    return gq < T && gk < T && sk == sq;
-  }
+  return gq < T && gk <= gq && sk == sq;
 }
 
 template <int D, int BQ, int BKV>
@@ -181,7 +150,7 @@ struct FwdSmem {
 };
 
 // q and o are laid out as lq, k and v as lk; seg is (B, T) and lse (B, H, T), both contiguous.
-template <int D, int BQ, int BKV, int MASK>
+template <int D, int BQ, int BKV>
 __global__ void __launch_bounds__(BQ / 16 * 32)
     attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
                     const int* __restrict__ seg, bf16* __restrict__ o, float* __restrict__ lse, int T, int H,
@@ -219,8 +188,8 @@ __global__ void __launch_bounds__(BQ / 16 * 32)
   }
   for (int i = tid; i < BQ * L::LDO; i += NT) Os[i] = 0.0f;
 
-  // key tiles up to the causal limit, or all of them
-  const int nkt = MASK == CAUSAL_SEG ? (min(q0 + BQ, T) - 1) / BKV + 1 : (T + BKV - 1) / BKV;
+  // key tiles up to the causal limit
+  const int nkt = (min(q0 + BQ, T) - 1) / BKV + 1;
   for (int kt = 0; kt < nkt; ++kt) {
     const int k0 = kt * BKV;
     __syncthreads();  // everyone is done with the previous k/v tile
@@ -239,7 +208,7 @@ __global__ void __launch_bounds__(BQ / 16 * 32)
 #pragma unroll
       for (int c = 0; c < BKV / 32; ++c) {
         const int col = lane + 32 * c, gk = k0 + col;
-        ok[c] = allowed<MASK>(gq, gk, T, sq, kseg[col]);
+        ok[c] = allowed(gq, gk, T, sq, kseg[col]);
         sv[c] = ok[c] ? Ss[r * L::LDS + col] * scale : NEG;
         mx = fmaxf(mx, sv[c]);
       }
@@ -284,7 +253,7 @@ struct DqSmem {
 };
 
 // q, o, dout and dq are laid out as lq, k and v as lk; lse and delta (B, H, T) contiguous.
-template <int D, int BQ, int BKV, int MASK>
+template <int D, int BQ, int BKV>
 __global__ void __launch_bounds__(BQ / 16 * 32)
     attn_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
                        const int* __restrict__ seg, const bf16* __restrict__ o, const bf16* __restrict__ dout,
@@ -342,7 +311,7 @@ __global__ void __launch_bounds__(BQ / 16 * 32)
     }
   }
 
-  const int nkt = MASK == CAUSAL_SEG ? (min(q0 + BQ, T) - 1) / BKV + 1 : (T + BKV - 1) / BKV;
+  const int nkt = (min(q0 + BQ, T) - 1) / BKV + 1;
   for (int kt = 0; kt < nkt; ++kt) {
     const int k0 = kt * BKV;
     __syncthreads();
@@ -360,7 +329,7 @@ __global__ void __launch_bounds__(BQ / 16 * 32)
 #pragma unroll
       for (int c = 0; c < BKV / 32; ++c) {
         const int col = lane + 32 * c, gk = k0 + col;
-        const bool ok = allowed<MASK>(gq, gk, T, sq, kseg[col]);
+        const bool ok = allowed(gq, gk, T, sq, kseg[col]);
         const float p = ok ? expf(Ss[r * L::LDS + col] * scale - lr) : 0.0f;
         dSs[r * L::LDP + col] = __float2bfloat16(p * (dPs[r * L::LDS + col] - dr) * scale);
       }
@@ -386,7 +355,7 @@ struct DkdvSmem {
 };
 
 // q and dout are laid out as lq, k, v, dk and dv as lk; lse and delta (B, H, T) contiguous.
-template <int D, int BQ, int BKV, int MASK>
+template <int D, int BQ, int BKV>
 __global__ void __launch_bounds__(BKV / 16 * 32)
     attn_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
                          const int* __restrict__ seg, const bf16* __restrict__ dout, const float* __restrict__ lse,
@@ -435,8 +404,8 @@ __global__ void __launch_bounds__(BKV / 16 * 32)
   const int nqt = (T + BQ - 1) / BQ;
   for (int rep = 0; rep < n_rep; ++rep) {
     const int h = hk * n_rep + rep;
-    // query tiles at or after this key tile, or all of them
-    for (int qt = MASK == CAUSAL_SEG ? k0 / BQ : 0; qt < nqt; ++qt) {
+    // query tiles at or after this key tile
+    for (int qt = k0 / BQ; qt < nqt; ++qt) {
       const int q0 = qt * BQ;
       __syncthreads();
       load_rows<BQ, D, NT>(Qs, q + (size_t)h * lq.h, q0, T, lq.r, tid);
@@ -457,7 +426,7 @@ __global__ void __launch_bounds__(BKV / 16 * 32)
 #pragma unroll
         for (int c = 0; c < BQ / 32; ++c) {
           const int col = lane + 32 * c, gq = q0 + col;
-          const bool ok = allowed<MASK>(gq, gk, T, qseg[col], sk);
+          const bool ok = allowed(gq, gk, T, qseg[col], sk);
           const float p = ok ? expf(St[r * L::LDS + col] * scale - lse_s[col]) : 0.0f;
           Pt[r * L::LDP + col] = __float2bfloat16(p);
           dSt[r * L::LDP + col] = __float2bfloat16(p * (dPt[r * L::LDS + col] - dl_s[col]) * scale);
@@ -488,150 +457,93 @@ Layout bthd(int T, int heads, int D) {
   return Layout{(long long)T * heads * D, (long long)heads * D, (long long)D};
 }
 
-template <int D, int BQ, int BKV, int MASK>
+template <int D, int BQ, int BKV>
 int launch_fwd(const void* q, const void* k, const void* v, const int* seg, void* o, float* lse, int B, int T,
                int H, int Hkv, float scale, Layout lq, Layout lk, cudaStream_t stream) {
   const size_t bytes = FwdSmem<D, BQ, BKV>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(attn_fwd_kernel<D, BQ, BKV, MASK>,
+  cudaError_t err = cudaFuncSetAttribute(attn_fwd_kernel<D, BQ, BKV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((T + BQ - 1) / BQ, H, B);
-  attn_fwd_kernel<D, BQ, BKV, MASK><<<grid, BQ / 16 * 32, bytes, stream>>>(
+  attn_fwd_kernel<D, BQ, BKV><<<grid, BQ / 16 * 32, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), seg,
       static_cast<bf16*>(o), lse, T, H, Hkv, scale, lq, lk);
   return (int)cudaGetLastError();
 }
 
-template <int D, int BQ, int BKV, int MASK>
+template <int D, int BQ, int BKV>
 int launch_dq(const void* q, const void* k, const void* v, const int* seg, const void* o, const void* dout,
               const float* lse, void* dq, float* delta, int B, int T, int H, int Hkv, float scale, Layout lq,
               Layout lk, cudaStream_t stream) {
   const size_t bytes = DqSmem<D, BQ, BKV>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dq_kernel<D, BQ, BKV, MASK>,
+  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dq_kernel<D, BQ, BKV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((T + BQ - 1) / BQ, H, B);
-  attn_bwd_dq_kernel<D, BQ, BKV, MASK><<<grid, BQ / 16 * 32, bytes, stream>>>(
+  attn_bwd_dq_kernel<D, BQ, BKV><<<grid, BQ / 16 * 32, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), seg,
       static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse, static_cast<bf16*>(dq), delta, T, H, Hkv,
       scale, lq, lk);
   return (int)cudaGetLastError();
 }
 
-template <int D, int BQ, int BKV, int MASK>
+template <int D, int BQ, int BKV>
 int launch_dkdv(const void* q, const void* k, const void* v, const int* seg, const void* dout, const float* lse,
                 const float* delta, void* dk, void* dv, int B, int T, int H, int Hkv, float scale, Layout lq,
                 Layout lk, cudaStream_t stream) {
   const size_t bytes = DkdvSmem<D, BQ, BKV>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dkdv_kernel<D, BQ, BKV, MASK>,
+  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dkdv_kernel<D, BQ, BKV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((T + BKV - 1) / BKV, Hkv, B);
-  attn_bwd_dkdv_kernel<D, BQ, BKV, MASK><<<grid, BKV / 16 * 32, bytes, stream>>>(
+  attn_bwd_dkdv_kernel<D, BQ, BKV><<<grid, BKV / 16 * 32, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), seg,
       static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), T, H, Hkv, scale,
       lq, lk);
   return (int)cudaGetLastError();
 }
 
-// Tiles per head dim, shared by every segment-masked entry: (BQ, BKV) = (64, 64), except 32 key
-// rows per dq/dk-dv block at D = 256, whose 64-row tiles would not fit the shared memory.
-template <int D, int MASK>
-int seg_fwd(const void* q, const void* k, const void* v, const int* seg, void* o, float* lse, int B, int T, int H,
-            int Hkv, float scale, Layout lq, Layout lk, cudaStream_t s) {
-  return launch_fwd<D, 64, 64, MASK>(q, k, v, seg, o, lse, B, T, H, Hkv, scale, lq, lk, s);
-}
-
-template <int D, int MASK>
-int seg_dq(const void* q, const void* k, const void* v, const int* seg, const void* o, const void* dout,
-           const float* lse, void* dq, float* delta, int B, int T, int H, int Hkv, float scale, Layout lq, Layout lk,
-           cudaStream_t s) {
-  return launch_dq<D, 64, (D > 128 ? 32 : 64), MASK>(q, k, v, seg, o, dout, lse, dq, delta, B, T, H, Hkv, scale,
-                                                        lq, lk, s);
-}
-
-template <int D, int MASK>
-int seg_dkdv(const void* q, const void* k, const void* v, const int* seg, const void* dout, const float* lse,
-             const float* delta, void* dk, void* dv, int B, int T, int H, int Hkv, float scale, Layout lq, Layout lk,
-             cudaStream_t s) {
-  return launch_dkdv<D, 64, (D > 128 ? 32 : 64), MASK>(q, k, v, seg, dout, lse, delta, dk, dv, B, T, H, Hkv,
-                                                          scale, lq, lk, s);
-}
-
-// The projections' causal entries (attn_*, flash_*), (B, T, H, D) layout: the forward at D 128 or
-// 256, the backward (dq, dk/dv) at D 256 only; D = 128's backward is causal_bwd.cu's.
+// The flash entries' causal kernels at head dim 256, (B, T, H, D) layout.
 int fwd(const void* q, const void* k, const void* v, const void* seg, void* o, void* lse, int B, int T, int H,
         int Hkv, int D, float scale, void* stream) {
   if (!shape_ok(B, T, H, Hkv)) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* sg = static_cast<const int*>(seg);
-  float* l = static_cast<float*>(lse);
   const Layout lq = bthd(T, H, D), lk = bthd(T, Hkv, D);
-  if (D == 128) return seg_fwd<128, CAUSAL_SEG>(q, k, v, sg, o, l, B, T, H, Hkv, scale, lq, lk, s);
-  if (D == 256) return seg_fwd<256, CAUSAL_SEG>(q, k, v, sg, o, l, B, T, H, Hkv, scale, lq, lk, s);
+  if (D == 256)
+    return launch_fwd<256, 64, 64>(q, k, v, static_cast<const int*>(seg), o, static_cast<float*>(lse), B, T, H,
+                                   Hkv, scale, lq, lk, static_cast<cudaStream_t>(stream));
   return (int)cudaErrorInvalidValue;
 }
 
 int bwd_dq(const void* q, const void* k, const void* v, const void* seg, const void* o, const void* dout,
            const void* lse, void* dq, void* delta, int B, int T, int H, int Hkv, int D, float scale, void* stream) {
   if (!shape_ok(B, T, H, Hkv)) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* sg = static_cast<const int*>(seg);
-  const float* l = static_cast<const float*>(lse);
-  float* dl = static_cast<float*>(delta);
   const Layout lq = bthd(T, H, D), lk = bthd(T, Hkv, D);
-  if (D == 256) return seg_dq<256, CAUSAL_SEG>(q, k, v, sg, o, dout, l, dq, dl, B, T, H, Hkv, scale, lq, lk, s);
+  if (D == 256)
+    return launch_dq<256, 64, 32>(q, k, v, static_cast<const int*>(seg), o, dout, static_cast<const float*>(lse),
+                                  dq, static_cast<float*>(delta), B, T, H, Hkv, scale, lq, lk,
+                                  static_cast<cudaStream_t>(stream));
   return (int)cudaErrorInvalidValue;
 }
 
 int bwd_dkdv(const void* q, const void* k, const void* v, const void* seg, const void* dout, const void* lse,
              const void* delta, void* dk, void* dv, int B, int T, int H, int Hkv, int D, float scale, void* stream) {
   if (!shape_ok(B, T, H, Hkv)) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* sg = static_cast<const int*>(seg);
-  const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
   const Layout lq = bthd(T, H, D), lk = bthd(T, Hkv, D);
-  if (D == 256) return seg_dkdv<256, CAUSAL_SEG>(q, k, v, sg, dout, l, dl, dk, dv, B, T, H, Hkv, scale, lq, lk, s);
+  if (D == 256)
+    return launch_dkdv<256, 64, 32>(q, k, v, static_cast<const int*>(seg), dout, static_cast<const float*>(lse),
+                                    static_cast<const float*>(delta), dk, dv, B, T, H, Hkv, scale, lq, lk,
+                                    static_cast<cudaStream_t>(stream));
   return (int)cudaErrorInvalidValue;
 }
 
-// fused_sdpa: one call per (mask mode, head dim); the head dims of its reference tests and
-// harness.
-#define FUSED_DISPATCH(D, CALL) \
-  switch (D) {                  \
-    case 32: return CALL(32);   \
-    case 64: return CALL(64);   \
-    case 96: return CALL(96);   \
-    case 128: return CALL(128); \
-    default: return (int)cudaErrorInvalidValue; \
-  }
-
-Layout layout_of(const long long* s) { return Layout{s[0], s[1], s[2]}; }
-
 }  // namespace
 
-// Each entry launches on `stream` and returns cudaGetLastError() (0 on success).
-//
-// attn_fwd_bf16: the fused_sdpa_bthd counterpart's forward, batch 1, D 128 or 256, all tensors
-// contiguous. q, o: (T, H, D) bf16; k, v: (T, Hkv, D) bf16; seg: (T,) int32; lse: (H, T) f32. Its
-// backward at D = 256 is flash_bwd_* with B = 1 (the same kernels); at D = 128, causal_bwd.cu's.
-//
-// flash_*: the flash_sdpa counterpart, the same kernels over a batch of B left-padded rows, one
-// grid layer per row, all tensors contiguous: the forward at D 128 or 256, the backward (dq, then
-// dk/dv) at D 256 only. q, o, dout, dq: (B, T, H, D) bf16; k, v, dk, dv: (B, T, Hkv, D) bf16;
-// seg: (B, T) int32 (0 = pad, 1 = real); lse, delta: (B, H, T) f32.
-//
-// fused_*: the fused_sdpa counterpart, causal (CAUSAL_SEG) or not (SEG), D in {32, 64, 96, 128}.
-// q, k, v, o, dout, dq, dk, dv: (B, H, T, D) bf16 in any layout whose head dim is contiguous
-// and whose rows start on 16-byte boundaries; sq and sk are the {batch, row, head} element strides
-// of q (shared by o, dout and dq) and of k (shared by v, dk and dv). seg: (B, T) int32 segment ids;
-// lse, delta: (B, H, T) f32, contiguous.
-
-extern "C" int attn_fwd_bf16(const void* q, const void* k, const void* v, const void* seg, void* o, void* lse,
-                             int T, int H, int Hkv, int D, float scale, void* stream) {
-  return fwd(q, k, v, seg, o, lse, 1, T, H, Hkv, D, scale, stream);
-}
+// Each entry launches on `stream` and returns cudaGetLastError() (0 on success). Head dim 256 only;
+// a batch of B left-padded rows, one grid layer per row (attention.py's batch-1 wrappers pass B = 1),
+// all tensors contiguous: the forward, then the backward (dq, then dk/dv). q, o, dout, dq:
+// (B, T, H, D) bf16; k, v, dk, dv: (B, T, Hkv, D) bf16; seg: (B, T) int32 (0 = pad, 1 = real); lse,
+// delta: (B, H, T) f32. Tiles: (BQ, BKV) = (64, 64) in the forward; 32 key rows per dq/dk-dv block,
+// whose 64-row tiles would not fit the shared memory at D = 256.
 
 extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v, const void* seg, void* o, void* lse,
                               int B, int T, int H, int Hkv, int D, float scale, void* stream) {
@@ -648,56 +560,4 @@ extern "C" int flash_bwd_dkdv_bf16(const void* q, const void* k, const void* v, 
                                    const void* dout, const void* lse, const void* delta, void* dk, void* dv, int B,
                                    int T, int H, int Hkv, int D, float scale, void* stream) {
   return bwd_dkdv(q, k, v, seg, dout, lse, delta, dk, dv, B, T, H, Hkv, D, scale, stream);
-}
-
-extern "C" int fused_fwd_bf16(const void* q, const void* k, const void* v, const void* seg, void* o, void* lse,
-                              int B, int T, int H, int D, const long long* sq, const long long* sk, int causal,
-                              float scale, void* stream) {
-  if (!shape_ok(B, T, H, H)) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* sg = static_cast<const int*>(seg);
-  float* l = static_cast<float*>(lse);
-  const Layout lq = layout_of(sq), lk = layout_of(sk);
-#define CALL_C(DD) seg_fwd<DD, CAUSAL_SEG>(q, k, v, sg, o, l, B, T, H, H, scale, lq, lk, s)
-#define CALL_S(DD) seg_fwd<DD, SEG>(q, k, v, sg, o, l, B, T, H, H, scale, lq, lk, s)
-  if (causal) FUSED_DISPATCH(D, CALL_C)
-  FUSED_DISPATCH(D, CALL_S)
-#undef CALL_C
-#undef CALL_S
-}
-
-extern "C" int fused_bwd_dq_bf16(const void* q, const void* k, const void* v, const void* seg, const void* o,
-                                 const void* dout, const void* lse, void* dq, void* delta, int B, int T, int H,
-                                 int D, const long long* sq, const long long* sk, int causal, float scale,
-                                 void* stream) {
-  if (!shape_ok(B, T, H, H)) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* sg = static_cast<const int*>(seg);
-  const float* l = static_cast<const float*>(lse);
-  float* dl = static_cast<float*>(delta);
-  const Layout lq = layout_of(sq), lk = layout_of(sk);
-#define CALL_C(DD) seg_dq<DD, CAUSAL_SEG>(q, k, v, sg, o, dout, l, dq, dl, B, T, H, H, scale, lq, lk, s)
-#define CALL_S(DD) seg_dq<DD, SEG>(q, k, v, sg, o, dout, l, dq, dl, B, T, H, H, scale, lq, lk, s)
-  if (causal) FUSED_DISPATCH(D, CALL_C)
-  FUSED_DISPATCH(D, CALL_S)
-#undef CALL_C
-#undef CALL_S
-}
-
-extern "C" int fused_bwd_dkdv_bf16(const void* q, const void* k, const void* v, const void* seg, const void* dout,
-                                   const void* lse, const void* delta, void* dk, void* dv, int B, int T, int H,
-                                   int D, const long long* sq, const long long* sk, int causal, float scale,
-                                   void* stream) {
-  if (!shape_ok(B, T, H, H)) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* sg = static_cast<const int*>(seg);
-  const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
-  const Layout lq = layout_of(sq), lk = layout_of(sk);
-#define CALL_C(DD) seg_dkdv<DD, CAUSAL_SEG>(q, k, v, sg, dout, l, dl, dk, dv, B, T, H, H, scale, lq, lk, s)
-#define CALL_S(DD) seg_dkdv<DD, SEG>(q, k, v, sg, dout, l, dl, dk, dv, B, T, H, H, scale, lq, lk, s)
-  if (causal) FUSED_DISPATCH(D, CALL_C)
-  FUSED_DISPATCH(D, CALL_S)
-#undef CALL_C
-#undef CALL_S
 }

@@ -1,7 +1,7 @@
-"""Batch-1 causal attention with a segment mask in (B, T, H, D) layout: the CUDA forward of
-``csrc/attention.cu``, the backward (dq; dk/dv) as a batch of one row of the causal backward
-(``flash.causal_bwd_entries``: ``csrc/causal_bwd.cu`` at head_dim 128, attention.cu at 256),
-their plain versions and the autograd Function; and
+"""Batch-1 causal attention with a segment mask in (B, T, H, D) layout: the forward and the backward
+(dq; dk/dv) as a batch of one row of the causal kernels, by head dim (``flash.causal_fwd_entries``
+and ``flash.causal_bwd_entries``: ``csrc/causal_fwd.cu`` and ``csrc/causal_bwd.cu`` at head_dim 128,
+``csrc/attention.cu`` at 256), their plain versions and the autograd Function; and
 ``attention_route``, which picks the decoder attention's route (this module, the flash kernels of
 ``flash.py``, or the plain sdpa), and ``vit_attention_route``, the vision towers' (the non-causal
 flash_full kernels of ``flash.py``, or the plain sdpa).
@@ -17,31 +17,20 @@ plain versions are the one-row case of flash.py's batched ones.
 from __future__ import annotations
 
 import contextlib
-import ctypes
 
 import torch
 
 from adversarialvlm_tpu_torch.ops.kernels import LAUNCHES
-from adversarialvlm_tpu_torch.ops.kernels.build import (
-    check,
-    check_cuda_operands,
-    load,
-    on_device_of,
-    stream_of,
-)
+from adversarialvlm_tpu_torch.ops.kernels.build import check, check_cuda_operands, on_device_of, stream_of
 from adversarialvlm_tpu_torch.ops.kernels.flash import (
     FULL_HEAD_DIMS,
     HEAD_DIMS,
     causal_bwd_entry,
+    causal_fwd_entry,
     flash_bwd_dkdv_plain,
     flash_bwd_dq_plain,
     flash_plain,
 )
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_F = ctypes.c_float
-_SIGNATURES = {"attn_fwd_bf16": [_P] * 6 + [_I] * 4 + [_F, _P]}
 
 
 _KERNEL_ROUTES_ON_CPU = [False]
@@ -153,10 +142,6 @@ def _shapes(what, q, k, seg):
     return t, h, hkv, d
 
 
-def _lib():
-    return load("attention", _SIGNATURES)
-
-
 def attention_fwd(q, k, v, seg, scale):
     """(o, lse) of :func:`attention_plain`; CUDA tensors launch the forward kernel."""
     if q.device.type == "cpu":
@@ -168,9 +153,9 @@ def attention_fwd(q, k, v, seg, scale):
         raise ValueError("attention_fwd: v must have k's shape")
     o = torch.empty_like(q)
     lse = torch.empty((h, t), dtype=torch.float32, device=q.device)
-    rc = _lib().attn_fwd_bf16(
+    rc = causal_fwd_entry(d)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        t, h, hkv, d, float(scale), stream_of(q),
+        1, t, h, hkv, d, float(scale), stream_of(q),
     )
     check(rc, "attention_fwd")
     LAUNCHES["attention_fwd"] += 1

@@ -1,8 +1,9 @@
 """Build the CUDA sources with nvcc at first use and bind them through ctypes.
 
-Each ``csrc/<name>.cu`` becomes ``build/lib<name>-<hash>.so`` (the hash is of the source, so an
-edited source never loads a stale library) with a plain C interface. All missing libraries are
-compiled at once, one nvcc process per source. Nothing here runs at import time.
+Each ``csrc/<name>.cu`` becomes ``build/lib<name>-<hash>.so`` (the hash is of the source and of the
+headers of ``csrc/`` it includes, so an edited source or header never loads a stale library, and a
+header edit rebuilds only the libraries that include it) with a plain C interface. All missing libraries are compiled at once, one nvcc process per source. Nothing
+here runs at import time.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import ctypes
 import dataclasses
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -23,7 +25,7 @@ import torch
 PACKAGE = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE / "csrc"
 BUILD = PACKAGE / "build"
-SOURCES = ("dgrad", "attention", "flash_full", "causal_bwd")
+SOURCES = ("dgrad", "attention", "flash_full", "causal_fwd", "causal_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -42,8 +44,19 @@ class BuildResult:
     log: str        # nvcc's output, including ptxas's register/spill/shared-memory lines
 
 
+def local_headers(name: str) -> list[str]:
+    """The headers of ``csrc/`` that ``csrc/<name>.cu`` includes (``#include "..."``; no header there
+    includes another)."""
+    text = (CSRC / f"{name}.cu").read_text()
+    return [h for h in re.findall(r'^\s*#include\s+"([^"]+)"', text, re.M) if (CSRC / h).is_file()]
+
+
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in local_headers(name):
+        h.update(header.encode())
+        h.update((CSRC / header).read_bytes())
+    digest = h.hexdigest()[:16]
     return BUILD / f"lib{name}-{digest}.so"
 
 

@@ -1,5 +1,7 @@
-"""Causal attention over a left-padded batch: the flash entries of ``csrc/attention.cu`` (forward;
-dq; dk/dv), their plain versions, the autograd Function and ``flash_sdpa``.
+"""Causal attention over a left-padded batch: the forward (``causal_fwd_entries``: ``csrc/causal_fwd.cu``
+at head_dim 128, ``csrc/attention.cu`` at 256), the backward (dq; dk/dv; ``causal_bwd_entries``:
+``csrc/causal_bwd.cu`` at 128, attention.cu at 256), their plain versions, the autograd Function
+and ``flash_sdpa``.
 
 Counterpart of adversarialvlm_tpu/ops/pallas/attention.py::flash_sdpa (:178), which runs the stock
 TPU flash_attention kernels (forward, dkv, dq) through _flash_call (:97). Its semantics are those
@@ -8,14 +10,14 @@ seg[b, i] == seg[b, j], where seg is the row's attention mask (pads 0, real toke
 softmax in f32, output in q's dtype. Pad rows attend earlier pads, so they stay finite; callers
 read real rows only.
 
-On the card the forward is the batch-1 forward of ``attention.py`` with a grid layer per batch
-row (``csrc/attention.cu``: T tiled with an online softmax, the row logsumexp kept as the extra
-residual). The backward (dq, which writes δ, then dk/dv) goes by head dim
-(:func:`causal_bwd_entries`): at 128, the decoders' width, to the wgmma kernels of
-``csrc/causal_bwd.cu``; at 256 to attention.cu's. All read q, k and v in the projections'
-(B, T, H, D) layout, and kv head h // n_rep for q-head h, so neither a transpose copy nor
-``repeat_kv`` is materialised. The TPU entry pads T to its block and head_dim to 128 lanes; these
-kernels mask the ragged tile and take head_dim 128 or 256 only.
+On the card every entry goes by head dim. At 128, the decoders' width, the forward and the
+backward (dq, which writes δ, then dk/dv) are the wgmma kernels of ``csrc/causal_fwd.cu`` and
+``csrc/causal_bwd.cu``: T tiled in 64-row tiles with an online softmax, the row logsumexp kept as
+the extra residual, the forward's walk skipping key tiles whose segment ids cannot meet its query
+tile's (:func:`causal_fwd_tiles`). At 256 they are the WMMA kernels of attention.cu. All read q, k
+and v in the projections' (B, T, H, D) layout, and kv head h // n_rep for q-head h, so neither a
+transpose copy nor ``repeat_kv`` is materialised. The TPU entry pads T to its block and head_dim to
+128 lanes; these kernels mask the ragged tile and take head_dim 128 or 256 only.
 
 Non-causal attention for vision towers, ``flash_sdpa_full``: the entries of ``csrc/flash_full.cu``
 (forward; dq, which writes δ; dk/dv), their plain versions and ``FlashFullAttention``.
@@ -59,6 +61,9 @@ _SIGNATURES = {
     "flash_bwd_dq_bf16": [_P] * 9 + [_I] * 5 + [_F, _P],
     "flash_bwd_dkdv_bf16": [_P] * 9 + [_I] * 5 + [_F, _P],
 }
+_CAUSAL_FWD_SIGNATURES = {  # csrc/causal_fwd.cu
+    "causal_fwd_bf16": [_P] * 6 + [_I] * 5 + [_F, _P],
+}
 _CAUSAL_BWD_SIGNATURES = {  # csrc/causal_bwd.cu
     "causal_bwd_dq_bf16": [_P] * 9 + [_I] * 5 + [_F, _P],
     "causal_bwd_dkdv_bf16": [_P] * 9 + [_I] * 5 + [_F, _P],
@@ -68,6 +73,52 @@ _FULL_SIGNATURES = {  # csrc/flash_full.cu
     "flash_full_bwd_dq_bf16": [_P] * 8 + [_I] * 4 + [_F, _P],
     "flash_full_bwd_dkdv_bf16": [_P] * 8 + [_I] * 4 + [_F, _P],
 }
+
+
+def causal_fwd_entries(d: int) -> tuple[str, str]:
+    """(library, entry) of the causal forward at head dim ``d``, read without building or loading
+    anything: at 128 the wgmma kernel of ``csrc/causal_fwd.cu``, at 256 the flash entry of
+    ``csrc/attention.cu``. Both take a batch of B rows (the batch-1 wrappers of ``attention.py``
+    pass 1) and the same arguments. Any other head dim raises."""
+    if d == 128:
+        return "causal_fwd", "causal_fwd_bf16"
+    if d == 256:
+        return "attention", "flash_fwd_bf16"
+    raise ValueError(
+        f"causal attention forward at head_dim {d}: the kernels take {HEAD_DIMS} (other head dims "
+        "come with their families: ROADMAP modules: other victim families)"
+    )
+
+
+def causal_fwd_entry(d: int):
+    """The bound C function of the causal forward at head dim ``d``."""
+    library, entry = causal_fwd_entries(d)
+    return getattr(load(library, _CAUSAL_FWD_SIGNATURES if library == "causal_fwd" else _SIGNATURES), entry)
+
+
+TILE = 64  # rows of the forward kernel's query and key tiles
+
+
+def causal_fwd_tiles(seg: torch.Tensor, causal: bool = True) -> dict[tuple[int, int], bool]:
+    """The forward kernel's walk over one row's 64-row tiles (``csrc/causal_fwd.cu``), written out:
+    {(query tile, key tile): whether the kernel tests each pair}, for every key tile it walks. A
+    query tile walks the key tiles up to the causal limit (all of them if not ``causal``) whose
+    segment interval [min, max] meets its own, so a tile it skips holds no pair of equal ids. The
+    per-pair test is skipped (False) only where every pair is allowed: a tile before the diagonal
+    (any, if not causal), not ragged, whose query and key rows all carry one segment id. seg: (T,)
+    segment ids."""
+    t = seg.shape[0]
+    n = (t + TILE - 1) // TILE
+    lo = [int(seg[i * TILE:(i + 1) * TILE].min()) for i in range(n)]
+    hi = [int(seg[i * TILE:(i + 1) * TILE].max()) for i in range(n)]
+    walk = {}
+    for qt in range(n):
+        for kt in range(qt + 1 if causal else n):
+            if lo[kt] <= hi[qt] and lo[qt] <= hi[kt]:
+                open_ = ((kt < qt or not causal) and (kt + 1) * TILE <= t
+                         and lo[qt] == hi[qt] == lo[kt] == hi[kt])
+                walk[(qt, kt)] = not open_
+    return walk
 
 
 def causal_bwd_entries(d: int) -> tuple[str, str, str]:
@@ -205,10 +256,6 @@ def _shapes(what, q, k, seg):
     return b, t, h, hkv, d
 
 
-def _lib():
-    return load("attention", _SIGNATURES)
-
-
 def _full_lib():
     return load("flash_full", _FULL_SIGNATURES)
 
@@ -224,7 +271,7 @@ def flash_fwd(q, k, v, seg, scale):
         raise ValueError("flash_fwd: v must have k's shape")
     o = torch.empty_like(q)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
-    rc = _lib().flash_fwd_bf16(
+    rc = causal_fwd_entry(d)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(), o.data_ptr(), lse.data_ptr(),
         b, t, h, hkv, d, float(scale), stream_of(q),
     )

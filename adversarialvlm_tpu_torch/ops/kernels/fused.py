@@ -1,6 +1,6 @@
 """Whole-head attention with segment masks in (B, H, T, D) layout: the fused entries of
-``csrc/attention.cu`` (forward; dq, which writes δ; dk/dv), their plain versions, the autograd
-Function, ``fused_sdpa`` and ``fused_eligible``.
+``csrc/causal_fwd.cu`` (forward) and ``csrc/causal_bwd.cu`` (dq, which writes δ; dk/dv), their plain
+versions, the autograd Function, ``fused_sdpa`` and ``fused_eligible``.
 
 Counterpart of adversarialvlm_tpu/ops/pallas/fused_attention.py::fused_sdpa (:304), whose custom
 VJP runs _call_fwd (:208, pallas_call at :213) and _call_bwd (:229, pallas_call at :235). Its
@@ -14,10 +14,11 @@ finite values than the TPU's, and real rows agree.
 
 No model path of either package calls it: the JAX package reaches it from its tests and its A/B
 harness (scripts/bench_fused_attention.py), and the port from its tests and
-``cli/bench_fused_attention.py``. On the card the kernels are the templates of the other attention
-entries in their segment mask modes, reading q, k and v where they lie through their strides, at
-head_dim 32, 64, 96 or 128, bf16 only. What bounds them, and their design: the note at
-the top of ``csrc/attention.cu``.
+``cli/bench_fused_attention.py``. On the card the kernels are the wgmma templates of the causal
+decoder attention at head_dim 128, instantiated in both mask modes (causal within a segment, or
+within a segment) at head_dim 32, 64, 96 or 128, reading q, k and v where they lie through their
+strides, bf16 only. What bounds them, and their design: the notes at the top of
+``csrc/causal_fwd.cu`` and ``csrc/causal_bwd.cu``.
 """
 
 from __future__ import annotations
@@ -36,10 +37,15 @@ HEAD_DIMS = (32, 64, 96, 128)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_SIGNATURES = {
-    "fused_fwd_bf16": [_P] * 6 + [_I] * 4 + [_P, _P, _I, _F, _P],
+_FWD_SIGNATURES = {"fused_fwd_bf16": [_P] * 6 + [_I] * 4 + [_P, _P, _I, _F, _P]}  # csrc/causal_fwd.cu
+_BWD_SIGNATURES = {  # csrc/causal_bwd.cu
     "fused_bwd_dq_bf16": [_P] * 9 + [_I] * 4 + [_P, _P, _I, _F, _P],
     "fused_bwd_dkdv_bf16": [_P] * 9 + [_I] * 4 + [_P, _P, _I, _F, _P],
+}
+ENTRIES = {  # kind: (library, C entry); each entry takes every head dim of HEAD_DIMS
+    "fwd": ("causal_fwd", "fused_fwd_bf16"),
+    "dq": ("causal_bwd", "fused_bwd_dq_bf16"),
+    "dkdv": ("causal_bwd", "fused_bwd_dkdv_bf16"),
 }
 
 
@@ -138,8 +144,10 @@ def _residual(what, x, shape, device):
         raise ValueError(f"{what}: expected a contiguous {tuple(shape)} float32 tensor on {device}")
 
 
-def _lib():
-    return load("attention", _SIGNATURES)
+def _entry(kind: str):
+    """The bound C function of ``kind`` ("fwd", "dq" or "dkdv")."""
+    library, name = ENTRIES[kind]
+    return getattr(load(library, _FWD_SIGNATURES if library == "causal_fwd" else _BWD_SIGNATURES), name)
 
 
 def fused_fwd(q, k, v, seg, scale, causal=True):
@@ -151,7 +159,7 @@ def fused_fwd(q, k, v, seg, scale, causal=True):
     b, h, t, d = _shapes("fused_fwd", q, k, seg)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
-    rc = _lib().fused_fwd_bf16(
+    rc = _entry("fwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(), o.data_ptr(), lse.data_ptr(),
         b, t, h, d, _strides(q), _strides(k), int(bool(causal)), float(scale), stream_of(q),
     )
@@ -171,7 +179,7 @@ def fused_bwd_dq(q, k, v, seg, o, lse, do, scale, causal=True):
     _residual("fused_bwd_dq: lse", lse, (b, h, t), q.device)
     dq = torch.empty_like(q)
     delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
-    rc = _lib().fused_bwd_dq_bf16(
+    rc = _entry("dq")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), dq.data_ptr(), delta.data_ptr(), b, t, h, d, _strides(q), _strides(k),
         int(bool(causal)), float(scale), stream_of(q),
@@ -192,7 +200,7 @@ def fused_bwd_dkdv(q, k, v, seg, lse, delta, do, scale, causal=True):
     _residual("fused_bwd_dkdv: delta", delta, (b, h, t), q.device)
     dk = torch.empty_like(k)
     dv = torch.empty_like(k)
-    rc = _lib().fused_bwd_dkdv_bf16(
+    rc = _entry("dkdv")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t, h, d, _strides(q), _strides(k),
         int(bool(causal)), float(scale), stream_of(q),

@@ -7,18 +7,24 @@ Phases, in order (no exception is caught; any failure exits non-zero with no fin
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. the build: nvcc compiles every source under adversarialvlm_tpu_torch/csrc/, in parallel,
      and ptxas's register, spill and shared-memory lines are printed; cuobjdump's SASS of the
-     wgmma libraries must hold HGMMA instructions in each of their kernels (flash_full's three,
-     dgrad's, causal_bwd's dq and dk/dv), and ptxas must report no spills for any of them;
+     wgmma libraries must hold HGMMA instructions in every instantiation of each of their kernels
+     (flash_full's three, dgrad's, causal_fwd's forward, causal_bwd's dq and dk/dv), and ptxas must
+     report no spills for any of them;
   3. every kernel against its plain version on the card, at the shapes the main paths give it,
      with the error measured per row as |got - ref| / |ref| (worst row reported; |ref| floored
      at 1% of the median row norm; real rows only for the flash and fused kernels) against the
-     stated tolerance, and each kernel's time beside its plain version's, one PyTorch library call's
-     (a yardstick only; the port never calls it) and its bound on this card. dgrad runs at the
+     stated tolerance, and each kernel's device time (each timing window queued behind a
+     device-side sleep, so the host's launch cost is not counted) beside its plain version's, one
+     PyTorch library call's
+     (a yardstick only; the port never calls it: for attention the fastest of SDPA with the boolean
+     mask and, where that mask is plain causal or full, with is_causal or no mask) and its bound
+     on this card. dgrad runs at the
      shapes of the LLaVA batch-1 and batch-4 steps and of the Gemma-3 step, with its time over
      torch.matmul's weighted by the step's launches; the causal backward's dq + dk/dv is printed
-     over SDPA's whole backward; a dgrad or causal backward launch repeated on the same inputs must
-     give equal outputs (no atomics; dgrad's split of O adds its partials in a fixed order). The
-     fused_sdpa kernels at four shapes, causal and not, then their path:
+     over SDPA's whole backward and each attention forward over SDPA's forward; a dgrad, attention
+     forward or attention backward launch repeated on the same inputs must give equal outputs (no
+     atomics; dgrad's split of O adds its partials in a fixed order). The fused_sdpa kernels at
+     five timed shapes, causal and not, and over packed multi-segment rows, then their path:
      cli/bench_fused_attention.py at its defaults against the plain einsum attention, with its
      launches counted from zero;
   4. the batch-1 path: the full-width, full-depth LLaVA-1.5-7B single-victim attack (random bf16
@@ -116,21 +122,35 @@ def hgmma_counts(lib_path):
     return counts
 
 
+HOLD_CYCLES = 20_000_000  # about 10 ms of device-side sleep at the H100's clock
+
+
 def time_ms(fn, reps=10, windows=7):
-    """Median over ``windows`` CUDA-event windows of ``reps`` calls each, after a warm-up."""
+    """Median device time per call over ``windows`` CUDA-event windows of ``reps`` calls each,
+    after a warm-up. Each window is queued behind a device-side sleep that outlasts the host's
+    enqueue of the window, so the events time the device's work alone, not the host's launch cost
+    (a wrapper's checks, autograd's engine), which would otherwise pace a call of a few tens of
+    microseconds. Where the host's enqueue outlasts the sleep, the sleep doubles (up to 8x) and the
+    window is taken again."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    per_call = []
-    for _ in range(windows):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
+    cycles, per_call = HOLD_CYCLES, []
+    while len(per_call) < windows:
+        hold, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        hold.record()
+        torch.cuda._sleep(cycles)
         a.record()
+        t0 = time.perf_counter()
         for _ in range(reps):
             fn()
+        host_ms = 1e3 * (time.perf_counter() - t0)
         b.record()
         b.synchronize()
+        if host_ms >= hold.elapsed_time(a) and cycles < 8 * HOLD_CYCLES:
+            cycles *= 2
+            continue
         per_call.append(a.elapsed_time(b) / reps)
     return statistics.median(per_call)
 
@@ -138,6 +158,34 @@ def time_ms(fn, reps=10, windows=7):
 def bound(flops, nbytes):
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def sdpa_times(label, q, k, v, allowed, do, scale, causal):
+    """(forward ms, backward ms, call) of the fastest scaled_dot_product_attention call that computes
+    the function: with the boolean mask ``allowed`` (B, T, T), which PyTorch sends to its
+    memory-efficient backend, and, where that mask is the plain causal pattern (or, not causal,
+    allows every pair), also with ``is_causal=True`` (or no mask), which its flash and cuDNN
+    backends take. q, k, v, do (B, H, T, D), k and v already repeated to q's heads; a backward is
+    one SDPA backward (dq, dk and dv together). A yardstick only: the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+
+    T = q.shape[2]
+    idx = torch.arange(T, device=q.device)
+    plain = idx[:, None] >= idx[None, :] if causal else torch.ones((T, T), dtype=torch.bool, device=q.device)
+    calls = {"boolean mask": {"attn_mask": allowed[:, None]}}
+    if bool((allowed == plain).all()):
+        calls["is_causal" if causal else "no mask"] = {"is_causal": True} if causal else {}
+    qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+    times = {}
+    for call, kw in calls.items():
+        fwd = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale, **kw))
+        out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale, **kw)
+        times[call] = (fwd, time_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True)))
+        log("kernels", f"{label}: SDPA with {call}: forward {times[call][0]:.4f} ms, backward "
+            f"{times[call][1]:.4f} ms")
+    call = min(times, key=lambda c: times[c][0])
+    return min(t[0] for t in times.values()), min(t[1] for t in times.values()), call
 
 
 def row_errors(got, ref):
@@ -252,10 +300,22 @@ def check_dgrad(cases, label="dgrad"):
     return summary
 
 
+def walk_counts(seg, causal):
+    """The forward's tile walk over the rows of ``seg`` (B, T), counted by
+    ``flash.causal_fwd_tiles``, the kernel's walk rule written out in Python (not read from the
+    kernel; a tile the kernel skipped wrongly shows as an error on its rows)."""
+    from adversarialvlm_tpu_torch.ops.kernels import flash as Fl
+
+    walks = [Fl.causal_fwd_tiles(row, causal) for row in seg.cpu()]
+    n = -(-seg.shape[1] // Fl.TILE)
+    pairs = seg.shape[0] * (n * (n + 1) // 2 if causal else n * n)
+    return (f"by causal_fwd_tiles the forward walks {sum(map(len, walks))} of the {pairs} "
+            f"{'causal ' if causal else ''}tile pairs, {sum(sum(w.values()) for w in walks)} of them masked")
+
+
 def attention_case(T, H, Hkv, D, pad, timed=False):
     """Each attention kernel against its plain version on the same inputs and residuals."""
     import torch
-    import torch.nn.functional as F
 
     from adversarialvlm_tpu_torch.ops.kernels import attention as A
     from adversarialvlm_tpu_torch.ops.kernels.flash import allowed_pairs
@@ -274,10 +334,10 @@ def attention_case(T, H, Hkv, D, pad, timed=False):
     o, lse = A.attention_fwd(q, k, v, seg, scale)
     dq, delta = A.attention_bwd_dq(q, k, v, seg, o, lse, do, scale)
     dk, dv = A.attention_bwd_dkdv(q, k, v, seg, lse, delta, do, scale)
-    again = (*A.attention_bwd_dq(q, k, v, seg, o, lse, do, scale),
+    again = (*A.attention_fwd(q, k, v, seg, scale), *A.attention_bwd_dq(q, k, v, seg, o, lse, do, scale),
              *A.attention_bwd_dkdv(q, k, v, seg, lse, delta, do, scale))
-    if not all(torch.equal(a, b) for a, b in zip((dq, delta, dk, dv), again)):
-        raise AssertionError(f"attention T={T} H={H} D={D}: two backward launches on the same inputs differ")
+    if not all(torch.equal(a, b) for a, b in zip((o, lse, dq, delta, dk, dv), again)):
+        raise AssertionError(f"attention T={T} H={H} D={D}: two launches on the same inputs differ")
     o_ref, lse_ref = A.attention_plain(f32[0], f32[1], f32[2], seg, scale)
     dq_ref, delta_ref = A.attention_bwd_dq_plain(f32[0], f32[1], f32[2], seg, o.float(), lse, f32[3], scale)
     dk_ref, dv_ref = A.attention_bwd_dkdv_plain(f32[0], f32[1], f32[2], seg, lse, delta, f32[3], scale)
@@ -304,40 +364,37 @@ def attention_case(T, H, Hkv, D, pad, timed=False):
     fb = bound(4 * pairs * D * H, el * (2 * H + 2 * Hkv) + 4 * H * T)
     qb = bound(6 * pairs * D * H, el * (4 * H + 2 * Hkv) + 8 * H * T)
     kb = bound(8 * pairs * D * H, el * (2 * H + 4 * Hkv) + 8 * H * T)
-    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
-    kt2 = kt.repeat_interleave(H // Hkv, dim=1) if H != Hkv else kt
-    vt2 = vt.repeat_interleave(H // Hkv, dim=1) if H != Hkv else vt
-    mask = allowed[None, None]
-    lib_out = F.scaled_dot_product_attention(qt, kt2, vt2, attn_mask=mask)
-    dot = do.transpose(1, 2).contiguous()
+    qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    kt, vt = (x.repeat_interleave(H // Hkv, dim=1) for x in (kt, vt))
+    lib_fwd, lib_bwd, lib_call = sdpa_times(f"attention T={T} H={H} D={D} pad={pad}", qt, kt, vt, allowed[None],
+                                            dot, scale, causal=True)
     times = {
         "attention_fwd": (
             time_ms(lambda: A.attention_fwd(q, k, v, seg, scale)),
-            time_ms(lambda: A.attention_plain(q, k, v, seg, scale)),
-            time_ms(lambda: F.scaled_dot_product_attention(qt, kt2, vt2, attn_mask=mask)), fb),
+            time_ms(lambda: A.attention_plain(q, k, v, seg, scale)), lib_fwd, fb),
         "attention_bwd_dq": (
             time_ms(lambda: A.attention_bwd_dq(q, k, v, seg, o, lse, do, scale)),
-            time_ms(lambda: A.attention_bwd_dq_plain(q, k, v, seg, o, lse, do, scale)),
-            time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True)), qb),
+            time_ms(lambda: A.attention_bwd_dq_plain(q, k, v, seg, o, lse, do, scale)), lib_bwd, qb),
         "attention_bwd_dkdv": (
             time_ms(lambda: A.attention_bwd_dkdv(q, k, v, seg, lse, delta, do, scale)),
-            time_ms(lambda: A.attention_bwd_dkdv_plain(q, k, v, seg, lse, delta, do, scale)),
-            time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True)), kb),
+            time_ms(lambda: A.attention_bwd_dkdv_plain(q, k, v, seg, lse, delta, do, scale)), lib_bwd, kb),
     }
     out = {}
     for name, (ms, plain_ms, lib_ms, (b_ms, b_by)) in times.items():
         err_keys = {"attention_fwd": ("o",), "attention_bwd_dq": ("dq",), "attention_bwd_dkdv": ("dk", "dv")}[name]
         out[name] = {
-            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "rel": max(errs[e][0] for e in err_keys), "abs": max(errs[e][1] for e in err_keys),
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "library_call": lib_call, "bound_ms": b_ms,
+            "bound_by": b_by, "rel": max(errs[e][0] for e in err_keys), "abs": max(errs[e][1] for e in err_keys),
         }
         log("kernels", f"{name} T={T} H={H} D={D} pad={pad} ms={ms:.4f} plain_ms={plain_ms:.4f} "
             f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
-    log("kernels", "library_ms of both backward kernels is one scaled_dot_product_attention "
-        "backward (dq, dk and dv together) with the same boolean mask")
+    log("kernels", f"library_ms is the fastest SDPA call above (forward: with {lib_call}); that of both "
+        "backward kernels is one SDPA backward (dq, dk and dv together)")
+    log("kernels", f"attention T={T} H={H} D={D}: forward {out['attention_fwd']['ms'] / lib_fwd:.2f}x "
+        "SDPA's forward")
     bwd_ms = out["attention_bwd_dq"]["ms"] + out["attention_bwd_dkdv"]["ms"]
     log("kernels", f"attention T={T} H={H} D={D}: dq + dk/dv {bwd_ms:.4f} ms, "
-        f"{bwd_ms / times['attention_bwd_dq'][2]:.2f}x SDPA's backward")
+        f"{bwd_ms / lib_bwd:.2f}x SDPA's backward")
     return out
 
 
@@ -346,7 +403,6 @@ def flash_case(label, seg, H, Hkv, D, timed=False, backward=True):
     the batch of left-padded rows whose segment ids (attention masks) are ``seg`` (B, T);
     errors on real rows only (pad rows are finite but unspecified)."""
     import torch
-    import torch.nn.functional as F
 
     from adversarialvlm_tpu_torch.ops.kernels import flash as Fl
 
@@ -361,6 +417,8 @@ def flash_case(label, seg, H, Hkv, D, timed=False, backward=True):
     f32 = [x.float() for x in (q, k, v, do)]
     real = seg.bool()
     o, lse = Fl.flash_fwd(q, k, v, seg, scale)
+    if not all(torch.equal(a, b) for a, b in zip((o, lse), Fl.flash_fwd(q, k, v, seg, scale))):
+        raise AssertionError(f"flash {label} B={B} T={T} D={D}: two forward launches on the same inputs differ")
     o_ref, lse_ref = Fl.flash_plain(f32[0], f32[1], f32[2], seg, scale)
     errs = {"o": row_errors(o[real], o_ref[real]),
             "lse": row_errors(lse.transpose(1, 2)[real], lse_ref.transpose(1, 2)[real])}
@@ -385,8 +443,8 @@ def flash_case(label, seg, H, Hkv, D, timed=False, backward=True):
             raise AssertionError(f"flash {label} B={B} T={T} H={H} Hkv={Hkv} D={D} {name}: "
                                  f"worst real row rel err {rel} > {tol}")
     pads = [int(T - n) for n in seg.sum(1).tolist()]
-    log("kernels", f"flash {label} B={B} T={T} H={H} Hkv={Hkv} D={D} left pads={pads} "
-        "worst_real_row_rel " + " ".join(f"{n}={e[0]:.3g}" for n, e in errs.items())
+    log("kernels", f"flash {label} B={B} T={T} H={H} Hkv={Hkv} D={D} left pads={pads} (pad share "
+        f"{sum(pads) / (B * T):.4f}; {walk_counts(seg, True)}) worst_real_row_rel " + " ".join(f"{n}={e[0]:.3g}" for n, e in errs.items())
         + f" (tol fwd {TOL_ATTN_FWD}, bwd {TOL_ATTN_BWD})")
     if not timed:
         return None
@@ -399,18 +457,13 @@ def flash_case(label, seg, H, Hkv, D, timed=False, backward=True):
         "flash_bwd_dq": bound(6 * pairs * D * H, el * (4 * H + 2 * Hkv) + 8 * B * H * T),
         "flash_bwd_dkdv": bound(8 * pairs * D * H, el * (2 * H + 4 * Hkv) + 8 * B * H * T),
     }
-    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
-    kt2 = kt.repeat_interleave(H // Hkv, dim=1) if H != Hkv else kt
-    vt2 = vt.repeat_interleave(H // Hkv, dim=1) if H != Hkv else vt
-    mask = allowed[:, None]
+    qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    kt, vt = (x.repeat_interleave(H // Hkv, dim=1) for x in (kt, vt))
+    lib_fwd, lib_bwd, lib_call = sdpa_times(f"flash {label}", qt, kt, vt, allowed, dot, scale, causal=True)
     times = {"flash_fwd": (
         time_ms(lambda: Fl.flash_fwd(q, k, v, seg, scale)),
-        time_ms(lambda: Fl.flash_plain(q, k, v, seg, scale)),
-        time_ms(lambda: F.scaled_dot_product_attention(qt, kt2, vt2, attn_mask=mask)))}
+        time_ms(lambda: Fl.flash_plain(q, k, v, seg, scale)), lib_fwd)}
     if backward:
-        lib_out = F.scaled_dot_product_attention(qt, kt2, vt2, attn_mask=mask)
-        dot = do.transpose(1, 2).contiguous()
-        lib_bwd = time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True))
         times["flash_bwd_dq"] = (
             time_ms(lambda: Fl.flash_bwd_dq(q, k, v, seg, o, lse, do, scale)),
             time_ms(lambda: Fl.flash_bwd_dq_plain(q, k, v, seg, o, lse, do, scale)), lib_bwd)
@@ -422,14 +475,17 @@ def flash_case(label, seg, H, Hkv, D, timed=False, backward=True):
     for name, (ms, plain_ms, lib_ms) in times.items():
         b_ms, b_by = bounds[name]
         out[name] = {
-            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "rel": max(errs[e][0] for e in err_keys[name]), "abs": max(errs[e][1] for e in err_keys[name]),
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "library_call": lib_call, "bound_ms": b_ms,
+            "bound_by": b_by, "rel": max(errs[e][0] for e in err_keys[name]),
+            "abs": max(errs[e][1] for e in err_keys[name]),
         }
         log("kernels", f"{name} {label} B={B} T={T} H={H} D={D} real pairs={pairs:.0f} ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
+    log("kernels", f"flash {label} B={B} T={T} D={D}: forward {out['flash_fwd']['ms'] / lib_fwd:.2f}x "
+        f"SDPA's forward (with {lib_call})")
     if backward:
-        log("kernels", "library_ms of both flash backward kernels is one scaled_dot_product_attention "
-            "backward (dq, dk and dv together) with the same boolean mask")
+        log("kernels", "library_ms of both flash backward kernels is one SDPA backward (dq, dk and dv "
+            "together), the fastest call above")
         bwd_ms = out["flash_bwd_dq"]["ms"] + out["flash_bwd_dkdv"]["ms"]
         log("kernels", f"flash {label} B={B} T={T} D={D}: dq + dk/dv {bwd_ms:.4f} ms, "
             f"{bwd_ms / lib_bwd:.2f}x SDPA's backward")
@@ -526,13 +582,13 @@ def flash_full_case(label, B, H, T, D, timed=False, backward=True):
     return out
 
 
-def fused_case(label, B, H, T, D, causal, pad, timed=False):
+def fused_case(label, B, H, T, D, causal, pad=0, timed=False, runs=None):
     """The fused_sdpa kernels against their plain versions on the same inputs and residuals, in
-    (B, H, T, D) layout with ``pad`` left pads on every row (segment 0) and segment-masked pairs;
-    errors on real rows only (pad rows are finite but unspecified), with the pad rows' dO zeroed
-    as the JAX entry's contract has it."""
+    (B, H, T, D) layout with ``pad`` left pads on every row (segment 0) and segment-masked pairs,
+    or with each row's segment ids given as ``runs``, a list per row of (id, length) runs (0 =
+    pad); errors on real rows only (pad rows are finite but unspecified), with the pad rows' dO
+    zeroed as the JAX entry's contract has it."""
     import torch
-    import torch.nn.functional as F
 
     from adversarialvlm_tpu_torch.ops.kernels import fused as Fu
 
@@ -543,6 +599,10 @@ def fused_case(label, B, H, T, D, causal, pad, timed=False):
 
     seg = torch.ones((B, T), dtype=torch.int32, device="cuda")
     seg[:, :pad] = 0
+    if runs is not None:
+        seg = torch.tensor([[i for i, n in row for _ in range(n)] for row in runs], dtype=torch.int32,
+                           device="cuda")
+        assert seg.shape == (B, T), seg.shape
     real = seg.bool()
     q, k, v = (randn(B, H, T, D) for _ in range(3))
     do = randn(B, H, T, D) * real[:, None, :, None]
@@ -551,6 +611,11 @@ def fused_case(label, B, H, T, D, causal, pad, timed=False):
     o, lse = Fu.fused_fwd(q, k, v, seg, scale, causal)
     dq, delta = Fu.fused_bwd_dq(q, k, v, seg, o, lse, do, scale, causal)
     dk, dv = Fu.fused_bwd_dkdv(q, k, v, seg, lse, delta, do, scale, causal)
+    again = (*Fu.fused_fwd(q, k, v, seg, scale, causal), *Fu.fused_bwd_dq(q, k, v, seg, o, lse, do, scale, causal),
+             *Fu.fused_bwd_dkdv(q, k, v, seg, lse, delta, do, scale, causal))
+    if not all(torch.equal(a, b) for a, b in zip((o, lse, dq, delta, dk, dv), again)):
+        raise AssertionError(f"fused {label} B={B} H={H} T={T} D={D} causal={causal}: two launches on the "
+                             "same inputs differ")
     o_ref, lse_ref = Fu.fused_plain(f32[0], f32[1], f32[2], seg, scale, causal)
     dq_ref, delta_ref = Fu.fused_bwd_dq_plain(f32[0], f32[1], f32[2], seg, o.float(), lse, f32[3], scale, causal)
     dk_ref, dv_ref = Fu.fused_bwd_dkdv_plain(f32[0], f32[1], f32[2], seg, lse, delta, f32[3], scale, causal)
@@ -567,8 +632,9 @@ def fused_case(label, B, H, T, D, causal, pad, timed=False):
         if not rel <= tol:
             raise AssertionError(f"fused {label} B={B} H={H} T={T} D={D} causal={causal} pad={pad} {name}: "
                                  f"worst real row rel err {rel} > {tol}")
-    log("kernels", f"fused {label} B={B} H={H} T={T} D={D} causal={causal} left pads={pad} worst_real_row_rel "
-        + " ".join(f"{n}={e[0]:.3g}" for n, e in errs.items()) + f" (tol fwd {TOL_ATTN_FWD}, bwd {TOL_ATTN_BWD})")
+    layout = f"segment runs={runs}" if runs is not None else f"left pads={pad}"
+    log("kernels", f"fused {label} B={B} H={H} T={T} D={D} causal={causal} {layout} ({walk_counts(seg, causal)}) "
+        "worst_real_row_rel " + " ".join(f"{n}={e[0]:.3g}" for n, e in errs.items()) + f" (tol fwd {TOL_ATTN_FWD}, bwd {TOL_ATTN_BWD})")
     if not timed:
         return None
 
@@ -580,14 +646,10 @@ def fused_case(label, B, H, T, D, causal, pad, timed=False):
         "fused_bwd_dq": (6 * pairs * D * H, el * 6 * H + 8 * B * H * T),
         "fused_bwd_dkdv": (8 * pairs * D * H, el * 6 * H + 8 * B * H * T),
     }
-    qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
-    mask = allowed[:, None]
-    lib_out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask, scale=scale)
-    lib_bwd = time_ms(lambda: torch.autograd.grad(lib_out, (qg, kg, vg), do, retain_graph=True))
+    lib_fwd, lib_bwd, lib_call = sdpa_times(f"fused {label}", q, k, v, allowed, do, scale, causal)
     times = {
         "fused_fwd": (time_ms(lambda: Fu.fused_fwd(q, k, v, seg, scale, causal)),
-                      time_ms(lambda: Fu.fused_plain(q, k, v, seg, scale, causal)),
-                      time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale))),
+                      time_ms(lambda: Fu.fused_plain(q, k, v, seg, scale, causal)), lib_fwd),
         "fused_bwd_dq": (time_ms(lambda: Fu.fused_bwd_dq(q, k, v, seg, o, lse, do, scale, causal)),
                          time_ms(lambda: Fu.fused_bwd_dq_plain(q, k, v, seg, o, lse, do, scale, causal)), lib_bwd),
         "fused_bwd_dkdv": (time_ms(lambda: Fu.fused_bwd_dkdv(q, k, v, seg, lse, delta, do, scale, causal)),
@@ -599,14 +661,19 @@ def fused_case(label, B, H, T, D, causal, pad, timed=False):
     for name, (ms, plain_ms, lib_ms) in times.items():
         b_ms, b_by = bound(*work[name])
         out[name] = {
-            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "rel": max(errs[e][0] for e in err_keys[name]), "abs": max(errs[e][1] for e in err_keys[name]),
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "library_call": lib_call, "bound_ms": b_ms,
+            "bound_by": b_by, "rel": max(errs[e][0] for e in err_keys[name]),
+            "abs": max(errs[e][1] for e in err_keys[name]),
         }
         log("kernels", f"{name} {label} B={B} H={H} T={T} D={D} real pairs={pairs:.0f} ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
             f"TFLOP/s={work[name][0] / ms / 1e9:.1f}")
-    log("kernels", "library_ms of both fused backward kernels is one scaled_dot_product_attention "
-        "backward (dq, dk and dv together) with the equivalent boolean mask")
+    log("kernels", f"library_ms is the fastest SDPA call above (forward: with {lib_call}); that of both "
+        "fused backward kernels is one SDPA backward (dq, dk and dv together)")
+    bwd_ms = out["fused_bwd_dq"]["ms"] + out["fused_bwd_dkdv"]["ms"]
+    log("kernels", f"fused {label} B={B} H={H} T={T} D={D} causal={causal}: forward "
+        f"{out['fused_fwd']['ms'] / lib_fwd:.2f}x SDPA's forward; dq + dk/dv "
+        f"{bwd_ms:.4f} ms, {bwd_ms / lib_bwd:.2f}x SDPA's backward")
     return out
 
 
@@ -948,7 +1015,7 @@ def llava_phases():
     seg_gqa = torch.ones((3, 301), dtype=torch.int32, device="cuda")
     seg_gqa[0, :37], seg_gqa[2, :120] = 0, 0
     flash_case("GQA", seg_gqa, 8, 2, 128)
-    flash_case("D=256", seg_gqa[:, :200].contiguous(), 4, 1, 256)
+    flash256 = flash_case("D=256", seg_gqa[:, :200].contiguous(), 4, 1, 256, timed=True)
     torch.cuda.empty_cache()
 
     # 4. the batch-1 path, counted from zero
@@ -1147,6 +1214,7 @@ def llava_phases():
     log("reference", f"all references in {time.perf_counter() - t0:.1f} s")
     return {
         "stats": {"dgrad": dg, **attn, **flash}, "prefill": prefill, "transforms": transforms, "dgrad4": dg4,
+        "flash256": flash256,
         "counts": {**{k: launches[k] for k in pr3_kernels}, **{k: launches4[k] for k in flash}},
     }
 
@@ -1382,13 +1450,15 @@ def main():
         log("build", f"{name}: {res.path.name} in {res.seconds:.1f} s")
     log("build", f"{len(built)} kernel libraries ready in {time.perf_counter() - t0:.1f} s")
     wgmma_kernels = {"flash_full": ("full_fwd_kernel", "full_dq_kernel", "full_dkdv_kernel"),
-                     "dgrad": ("dgrad_kernel",), "causal_bwd": ("causal_dq_kernel", "causal_dkdv_kernel")}
+                     "dgrad": ("dgrad_kernel",), "causal_fwd": ("causal_fwd_kernel",),
+                     "causal_bwd": ("causal_dq_kernel", "causal_dkdv_kernel")}
     for lib, kernels in wgmma_kernels.items():
         hgmma = hgmma_counts(built[lib].path)
         for kernel in kernels:
-            n = sum(c for name, c in hgmma.items() if kernel in name)
-            log("build", f"{lib}: {kernel} holds {n} HGMMA instructions in its SASS")
-            if n == 0:
+            counts = [c for name, c in hgmma.items() if kernel in name]
+            log("build", f"{lib}: {kernel}, {len(counts)} instantiations, holds {counts} HGMMA instructions "
+                "in their SASS")
+            if not counts or min(counts) == 0:
                 raise AssertionError(f"{lib}: {kernel} was compiled without wgmma (no HGMMA in its SASS)")
         spills = spill_lines(built[lib].log)
         log("build", f"{lib}: ptxas reports {len(spills)} spilling functions")
@@ -1412,8 +1482,13 @@ def main():
                        timed=True)
     fused_641 = fused_case("7B decoder T", 1, 32, 641, 128, True, 23, timed=True)
     fused_d96 = fused_case("head_dim 96", 1, 32, 641, 96, True, 0, timed=True)
-    fused_case("non-causal, pads", 2, 8, 310, 64, False, 17)
-    fused_case("non-causal", 1, 4, 150, 32, False, 0)
+    fused_case("non-causal, pads", 2, 8, 310, 64, False, 17, timed=True)
+    fused_case("non-causal", 1, 4, 150, 32, False, 0, timed=True)
+    # packed segments crossing tile boundaries: more than two ids, an id that recurs after another
+    # (non-monotone), left pads, tiles of one id (walked unmasked) and disjoint intervals (skipped)
+    runs = [[(0, 23), (1, 90), (2, 150), (1, 40), (3, 200), (2, 107)], [(3, 128), (4, 200), (5, 282)]]
+    fused_case("packed segments", 2, 8, 610, 128, True, runs=runs)
+    fused_case("packed segments, non-causal", 2, 8, 610, 64, False, runs=runs)
     fused_launches = fused_harness()
     torch.cuda.empty_cache()
 
@@ -1428,12 +1503,12 @@ def main():
 
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s; the blur + crop step "
         f"{llava['transforms']['median_ms']:.2f} ms at batch 1")
-    sources = {"dgrad": "dgrad.cu", "attention_fwd": "attention.cu", "attention_bwd_dq": "causal_bwd.cu",
-               "attention_bwd_dkdv": "causal_bwd.cu", "flash_fwd": "attention.cu",
+    sources = {"dgrad": "dgrad.cu", "attention_fwd": "causal_fwd.cu", "attention_bwd_dq": "causal_bwd.cu",
+               "attention_bwd_dkdv": "causal_bwd.cu", "flash_fwd": "causal_fwd.cu",
                "flash_bwd_dq": "causal_bwd.cu", "flash_bwd_dkdv": "causal_bwd.cu",
                "flash_full_fwd": "flash_full.cu", "flash_full_bwd_dq": "flash_full.cu",
-               "flash_full_bwd_dkdv": "flash_full.cu", "fused_fwd": "attention.cu",
-               "fused_bwd_dq": "attention.cu", "fused_bwd_dkdv": "attention.cu"}
+               "flash_full_bwd_dkdv": "flash_full.cu", "fused_fwd": "causal_fwd.cu",
+               "fused_bwd_dq": "causal_bwd.cu", "fused_bwd_dkdv": "causal_bwd.cu"}
     replaces = {
         "dgrad": "adversarialvlm_tpu/ops/pallas/matmul.py:35",
         "attention_fwd": "adversarialvlm_tpu/ops/pallas/fused_attention.py:436",
@@ -1459,18 +1534,26 @@ def main():
             "worst_row_rel_err": stats[name]["rel"], "ms": stats[name]["ms"],
             "plain_ms": stats[name]["plain_ms"], "bound_ms": stats[name]["bound_ms"],
             "bound_by": stats[name]["bound_by"], "library_ms": stats[name]["library_ms"],
+            "library_call": stats[name].get("library_call"),
         }
         for name in sources
     ]
-    timing_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
-    kernels[4]["at_prefill_shape"] = {k: llava["prefill"][k] for k in timing_keys}
-    kernels[7]["at_prefill_shape"] = {k: full_prefill[k] for k in timing_keys}
-    kernels[0]["at_llava_batch4_shapes"] = {k: llava["dgrad4"][k] for k in (*timing_keys, "per_step")}
-    kernels[0]["at_gemma3_shapes"] = {k: gem["dgrad"][k] for k in (*timing_keys, "per_step")}
+    timing_keys = ("ms", "plain_ms", "library_ms", "library_call", "bound_ms", "bound_by")
+
+    def pick(stats, keys):  # the keys a case has: library_call only where SDPA is the yardstick
+        return {k: stats[k] for k in keys if k in stats}
+
+    kernels[4]["at_prefill_shape"] = pick(llava["prefill"], timing_keys)
+    kernels[7]["at_prefill_shape"] = pick(full_prefill, timing_keys)
+    kernels[0]["at_llava_batch4_shapes"] = pick(llava["dgrad4"], (*timing_keys, "per_step"))
+    kernels[0]["at_gemma3_shapes"] = pick(gem["dgrad"], (*timing_keys, "per_step"))
     for i, name in enumerate(sources):
+        if name in llava["flash256"]:  # head_dim 256: attention.cu's WMMA kernels
+            kernels[i]["at_head_dim_256"] = {"source": "adversarialvlm_tpu_torch/csrc/attention.cu",
+                                             **pick(llava["flash256"][name], timing_keys)}
         if name in fused:
-            kernels[i]["at_T_641"] = {k: fused_641[name][k] for k in timing_keys}
-            kernels[i]["at_head_dim_96"] = {k: fused_d96[name][k] for k in timing_keys}
+            kernels[i]["at_T_641"] = pick(fused_641[name], timing_keys)
+            kernels[i]["at_head_dim_96"] = pick(fused_d96[name], timing_keys)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

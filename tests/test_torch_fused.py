@@ -144,6 +144,33 @@ def test_fused_head_dims_and_dtype_checks(monkeypatch):
     assert moved.data_ptr() % 16 == 0 and moved.stride() == like.stride() and torch.equal(moved, shifted)
 
 
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
+def test_fused_entries_are_bound_in_the_wgmma_sources(d):
+    """fused.py binds its three entries in causal_fwd.cu (forward) and causal_bwd.cu (dq, dk/dv),
+    each in its library's argtypes table, and each entry's dispatch instantiates head_dim d in both
+    mask modes; attention.cu holds no fused entry."""
+    import re
+
+    from adversarialvlm_tpu_torch.ops.kernels.build import CSRC, SOURCES
+
+    assert d in Fu.HEAD_DIMS
+    assert Fu.ENTRIES == {"fwd": ("causal_fwd", "fused_fwd_bf16"), "dq": ("causal_bwd", "fused_bwd_dq_bf16"),
+                          "dkdv": ("causal_bwd", "fused_bwd_dkdv_bf16")}
+    for library, entry in Fu.ENTRIES.values():
+        assert library in SOURCES
+        table = Fu._FWD_SIGNATURES if library == "causal_fwd" else Fu._BWD_SIGNATURES
+        assert entry in table
+        text = (CSRC / f"{library}.cu").read_text()
+        assert f'extern "C" int {entry}(' in text
+        body = text[text.index(f'extern "C" int {entry}('):].split("\n}\n", 1)[0]
+        if library == "causal_fwd":
+            assert re.search(rf"case {d}: return fused<{d}>", body)
+        else:
+            assert "FUSED_DISPATCH(CALL)" in body
+            assert re.search(rf"case {d}: return causal \? CALL\({d}, CAUSAL_SEG\) : CALL\({d}, SEG\)", text)
+    assert "fused" not in (CSRC / "attention.cu").read_text().split("#include", 1)[1]
+
+
 def test_bench_harness_runs_both_paths_on_the_cpu(capsys):
     """The harness at a tiny shape on the CPU: both paths reach the same chained losses (1e-4
     relative: the same f32 math in another order), the fused path launches no kernel on CPU

@@ -259,6 +259,77 @@ def test_causal_backward_dispatch_by_head_dim(d, want):
         assert "D == 128" not in body and "D == 256" in body, fn
 
 
+@pytest.mark.parametrize("d, want", [
+    (128, ("causal_fwd", "causal_fwd_bf16")),
+    (256, ("attention", "flash_fwd_bf16")),
+    (64, None), (72, None), (96, None), (512, None),
+])
+def test_causal_forward_dispatch_by_head_dim(d, want):
+    """The causal forward's head-dim dispatch, read without building anything: D = 128 goes to the
+    wgmma kernel of causal_fwd.cu, D = 256 to attention.cu's flash entry, from the batch-1 wrapper
+    (B = 1) and the batched one alike; any other head dim raises. Both entries are bound with the
+    same arguments, and attention.cu no longer runs a D = 128 forward."""
+    if want is None:
+        with pytest.raises(ValueError, match="head_dim"):
+            Fl.causal_fwd_entries(d)
+        return
+    assert Fl.causal_fwd_entries(d) == want
+    library, entry = want
+    table = Fl._CAUSAL_FWD_SIGNATURES if library == "causal_fwd" else Fl._SIGNATURES
+    assert table[entry] == Fl._CAUSAL_FWD_SIGNATURES["causal_fwd_bf16"]
+    from adversarialvlm_tpu_torch.ops.kernels.build import CSRC
+
+    text = (CSRC / "attention.cu").read_text()
+    body = text[text.index("\nint fwd("):].split("\n}\n", 1)[0]
+    assert "D == 128" not in body and "D == 256" in body
+
+
+def test_attention_cu_holds_only_the_head_dim_256_causal_entries():
+    """attention.cu keeps the head_dim-256 causal kernels behind the flash entries and nothing else:
+    no segment-only (non-causal) mask mode, no fused_sdpa entry or dispatch, no forward or backward
+    instantiated at head_dim 128; those are the wgmma kernels of causal_fwd.cu and causal_bwd.cu."""
+    import re
+
+    from adversarialvlm_tpu_torch.ops.kernels.build import CSRC
+
+    text = (CSRC / "attention.cu").read_text()
+    code = "\n".join(line.split("//", 1)[0] for line in text.splitlines())  # comments dropped
+    assert not re.search(r"\bSEG\b|CAUSAL_SEG|enum Mask|\bfused|FUSED|layout_of", code)
+    assert re.findall(r'extern "C" int (\w+)\(', code) == ["flash_fwd_bf16", "flash_bwd_dq_bf16",
+                                                            "flash_bwd_dkdv_bf16"]
+    assert sorted(set(re.findall(r"launch_(?:fwd|dq|dkdv)<(\d+),", code))) == ["256"]
+    assert "D == 128" not in code
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "segments"])
+def test_causal_fwd_tile_walk_covers_every_allowed_pair(causal):
+    """The forward kernel's tile walk (flash.causal_fwd_tiles: the causal limit, minus key tiles
+    whose segment interval misses the query tile's) over random segment layouts: every allowed pair
+    lies in a walked tile, so a skipped tile holds none, and a tile walked without the per-pair test
+    holds only allowed pairs."""
+    from hypothesis import given, settings
+    from hypothesis import strategies as st
+
+    runs = st.lists(st.tuples(st.integers(0, 3), st.integers(1, 90)), min_size=1, max_size=8)
+
+    @settings(max_examples=60, deadline=None, derandomize=True, database=None)
+    @given(runs)
+    def check(layout):
+        seg = torch.tensor([s for s, n in layout for _ in range(n)], dtype=torch.int32)
+        t = seg.shape[0]
+        allowed = Fl.allowed_pairs(seg[None], causal)[0]
+        walk = Fl.causal_fwd_tiles(seg, causal)
+        qi, kj = torch.nonzero(allowed, as_tuple=True)
+        tiles = set(zip((qi // Fl.TILE).tolist(), (kj // Fl.TILE).tolist()))
+        assert tiles <= set(walk), sorted(tiles - set(walk))
+        for (qt, kt), masked in walk.items():
+            if not masked:
+                block = allowed[qt * Fl.TILE:(qt + 1) * Fl.TILE, kt * Fl.TILE:(kt + 1) * Fl.TILE]
+                assert bool(block.all()) and (kt + 1) * Fl.TILE <= t, (qt, kt)
+
+    check()
+
+
 def test_bench_dgrad_shapes_are_the_steps_launches():
     """cli/bench_dgrad.py times the dgrad kernel at the shapes chip_smoke.py checks: per step the
     config's launches (364 at LLaVA-1.5-7B, batch 1 or 4; 346 at Gemma-3-4B), rows scaled by the
@@ -343,13 +414,15 @@ def _c_entries(source: str) -> dict[str, list]:
     return entries
 
 
-@pytest.mark.parametrize("source", ["dgrad", "attention", "flash_full", "causal_bwd"])
+@pytest.mark.parametrize("source", ["dgrad", "attention", "flash_full", "causal_fwd", "causal_bwd"])
 def test_signature_tables_match_the_c_entries(source):
     """Each library of build.SOURCES is bound entry for entry: the wrappers' argtypes tables (read
     without building or loading anything) name every ``extern "C"`` entry of the source and no
     other, with c_void_p for every pointer and the stream (a pointer passed as a 32-bit int is
-    cut) and the C types of the rest. flash_full's entries live in their own source, and so do the
-    causal backward's at head_dim 128; no entry is named twice, in one source or across sources."""
+    cut) and the C types of the rest. flash_full's entries live in their own source, the causal
+    forward's and backward's at head_dim 128 and fused_sdpa's in theirs, and attention.cu keeps
+    only the head_dim-256 flash entries; no entry is named twice, in one source or across
+    sources."""
     import re
 
     from adversarialvlm_tpu_torch.ops.kernels import dgrad as Dg
@@ -358,9 +431,10 @@ def test_signature_tables_match_the_c_entries(source):
 
     tables = {
         "dgrad": [Dg._SIGNATURES],
-        "attention": [A._SIGNATURES, Fl._SIGNATURES, Fu._SIGNATURES],
+        "attention": [Fl._SIGNATURES],
         "flash_full": [Fl._FULL_SIGNATURES],
-        "causal_bwd": [Fl._CAUSAL_BWD_SIGNATURES],
+        "causal_fwd": [Fl._CAUSAL_FWD_SIGNATURES, Fu._FWD_SIGNATURES],
+        "causal_bwd": [Fl._CAUSAL_BWD_SIGNATURES, Fu._BWD_SIGNATURES],
     }[source]
     bound = {name: argtypes for table in tables for name, argtypes in table.items()}
     assert source in SOURCES
@@ -371,12 +445,40 @@ def test_signature_tables_match_the_c_entries(source):
     if source == "flash_full":
         assert sorted(c) == ["flash_full_bwd_dkdv_bf16", "flash_full_bwd_dq_bf16", "flash_full_fwd_bf16"]
         assert not any(n.startswith("flash_full") for n in _c_entries("attention"))
+    if source == "attention":
+        assert sorted(c) == ["flash_bwd_dkdv_bf16", "flash_bwd_dq_bf16", "flash_fwd_bf16"]
+    if source == "causal_fwd":
+        assert sorted(c) == ["causal_fwd_bf16", "fused_fwd_bf16"]
     if source == "causal_bwd":
-        assert sorted(c) == ["causal_bwd_dkdv_bf16", "causal_bwd_dq_bf16"]
+        assert sorted(c) == ["causal_bwd_dkdv_bf16", "causal_bwd_dq_bf16", "fused_bwd_dkdv_bf16",
+                             "fused_bwd_dq_bf16"]
     named = {src: re.findall(r'extern "C" int (\w+)\(', (CSRC / f"{src}.cu").read_text()) for src in SOURCES}
     assert len(named[source]) == len(set(named[source])), named[source]
     others = {n for src, names in named.items() if src != source for n in names}
     assert not others & set(named[source])
+
+
+@pytest.mark.parametrize("source, headers", [
+    ("dgrad", []), ("attention", []), ("flash_full", []),
+    ("causal_fwd", ["attention_sm90.cuh"]), ("causal_bwd", ["attention_sm90.cuh"]),
+])
+def test_library_hash_covers_the_included_headers_only(source, headers, tmp_path, monkeypatch):
+    """A library's file name hashes its source and the csrc headers it includes, and no other
+    header: editing attention_sm90.cuh renames the two wgmma attention libraries that include it
+    (so neither loads stale), and leaves the other three as they were (no needless rebuild). Read on a
+    copy of csrc/, without building anything."""
+    import shutil
+
+    from adversarialvlm_tpu_torch.ops.kernels import build
+
+    assert build.local_headers(source) == headers
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    before = build.library_path(source)
+    (csrc / "attention_sm90.cuh").write_text((csrc / "attention_sm90.cuh").read_text() + "\n// edited\n")
+    (csrc / "unused.cuh").write_text("// a header no source includes\n")
+    assert (build.library_path(source) != before) == bool(headers)
 
 
 def test_linear_pdx_backward_of_plain_linear_agree():

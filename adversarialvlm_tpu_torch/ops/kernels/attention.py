@@ -1,7 +1,7 @@
 """Batch-1 causal attention with a segment mask in (B, T, H, D) layout: the forward and the backward
-(dq; dk/dv) as a batch of one row of the causal kernels, by head dim (``flash.causal_fwd_entries``
-and ``flash.causal_bwd_entries``: ``csrc/causal_fwd.cu`` and ``csrc/causal_bwd.cu`` at head_dim 128,
-``csrc/attention.cu`` at 256), their plain versions and the autograd Function; and
+(dq; dk/dv) as a batch of one row of the causal kernels (``flash.causal_fwd_entries`` and
+``flash.causal_bwd_entries``: ``csrc/causal_fwd.cu`` and ``csrc/causal_bwd.cu``, head_dim 128 or
+256), their plain versions and the autograd Function; and
 ``attention_route``, which picks the decoder attention's route (this module, the flash kernels of
 ``flash.py``, or the plain sdpa), and ``vit_attention_route``, the vision towers' (the non-causal
 flash_full kernels of ``flash.py``, or the plain sdpa).

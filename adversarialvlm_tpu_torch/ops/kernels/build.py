@@ -25,7 +25,7 @@ import torch
 PACKAGE = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE / "csrc"
 BUILD = PACKAGE / "build"
-SOURCES = ("dgrad", "attention", "flash_full", "causal_fwd", "causal_bwd")
+SOURCES = ("dgrad", "flash_full", "causal_fwd", "causal_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,7 +1,6 @@
-"""Causal attention over a left-padded batch: the forward (``causal_fwd_entries``: ``csrc/causal_fwd.cu``
-at head_dim 128, ``csrc/attention.cu`` at 256), the backward (dq; dk/dv; ``causal_bwd_entries``:
-``csrc/causal_bwd.cu`` at 128, attention.cu at 256), their plain versions, the autograd Function
-and ``flash_sdpa``.
+"""Causal attention over a left-padded batch: the forward (``causal_fwd_entries``: ``csrc/causal_fwd.cu``),
+the backward (dq; dk/dv; ``causal_bwd_entries``: ``csrc/causal_bwd.cu``), at head_dim 128 or 256,
+their plain versions, the autograd Function and ``flash_sdpa``.
 
 Counterpart of adversarialvlm_tpu/ops/pallas/attention.py::flash_sdpa (:178), which runs the stock
 TPU flash_attention kernels (forward, dkv, dq) through _flash_call (:97). Its semantics are those
@@ -10,14 +9,14 @@ seg[b, i] == seg[b, j], where seg is the row's attention mask (pads 0, real toke
 softmax in f32, output in q's dtype. Pad rows attend earlier pads, so they stay finite; callers
 read real rows only.
 
-On the card every entry goes by head dim. At 128, the decoders' width, the forward and the
-backward (dq, which writes δ, then dk/dv) are the wgmma kernels of ``csrc/causal_fwd.cu`` and
-``csrc/causal_bwd.cu``: T tiled in 64-row tiles with an online softmax, the row logsumexp kept as
-the extra residual, the forward's walk skipping key tiles whose segment ids cannot meet its query
-tile's (:func:`causal_fwd_tiles`). At 256 they are the WMMA kernels of attention.cu. All read q, k
-and v in the projections' (B, T, H, D) layout, and kv head h // n_rep for q-head h, so neither a
-transpose copy nor ``repeat_kv`` is materialised. The TPU entry pads T to its block and head_dim to
-128 lanes; these kernels mask the ragged tile and take head_dim 128 or 256 only.
+On the card the forward and the backward (dq, which writes δ, then dk/dv) are the wgmma kernels
+of ``csrc/causal_fwd.cu`` and ``csrc/causal_bwd.cu`` at head_dim 128 (the 7B decoders' width) and
+256 (Gemma-3's): T tiled in 64-row tiles with an online softmax, the row logsumexp kept as the
+extra residual, the forward's walk skipping key tiles whose segment ids cannot meet its query
+tile's (:func:`causal_fwd_tiles`). The head dim sets each kernel's plan (see the sources' notes).
+All read q, k and v in the projections' (B, T, H, D) layout, and kv head h // n_rep for q-head h,
+so neither a transpose copy nor ``repeat_kv`` is materialised. The TPU entry pads T to its block
+and head_dim to 128 lanes; these kernels mask the ragged tile and take head_dim 128 or 256 only.
 
 Non-causal attention for vision towers, ``flash_sdpa_full``: the entries of ``csrc/flash_full.cu``
 (forward; dq, which writes δ; dk/dv), their plain versions and ``FlashFullAttention``.
@@ -56,11 +55,6 @@ FULL_HEAD_DIMS = (72,)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_SIGNATURES = {
-    "flash_fwd_bf16": [_P] * 6 + [_I] * 5 + [_F, _P],
-    "flash_bwd_dq_bf16": [_P] * 9 + [_I] * 5 + [_F, _P],
-    "flash_bwd_dkdv_bf16": [_P] * 9 + [_I] * 5 + [_F, _P],
-}
 _CAUSAL_FWD_SIGNATURES = {  # csrc/causal_fwd.cu
     "causal_fwd_bf16": [_P] * 6 + [_I] * 5 + [_F, _P],
 }
@@ -77,13 +71,10 @@ _FULL_SIGNATURES = {  # csrc/flash_full.cu
 
 def causal_fwd_entries(d: int) -> tuple[str, str]:
     """(library, entry) of the causal forward at head dim ``d``, read without building or loading
-    anything: at 128 the wgmma kernel of ``csrc/causal_fwd.cu``, at 256 the flash entry of
-    ``csrc/attention.cu``. Both take a batch of B rows (the batch-1 wrappers of ``attention.py``
-    pass 1) and the same arguments. Any other head dim raises."""
-    if d == 128:
+    anything: the wgmma kernel of ``csrc/causal_fwd.cu`` at 128 and 256, which takes a batch of B
+    rows (the batch-1 wrappers of ``attention.py`` pass 1). Any other head dim raises."""
+    if d in HEAD_DIMS:
         return "causal_fwd", "causal_fwd_bf16"
-    if d == 256:
-        return "attention", "flash_fwd_bf16"
     raise ValueError(
         f"causal attention forward at head_dim {d}: the kernels take {HEAD_DIMS} (other head dims "
         "come with their families: ROADMAP modules: other victim families)"
@@ -93,7 +84,7 @@ def causal_fwd_entries(d: int) -> tuple[str, str]:
 def causal_fwd_entry(d: int):
     """The bound C function of the causal forward at head dim ``d``."""
     library, entry = causal_fwd_entries(d)
-    return getattr(load(library, _CAUSAL_FWD_SIGNATURES if library == "causal_fwd" else _SIGNATURES), entry)
+    return getattr(load(library, _CAUSAL_FWD_SIGNATURES), entry)
 
 
 TILE = 64  # rows of the forward kernel's query and key tiles
@@ -123,13 +114,11 @@ def causal_fwd_tiles(seg: torch.Tensor, causal: bool = True) -> dict[tuple[int, 
 
 def causal_bwd_entries(d: int) -> tuple[str, str, str]:
     """(library, dq entry, dk/dv entry) of the causal backward at head dim ``d``, read without
-    building or loading anything: at 128 the wgmma kernels of ``csrc/causal_bwd.cu``, at 256 the
-    flash entries of ``csrc/attention.cu``. Both take a batch of B rows (the batch-1 wrappers of
-    ``attention.py`` pass 1) and the same arguments. Any other head dim raises."""
-    if d == 128:
+    building or loading anything: the wgmma kernels of ``csrc/causal_bwd.cu`` at 128 and 256,
+    which take a batch of B rows (the batch-1 wrappers of ``attention.py`` pass 1). Any other
+    head dim raises."""
+    if d in HEAD_DIMS:
         return "causal_bwd", "causal_bwd_dq_bf16", "causal_bwd_dkdv_bf16"
-    if d == 256:
-        return "attention", "flash_bwd_dq_bf16", "flash_bwd_dkdv_bf16"
     raise ValueError(
         f"causal attention backward at head_dim {d}: the kernels take {HEAD_DIMS} (other head dims "
         "come with their families: ROADMAP modules: other victim families)"
@@ -139,8 +128,7 @@ def causal_bwd_entries(d: int) -> tuple[str, str, str]:
 def causal_bwd_entry(kind: str, d: int):
     """The bound C function of the causal backward's ``kind`` ("dq" or "dkdv") at head dim ``d``."""
     library, dq_entry, dkdv_entry = causal_bwd_entries(d)
-    lib = load(library, _CAUSAL_BWD_SIGNATURES if library == "causal_bwd" else _SIGNATURES)
-    return getattr(lib, dq_entry if kind == "dq" else dkdv_entry)
+    return getattr(load(library, _CAUSAL_BWD_SIGNATURES), dq_entry if kind == "dq" else dkdv_entry)
 
 
 def allowed_pairs(seg: torch.Tensor, causal: bool = True) -> torch.Tensor:

@@ -5,10 +5,12 @@
 
 Phases, in order (no exception is caught; any failure exits non-zero with no final line):
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
-  2. the build: nvcc compiles every source under adversarialvlm_tpu_torch/csrc/, in parallel,
-     and ptxas's register, spill and shared-memory lines are printed; cuobjdump's SASS of the
-     wgmma libraries must hold HGMMA instructions in every instantiation of each of their kernels
-     (flash_full's three, dgrad's, causal_fwd's forward, causal_bwd's dq and dk/dv), and ptxas must
+  2. the build: nvcc compiles the four sources under adversarialvlm_tpu_torch/csrc/ (dgrad,
+     flash_full, causal_fwd, causal_bwd), in parallel, and ptxas's register, spill and
+     shared-memory lines are printed; cuobjdump's SASS of the wgmma libraries must hold HGMMA
+     instructions in every instantiation of each of their kernels (flash_full's three, dgrad's,
+     causal_fwd's forward and its head_dim-256 forward, causal_bwd's dq, dk/dv and head_dim-256
+     dk/dv), dq's and the two forwards' head_dim-256 instantiations among them, and ptxas must
      report no spills for any of them;
   3. every kernel against its plain version on the card, at the shapes the main paths give it,
      with the error measured per row as |got - ref| / |ref| (worst row reported; |ref| floored
@@ -26,7 +28,9 @@ Phases, in order (no exception is caught; any failure exits non-zero with no fin
      atomics; dgrad's split of O adds its partials in a fixed order). The fused_sdpa kernels at
      five timed shapes, causal and not, and over packed multi-segment rows, then their path:
      cli/bench_fused_attention.py at its defaults against the plain einsum attention, with its
-     launches counted from zero;
+     launches counted from zero. The head_dim-256 kernels (Gemma-3's global layers) at the safety
+     judge's text-only prefill shape: 16 rows of T 704, 8 heads, 4 kv heads, each row left-padded by
+     a seeded 0-160 tokens, and without pads, batched and over one row (the batch-1 route);
   4. the batch-1 path: the full-width, full-depth LLaVA-1.5-7B single-victim attack (random bf16
      weights from a seed) through ``train()`` for 1 warm-up step + 5 steps, with each kernel's
      launches counted over that run only;
@@ -45,13 +49,19 @@ Then, with the LLaVA victim freed so that each phase's peak memory is its own, t
 victim, whose 4096-patch SigLIP tower runs the non-causal flash_full kernels (their phase-3
 checks run first, before any victim is resident, and print each kernel's time over SDPA's:
 the forward over SDPA's forward, dq + dk/dv over SDPA's whole backward):
+  4g. the Gemma-3 safety judge's text-only prefill at full width and depth on the victim's
+     weights: ``gemma3.forward(..., logits_last_k=1)`` over 16 left-padded rows of T 704 under
+     no_grad, counted from zero: exactly one head_dim-256 flash forward per global layer (5 of 34)
+     and forward, no backward; each forward timed, with the flash launches' share of it;
   4c. the full-width, full-depth Gemma-3-4B-it attack (random bf16 weights from a seed) at the
      default batch of 4 through ``train(run_tests=True)``: 1 warm-up + 2 steps, save boundaries at
      iterations 0 and 2, each decoding the 50 held-out questions at 64 new tokens; launches are
      attributed to the step, the monitor and the decode as in 4b;
   5c. depth-cut references at full width (6 decoder layers, so five sliding-window layers and the
      global one run; 2 vision layers at the full 4096 patches), the card in bf16 against the CPU
-     in f32 on the plain path: the batch-4 step and the test decode, teacher-forced.
+     in f32 on the plain path: the batch-4 step, the test decode, teacher-forced, and the judge's
+     text-only prefill over 2 rows of T 704 (one left-padded), whose global layer takes the
+     head_dim-256 flash forward on the card: last-position logits cosine >= 0.99.
 It then prints the kernels' JSON line, the card's name and power limit, and as its last line
 {"ok": true, "device": {...}}. Without a card it exits non-zero before printing anything.
 """
@@ -83,6 +93,9 @@ TOL_REF_LOSS = 1e-2       # relative loss difference, depth-cut card vs CPU f32
 TOL_REF_COSINE = 0.99     # gradient cosine, depth-cut card vs CPU f32
 TOL_DECODE_COSINE = 0.99  # per (row, step) logits cosine, cached card decode vs uncached CPU f32
 DECODE_MARGIN = 3.0       # the card's token within this many max|card - CPU| of the CPU's top logit
+JUDGE_B, JUDGE_T = 16, 704  # the Gemma-3 safety judge's text-only prefill: its default batch, a 64-bucketed T
+JUDGE_PAD_MAX = 160       # each judge row left-padded by a seeded 0..160 tokens
+JUDGE_FORWARDS = 3        # timed judge prefill forwards, after one warm-up
 
 
 def log(phase, msg):
@@ -311,6 +324,35 @@ def walk_counts(seg, causal):
     pairs = seg.shape[0] * (n * (n + 1) // 2 if causal else n * n)
     return (f"by causal_fwd_tiles the forward walks {sum(map(len, walks))} of the {pairs} "
             f"{'causal ' if causal else ''}tile pairs, {sum(sum(w.values()) for w in walks)} of them masked")
+
+
+def judge_seg(pads=True):
+    """(B, T) int32 attention masks of the judge's prefill: each row left-padded by a seeded 0..160
+    tokens, or, with ``pads=False``, none."""
+    import torch
+
+    if not pads:
+        return torch.ones((JUDGE_B, JUDGE_T), dtype=torch.int32, device="cuda")
+    n = torch.randint(0, JUDGE_PAD_MAX + 1, (JUDGE_B,), generator=torch.Generator().manual_seed(0))
+    return (torch.arange(JUDGE_T)[None, :] >= n[:, None]).to(torch.int32).cuda()
+
+
+def judge_cases():
+    """The head_dim-256 kernels (Gemma-3's global layers: 8 heads, 4 kv heads of 256) at the judge's
+    prefill shape, with its left pads and without, timed: the batched flash entries over its 16 rows
+    and the batch-1 entries over one row of it; each against its plain version and SDPA."""
+    from adversarialvlm_tpu_torch.models.configs import gemma3_4b_it
+
+    cfg = gemma3_4b_it().text
+    h, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    seg = judge_seg()
+    pad0 = JUDGE_T - int(seg[0].sum())
+    return {
+        "flash": flash_case("judge prefill", seg, h, hkv, d, timed=True),
+        "flash_no_pad": flash_case("judge prefill, no pad", judge_seg(pads=False), h, hkv, d, timed=True),
+        "attention": attention_case(JUDGE_T, h, hkv, d, pad0, timed=True),
+        "attention_no_pad": attention_case(JUDGE_T, h, hkv, d, 0, timed=True),
+    }
 
 
 def attention_case(T, H, Hkv, D, pad, timed=False):
@@ -1015,7 +1057,7 @@ def llava_phases():
     seg_gqa = torch.ones((3, 301), dtype=torch.int32, device="cuda")
     seg_gqa[0, :37], seg_gqa[2, :120] = 0, 0
     flash_case("GQA", seg_gqa, 8, 2, 128)
-    flash256 = flash_case("D=256", seg_gqa[:, :200].contiguous(), 4, 1, 256, timed=True)
+    flash_case("D=256", seg_gqa[:, :200].contiguous(), 4, 1, 256)  # head_dim 256, timed in judge_cases
     torch.cuda.empty_cache()
 
     # 4. the batch-1 path, counted from zero
@@ -1214,15 +1256,93 @@ def llava_phases():
     log("reference", f"all references in {time.perf_counter() - t0:.1f} s")
     return {
         "stats": {"dgrad": dg, **attn, **flash}, "prefill": prefill, "transforms": transforms, "dgrad4": dg4,
-        "flash256": flash256,
         "counts": {**{k: launches[k] for k in pr3_kernels}, **{k: launches4[k] for k in flash}},
     }
 
 
+def judge_ids(cfg, seg, seed):
+    """Text-only prompts for ``seg``'s rows: token ids from a seed (no image token), pads where
+    ``seg`` is 0, as the judge's left-padded rows carry them."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    ids = torch.randint(3, cfg.text.vocab_size, tuple(seg.shape), generator=gen)
+    ids = torch.where(ids == cfg.image_token_id, 3, ids).to(seg.device)
+    return torch.where(seg.bool(), ids, torch.full_like(ids, cfg.pad_token_id))
+
+
+def judge_prefill(params, g_cfg):
+    """Phase 4g: the Gemma-3 safety judge's text-only prefill at full width and depth on the
+    victim's weights: B 16 rows of T 704, each left-padded by a seeded 0..160 tokens, through
+    ``gemma3.forward(..., logits_last_k=1)`` under no_grad, as the judge's decode prefill takes its
+    last logits. Its global layers take the head_dim-256 flash forward (one launch each, no
+    backward), its sliding-window layers the plain sdpa, as in JAX. Counted from zero; each forward
+    timed in CUDA events, with the share of it spent in the flash forward's launches."""
+    import torch
+
+    from adversarialvlm_tpu_torch.models import gemma3
+    from adversarialvlm_tpu_torch.models.llama import _layer_sliding_window
+    from adversarialvlm_tpu_torch.ops.kernels import flash as Fl
+    from adversarialvlm_tpu_torch.ops.kernels import launch_counts, reset_launches
+
+    t = g_cfg.text
+    n_global = sum(_layer_sliding_window(t, i) is None for i in range(t.num_layers))
+    seg = judge_seg()
+    ids = judge_ids(g_cfg, seg, seed=7)
+    spans, real_fwd = [], Fl.flash_fwd
+
+    def timed_flash_fwd(*args):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = real_fwd(*args)
+        b.record()
+        spans.append((a, b))
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    fwd_ms, attn_ms = [], []
+    with torch.no_grad():
+        logits = gemma3.forward(params, g_cfg, ids, seg, logits_last_k=1)  # warm-up
+        Fl.flash_fwd = timed_flash_fwd
+        try:
+            for _ in range(JUDGE_FORWARDS):
+                spans.clear()
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+                logits = gemma3.forward(params, g_cfg, ids, seg, logits_last_k=1)
+                b.record()
+                b.synchronize()
+                fwd_ms.append(a.elapsed_time(b))
+                attn_ms.append(sum(x.elapsed_time(y) for x, y in spans))
+        finally:
+            Fl.flash_fwd = real_fwd
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_fwd = 1 + JUDGE_FORWARDS
+    want = {k: 0 for k in launches}
+    want["flash_fwd"] = n_global * n_fwd
+    med, med_attn = statistics.median(fwd_ms), statistics.median(attn_ms)
+    log("judge", f"text-only prefill B={JUDGE_B} T={JUDGE_T} left pads={[JUDGE_T - int(n) for n in seg.sum(1)]}: "
+        f"{t.num_layers} layers, {n_global} global (head_dim {t.head_dim_}); forward ms "
+        f"{[round(x, 3) for x in fwd_ms]} (median {med:.3f}); the {n_global} flash forward launches "
+        f"{med_attn:.4f} ms a forward, {100 * med_attn / med:.2f}% of it; peak_memory_GiB={peak:.3f}; launches over {n_fwd} forwards: "
+        f"{ {k: n for k, n in launches.items() if n} } (expected {n_global} flash_fwd a forward, nothing else)")
+    if launches != want:
+        raise AssertionError(f"judge prefill launched {launches}, expected {want}")
+    finite = bool(torch.isfinite(logits).all())
+    if logits.shape != (JUDGE_B, 1, t.vocab_size) or not finite:
+        raise AssertionError(f"judge prefill: logits {tuple(logits.shape)}, finite {finite}")
+    return {"launches": launches["flash_fwd"]}
+
+
 def gemma_phases():
-    """Phase 4c: the full-depth Gemma-3-4B-it attack at batch 4 through ``train(run_tests=True)``,
-    with the dgrad kernel checked at its shapes first. Returns the run's launch counts and the
-    Gemma dgrad statistics. Its tensors are freed on return."""
+    """Phases 4g and 4c: the judge's text-only prefill on the full-depth Gemma-3-4B-it, then its
+    attack at batch 4 through ``train(run_tests=True)``, with the dgrad kernel checked at its
+    shapes first. Returns the run's launch counts, the Gemma dgrad statistics and the prefill's
+    numbers. Its tensors are freed on return."""
     import numpy as np
     import torch
 
@@ -1256,6 +1376,7 @@ def gemma_phases():
     dg = check_dgrad(gemma_dgrad_cases(victim.bundle.params, g_cfg, cfg.batch_size, t_text),
                      "dgrad gemma3")
     torch.cuda.empty_cache()
+    judge = judge_prefill(victim.bundle.params, g_cfg)
 
     x0 = np.full((3, 512, 512), 0.47, np.float32)
     with tempfile.TemporaryDirectory() as runs:
@@ -1335,7 +1456,7 @@ def gemma_phases():
         log("gemma", f"{name}: {len(table) - 1} rows; first answer tail {table[1][1][-60:]!r}")
     if len(probe.chunks) != len(boundaries) * -(-len(test_qs) // decode_bs):
         raise AssertionError(f"gemma path: {len(probe.chunks)} decode chunks")
-    return {"launches": launches, "dgrad": dg}
+    return {"launches": launches, "dgrad": dg, "judge": judge}
 
 
 def gemma_references():
@@ -1352,6 +1473,7 @@ def gemma_references():
     from adversarialvlm_tpu_torch.attack.setup import build_tiny_victim, image_processor
     from adversarialvlm_tpu_torch.attack.step import build_attack_step
     from adversarialvlm_tpu_torch.data import corpora
+    from adversarialvlm_tpu_torch.models import gemma3
     from adversarialvlm_tpu_torch.models.configs import gemma3_4b_it
     from adversarialvlm_tpu_torch.models.llama import _layer_sliding_window
     from adversarialvlm_tpu_torch.models.registry import make_bundle
@@ -1418,6 +1540,30 @@ def gemma_references():
     x_img = np.clip(x0 + 0.5 * np.tanh(p0.numpy()), 0.0, 1.0).astype(np.float32)
     decode_reference(gpu_v, cpu_v, list(corpora.not_safe_questions_test[:3]), x_img,
                      {"flash_full_fwd": cut.vision.num_layers, "flash_fwd": 0, "attention_fwd": 0})
+
+    # the judge's text-only prefill, depth-cut: 2 rows of T 704, one left-padded; global layer 5
+    # takes the head_dim-256 flash forward on the card, the plain path on the CPU
+    seg = torch.ones((2, JUDGE_T), dtype=torch.int32)
+    seg[0, :97] = 0
+    ids = judge_ids(cut, seg, seed=11)
+    last = {}
+    for name, vic, dev in (("cuda", gpu_v, "cuda"), ("cpu", cpu_v, "cpu")):
+        reset_launches()
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            out = gemma3.forward(vic.bundle.params, cut, ids.to(dev), seg.to(dev), logits_last_k=1)
+        last[name] = out[:, -1].double().cpu()
+        got = {k: n for k, n in launch_counts().items() if n}
+        log("reference", f"gemma3 text-only prefill {name}: B=2 T={JUDGE_T} pads=[97, 0] launches={got} "
+            f"in {time.perf_counter() - t1:.1f} s")
+        want = {"flash_fwd": windows.count(None)} if name == "cuda" else {}
+        if got != want:
+            raise AssertionError(f"gemma3 text-only prefill on {name} launched {got}, expected {want}")
+    cos = [float((a * b).sum() / (a.norm() * b.norm())) for a, b in zip(last["cuda"], last["cpu"])]
+    log("reference", f"gemma3 text-only prefill: last-position logits cosine per row {[round(c, 6) for c in cos]} "
+        f"(min {TOL_DECODE_COSINE})")
+    if not min(cos) >= TOL_DECODE_COSINE:
+        raise AssertionError("gemma3 text-only prefill reference: card and CPU disagree")
     log("reference", f"gemma3 references in {time.perf_counter() - t0:.1f} s")
 
 
@@ -1449,17 +1595,24 @@ def main():
                 log("build", f"{name}: {line.strip()}")
         log("build", f"{name}: {res.path.name} in {res.seconds:.1f} s")
     log("build", f"{len(built)} kernel libraries ready in {time.perf_counter() - t0:.1f} s")
+    if sorted(built) != ["causal_bwd", "causal_fwd", "dgrad", "flash_full"]:
+        raise AssertionError(f"expected the four wgmma libraries, built {sorted(built)}")
     wgmma_kernels = {"flash_full": ("full_fwd_kernel", "full_dq_kernel", "full_dkdv_kernel"),
-                     "dgrad": ("dgrad_kernel",), "causal_fwd": ("causal_fwd_kernel",),
-                     "causal_bwd": ("causal_dq_kernel", "causal_dkdv_kernel")}
+                     "dgrad": ("dgrad_kernel",), "causal_fwd": ("causal_fwd_kernel", "causal_fwd256_kernel"),
+                     "causal_bwd": ("causal_dq_kernel", "causal_dkdv_kernel", "causal_dkdv_split_kernel")}
+    # head_dim 256's kernels and the mark of that instantiation in their mangled names
+    d256 = {"causal_fwd256_kernel": "", "causal_dq_kernel": "ILi256E", "causal_dkdv_split_kernel": "ILi256E"}
     for lib, kernels in wgmma_kernels.items():
         hgmma = hgmma_counts(built[lib].path)
         for kernel in kernels:
             counts = [c for name, c in hgmma.items() if kernel in name]
+            at256 = [c for name, c in hgmma.items() if kernel in name and d256.get(kernel, "@") in name]
             log("build", f"{lib}: {kernel}, {len(counts)} instantiations, holds {counts} HGMMA instructions "
-                "in their SASS")
+                f"in their SASS" + (f"; at head_dim 256: {at256}" if kernel in d256 else ""))
             if not counts or min(counts) == 0:
                 raise AssertionError(f"{lib}: {kernel} was compiled without wgmma (no HGMMA in its SASS)")
+            if kernel in d256 and (len(at256) != 1 or at256[0] == 0):
+                raise AssertionError(f"{lib}: {kernel} has no head_dim-256 instantiation holding HGMMA")
         spills = spill_lines(built[lib].log)
         log("build", f"{lib}: ptxas reports {len(spills)} spilling functions")
         if spills:
@@ -1490,6 +1643,10 @@ def main():
     fused_case("packed segments", 2, 8, 610, 128, True, runs=runs)
     fused_case("packed segments, non-causal", 2, 8, 610, 64, False, runs=runs)
     fused_launches = fused_harness()
+    torch.cuda.empty_cache()
+
+    # 3. the head_dim-256 causal kernels at the Gemma-3 judge's text-only prefill shape
+    judge = judge_cases()
     torch.cuda.empty_cache()
 
     llava = llava_phases()
@@ -1547,10 +1704,19 @@ def main():
     kernels[7]["at_prefill_shape"] = pick(full_prefill, timing_keys)
     kernels[0]["at_llava_batch4_shapes"] = pick(llava["dgrad4"], (*timing_keys, "per_step"))
     kernels[0]["at_gemma3_shapes"] = pick(gem["dgrad"], (*timing_keys, "per_step"))
+    # head_dim 256, at the judge's prefill shape: the D-256 instantiations of the same entries, their
+    # launches from phase 4g (the backward has no path: no attack step runs an unmasked D-256 layer)
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv"):
+        st, batch1 = judge["flash"][name], judge["attention"][name.replace("flash", "attention")]
+        kernels.append({
+            "name": f"{name}_d256", "route": "cuda", "source": f"adversarialvlm_tpu_torch/csrc/{sources[name]}",
+            "replaces": replaces[name], "launches": gem["judge"]["launches"] if name == "flash_fwd" else 0,
+            "max_abs_err": st["abs"], "worst_row_rel_err": st["rel"], **pick(st, timing_keys),
+            "at_no_pad": pick(judge["flash_no_pad"][name], timing_keys),
+            "at_batch_1": {"worst_row_rel_err": batch1["rel"], **pick(batch1, timing_keys)},
+            "at_batch_1_no_pad": pick(judge["attention_no_pad"][name.replace("flash", "attention")], timing_keys),
+        })
     for i, name in enumerate(sources):
-        if name in llava["flash256"]:  # head_dim 256: attention.cu's WMMA kernels
-            kernels[i]["at_head_dim_256"] = {"source": "adversarialvlm_tpu_torch/csrc/attention.cu",
-                                             **pick(llava["flash256"][name], timing_keys)}
         if name in fused:
             kernels[i]["at_T_641"] = pick(fused_641[name], timing_keys)
             kernels[i]["at_head_dim_96"] = pick(fused_d96[name], timing_keys)

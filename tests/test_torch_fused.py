@@ -148,7 +148,7 @@ def test_fused_head_dims_and_dtype_checks(monkeypatch):
 def test_fused_entries_are_bound_in_the_wgmma_sources(d):
     """fused.py binds its three entries in causal_fwd.cu (forward) and causal_bwd.cu (dq, dk/dv),
     each in its library's argtypes table, and each entry's dispatch instantiates head_dim d in both
-    mask modes; attention.cu holds no fused entry."""
+    mask modes; no other source holds a fused entry."""
     import re
 
     from adversarialvlm_tpu_torch.ops.kernels.build import CSRC, SOURCES
@@ -168,7 +168,8 @@ def test_fused_entries_are_bound_in_the_wgmma_sources(d):
         else:
             assert "FUSED_DISPATCH(CALL)" in body
             assert re.search(rf"case {d}: return causal \? CALL\({d}, CAUSAL_SEG\) : CALL\({d}, SEG\)", text)
-    assert "fused" not in (CSRC / "attention.cu").read_text().split("#include", 1)[1]
+    for source in set(SOURCES) - {"causal_fwd", "causal_bwd"}:
+        assert 'extern "C" int fused' not in (CSRC / f"{source}.cu").read_text(), source
 
 
 def test_bench_harness_runs_both_paths_on_the_cpu(capsys):

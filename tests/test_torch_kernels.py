@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from adversarialvlm_tpu.models import layers as jax_layers
+from adversarialvlm_tpu.ops.pallas.attention import flash_sdpa as jax_flash_sdpa
 from adversarialvlm_tpu.ops.pallas.attention import flash_sdpa_full as jax_flash_sdpa_full
 from adversarialvlm_tpu.ops.pallas.fused_attention import fused_sdpa_bthd
 from adversarialvlm_tpu.ops.pallas.matmul import dgrad_matmul
@@ -71,14 +72,14 @@ def test_linear_pdx_matches_jax_custom_vjp_and_refuses_weight_grads():
         out.sum().backward()
 
 
-@pytest.mark.parametrize("h,hkv", [(2, 2), (4, 2)], ids=["mha", "gqa"])
-def test_attention_plain_versions_match_fused_sdpa_bthd_interpret(h, hkv):
+@pytest.mark.parametrize("h,hkv,d", [(2, 2, 128), (4, 2, 128), (4, 2, 256)], ids=["mha", "gqa", "gqa_d256"])
+def test_attention_plain_versions_match_fused_sdpa_bthd_interpret(h, hkv, d):
     """Forward, dq and dk/dv of the plain versions (through the FusedAttention Function on CPU
-    tensors) against fused_sdpa_bthd in interpret mode: T=160 with a 20-token left pad, D=128,
-    f32, every row (pad rows included: both attend pad keys at or before the row). Tolerance
-    1e-4 abs: the same f32 math in another order."""
-    t, d, pad = 160, 128, 20
-    rng = np.random.default_rng(h * 10 + hkv)
+    tensors) against fused_sdpa_bthd in interpret mode: T=160 with a 20-token left pad, D=128 or
+    256 (Gemma-3's width), f32, every row (pad rows included: both attend pad keys at or before
+    the row). Tolerance 1e-4 abs: the same f32 math in another order."""
+    t, pad = 160, 20
+    rng = np.random.default_rng(h * 10 + hkv + d)
     q = rng.standard_normal((1, t, h, d)).astype(np.float32)
     k = rng.standard_normal((1, t, hkv, d)).astype(np.float32)
     v = rng.standard_normal((1, t, hkv, d)).astype(np.float32)
@@ -110,6 +111,73 @@ def test_attention_plain_versions_match_fused_sdpa_bthd_interpret(h, hkv):
     dk, dv = A.attention_bwd_dkdv_plain(q_, k_, v_, seg, lse, delta, do_, scale)
     for name, g_, w_ in zip(("o", "dq", "dk", "dv"), (o2, dq, dk, dv), want):
         np.testing.assert_allclose(g_.numpy(), w_, rtol=1e-4, atol=1e-4, err_msg=name)
+
+
+@pytest.fixture(scope="module")
+def qkv_d256():
+    """B=2, H=4, Hkv=2, T=160, D=256 (Gemma-3's head dim, GQA), row 0 left-padded by 20."""
+    rng = np.random.default_rng(256)
+    b, h, hkv, t, d = 2, 4, 2, 160, 256
+    q, do = (rng.standard_normal((b, h, t, d), dtype=np.float32) for _ in range(2))
+    k, v = (rng.standard_normal((b, hkv, t, d), dtype=np.float32) for _ in range(2))
+    mask = np.ones((b, t), np.int32)
+    mask[0, :20] = 0
+    return q, k, v, do, mask
+
+
+def _real_rows(x, mask):
+    """(B, H, T, D) -> the real rows' (N, H, D)."""
+    return np.asarray(x).transpose(0, 2, 1, 3)[mask.astype(bool)]
+
+
+def _repeat_kv(x, q):
+    """(B, Hkv, T, D) -> (B, H, T, D): the JAX flash_sdpa takes k and v at q's heads, as the JAX
+    decoder's repeat_kv hands them over."""
+    return jnp.asarray(np.repeat(x, q.shape[1] // x.shape[1], axis=1))
+
+
+def test_flash_plain_at_head_dim_256_matches_flash_sdpa_interpret(qkv_d256):
+    """The port's flash_sdpa on CPU tensors at head_dim 256 with GQA (its k and v at 2 kv heads)
+    against the JAX flash_sdpa in interpret mode (k and v repeated to the 4 q heads), real rows,
+    1e-4; the explicit plain forward gives the same o."""
+    q, k, v, _, mask = qkv_d256
+    scale = 256**-0.5
+    want = jax_flash_sdpa(jnp.asarray(q), _repeat_kv(k, q), _repeat_kv(v, q), jnp.asarray(mask), scale,
+                          interpret=True)
+    reset_launches()
+    got = Fl.flash_sdpa(*(torch.from_numpy(a) for a in (q, k, v)), torch.from_numpy(mask), scale)
+    assert got.shape == q.shape
+    np.testing.assert_allclose(_real_rows(got, mask), _real_rows(want, mask), rtol=1e-4, atol=1e-4)
+    q4, k4, v4 = (torch.from_numpy(a).transpose(1, 2) for a in (q, k, v))
+    o, _ = Fl.flash_plain(q4, k4, v4, torch.from_numpy(mask), scale)
+    np.testing.assert_allclose(_real_rows(o.transpose(1, 2), mask), _real_rows(want, mask), rtol=1e-4, atol=1e-4)
+    assert launch_counts()["flash_fwd"] == 0  # CPU tensors never launch the kernel
+
+
+def test_flash_function_grads_at_head_dim_256_match_flash_sdpa_interpret(qkv_d256):
+    """q/k/v gradients through the FlashAttention Function at head_dim 256 with GQA (the plain dq,
+    which writes δ, then dk/dv, which sums each kv head's two q heads) against jax.vjp of
+    flash_sdpa in interpret mode, whose k and v gradients at the repeated heads are summed per kv
+    head; under a cotangent on the real rows, real rows, 1e-4."""
+    q, k, v, do, mask = qkv_d256
+    scale = 256**-0.5
+    real = mask.astype(bool)
+    cot = do * real[:, None, :, None]
+    from jax.experimental.pallas import tpu as pltpu
+
+    with pltpu.force_tpu_interpret_mode():
+        _, vjp = jax.vjp(
+            lambda q_, k_, v_: jax_flash_sdpa(q_, k_, v_, jnp.asarray(mask), scale, interpret=True),
+            jnp.asarray(q), _repeat_kv(k, q), _repeat_kv(v, q),
+        )
+        dq_w, dk_w, dv_w = (np.asarray(g) for g in vjp(jnp.asarray(cot)))
+    b, hkv, t, d = k.shape
+    dk_w, dv_w = (g.reshape(b, hkv, -1, t, d).sum(2) for g in (dk_w, dv_w))
+    qt, kt, vt = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
+    Fl.flash_sdpa(qt, kt, vt, torch.from_numpy(mask), scale).backward(torch.from_numpy(cot))
+    for name, g, w in zip("qkv", (qt.grad, kt.grad, vt.grad), (dq_w, dk_w, dv_w)):
+        np.testing.assert_allclose(_real_rows(g, mask), _real_rows(w, mask), rtol=1e-4, atol=1e-4,
+                                   err_msg=f"grad {name}")
 
 
 def _route_case(case):
@@ -233,72 +301,148 @@ def test_vit_route(case):
 
 @pytest.mark.parametrize("d, want", [
     (128, ("causal_bwd", "causal_bwd_dq_bf16", "causal_bwd_dkdv_bf16")),
-    (256, ("attention", "flash_bwd_dq_bf16", "flash_bwd_dkdv_bf16")),
+    (256, ("causal_bwd", "causal_bwd_dq_bf16", "causal_bwd_dkdv_bf16")),
     (64, None), (72, None), (96, None), (512, None),
 ])
 def test_causal_backward_dispatch_by_head_dim(d, want):
     """The causal backward's head-dim dispatch, read without building anything: D = 128 (the
-    decoders' width) goes to the wgmma kernels of causal_bwd.cu, D = 256 to attention.cu's flash
-    entries, from the batch-1 wrappers and the batched ones alike; any other head dim raises. Both
-    entries are bound in their library's argtypes table with the same arguments, and attention.cu
-    no longer runs a D = 128 backward."""
+    decoders' width) and D = 256 (Gemma-3's) go to the wgmma kernels of causal_bwd.cu, from the
+    batch-1 wrappers and the batched ones alike; any other head dim raises. Both entries are bound
+    in causal_bwd's argtypes table and instantiate D in their C dispatch; at 256 dk/dv is the
+    kernel that splits the head dim over two warpgroups."""
     if want is None:
         with pytest.raises(ValueError, match="head_dim"):
             Fl.causal_bwd_entries(d)
         return
     assert Fl.causal_bwd_entries(d) == want
     library, dq_entry, dkdv_entry = want
-    table = Fl._CAUSAL_BWD_SIGNATURES if library == "causal_bwd" else Fl._SIGNATURES
-    assert table[dq_entry] == Fl._CAUSAL_BWD_SIGNATURES["causal_bwd_dq_bf16"]
-    assert table[dkdv_entry] == Fl._CAUSAL_BWD_SIGNATURES["causal_bwd_dkdv_bf16"]
+    assert {dq_entry, dkdv_entry} <= set(Fl._CAUSAL_BWD_SIGNATURES)
     from adversarialvlm_tpu_torch.ops.kernels.build import CSRC
 
-    text = (CSRC / "attention.cu").read_text()
-    for fn in ("bwd_dq", "bwd_dkdv"):
-        body = text[text.index(f"\nint {fn}("):].split("\n}\n", 1)[0]
-        assert "D == 128" not in body and "D == 256" in body, fn
+    text = (CSRC / f"{library}.cu").read_text()
+    for entry, fn in ((dq_entry, "dq"), (dkdv_entry, "dkdv")):
+        body = text[text.index(f'extern "C" int {entry}('):].split("\n}\n", 1)[0]
+        assert f"#define CALL(DD) {fn}<DD, CAUSAL_SEG>" in body and f"case {d}: return CALL({d});" in body, entry
+    if d == 256:
+        dkdv = text[text.index("\nint dkdv("):].split("\n}\n", 1)[0]
+        assert "if constexpr (D > 128)" in dkdv and "causal_dkdv_split_kernel<D, MASK>" in dkdv
 
 
 @pytest.mark.parametrize("d, want", [
     (128, ("causal_fwd", "causal_fwd_bf16")),
-    (256, ("attention", "flash_fwd_bf16")),
+    (256, ("causal_fwd", "causal_fwd_bf16")),
     (64, None), (72, None), (96, None), (512, None),
 ])
 def test_causal_forward_dispatch_by_head_dim(d, want):
-    """The causal forward's head-dim dispatch, read without building anything: D = 128 goes to the
-    wgmma kernel of causal_fwd.cu, D = 256 to attention.cu's flash entry, from the batch-1 wrapper
-    (B = 1) and the batched one alike; any other head dim raises. Both entries are bound with the
-    same arguments, and attention.cu no longer runs a D = 128 forward."""
+    """The causal forward's head-dim dispatch, read without building anything: D = 128 and D = 256
+    go to the wgmma kernel of causal_fwd.cu, from the batch-1 wrapper (B = 1) and the batched one
+    alike; any other head dim raises. The entry is bound in causal_fwd's argtypes table and
+    instantiates D in its C dispatch."""
     if want is None:
         with pytest.raises(ValueError, match="head_dim"):
             Fl.causal_fwd_entries(d)
         return
     assert Fl.causal_fwd_entries(d) == want
     library, entry = want
-    table = Fl._CAUSAL_FWD_SIGNATURES if library == "causal_fwd" else Fl._SIGNATURES
-    assert table[entry] == Fl._CAUSAL_FWD_SIGNATURES["causal_fwd_bf16"]
+    assert entry in Fl._CAUSAL_FWD_SIGNATURES
     from adversarialvlm_tpu_torch.ops.kernels.build import CSRC
 
-    text = (CSRC / "attention.cu").read_text()
-    body = text[text.index("\nint fwd("):].split("\n}\n", 1)[0]
-    assert "D == 128" not in body and "D == 256" in body
+    text = (CSRC / f"{library}.cu").read_text()
+    body = text[text.index(f'extern "C" int {entry}('):].split("\n}\n", 1)[0]
+    assert f"case {d}: return launch<{d}, CAUSAL_SEG>(" in body
 
 
-def test_attention_cu_holds_only_the_head_dim_256_causal_entries():
-    """attention.cu keeps the head_dim-256 causal kernels behind the flash entries and nothing else:
-    no segment-only (non-causal) mask mode, no fused_sdpa entry or dispatch, no forward or backward
-    instantiated at head_dim 128; those are the wgmma kernels of causal_fwd.cu and causal_bwd.cu."""
+def test_sources_are_the_four_wgmma_libraries():
+    """build.SOURCES is the four wgmma/TMA libraries, one source each under csrc/; no source or
+    header there includes <mma.h> or uses the WMMA API (the port's last WMMA kernels went with
+    attention.cu), and every wgmma source names the wgmma instruction it runs."""
     import re
 
+    from adversarialvlm_tpu_torch.ops.kernels.build import CSRC, SOURCES, local_headers
+
+    assert SOURCES == ("dgrad", "flash_full", "causal_fwd", "causal_bwd")
+    assert sorted(p.stem for p in CSRC.glob("*.cu")) == sorted(SOURCES)
+    for path in [*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]:
+        text = path.read_text()
+        assert not re.search(r"#include\s*<mma\.h>|\bwmma::|nvcuda", text), path.name
+    for name in SOURCES:
+        text = "".join((CSRC / h).read_text() for h in [f"{name}.cu", *local_headers(name)])
+        assert "wgmma.mma_async" in text, name
+
+
+SMEM_BYTES = 232_448     # shared memory a block may use on the H100
+SM_SMEM_BYTES = 233_472  # shared memory of an SM, 1 KiB of it reserved for each block
+MAX_REGISTERS = 255      # registers a thread may hold
+
+
+def _causal_plan(d: int, t: int) -> dict[str, dict[str, int]]:
+    """The causal kernels' plans at head dim ``d`` over rows of ``t`` tokens, a Python mirror of the C
+    plans (``csrc/causal_fwd.cu``: ``WGS``, ``STAGES`` and, at 256, ``causal_fwd256_kernel``;
+    ``csrc/causal_bwd.cu``: ``DqPlan`` and, at 256, ``causal_dkdv_split_kernel``), read without
+    building anything: per kernel ("fwd", "dq", "dkdv") the warpgroups of a block, the blocks an SM
+    holds, the query and key rows of its tiles, the K/V tiles it buffers, its shared memory in
+    bytes (as the C ``*Smem`` structs count it, with the 1 KiB that aligns the 128-byte-swizzled
+    tiles of head dim 256) and the f32 accumulator registers a thread holds (the output's and the
+    scores'). At 256 a warpgroup's 64 × 256 f32 output is 128 registers a thread and a 64-row
+    tile 32 KiB, which set every plan there."""
+    n, wide = Fl.TILE, d > 128
+    align = 1024 if wide else 0
+    tiles = -(-t // n)  # the forward keeps each tile's segment interval (each half's at 256)
+
+    def tile(rows):
+        return rows * d * 2
+
+    if wide:  # one warpgroup, one K and one V buffer loaded in turns, two blocks an SM
+        fwd = dict(warpgroups=1, blocks_per_sm=2, query_rows=n, key_rows=n, kv_buffers=2,
+                   smem_bytes=3 * tile(n) + n * 4 + 16 * tiles + align, acc_registers=d // 2 + n // 2)
+    else:  # three warpgroups sharing a three-stage ring
+        fwd = dict(warpgroups=3, blocks_per_sm=1, query_rows=3 * n, key_rows=n, kv_buffers=6,
+                   smem_bytes=9 * tile(n) + 3 * n * 4 + 8 * tiles, acc_registers=d // 2 + n // 2)
+    dq_wgs, bk = (2, 32) if wide else (1, 64)
+    dq = dict(warpgroups=dq_wgs, blocks_per_sm=2 // dq_wgs, query_rows=n * dq_wgs, key_rows=bk, kv_buffers=4,
+              smem_bytes=2 * dq_wgs * tile(n) + 4 * tile(bk) + 2 * bk * 4 + align, acc_registers=d // 2 + bk)
+    rowvals = 3 * 2 * n * 4  # the ring's lse, δ and segment ids
+    if wide:  # two warpgroups split the head dim; Pᵀ and dSᵀ meet in shared memory as bf16
+        dkdv = dict(warpgroups=2, blocks_per_sm=1, query_rows=n, key_rows=n, kv_buffers=2,
+                    smem_bytes=6 * tile(n) + 2 * n * n * 2 + rowvals + align, acc_registers=d // 2 + n // 2)
+    else:
+        dkdv = dict(warpgroups=1, blocks_per_sm=2, query_rows=n, key_rows=n, kv_buffers=2,
+                    smem_bytes=6 * tile(n) + rowvals, acc_registers=d + n)
+    return {"fwd": fwd, "dq": dq, "dkdv": dkdv}
+
+
+@pytest.mark.parametrize("d", Fl.HEAD_DIMS)
+def test_causal_plans_fit_the_card(d):
+    """The causal kernels' plans at head dim d (_causal_plan, a Python mirror of the C plans), at
+    the judge's T of 704 and at the forward's largest T (4096 tiles of 64): each
+    block's shared memory fits the 232,448 bytes a block may use on the H100, the blocks an SM
+    holds fit its 228 KiB with 1 KiB reserved each (at 704), each thread's f32 accumulators (output
+    and scores) fit the 255 registers a thread may hold and the SM's 65,536 with its blocks'. The
+    mirror's shapes are the C sources': at 256 the forward runs one warpgroup with one K and one V
+    buffer, two blocks an SM; dq two warpgroups over 32-row key tiles; dk/dv two warpgroups
+    splitting the head dim."""
     from adversarialvlm_tpu_torch.ops.kernels.build import CSRC
 
-    text = (CSRC / "attention.cu").read_text()
-    code = "\n".join(line.split("//", 1)[0] for line in text.splitlines())  # comments dropped
-    assert not re.search(r"\bSEG\b|CAUSAL_SEG|enum Mask|\bfused|FUSED|layout_of", code)
-    assert re.findall(r'extern "C" int (\w+)\(', code) == ["flash_fwd_bf16", "flash_bwd_dq_bf16",
-                                                            "flash_bwd_dkdv_bf16"]
-    assert sorted(set(re.findall(r"launch_(?:fwd|dq|dkdv)<(\d+),", code))) == ["256"]
-    assert "D == 128" not in code
+    for t in (704, 4096 * 64):
+        for kernel, p in _causal_plan(d, t).items():
+            assert p["smem_bytes"] <= SMEM_BYTES, (kernel, t, p)
+            assert p["acc_registers"] <= MAX_REGISTERS, (kernel, p)
+            threads = p["blocks_per_sm"] * p["warpgroups"] * 128
+            assert threads * p["acc_registers"] <= 65_536, (kernel, p)
+            if t == 704:
+                assert p["blocks_per_sm"] * (p["smem_bytes"] + 1024) <= SM_SMEM_BYTES, (kernel, p)
+    plan = _causal_plan(d, 704)
+    fwd = (CSRC / "causal_fwd.cu").read_text()
+    bwd = (CSRC / "causal_bwd.cu").read_text()
+    assert "constexpr int WGS = 3, STAGES = 3;" in fwd
+    assert "__launch_bounds__(128, 2)  // two blocks an SM" in fwd and "struct Fwd256Smem" in fwd
+    assert "WGS = D > 128 ? 2 : 1, BK = D > 128 ? 32 : 64;" in bwd
+    wide = d > 128
+    assert (plan["fwd"]["warpgroups"], plan["fwd"]["blocks_per_sm"]) == ((1, 2) if wide else (3, 1))
+    assert (plan["dq"]["warpgroups"], plan["dq"]["key_rows"]) == ((2, 32) if wide else (1, 64))
+    assert plan["dkdv"]["warpgroups"] == (2 if wide else 1)
+    if wide:  # what forces the plans at 256: one warpgroup's whole dK and dV would not fit
+        assert 2 * (d // 2) > MAX_REGISTERS
 
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "segments"])
@@ -414,15 +558,14 @@ def _c_entries(source: str) -> dict[str, list]:
     return entries
 
 
-@pytest.mark.parametrize("source", ["dgrad", "attention", "flash_full", "causal_fwd", "causal_bwd"])
+@pytest.mark.parametrize("source", ["dgrad", "flash_full", "causal_fwd", "causal_bwd"])
 def test_signature_tables_match_the_c_entries(source):
     """Each library of build.SOURCES is bound entry for entry: the wrappers' argtypes tables (read
     without building or loading anything) name every ``extern "C"`` entry of the source and no
     other, with c_void_p for every pointer and the stream (a pointer passed as a 32-bit int is
     cut) and the C types of the rest. flash_full's entries live in their own source, the causal
-    forward's and backward's at head_dim 128 and fused_sdpa's in theirs, and attention.cu keeps
-    only the head_dim-256 flash entries; no entry is named twice, in one source or across
-    sources."""
+    forward's and backward's (head_dim 128 and 256) and fused_sdpa's in theirs; no entry is named
+    twice, in one source or across sources."""
     import re
 
     from adversarialvlm_tpu_torch.ops.kernels import dgrad as Dg
@@ -431,7 +574,6 @@ def test_signature_tables_match_the_c_entries(source):
 
     tables = {
         "dgrad": [Dg._SIGNATURES],
-        "attention": [Fl._SIGNATURES],
         "flash_full": [Fl._FULL_SIGNATURES],
         "causal_fwd": [Fl._CAUSAL_FWD_SIGNATURES, Fu._FWD_SIGNATURES],
         "causal_bwd": [Fl._CAUSAL_BWD_SIGNATURES, Fu._BWD_SIGNATURES],
@@ -444,9 +586,6 @@ def test_signature_tables_match_the_c_entries(source):
         assert argtypes == c[name], name
     if source == "flash_full":
         assert sorted(c) == ["flash_full_bwd_dkdv_bf16", "flash_full_bwd_dq_bf16", "flash_full_fwd_bf16"]
-        assert not any(n.startswith("flash_full") for n in _c_entries("attention"))
-    if source == "attention":
-        assert sorted(c) == ["flash_bwd_dkdv_bf16", "flash_bwd_dq_bf16", "flash_fwd_bf16"]
     if source == "causal_fwd":
         assert sorted(c) == ["causal_fwd_bf16", "fused_fwd_bf16"]
     if source == "causal_bwd":
@@ -459,13 +598,13 @@ def test_signature_tables_match_the_c_entries(source):
 
 
 @pytest.mark.parametrize("source, headers", [
-    ("dgrad", []), ("attention", []), ("flash_full", []),
+    ("dgrad", []), ("flash_full", []),
     ("causal_fwd", ["attention_sm90.cuh"]), ("causal_bwd", ["attention_sm90.cuh"]),
-])
+], ids=["dgrad-headers0", "flash_full-headers2", "causal_fwd-headers3", "causal_bwd-headers4"])  # fixed test names
 def test_library_hash_covers_the_included_headers_only(source, headers, tmp_path, monkeypatch):
     """A library's file name hashes its source and the csrc headers it includes, and no other
     header: editing attention_sm90.cuh renames the two wgmma attention libraries that include it
-    (so neither loads stale), and leaves the other three as they were (no needless rebuild). Read on a
+    (so neither loads stale), and leaves the other two as they were (no needless rebuild). Read on a
     copy of csrc/, without building anything."""
     import shutil
 

@@ -54,9 +54,8 @@ class AttackConfig:
     # at/after each multiple of N iterations; 0 disables the monitor forward
     loss_resaved_every: int = 1
     mask_refresh_random_square: bool = False  # moving-patch variant (M-fork)
-    # true resume from an attack-state checkpoint and profiler traces: fields kept for
-    # config.json compatibility with the JAX package; the port raises for both until they
-    # are ported (ROADMAP modules: resume, profiling and bench)
+    # true resume from an attack-state checkpoint (attack_state_*.pt, attack/io.py) and a
+    # profiler trace of the second chunk into this directory (attack/engine.py::train)
     resume_state: str | None = None
     profile_dir: str | None = None
 

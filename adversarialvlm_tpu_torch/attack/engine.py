@@ -8,8 +8,11 @@ when due, and the test decode of the held-out questions on the uint8-round-tripp
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -17,6 +20,8 @@ import torch
 from adversarialvlm_tpu_torch.attack.config import AttackConfig
 from adversarialvlm_tpu_torch.attack.io import (
     create_directory,
+    load_attack_state,
+    save_attack_state,
     save_checkpoint,
     save_config,
     save_mask,
@@ -47,12 +52,13 @@ class VictimSetup:
     bundle: object        # models.registry.ModelBundle
     adv_processor: object
     adv_inputs: object    # processors.adv_inputs.AdvInputs
+    # the dtype the step and the decode caches run in, as the victim was made (a loaded
+    # checkpoint keeps its norms in f32 whatever it computes in)
+    compute_dtype: torch.dtype = torch.float32
 
-    def handles(self, compute_dtype=None) -> VictimHandles:
+    def handles(self) -> VictimHandles:
         dev = self.bundle.device
         ai = self.adv_inputs
-        if compute_dtype is None:
-            compute_dtype = self.bundle.params["language_model"]["norm"]["weight"].dtype
         return VictimHandles(
             name=self.name,
             forward=self.bundle.forward,
@@ -66,8 +72,15 @@ class VictimSetup:
             shift=ai.shift,
             pad_token_id=ai.pad_token_id,
             device=dev,
-            compute_dtype=compute_dtype,
+            compute_dtype=self.compute_dtype,
         )
+
+
+def _profiler(device: torch.device):
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    return torch.profiler.profile(activities=activities)
 
 
 class _StepClock:
@@ -114,7 +127,13 @@ def train(
     blurred at the fixed σ when ``use_gaussian_blur`` and ``transform_prob >= 1``),
     metrics.jsonl (one row per step, with its ``step_ms``) and, with ``run_tests``,
     test_results_iter_<iteration>.csv at each save boundary (greedy answers of
-    ``test_max_new_tokens`` tokens to the held-out questions)."""
+    ``test_max_new_tokens`` tokens to the held-out questions), and the attack state at each save
+    boundary, attack_state_iter_<global_iter>.pt and attack_state_latest.pt.
+
+    ``cfg.resume_state`` (such a file) continues that run: p, the optimizer, the counters and
+    every generator as they were saved, the chunks realigned to the save grid and the
+    resaved-loss monitor's cadence kept. ``cfg.profile_dir`` traces the second chunk with
+    torch.profiler (host and, on the card, device activity) into a Chrome trace there."""
     dev = resolve_device(device)
     cross = len(victims) > 1 if cross is None else cross
     waiting = unported_features(cfg, cross)
@@ -122,6 +141,16 @@ def train(
         raise NotImplementedError("not ported yet: " + ", ".join(waiting))
     if any(v.bundle.device != dev for v in victims):
         raise ValueError(f"victims must live on {dev}")
+    if cfg.grad_accum_steps > 1:
+        # the reference's quirk, kept: PNGs are numbered by optimizer applies, test CSVs by loop
+        # iteration, and the eval layer's iteration+1 image lookup only lines up when the two
+        # counters advance together
+        warnings.warn(
+            f"grad_accum_steps={cfg.grad_accum_steps}: checkpoint images are numbered by optimizer "
+            "step (reference parity), so the eval stack's test-iteration+1 image lookup will not "
+            "match them; run SafeBench/test_post against the PNG names actually written",
+            stacklevel=2,
+        )
 
     exp_path = create_directory(cfg.exp_name, base_path)
     save_config(dataclasses.asdict(cfg), exp_path)
@@ -142,6 +171,10 @@ def train(
     state = init_state(cfg, x0_dev)
     draws = torch.Generator().manual_seed(cfg.seed)
     transforms = TransformDraws(cfg, x0.shape, cfg.seed)
+    generators = {"draws": draws, "noise": step.noise_gen,
+                  **{f"transform_{k}": g for k, g in transforms.gens.items()}}
+    if cfg.resume_state:
+        load_attack_state(cfg.resume_state, state, generators)
     resaved_fn = build_resaved_loss_fn(handles, cfg, x0_dev) if cfg.loss_resaved_every else None
 
     def current_image() -> np.ndarray:
@@ -151,6 +184,7 @@ def train(
     def checkpoint_and_test(iteration: int) -> None:
         img = current_image()
         png = save_checkpoint(img, exp_path, state["global_iteration"])
+        save_attack_state(state, generators, exp_path, state["global_iteration"])
         logger.log_image("adversarial_image", png, iteration)
         if not run_tests:
             return
@@ -175,18 +209,30 @@ def train(
                              [[iteration, *first_row]], iteration)
 
     clock = _StepClock(dev)
-    it, last_resaved_bucket = 0, -1
+    it, chunks_run = state["iteration"], 0
+    # a resumed run fires the monitor at the next multiple of loss_resaved_every, not at once
+    last_resaved_bucket = (it - 1) // cfg.loss_resaved_every if cfg.loss_resaved_every and it else -1
     try:
         while it < cfg.num_iterations:
             # run to the next save boundary: the reference checkpoints after step k whenever
-            # k % save_steps == 0, and after the last step
+            # k % save_steps == 0, and after the last step (a resume off that grid lands back on
+            # it)
             chunk = min(cfg.save_steps - ((it - 1) % cfg.save_steps), cfg.num_iterations - it)
+            profiling = cfg.profile_dir is not None and chunks_run == 1
             rows = []
-            clock.mark()
-            for xs in sample_chunk_xs(draws, chunk, cfg, handles, transforms):
-                state, metrics = step(state, xs)
+            with _profiler(dev) if profiling else contextlib.nullcontext() as prof:
                 clock.mark()
-                rows.append(metrics)
+                for xs in sample_chunk_xs(draws, chunk, cfg, handles, transforms):
+                    state, metrics = step(state, xs)
+                    clock.mark()
+                    rows.append(metrics)
+                if profiling and dev.type == "cuda":
+                    torch.cuda.synchronize()
+            if profiling:
+                os.makedirs(cfg.profile_dir, exist_ok=True)
+                prof.export_chrome_trace(
+                    os.path.join(cfg.profile_dir, f"trace_iter_{it}-{it + chunk - 1}.json"))
+            chunks_run += 1
             step_ms = clock.step_ms()
             for j, metrics in enumerate(rows):
                 row = {k: v.item() if torch.is_tensor(v) else v for k, v in metrics.items()}

@@ -1,6 +1,8 @@
-"""Victim construction: model + differentiable processor + prompt pools. Counterpart of
-adversarialvlm_tpu/attack/setup.py::build_tiny_victim for the llava and gemma3 families; victims
-built from checkpoints wait for the checkpoint loader (ROADMAP modules: checkpoint loading)."""
+"""Victim construction: model + differentiable processor + prompt pools, from random weights or
+from a local HF checkpoint directory. Counterpart of adversarialvlm_tpu/attack/setup.py::
+build_tiny_victim and build_victim_from_checkpoint for the llava and gemma3 families (without the
+HBM remat ladder, which an 80 GB card does not need, and without int8 weights: ROADMAP modules:
+judge and eval)."""
 
 from __future__ import annotations
 
@@ -10,6 +12,7 @@ from adversarialvlm_tpu_torch.attack.engine import VictimSetup
 from adversarialvlm_tpu_torch.data import corpora
 from adversarialvlm_tpu_torch.models.configs import VLMConfig, tiny_gemma3, tiny_llava
 from adversarialvlm_tpu_torch.models.registry import make_bundle
+from adversarialvlm_tpu_torch.processors import family_of, load_model_and_processor
 from adversarialvlm_tpu_torch.processors.adv_inputs import AdvInputs
 from adversarialvlm_tpu_torch.processors.configs import MODEL_IMAGE_CONFIGS, ImageProcessorConfig
 from adversarialvlm_tpu_torch.processors.gemma3 import DifferentiableGemma3ImageProcessor
@@ -77,8 +80,50 @@ def build_tiny_victim(
         pad_token_id=tok.pad_token_id,
         image_expansion_ids=_image_expansion(family, vlm_cfg, tok, n_img),
     )
-    bundle = make_bundle(name, family, vlm_cfg, dev, seed=seed, dtype=dtype or torch.float32)
-    return VictimSetup(name=name, bundle=bundle, adv_processor=adv_proc, adv_inputs=adv_inputs)
+    dtype = dtype or torch.float32
+    bundle = make_bundle(name, family, vlm_cfg, dev, seed=seed, dtype=dtype)
+    return VictimSetup(name=name, bundle=bundle, adv_processor=adv_proc, adv_inputs=adv_inputs,
+                       compute_dtype=dtype)
+
+
+def build_victim_from_checkpoint(
+    model_name: str,
+    checkpoint_path: str,
+    cfg_attack,
+    in_hw: tuple[int, int],
+    dtype=torch.bfloat16,
+    device=None,
+    questions: list[str] | None = None,
+    targets: list[str] | None = None,
+    test_questions: list[str] | None = None,
+) -> VictimSetup:
+    """The victim of a local HF checkpoint directory (processors.load_model_and_processor): its
+    weights on ``device`` (default: the card), the config patched from config.json, and the
+    prompt pools tokenized by the checkpoint's own tokenizer. The step runs in ``dtype``, not in
+    the f32 the loader keeps the norms in."""
+    dev = resolve_device(device)
+    family = family_of(model_name)
+    bundle, tok, adv_proc = load_model_and_processor(model_name, checkpoint_path, in_hw, dtype, dev)
+    vlm_cfg = bundle.cfg
+    if questions is None or targets is None:
+        questions, targets = questions_and_targets(cfg_attack)
+    n_img = _num_image_tokens(family, vlm_cfg)
+    adv_inputs = AdvInputs(
+        spec=spec_for_family(family),
+        tokenizer=tok,
+        questions=questions,
+        test_questions=(
+            test_questions if test_questions is not None else corpora.not_safe_questions_test
+        ),
+        batch_size=cfg_attack.batch_size,
+        target_texts=targets,
+        num_image_tokens=n_img,
+        image_token_id=vlm_cfg.image_token_id,
+        pad_token_id=tok.pad_token_id,
+        image_expansion_ids=_image_expansion(family, vlm_cfg, tok, n_img),
+    )
+    return VictimSetup(name=model_name, bundle=bundle, adv_processor=adv_proc,
+                       adv_inputs=adv_inputs, compute_dtype=dtype)
 
 
 def image_processor(vlm_cfg: VLMConfig, in_hw, device):

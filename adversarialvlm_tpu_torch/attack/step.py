@@ -61,8 +61,6 @@ def unported_features(cfg: AttackConfig, cross: bool = False) -> list[str]:
     waits = {
         "cross-model attack (ROADMAP modules: cross attack and DPO)": cross,
         "DPO_flag (ROADMAP modules: cross attack and DPO)": cfg.DPO_flag,
-        "resume_state (ROADMAP modules: resume, profiling and bench)": cfg.resume_state is not None,
-        "profile_dir (ROADMAP modules: resume, profiling and bench)": cfg.profile_dir is not None,
     }
     return [name for name, asked in waits.items() if asked]
 

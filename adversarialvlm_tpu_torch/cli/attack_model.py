@@ -3,10 +3,15 @@
     python -m adversarialvlm_tpu_torch.cli.attack_model --model_name random:llava-1.5-7b \\
         --img_orig gray.png
 
-Model names: ``random:llava-1.5-7b`` (full-size LLaVA-1.5-7B) and ``random:gemma-3-4b-it``
-(full-size Gemma-3-4B-it, its SigLIP tower at 4096 patches), both with random bf16 weights, and
-``tiny:llava`` and ``tiny:gemma3`` (tiny random models, f32), all with the byte tokenizer.
-Checkpoint loading is not ported yet. Runs on the card
+Model names: an HF name of processors.MODEL_MAP (``llava-hf/llava-1.5-7b-hf``,
+``google/gemma-3-4b-it``, ``google/gemma-3-12b-it``) loads its local checkpoint directory,
+``<root>/<org>/<name>`` or ``<root>/<name>`` under ``--checkpoint_root`` or
+``$ADVLM_CHECKPOINTS`` (bf16 on the card, f32 on the CPU; ``cli/fabricate_ckpt.py`` writes such a
+directory from random weights); ``random:llava-1.5-7b`` (full-size LLaVA-1.5-7B) and
+``random:gemma-3-4b-it`` (full-size Gemma-3-4B-it, its SigLIP tower at 4096 patches), both with
+random bf16 weights, and ``tiny:llava`` and ``tiny:gemma3`` (tiny random models, f32) take the
+byte tokenizer. ``--resume_state runs/<exp>/attack_state_latest.pt`` continues a run where its
+state was saved; ``--profile_dir`` traces the second chunk. Runs on the card
 unless ``--device cpu``, at the default ``--batch_size 4`` or any other. As the JAX CLI does, every
 save boundary decodes the 50 held-out questions on the saved image and writes
 test_results_iter_<N>.csv.
@@ -15,6 +20,7 @@ test_results_iter_<N>.csv.
 from __future__ import annotations
 
 import argparse
+import os
 from datetime import datetime
 
 import torch
@@ -88,9 +94,23 @@ def attack_config_from_args(args, **overrides):
 MODEL_NAMES = ("random:llava-1.5-7b", "random:gemma-3-4b-it", "tiny:llava", "tiny:gemma3")
 
 
-def build_victim(model_name: str, cfg, in_hw, device):
-    from adversarialvlm_tpu_torch.attack.setup import build_tiny_victim
+def resolve_checkpoint(model_name: str, checkpoint_root: str | None) -> str:
+    """The local directory of an HF model name: ``<root>/<org>/<name>`` or ``<root>/<name>``
+    under ``--checkpoint_root``, else ``$ADVLM_CHECKPOINTS``, else ``./checkpoints``."""
+    root = checkpoint_root or os.environ.get("ADVLM_CHECKPOINTS", "./checkpoints")
+    for cand in (os.path.join(root, model_name), os.path.join(root, model_name.split("/")[-1])):
+        if os.path.isdir(cand):
+            return cand
+    raise FileNotFoundError(f"no local checkpoint for {model_name} under {root} "
+                            "(set --checkpoint_root or $ADVLM_CHECKPOINTS)")
+
+
+def build_victim(model_name: str, cfg, in_hw, device, checkpoint_root: str | None = None):
+    """``random:*`` and ``tiny:*`` names build random-weight victims with the byte tokenizer;
+    an HF name (processors.MODEL_MAP) loads its checkpoint directory."""
+    from adversarialvlm_tpu_torch.attack.setup import build_tiny_victim, build_victim_from_checkpoint
     from adversarialvlm_tpu_torch.models.configs import gemma3_4b_it, llava_1_5_7b
+    from adversarialvlm_tpu_torch.processors import family_of
 
     full_size = {"random:llava-1.5-7b": llava_1_5_7b, "random:gemma-3-4b-it": gemma3_4b_it}
     if model_name in full_size:
@@ -99,11 +119,12 @@ def build_victim(model_name: str, cfg, in_hw, device):
     if model_name in ("tiny:llava", "tiny:gemma3"):
         return build_tiny_victim(model_name, cfg, in_hw, seed=cfg.seed, device=device,
                                  family=model_name.split(":")[1])
-    raise NotImplementedError(
-        f"model {model_name!r}: checkpoint loading and other families are not ported yet "
-        "(ROADMAP modules: checkpoint loading; other victim families); use one of "
-        + ", ".join(MODEL_NAMES)
-    )
+    if ":" in model_name:
+        raise ValueError(f"model {model_name!r}: use an HF name or one of " + ", ".join(MODEL_NAMES))
+    family_of(model_name)  # names a family the port does not run before any file is read
+    dtype = torch.bfloat16 if torch.device(device).type == "cuda" else torch.float32
+    return build_victim_from_checkpoint(model_name, resolve_checkpoint(model_name, checkpoint_root),
+                                        cfg, in_hw, dtype=dtype, device=device)
 
 
 def main(argv=None):
@@ -138,7 +159,7 @@ def main(argv=None):
     x0 = load_image_chw(args.img_orig)
     in_hw = (x0.shape[1], x0.shape[2])
     print("Original image size:", (in_hw[1], in_hw[0]))
-    victim = build_victim(args.model_name, cfg, in_hw, device)
+    victim = build_victim(args.model_name, cfg, in_hw, device, args.checkpoint_root)
     return train(cfg, [victim], x0, base_path=args.runs_path, cross=False, device=device)
 
 

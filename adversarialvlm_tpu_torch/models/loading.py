@@ -1,0 +1,290 @@
+"""HF checkpoint directory -> the port's parameter tree, for the llava and gemma3 families.
+Counterpart of adversarialvlm_tpu/models/loading.py (its llava and gemma3 halves).
+
+Shards are read by the port's own safetensors reader (utils/safetensors.py), each tensor copied to
+its device in turn. Both pre- and post-4.52 transformers key layouts load (``language_model.
+model.*`` as on the hub, ``model.language_model.*`` as newer versions save). Keys the JAX
+converters drop on purpose (CLIP's unused ``post_layernorm``) are dropped; any other key without
+a mapping raises, and so does a loaded tree whose keys or shapes differ from the model's.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+
+import torch
+
+from adversarialvlm_tpu_torch.utils.safetensors import read_dir
+
+
+def _set(tree: dict, path: list[str], value) -> None:
+    node = tree
+    for k in path[:-1]:
+        node = node.setdefault(k, {})
+    if path[-1] in node:
+        raise ValueError(f"two checkpoint keys map to {'.'.join(path)}")
+    node[path[-1]] = value
+
+
+def _unmapped(family: str, key: str) -> ValueError:
+    return ValueError(f"{family} checkpoint key {key!r} has no place in the port's parameter tree")
+
+
+def _normalize_llava_key(key: str) -> str | None:
+    """An HF llava state-dict key as a dotted path of the tree; None for CLIP's post_layernorm,
+    which feature layer -2 never reads."""
+    k = key
+    if k.startswith("model."):  # new-style prefix
+        k = k[len("model."):]
+    k = k.replace("language_model.model.", "language_model.")  # old-style nested decoder
+    k = k.replace("language_model.lm_head.", "lm_head.")
+    if k.startswith("lm_head."):
+        return "language_model." + k  # the decoder looks its head up in its own subtree
+    if k.startswith("vision_tower.vision_model."):
+        k = k[len("vision_tower.vision_model."):]
+        k = k.replace("embeddings.", "").replace("encoder.layers.", "layers.")
+        if k.startswith("post_layernorm"):
+            return None
+        return "vision_tower." + k
+    if k.startswith("multi_modal_projector.") or k.startswith("language_model."):
+        return k
+    raise _unmapped("llava", key)
+
+
+def _normalize_gemma3_key(key: str) -> str:
+    k = key
+    if k.startswith("model."):
+        k = k[len("model."):]
+    k = k.replace("language_model.model.", "language_model.")
+    if k.startswith("lm_head."):
+        return "language_model." + k
+    if k.startswith("vision_tower.vision_model."):
+        k = k[len("vision_tower.vision_model."):]
+        # unlike CLIP-based towers, siglip's post_layernorm is used
+        return "vision_tower." + k.replace("embeddings.", "").replace("encoder.layers.", "layers.")
+    if k.startswith("multi_modal_projector.") or k.startswith("language_model."):
+        return k
+    # text-only Gemma3ForCausalLM checkpoints: bare decoder keys
+    if k.startswith("layers.") or k in ("embed_tokens.weight", "norm.weight"):
+        return "language_model." + k
+    raise _unmapped("gemma3", key)
+
+
+def _listify_layers(tree):
+    """{'layers': {'0': {...}, '1': {...}}} -> [{...}, {...}]."""
+    if not isinstance(tree, dict):
+        return tree
+    out = {}
+    for k, v in tree.items():
+        v = _listify_layers(v)
+        if k == "layers" and isinstance(v, dict) and all(s.isdigit() for s in v):
+            if sorted(map(int, v)) != list(range(len(v))):
+                raise ValueError(f"layer indices {sorted(map(int, v))} are not 0..{len(v) - 1}")
+            v = [v[str(i)] for i in range(len(v))]
+        out[k] = v
+    return out
+
+
+def _convert(sd, normalize) -> dict:
+    tree: dict = {}
+    for key, tensor in sd:
+        norm = normalize(key)
+        if norm is not None:
+            _set(tree, norm.split("."), tensor)
+    return _listify_layers(tree)
+
+
+def convert_llava_state_dict(sd) -> dict:
+    """The tree of an HF llava state dict's (key, tensor) pairs, tensors untouched."""
+    return _convert(sd, _normalize_llava_key)
+
+
+def convert_gemma3_state_dict(sd) -> dict:
+    return _convert(sd, _normalize_gemma3_key)
+
+
+def named_leaves(tree, prefix: str = ""):
+    """(dotted path, leaf) of a parameter tree, list indices as path parts ("layers.0.mlp")."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from named_leaves(v, f"{prefix}.{k}" if prefix else k)
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from named_leaves(v, f"{prefix}.{i}")
+    else:
+        yield prefix, tree
+
+
+def to_device_tree(tree, dtype=torch.bfloat16, device="cuda"):
+    """Each host tensor to ``device`` in turn, a leaf replaced in its tree as it ships (so the
+    host view it came from can be released): the JAX loader's dtype rule, norms in f32 ("ln_"
+    catches LayerNorms whose names lack "norm") and the rest in ``dtype``."""
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, path + [k]) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v, path + [str(i)]) for i, v in enumerate(node)]
+        name = "/".join(path)
+        f32 = "norm" in name or "layernorm" in name.lower() or "/ln_" in "/" + name
+        return node.to(device=device, dtype=torch.float32 if f32 else dtype)
+
+    return walk(tree, [])
+
+
+def check_tree(params: dict, expected: dict, where: str) -> None:
+    """Raise unless ``params`` has exactly ``expected``'s keys, each with its shape (``expected``
+    is the model's init on the meta device)."""
+    got = {k: tuple(t.shape) for k, t in named_leaves(params)}
+    want = {k: tuple(t.shape) for k, t in named_leaves(expected)}
+    missing, extra = sorted(set(want) - set(got)), sorted(set(got) - set(want))
+    shapes = [f"{k}: {got[k]} != {want[k]}" for k in sorted(set(got) & set(want)) if got[k] != want[k]]
+    if missing or extra or shapes:
+        raise ValueError(f"{where}: the checkpoint does not fit the model: missing {missing[:8]}, "
+                         f"unexpected {extra[:8]}, shapes {shapes[:8]}")
+
+
+def _eos_fields(raw_eos) -> dict:
+    """config.json's eos_token_id is an int or a list of ids (an empty list: the family's)."""
+    if raw_eos is None:
+        return {}
+    if isinstance(raw_eos, (list, tuple)):
+        if not raw_eos:
+            return {}
+        return {"eos_token_id": raw_eos[0], "extra_eos_token_ids": tuple(raw_eos[1:])}
+    return {"eos_token_id": raw_eos}
+
+
+def _checkpoint_eos(path: str, raw: dict):
+    """The eos ids for decoding: generation_config.json's (HF's authority for stopping, with the
+    multi-eos lists), else text_config's, else the top level's; None when absent everywhere."""
+    gen_path = os.path.join(path, "generation_config.json")
+    if os.path.exists(gen_path):
+        with open(gen_path) as f:
+            eos = json.load(f).get("eos_token_id")
+        if eos is not None:
+            return eos
+    tc = raw.get("text_config") or {}
+    return tc.get("eos_token_id", raw.get("eos_token_id"))
+
+
+def _patch_text_cfg(text, raw: dict):
+    return dataclasses.replace(
+        text,
+        vocab_size=raw.get("vocab_size", text.vocab_size),
+        hidden_size=raw.get("hidden_size", text.hidden_size),
+        num_layers=raw.get("num_hidden_layers", text.num_layers),
+        num_heads=raw.get("num_attention_heads", text.num_heads),
+        num_kv_heads=raw.get("num_key_value_heads", text.num_kv_heads),
+        intermediate_size=raw.get("intermediate_size", text.intermediate_size),
+        rms_norm_eps=raw.get("rms_norm_eps", text.rms_norm_eps),
+        rope_theta=raw.get("rope_theta", text.rope_theta),
+        max_position_embeddings=raw.get("max_position_embeddings", text.max_position_embeddings),
+        tie_word_embeddings=raw.get("tie_word_embeddings", text.tie_word_embeddings),
+    )
+
+
+def _patch_vision_cfg(vision, raw: dict):
+    return dataclasses.replace(
+        vision,
+        hidden_size=raw.get("hidden_size", vision.hidden_size),
+        num_layers=raw.get("num_hidden_layers", vision.num_layers),
+        num_heads=raw.get("num_attention_heads", vision.num_heads),
+        intermediate_size=raw.get("intermediate_size", vision.intermediate_size),
+        image_size=raw.get("image_size", vision.image_size),
+        patch_size=raw.get("patch_size", vision.patch_size),
+    )
+
+
+def _read_config(path: str) -> dict | None:
+    cfg_path = os.path.join(path, "config.json")
+    if not os.path.exists(cfg_path):
+        return None
+    with open(cfg_path) as f:
+        return json.load(f)
+
+
+def llava_config(path: str):
+    """llava_1_5_7b() patched from the directory's config.json and generation_config.json."""
+    from adversarialvlm_tpu_torch.models.configs import llava_1_5_7b
+
+    cfg, raw = llava_1_5_7b(), _read_config(path)
+    if raw is None:
+        return cfg
+    return dataclasses.replace(
+        cfg,
+        text=_patch_text_cfg(cfg.text, raw.get("text_config", {})),
+        vision=_patch_vision_cfg(cfg.vision, raw.get("vision_config", {})),
+        image_token_id=raw.get("image_token_index", cfg.image_token_id),
+        pad_token_id=raw["pad_token_id"] if raw.get("pad_token_id") is not None else cfg.pad_token_id,
+        vision_feature_layer=raw.get("vision_feature_layer", cfg.vision_feature_layer),
+        vision_feature_select_strategy=raw.get(
+            "vision_feature_select_strategy", cfg.vision_feature_select_strategy),
+        dtype=raw.get("torch_dtype", cfg.dtype),
+        **_eos_fields(_checkpoint_eos(path, raw)),
+    )
+
+
+def gemma3_config(path: str):
+    """gemma3_4b_it() patched from the directory's config.json (multimodal, or a text-only
+    Gemma3ForCausalLM's flat one) and generation_config.json; the second value says whether the
+    checkpoint carries the vision tower."""
+    from adversarialvlm_tpu_torch.models.configs import gemma3_4b_it
+
+    cfg, raw = gemma3_4b_it(), _read_config(path)
+    if raw is None:
+        return cfg, True
+    tc = raw.get("text_config", raw)
+    rs = tc.get("rope_scaling") or {}
+    text = dataclasses.replace(
+        _patch_text_cfg(cfg.text, tc),
+        head_dim=tc.get("head_dim", cfg.text.head_dim),
+        rope_local_base_freq=tc.get("rope_local_base_freq", cfg.text.rope_local_base_freq),
+        rope_linear_factor=rs.get("factor") if rs.get("rope_type") == "linear" else None,
+        sliding_window=tc.get("sliding_window", cfg.text.sliding_window),
+        sliding_window_pattern=tc.get("sliding_window_pattern", cfg.text.sliding_window_pattern),
+        query_pre_attn_scalar=tc.get("query_pre_attn_scalar", cfg.text.query_pre_attn_scalar),
+    )
+    vision = cfg.vision
+    if "vision_config" in raw:
+        vc = raw["vision_config"]
+        vision = dataclasses.replace(
+            _patch_vision_cfg(cfg.vision, vc),
+            mm_tokens_per_image=raw.get("mm_tokens_per_image", cfg.vision.mm_tokens_per_image),
+        )
+    cfg = dataclasses.replace(
+        cfg,
+        text=text,
+        vision=vision,
+        image_token_id=raw.get("image_token_index", cfg.image_token_id),
+        boi_token_id=raw.get("boi_token_index", cfg.boi_token_id),
+        eoi_token_id=raw.get("eoi_token_index", cfg.eoi_token_id),
+        dtype=raw.get("torch_dtype", cfg.dtype),
+        **_eos_fields(_checkpoint_eos(path, raw)),
+    )
+    return cfg, "vision_config" in raw
+
+
+def load_llava(path: str, dtype=torch.bfloat16, device="cuda"):
+    """A local llava-1.5 HF checkpoint directory: (params on ``device``, VLMConfig patched from
+    its config.json, so checkpoints of other sizes, the tests' tiny ones among them, load)."""
+    from adversarialvlm_tpu_torch.models import llava
+
+    cfg = llava_config(path)
+    params = to_device_tree(convert_llava_state_dict(read_dir(path)), dtype, device)
+    check_tree(params, llava.init_params(None, cfg, dtype, "meta"), path)
+    return params, cfg
+
+
+def load_gemma3(path: str, dtype=torch.bfloat16, device="cuda"):
+    """A gemma-3 HF checkpoint directory (multimodal -it, or text-only): (params, patched
+    VLMConfig). A text-only checkpoint's tree has the decoder alone."""
+    from adversarialvlm_tpu_torch.models import gemma3
+
+    cfg, multimodal = gemma3_config(path)
+    params = to_device_tree(convert_gemma3_state_dict(read_dir(path)), dtype, device)
+    expected = gemma3.init_params(None, cfg, dtype, "meta")
+    check_tree(params, expected if multimodal else {"language_model": expected["language_model"]}, path)
+    return params, cfg

@@ -1,1 +1,68 @@
-"""Differentiable image preprocessing and attack input builders."""
+"""Differentiable image preprocessing, the attack's prompt pools, and the registry of checkpoint
+names. Counterpart of adversarialvlm_tpu/processors/__init__.py for the llava and gemma3 families.
+"""
+
+from __future__ import annotations
+
+from adversarialvlm_tpu_torch.processors.configs import MODEL_IMAGE_CONFIGS, ImageProcessorConfig
+
+#: model name -> family (the families the port runs)
+MODEL_MAP: dict[str, str] = {
+    "llava-hf/llava-1.5-7b-hf": "llava",
+    # an eval victim in the reference; its head_dim of 256 has the port's kernels
+    "google/gemma-3-12b-it": "gemma3",
+    "google/gemma-3-4b-it": "gemma3",
+}
+#: the JAX package's other model names, whose families the port does not run yet
+OTHER_FAMILIES = (
+    "microsoft/Phi-3.5-vision-instruct", "Qwen/Qwen2-VL-2B-Instruct", "Qwen/Qwen2-VL-7B-Instruct",
+    "alpindale/Llama-3.2-11B-Vision-Instruct", "alpindale/Llama-3.2-11B-Vision",
+    "SinclairSchneider/Llama-Guard-3-11B-Vision",
+)
+
+
+def family_of(model_name: str) -> str:
+    if model_name in MODEL_MAP:
+        return MODEL_MAP[model_name]
+    if model_name in OTHER_FAMILIES:
+        raise NotImplementedError(
+            f"model {model_name!r} is not ported yet (ROADMAP modules: other victim families)")
+    raise ValueError(f"Model {model_name} not found in MODEL_MAP. Please add it to the map.")
+
+
+def image_config_for(model_name: str) -> ImageProcessorConfig:
+    return MODEL_IMAGE_CONFIGS.get(model_name, ImageProcessorConfig())
+
+
+def load_model_and_processor(model_name: str, checkpoint_path: str, in_hw, dtype=None,
+                             device="cuda"):
+    """A local HF checkpoint directory as (ModelBundle, HFTokenizer, differentiable image
+    processor): the weights on ``device`` (norms f32, the rest ``dtype``, default bf16), the
+    config patched from config.json, the tokenizer read from the directory, and the processor
+    from the name's pinned config overridden by preprocessor_config.json."""
+    import dataclasses
+
+    import torch
+
+    from adversarialvlm_tpu_torch.models import loading
+    from adversarialvlm_tpu_torch.models.registry import make_bundle
+    from adversarialvlm_tpu_torch.processors.gemma3 import DifferentiableGemma3ImageProcessor
+    from adversarialvlm_tpu_torch.processors.llava import DifferentiableLlavaImageProcessor
+    from adversarialvlm_tpu_torch.utils.tokenization import HFTokenizer
+
+    family = family_of(model_name)
+    dtype = dtype or torch.bfloat16
+    tok = HFTokenizer.from_pretrained(checkpoint_path)
+    proc_cfg = ImageProcessorConfig.from_pretrained_dir(
+        checkpoint_path, **dataclasses.asdict(image_config_for(model_name)))
+    load, proc_cls = {
+        "llava": (loading.load_llava, DifferentiableLlavaImageProcessor),
+        "gemma3": (loading.load_gemma3, DifferentiableGemma3ImageProcessor),
+    }[family]
+    params, vlm_cfg = load(checkpoint_path, dtype, device)
+    if "vision_tower" in params and proc_cfg.crop_size != vlm_cfg.vision.image_size:
+        raise ValueError(f"{checkpoint_path}: the processor resizes to {proc_cfg.crop_size}² but the "
+                         f"vision tower takes {vlm_cfg.vision.image_size}²")
+    adv_proc = proc_cls(proc_cfg, in_hw, device)
+    bundle = make_bundle(model_name, family, vlm_cfg, torch.device(device), params=params)
+    return bundle, tok, adv_proc

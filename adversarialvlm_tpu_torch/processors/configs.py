@@ -4,6 +4,8 @@ adversarialvlm_tpu/processors/configs.py (the fields these processors read)."""
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 
 OPENAI_CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 OPENAI_CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
@@ -17,10 +19,37 @@ class ImageProcessorConfig:
     patch_size: int = 14
     mm_tokens_per_image: int = 256  # gemma3: soft tokens per image after the projector's pool
 
+    @classmethod
+    def from_pretrained_dir(cls, path: str, **defaults) -> "ImageProcessorConfig":
+        """``defaults`` overridden by a checkpoint directory's preprocessor_config.json: the mean,
+        std and patch size, and the resize target from ``crop_size`` (llava) or ``size``
+        (gemma3's square resize), each an int or a {"height", "width"} dict."""
+        base = dataclasses.asdict(cls(**defaults))
+        cfg_path = os.path.join(path, "preprocessor_config.json")
+        if not os.path.exists(cfg_path):
+            return cls(**base)
+        with open(cfg_path) as f:
+            raw = json.load(f)
+        for key in ("image_mean", "image_std", "patch_size"):
+            if raw.get(key) is not None:
+                base[key] = tuple(raw[key]) if isinstance(raw[key], list) else raw[key]
+        for key in ("crop_size", "size"):
+            val = raw.get(key)
+            if key == "size" and "crop_size" in raw:
+                break  # gemma3 resizes to ``size``; llava crops to ``crop_size``
+            if isinstance(val, dict) and "height" in val:
+                base["crop_size"] = val["height"]
+            elif isinstance(val, int):
+                base["crop_size"] = val
+        return cls(**base)
+
 
 MODEL_IMAGE_CONFIGS: dict[str, ImageProcessorConfig] = {
     "llava-hf/llava-1.5-7b-hf": ImageProcessorConfig(crop_size=336),
     "google/gemma-3-4b-it": ImageProcessorConfig(
+        image_mean=(0.5, 0.5, 0.5), image_std=(0.5, 0.5, 0.5), crop_size=896
+    ),
+    "google/gemma-3-12b-it": ImageProcessorConfig(
         image_mean=(0.5, 0.5, 0.5), image_std=(0.5, 0.5, 0.5), crop_size=896
     ),
 }

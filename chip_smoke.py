@@ -31,9 +31,15 @@ Phases, in order (no exception is caught; any failure exits non-zero with no fin
      launches counted from zero. The head_dim-256 kernels (Gemma-3's global layers) at the safety
      judge's text-only prefill shape: 16 rows of T 704, 8 heads, 4 kv heads, each row left-padded by
      a seeded 0-160 tokens, and without pads, batched and over one row (the batch-1 route);
-  4. the batch-1 path: the full-width, full-depth LLaVA-1.5-7B single-victim attack (random bf16
-     weights from a seed) through ``train()`` for 1 warm-up step + 5 steps, with each kernel's
-     launches counted over that run only;
+  4L. the LLaVA-1.5-7B victim from a checkpoint directory: its seed-0 random bf16 parameters at
+     full width and depth, drawn on the card, are written by the port's fabricator
+     (cli/fabricate_ckpt.py: sharded safetensors, config.json, the Llama-style tokenizer.json)
+     under the git-ignored adversarialvlm_tpu_torch/build/, and loaded back the CLI's way
+     (resolve_checkpoint -> build_victim_from_checkpoint): every tensor equal to the written one,
+     the patched config equal to llava_1_5_7b(); the directory is then deleted. This victim, with
+     the checkpoint's tokenizer, is the victim of phases 3 (the LLaVA shapes), 4, 4t, 4b, 4R and 5;
+  4. the batch-1 path: the loaded LLaVA-1.5-7B single-victim attack through ``train()`` for
+     1 warm-up step + 5 steps, with each kernel's launches counted over that run only;
   4t. the batch-1 path with the paper's blur (kernel 5, σ 7), the local crop and a 256² random
      square mask moved every step, through ``train(run_tests=True)``, counted from zero: the same
      kernel launches per step as 4, and the saved image is the blurred one;
@@ -41,29 +47,41 @@ Phases, in order (no exception is caught; any failure exits non-zero with no fin
      prompt pool through ``train(run_tests=True)``, whose save boundaries greedy-decode the 50
      held-out questions (64 new tokens) and write their CSVs; launches are counted over that run
      and attributed to the step, the monitor and the decode by a probe around the forward;
-  5. depth-cut references (2 decoder layers, 2 vision layers), the card in bf16 through the
-     kernels against the CPU in f32 on the plain path: the attack step at batch 1 and at batch 4,
-     the batch-1 step with 4t's transforms (crop box and square injected), and the test decode,
-     teacher-forced.
+  4R. true resume and the profiler: at batch 1 with 4t's transforms and transform_prob 0.5 (every
+     generator drawn from), an uninterrupted run of 6 steps against one of 3 steps resumed from its
+     saved attack state to 6 with a profile directory: the resumed metrics.jsonl rows and final
+     image equal the uninterrupted ones, and the trace of the second chunk names the dgrad and
+     causal kernels;
+  5. depth-cut references (the loaded weights' first 2 decoder and 2 vision layers), the card in
+     bf16 through the kernels against the CPU in f32 on the plain path: the attack step at batch 1
+     and at batch 4, the batch-1 step with 4t's transforms (crop box and square injected), and the
+     test decode, teacher-forced.
+  B. cli/bench.py at its defaults (bench.py's configuration on its own random-weight 7B, the
+     LLaVA victim freed first): its JSON line.
 Then, with the LLaVA victim freed so that each phase's peak memory is its own, the Gemma-3-4B
 victim, whose 4096-patch SigLIP tower runs the non-causal flash_full kernels (their phase-3
 checks run first, before any victim is resident, and print each kernel's time over SDPA's:
 the forward over SDPA's forward, dq + dk/dv over SDPA's whole backward):
+  4G. the Gemma-3-4B-it victim from a checkpoint directory, as in 4L (the Gemma-style
+     tokenizer.json of 262,145 tokens): the victim of 4g, 4c and 5c;
   4g. the Gemma-3 safety judge's text-only prefill at full width and depth on the victim's
      weights: ``gemma3.forward(..., logits_last_k=1)`` over 16 left-padded rows of T 704 under
      no_grad, counted from zero: exactly one head_dim-256 flash forward per global layer (5 of 34)
      and forward, no backward; each forward timed, with the flash launches' share of it;
-  4c. the full-width, full-depth Gemma-3-4B-it attack (random bf16 weights from a seed) at the
-     default batch of 4 through ``train(run_tests=True)``: 1 warm-up + 2 steps, save boundaries at
-     iterations 0 and 2, each decoding the 50 held-out questions at 64 new tokens; launches are
-     attributed to the step, the monitor and the decode as in 4b;
-  5c. depth-cut references at full width (6 decoder layers, so five sliding-window layers and the
-     global one run; 2 vision layers at the full 4096 patches), the card in bf16 against the CPU
-     in f32 on the plain path: the batch-4 step, the test decode, teacher-forced, and the judge's
-     text-only prefill over 2 rows of T 704 (one left-padded), whose global layer takes the
-     head_dim-256 flash forward on the card: last-position logits cosine >= 0.99.
-It then prints the kernels' JSON line, the card's name and power limit, and as its last line
-{"ok": true, "device": {...}}. Without a card it exits non-zero before printing anything.
+  4c. the full-width, full-depth Gemma-3-4B-it attack on the loaded victim at the default batch
+     of 4 through ``train(run_tests=True)``: 1 warm-up + 2 steps, save boundaries at iterations 0
+     and 2, each decoding the 50 held-out questions at 64 new tokens; launches are attributed to
+     the step, the monitor and the decode as in 4b;
+  5c. depth-cut references at full width (the loaded weights' first 6 decoder layers, so five
+     sliding-window layers and the global one run; 2 vision layers at the full 4096 patches),
+     the card in bf16 against the CPU in f32 on the plain path: the batch-4 step, the test
+     decode, teacher-forced, and the judge's text-only prefill over 2 rows of T 704 (one
+     left-padded), whose global layer takes the head_dim-256 flash forward on the card:
+     last-position logits cosine >= 0.99.
+It then prints each checkpoint directory's write and load seconds and GB/s, the resume verdict,
+the bench line and the run's total, the kernels' JSON line, the card's name and power limit, and
+as its last line {"ok": true, "device": {...}}. Without a card it exits non-zero before printing
+anything.
 """
 
 import csv
@@ -96,6 +114,7 @@ DECODE_MARGIN = 3.0       # the card's token within this many max|card - CPU| of
 JUDGE_B, JUDGE_T = 16, 704  # the Gemma-3 safety judge's text-only prefill: its default batch, a 64-bucketed T
 JUDGE_PAD_MAX = 160       # each judge row left-padded by a seeded 0..160 tokens
 JUDGE_FORWARDS = 3        # timed judge prefill forwards, after one warm-up
+RESUME_STEPS, RESUME_CUT = 6, 3  # phase 4R: an uninterrupted run, and one resumed after this many steps
 
 
 def log(phase, msg):
@@ -981,6 +1000,187 @@ def transform_path(victim, x0, dgrad_per_step, n_layers, plain_med, plain_peak):
     return {"median_ms": med, "peak_GiB": probe.step_peak / 2**30}
 
 
+def depth_cut(params, n_text, n_vision):
+    """The tree of the first ``n_text`` decoder and ``n_vision`` tower layers (tensors shared)."""
+    lm, vt = params["language_model"], params["vision_tower"]
+    return {**params, "language_model": {**lm, "layers": lm["layers"][:n_text]},
+            "vision_tower": {**vt, "layers": vt["layers"][:n_vision]}}
+
+
+def checkpoint_victim(model, cfg, **prompts):
+    """Phases 4L and 4G: the seed-0 random parameters of ``model`` at full width and depth, drawn
+    on the card, are written by the port's fabricator (cli/fabricate_ckpt.py) as an HF checkpoint
+    directory under the git-ignored adversarialvlm_tpu_torch/build/; the victim is then built the
+    CLI's way, resolve_checkpoint -> build_victim_from_checkpoint, with the HF name. Every loaded
+    tensor must equal the written one (norms come back in f32, the rest in bf16) and the patched
+    VLMConfig the model's own; the directory is deleted once the victim is on the card. Returns
+    the victim and the write and load numbers."""
+    import shutil
+
+    import torch
+
+    from adversarialvlm_tpu_torch.attack.setup import build_victim_from_checkpoint
+    from adversarialvlm_tpu_torch.cli.attack_model import resolve_checkpoint
+    from adversarialvlm_tpu_torch.cli.fabricate_ckpt import MODELS, fabricate
+    from adversarialvlm_tpu_torch.models.loading import named_leaves
+    from adversarialvlm_tpu_torch.models.registry import _MODELS
+    from adversarialvlm_tpu_torch.processors import family_of
+
+    hf_name, make_cfg, dtype = MODELS[model]
+    family, vlm_cfg = family_of(hf_name), make_cfg()
+    tag = f"load {family}"
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "adversarialvlm_tpu_torch", "build")
+    os.makedirs(build, exist_ok=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    written = _MODELS[family].init_params(torch.Generator(device="cuda").manual_seed(0), vlm_cfg, dtype, "cuda")
+    n_params = sum(t.numel() for t in _leaves(written))
+    log(tag, f"{n_params / 1e9:.3f} B seed-0 parameters drawn on the card in {time.perf_counter() - t0:.1f} s; "
+        f"free disk under {build}: {shutil.disk_usage(build).free / 1e9:.1f} GB")
+    root = tempfile.mkdtemp(prefix="ckpt_", dir=build)
+    try:
+        t0 = time.perf_counter()
+        out = fabricate(model, root, params=written)
+        write_s = time.perf_counter() - t0
+        shards = sorted(f for f in os.listdir(out) if f.endswith(".safetensors"))
+        nbytes = sum(os.path.getsize(os.path.join(out, f)) for f in shards)
+        log(tag, f"wrote {out} in {write_s:.1f} s: {len(shards)} shards, {nbytes / 1e9:.3f} GB "
+            f"({nbytes / 1e9 / write_s:.2f} GB/s), files {sorted(os.listdir(out))}")
+        path = resolve_checkpoint(hf_name, root)
+        t0 = time.perf_counter()
+        victim = build_victim_from_checkpoint(hf_name, path, cfg, (512, 512), dtype=dtype,
+                                              device="cuda", **prompts)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root)
+    got, want = dict(named_leaves(victim.bundle.params)), dict(named_leaves(written))
+    if set(got) != set(want):
+        raise AssertionError(f"{tag}: loaded keys differ: missing {sorted(set(want) - set(got))[:5]}, "
+                             f"extra {sorted(set(got) - set(want))[:5]}")
+    unequal = [k for k in want if not torch.equal(got[k], want[k].to(got[k].dtype))]
+    f32 = sorted({k.split(".")[-2] for k in got if got[k].dtype == torch.float32})
+    if unequal or victim.bundle.cfg != vlm_cfg:
+        raise AssertionError(f"{tag}: loaded tensors {unequal[:5]} differ from the written ones, or "
+                             f"the patched config differs: {victim.bundle.cfg != vlm_cfg}")
+    peak, n_tensors = torch.cuda.max_memory_allocated() / 2**30, len(got)
+    del written, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    tok = victim.adv_inputs.tokenizer
+    log(tag, f"loaded {hf_name} through resolve_checkpoint -> build_victim_from_checkpoint in {load_s:.1f} s "
+        f"({nbytes / 1e9 / load_s:.2f} GB/s): {n_tensors} tensors, each equal to the written one (f32: "
+        f"{f32}), VLMConfig equal to {model}'s; tokenizer {type(tok).__name__} of {tok.vocab_size} tokens; "
+        f"peak {peak:.3f} GiB; directory deleted, {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    return victim, {"GB": nbytes / 1e9, "write_s": write_s, "load_s": load_s, "peak_GiB": peak,
+                    "tensors": n_tensors}
+
+
+def resume_phase(victim, x0, dgrad_per_step, n_layers):
+    """Phase 4R: true resume and the profiler on the loaded victim at batch 1, with the blur, the
+    local crop, the moving square and transform_prob 0.5, so that every generator of the run is
+    drawn from (questions, noise, crop boxes, coins, square positions). An uninterrupted run of
+    RESUME_STEPS steps, a run of RESUME_CUT steps, and a run resumed from the state the latter
+    saved at iteration RESUME_CUT - 1 (attack_state_iter_<RESUME_CUT>.pt: files are numbered by
+    optimizer steps, as the PNGs) to RESUME_STEPS with --profile_dir set. The resumed run's
+    metrics.jsonl rows (all but step_ms) and final image must equal the uninterrupted run's, and
+    its trace must name the dgrad and causal kernels."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from adversarialvlm_tpu_torch.attack.config import AttackConfig
+    from adversarialvlm_tpu_torch.attack.engine import train
+    from adversarialvlm_tpu_torch.ops.kernels import launch_counts, reset_launches
+
+    cfg = AttackConfig(exp_name="straight", num_iterations=RESUME_STEPS, save_steps=2, batch_size=1,
+                       grad_accum_steps=1, lr=1e-2, target_text_random=False,
+                       use_gaussian_blur=True, gblur_kernel_size=5, gblur_sigma=7.0,
+                       use_local_crop=True, transform_prob=0.5, mask_type="random_square",
+                       mask_size=256, mask_refresh_random_square=True)
+
+    def rows(exp):
+        out = []
+        for line in open(os.path.join(exp, "metrics.jsonl")):
+            r = json.loads(line)
+            r.pop("step_ms", None)
+            if "_config" not in r:
+                out.append(r)
+        return out
+
+    with tempfile.TemporaryDirectory() as runs:
+        t0 = time.perf_counter()
+        straight = train(cfg, [victim], x0, base_path=runs, device="cuda", run_tests=False)
+        part1 = train(dataclasses.replace(cfg, exp_name="part1", num_iterations=RESUME_CUT), [victim], x0,
+                      base_path=runs, device="cuda", run_tests=False)
+        state = os.path.join(part1, f"attack_state_iter_{RESUME_CUT}.pt")
+        prof_dir = os.path.join(runs, "profile")
+        reset_launches()
+        t1 = time.perf_counter()
+        part2 = train(dataclasses.replace(cfg, exp_name="part2", resume_state=state, profile_dir=prof_dir),
+                      [victim], x0, base_path=runs, device="cuda", run_tests=False)
+        torch.cuda.synchronize()
+        resumed_s, launches = time.perf_counter() - t1, launch_counts()
+        want = [r for r in rows(straight) if r["iteration"] >= RESUME_CUT]
+        got = rows(part2)
+        final = [np.fromfile(os.path.join(e, "optimized_image_iter_final.bin"), np.float32)
+                 for e in (straight, part2)]
+        traces = sorted(os.listdir(prof_dir))
+        trace_text = open(os.path.join(prof_dir, traces[0])).read() if traces else ""
+        trace_mb = os.path.getsize(os.path.join(prof_dir, traces[0])) / 1e6 if traces else 0.0
+        log("resume", f"uninterrupted {RESUME_STEPS} steps, {RESUME_CUT} steps, then resumed from "
+            f"{os.path.basename(state)} to {RESUME_STEPS} in {time.perf_counter() - t0:.1f} s (the resumed "
+            f"run {resumed_s:.1f} s, its launches {dict((k, n) for k, n in launches.items() if n)}); "
+            f"{sorted(os.listdir(part1))}")
+    steps = [r for r in got if "loss" in r]
+    for r in steps:
+        log("resume", f"resumed step {r['iteration']}: loss={r['loss']} grad_norm={r['grad_norm']}")
+    per_step = {k: launches[k] / len(steps) for k in ("dgrad", "attention_bwd_dq", "attention_bwd_dkdv")}
+    if per_step != {"dgrad": dgrad_per_step, "attention_bwd_dq": n_layers, "attention_bwd_dkdv": n_layers}:
+        raise AssertionError(f"resumed run: backward launches per step {per_step}")
+    if [r["iteration"] for r in steps] != list(range(RESUME_CUT, RESUME_STEPS)):
+        raise AssertionError(f"resumed run: iterations {[r['iteration'] for r in steps]}")
+    equal = got == want and np.array_equal(final[0], final[1])
+    if equal:
+        verdict = (f"equal: {len(got)} metrics.jsonl rows (steps {RESUME_CUT}-{RESUME_STEPS - 1}, monitors, "
+                   f"checkpoints) and the final image bit for bit")
+    else:
+        diff = sorted({k for a, b in zip(got, want) for k in set(a) | set(b) if a.get(k) != b.get(k)})
+        a, b = final
+        cos = float(np.dot(a - x0.ravel(), b - x0.ravel()) /
+                    (np.linalg.norm(a - x0.ravel()) * np.linalg.norm(b - x0.ravel())))
+        loss_rel = max(abs(r["loss"] - w["loss"]) / abs(w["loss"])
+                       for r, w in zip(steps, [w for w in want if "loss" in w]))
+        verdict = (f"NOT equal (fields {diff}): held to loss within 1e-3 relative per step ({loss_rel:.3g}) "
+                   f"and perturbation cosine >= 0.9999 ({cos:.6f})")
+        if len(got) != len(want) or not (loss_rel <= 1e-3 and cos >= 0.9999):
+            raise AssertionError(f"resume: {verdict}")
+    log("resume", verdict)
+    names = ("dgrad_kernel", "causal_fwd_kernel", "causal_dq_kernel", "causal_dkdv_kernel")
+    found = {n: trace_text.count(n) for n in names}
+    log("resume", f"trace {traces} ({trace_mb:.1f} MB): occurrences of the kernels' symbols {found}")
+    if len(traces) != 1 or not all(found.values()):
+        raise AssertionError(f"resume: the profiler trace does not name the port's kernels: {found}")
+    return {"verdict": verdict, "equal": equal, "trace_MB": trace_mb, "kernel_mentions": found}
+
+
+def bench_phase():
+    """Phase B: cli/bench.py at its defaults (its own random-weight LLaVA-1.5-7B); its JSON line
+    is printed as it prints it."""
+    from adversarialvlm_tpu_torch.cli import bench
+
+    t0 = time.perf_counter()
+    result = bench.main([])
+    sys.stdout.flush()
+    log("bench", f"cli/bench.py in {time.perf_counter() - t0:.1f} s: {result}")
+    if not (result["metric"] == "attack_steps_per_sec_llava7b" and result["value"] > 0
+            and result["mfu"] is not None):
+        raise AssertionError(f"bench: {result}")
+    return result
+
+
 def llava_phases():
     """Phases 3 (the LLaVA shapes), 4, 4b and 5 on the LLaVA-1.5-7B victim; returns the kernel
     statistics and launch counts of the JSON line. Its tensors are freed on return."""
@@ -991,11 +1191,7 @@ def llava_phases():
 
     from adversarialvlm_tpu_torch.attack.config import AttackConfig
     from adversarialvlm_tpu_torch.attack.engine import VictimSetup, train
-    from adversarialvlm_tpu_torch.attack.setup import (
-        build_tiny_victim,
-        image_processor,
-        questions_and_targets,
-    )
+    from adversarialvlm_tpu_torch.attack.setup import image_processor, questions_and_targets
     from adversarialvlm_tpu_torch.attack.step import build_attack_step, sample_chunk_xs
     from adversarialvlm_tpu_torch.data import corpora
     from adversarialvlm_tpu_torch.eval.generation import _pick_decode
@@ -1015,22 +1211,19 @@ def llava_phases():
                        grad_accum_steps=1, lr=1e-2, target_text_random=False)
     cfg4 = AttackConfig(exp_name="chip_smoke_b4", num_iterations=STEPS4, save_steps=10,
                         batch_size=4, grad_accum_steps=1, lr=1e-2)
-    t0 = time.perf_counter()
-    victim = build_tiny_victim("random:llava-1.5-7b", cfg, (512, 512), vlm_cfg=vlm_cfg, seed=0,
-                               questions=[QUESTION], targets=[TARGET], test_questions=[QUESTION],
-                               dtype=torch.bfloat16, device="cuda")
-    torch.cuda.synchronize()
+    # 4L. the victim, loaded from the directory the port's fabricator writes
+    victim, load_stats = checkpoint_victim("llava-1.5-7b", cfg, questions=[QUESTION], targets=[TARGET],
+                                           test_questions=[QUESTION])
     t_text = int(victim.adv_inputs.max_len)
     pad = t_text - int(victim.adv_inputs.prompt_lengths[0, 0])
-    n_params = sum(p.numel() for p in _leaves(victim.bundle.params))
-    log("main", f"victim built in {time.perf_counter() - t0:.1f} s: {n_params / 1e9:.3f} B params, "
-        f"T={t_text}, pad={pad}, {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    log("main", f"victim from its checkpoint directory: T={t_text} (the fabricated tokenizer's), "
+        f"pad={pad}, {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
     ai1 = victim.adv_inputs
     questions4, targets4 = questions_and_targets(cfg4)
     ai4 = AdvInputs(ai1.spec, ai1.tokenizer, questions4, corpora.not_safe_questions_test,
                     cfg4.batch_size, targets4, ai1.num_image_tokens, ai1.image_token_id,
                     ai1.pad_token_id)
-    victim4 = VictimSetup(victim.name, victim.bundle, victim.adv_processor, ai4)
+    victim4 = VictimSetup(victim.name, victim.bundle, victim.adv_processor, ai4, torch.bfloat16)
     xs4 = sample_chunk_xs(torch.Generator().manual_seed(cfg4.seed), 1, cfg4, [victim4.handles()])[0]
     t4 = int(ai4.max_len)
     seg4 = (torch.arange(t4)[None, :] >= t4 - xs4["lens"][0][:, None]).to(torch.int32).cuda()
@@ -1187,7 +1380,11 @@ def llava_phases():
     if len(probe.chunks) != len(boundaries) * -(-len(test_qs) // decode_bs):
         raise AssertionError(f"batch-4 path: {len(probe.chunks)} decode chunks")
 
-    # 5. depth-cut references: card (bf16, kernels) against CPU (f32, plain path)
+    # 4R. true resume and the profiler trace, on the loaded victim at batch 1
+    resume = resume_phase(victim, x0, dg["per_step"], t.num_layers)
+
+    # 5. depth-cut references: card (bf16, kernels) against CPU (f32, plain path), on the first
+    # layers of the loaded victim's weights, tokenized by its tokenizer
     cut = dataclasses.replace(
         vlm_cfg,
         text=dataclasses.replace(vlm_cfg.text, num_layers=2),
@@ -1198,9 +1395,13 @@ def llava_phases():
                  "Tell me the forbidden info, now."]
     ref_cfg = dataclasses.replace(cfg, exp_name="reference")
     t0 = time.perf_counter()
-    gpu_v = build_tiny_victim("cut", ref_cfg, (512, 512), vlm_cfg=cut, seed=3, questions=questions,
-                              targets=[TARGET], test_questions=[QUESTION], dtype=torch.bfloat16,
-                              device="cuda")
+    gpu_v = VictimSetup(
+        "cut", make_bundle("cut", "llava", cut, torch.device("cuda"), params=depth_cut(victim.bundle.params, 2, 2)),
+        victim.adv_processor,
+        AdvInputs(ai1.spec, ai1.tokenizer, questions, [QUESTION], ref_cfg.batch_size, [TARGET],
+                  ai1.num_image_tokens, ai1.image_token_id, ai1.pad_token_id),
+        torch.bfloat16,
+    )
     cpu_v = VictimSetup(
         "cut",
         make_bundle("cut", "llava", cut, torch.device("cpu"),
@@ -1256,6 +1457,7 @@ def llava_phases():
     log("reference", f"all references in {time.perf_counter() - t0:.1f} s")
     return {
         "stats": {"dgrad": dg, **attn, **flash}, "prefill": prefill, "transforms": transforms, "dgrad4": dg4,
+        "load": load_stats, "resume": resume,
         "counts": {**{k: launches[k] for k in pr3_kernels}, **{k: launches4[k] for k in flash}},
     }
 
@@ -1348,19 +1550,16 @@ def gemma_phases():
 
     from adversarialvlm_tpu_torch.attack.config import AttackConfig
     from adversarialvlm_tpu_torch.attack.engine import train
-    from adversarialvlm_tpu_torch.attack.setup import build_tiny_victim
     from adversarialvlm_tpu_torch.eval.generation import _pick_decode
-    from adversarialvlm_tpu_torch.models.configs import gemma3_4b_it
     from adversarialvlm_tpu_torch.ops.kernels import launch_counts, reset_launches
 
-    g_cfg = gemma3_4b_it()
-    t, v = g_cfg.text, g_cfg.vision
     cfg = AttackConfig(exp_name="chip_smoke_gemma3", num_iterations=STEPS_G, save_steps=10,
                        batch_size=4, grad_accum_steps=1, lr=1e-2)
+    # 4G. the victim, loaded from the directory the port's fabricator writes
     t0 = time.perf_counter()
-    victim = build_tiny_victim("random:gemma-3-4b-it", cfg, (512, 512), vlm_cfg=g_cfg, seed=0,
-                               dtype=torch.bfloat16, device="cuda")
-    torch.cuda.synchronize()
+    victim, load_stats = checkpoint_victim("gemma-3-4b", cfg)
+    g_cfg = victim.bundle.cfg
+    t, v = g_cfg.text, g_cfg.vision
     ai = victim.adv_inputs
     t_text = int(ai.max_len)
     n_params = sum(p.numel() for p in _leaves(victim.bundle.params))
@@ -1368,7 +1567,7 @@ def gemma_phases():
     n_patches = (v.image_size // v.patch_size) ** 2
     test_qs = ai.test_questions
     decode_bs, _ = _pick_decode(victim.bundle, ai, test_qs, DECODE_TOKENS, 50, torch.bfloat16)
-    log("gemma", f"victim built in {time.perf_counter() - t0:.1f} s: {n_params / 1e9:.3f} B params "
+    log("gemma", f"victim loaded in {time.perf_counter() - t0:.1f} s: {n_params / 1e9:.3f} B params "
         f"({n_vision / 1e9:.3f} B in the tower), {torch.cuda.memory_allocated() / 2**30:.2f} GiB on "
         f"the card; prompt pool {ai.prompt_pool.shape[1]} questions x {ai.prompt_pool.shape[0]} "
         f"targets, T={t_text} (image span {len(ai.image_expansion_ids)} tokens), tower T={n_patches} "
@@ -1456,13 +1655,15 @@ def gemma_phases():
         log("gemma", f"{name}: {len(table) - 1} rows; first answer tail {table[1][1][-60:]!r}")
     if len(probe.chunks) != len(boundaries) * -(-len(test_qs) // decode_bs):
         raise AssertionError(f"gemma path: {len(probe.chunks)} decode chunks")
-    return {"launches": launches, "dgrad": dg, "judge": judge}
+    return {"launches": launches, "dgrad": dg, "judge": judge, "load": load_stats, "victim": victim}
 
 
-def gemma_references():
-    """Phase 5c: the depth-cut Gemma-3 (6 decoder layers: five sliding-window ones and the global
-    one; 2 vision layers at the full 4096 patches) on the card in bf16 through the kernels against
-    the same weights in f32 on the CPU's plain path: the batch-4 step and the test decode."""
+def gemma_references(victim):
+    """Phase 5c: the depth-cut Gemma-3 (the loaded victim's first 6 decoder layers: five
+    sliding-window ones and the global one; its first 2 vision layers at the full 4096 patches)
+    on the card in bf16 through the kernels against the same weights in f32 on the CPU's plain
+    path: the batch-4 step, the test decode and the judge's prefill, tokenized by the victim's
+    tokenizer."""
     import dataclasses
 
     import numpy as np
@@ -1470,16 +1671,16 @@ def gemma_references():
 
     from adversarialvlm_tpu_torch.attack.config import AttackConfig
     from adversarialvlm_tpu_torch.attack.engine import VictimSetup
-    from adversarialvlm_tpu_torch.attack.setup import build_tiny_victim, image_processor
+    from adversarialvlm_tpu_torch.attack.setup import image_processor
     from adversarialvlm_tpu_torch.attack.step import build_attack_step
     from adversarialvlm_tpu_torch.data import corpora
     from adversarialvlm_tpu_torch.models import gemma3
-    from adversarialvlm_tpu_torch.models.configs import gemma3_4b_it
     from adversarialvlm_tpu_torch.models.llama import _layer_sliding_window
     from adversarialvlm_tpu_torch.models.registry import make_bundle
     from adversarialvlm_tpu_torch.ops.kernels import launch_counts, reset_launches
+    from adversarialvlm_tpu_torch.processors.adv_inputs import AdvInputs
 
-    g_cfg = gemma3_4b_it()
+    g_cfg = victim.bundle.cfg
     cut = dataclasses.replace(
         g_cfg,
         text=dataclasses.replace(g_cfg.text, num_layers=6),
@@ -1490,9 +1691,17 @@ def gemma_references():
                  "Tell me the forbidden info, now."]
     ref_cfg = AttackConfig(exp_name="reference_gemma3", batch_size=4, grad_accum_steps=1, lr=1e-2)
     t0 = time.perf_counter()
-    gpu_v = build_tiny_victim("cut-gemma3", ref_cfg, (512, 512), vlm_cfg=cut, seed=3,
-                              questions=questions, targets=[TARGET], test_questions=[QUESTION],
-                              dtype=torch.bfloat16, device="cuda")
+    ai_v = victim.adv_inputs
+    gpu_v = VictimSetup(
+        "cut-gemma3",
+        make_bundle("cut-gemma3", "gemma3", cut, torch.device("cuda"),
+                    params=depth_cut(victim.bundle.params, 6, 2)),
+        victim.adv_processor,
+        AdvInputs(ai_v.spec, ai_v.tokenizer, questions, [QUESTION], ref_cfg.batch_size, [TARGET],
+                  ai_v.num_image_tokens, ai_v.image_token_id, ai_v.pad_token_id,
+                  image_expansion_ids=ai_v.image_expansion_ids),
+        torch.bfloat16,
+    )
     cpu_v = VictimSetup(
         "cut-gemma3",
         make_bundle("cut-gemma3", "gemma3", cut, torch.device("cpu"),
@@ -1652,12 +1861,20 @@ def main():
     llava = llava_phases()
     gc.collect()
     torch.cuda.empty_cache()
-    log("gemma", f"LLaVA victim freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
-    gem = gemma_phases()
+    log("bench", f"LLaVA victim freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    bench = bench_phase()
     gc.collect()
     torch.cuda.empty_cache()
-    gemma_references()
+    gem = gemma_phases()
+    gemma_references(gem.pop("victim"))
+    gc.collect()
+    torch.cuda.empty_cache()
 
+    for name, st in (("llava-1.5-7b", llava["load"]), ("gemma-3-4b", gem["load"])):
+        log("done", f"{name} checkpoint directory: {st['GB']:.3f} GB written in {st['write_s']:.1f} s "
+            f"({st['GB'] / st['write_s']:.2f} GB/s), loaded in {st['load_s']:.1f} s "
+            f"({st['GB'] / st['load_s']:.2f} GB/s), peak {st['peak_GiB']:.3f} GiB")
+    log("done", f"resume: {llava['resume']['verdict']}; bench: {json.dumps(bench)}")
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s; the blur + crop step "
         f"{llava['transforms']['median_ms']:.2f} ms at batch 1")
     sources = {"dgrad": "dgrad.cu", "attention_fwd": "causal_fwd.cu", "attention_bwd_dq": "causal_bwd.cu",

@@ -358,14 +358,33 @@ def _entry_case(case, tmp_path, monkeypatch):
         assert float(mask[:, :16, :16].min()) == 1.0 and float(mask.sum()) == 3 * 16 * 16
         rows = [json.loads(line) for line in open(os.path.join(exp, "metrics.jsonl"))]
         assert [r["iteration"] for r in rows if "loss" in r] == [0, 1]
-    elif case == "cli_resume_waits":
-        waits = r"resume_state \(ROADMAP modules: resume, profiling and bench\)"
-        with pytest.raises(NotImplementedError, match=waits):
-            cli.main(base + ["--device", "cpu", "--resume_state", str(tmp_path / "state.npz")])
+    elif case == "cli_resume_on_cpu":
+        first = cli.main(base + ["--device", "cpu", "--num_iterations", "1"])
+        state = os.path.join(first, "attack_state_latest.pt")
+        assert {"attack_state_iter_1.pt", "attack_state_latest.pt"} <= set(os.listdir(first))
+        # another name: run directories are named to the second
+        resumed = cli.main(base + ["--device", "cpu", "--resume_state", state, "--exp_name", "resumed"])
+        rows = [json.loads(line) for line in open(os.path.join(resumed, "metrics.jsonl"))]
+        assert [r["iteration"] for r in rows if "loss" in r] == [1]
+        assert [r["global_iteration"] for r in rows if "loss" in r] == [2]
+        assert "optimized_image_iter_2.png" in os.listdir(resumed)
+    elif case == "cli_checkpoint_on_cpu":
+        from adversarialvlm_tpu_torch.cli import fabricate_ckpt
+
+        root = str(tmp_path / "ckpts")
+        fabricate_ckpt.main(["tiny-llava", root, "--device", "cpu"])
+        exp = cli.main(base[2:] + ["--device", "cpu", "--model_name", "llava-hf/llava-1.5-7b-hf",
+                                   "--checkpoint_root", root, "--num_iterations", "1"])
+        saved = json.load(open(os.path.join(exp, "config.json")))
+        assert saved["num_iterations"] == 1
+        assert {"optimized_image_iter_final.png", "test_results_iter_0.csv"} <= set(os.listdir(exp))
+        with pytest.raises(FileNotFoundError, match="no local checkpoint"):
+            cli.main(base[2:] + ["--device", "cpu", "--model_name", "google/gemma-3-4b-it",
+                                 "--checkpoint_root", root])
+    elif case == "cli_other_family_raises":
+        with pytest.raises(NotImplementedError, match="ROADMAP modules: other victim families"):
+            cli.main(base[2:] + ["--device", "cpu", "--model_name", "Qwen/Qwen2-VL-2B-Instruct"])
         assert sorted(os.listdir(tmp_path)) == ["x0.png"]  # it fails before making a run dir
-    elif case == "cli_checkpoint_waits":
-        with pytest.raises(NotImplementedError, match="ROADMAP modules: checkpoint loading"):
-            cli.main(base[2:] + ["--device", "cpu", "--model_name", "llava-hf/llava-1.5-7b-hf"])
     elif case == "cross_waits":
         with pytest.raises(NotImplementedError, match="cross-model attack \\(ROADMAP modules: cross attack"):
             train(cfg, [_victim(cfg)] * 2, np.zeros((3, 64, 80), np.float32),
@@ -376,18 +395,22 @@ def _entry_case(case, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("case", [
     "victim_without_card", "train_without_card", "cli_without_card", "cli_on_cpu",
-    "cli_blur_crop_on_cpu", "cli_resume_waits", "cli_checkpoint_waits", "cross_waits",
+    "cli_blur_crop_on_cpu", "cli_resume_on_cpu", "cli_checkpoint_on_cpu", "cli_other_family_raises",
+    "cross_waits",
 ])
 def test_entry_points(case, tmp_path, monkeypatch):
     """Entry points default to the card and raise without one; the CPU runs when asked for, the
-    blur, the crop and a corner mask included; options that are not ported yet raise
-    NotImplementedError naming their ROADMAP item by its title."""
+    blur, the crop and a corner mask included, a run resumes from its attack state and an HF
+    name loads its checkpoint directory through --checkpoint_root; options and families that are
+    not ported yet raise NotImplementedError naming their ROADMAP item by its title."""
     _entry_case(case, tmp_path, monkeypatch)
 
 
 def test_port_imports_no_jax():
-    """No module of the port, and not chip_smoke.py, imports jax or the JAX package."""
-    banned = {"jax", "jaxlib", "optax", "adversarialvlm_tpu"}
+    """No module of the port, and not chip_smoke.py, imports jax or the JAX package, nor the HF
+    libraries the machine with the card lacks (the port reads safetensors and tokenizer.json
+    itself)."""
+    banned = {"jax", "jaxlib", "optax", "adversarialvlm_tpu", "safetensors", "transformers", "tokenizers"}
     files = sorted((REPO / "adversarialvlm_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 20
     for path in files:

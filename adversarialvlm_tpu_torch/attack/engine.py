@@ -1,9 +1,10 @@
-"""Attack driver: the single-victim loop and its artifacts. Counterpart of
+"""Attack driver: the single-victim and the cross-model loop and their artifacts. Counterpart of
 adversarialvlm_tpu/attack/engine.py::train.
 
-Steps run one by one on the victim's device; metrics stay on the device until the next save
+Steps run one by one on the victims' device; metrics stay on the device until the next save
 boundary, where they are logged together with the checkpoint image, the resaved-loss monitor
-when due, and the test decode of the held-out questions on the uint8-round-tripped image.
+when due, and every victim's test decode of the held-out questions on the uint8-round-tripped
+image.
 """
 
 from __future__ import annotations
@@ -35,7 +36,6 @@ from adversarialvlm_tpu_torch.attack.step import (
     init_state,
     sample_chunk_xs,
     saved_perturbation,
-    unported_features,
 )
 from adversarialvlm_tpu_torch.eval.train_test import run_model_test
 from adversarialvlm_tpu_torch.ops.image import uint8_roundtrip
@@ -73,6 +73,7 @@ class VictimSetup:
             pad_token_id=ai.pad_token_id,
             device=dev,
             compute_dtype=self.compute_dtype,
+            n_refuse=ai.n_refuse,
         )
 
 
@@ -121,14 +122,17 @@ def train(
     device=None,
 ) -> str:
     """Run the attack on ``device`` (default: the card, which must hold the victims); returns
-    the experiment path. Artifacts: config.json, mask.pt/png (``create_mask`` when both
-    ``mask_type`` and ``mask_size`` are set, else the nonzero pixels of x₀),
-    optimized_image_iter_<global_iter>.png/.bin at each save boundary and "final" (x₀ + x, x
-    blurred at the fixed σ when ``use_gaussian_blur`` and ``transform_prob >= 1``),
-    metrics.jsonl (one row per step, with its ``step_ms``) and, with ``run_tests``,
-    test_results_iter_<iteration>.csv at each save boundary (greedy answers of
-    ``test_max_new_tokens`` tokens to the held-out questions), and the attack state at each save
-    boundary, attack_state_iter_<global_iter>.pt and attack_state_latest.pt.
+    the experiment path. ``cross`` (default: more than one victim) runs the cross-model
+    universal attack, with ``cfg.model_weights`` and, under ``cfg.DPO_flag``, its refusal
+    targets; DPO without ``cross`` raises before anything is written. Artifacts: config.json,
+    mask.pt/png (``create_mask`` when both ``mask_type`` and ``mask_size`` are set, else the
+    nonzero pixels of x₀), optimized_image_iter_<global_iter>.png/.bin at each save boundary and
+    "final" (x₀ + x, x blurred when ``use_gaussian_blur`` and ``transform_prob >= 1``: at the
+    fixed σ, or in cross mode at the last executed step's σ), metrics.jsonl (one row per step,
+    with its ``step_ms``) and, with ``run_tests``, test_results_iter_<iteration>.csv at each save
+    boundary (each victim's greedy answers of ``test_max_new_tokens`` tokens to the held-out
+    questions, in its own compute dtype), and the attack state at each save boundary,
+    attack_state_iter_<global_iter>.pt and attack_state_latest.pt.
 
     ``cfg.resume_state`` (such a file) continues that run: p, the optimizer, the counters and
     every generator as they were saved, the chunks realigned to the save grid and the
@@ -136,9 +140,6 @@ def train(
     torch.profiler (host and, on the card, device activity) into a Chrome trace there."""
     dev = resolve_device(device)
     cross = len(victims) > 1 if cross is None else cross
-    waiting = unported_features(cfg, cross)
-    if waiting:
-        raise NotImplementedError("not ported yet: " + ", ".join(waiting))
     if any(v.bundle.device != dev for v in victims):
         raise ValueError(f"victims must live on {dev}")
     if cfg.grad_accum_steps > 1:
@@ -152,8 +153,6 @@ def train(
             stacklevel=2,
         )
 
-    exp_path = create_directory(cfg.exp_name, base_path)
-    save_config(dataclasses.asdict(cfg), exp_path)
     x0 = np.asarray(x0, np.float32)
     if cfg.start_from_white:
         x0 = np.ones_like(x0)
@@ -161,25 +160,33 @@ def train(
         mask = create_mask(cfg.mask_type, cfg.mask_size, x0.shape, host_generator(cfg.seed, 0))
     else:
         mask = default_mask(x0)
+    x0_dev = torch.as_tensor(x0, device=dev)
+    handles = [v.handles() for v in victims]
+    # the step checks the run's options (DPO only in cross mode, ...) before the run directory exists
+    step = build_attack_step(handles, cfg, x0_dev, torch.as_tensor(mask, device=dev),
+                             model_weights=cfg.model_weights, cross=cross)
+
+    exp_path = create_directory(cfg.exp_name, base_path)
+    save_config(dataclasses.asdict(cfg), exp_path)
     save_mask(mask, exp_path)
     logger = RunLogger(exp_path, {**dataclasses.asdict(cfg), "models": [v.name for v in victims]})
 
-    x0_dev = torch.as_tensor(x0, device=dev)
-    handles = [v.handles() for v in victims]
-    compute_dtype = handles[0].compute_dtype
-    step = build_attack_step(handles, cfg, x0_dev, torch.as_tensor(mask, device=dev), cross)
     state = init_state(cfg, x0_dev)
     draws = torch.Generator().manual_seed(cfg.seed)
-    transforms = TransformDraws(cfg, x0.shape, cfg.seed)
+    transforms = TransformDraws(cfg, x0.shape, cfg.seed, cross=cross)
     generators = {"draws": draws, "noise": step.noise_gen,
                   **{f"transform_{k}": g for k, g in transforms.gens.items()}}
+    if "sigma" in transforms.gens:
+        # cross mode with the blur: the σ of the last executed step, which the saved image and
+        # the monitor reuse (None until a step ran); saved with the attack state
+        state["last_sigma"] = None
     if cfg.resume_state:
         load_attack_state(cfg.resume_state, state, generators)
-    resaved_fn = build_resaved_loss_fn(handles, cfg, x0_dev) if cfg.loss_resaved_every else None
+    resaved_fn = build_resaved_loss_fn(handles, cfg, x0_dev, cross) if cfg.loss_resaved_every else None
 
     def current_image() -> np.ndarray:
         with torch.no_grad():
-            return (x0_dev + saved_perturbation(cfg, state["p"])).cpu().numpy()
+            return (x0_dev + saved_perturbation(cfg, state["p"], cross, state.get("last_sigma"))).cpu().numpy()
 
     def checkpoint_and_test(iteration: int) -> None:
         img = current_image()
@@ -201,7 +208,7 @@ def train(
             iteration=iteration,
             image_chw=img_q,
             max_new_tokens=test_max_new_tokens,
-            cache_dtype=compute_dtype,
+            cache_dtype=[v.compute_dtype for v in victims],
         )
         logger.log({"iteration": iteration, **test_log})
         if first_row is not None:
@@ -226,6 +233,8 @@ def train(
                     state, metrics = step(state, xs)
                     clock.mark()
                     rows.append(metrics)
+                    if "sigma" in xs:
+                        state["last_sigma"] = xs["sigma"]
                 if profiling and dev.type == "cuda":
                     torch.cuda.synchronize()
             if profiling:
@@ -242,7 +251,8 @@ def train(
             if resaved_fn is not None and boundary_iter // cfg.loss_resaved_every > last_resaved_bucket:
                 last_resaved_bucket = boundary_iter // cfg.loss_resaved_every
                 gen = torch.Generator().manual_seed(cfg.seed + boundary_iter)
-                value = float(resaved_fn(state["p"], gen))
+                xs = sample_chunk_xs(gen, 1, cfg, handles)[0]
+                value = float(resaved_fn(state["p"], xs, state.get("last_sigma")))
                 logger.log({"iteration": boundary_iter, "loss_resaved": value})
             checkpoint_and_test(boundary_iter)
             logger.flush()

@@ -49,8 +49,9 @@ STATE_MISMATCH = ("attack state structure mismatch — was the config (optimizer
 def save_attack_state(state: dict, generators: dict, exp_path: str, iteration) -> str:
     """The whole attack state for true resume (an upgrade over the reference, which restarts from
     the saved PNG with fresh AdamW moments): p, the AdamW and StepLR state_dicts, σ_resave, the
-    accumulated loss, the gradient buffer when there is one, the counters and the states of the
-    run's generators (``generators``: name -> torch.Generator), so a resumed run draws the same
+    accumulated loss, the gradient buffer when there is one, in cross mode with the blur the last
+    step's σ (a float, or None before the first step), the counters and the states of the run's
+    generators (``generators``: name -> torch.Generator), so a resumed run draws the same
     questions, crops, coins, squares and noise. Written as attack_state_iter_<iteration>.pt and
     attack_state_latest.pt, each through a .tmp file and os.replace. A torch file, where the JAX
     package writes npz: the two formats do not read each other."""
@@ -66,6 +67,8 @@ def save_attack_state(state: dict, generators: dict, exp_path: str, iteration) -
     }
     if "grad_buf" in state:
         payload["grad_buf"] = state["grad_buf"].detach().cpu()
+    if "last_sigma" in state:
+        payload["last_sigma"] = state["last_sigma"]
     path = os.path.join(exp_path, f"attack_state_iter_{iteration}.pt")
     for target in (path, os.path.join(exp_path, "attack_state_latest.pt")):
         tmp = target + ".tmp"
@@ -83,7 +86,7 @@ def load_attack_state(path: str, state: dict, generators: dict) -> dict:
     saved = torch.load(path, map_location="cpu", weights_only=True)
     keys = {"p", "optimizer", "scheduler", "resave_std", "accum_loss", "iteration",
             "global_iteration", "generators"}
-    if not (keys <= set(saved) <= keys | {"grad_buf"}) or saved["p"].shape != state["p"].shape \
+    if not (keys <= set(saved) <= keys | {"grad_buf", "last_sigma"}) or saved["p"].shape != state["p"].shape \
             or set(saved["generators"]) != set(generators):
         raise ValueError(STATE_MISMATCH)
     try:
@@ -96,6 +99,8 @@ def load_attack_state(path: str, state: dict, generators: dict) -> dict:
     for key in ("resave_std", "accum_loss"):
         state[key] = saved[key].to(state[key].device)
     state["iteration"], state["global_iteration"] = saved["iteration"], saved["global_iteration"]
+    if "last_sigma" in saved:  # saved with the σ stream, which the generators' check matched
+        state["last_sigma"] = saved["last_sigma"]
     for name, g in generators.items():
         g.set_state(saved["generators"][name])
     if "grad_buf" in state:

@@ -37,6 +37,20 @@ def questions_and_targets(cfg) -> tuple[list[str], list[str]]:
     )
 
 
+def refuse_texts(cfg_attack, spec) -> list[str] | None:
+    """The refusal rows of DPO mode (crossattack_models.py:302-310): the family's reference
+    refusal prefixes, or None when DPO is off. A family without a refusal corpus raises."""
+    if not getattr(cfg_attack, "DPO_flag", False):
+        return None
+    if not spec.refuses:
+        raise ValueError(
+            f"--DPO_flag: family {spec.family!r} has no refusal corpus "
+            "(the reference defines refuses only for llava/phi3v/qwen2vl/"
+            "mllama; gemma3 is eval-only there)"
+        )
+    return list(spec.refuses)
+
+
 def build_tiny_victim(
     name: str,
     cfg_attack,
@@ -59,6 +73,7 @@ def build_tiny_victim(
         vlm_cfg = tiny_gemma3(vocab_size=384) if family == "gemma3" else tiny_llava(vocab_size=384)
     family = vlm_cfg.family
     spec = spec_for_family(family)
+    refusals = refuse_texts(cfg_attack, spec)
     tok = ByteTokenizer(special_tokens={spec.image_placeholder: vlm_cfg.image_token_id})
     for extra in _EXTRA_SPECIALS:
         tok.add_special(extra)
@@ -79,6 +94,7 @@ def build_tiny_victim(
         image_token_id=vlm_cfg.image_token_id,
         pad_token_id=tok.pad_token_id,
         image_expansion_ids=_image_expansion(family, vlm_cfg, tok, n_img),
+        refuse_texts=refusals,
     )
     dtype = dtype or torch.float32
     bundle = make_bundle(name, family, vlm_cfg, dev, seed=seed, dtype=dtype)
@@ -103,13 +119,15 @@ def build_victim_from_checkpoint(
     the f32 the loader keeps the norms in."""
     dev = resolve_device(device)
     family = family_of(model_name)
+    spec = spec_for_family(family)
+    refusals = refuse_texts(cfg_attack, spec)  # before any file is read
     bundle, tok, adv_proc = load_model_and_processor(model_name, checkpoint_path, in_hw, dtype, dev)
     vlm_cfg = bundle.cfg
     if questions is None or targets is None:
         questions, targets = questions_and_targets(cfg_attack)
     n_img = _num_image_tokens(family, vlm_cfg)
     adv_inputs = AdvInputs(
-        spec=spec_for_family(family),
+        spec=spec,
         tokenizer=tok,
         questions=questions,
         test_questions=(
@@ -121,6 +139,7 @@ def build_victim_from_checkpoint(
         image_token_id=vlm_cfg.image_token_id,
         pad_token_id=tok.pad_token_id,
         image_expansion_ids=_image_expansion(family, vlm_cfg, tok, n_img),
+        refuse_texts=refusals,
     )
     return VictimSetup(name=model_name, bundle=bundle, adv_processor=adv_proc,
                        adv_inputs=adv_inputs, compute_dtype=dtype)

@@ -25,6 +25,8 @@ from datetime import datetime
 
 import torch
 
+from adversarialvlm_tpu_torch.models.configs import gemma3_4b_it, llava_1_5_7b
+
 
 def add_attack_flags(parser):
     """The reference's attack CLI surface (attack_model.py:483-519) plus the JAX package's
@@ -91,7 +93,14 @@ def attack_config_from_args(args, **overrides):
     return AttackConfig(**fields)
 
 
-MODEL_NAMES = ("random:llava-1.5-7b", "random:gemma-3-4b-it", "tiny:llava", "tiny:gemma3")
+# the random-weight victims with the byte tokenizer: name -> (family, its full-size config; None
+# for the tiny model)
+RANDOM_VICTIMS = {
+    "random:llava-1.5-7b": ("llava", llava_1_5_7b),
+    "random:gemma-3-4b-it": ("gemma3", gemma3_4b_it),
+    "tiny:llava": ("llava", None),
+    "tiny:gemma3": ("gemma3", None),
+}
 
 
 def resolve_checkpoint(model_name: str, checkpoint_root: str | None) -> str:
@@ -105,33 +114,38 @@ def resolve_checkpoint(model_name: str, checkpoint_root: str | None) -> str:
                             "(set --checkpoint_root or $ADVLM_CHECKPOINTS)")
 
 
+def victim_family(model_name: str) -> str:
+    """The family of a model name (``random:*``, ``tiny:*`` or an HF name of
+    processors.MODEL_MAP), before any file is read; other names raise."""
+    from adversarialvlm_tpu_torch.processors import family_of
+
+    if model_name in RANDOM_VICTIMS:
+        return RANDOM_VICTIMS[model_name][0]
+    if ":" in model_name:
+        raise ValueError(f"model {model_name!r}: use an HF name or one of " + ", ".join(RANDOM_VICTIMS))
+    return family_of(model_name)
+
+
 def build_victim(model_name: str, cfg, in_hw, device, checkpoint_root: str | None = None):
     """``random:*`` and ``tiny:*`` names build random-weight victims with the byte tokenizer;
     an HF name (processors.MODEL_MAP) loads its checkpoint directory."""
     from adversarialvlm_tpu_torch.attack.setup import build_tiny_victim, build_victim_from_checkpoint
-    from adversarialvlm_tpu_torch.models.configs import gemma3_4b_it, llava_1_5_7b
-    from adversarialvlm_tpu_torch.processors import family_of
 
-    full_size = {"random:llava-1.5-7b": llava_1_5_7b, "random:gemma-3-4b-it": gemma3_4b_it}
-    if model_name in full_size:
-        return build_tiny_victim(model_name, cfg, in_hw, vlm_cfg=full_size[model_name](),
-                                 seed=cfg.seed, dtype=torch.bfloat16, device=device)
-    if model_name in ("tiny:llava", "tiny:gemma3"):
-        return build_tiny_victim(model_name, cfg, in_hw, seed=cfg.seed, device=device,
-                                 family=model_name.split(":")[1])
-    if ":" in model_name:
-        raise ValueError(f"model {model_name!r}: use an HF name or one of " + ", ".join(MODEL_NAMES))
-    family_of(model_name)  # names a family the port does not run before any file is read
+    family = victim_family(model_name)  # names a family the port does not run before any file is read
+    if model_name in RANDOM_VICTIMS:
+        full_size = RANDOM_VICTIMS[model_name][1]
+        if full_size is not None:
+            return build_tiny_victim(model_name, cfg, in_hw, vlm_cfg=full_size(), seed=cfg.seed,
+                                     dtype=torch.bfloat16, device=device)
+        return build_tiny_victim(model_name, cfg, in_hw, seed=cfg.seed, device=device, family=family)
     dtype = torch.bfloat16 if torch.device(device).type == "cuda" else torch.float32
     return build_victim_from_checkpoint(model_name, resolve_checkpoint(model_name, checkpoint_root),
                                         cfg, in_hw, dtype=dtype, device=device)
 
 
-def main(argv=None):
-    parser = argparse.ArgumentParser(description="Train image attack model.")
-    add_attack_flags(parser)
-    parser.add_argument("--model_name", type=str, default="random:llava-1.5-7b")
-    args = parser.parse_args(argv)
+def check_unported_flags(args) -> None:
+    """The flags whose features the port does not run yet raise, each naming its ROADMAP item,
+    before any victim is built."""
     waiting = [
         flag for flag, asked in (
             ("--mesh_model/--mesh_data (ROADMAP modules: multi-GPU mesh)",
@@ -143,17 +157,23 @@ def main(argv=None):
     if waiting:
         raise NotImplementedError("not ported yet: " + ", ".join(waiting))
 
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="Train image attack model.")
+    add_attack_flags(parser)
+    parser.add_argument("--model_name", type=str, default="random:llava-1.5-7b")
+    args = parser.parse_args(argv)
+    check_unported_flags(args)
+
     from adversarialvlm_tpu_torch.attack.engine import train
     from adversarialvlm_tpu_torch.attack.io import load_image_chw
-    from adversarialvlm_tpu_torch.attack.step import unported_features
+    from adversarialvlm_tpu_torch.attack.step import check_dpo_mode
     from adversarialvlm_tpu_torch.utils.device import resolve_device
 
     cfg = attack_config_from_args(
         args, exp_name=f"{args.exp_name}_{datetime.now().strftime('%Y%m%d_%H%M%S')}"
     )
-    waiting = unported_features(cfg)
-    if waiting:  # fail before the victim build
-        raise NotImplementedError("not ported yet: " + ", ".join(waiting))
+    check_dpo_mode(cfg, cross=False)  # before the victim build
     device = resolve_device(args.device)
     print("params:", args.__dict__)
     x0 = load_image_chw(args.img_orig)

@@ -44,15 +44,17 @@ def run_model_test(
 ):
     """Returns (first_row, metrics) and writes test_results_iter_<iteration>.csv. Each victim
     decodes every question on ``image_chw`` (CHW float numpy) in chunks of the batch its cache
-    leaves room for; a chunk that runs out of memory retries at half the batch."""
+    leaves room for; a chunk that runs out of memory retries at half the batch. ``cache_dtype``
+    is one dtype for every victim or one per victim."""
     questions = list(not_safe_questions_test)
     n = len(questions)
+    dtypes = list(cache_dtype) if isinstance(cache_dtype, (list, tuple)) else [cache_dtype] * len(bundles)
     per_model_texts: list[list[str]] = []
     # every victim stays resident through each model's decode: budget for the others' weights
     model_bytes = [param_bytes(b.params) for b in bundles]
     for i, (bundle, adv_inputs, adv_proc) in enumerate(zip(bundles, adv_inputs_list, adv_processors)):
         bs, bundle_cache_dtype = _pick_decode(
-            bundle, adv_inputs, questions, max_new_tokens, batch_size, cache_dtype,
+            bundle, adv_inputs, questions, max_new_tokens, batch_size, dtypes[i],
             reserved_bytes=sum(model_bytes) - model_bytes[i],
         )
         processed = adv_proc.process(torch.as_tensor(image_chw, device=bundle.device))

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["gaussian_kernel1d", "gaussian_blur", "random_sigma_gaussian_blur"]
+__all__ = ["gaussian_kernel1d", "gaussian_blur", "draw_sigma", "random_sigma_gaussian_blur"]
 
 
 def gaussian_kernel1d(kernel_size: int, sigma: float) -> np.ndarray:
@@ -47,6 +47,12 @@ def gaussian_blur(img: torch.Tensor, kernel_size: int = 5, sigma: float = 7.0) -
     return _blur_with_kernel(img, torch.from_numpy(gaussian_kernel1d(kernel_size, sigma)))
 
 
+def draw_sigma(generator: torch.Generator, sigma_min: float = 0.1, sigma_max: float = 2.0) -> float:
+    """A sigma drawn uniformly from [sigma_min, sigma_max) with ``generator`` (f32 arithmetic)."""
+    u = torch.rand((), generator=generator)
+    return float(sigma_min + (sigma_max - sigma_min) * u)
+
+
 def random_sigma_gaussian_blur(
     img: torch.Tensor,
     kernel_size: int = 5,
@@ -63,8 +69,7 @@ def random_sigma_gaussian_blur(
     if sigma is None:
         if generator is None:
             raise ValueError("random_sigma_gaussian_blur: pass sigma or a generator to draw it")
-        u = torch.rand((), generator=generator)
-        sigma = float(sigma_min + (sigma_max - sigma_min) * u)
+        sigma = draw_sigma(generator, sigma_min, sigma_max)
     half = (kernel_size - 1) * 0.5
     x = torch.linspace(-half, half, kernel_size, dtype=torch.float32)
     pdf = torch.exp(-0.5 * (x / torch.tensor(sigma, dtype=torch.float32)) ** 2)

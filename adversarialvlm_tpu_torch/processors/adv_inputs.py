@@ -26,6 +26,7 @@ class AdvInputs:
         image_token_id: int,
         pad_token_id: int | None = None,
         image_expansion_ids: list[int] | None = None,
+        refuse_texts: list[str] | None = None,
     ):
         self.spec = spec
         self.tokenizer = tokenizer
@@ -42,6 +43,11 @@ class AdvInputs:
             else [image_token_id] * num_image_tokens
         )
         self.target_texts = [target_texts] if isinstance(target_texts, str) else list(target_texts)
+        # DPO (cross engine): the refusal texts are pool rows after the shared targets, so a
+        # refusing step is a target index >= n_shared_targets (crossattack_models.py:302-310)
+        self.refuse_texts = list(refuse_texts or [])
+        self.n_shared_targets = len(self.target_texts)
+        self.n_refuse = len(self.refuse_texts)
         self.shift = spec.shift(tokenizer)
         self._build_pools()
 
@@ -88,11 +94,12 @@ class AdvInputs:
         return (gap or []) + tail
 
     def _build_pools(self):
-        n_t, n_q = len(self.target_texts), len(self.questions)
+        pool_texts = self.target_texts + self.refuse_texts
+        n_t, n_q = len(pool_texts), len(self.questions)
         prefix_rows = [self._encode_prompt(self.spec.inference_text(q)) for q in self.questions]
         rows: list[list[list[int]]] = []
         tgt_rows: list[list[int]] = []
-        for t in self.target_texts:
+        for t in pool_texts:
             tail = self.tokenizer.encode(t + self.spec.extra_token, add_special_tokens=False)
             per_q = [self._encode_prompt(self.spec.train_text(q, t)) for q in self.questions]
             tgt_rows.append(self._scored_window(tail, per_q, prefix_rows))

@@ -36,7 +36,7 @@ Phases, in order (no exception is caught; any failure exits non-zero with no fin
      (cli/fabricate_ckpt.py: sharded safetensors, config.json, the Llama-style tokenizer.json)
      under the git-ignored adversarialvlm_tpu_torch/build/, and loaded back the CLI's way
      (resolve_checkpoint -> build_victim_from_checkpoint): every tensor equal to the written one,
-     the patched config equal to llava_1_5_7b(); the directory is then deleted. This victim, with
+     the patched config equal to llava_1_5_7b(); the directory stays for 4X and 4D. This victim, with
      the checkpoint's tokenizer, is the victim of phases 3 (the LLaVA shapes), 4, 4t, 4b, 4R and 5;
   4. the batch-1 path: the loaded LLaVA-1.5-7B single-victim attack through ``train()`` for
      1 warm-up step + 5 steps, with each kernel's launches counted over that run only;
@@ -78,8 +78,35 @@ the forward over SDPA's forward, dq + dk/dv over SDPA's whole backward):
      decode, teacher-forced, and the judge's text-only prefill over 2 rows of T 704 (one
      left-padded), whose global layer takes the head_dim-256 flash forward on the card:
      last-position logits cosine >= 0.99.
+Then, with the Gemma-3 victim freed, the cross-model universal attack, both victims loaded again
+from the directories of 4L and 4G (which are deleted at the end) and resident on the card:
+  4X. cli/crossattack_models.py at the reference script's settings (scripts/attacks/
+     attack_cross.sh: batch 1, ε 0.4 by default, the list prompts, random targets) on
+     llava-hf/llava-1.5-7b-hf,google/gemma-3-4b-it: 1 warm-up + 4 steps, save boundaries at
+     iterations 0 and 4, each decoding the 50 held-out questions with both victims; counted from
+     zero after the load, per cross step exactly LLaVA's and Gemma's dgrad launches (364 + 346),
+     32 of each batch-1 causal kernel and 27 of each flash_full kernel. Then every kernel of that
+     run against its plain version and timed, as in 3, at the shapes the run gave it, read from
+     the victims the CLI built: dgrad over both victims' linears at batch 1 (LLaVA's T, Gemma's
+     T), the batch-1 causal kernels at LLaVA's T with the first step's pad, flash_full forward and
+     backward at batch 1 (the step, the monitor and Gemma's decode prefill) and the flash forward
+     at LLaVA's decode prefill, whose (batch, T) must be the run's. Then the cross step beside each
+     victim's step alone on the same resident victims, pools and draws, in turns (3 rounds of 5
+     steps each, with the allocator's device allocations) and under torch.profiler (wall and
+     device-busy time a step), and the steps' peak memory from an emptied cache. Then the same
+     CLI with --use_gaussian_blur for 3 steps: the saved image is x₀ + blur at the last step's σ;
+  5X. depth-cut references of the cross step (model weights 1.0 and 0.5): LLaVA's first 2 decoder
+     and 2 vision layers with Gemma-3's first 6 decoder and 2 vision layers, from the weights 4X
+     loaded, the card in bf16 through the kernels against the CPU in f32 on the plain path with
+     the same injected draws: loss, loss_0 and loss_1 within 1e-2 relative, gradient cosine >= 0.99;
+  4D. DPO through the cross CLI with LLaVA alone (--DPO_flag --refuse_prob 0.5, batch 1): an
+     uninterrupted run of 6 steps against one of 3 steps resumed from its attack_state_latest.pt
+     to 6: the resumed metrics.jsonl rows (every refuse_flag and target_idx among them) and the
+     final image equal, the run refusing at some steps and not at others; and --DPO_flag with
+     Gemma-3 among the victims raises ValueError before any file is read.
 It then prints each checkpoint directory's write and load seconds and GB/s, the resume verdict,
-the bench line and the run's total, the kernels' JSON line, the card's name and power limit, and
+the bench line, the cross step's numbers and the run's total, the kernels' JSON line (each kernel
+with its launches per cross step), the card's name and power limit, and
 as its last line {"ok": true, "device": {...}}. Without a card it exits non-zero before printing
 anything.
 """
@@ -88,6 +115,7 @@ import csv
 import gc
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -115,6 +143,12 @@ JUDGE_B, JUDGE_T = 16, 704  # the Gemma-3 safety judge's text-only prefill: its 
 JUDGE_PAD_MAX = 160       # each judge row left-padded by a seeded 0..160 tokens
 JUDGE_FORWARDS = 3        # timed judge prefill forwards, after one warm-up
 RESUME_STEPS, RESUME_CUT = 6, 3  # phase 4R: an uninterrupted run, and one resumed after this many steps
+STEPS_X = 5               # phase 4X: 1 warm-up + 4 timed; save boundaries at iterations 0 and 4
+STEPS_XB = 3              # phase 4X with the blur: save boundaries at iterations 0 and 2
+PROFILE_ROUNDS, TIMED_STEPS = 3, 5  # phase 4X: rounds of timed steps of the cross step and each victim alone
+PROFILE_STEPS = 3         # phase 4X: profiled steps of the cross step and of each victim alone
+DPO_STEPS, DPO_CUT = 6, 3  # phase 4D: an uninterrupted DPO run, and one resumed after this many steps
+CROSS_WEIGHTS = (1.0, 0.5)  # phase 5X's model weights
 
 
 def log(phase, msg):
@@ -772,11 +806,15 @@ class PathProbe:
     outside the forward is the step's backward. Each test-decode chunk is timed with CUDA events
     from its prefill to its last forward, with its peak memory: the peak statistics are reset
     where a chunk begins (when its KV caches are allocated, before its prefill) and where it
-    ends, so the steps' peak is kept apart from the caches'."""
+    ends, so the steps' peak is kept apart from the caches'. Probes on the victims of one run
+    share ``group``: a chunk ends where any of them runs a forward other than a cached decode
+    step or allocates caches, so one victim's decode peak is never read as another's steps'."""
 
-    def __init__(self, bundle):
+    def __init__(self, bundle, group=None):
         from collections import Counter
 
+        self.group = [] if group is None else group
+        self.group.append(self)
         self.bundle, self.inner, self.inner_caches = bundle, bundle.forward, bundle.make_caches
         self.launches = {p: Counter() for p in ("step", "monitor", "prefill", "decode_step")}
         self.calls = Counter()
@@ -791,8 +829,9 @@ class PathProbe:
         torch.cuda.reset_peak_memory_stats()
 
     def _make_caches(self, *args, **kw):
-        """A decode chunk begins: close the previous one, keep the steps' peak so far, reset."""
-        self._close_chunk()
+        """A decode chunk begins: close the open ones, keep the steps' peak so far, reset."""
+        for probe in self.group:
+            probe._close_chunk()
         self._steps_peak_so_far()
         self.caches_made = True
         return self.inner_caches(*args, **kw)
@@ -815,7 +854,8 @@ class PathProbe:
         else:
             phase = "prefill" if kw["cache_index"] == 0 else "decode_step"
         if phase != "decode_step":
-            self._close_chunk()
+            for probe in self.group:
+                probe._close_chunk()
         if phase == "prefill":
             if not self.caches_made:
                 self._steps_peak_so_far()
@@ -1007,16 +1047,15 @@ def depth_cut(params, n_text, n_vision):
             "vision_tower": {**vt, "layers": vt["layers"][:n_vision]}}
 
 
-def checkpoint_victim(model, cfg, **prompts):
+def checkpoint_victim(model, cfg, root, **prompts):
     """Phases 4L and 4G: the seed-0 random parameters of ``model`` at full width and depth, drawn
     on the card, are written by the port's fabricator (cli/fabricate_ckpt.py) as an HF checkpoint
-    directory under the git-ignored adversarialvlm_tpu_torch/build/; the victim is then built the
-    CLI's way, resolve_checkpoint -> build_victim_from_checkpoint, with the HF name. Every loaded
-    tensor must equal the written one (norms come back in f32, the rest in bf16) and the patched
-    VLMConfig the model's own; the directory is deleted once the victim is on the card. Returns
-    the victim and the write and load numbers."""
-    import shutil
-
+    directory under ``root`` (in the git-ignored adversarialvlm_tpu_torch/build/); the victim is
+    then built the CLI's way, resolve_checkpoint -> build_victim_from_checkpoint, with the HF
+    name. Every loaded tensor must equal the written one (norms come back in f32, the rest in
+    bf16) and the patched VLMConfig the model's own. The directory stays for the cross phases,
+    which load both victims from ``root`` through the cross CLI. Returns the victim and the write
+    and load numbers."""
     import torch
 
     from adversarialvlm_tpu_torch.attack.setup import build_victim_from_checkpoint
@@ -1029,32 +1068,26 @@ def checkpoint_victim(model, cfg, **prompts):
     hf_name, make_cfg, dtype = MODELS[model]
     family, vlm_cfg = family_of(hf_name), make_cfg()
     tag = f"load {family}"
-    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "adversarialvlm_tpu_torch", "build")
-    os.makedirs(build, exist_ok=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     written = _MODELS[family].init_params(torch.Generator(device="cuda").manual_seed(0), vlm_cfg, dtype, "cuda")
     n_params = sum(t.numel() for t in _leaves(written))
     log(tag, f"{n_params / 1e9:.3f} B seed-0 parameters drawn on the card in {time.perf_counter() - t0:.1f} s; "
-        f"free disk under {build}: {shutil.disk_usage(build).free / 1e9:.1f} GB")
-    root = tempfile.mkdtemp(prefix="ckpt_", dir=build)
-    try:
-        t0 = time.perf_counter()
-        out = fabricate(model, root, params=written)
-        write_s = time.perf_counter() - t0
-        shards = sorted(f for f in os.listdir(out) if f.endswith(".safetensors"))
-        nbytes = sum(os.path.getsize(os.path.join(out, f)) for f in shards)
-        log(tag, f"wrote {out} in {write_s:.1f} s: {len(shards)} shards, {nbytes / 1e9:.3f} GB "
-            f"({nbytes / 1e9 / write_s:.2f} GB/s), files {sorted(os.listdir(out))}")
-        path = resolve_checkpoint(hf_name, root)
-        t0 = time.perf_counter()
-        victim = build_victim_from_checkpoint(hf_name, path, cfg, (512, 512), dtype=dtype,
-                                              device="cuda", **prompts)
-        torch.cuda.synchronize()
-        load_s = time.perf_counter() - t0
-    finally:
-        shutil.rmtree(root)
+        f"free disk under {root}: {shutil.disk_usage(root).free / 1e9:.1f} GB")
+    t0 = time.perf_counter()
+    out = fabricate(model, root, params=written)
+    write_s = time.perf_counter() - t0
+    shards = sorted(f for f in os.listdir(out) if f.endswith(".safetensors"))
+    nbytes = sum(os.path.getsize(os.path.join(out, f)) for f in shards)
+    log(tag, f"wrote {out} in {write_s:.1f} s: {len(shards)} shards, {nbytes / 1e9:.3f} GB "
+        f"({nbytes / 1e9 / write_s:.2f} GB/s), files {sorted(os.listdir(out))}")
+    path = resolve_checkpoint(hf_name, root)
+    t0 = time.perf_counter()
+    victim = build_victim_from_checkpoint(hf_name, path, cfg, (512, 512), dtype=dtype,
+                                          device="cuda", **prompts)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
     got, want = dict(named_leaves(victim.bundle.params)), dict(named_leaves(written))
     if set(got) != set(want):
         raise AssertionError(f"{tag}: loaded keys differ: missing {sorted(set(want) - set(got))[:5]}, "
@@ -1072,7 +1105,7 @@ def checkpoint_victim(model, cfg, **prompts):
     log(tag, f"loaded {hf_name} through resolve_checkpoint -> build_victim_from_checkpoint in {load_s:.1f} s "
         f"({nbytes / 1e9 / load_s:.2f} GB/s): {n_tensors} tensors, each equal to the written one (f32: "
         f"{f32}), VLMConfig equal to {model}'s; tokenizer {type(tok).__name__} of {tok.vocab_size} tokens; "
-        f"peak {peak:.3f} GiB; directory deleted, {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+        f"peak {peak:.3f} GiB; {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
     return victim, {"GB": nbytes / 1e9, "write_s": write_s, "load_s": load_s, "peak_GiB": peak,
                     "tensors": n_tensors}
 
@@ -1181,7 +1214,7 @@ def bench_phase():
     return result
 
 
-def llava_phases():
+def llava_phases(ckpt_root):
     """Phases 3 (the LLaVA shapes), 4, 4b and 5 on the LLaVA-1.5-7B victim; returns the kernel
     statistics and launch counts of the JSON line. Its tensors are freed on return."""
     import dataclasses
@@ -1212,7 +1245,7 @@ def llava_phases():
     cfg4 = AttackConfig(exp_name="chip_smoke_b4", num_iterations=STEPS4, save_steps=10,
                         batch_size=4, grad_accum_steps=1, lr=1e-2)
     # 4L. the victim, loaded from the directory the port's fabricator writes
-    victim, load_stats = checkpoint_victim("llava-1.5-7b", cfg, questions=[QUESTION], targets=[TARGET],
+    victim, load_stats = checkpoint_victim("llava-1.5-7b", cfg, ckpt_root, questions=[QUESTION], targets=[TARGET],
                                            test_questions=[QUESTION])
     t_text = int(victim.adv_inputs.max_len)
     pad = t_text - int(victim.adv_inputs.prompt_lengths[0, 0])
@@ -1457,7 +1490,7 @@ def llava_phases():
     log("reference", f"all references in {time.perf_counter() - t0:.1f} s")
     return {
         "stats": {"dgrad": dg, **attn, **flash}, "prefill": prefill, "transforms": transforms, "dgrad4": dg4,
-        "load": load_stats, "resume": resume,
+        "load": load_stats, "resume": resume, "median_b1_ms": med,
         "counts": {**{k: launches[k] for k in pr3_kernels}, **{k: launches4[k] for k in flash}},
     }
 
@@ -1540,7 +1573,7 @@ def judge_prefill(params, g_cfg):
     return {"launches": launches["flash_fwd"]}
 
 
-def gemma_phases():
+def gemma_phases(ckpt_root):
     """Phases 4g and 4c: the judge's text-only prefill on the full-depth Gemma-3-4B-it, then its
     attack at batch 4 through ``train(run_tests=True)``, with the dgrad kernel checked at its
     shapes first. Returns the run's launch counts, the Gemma dgrad statistics and the prefill's
@@ -1557,7 +1590,7 @@ def gemma_phases():
                        batch_size=4, grad_accum_steps=1, lr=1e-2)
     # 4G. the victim, loaded from the directory the port's fabricator writes
     t0 = time.perf_counter()
-    victim, load_stats = checkpoint_victim("gemma-3-4b", cfg)
+    victim, load_stats = checkpoint_victim("gemma-3-4b", cfg, ckpt_root)
     g_cfg = victim.bundle.cfg
     t, v = g_cfg.text, g_cfg.vision
     ai = victim.adv_inputs
@@ -1776,6 +1809,413 @@ def gemma_references(victim):
     log("reference", f"gemma3 references in {time.perf_counter() - t0:.1f} s")
 
 
+def cross_cli(args, captured=None):
+    """cli/crossattack_models.main on ``args``. With ``captured`` (a dict), the engine's train()
+    is wrapped for that run: the victims the CLI built, a PathProbe on each, the launches counted
+    from zero after the victims are loaded, the run's wall time and its peak device memory from an
+    emptied cache go into it."""
+    import torch
+
+    from adversarialvlm_tpu_torch.attack import engine
+    from adversarialvlm_tpu_torch.cli import crossattack_models
+    from adversarialvlm_tpu_torch.ops.kernels import launch_counts, reset_launches
+
+    if captured is None:
+        return crossattack_models.main(args)
+    real_train = engine.train
+
+    def spy(cfg, victims, x0, **kw):
+        captured["victims"] = victims
+        group = []
+        probes = [PathProbe(v.bundle, group) for v in victims]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()  # the run's peak counts its own blocks, not an earlier phase's
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            return real_train(cfg, victims, x0, **kw)
+        finally:
+            torch.cuda.synchronize()
+            captured["wall_s"] = time.perf_counter() - t0
+            for probe in probes:
+                probe.finish()
+            captured["probes"], captured["launches"] = probes, launch_counts()
+
+    engine.train = spy
+    try:
+        return crossattack_models.main(args)
+    finally:
+        engine.train = real_train
+
+
+def read_run(exp):
+    """metrics.jsonl's rows (without step_ms) and its step rows (with it), and the test CSVs."""
+    rows, steps = [], []
+    for line in open(os.path.join(exp, "metrics.jsonl")):
+        r = json.loads(line)
+        if "_config" in r:
+            continue
+        if "loss" in r:
+            steps.append(dict(r))
+        r.pop("step_ms", None)
+        rows.append(r)
+    csvs = {}
+    for f in sorted(os.listdir(exp)):
+        if f.startswith("test_results_iter_"):
+            with open(os.path.join(exp, f), newline="", encoding="utf-8") as fh:
+                csvs[f] = list(csv.reader(fh))
+    return rows, steps, csvs
+
+
+def run_config(exp):
+    """The AttackConfig a run wrote into its config.json."""
+    from adversarialvlm_tpu_torch.attack.config import AttackConfig
+
+    saved = json.load(open(os.path.join(exp, "config.json")))
+    return AttackConfig(**{k: v for k, v in saved.items() if k in AttackConfig.__dataclass_fields__})
+
+
+def first_pad(victims, cfg):
+    """The left pad of the first victim's first question row in a run's first step."""
+    import torch
+
+    from adversarialvlm_tpu_torch.attack.step import sample_chunk_xs
+
+    xs = sample_chunk_xs(torch.Generator().manual_seed(cfg.seed), 1, cfg, [v.handles() for v in victims])[0]
+    return int(victims[0].adv_inputs.max_len) - int(xs["lens"][0][0])
+
+
+def dpo_kernels(victim, cfg, cross):
+    """Phase 4D's LLaVA kernels where its pool (the target and the refusal rows) gives another T
+    than 4X's: the batch-1 causal kernels and the decoder's dgrad shapes at that T, against their
+    plain versions (the vision and projector shapes are 4X's)."""
+    t_dpo, t = int(victim.adv_inputs.max_len), victim.bundle.cfg.text
+    log("dpo", f"LLaVA's DPO pool: {victim.adv_inputs.prompt_pool.shape} (targets, questions, T), "
+        f"{victim.adv_inputs.n_refuse} refusal rows; T {t_dpo} (4X: {cross['T']})")
+    if t_dpo == cross["T"]:
+        return
+    cases = llava_dgrad_cases(victim.bundle.params, victim.bundle.cfg, t_dpo, batch=cfg.batch_size)
+    check_dgrad([c for c in cases if c[0] == cfg.batch_size * t_dpo], "dgrad dpo")
+    attention_case(t_dpo, t.num_heads, t.num_kv_heads, t.head_dim_, first_pad([victim], cfg))
+
+
+def cross_kernels(victims, cfg, probe_l):
+    """Phase 4X's kernels at the shapes the cross run gave them, read from the victims the CLI
+    built, each against its plain version and timed as in phase 3: dgrad over both victims'
+    linears at the run's batch (LLaVA's pool T, Gemma's), the batch-1 causal kernels at LLaVA's T
+    with the pad of the run's first step, flash_full forward and backward at the run's batch (the
+    step; the monitor and Gemma's decode prefill run its forward at batch 1 too) and the flash
+    forward at LLaVA's decode prefill, its test questions padded as run_model_test pads them,
+    whose (batch, T) must be every LLaVA decode chunk's of the run (``probe_l``)."""
+    import torch
+
+    from adversarialvlm_tpu_torch.eval.generation import _pick_decode
+    from adversarialvlm_tpu_torch.utils.batching import pad_to_buckets
+
+    llava, gemma = victims
+    l_cfg, g_cfg = llava.bundle.cfg, gemma.bundle.cfg
+    t, v = l_cfg.text, g_cfg.vision
+    t_l, t_g, b = int(llava.adv_inputs.max_len), int(gemma.adv_inputs.max_len), cfg.batch_size
+    pad = first_pad(victims, cfg)
+    ai = llava.adv_inputs
+    qs = ai.test_questions
+    decode_bs, _ = _pick_decode(llava.bundle, ai, qs, DECODE_TOKENS, 50, llava.compute_dtype)
+    probe_in = ai.get_inputs_inference_batch(qs[:decode_bs])
+    _, am, _ = pad_to_buckets(probe_in["input_ids"], probe_in["attention_mask"], ai.pad_token_id, batch_to=decode_bs)
+    seg = torch.as_tensor(am, dtype=torch.int32, device="cuda")
+    run_shapes = sorted({(c["batch"], c["T"]) for c in probe_l.chunks})
+    log("cross", f"the run's kernel shapes: batch {b}, LLaVA T {t_l} (first step's pad {pad}), Gemma T {t_g}, "
+        f"tower {(v.image_size // v.patch_size) ** 2} patches; LLaVA decode prefill {tuple(seg.shape)} "
+        f"(the run's chunks: {run_shapes})")
+    if run_shapes != [tuple(seg.shape)]:
+        raise AssertionError(f"cross path: LLaVA decode chunks {run_shapes}, checked {tuple(seg.shape)}")
+    dg = check_dgrad(llava_dgrad_cases(llava.bundle.params, l_cfg, t_l, batch=b)
+                     + gemma_dgrad_cases(gemma.bundle.params, g_cfg, b, t_g), "dgrad cross step")
+    attn = attention_case(t_l, t.num_heads, t.num_kv_heads, t.head_dim_, pad, timed=True)
+    full = flash_full_case("gemma3 cross step, monitor and decode prefill", b, v.num_heads,
+                           (v.image_size // v.patch_size) ** 2, v.hidden_size // v.num_heads, timed=True)
+    prefill = flash_case("cross test-decode prefill", seg, t.num_heads, t.num_kv_heads, t.head_dim_, timed=True,
+                         backward=False)
+    torch.cuda.empty_cache()
+    return {"dgrad": dg, **attn, **full, **prefill, "T": t_l}
+
+
+def cross_phases(ckpt_root):
+    """Phases 4X, 5X and 4D on the two checkpoint directories under ``ckpt_root``, both victims
+    resident on the card. Returns the cross step's numbers, its launches per step and its
+    kernels' numbers at the run's shapes."""
+    import numpy as np
+    import torch
+
+    from adversarialvlm_tpu_torch.attack.io import load_image_chw
+    from adversarialvlm_tpu_torch.attack.step import host_generator
+    from adversarialvlm_tpu_torch.ops.blur import draw_sigma, random_sigma_gaussian_blur
+    from adversarialvlm_tpu_torch.utils.png import write_png
+
+    llava, gemma = "llava-hf/llava-1.5-7b-hf", "google/gemma-3-4b-it"
+    with tempfile.TemporaryDirectory() as runs:
+        png = os.path.join(runs, "x0.png")
+        write_png(png, np.full((512, 512, 3), 120, np.uint8))
+        x0 = load_image_chw(png)
+        # the reference script's settings (scripts/attacks/attack_cross.sh): batch 1, ε 0.4 by
+        # default, the list prompts and random targets
+        base = ["--img_orig", png, "--runs_path", runs, "--checkpoint_root", ckpt_root, "--batch_size", "1",
+                "--prompt", "list", "--target_text_random", "--save_steps", "10"]
+
+        # 4X. the cross attack through the CLI, both victims loaded from their directories
+        got = {}
+        t0 = time.perf_counter()
+        exp = cross_cli(base + ["--exp_name", "cross", "--model_names", f"{llava},{gemma}",
+                                "--num_iterations", str(STEPS_X)], got)
+        total_s = time.perf_counter() - t0
+        rows, steps, csvs = read_run(exp)
+        victims = got["victims"]
+        cfg = run_config(exp)
+        ai = [v.adv_inputs for v in victims]
+        log("cross", f"{[v.name for v in victims]} from {ckpt_root} through cli/crossattack_models.py: "
+            f"epsilon={cfg.epsilon} batch {cfg.batch_size}, pools {[a.prompt_pool.shape for a in ai]} (T "
+            f"{[a.max_len for a in ai]}), {torch.cuda.memory_allocated() / 2**30:.2f} GiB resident; CLI "
+            f"{total_s:.1f} s, of which train() {got['wall_s']:.1f} s")
+        for r in steps:
+            log("cross", f"step {r['iteration']}: loss={r['loss']} loss_0={r['loss_0']} loss_1={r['loss_1']} "
+                f"grad_norm={r['grad_norm']} target_idx={r['target_idx']} step_ms={r['step_ms']:.2f}")
+        med = statistics.median(r["step_ms"] for r in steps[1:])
+        step_peak = max(p.step_peak for p in got["probes"]) / 2**30
+        chunk_peaks = {v.name: [round(c["peak_GiB"], 3) for c in p.chunks] for v, p in zip(victims, got["probes"])}
+        log("cross", f"median step_ms (steps 1..{STEPS_X - 1})={med:.2f} warm-up step_ms={steps[0]['step_ms']:.2f} "
+            f"steps' peak_memory_GiB={step_peak:.3f}; each test-decode chunk's peak (GiB): {chunk_peaks}")
+        if cfg.epsilon != 0.4 or len(steps) != STEPS_X or not all(
+                np.isfinite(r["loss"]) and r["grad_norm"] > 0 for r in steps):
+            raise AssertionError(f"cross path: epsilon {cfg.epsilon}, steps {[(r['loss'], r['grad_norm']) for r in steps]}")
+        probe_l, probe_g = got["probes"]
+        kernels = cross_kernels(victims, cfg, probe_l)
+        launches = got["launches"]
+        fwd = {k: sum(p.launches[ph][k] for p in got["probes"] for ph in p.launches) for k in launches}
+        bwd = {k: launches[k] - fwd[k] for k in launches}
+        per_step = {k: (probe_l.launches["step"][k] + probe_g.launches["step"][k] + bwd[k]) / STEPS_X
+                    for k in launches}
+        expected = {k: 0 for k in launches}
+        n_l, n_g = victims[0].bundle.cfg.text.num_layers, victims[1].bundle.cfg.vision.num_layers
+        expected.update({"dgrad": kernels["dgrad"]["per_step"], "attention_fwd": n_l, "attention_bwd_dq": n_l,
+                         "attention_bwd_dkdv": n_l, "flash_full_fwd": n_g, "flash_full_bwd_dq": n_g,
+                         "flash_full_bwd_dkdv": n_g})
+        log("cross", f"launches over the run: {launches}; by victim and phase: "
+            + "; ".join(f"{v.name} {ph} x{p.calls[ph]} {dict(+c)}" for v, p in zip(victims, got["probes"])
+                        for ph, c in p.launches.items()))
+        log("cross", f"launches per cross step: { {k: n for k, n in per_step.items() if n} } (expected "
+            f"{ {k: n for k, n in expected.items() if n} })")
+        if per_step != expected:
+            raise AssertionError("cross path: launches per step differ from the expected counts")
+        boundaries = [0, STEPS_X - 1]
+        test_qs = ai[0].test_questions
+        for c in (probe_l.chunks + probe_g.chunks):
+            log("cross", f"test decode chunk: batch {c['batch']} prefill T={c['T']} prefill_ms={c['prefill_ms']:.2f} "
+                f"decode_ms={c['decode_ms']:.2f} prefill launches={ {k: n for k, n in c['prefill_launches'].items() if n} }")
+        if sorted(csvs) != sorted(f"test_results_iter_{i}.csv" for i in boundaries):
+            raise AssertionError(f"cross path: test CSVs {sorted(csvs)}")
+        for name, table in csvs.items():
+            if table[0] != ["question", llava, gemma] or [r[0] for r in table[1:]] != list(test_qs) or not all(
+                    r[1].startswith("USER: ") and r[2].startswith("user\n") for r in table[1:]):
+                raise AssertionError(f"{name}: expected both victims' answers to {len(test_qs)} questions")
+            log("cross", f"{name}: {len(table) - 1} rows of {table[0]}")
+        if probe_l.calls["prefill"] == 0 or probe_g.calls["prefill"] == 0:
+            raise AssertionError("cross path: a victim did not decode at the boundaries")
+
+        # 5X. depth-cut references of the cross step on the loaded weights
+        profiled = profile_cross(victims, cfg, x0)
+        reference = cross_reference(victims, x0)
+        run_peak = max([step_peak] + [c for peaks in chunk_peaks.values() for c in peaks])
+        del victims, got
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 4X, blur: the cross mode's random σ; seed 2 draws σ 0.144, 0.819, 1.891, so the saved
+        # image must carry the last and visibly differs from the unblurred one
+        blur = {}
+        exp_b = cross_cli(base + ["--exp_name", "cross_blur", "--model_names", f"{llava},{gemma}",
+                                  "--num_iterations", str(STEPS_XB), "--use_gaussian_blur", "--seed", "2"], blur)
+        _, b_steps, _ = read_run(exp_b)
+        gen = host_generator(2, 4)
+        sigma = [draw_sigma(gen) for _ in range(STEPS_XB)][-1]
+        p = torch.load(os.path.join(exp_b, "attack_state_latest.pt"), weights_only=True)["p"].cuda()
+        x = 0.4 * torch.tanh(p)
+        saved = np.fromfile(os.path.join(exp_b, "optimized_image_iter_final.bin"), np.float32).reshape(x0.shape)
+        blur_err = float(np.abs(saved - (x0 + random_sigma_gaussian_blur(x, 5, sigma=sigma).cpu().numpy())).max())
+        raw_err = float(np.abs(saved - (x0 + x.cpu().numpy())).max())
+        log("cross", f"blur: {len(b_steps)} steps, median step_ms {statistics.median(r['step_ms'] for r in b_steps[1:]):.2f}; "
+            f"saved image against x0 + blur at the last step's sigma {sigma:.4f}: max |diff|={blur_err:.3g}; against "
+            f"the unblurred x0 + 0.4 tanh p: {raw_err:.3g}; launches {blur['launches']}")
+        if len(b_steps) != STEPS_XB or not (blur_err <= 1e-6 < raw_err):
+            raise AssertionError("cross blur path: the saved image is not x0 + blur at the last step's sigma")
+        del blur
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 4D. DPO on LLaVA alone through the cross CLI, and its exact resume
+        dpo = base + ["--model_names", llava, "--DPO_flag", "--refuse_prob", "0.5"]
+        dpo = [a for a in dpo if a != "--target_text_random"]
+        t0 = time.perf_counter()
+        dpo_got = {}
+        straight = cross_cli(dpo + ["--exp_name", "dpo_straight", "--num_iterations", str(DPO_STEPS)], dpo_got)
+        dpo_kernels(dpo_got.pop("victims")[0], run_config(straight), kernels)
+        part1 = cross_cli(dpo + ["--exp_name", "dpo_part1", "--num_iterations", str(DPO_CUT)])
+        part2 = cross_cli(dpo + ["--exp_name", "dpo_part2", "--num_iterations", str(DPO_STEPS), "--resume_state",
+                                 os.path.join(part1, "attack_state_latest.pt")])
+        dpo_s = time.perf_counter() - t0
+        (s_rows, s_steps, _), (r_rows, r_steps, _) = read_run(straight), read_run(part2)
+        want = [r for r in s_rows if r["iteration"] >= DPO_CUT]
+        final = [np.fromfile(os.path.join(e, "optimized_image_iter_final.bin"), np.float32) for e in (straight, part2)]
+        flags = [(r["iteration"], r["refuse_flag"], r["target_idx"]) for r in s_steps]
+        log("dpo", f"{DPO_STEPS} steps, {DPO_CUT}, then resumed to {DPO_STEPS}, in {dpo_s:.1f} s; (iteration, "
+            f"refuse_flag, target_idx) of the uninterrupted run: {flags}; resumed: "
+            f"{[(r['iteration'], r['refuse_flag'], r['target_idx']) for r in r_steps]}")
+        equal = r_rows == want and np.array_equal(final[0], final[1])
+        if not equal:
+            diff = sorted({k for a, b in zip(r_rows, want) for k in set(a) | set(b) if a.get(k) != b.get(k)})
+            raise AssertionError(f"DPO resume: rows or the final image differ (fields {diff})")
+        if {f for _, f, _ in flags} != {0, 1} or any((t == -1) != bool(f) for _, f, t in flags):
+            raise AssertionError(f"DPO run: refusal flags {flags}")
+        dpo_verdict = (f"equal: {len(r_rows)} metrics.jsonl rows (steps {DPO_CUT}-{DPO_STEPS - 1} with their "
+                       f"refuse_flag and target_idx, monitor, checkpoint, test decode) and the final image bit for bit")
+        log("dpo", dpo_verdict)
+        try:
+            cross_cli(dpo + ["--exp_name", "dpo_gemma", "--model_names", f"{llava},{gemma}",
+                             "--checkpoint_root", os.path.join(runs, "no_such_root")])
+            raise AssertionError("DPO with Gemma-3 among the victims did not raise")
+        except ValueError as e:
+            log("dpo", f"--DPO_flag with Gemma-3 among the victims raises before any file is read: {e}")
+    return {"median_ms": med, "step_peak_GiB": step_peak, "run_peak_GiB": run_peak, "profiled": profiled,
+            "per_step": per_step, "reference": reference, "dpo": dpo_verdict, "kernels": kernels}
+
+
+def profile_cross(victims, cfg, x0):
+    """Phase 4X, each victim alone beside the cross step, on the same resident victims and the
+    same draws: after a warm-up step each, PROFILE_ROUNDS rounds of TIMED_STEPS steps of the cross
+    step, then LLaVA's, then Gemma's (wall time a step, synchronized at each round's end, and the
+    caching allocator's device allocations and frees a step), then PROFILE_STEPS steps of each
+    under torch.profiler: the wall time and the device's busy time a step, the union of its
+    kernels' and copies' intervals, as cli/profile_step.py counts it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from adversarialvlm_tpu_torch.attack.step import build_attack_step, init_state, sample_chunk_xs
+    from adversarialvlm_tpu_torch.cli.profile_step import _device_intervals, _union_us
+
+    x0_d = torch.as_tensor(x0, device="cuda")
+    handles = [v.handles() for v in victims]
+    runs = {}
+    for label, hs, cross in (("cross", handles, True), ("llava", handles[:1], False), ("gemma3", handles[1:], False)):
+        step = build_attack_step(hs, cfg, x0_d, torch.ones_like(x0_d), cross=cross)
+        draws = iter(sample_chunk_xs(torch.Generator().manual_seed(cfg.seed),
+                                     1 + PROFILE_ROUNDS * TIMED_STEPS + PROFILE_STEPS, cfg, hs))
+        state, _ = step(init_state(cfg, x0_d), next(draws))
+        runs[label] = [step, state, draws]
+    torch.cuda.synchronize()
+    out = {label: {"round_ms": [], "device_allocs": 0, "device_frees": 0} for label in runs}
+    for _ in range(PROFILE_ROUNDS):
+        for label, run in runs.items():
+            before = torch.cuda.memory_stats()
+            t0 = time.perf_counter()
+            for _ in range(TIMED_STEPS):
+                run[1], _ = run[0](run[1], next(run[2]))
+            torch.cuda.synchronize()
+            out[label]["round_ms"].append(1e3 * (time.perf_counter() - t0) / TIMED_STEPS)
+            after = torch.cuda.memory_stats()
+            out[label]["device_allocs"] += after["num_device_alloc"] - before["num_device_alloc"]
+            out[label]["device_frees"] += after["num_device_free"] - before["num_device_free"]
+    ratios = [c / (a + b) for c, a, b in zip(*(out[k]["round_ms"] for k in ("cross", "llava", "gemma3")))]
+    log("cross", f"{PROFILE_ROUNDS} rounds of {TIMED_STEPS} steps each, ms a step: "
+        + "; ".join(f"{k} {[round(t, 2) for t in v['round_ms']]} (allocator: {v['device_allocs']} device "
+                    f"allocations, {v['device_frees']} frees)" for k, v in out.items())
+        + f"; the cross step over the sum of the two alone, by round: {[round(r, 4) for r in ratios]}")
+    for label, run in runs.items():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(PROFILE_STEPS):
+                run[1], _ = run[0](run[1], next(run[2]))
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0) / PROFILE_STEPS
+        busy = _union_us(_device_intervals(prof)) / 1e3 / PROFILE_STEPS
+        out[label].update(wall_ms=wall, busy_ms=busy)
+        log("cross", f"profiled {label} step, {PROFILE_STEPS} steps: wall {wall:.2f} ms a step, device busy "
+            f"{busy:.2f} ms ({100 * busy / wall:.1f}% of the wall)")
+    return {**out, "ratios": ratios}
+
+
+def cross_reference(victims, x0):
+    """Phase 5X: the cross step of the depth-cut victims (LLaVA: its first 2 decoder and 2 vision
+    layers; Gemma-3: 6 decoder layers, five sliding-window ones and the global one, and 2 vision
+    layers at 4096 patches), from the loaded weights, on the card in bf16 through the kernels
+    against the CPU in f32 on the plain path, with the same injected draws, model weights
+    CROSS_WEIGHTS: loss, loss_0 and loss_1 within TOL_REF_LOSS relative, the perturbation
+    gradient at cosine >= TOL_REF_COSINE."""
+    import dataclasses
+
+    import torch
+
+    from adversarialvlm_tpu_torch.attack.config import AttackConfig
+    from adversarialvlm_tpu_torch.attack.engine import VictimSetup
+    from adversarialvlm_tpu_torch.attack.setup import image_processor
+    from adversarialvlm_tpu_torch.attack.step import build_attack_step
+    from adversarialvlm_tpu_torch.models.registry import make_bundle
+    from adversarialvlm_tpu_torch.ops.kernels import launch_counts, reset_launches
+    from adversarialvlm_tpu_torch.processors.adv_inputs import AdvInputs
+
+    t0 = time.perf_counter()
+    cfg = AttackConfig(exp_name="reference_cross", batch_size=1, grad_accum_steps=1, lr=1e-2, epsilon=0.4)
+    gen = torch.Generator().manual_seed(7)
+    pairs, noise = [], []
+    for v, (n_text, n_vision) in zip(victims, ((2, 2), (6, 2))):
+        vc = v.bundle.cfg
+        cut = dataclasses.replace(vc, text=dataclasses.replace(vc.text, num_layers=n_text),
+                                  vision=dataclasses.replace(vc.vision, num_layers=n_vision))
+        a = v.adv_inputs
+        inputs = AdvInputs(a.spec, a.tokenizer, [QUESTION], [QUESTION], 1, [TARGET], a.num_image_tokens,
+                           a.image_token_id, a.pad_token_id, image_expansion_ids=a.image_expansion_ids)
+        gpu = VictimSetup(f"cut-{v.bundle.family}", make_bundle("cut", v.bundle.family, cut, torch.device("cuda"),
+                                                                params=depth_cut(v.bundle.params, n_text, n_vision)),
+                          v.adv_processor, inputs, torch.bfloat16)
+        cpu = VictimSetup(gpu.name, make_bundle("cut", v.bundle.family, cut, torch.device("cpu"),
+                                                params=_map(gpu.bundle.params, lambda t: t.float().cpu())),
+                          image_processor(cut, (512, 512), "cpu"), inputs)
+        pairs.append((gpu, cpu))
+        with torch.no_grad():
+            side = v.adv_processor.process(torch.as_tensor(x0, device="cuda"))["pixel_values"].shape[-1]
+        noise.append(torch.randn((1, 3, side, side), generator=gen))
+    p0 = 0.3 * torch.randn(x0.shape, generator=gen)
+    xs = {"t_idx": 0, "rows": [torch.from_numpy(g.adv_inputs.prompt_pool[0, [0]]) for g, _ in pairs],
+          "lens": [torch.from_numpy(g.adv_inputs.prompt_lengths[0, [0]]) for g, _ in pairs], "noise": noise}
+    results = {}
+    for name, dev, which in (("cuda", "cuda", 0), ("cpu", "cpu", 1)):
+        x0_d = torch.as_tensor(x0, device=dev)
+        step = build_attack_step([pair[which].handles() for pair in pairs], cfg, x0_d, torch.ones_like(x0_d),
+                                 model_weights=list(CROSS_WEIGHTS), cross=True)
+        reset_launches()
+        t1 = time.perf_counter()
+        loss, img_loss, ces, _, grad = step.loss_and_grad(p0.to(dev), xs, torch.tensor(cfg.sigma, device=dev))
+        per_model = [float(w * ce + img_loss) for w, ce in zip(CROSS_WEIGHTS, ces)]
+        results[name] = ([float(loss), *per_model], grad.double().cpu())
+        log("reference", f"cross {name}: loss, loss_0, loss_1 = {results[name][0]} grad_norm={float(grad.norm())} "
+            f"T={[g.adv_inputs.max_len for g, _ in pairs]} launches={ {k: n for k, n in launch_counts().items() if n} } "
+            f"in {time.perf_counter() - t1:.1f} s")
+        if name == "cuda":
+            counts = launch_counts()
+            want = {"attention_fwd": 2, "attention_bwd_dq": 2, "attention_bwd_dkdv": 2, "flash_full_fwd": 2,
+                    "flash_full_bwd_dq": 2, "flash_full_bwd_dkdv": 2}
+            if any(counts[k] != n for k, n in want.items()) or counts["dgrad"] == 0:
+                raise AssertionError(f"cross depth-cut step launched {counts}, expected {want} and dgrad")
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = results["cpu"], results["cuda"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu)]
+    cos = float((g_cpu * g_gpu).sum() / (g_cpu.norm() * g_gpu.norm()))
+    log("reference", f"cross: loss, loss_0, loss_1 rel diff={[f'{r:.3g}' for r in rel]} (tol {TOL_REF_LOSS}) grad "
+        f"cosine={cos:.6f} (min {TOL_REF_COSINE}) grad norm ratio={float(g_gpu.norm() / g_cpu.norm()):.4f} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not (max(rel) <= TOL_REF_LOSS and cos >= TOL_REF_COSINE):
+        raise AssertionError("cross depth-cut reference: card and CPU disagree")
+    return {"loss_rel": rel, "cosine": cos}
+
+
 def main():
     import torch
 
@@ -1828,12 +2268,11 @@ def main():
             raise AssertionError(f"{lib}: ptxas spills registers: {spills}")
 
     # 3. the non-causal flash_full kernels at the SigLIP tower's shapes (B = the step's batch of
-    # 4 images, and the decode prefill's one shared image) and a ragged case, before any victim
+    # 4 images; batch 1, the decode prefill's one shared image among them, in 4X) and a ragged
+    # case, before any victim
     g = gemma3_4b_it().vision
     g_t, g_h, g_d = (g.image_size // g.patch_size) ** 2, g.num_heads, g.hidden_size // g.num_heads
     full = flash_full_case("gemma3 step", 4, g_h, g_t, g_d, timed=True)
-    full_prefill = flash_full_case("gemma3 decode prefill", 1, g_h, g_t, g_d, timed=True,
-                                   backward=False)["flash_full_fwd"]
     flash_full_case("ragged", 2, 4, 2100, g_d)
 
     # 3. the fused_sdpa kernels at its harness's own shape (its defaults: the path below), at the
@@ -1858,23 +2297,41 @@ def main():
     judge = judge_cases()
     torch.cuda.empty_cache()
 
-    llava = llava_phases()
-    gc.collect()
-    torch.cuda.empty_cache()
-    log("bench", f"LLaVA victim freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
-    bench = bench_phase()
-    gc.collect()
-    torch.cuda.empty_cache()
-    gem = gemma_phases()
-    gemma_references(gem.pop("victim"))
-    gc.collect()
-    torch.cuda.empty_cache()
+    # both checkpoint directories stay under one root until the cross phases have loaded them
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "adversarialvlm_tpu_torch", "build")
+    os.makedirs(build, exist_ok=True)
+    ckpt_root = tempfile.mkdtemp(prefix="ckpt_", dir=build)
+    try:
+        llava = llava_phases(ckpt_root)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("bench", f"LLaVA victim freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+        bench = bench_phase()
+        gc.collect()
+        torch.cuda.empty_cache()
+        gem = gemma_phases(ckpt_root)
+        gemma_references(gem.pop("victim"))
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("cross", f"Gemma-3 victim freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+        cross = cross_phases(ckpt_root)
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(ckpt_root)
 
     for name, st in (("llava-1.5-7b", llava["load"]), ("gemma-3-4b", gem["load"])):
         log("done", f"{name} checkpoint directory: {st['GB']:.3f} GB written in {st['write_s']:.1f} s "
             f"({st['GB'] / st['write_s']:.2f} GB/s), loaded in {st['load_s']:.1f} s "
             f"({st['GB'] / st['load_s']:.2f} GB/s), peak {st['peak_GiB']:.3f} GiB")
     log("done", f"resume: {llava['resume']['verdict']}; bench: {json.dumps(bench)}")
+    prof = cross["profiled"]
+    log("done", f"cross step (LLaVA-1.5-7B + Gemma-3-4B-it, batch 1), ms a step in turns over {PROFILE_ROUNDS} "
+        f"rounds of {TIMED_STEPS}: " + "; ".join(f"{k} {prof[k]['round_ms']}" for k in ("cross", "llava", "gemma3"))
+        + f"; the cross step over the sum of the two alone {prof['ratios']}; device busy a step "
+        f"{ {k: prof[k]['busy_ms'] for k in ('cross', 'llava', 'gemma3')} } ms; steps' peak "
+        f"{cross['step_peak_GiB']:.3f} GiB (run peak, test decode included, {cross['run_peak_GiB']:.3f}); "
+        f"depth-cut reference {cross['reference']}; DPO resume: {cross['dpo']}")
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s; the blur + crop step "
         f"{llava['transforms']['median_ms']:.2f} ms at batch 1")
     sources = {"dgrad": "dgrad.cu", "attention_fwd": "causal_fwd.cu", "attention_bwd_dq": "causal_bwd.cu",
@@ -1908,7 +2365,7 @@ def main():
             "worst_row_rel_err": stats[name]["rel"], "ms": stats[name]["ms"],
             "plain_ms": stats[name]["plain_ms"], "bound_ms": stats[name]["bound_ms"],
             "bound_by": stats[name]["bound_by"], "library_ms": stats[name]["library_ms"],
-            "library_call": stats[name].get("library_call"),
+            "library_call": stats[name].get("library_call"), "launches_cross_step": cross["per_step"][name],
         }
         for name in sources
     ]
@@ -1918,7 +2375,7 @@ def main():
         return {k: stats[k] for k in keys if k in stats}
 
     kernels[4]["at_prefill_shape"] = pick(llava["prefill"], timing_keys)
-    kernels[7]["at_prefill_shape"] = pick(full_prefill, timing_keys)
+    kernels[7]["at_prefill_shape"] = pick(cross["kernels"]["flash_full_fwd"], timing_keys)  # batch 1
     kernels[0]["at_llava_batch4_shapes"] = pick(llava["dgrad4"], (*timing_keys, "per_step"))
     kernels[0]["at_gemma3_shapes"] = pick(gem["dgrad"], (*timing_keys, "per_step"))
     # head_dim 256, at the judge's prefill shape: the D-256 instantiations of the same entries, their
@@ -1928,12 +2385,17 @@ def main():
         kernels.append({
             "name": f"{name}_d256", "route": "cuda", "source": f"adversarialvlm_tpu_torch/csrc/{sources[name]}",
             "replaces": replaces[name], "launches": gem["judge"]["launches"] if name == "flash_fwd" else 0,
+            "launches_cross_step": 0,
             "max_abs_err": st["abs"], "worst_row_rel_err": st["rel"], **pick(st, timing_keys),
             "at_no_pad": pick(judge["flash_no_pad"][name], timing_keys),
             "at_batch_1": {"worst_row_rel_err": batch1["rel"], **pick(batch1, timing_keys)},
             "at_batch_1_no_pad": pick(judge["attention_no_pad"][name.replace("flash", "attention")], timing_keys),
         })
     for i, name in enumerate(sources):
+        if name in cross["kernels"]:  # 4X's shapes; flash_fwd's is LLaVA's decode prefill
+            st = cross["kernels"][name]
+            kernels[i]["at_cross_run_shapes"] = {"max_abs_err": st["abs"], "worst_row_rel_err": st["rel"],
+                                                 **pick(st, (*timing_keys, "per_step"))}
         if name in fused:
             kernels[i]["at_T_641"] = pick(fused_641[name], timing_keys)
             kernels[i]["at_head_dim_96"] = pick(fused_d96[name], timing_keys)

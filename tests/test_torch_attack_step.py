@@ -385,10 +385,20 @@ def _entry_case(case, tmp_path, monkeypatch):
         with pytest.raises(NotImplementedError, match="ROADMAP modules: other victim families"):
             cli.main(base[2:] + ["--device", "cpu", "--model_name", "Qwen/Qwen2-VL-2B-Instruct"])
         assert sorted(os.listdir(tmp_path)) == ["x0.png"]  # it fails before making a run dir
-    elif case == "cross_waits":
-        with pytest.raises(NotImplementedError, match="cross-model attack \\(ROADMAP modules: cross attack"):
-            train(cfg, [_victim(cfg)] * 2, np.zeros((3, 64, 80), np.float32),
-                  base_path=str(tmp_path), device="cpu")
+    elif case == "cross_on_cpu":
+        cfg = AttackConfig(**_kw(num_iterations=2))
+        exp = train(cfg, [_victim(cfg)] * 2, np.zeros((3, 64, 80), np.float32),
+                    base_path=str(tmp_path), device="cpu")
+        files = set(os.listdir(exp))
+        for name in ("config.json", "metrics.jsonl", "test_results_iter_0.csv", "attack_state_latest.pt",
+                     "optimized_image_iter_final.png"):
+            assert name in files, name
+        rows = [json.loads(line) for line in open(os.path.join(exp, "metrics.jsonl"))]
+        assert [r["iteration"] for r in rows if "loss_1" in r] == list(range(cfg.num_iterations))
+    elif case == "dpo_single_raises":
+        with pytest.raises(NotImplementedError, match="DPO flag is not implemented"):
+            cli.main(base + ["--device", "cpu", "--DPO_flag", "--refuse_prob", "0.5"])
+        assert sorted(os.listdir(tmp_path)) == ["x0.png"]  # it fails before making a run dir
     else:
         raise AssertionError(case)
 
@@ -396,13 +406,15 @@ def _entry_case(case, tmp_path, monkeypatch):
 @pytest.mark.parametrize("case", [
     "victim_without_card", "train_without_card", "cli_without_card", "cli_on_cpu",
     "cli_blur_crop_on_cpu", "cli_resume_on_cpu", "cli_checkpoint_on_cpu", "cli_other_family_raises",
-    "cross_waits",
+    "cross_on_cpu", "dpo_single_raises",
 ])
 def test_entry_points(case, tmp_path, monkeypatch):
     """Entry points default to the card and raise without one; the CPU runs when asked for, the
-    blur, the crop and a corner mask included, a run resumes from its attack state and an HF
-    name loads its checkpoint directory through --checkpoint_root; options and families that are
-    not ported yet raise NotImplementedError naming their ROADMAP item by its title."""
+    blur, the crop and a corner mask included, the cross attack of two victims too, a run resumes
+    from its attack state and an HF name loads its checkpoint directory through
+    --checkpoint_root; the single-victim CLI refuses DPO, as the reference does; options and
+    families that are not ported yet raise NotImplementedError naming their ROADMAP item by its
+    title."""
     _entry_case(case, tmp_path, monkeypatch)
 
 

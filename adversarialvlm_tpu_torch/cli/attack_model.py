@@ -143,15 +143,24 @@ def build_victim(model_name: str, cfg, in_hw, device, checkpoint_root: str | Non
                                         cfg, in_hw, dtype=dtype, device=device)
 
 
+def env_flag(name: str) -> bool:
+    """An environment toggle: unset, "", "0", "false", "no" or "off" (any case) read as False."""
+    return os.environ.get(name, "").strip().lower() not in ("", "0", "false", "no", "off")
+
+
 def check_unported_flags(args) -> None:
     """The flags whose features the port does not run yet raise, each naming its ROADMAP item,
-    before any victim is built."""
+    before any model is built. ``args`` may lack the flags a CLI does not have; int8 weights are
+    asked for by ``--int8_weights`` or ``ADVLM_INT8_WEIGHTS``, as in the JAX package."""
     waiting = [
         flag for flag, asked in (
             ("--mesh_model/--mesh_data (ROADMAP modules: multi-GPU mesh)",
-             args.mesh_model is not None or args.mesh_data is not None),
-            ("--int8_weights (ROADMAP modules: judge and eval)", args.int8_weights),
-            ("--remat_policy (not needed on an 80 GB card)", args.remat_policy is not None),
+             getattr(args, "mesh_model", None) is not None
+             or getattr(args, "mesh_data", None) is not None),
+            ("--int8_weights/ADVLM_INT8_WEIGHTS (ROADMAP modules: judge and eval)",
+             getattr(args, "int8_weights", False) or env_flag("ADVLM_INT8_WEIGHTS")),
+            ("--remat_policy (not needed on an 80 GB card)",
+             getattr(args, "remat_policy", None) is not None),
         ) if asked
     ]
     if waiting:

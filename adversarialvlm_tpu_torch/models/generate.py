@@ -3,8 +3,9 @@ adversarialvlm_tpu/models/generate.py: left-padded batches, per-model stop token
 new-token bounds; one prefill pass, then one cached forward per new token.
 
 The JAX package compiles the whole generation into one program with a ``lax.scan``; the port runs
-the same steps as a Python loop, with the caches updated in place. FSM-constrained decoding (the
-judge) raises until it is ported (ROADMAP modules: judge and eval).
+the same steps as a Python loop, with the caches updated in place. Constrained decoding (the
+judge's JSON-schema FSM, judge/fsm.py::FSMConstraint) masks each step's logits by the token table
+on the card before the argmax and advances the FSM on the chosen token, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -162,7 +163,25 @@ def _prefill_aux(attention_mask: torch.Tensor, max_new_tokens: int):
     return positions, kv_mask, kv_positions
 
 
-FSM_WAITS = "FSM-constrained decoding waits for the judge (ROADMAP modules: judge and eval)"
+def _fsm_mask(table, dist, state, steps_left, penalty):
+    """Additive f32 mask (B, V): 0 where ``table[state]`` allows a token, ``penalty`` elsewhere.
+    With ``dist`` (each state's distance to acceptance) and ``steps_left``, a row that can still
+    close the schema within ``steps_left - 1`` more tokens keeps only the tokens that do
+    (generate.py:302-312)."""
+    nxt = table[state.long()]  # (B, V)
+    allowed = nxt >= 0
+    if dist is not None:
+        reach = dist[torch.where(allowed, nxt, 0).long()]
+        can_finish = reach <= max(steps_left - 1, 0)
+        any_finishing = (allowed & can_finish).any(dim=1, keepdim=True)
+        allowed = allowed & torch.where(any_finishing, can_finish, True)
+    return torch.where(allowed, 0.0, float(penalty)).float()
+
+
+def _fsm_advance(table, state, tokens):
+    """The FSM state after ``tokens``; a token the table does not allow leaves it as it was."""
+    nxt = table[state.long(), tokens.long()]
+    return torch.where(nxt >= 0, nxt, state)
 
 
 @torch.no_grad()
@@ -180,9 +199,13 @@ def generate_core(
     pad_token_id: int,
     cache_dtype,
     logits_last_k: int | None = None,
+    constraint=None,
 ) -> torch.Tensor:
     """Greedy generation: prefill at cache index 0, then one cached step per token. Returns
     (B, max_new_tokens) token ids; a row that emitted an EOS id gets ``pad_token_id`` after it.
+    Each step picks as the JAX scan does (generate.py:373-384): the ``constraint``'s FSM mask (an
+    FSMConstraint, its table and distances on the card), the ``min_new_tokens`` EOS mask, argmax,
+    pad where finished, the FSM advance, then the finished update.
 
     ``forward_fn(params, input_ids, attention_mask, pixel_inputs, *, positions, kv_caches,
     cache_index, kv_attention_mask, kv_positions, [logits_last_k]) -> logits``, the caches updated
@@ -203,11 +226,18 @@ def generate_core(
     is_eos_tok[torch.tensor(eos_token_ids, dtype=torch.long, device=dev)] = True
     finished = torch.zeros(b, dtype=torch.bool, device=dev)
     ones = torch.ones((b, 1), dtype=attention_mask.dtype, device=dev)
+    if constraint is not None:
+        cstate = torch.zeros((b,), dtype=torch.int32, device=dev)
     tokens = []
     for step in range(max_new_tokens):
+        if constraint is not None:
+            last = last + _fsm_mask(constraint.table, constraint.dist, cstate,
+                                    max_new_tokens - step, constraint.penalty)
         if step < min_new_tokens:
             last = last.masked_fill(is_eos_tok[None, :], -torch.inf)
         tok = torch.where(finished, pad_token_id, torch.argmax(last, dim=-1))
+        if constraint is not None:
+            cstate = _fsm_advance(constraint.table, cstate, tok)
         finished = finished | is_eos_tok[tok]
         tokens.append(tok)
         if step == max_new_tokens - 1:
@@ -237,10 +267,8 @@ def greedy_generate(
 ) -> torch.Tensor:
     """Greedy decode through a keyword forward, the JAX package's closure-based API:
     ``forward_fn(params, input_ids=, attention_mask=, positions=, kv_caches=, cache_index=,
-    kv_attention_mask=, kv_positions=) -> logits``. Production callers use
-    ``ModelBundle.generate``."""
-    if constraint is not None:
-        raise NotImplementedError(FSM_WAITS)
+    kv_attention_mask=, kv_positions=) -> logits``. ``constraint``: a judge.fsm.FSMConstraint.
+    Production callers use ``ModelBundle.generate``."""
 
     def core_fwd(p, ids, am, pixel_inputs, **kw):
         return forward_fn(p, input_ids=ids, attention_mask=am, **kw)
@@ -249,4 +277,5 @@ def greedy_generate(
         core_fwd, make_caches, params, input_ids, attention_mask, None,
         max_new_tokens=max_new_tokens, min_new_tokens=min_new_tokens,
         eos_token_ids=eos_token_ids, pad_token_id=pad_token_id, cache_dtype=cache_dtype,
+        constraint=constraint,
     )

@@ -12,7 +12,7 @@ import torch
 from adversarialvlm_tpu_torch.models import gemma3 as gemma3_model
 from adversarialvlm_tpu_torch.models import llava as llava_model
 from adversarialvlm_tpu_torch.models.configs import VLMConfig
-from adversarialvlm_tpu_torch.models.generate import FSM_WAITS, generate_core, make_kv_caches
+from adversarialvlm_tpu_torch.models.generate import generate_core, make_kv_caches
 
 
 @dataclasses.dataclass
@@ -41,15 +41,14 @@ class ModelBundle:
     ) -> torch.Tensor:
         """Greedy generation (generate.generate_core) over this bundle's forward and caches;
         the prefill scores only the last position. ``eos_token_ids=()`` decodes to the full
-        length; None takes the bundle's. A ``constraint`` (the judge's FSM) raises until it is
-        ported (ROADMAP modules: judge and eval)."""
-        if constraint is not None:
-            raise NotImplementedError(FSM_WAITS)
+        length; None takes the bundle's. ``constraint``: the judge's judge.fsm.FSMConstraint, its
+        table on this bundle's device."""
         return generate_core(
             self.forward, self.make_caches, self.params, input_ids, attention_mask, pixel_inputs,
             max_new_tokens=max_new_tokens, min_new_tokens=min_new_tokens,
             eos_token_ids=eos_token_ids if eos_token_ids is not None else self.eos_token_ids,
             pad_token_id=pad_token_id, cache_dtype=cache_dtype, logits_last_k=1,
+            constraint=constraint,
         )
 
     def make_caches(self, batch: int, total_len: int, dtype=torch.bfloat16):
@@ -93,3 +92,14 @@ def make_bundle(
         params = model.init_params(gen, cfg, dtype, device)
     return ModelBundle(name, family, cfg, params, _forward(model, cfg), torch.device(device),
                        eos_token_ids=(cfg.eos_token_id, *cfg.extra_eos_token_ids))
+
+
+def make_judge_bundle(judge_model: str, checkpoint_path: str, dtype=torch.bfloat16,
+                      device="cuda") -> ModelBundle:
+    """The judge's bundle (gemma-3, used text-only) from a local HF checkpoint directory
+    (models/loading.py::load_gemma3): any gemma-3 size, the VLMConfig patched from its
+    config.json (registry.py:340-351)."""
+    from adversarialvlm_tpu_torch.models.loading import load_gemma3
+
+    params, cfg = load_gemma3(checkpoint_path, dtype, device)
+    return make_bundle(judge_model, "gemma3", cfg, device, params=params)

@@ -79,7 +79,8 @@ the forward over SDPA's forward, dq + dk/dv over SDPA's whole backward):
      left-padded), whose global layer takes the head_dim-256 flash forward on the card:
      last-position logits cosine >= 0.99.
 Then, with the Gemma-3 victim freed, the cross-model universal attack, both victims loaded again
-from the directories of 4L and 4G (which are deleted at the end) and resident on the card:
+from the directories of 4L and 4G (which are deleted at the end, with the runs) and resident on the
+card:
   4X. cli/crossattack_models.py at the reference script's settings (scripts/attacks/
      attack_cross.sh: batch 1, ε 0.4 by default, the list prompts, random targets) on
      llava-hf/llava-1.5-7b-hf,google/gemma-3-4b-it: 1 warm-up + 4 steps, save boundaries at
@@ -104,6 +105,25 @@ from the directories of 4L and 4G (which are deleted at the end) and resident on
      to 6: the resumed metrics.jsonl rows (every refuse_flag and target_idx among them) and the
      final image equal, the run refusing at some steps and not at others; and --DPO_flag with
      Gemma-3 among the victims raises ValueError before any file is read.
+Then, with the cross victims freed, the judge and the three-stage evaluation through the port's
+eval CLIs (--device cuda), the judge the full-width, full-depth Gemma-3-4B-it and the SafeBench
+victim LLaVA-1.5-7B, both loaded again from the directories of 4L and 4G:
+  4J. A: cli/find_best_iter.py over 4X's run (LLaVA's and Gemma's answers to the 50 held-out
+     questions at iterations 0 and 4) at batch 16: the FSM's build (vocab_bytes, the native table,
+     the distances), the table's shape and size, min_close_tokens and the budget, verdicts/s, each
+     judge call's prefill and median cached step, the peak; every verdict parses, the detail rows
+     are questions x models, the pivot has a row per iteration and ALL_MODELS_MEAN, best.txt names
+     an iteration, each judge call launches exactly 5 head_dim-256 flash forwards (its prefill) and
+     nothing else. Then the depth-cut judge (6 decoder layers) decodes two answers under the FSM on
+     the card in bf16 and on the CPU in f32, teacher-forced: logits cosine >= 0.99, every card
+     token legal in the table, both outputs parse; the flash forward at the first judge call's
+     (16, T) with its pads against its plain version, timed; and the same CLI again judges nothing
+     and leaves the pivot's bytes. B: cli/safebench_test.py --model_suf llava-hf on the image of
+     the iteration + 1 that exists nearest best.txt, over categories 1-3 of 8 held-out questions
+     each (batch 8, 128 new tokens, at least 32): prefill ms, tokens/s, peak; 32 flash forwards a
+     prefill and nothing else; 8 rows a category; the flash forward at its (8, T) against its plain
+     version, timed. C: cli/guard_eval.py over B's answers: a mean ASR in [0, 1], 3 rows of
+     results, 3 columns of 8 verdicts, every verdict parsed, 5 flash forwards a judge call.
 It then prints each checkpoint directory's write and load seconds and GB/s, the resume verdict,
 the bench line, the cross step's numbers and the run's total, the kernels' JSON line (each kernel
 with its launches per cross step), the card's name and power limit, and
@@ -1941,10 +1961,11 @@ def cross_kernels(victims, cfg, probe_l):
     return {"dgrad": dg, **attn, **full, **prefill, "T": t_l}
 
 
-def cross_phases(ckpt_root):
+def cross_phases(ckpt_root, runs):
     """Phases 4X, 5X and 4D on the two checkpoint directories under ``ckpt_root``, both victims
-    resident on the card. Returns the cross step's numbers, its launches per step and its
-    kernels' numbers at the run's shapes."""
+    resident on the card, their runs under ``runs``. Returns the cross step's numbers, its launches
+    per step, its kernels' numbers at the run's shapes and 4X's run directory (phase 4J judges
+    it)."""
     import numpy as np
     import torch
 
@@ -1954,139 +1975,138 @@ def cross_phases(ckpt_root):
     from adversarialvlm_tpu_torch.utils.png import write_png
 
     llava, gemma = "llava-hf/llava-1.5-7b-hf", "google/gemma-3-4b-it"
-    with tempfile.TemporaryDirectory() as runs:
-        png = os.path.join(runs, "x0.png")
-        write_png(png, np.full((512, 512, 3), 120, np.uint8))
-        x0 = load_image_chw(png)
-        # the reference script's settings (scripts/attacks/attack_cross.sh): batch 1, ε 0.4 by
-        # default, the list prompts and random targets
-        base = ["--img_orig", png, "--runs_path", runs, "--checkpoint_root", ckpt_root, "--batch_size", "1",
-                "--prompt", "list", "--target_text_random", "--save_steps", "10"]
+    png = os.path.join(runs, "x0.png")
+    write_png(png, np.full((512, 512, 3), 120, np.uint8))
+    x0 = load_image_chw(png)
+    # the reference script's settings (scripts/attacks/attack_cross.sh): batch 1, ε 0.4 by
+    # default, the list prompts and random targets
+    base = ["--img_orig", png, "--runs_path", runs, "--checkpoint_root", ckpt_root, "--batch_size", "1",
+            "--prompt", "list", "--target_text_random", "--save_steps", "10"]
 
-        # 4X. the cross attack through the CLI, both victims loaded from their directories
-        got = {}
-        t0 = time.perf_counter()
-        exp = cross_cli(base + ["--exp_name", "cross", "--model_names", f"{llava},{gemma}",
-                                "--num_iterations", str(STEPS_X)], got)
-        total_s = time.perf_counter() - t0
-        rows, steps, csvs = read_run(exp)
-        victims = got["victims"]
-        cfg = run_config(exp)
-        ai = [v.adv_inputs for v in victims]
-        log("cross", f"{[v.name for v in victims]} from {ckpt_root} through cli/crossattack_models.py: "
-            f"epsilon={cfg.epsilon} batch {cfg.batch_size}, pools {[a.prompt_pool.shape for a in ai]} (T "
-            f"{[a.max_len for a in ai]}), {torch.cuda.memory_allocated() / 2**30:.2f} GiB resident; CLI "
-            f"{total_s:.1f} s, of which train() {got['wall_s']:.1f} s")
-        for r in steps:
-            log("cross", f"step {r['iteration']}: loss={r['loss']} loss_0={r['loss_0']} loss_1={r['loss_1']} "
-                f"grad_norm={r['grad_norm']} target_idx={r['target_idx']} step_ms={r['step_ms']:.2f}")
-        med = statistics.median(r["step_ms"] for r in steps[1:])
-        step_peak = max(p.step_peak for p in got["probes"]) / 2**30
-        chunk_peaks = {v.name: [round(c["peak_GiB"], 3) for c in p.chunks] for v, p in zip(victims, got["probes"])}
-        log("cross", f"median step_ms (steps 1..{STEPS_X - 1})={med:.2f} warm-up step_ms={steps[0]['step_ms']:.2f} "
-            f"steps' peak_memory_GiB={step_peak:.3f}; each test-decode chunk's peak (GiB): {chunk_peaks}")
-        if cfg.epsilon != 0.4 or len(steps) != STEPS_X or not all(
-                np.isfinite(r["loss"]) and r["grad_norm"] > 0 for r in steps):
-            raise AssertionError(f"cross path: epsilon {cfg.epsilon}, steps {[(r['loss'], r['grad_norm']) for r in steps]}")
-        probe_l, probe_g = got["probes"]
-        kernels = cross_kernels(victims, cfg, probe_l)
-        launches = got["launches"]
-        fwd = {k: sum(p.launches[ph][k] for p in got["probes"] for ph in p.launches) for k in launches}
-        bwd = {k: launches[k] - fwd[k] for k in launches}
-        per_step = {k: (probe_l.launches["step"][k] + probe_g.launches["step"][k] + bwd[k]) / STEPS_X
-                    for k in launches}
-        expected = {k: 0 for k in launches}
-        n_l, n_g = victims[0].bundle.cfg.text.num_layers, victims[1].bundle.cfg.vision.num_layers
-        expected.update({"dgrad": kernels["dgrad"]["per_step"], "attention_fwd": n_l, "attention_bwd_dq": n_l,
-                         "attention_bwd_dkdv": n_l, "flash_full_fwd": n_g, "flash_full_bwd_dq": n_g,
-                         "flash_full_bwd_dkdv": n_g})
-        log("cross", f"launches over the run: {launches}; by victim and phase: "
-            + "; ".join(f"{v.name} {ph} x{p.calls[ph]} {dict(+c)}" for v, p in zip(victims, got["probes"])
-                        for ph, c in p.launches.items()))
-        log("cross", f"launches per cross step: { {k: n for k, n in per_step.items() if n} } (expected "
-            f"{ {k: n for k, n in expected.items() if n} })")
-        if per_step != expected:
-            raise AssertionError("cross path: launches per step differ from the expected counts")
-        boundaries = [0, STEPS_X - 1]
-        test_qs = ai[0].test_questions
-        for c in (probe_l.chunks + probe_g.chunks):
-            log("cross", f"test decode chunk: batch {c['batch']} prefill T={c['T']} prefill_ms={c['prefill_ms']:.2f} "
-                f"decode_ms={c['decode_ms']:.2f} prefill launches={ {k: n for k, n in c['prefill_launches'].items() if n} }")
-        if sorted(csvs) != sorted(f"test_results_iter_{i}.csv" for i in boundaries):
-            raise AssertionError(f"cross path: test CSVs {sorted(csvs)}")
-        for name, table in csvs.items():
-            if table[0] != ["question", llava, gemma] or [r[0] for r in table[1:]] != list(test_qs) or not all(
-                    r[1].startswith("USER: ") and r[2].startswith("user\n") for r in table[1:]):
-                raise AssertionError(f"{name}: expected both victims' answers to {len(test_qs)} questions")
-            log("cross", f"{name}: {len(table) - 1} rows of {table[0]}")
-        if probe_l.calls["prefill"] == 0 or probe_g.calls["prefill"] == 0:
-            raise AssertionError("cross path: a victim did not decode at the boundaries")
+    # 4X. the cross attack through the CLI, both victims loaded from their directories
+    got = {}
+    t0 = time.perf_counter()
+    exp = cross_cli(base + ["--exp_name", "cross", "--model_names", f"{llava},{gemma}",
+                            "--num_iterations", str(STEPS_X)], got)
+    total_s = time.perf_counter() - t0
+    rows, steps, csvs = read_run(exp)
+    victims = got["victims"]
+    cfg = run_config(exp)
+    ai = [v.adv_inputs for v in victims]
+    log("cross", f"{[v.name for v in victims]} from {ckpt_root} through cli/crossattack_models.py: "
+        f"epsilon={cfg.epsilon} batch {cfg.batch_size}, pools {[a.prompt_pool.shape for a in ai]} (T "
+        f"{[a.max_len for a in ai]}), {torch.cuda.memory_allocated() / 2**30:.2f} GiB resident; CLI "
+        f"{total_s:.1f} s, of which train() {got['wall_s']:.1f} s")
+    for r in steps:
+        log("cross", f"step {r['iteration']}: loss={r['loss']} loss_0={r['loss_0']} loss_1={r['loss_1']} "
+            f"grad_norm={r['grad_norm']} target_idx={r['target_idx']} step_ms={r['step_ms']:.2f}")
+    med = statistics.median(r["step_ms"] for r in steps[1:])
+    step_peak = max(p.step_peak for p in got["probes"]) / 2**30
+    chunk_peaks = {v.name: [round(c["peak_GiB"], 3) for c in p.chunks] for v, p in zip(victims, got["probes"])}
+    log("cross", f"median step_ms (steps 1..{STEPS_X - 1})={med:.2f} warm-up step_ms={steps[0]['step_ms']:.2f} "
+        f"steps' peak_memory_GiB={step_peak:.3f}; each test-decode chunk's peak (GiB): {chunk_peaks}")
+    if cfg.epsilon != 0.4 or len(steps) != STEPS_X or not all(
+            np.isfinite(r["loss"]) and r["grad_norm"] > 0 for r in steps):
+        raise AssertionError(f"cross path: epsilon {cfg.epsilon}, steps {[(r['loss'], r['grad_norm']) for r in steps]}")
+    probe_l, probe_g = got["probes"]
+    kernels = cross_kernels(victims, cfg, probe_l)
+    launches = got["launches"]
+    fwd = {k: sum(p.launches[ph][k] for p in got["probes"] for ph in p.launches) for k in launches}
+    bwd = {k: launches[k] - fwd[k] for k in launches}
+    per_step = {k: (probe_l.launches["step"][k] + probe_g.launches["step"][k] + bwd[k]) / STEPS_X
+                for k in launches}
+    expected = {k: 0 for k in launches}
+    n_l, n_g = victims[0].bundle.cfg.text.num_layers, victims[1].bundle.cfg.vision.num_layers
+    expected.update({"dgrad": kernels["dgrad"]["per_step"], "attention_fwd": n_l, "attention_bwd_dq": n_l,
+                     "attention_bwd_dkdv": n_l, "flash_full_fwd": n_g, "flash_full_bwd_dq": n_g,
+                     "flash_full_bwd_dkdv": n_g})
+    log("cross", f"launches over the run: {launches}; by victim and phase: "
+        + "; ".join(f"{v.name} {ph} x{p.calls[ph]} {dict(+c)}" for v, p in zip(victims, got["probes"])
+                    for ph, c in p.launches.items()))
+    log("cross", f"launches per cross step: { {k: n for k, n in per_step.items() if n} } (expected "
+        f"{ {k: n for k, n in expected.items() if n} })")
+    if per_step != expected:
+        raise AssertionError("cross path: launches per step differ from the expected counts")
+    boundaries = [0, STEPS_X - 1]
+    test_qs = ai[0].test_questions
+    for c in (probe_l.chunks + probe_g.chunks):
+        log("cross", f"test decode chunk: batch {c['batch']} prefill T={c['T']} prefill_ms={c['prefill_ms']:.2f} "
+            f"decode_ms={c['decode_ms']:.2f} prefill launches={ {k: n for k, n in c['prefill_launches'].items() if n} }")
+    if sorted(csvs) != sorted(f"test_results_iter_{i}.csv" for i in boundaries):
+        raise AssertionError(f"cross path: test CSVs {sorted(csvs)}")
+    for name, table in csvs.items():
+        if table[0] != ["question", llava, gemma] or [r[0] for r in table[1:]] != list(test_qs) or not all(
+                r[1].startswith("USER: ") and r[2].startswith("user\n") for r in table[1:]):
+            raise AssertionError(f"{name}: expected both victims' answers to {len(test_qs)} questions")
+        log("cross", f"{name}: {len(table) - 1} rows of {table[0]}")
+    if probe_l.calls["prefill"] == 0 or probe_g.calls["prefill"] == 0:
+        raise AssertionError("cross path: a victim did not decode at the boundaries")
 
-        # 5X. depth-cut references of the cross step on the loaded weights
-        profiled = profile_cross(victims, cfg, x0)
-        reference = cross_reference(victims, x0)
-        run_peak = max([step_peak] + [c for peaks in chunk_peaks.values() for c in peaks])
-        del victims, got
-        gc.collect()
-        torch.cuda.empty_cache()
+    # 5X. depth-cut references of the cross step on the loaded weights
+    profiled = profile_cross(victims, cfg, x0)
+    reference = cross_reference(victims, x0)
+    run_peak = max([step_peak] + [c for peaks in chunk_peaks.values() for c in peaks])
+    del victims, got
+    gc.collect()
+    torch.cuda.empty_cache()
 
-        # 4X, blur: the cross mode's random σ; seed 2 draws σ 0.144, 0.819, 1.891, so the saved
-        # image must carry the last and visibly differs from the unblurred one
-        blur = {}
-        exp_b = cross_cli(base + ["--exp_name", "cross_blur", "--model_names", f"{llava},{gemma}",
-                                  "--num_iterations", str(STEPS_XB), "--use_gaussian_blur", "--seed", "2"], blur)
-        _, b_steps, _ = read_run(exp_b)
-        gen = host_generator(2, 4)
-        sigma = [draw_sigma(gen) for _ in range(STEPS_XB)][-1]
-        p = torch.load(os.path.join(exp_b, "attack_state_latest.pt"), weights_only=True)["p"].cuda()
-        x = 0.4 * torch.tanh(p)
-        saved = np.fromfile(os.path.join(exp_b, "optimized_image_iter_final.bin"), np.float32).reshape(x0.shape)
-        blur_err = float(np.abs(saved - (x0 + random_sigma_gaussian_blur(x, 5, sigma=sigma).cpu().numpy())).max())
-        raw_err = float(np.abs(saved - (x0 + x.cpu().numpy())).max())
-        log("cross", f"blur: {len(b_steps)} steps, median step_ms {statistics.median(r['step_ms'] for r in b_steps[1:]):.2f}; "
-            f"saved image against x0 + blur at the last step's sigma {sigma:.4f}: max |diff|={blur_err:.3g}; against "
-            f"the unblurred x0 + 0.4 tanh p: {raw_err:.3g}; launches {blur['launches']}")
-        if len(b_steps) != STEPS_XB or not (blur_err <= 1e-6 < raw_err):
-            raise AssertionError("cross blur path: the saved image is not x0 + blur at the last step's sigma")
-        del blur
-        gc.collect()
-        torch.cuda.empty_cache()
+    # 4X, blur: the cross mode's random σ; seed 2 draws σ 0.144, 0.819, 1.891, so the saved
+    # image must carry the last and visibly differs from the unblurred one
+    blur = {}
+    exp_b = cross_cli(base + ["--exp_name", "cross_blur", "--model_names", f"{llava},{gemma}",
+                              "--num_iterations", str(STEPS_XB), "--use_gaussian_blur", "--seed", "2"], blur)
+    _, b_steps, _ = read_run(exp_b)
+    gen = host_generator(2, 4)
+    sigma = [draw_sigma(gen) for _ in range(STEPS_XB)][-1]
+    p = torch.load(os.path.join(exp_b, "attack_state_latest.pt"), weights_only=True)["p"].cuda()
+    x = 0.4 * torch.tanh(p)
+    saved = np.fromfile(os.path.join(exp_b, "optimized_image_iter_final.bin"), np.float32).reshape(x0.shape)
+    blur_err = float(np.abs(saved - (x0 + random_sigma_gaussian_blur(x, 5, sigma=sigma).cpu().numpy())).max())
+    raw_err = float(np.abs(saved - (x0 + x.cpu().numpy())).max())
+    log("cross", f"blur: {len(b_steps)} steps, median step_ms {statistics.median(r['step_ms'] for r in b_steps[1:]):.2f}; "
+        f"saved image against x0 + blur at the last step's sigma {sigma:.4f}: max |diff|={blur_err:.3g}; against "
+        f"the unblurred x0 + 0.4 tanh p: {raw_err:.3g}; launches {blur['launches']}")
+    if len(b_steps) != STEPS_XB or not (blur_err <= 1e-6 < raw_err):
+        raise AssertionError("cross blur path: the saved image is not x0 + blur at the last step's sigma")
+    del blur
+    gc.collect()
+    torch.cuda.empty_cache()
 
-        # 4D. DPO on LLaVA alone through the cross CLI, and its exact resume
-        dpo = base + ["--model_names", llava, "--DPO_flag", "--refuse_prob", "0.5"]
-        dpo = [a for a in dpo if a != "--target_text_random"]
-        t0 = time.perf_counter()
-        dpo_got = {}
-        straight = cross_cli(dpo + ["--exp_name", "dpo_straight", "--num_iterations", str(DPO_STEPS)], dpo_got)
-        dpo_kernels(dpo_got.pop("victims")[0], run_config(straight), kernels)
-        part1 = cross_cli(dpo + ["--exp_name", "dpo_part1", "--num_iterations", str(DPO_CUT)])
-        part2 = cross_cli(dpo + ["--exp_name", "dpo_part2", "--num_iterations", str(DPO_STEPS), "--resume_state",
-                                 os.path.join(part1, "attack_state_latest.pt")])
-        dpo_s = time.perf_counter() - t0
-        (s_rows, s_steps, _), (r_rows, r_steps, _) = read_run(straight), read_run(part2)
-        want = [r for r in s_rows if r["iteration"] >= DPO_CUT]
-        final = [np.fromfile(os.path.join(e, "optimized_image_iter_final.bin"), np.float32) for e in (straight, part2)]
-        flags = [(r["iteration"], r["refuse_flag"], r["target_idx"]) for r in s_steps]
-        log("dpo", f"{DPO_STEPS} steps, {DPO_CUT}, then resumed to {DPO_STEPS}, in {dpo_s:.1f} s; (iteration, "
-            f"refuse_flag, target_idx) of the uninterrupted run: {flags}; resumed: "
-            f"{[(r['iteration'], r['refuse_flag'], r['target_idx']) for r in r_steps]}")
-        equal = r_rows == want and np.array_equal(final[0], final[1])
-        if not equal:
-            diff = sorted({k for a, b in zip(r_rows, want) for k in set(a) | set(b) if a.get(k) != b.get(k)})
-            raise AssertionError(f"DPO resume: rows or the final image differ (fields {diff})")
-        if {f for _, f, _ in flags} != {0, 1} or any((t == -1) != bool(f) for _, f, t in flags):
-            raise AssertionError(f"DPO run: refusal flags {flags}")
-        dpo_verdict = (f"equal: {len(r_rows)} metrics.jsonl rows (steps {DPO_CUT}-{DPO_STEPS - 1} with their "
-                       f"refuse_flag and target_idx, monitor, checkpoint, test decode) and the final image bit for bit")
-        log("dpo", dpo_verdict)
-        try:
-            cross_cli(dpo + ["--exp_name", "dpo_gemma", "--model_names", f"{llava},{gemma}",
-                             "--checkpoint_root", os.path.join(runs, "no_such_root")])
-            raise AssertionError("DPO with Gemma-3 among the victims did not raise")
-        except ValueError as e:
-            log("dpo", f"--DPO_flag with Gemma-3 among the victims raises before any file is read: {e}")
+    # 4D. DPO on LLaVA alone through the cross CLI, and its exact resume
+    dpo = base + ["--model_names", llava, "--DPO_flag", "--refuse_prob", "0.5"]
+    dpo = [a for a in dpo if a != "--target_text_random"]
+    t0 = time.perf_counter()
+    dpo_got = {}
+    straight = cross_cli(dpo + ["--exp_name", "dpo_straight", "--num_iterations", str(DPO_STEPS)], dpo_got)
+    dpo_kernels(dpo_got.pop("victims")[0], run_config(straight), kernels)
+    part1 = cross_cli(dpo + ["--exp_name", "dpo_part1", "--num_iterations", str(DPO_CUT)])
+    part2 = cross_cli(dpo + ["--exp_name", "dpo_part2", "--num_iterations", str(DPO_STEPS), "--resume_state",
+                             os.path.join(part1, "attack_state_latest.pt")])
+    dpo_s = time.perf_counter() - t0
+    (s_rows, s_steps, _), (r_rows, r_steps, _) = read_run(straight), read_run(part2)
+    want = [r for r in s_rows if r["iteration"] >= DPO_CUT]
+    final = [np.fromfile(os.path.join(e, "optimized_image_iter_final.bin"), np.float32) for e in (straight, part2)]
+    flags = [(r["iteration"], r["refuse_flag"], r["target_idx"]) for r in s_steps]
+    log("dpo", f"{DPO_STEPS} steps, {DPO_CUT}, then resumed to {DPO_STEPS}, in {dpo_s:.1f} s; (iteration, "
+        f"refuse_flag, target_idx) of the uninterrupted run: {flags}; resumed: "
+        f"{[(r['iteration'], r['refuse_flag'], r['target_idx']) for r in r_steps]}")
+    equal = r_rows == want and np.array_equal(final[0], final[1])
+    if not equal:
+        diff = sorted({k for a, b in zip(r_rows, want) for k in set(a) | set(b) if a.get(k) != b.get(k)})
+        raise AssertionError(f"DPO resume: rows or the final image differ (fields {diff})")
+    if {f for _, f, _ in flags} != {0, 1} or any((t == -1) != bool(f) for _, f, t in flags):
+        raise AssertionError(f"DPO run: refusal flags {flags}")
+    dpo_verdict = (f"equal: {len(r_rows)} metrics.jsonl rows (steps {DPO_CUT}-{DPO_STEPS - 1} with their "
+                   f"refuse_flag and target_idx, monitor, checkpoint, test decode) and the final image bit for bit")
+    log("dpo", dpo_verdict)
+    try:
+        cross_cli(dpo + ["--exp_name", "dpo_gemma", "--model_names", f"{llava},{gemma}",
+                         "--checkpoint_root", os.path.join(runs, "no_such_root")])
+        raise AssertionError("DPO with Gemma-3 among the victims did not raise")
+    except ValueError as e:
+        log("dpo", f"--DPO_flag with Gemma-3 among the victims raises before any file is read: {e}")
     return {"median_ms": med, "step_peak_GiB": step_peak, "run_peak_GiB": run_peak, "profiled": profiled,
-            "per_step": per_step, "reference": reference, "dpo": dpo_verdict, "kernels": kernels}
+            "per_step": per_step, "reference": reference, "dpo": dpo_verdict, "kernels": kernels, "exp": exp}
 
 
 def profile_cross(victims, cfg, x0):
@@ -2216,6 +2236,387 @@ def cross_reference(victims, x0):
     return {"loss_rel": rel, "cosine": cos}
 
 
+JUDGE = "google/gemma-3-4b-it"
+SFB_CATEGORIES, SFB_PER_CATEGORY = 3, 8  # phase 4J's SafeBench: categories 1-3 of the held-out questions
+JUDGE_REF_LAYERS = 6      # phase 4J's depth-cut judge: five sliding-window layers and the global one
+
+
+def judge_cli(main, argv):
+    """``main(argv)`` of an eval CLI that judges, with cli/judge_common.build_checker wrapped: the
+    checker it built and its build seconds, a PathProbe on the judge's bundle, every verdict, the
+    launches counted from zero once the judge is built, the judging's wall time and its peak
+    device memory from an emptied cache. Returns (main's result, that record)."""
+    import torch
+
+    from adversarialvlm_tpu_torch.cli import judge_common
+    from adversarialvlm_tpu_torch.ops.kernels import launch_counts, reset_launches
+
+    rec = {"verdicts": []}
+    real = judge_common.build_checker
+
+    def spy(*args, **kw):
+        t0 = time.perf_counter()
+        checker = real(*args, **kw)
+        torch.cuda.synchronize()
+        rec["build_s"], rec["checker"] = time.perf_counter() - t0, checker
+        evaluate = checker.evaluate_text
+
+        def recording(texts, max_tokens=512):
+            out = evaluate(texts, max_tokens=max_tokens)
+            rec["verdicts"].extend(out)
+            return out
+
+        checker.evaluate_text = recording
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        rec["probe"] = PathProbe(checker.bundle)
+        reset_launches()
+        rec["t0"] = time.perf_counter()
+        return checker
+
+    judge_common.build_checker = spy
+    try:
+        result = main(argv)
+    finally:
+        judge_common.build_checker = real
+    torch.cuda.synchronize()
+    rec["judge_s"] = time.perf_counter() - rec["t0"]
+    probe = rec["probe"]
+    probe.finish()
+    rec["launches"] = launch_counts()
+    rec["peak_GiB"] = max([probe.step_peak / 2**30] + [c["peak_GiB"] for c in probe.chunks])
+    return result, rec
+
+
+def check_judge_calls(stage, rec, n_global):
+    """Phase 4J: every verdict parsed; each judge call one prefill with exactly ``n_global`` flash
+    forward launches (the global layers) and nothing else, then budget - 1 cached steps that launch
+    nothing (the plain sdpa), as judge_prefill counts them. Prints each call's prefill and median
+    cached-step time. Returns the calls' (batch, T)."""
+    checker, probe = rec["checker"], rec["probe"]
+    budget = checker.budget(10)
+    bad = [v.thoughts for v in rec["verdicts"] if "unparseable" in v.thoughts or "Error occurred" in v.thoughts]
+    calls = probe.chunks
+    zero = {k: 0 for k in rec["launches"]}
+    want_prefill = {**zero, "flash_fwd": n_global}
+    for i, c in enumerate(calls):
+        steps = [a.elapsed_time(b) for a, b in zip(c["ends"], c["ends"][1:])]
+        log("judge eval", f"{stage} judge call {i}: batch {c['batch']} T={c['T']} prefill_ms={c['prefill_ms']:.2f} "
+            f"median cached step ms={statistics.median(steps):.3f} over {len(steps)} steps; call ms "
+            f"{c['decode_ms']:.2f}; prefill launches { {k: n for k, n in c['prefill_launches'].items() if n} }")
+    log("judge eval", f"{stage}: {len(rec['verdicts'])} verdicts ({sum(not v.is_safe for v in rec['verdicts'])} "
+        f"unsafe) in {rec['judge_s']:.2f} s, {len(rec['verdicts']) / rec['judge_s']:.2f} verdicts/s; {len(calls)} "
+        f"judge calls; launches {({k: n for k, n in rec['launches'].items() if n})}; peak {rec['peak_GiB']:.3f} GiB")
+    if bad:
+        raise AssertionError(f"{stage}: {len(bad)} verdicts did not parse, e.g. {bad[0]}")
+    if any(c["prefill_launches"] != want_prefill or len(c["ends"]) != budget for c in calls) or any(
+            probe.launches["decode_step"].values()) or rec["launches"] != {**zero, "flash_fwd": n_global * len(calls)}:
+        raise AssertionError(f"{stage}: expected {n_global} flash_fwd a judge call, nothing else, and "
+                             f"{budget} forwards a call")
+
+
+def safebench_cli(argv):
+    """cli/safebench_test.main(argv) with eval/safebench.run_safebench wrapped: the victim the CLI
+    built, a PathProbe on its bundle, the launches counted from zero once it is built, the run's
+    wall time. Returns (output directory, that record)."""
+    import torch
+
+    from adversarialvlm_tpu_torch.cli import safebench_test
+    from adversarialvlm_tpu_torch.eval import safebench
+    from adversarialvlm_tpu_torch.ops.kernels import launch_counts, reset_launches
+
+    rec = {}
+    real = safebench.run_safebench
+
+    def spy(victim, *args, **kw):
+        rec["victim"] = victim
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        probe = PathProbe(victim.bundle)
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            return real(victim, *args, **kw)
+        finally:
+            torch.cuda.synchronize()
+            rec["s"] = time.perf_counter() - t0
+            probe.finish()
+            rec["probe"], rec["launches"] = probe, launch_counts()
+
+    safebench.run_safebench = spy
+    try:
+        return safebench_test.main(argv), rec
+    finally:
+        safebench.run_safebench = real
+
+
+def judge_reference(checker, texts):
+    """Phase 4J's reference: the depth-cut judge (the loaded judge's first 6 decoder layers: five
+    sliding-window ones and the global one) decodes ``texts`` under the FSM at the checker's
+    budget, on the card in bf16 (the flash prefill, plain cached steps) and on the CPU in f32 on
+    the plain path. Teacher-forced over prompt + the card's tokens, per (row, step) before the row
+    finished: the logits' cosine >= TOL_DECODE_COSINE, each card token legal in the table from the
+    state it was chosen in, and within DECODE_MARGIN x max|card - CPU| of the CPU's top
+    constrained logit; the card's and the CPU's own constrained decodes both parse."""
+    import dataclasses
+    import types
+
+    import torch
+
+    from adversarialvlm_tpu_torch.models.generate import _fsm_mask, generate_core
+    from adversarialvlm_tpu_torch.models.registry import make_bundle
+    from adversarialvlm_tpu_torch.ops.kernels import launch_counts, reset_launches
+    from adversarialvlm_tpu_torch.utils.batching import pad_to_buckets
+
+    cfg = checker.bundle.cfg
+    cut = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, num_layers=JUDGE_REF_LAYERS))
+    lm = checker.bundle.params["language_model"]
+    cut_lm = {**lm, "layers": lm["layers"][:JUDGE_REF_LAYERS]}
+    gpu_b = make_bundle("cut-judge", "gemma3", cut, torch.device("cuda"), params={"language_model": cut_lm})
+    cpu_b = make_bundle("cut-judge", "gemma3", cut, torch.device("cpu"),
+                        params={"language_model": _map(cut_lm, lambda p: p.float().cpu())})
+    c = checker.constraint
+    cpu_c = types.SimpleNamespace(table=c.table.cpu(), dist=c.dist.cpu(), penalty=c.penalty)
+    tok, pad = checker.tokenizer, checker.tokenizer.pad_token_id
+    ids_np, am_np = checker._batch_ids(texts)
+    ids_np, am_np, _ = pad_to_buckets(ids_np, am_np, pad, len_multiple=64, batch_to=len(texts))
+    ids, am = torch.as_tensor(ids_np), torch.as_tensor(am_np)
+    budget = checker.budget(10)
+    recorded = []
+
+    def recording_forward(params, input_ids, attention_mask, pixel_inputs=None, **kw):
+        logits = gpu_b.forward(params, input_ids, attention_mask, pixel_inputs, **kw)
+        recorded.append(logits[:, -1].float().cpu())
+        return logits
+
+    t0 = time.perf_counter()
+    reset_launches()
+    tokens = generate_core(
+        recording_forward, gpu_b.make_caches, gpu_b.params, ids.cuda(), am.cuda(), None, max_new_tokens=budget,
+        min_new_tokens=0, eos_token_ids=gpu_b.eos_token_ids, pad_token_id=pad, cache_dtype=torch.bfloat16,
+        logits_last_k=1, constraint=c,
+    ).cpu()
+    launches = {k: n for k, n in launch_counts().items() if n}
+    n = len(recorded)
+    card = torch.stack(recorded, dim=1).double()  # (B, n, V)
+    seq = torch.cat([ids, tokens[:, : n - 1]], dim=1)
+    mask = torch.cat([am, torch.ones((len(texts), n - 1), dtype=am.dtype)], dim=1)
+    with torch.no_grad():
+        cpu = cpu_b.forward(cpu_b.params, seq, mask, None, logits_last_k=n).double()
+        cpu_tokens = generate_core(
+            cpu_b.forward, cpu_b.make_caches, cpu_b.params, ids, am, None, max_new_tokens=budget, min_new_tokens=0,
+            eos_token_ids=cpu_b.eos_token_ids, pad_token_id=pad, cache_dtype=torch.float32, logits_last_k=1,
+            constraint=cpu_c)
+    state = torch.zeros(len(texts), dtype=torch.int32)
+    is_eos = torch.isin(tokens[:, :n], torch.tensor(gpu_b.eos_token_ids))
+    finished_before = torch.zeros_like(is_eos)
+    finished_before[:, 1:] = torch.cumsum(is_eos, dim=1)[:, :-1] > 0
+    live = ~finished_before
+    cos, ok_tok, legal = [], [], []
+    for t in range(n):
+        m = _fsm_mask(cpu_c.table, cpu_c.dist, state, budget - t, c.penalty).double()
+        tok_t = tokens[:, t]
+        nxt = cpu_c.table[state.long(), tok_t.long()]
+        legal.append((nxt >= 0) | finished_before[:, t])
+        cos.append(torch.nn.functional.cosine_similarity(card[:, t], cpu[:, t], dim=-1))
+        diff = (card[:, t] - cpu[:, t]).abs().amax(-1)
+        cons = cpu[:, t] + m
+        gap = cons.amax(-1) - cons.gather(-1, tok_t[:, None].long()).squeeze(-1)
+        ok_tok.append((gap <= DECODE_MARGIN * diff) | finished_before[:, t])
+        state = torch.where(nxt >= 0, nxt, state)
+    cos, ok_tok, legal = torch.stack(cos, 1), torch.stack(ok_tok, 1), torch.stack(legal, 1)
+    outs = {"card": [tok.decode(r, skip_special_tokens=True) for r in tokens],
+            "cpu": [tok.decode(r, skip_special_tokens=True) for r in cpu_tokens]}
+    parsed = {k: [_parses(o) for o in v] for k, v in outs.items()}
+    min_cos = float(cos[live].min())
+    log("judge eval", f"reference: {len(texts)} rows T={ids.shape[1]} left pads {[int(ids.shape[1] - x) for x in am.sum(1)]}, "
+        f"{JUDGE_REF_LAYERS} layers, {n} tokens (budget {budget}), card launches {launches}; min logits cosine "
+        f"{min_cos:.6f} (min {TOL_DECODE_COSINE}) over {int(live.sum())} live steps; every card token legal: "
+        f"{bool(legal.all())}; within the margin: {bool(ok_tok.all())}; outputs card {outs['card']} cpu "
+        f"{outs['cpu']}, parse {parsed}; in {time.perf_counter() - t0:.1f} s")
+    if launches != {"flash_fwd": 1}:
+        raise AssertionError(f"judge reference: the depth-cut prefill launched {launches}, expected one flash_fwd")
+    if not (min_cos >= TOL_DECODE_COSINE and bool(ok_tok.all()) and bool(legal.all())
+            and all(parsed["card"]) and all(parsed["cpu"])):
+        raise AssertionError("judge reference: the card's constrained decode and the CPU's disagree")
+    return {"min_cosine": min_cos, "tokens": n}
+
+
+def _parses(text):
+    try:
+        json.loads(text, strict=False)["is_safe"]
+    except Exception:
+        return False
+    return True
+
+
+def write_safebench(root):
+    """Phase 4J's SafeBench directory: categories 1-3, each 8 of the held-out questions, one per
+    line as the benchmark's CSVs hold them."""
+    from adversarialvlm_tpu_torch.data import corpora
+    from adversarialvlm_tpu_torch.eval.tables import write_table
+
+    qs = list(corpora.not_safe_questions_test)
+    os.makedirs(root, exist_ok=True)
+    for i in range(SFB_CATEGORIES):
+        write_table(os.path.join(root, f"{i + 1}.csv"), None,
+                    [[q] for q in qs[i * SFB_PER_CATEGORY:(i + 1) * SFB_PER_CATEGORY]])
+    return root
+
+
+def judge_eval_phases(ckpt_root, runs, cross_exp):
+    """Phase 4J: the three-stage evaluation through the port's CLIs on the card, the judge the
+    full Gemma-3-4B-it and the SafeBench victim LLaVA-1.5-7B, both from the directories of 4L and
+    4G. A: cli/find_best_iter over 4X's run (test_results_iter_{0,4}.csv, LLaVA's and Gemma's
+    answers to the 50 held-out questions), then the depth-cut judge against the CPU, the flash
+    forward at the judge call's shape, and the same CLI again, which judges nothing. B:
+    cli/safebench_test on the image whose iteration + 1 exists nearest best.txt, then the flash
+    forward at its prefill's shape. C: cli/guard_eval over B's answers. Returns the numbers."""
+    import re
+
+    import torch
+
+    from adversarialvlm_tpu_torch.cli import find_best_iter as fbi_cli
+    from adversarialvlm_tpu_torch.cli import guard_eval as guard_cli
+    from adversarialvlm_tpu_torch.eval.find_best_iter import strip_question_prefix
+    from adversarialvlm_tpu_torch.eval.tables import read_column, read_table
+    from adversarialvlm_tpu_torch.models.llama import _layer_sliding_window
+    from adversarialvlm_tpu_torch.utils.batching import pad_to_buckets
+
+    t_phase = time.perf_counter()
+    exp = os.path.basename(cross_exp)
+    base = ["--judge_model", JUDGE, "--checkpoint_root", ckpt_root, "--device", "cuda"]
+
+    # A. find_best_iter on the full-depth judge
+    fbi_args = ["--exps", exp, "--runs_path", runs] + base
+    best, a = judge_cli(fbi_cli.main, fbi_args)
+    checker = a["checker"]
+    t = checker.bundle.cfg.text
+    n_global = sum(_layer_sliding_window(t, i) is None for i in range(t.num_layers))
+    table = checker.constraint.table
+    log("judge eval", f"A: {JUDGE} from {ckpt_root} through cli/find_best_iter.py: judge built in {a['build_s']:.1f} s "
+        f"(checkpoint load, tokenizer and the FSM); vocab_bytes {checker.build_seconds['vocab_bytes']:.2f} s, native "
+        f"table {checker.build_seconds['table']:.3f} s, dist {checker.build_seconds['dist']:.2f} s; table "
+        f"{tuple(table.shape)} {table.dtype} {table.numel() * table.element_size() / 1e6:.1f} MB on the card; "
+        f"min_close_tokens {checker.min_close_tokens}, budget {checker.budget(10)} for the CLI's max_tokens 10; "
+        f"{t.num_layers} layers, {n_global} global")
+    check_judge_calls("A", a, n_global)
+    judge_dir = os.path.join(cross_exp, "safety_details", JUDGE.split("/")[-1])
+    iters = sorted(int(f[len("test_results_iter_"):-4]) for f in os.listdir(cross_exp)
+                   if f.startswith("test_results_iter_"))
+    for it in iters:
+        names, cols = read_table(os.path.join(cross_exp, f"test_results_iter_{it}.csv"))
+        _, details = read_table(os.path.join(judge_dir, f"safety_details_iter_{it}.csv"), sep=";")
+        if len(details["model"]) != len(cols[names[0]]) * (len(names) - 1):
+            raise AssertionError(f"A: iteration {it}: {len(details['model'])} detail rows, expected "
+                                 f"{len(cols[names[0]])} questions x {len(names) - 1} models")
+    pivot_path = os.path.join(cross_exp, "unsafe_metrics_models.csv")
+    pivot = open(pivot_path, "rb").read()
+    p_names, p_cols = read_table(pivot_path)
+    best_txt = open(os.path.join(cross_exp, "best.txt")).read()
+    log("judge eval", f"A: iterations {iters}; pivot {p_names} rows {p_cols['iteration']}; best.txt {best_txt}; "
+        f"CLI result {best}")
+    if p_cols["iteration"] != iters or "ALL_MODELS_MEAN" not in p_names or int(best_txt) not in iters:
+        raise AssertionError("A: the pivot or best.txt is not what the run's iterations give")
+    a_numbers = {"verdicts": len(a["verdicts"]), "verdicts_per_s": len(a["verdicts"]) / a["judge_s"],
+                 "calls": len(a["probe"].chunks), "peak_GiB": a["peak_GiB"], "build": checker.build_seconds,
+                 "prefill_ms": [c["prefill_ms"] for c in a["probe"].chunks]}
+
+    # the depth-cut judge against the CPU, on two of the judged answers
+    answers = [x for x in details["text_answer"] if isinstance(x, str) and x.strip()][:2]
+    reference = judge_reference(checker, answers)
+    # the flash forward at the first judge call's shape: the first iteration's first model column,
+    # its first batch of answers, the empty ones judged on the host as the checker does
+    names, cols = read_table(os.path.join(cross_exp, f"test_results_iter_{iters[0]}.csv"))
+    first = [strip_question_prefix("" if isinstance(x, float) else str(x), str(q))
+             for x, q in zip(cols[names[1]], cols[names[0]])][:checker.batch_size]
+    ids, am = checker._batch_ids([x for x in first if checker.degenerate_verdict(x) is None])
+    _, am, _ = pad_to_buckets(ids, am, checker.tokenizer.pad_token_id, len_multiple=64, batch_to=checker.batch_size)
+    seg = torch.as_tensor(am, dtype=torch.int32, device="cuda")
+    first_call = (a["probe"].chunks[0]["batch"], a["probe"].chunks[0]["T"])
+    if tuple(seg.shape) != first_call:
+        raise AssertionError(f"A: the first judge call ran {first_call}, the kernel case is {tuple(seg.shape)}")
+    judge_kernel = flash_case("judge call (4J)", seg, t.num_heads, t.num_kv_heads, t.head_dim_, timed=True,
+                              backward=False)["flash_fwd"]
+    del checker, a
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    again, a2 = judge_cli(fbi_cli.main, fbi_args)
+    log("judge eval", f"A again: {len(a2['verdicts'])} verdicts, launches {({k: n for k, n in a2['launches'].items() if n})}, "
+        f"pivot unchanged {open(pivot_path, 'rb').read() == pivot}, best {again}")
+    if a2["verdicts"] or any(a2["launches"].values()) or open(pivot_path, "rb").read() != pivot or again != best:
+        raise AssertionError("A again: the resumed run judged something or changed the pivot")
+    del a2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # B. SafeBench on LLaVA-1.5-7B, the image of the iteration + 1 nearest best.txt
+    saved = sorted(int(m.group(1)) for f in os.listdir(cross_exp)
+                   if (m := re.fullmatch(r"optimized_image_iter_(\d+)\.png", f)))
+    it = min((k - 1 for k in saved), key=lambda i: (abs(i - int(best_txt)), i))
+    sfb = write_safebench(os.path.join(runs, "SafeBench_Text"))
+    tests = os.path.join(runs, "tests_out")
+    out, b = safebench_cli(["--exp", exp, "--iter", str(it), "--model_suf", "llava-hf", "--sfb_path", sfb,
+                            "--runs_path", runs, "--tests_path", tests, "--checkpoint_root", ckpt_root,
+                            "--categories", f"1-{SFB_CATEGORIES}", "--device", "cuda"])
+    victim, probe = b["victim"], b["probe"]
+    lt = victim.bundle.cfg.text
+    zero = {k: 0 for k in b["launches"]}
+    for c in probe.chunks:
+        log("judge eval", f"B chunk: batch {c['batch']} prefill T={c['T']} prefill_ms={c['prefill_ms']:.2f} "
+            f"decode_ms={c['decode_ms']:.2f} ({c['tokens'] / c['decode_ms'] * 1e3:.1f} tokens/s) peak {c['peak_GiB']:.3f} "
+            f"GiB prefill launches { {k: n for k, n in c['prefill_launches'].items() if n} }")
+    rows = {i: read_column(os.path.join(out, f"{i}.csv")) for i in range(1, SFB_CATEGORIES + 1)}
+    tokens = sum(c["tokens"] for c in probe.chunks)
+    decode_s = sum(c["decode_ms"] for c in probe.chunks) / 1e3
+    log("judge eval", f"B: best.txt {best_txt}, saved images {saved}, so --iter {it} (image {it + 1}); wrote {out}: "
+        f"rows {({i: len(r) for i, r in rows.items()})}; {len(probe.chunks)} chunks, {tokens} tokens in "
+        f"{decode_s:.2f} s of decode ({tokens / decode_s:.1f} tokens/s); CLI run {b['s']:.1f} s; launches "
+        f"{({k: n for k, n in b['launches'].items() if n})}")
+    if any(len(r) != SFB_PER_CATEGORY for r in rows.values()) or len(probe.chunks) != SFB_CATEGORIES:
+        raise AssertionError(f"B: expected {SFB_CATEGORIES} chunks and {SFB_PER_CATEGORY} rows a category")
+    if any(c["prefill_launches"] != {**zero, "flash_fwd": lt.num_layers} for c in probe.chunks) or any(
+            probe.launches["decode_step"].values()) or b["launches"] != {**zero, "flash_fwd": lt.num_layers * len(probe.chunks)}:
+        raise AssertionError(f"B: expected {lt.num_layers} flash_fwd a prefill and nothing else")
+    ai = victim.adv_inputs
+    qs = [str(x) for x in read_column(os.path.join(sfb, "1.csv"))]
+    inp = ai.get_inputs_inference_batch(qs)
+    _, am, _ = pad_to_buckets(inp["input_ids"], inp["attention_mask"], ai.pad_token_id, batch_to=SFB_PER_CATEGORY)
+    seg = torch.as_tensor(am, dtype=torch.int32, device="cuda")
+    if tuple(seg.shape) != (probe.chunks[0]["batch"], probe.chunks[0]["T"]):
+        raise AssertionError(f"B: the prefill ran {probe.chunks[0]['batch']} x {probe.chunks[0]['T']}, the kernel case "
+                             f"is {tuple(seg.shape)}")
+    sfb_kernel = flash_case("SafeBench prefill (4J)", seg, lt.num_heads, lt.num_kv_heads, lt.head_dim_, timed=True,
+                            backward=False)["flash_fwd"]
+    b_numbers = {"prefill_ms": [c["prefill_ms"] for c in probe.chunks], "tokens_per_s": tokens / decode_s,
+                 "peak_GiB": max(c["peak_GiB"] for c in probe.chunks), "iter": it}
+    del victim, probe, b
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # C. guard_eval over B's answers with the same judge
+    mean, cg = judge_cli(guard_cli.main, [out, "--categories", f"1-{SFB_CATEGORIES}"] + base)
+    check_judge_calls("C", cg, n_global)
+    results = read_table(os.path.join(out, "results_gemma.csv"))[1]["asr"]
+    g_names, g_cols = read_table(os.path.join(out, "guard_gemma.csv"))
+    text = open(os.path.join(out, "mean_result_gemma.txt")).read()
+    log("judge eval", f"C: mean ASR {text} (CLI {mean}); results_gemma.csv {results}; guard_gemma.csv columns {g_names} "
+        f"of {[len(v) for v in g_cols.values()]}")
+    if not (0.0 <= float(text) <= 1.0) or float(text) != mean or len(results) != SFB_CATEGORIES or len(g_names) != \
+            SFB_CATEGORIES or any(len(v) != SFB_PER_CATEGORY for v in g_cols.values()):
+        raise AssertionError("C: the guard artifacts are not 3 categories of 8 verdicts with a mean in [0, 1]")
+    c_numbers = {"verdicts_per_s": len(cg["verdicts"]) / cg["judge_s"], "mean": mean}
+    del cg
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("judge eval", f"phase 4J in {time.perf_counter() - t_phase:.1f} s")
+    return {"A": a_numbers, "B": b_numbers, "C": c_numbers, "reference": reference,
+            "kernels": {"judge": {**judge_kernel, "shape": list(first_call), "launches_per_call": n_global},
+                        "safebench": {**sfb_kernel, "shape": list(seg.shape), "launches_per_prefill": lt.num_layers}}}
+
+
 def main():
     import torch
 
@@ -2301,6 +2702,7 @@ def main():
     build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "adversarialvlm_tpu_torch", "build")
     os.makedirs(build, exist_ok=True)
     ckpt_root = tempfile.mkdtemp(prefix="ckpt_", dir=build)
+    runs = tempfile.mkdtemp(prefix="runs_", dir=build)
     try:
         llava = llava_phases(ckpt_root)
         gc.collect()
@@ -2314,11 +2716,16 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
         log("cross", f"Gemma-3 victim freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
-        cross = cross_phases(ckpt_root)
+        cross = cross_phases(ckpt_root, runs)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("judge eval", f"cross victims freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+        evals = judge_eval_phases(ckpt_root, runs, cross["exp"])
         gc.collect()
         torch.cuda.empty_cache()
     finally:
         shutil.rmtree(ckpt_root)
+        shutil.rmtree(runs)
 
     for name, st in (("llava-1.5-7b", llava["load"]), ("gemma-3-4b", gem["load"])):
         log("done", f"{name} checkpoint directory: {st['GB']:.3f} GB written in {st['write_s']:.1f} s "
@@ -2332,6 +2739,13 @@ def main():
         f"{ {k: prof[k]['busy_ms'] for k in ('cross', 'llava', 'gemma3')} } ms; steps' peak "
         f"{cross['step_peak_GiB']:.3f} GiB (run peak, test decode included, {cross['run_peak_GiB']:.3f}); "
         f"depth-cut reference {cross['reference']}; DPO resume: {cross['dpo']}")
+    ea, eb = evals["A"], evals["B"]
+    log("done", f"judge and eval (4J): stage A {ea['verdicts']} verdicts in {ea['calls']} judge calls, "
+        f"{ea['verdicts_per_s']:.2f} verdicts/s, prefill ms {[round(x, 2) for x in ea['prefill_ms']]}, peak "
+        f"{ea['peak_GiB']:.3f} GiB, the FSM built in {ea['build']} s; stage B {eb['tokens_per_s']:.1f} tokens/s, "
+        f"prefill ms {[round(x, 2) for x in eb['prefill_ms']]}, peak {eb['peak_GiB']:.3f} GiB; stage C "
+        f"{evals['C']['verdicts_per_s']:.2f} verdicts/s, mean ASR {evals['C']['mean']}; depth-cut judge "
+        f"{evals['reference']}")
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s; the blur + crop step "
         f"{llava['transforms']['median_ms']:.2f} ms at batch 1")
     sources = {"dgrad": "dgrad.cu", "attention_fwd": "causal_fwd.cu", "attention_bwd_dq": "causal_bwd.cu",
@@ -2391,6 +2805,17 @@ def main():
             "at_batch_1": {"worst_row_rel_err": batch1["rel"], **pick(batch1, timing_keys)},
             "at_batch_1_no_pad": pick(judge["attention_no_pad"][name.replace("flash", "attention")], timing_keys),
         })
+    # phase 4J's shapes: the flash forward at SafeBench's LLaVA prefill (D 128) and at the judge call's
+    # prefill (D 256), with the launches of one prefill and of one judge call
+    timing_4j = (*timing_keys, "shape")
+    kernels[4]["at_eval_shapes"] = {"max_abs_err": evals["kernels"]["safebench"]["abs"],
+                                    "worst_row_rel_err": evals["kernels"]["safebench"]["rel"],
+                                    "launches_per_prefill": evals["kernels"]["safebench"]["launches_per_prefill"],
+                                    **pick(evals["kernels"]["safebench"], timing_4j)}
+    kernels[len(sources)]["at_eval_shapes"] = {"max_abs_err": evals["kernels"]["judge"]["abs"],
+                                               "worst_row_rel_err": evals["kernels"]["judge"]["rel"],
+                                               "launches_per_judge_call": evals["kernels"]["judge"]["launches_per_call"],
+                                               **pick(evals["kernels"]["judge"], timing_4j)}
     for i, name in enumerate(sources):
         if name in cross["kernels"]:  # 4X's shapes; flash_fwd's is LLaVA's decode prefill
             st = cross["kernels"][name]

@@ -116,14 +116,15 @@ victim LLaVA-1.5-7B, both loaded again from the directories of 4L and 4G:
      an iteration, each judge call launches exactly 5 head_dim-256 flash forwards (its prefill) and
      nothing else. Then the depth-cut judge (6 decoder layers) decodes two answers under the FSM on
      the card in bf16 and on the CPU in f32, teacher-forced: logits cosine >= 0.99, every card
-     token legal in the table, both outputs parse; the flash forward at the first judge call's
-     (16, T) with its pads against its plain version, timed; and the same CLI again judges nothing
-     and leaves the pivot's bytes. B: cli/safebench_test.py --model_suf llava-hf on the image of
-     the iteration + 1 that exists nearest best.txt, over categories 1-3 of 8 held-out questions
-     each (batch 8, 128 new tokens, at least 32): prefill ms, tokens/s, peak; 32 flash forwards a
-     prefill and nothing else; 8 rows a category; the flash forward at its (8, T) against its plain
-     version, timed. C: cli/guard_eval.py over B's answers: a mean ASR in [0, 1], 3 rows of
-     results, 3 columns of 8 verdicts, every verdict parsed, 5 flash forwards a judge call.
+     token legal in the table, both outputs parse; the token table's native and plain builders on
+     every 8th vocabulary piece, timed and equal; and the same CLI again judges nothing and leaves
+     the pivot's bytes. B: cli/safebench_test.py --model_suf llava-hf on the saved image nearest
+     best.txt whose --iter (its iteration - 1) is >= 0, over categories 1-3 of 8 held-out
+     questions each (batch 8, 128 new tokens, at least 32): prefill ms, tokens/s, peak; 32 flash
+     forwards a prefill and nothing else; 8 rows a category. C: cli/guard_eval.py over B's
+     answers: a mean ASR in [0, 1], 3 rows of results, 3 columns of 8 verdicts, every verdict
+     parsed, 5 flash forwards a judge call. After each stage, the flash forward against its plain
+     version at every attention mask that stage's prefills ran at, timed once a (batch, T).
 It then prints each checkpoint directory's write and load seconds and GB/s, the resume verdict,
 the bench line, the cross step's numbers and the run's total, the kernels' JSON line (each kernel
 with its launches per cross step), the card's name and power limit, and
@@ -516,7 +517,8 @@ def attention_case(T, H, Hkv, D, pad, timed=False):
 def flash_case(label, seg, H, Hkv, D, timed=False, backward=True):
     """The flash kernels against their plain versions on the same inputs and residuals, over
     the batch of left-padded rows whose segment ids (attention masks) are ``seg`` (B, T);
-    errors on real rows only (pad rows are finite but unspecified)."""
+    errors on real rows only (pad rows are finite but unspecified). Untimed, returns the
+    forward's errors alone."""
     import torch
 
     from adversarialvlm_tpu_torch.ops.kernels import flash as Fl
@@ -562,7 +564,7 @@ def flash_case(label, seg, H, Hkv, D, timed=False, backward=True):
         f"{sum(pads) / (B * T):.4f}; {walk_counts(seg, True)}) worst_real_row_rel " + " ".join(f"{n}={e[0]:.3g}" for n, e in errs.items())
         + f" (tol fwd {TOL_ATTN_FWD}, bwd {TOL_ATTN_BWD})")
     if not timed:
-        return None
+        return {"flash_fwd": {"rel": errs["o"][0], "abs": errs["o"][1]}}
 
     allowed = Fl.allowed_pairs(seg)
     pairs = float((allowed & real[:, :, None]).sum())  # the real rows' causal pairs
@@ -824,7 +826,8 @@ class PathProbe:
     phase: the attack step ("step", under grad), the resaved-loss monitor ("monitor"), the decode
     prefill ("prefill", cache index 0) or a cached decode step ("decode_step"); what launches
     outside the forward is the step's backward. Each test-decode chunk is timed with CUDA events
-    from its prefill to its last forward, with its peak memory: the peak statistics are reset
+    from its prefill to its last forward, with its prefill's attention mask (the shape and the
+    pads its flash forward ran at) and its peak memory: the peak statistics are reset
     where a chunk begins (when its KV caches are allocated, before its prefill) and where it
     ends, so the steps' peak is kept apart from the caches'. Probes on the victims of one run
     share ``group``: a chunk ends where any of them runs a forward other than a cached decode
@@ -881,7 +884,7 @@ class PathProbe:
                 self._steps_peak_so_far()
             self.caches_made = False
             self.cur = {"batch": int(input_ids.shape[0]), "T": int(input_ids.shape[1]),
-                        "start": self._event(), "ends": []}
+                        "mask": attention_mask.detach().to(torch.int32).clone(), "start": self._event(), "ends": []}
         before = launch_counts()
         out = self.inner(params, input_ids, attention_mask, pixel_inputs, **kw)
         delta = {k: n - before[k] for k, n in launch_counts().items()}
@@ -2239,6 +2242,7 @@ def cross_reference(victims, x0):
 JUDGE = "google/gemma-3-4b-it"
 SFB_CATEGORIES, SFB_PER_CATEGORY = 3, 8  # phase 4J's SafeBench: categories 1-3 of the held-out questions
 JUDGE_REF_LAYERS = 6      # phase 4J's depth-cut judge: five sliding-window layers and the global one
+TABLE_SAMPLE = 8          # phase 4J times the token table's two builders on every 8th vocabulary piece
 
 
 def judge_cli(main, argv):
@@ -2313,6 +2317,34 @@ def check_judge_calls(stage, rec, n_global):
             probe.launches["decode_step"].values()) or rec["launches"] != {**zero, "flash_fwd": n_global * len(calls)}:
         raise AssertionError(f"{stage}: expected {n_global} flash_fwd a judge call, nothing else, and "
                              f"{budget} forwards a call")
+
+
+def eval_flash_cases(label, chunks, per_call, H, Hkv, D):
+    """Phase 4J: the flash forward against its plain version at every distinct attention mask
+    that ``chunks`` (a PathProbe's decode calls) prefilled with, timed at the first mask of each
+    distinct (batch, T). Returns one entry a (batch, T): that mask's timings, the worst errors
+    over its masks, how many masks and calls ran at it, and its launches (``per_call`` a call)."""
+    seen, shapes = set(), {}
+    for c in chunks:
+        seg = c["mask"]
+        shape = tuple(seg.shape)
+        sh = shapes.setdefault(shape, {"calls": 0, "masks": 0, "errs": []})
+        sh["calls"] += 1
+        key = (shape, seg.cpu().numpy().tobytes())
+        if key in seen:
+            continue
+        seen.add(key)
+        res = flash_case(label, seg, H, Hkv, D, timed=not sh["masks"], backward=False)["flash_fwd"]
+        sh.setdefault("timing", res)
+        sh["masks"] += 1
+        sh["errs"].append((res["rel"], res["abs"]))
+    out = [{**sh["timing"], "shape": list(shape), "rel": max(e[0] for e in sh["errs"]),
+            "abs": max(e[1] for e in sh["errs"]), "masks": sh["masks"], "calls": sh["calls"],
+            "launches": per_call * sh["calls"]} for shape, sh in shapes.items()]
+    for e in out:
+        log("judge eval", f"{label}: flash_fwd at {e['shape']}: {e['masks']} distinct masks of {e['calls']} calls "
+            f"held, worst real row rel {e['rel']:.3g}, max abs {e['abs']:.3g}; {e['launches']} launches")
+    return out
 
 
 def safebench_cli(argv):
@@ -2469,20 +2501,23 @@ def judge_eval_phases(ckpt_root, runs, cross_exp):
     """Phase 4J: the three-stage evaluation through the port's CLIs on the card, the judge the
     full Gemma-3-4B-it and the SafeBench victim LLaVA-1.5-7B, both from the directories of 4L and
     4G. A: cli/find_best_iter over 4X's run (test_results_iter_{0,4}.csv, LLaVA's and Gemma's
-    answers to the 50 held-out questions), then the depth-cut judge against the CPU, the flash
-    forward at the judge call's shape, and the same CLI again, which judges nothing. B:
-    cli/safebench_test on the image whose iteration + 1 exists nearest best.txt, then the flash
-    forward at its prefill's shape. C: cli/guard_eval over B's answers. Returns the numbers."""
+    answers to the 50 held-out questions), then the depth-cut judge against the CPU, the table's
+    two builders on a sample of the judge's vocabulary, and the same CLI again, which judges
+    nothing. B: cli/safebench_test on the saved image nearest best.txt whose iteration - 1 is a
+    test iteration (>= 0). C: cli/guard_eval over B's answers. After each stage, the flash forward
+    against its plain version at every attention mask that stage's prefills ran at, timed once a
+    (batch, T). Returns the numbers."""
     import re
 
+    import numpy as np
     import torch
 
     from adversarialvlm_tpu_torch.cli import find_best_iter as fbi_cli
     from adversarialvlm_tpu_torch.cli import guard_eval as guard_cli
-    from adversarialvlm_tpu_torch.eval.find_best_iter import strip_question_prefix
     from adversarialvlm_tpu_torch.eval.tables import read_column, read_table
+    from adversarialvlm_tpu_torch.judge.fsm import (RegexDFA, build_token_table_native, build_token_table_plain,
+                                                    json_bool_field_pattern, vocab_bytes)
     from adversarialvlm_tpu_torch.models.llama import _layer_sliding_window
-    from adversarialvlm_tpu_torch.utils.batching import pad_to_buckets
 
     t_phase = time.perf_counter()
     exp = os.path.basename(cross_exp)
@@ -2526,19 +2561,24 @@ def judge_eval_phases(ckpt_root, runs, cross_exp):
     # the depth-cut judge against the CPU, on two of the judged answers
     answers = [x for x in details["text_answer"] if isinstance(x, str) and x.strip()][:2]
     reference = judge_reference(checker, answers)
-    # the flash forward at the first judge call's shape: the first iteration's first model column,
-    # its first batch of answers, the empty ones judged on the host as the checker does
-    names, cols = read_table(os.path.join(cross_exp, f"test_results_iter_{iters[0]}.csv"))
-    first = [strip_question_prefix("" if isinstance(x, float) else str(x), str(q))
-             for x, q in zip(cols[names[1]], cols[names[0]])][:checker.batch_size]
-    ids, am = checker._batch_ids([x for x in first if checker.degenerate_verdict(x) is None])
-    _, am, _ = pad_to_buckets(ids, am, checker.tokenizer.pad_token_id, len_multiple=64, batch_to=checker.batch_size)
-    seg = torch.as_tensor(am, dtype=torch.int32, device="cuda")
-    first_call = (a["probe"].chunks[0]["batch"], a["probe"].chunks[0]["T"])
-    if tuple(seg.shape) != first_call:
-        raise AssertionError(f"A: the first judge call ran {first_call}, the kernel case is {tuple(seg.shape)}")
-    judge_kernel = flash_case("judge call (4J)", seg, t.num_heads, t.num_kv_heads, t.head_dim_, timed=True,
-                              backward=False)["flash_fwd"]
+    # the table's builders, the host C++ and the plain Python walk, on every TABLE_SAMPLE-th piece
+    # of the judge's vocabulary (the walk over all of it would outlast the phase's budget)
+    vocab = vocab_bytes(checker.tokenizer)[::TABLE_SAMPLE]
+    dfa = RegexDFA.from_pattern(json_bool_field_pattern("is_safe"))
+    t0 = time.perf_counter()
+    native = build_token_table_native(dfa, vocab)
+    t1 = time.perf_counter()
+    plain = build_token_table_plain(dfa, vocab)
+    t2 = time.perf_counter()
+    table_s = {"pieces": len(vocab), "native_s": t1 - t0, "plain_s": t2 - t1}
+    log("judge eval", f"A: token table over {len(vocab)} pieces (1 in {TABLE_SAMPLE}) x {dfa.n_states} states: "
+        f"native {table_s['native_s']:.3f} s, plain walk {table_s['plain_s']:.2f} s "
+        f"({table_s['plain_s'] / table_s['native_s']:.0f}x); x{TABLE_SAMPLE}: plain about "
+        f"{TABLE_SAMPLE * table_s['plain_s']:.1f} s over the whole vocabulary")
+    if not np.array_equal(native, plain):
+        raise AssertionError("A: the native token table differs from the plain walk's")
+    judge_kernels = eval_flash_cases("judge call, stage A", a["probe"].chunks, n_global, t.num_heads, t.num_kv_heads,
+                                     t.head_dim_)
     del checker, a
     gc.collect()
     torch.cuda.empty_cache()
@@ -2555,7 +2595,10 @@ def judge_eval_phases(ckpt_root, runs, cross_exp):
     # B. SafeBench on LLaVA-1.5-7B, the image of the iteration + 1 nearest best.txt
     saved = sorted(int(m.group(1)) for f in os.listdir(cross_exp)
                    if (m := re.fullmatch(r"optimized_image_iter_(\d+)\.png", f)))
-    it = min((k - 1 for k in saved), key=lambda i: (abs(i - int(best_txt)), i))
+    usable = [k - 1 for k in saved if k >= 1]  # --iter N reads image N + 1
+    if not usable:
+        raise AssertionError(f"B: no saved image {saved} has a test iteration (>= 0) before it")
+    it = min(usable, key=lambda i: (abs(i - int(best_txt)), i))
     sfb = write_safebench(os.path.join(runs, "SafeBench_Text"))
     tests = os.path.join(runs, "tests_out")
     out, b = safebench_cli(["--exp", exp, "--iter", str(it), "--model_suf", "llava-hf", "--sfb_path", sfb,
@@ -2580,16 +2623,8 @@ def judge_eval_phases(ckpt_root, runs, cross_exp):
     if any(c["prefill_launches"] != {**zero, "flash_fwd": lt.num_layers} for c in probe.chunks) or any(
             probe.launches["decode_step"].values()) or b["launches"] != {**zero, "flash_fwd": lt.num_layers * len(probe.chunks)}:
         raise AssertionError(f"B: expected {lt.num_layers} flash_fwd a prefill and nothing else")
-    ai = victim.adv_inputs
-    qs = [str(x) for x in read_column(os.path.join(sfb, "1.csv"))]
-    inp = ai.get_inputs_inference_batch(qs)
-    _, am, _ = pad_to_buckets(inp["input_ids"], inp["attention_mask"], ai.pad_token_id, batch_to=SFB_PER_CATEGORY)
-    seg = torch.as_tensor(am, dtype=torch.int32, device="cuda")
-    if tuple(seg.shape) != (probe.chunks[0]["batch"], probe.chunks[0]["T"]):
-        raise AssertionError(f"B: the prefill ran {probe.chunks[0]['batch']} x {probe.chunks[0]['T']}, the kernel case "
-                             f"is {tuple(seg.shape)}")
-    sfb_kernel = flash_case("SafeBench prefill (4J)", seg, lt.num_heads, lt.num_kv_heads, lt.head_dim_, timed=True,
-                            backward=False)["flash_fwd"]
+    sfb_kernels = eval_flash_cases("SafeBench prefill, stage B", probe.chunks, lt.num_layers, lt.num_heads,
+                                   lt.num_kv_heads, lt.head_dim_)
     b_numbers = {"prefill_ms": [c["prefill_ms"] for c in probe.chunks], "tokens_per_s": tokens / decode_s,
                  "peak_GiB": max(c["peak_GiB"] for c in probe.chunks), "iter": it}
     del victim, probe, b
@@ -2599,6 +2634,8 @@ def judge_eval_phases(ckpt_root, runs, cross_exp):
     # C. guard_eval over B's answers with the same judge
     mean, cg = judge_cli(guard_cli.main, [out, "--categories", f"1-{SFB_CATEGORIES}"] + base)
     check_judge_calls("C", cg, n_global)
+    guard_kernels = eval_flash_cases("judge call, stage C", cg["probe"].chunks, n_global, t.num_heads, t.num_kv_heads,
+                                     t.head_dim_)
     results = read_table(os.path.join(out, "results_gemma.csv"))[1]["asr"]
     g_names, g_cols = read_table(os.path.join(out, "guard_gemma.csv"))
     text = open(os.path.join(out, "mean_result_gemma.txt")).read()
@@ -2612,9 +2649,9 @@ def judge_eval_phases(ckpt_root, runs, cross_exp):
     gc.collect()
     torch.cuda.empty_cache()
     log("judge eval", f"phase 4J in {time.perf_counter() - t_phase:.1f} s")
-    return {"A": a_numbers, "B": b_numbers, "C": c_numbers, "reference": reference,
-            "kernels": {"judge": {**judge_kernel, "shape": list(first_call), "launches_per_call": n_global},
-                        "safebench": {**sfb_kernel, "shape": list(seg.shape), "launches_per_prefill": lt.num_layers}}}
+    return {"A": a_numbers, "B": b_numbers, "C": c_numbers, "reference": reference, "table": table_s,
+            "kernels": {"judge": [{**e, "stage": "A"} for e in judge_kernels] + [{**e, "stage": "C"} for e in guard_kernels],
+                        "safebench": [{**e, "stage": "B"} for e in sfb_kernels]}}
 
 
 def main():
@@ -2742,7 +2779,8 @@ def main():
     ea, eb = evals["A"], evals["B"]
     log("done", f"judge and eval (4J): stage A {ea['verdicts']} verdicts in {ea['calls']} judge calls, "
         f"{ea['verdicts_per_s']:.2f} verdicts/s, prefill ms {[round(x, 2) for x in ea['prefill_ms']]}, peak "
-        f"{ea['peak_GiB']:.3f} GiB, the FSM built in {ea['build']} s; stage B {eb['tokens_per_s']:.1f} tokens/s, "
+        f"{ea['peak_GiB']:.3f} GiB, the FSM built in {ea['build']} s, the table's builders on a sample "
+        f"{evals['table']}; stage B (--iter {eb['iter']}, image {eb['iter'] + 1}) {eb['tokens_per_s']:.1f} tokens/s, "
         f"prefill ms {[round(x, 2) for x in eb['prefill_ms']]}, peak {eb['peak_GiB']:.3f} GiB; stage C "
         f"{evals['C']['verdicts_per_s']:.2f} verdicts/s, mean ASR {evals['C']['mean']}; depth-cut judge "
         f"{evals['reference']}")
@@ -2805,17 +2843,12 @@ def main():
             "at_batch_1": {"worst_row_rel_err": batch1["rel"], **pick(batch1, timing_keys)},
             "at_batch_1_no_pad": pick(judge["attention_no_pad"][name.replace("flash", "attention")], timing_keys),
         })
-    # phase 4J's shapes: the flash forward at SafeBench's LLaVA prefill (D 128) and at the judge call's
-    # prefill (D 256), with the launches of one prefill and of one judge call
-    timing_4j = (*timing_keys, "shape")
-    kernels[4]["at_eval_shapes"] = {"max_abs_err": evals["kernels"]["safebench"]["abs"],
-                                    "worst_row_rel_err": evals["kernels"]["safebench"]["rel"],
-                                    "launches_per_prefill": evals["kernels"]["safebench"]["launches_per_prefill"],
-                                    **pick(evals["kernels"]["safebench"], timing_4j)}
-    kernels[len(sources)]["at_eval_shapes"] = {"max_abs_err": evals["kernels"]["judge"]["abs"],
-                                               "worst_row_rel_err": evals["kernels"]["judge"]["rel"],
-                                               "launches_per_judge_call": evals["kernels"]["judge"]["launches_per_call"],
-                                               **pick(evals["kernels"]["judge"], timing_4j)}
+    # phase 4J's shapes, one entry a (stage, batch, T): the flash forward at SafeBench's LLaVA prefills
+    # (D 128) and at the judge calls' prefills (D 256), held at every mask of that shape, with its launches
+    timing_4j = (*timing_keys, "stage", "shape", "masks", "calls", "launches")
+    for i, cases in ((4, evals["kernels"]["safebench"]), (len(sources), evals["kernels"]["judge"])):
+        kernels[i]["at_eval_shapes"] = [{"max_abs_err": e["abs"], "worst_row_rel_err": e["rel"], **pick(e, timing_4j)}
+                                        for e in cases]
     for i, name in enumerate(sources):
         if name in cross["kernels"]:  # 4X's shapes; flash_fwd's is LLaVA's decode prefill
             st = cross["kernels"][name]

@@ -11,7 +11,8 @@ import numpy as np
 import torch
 
 from adversarialvlm_tpu_torch.ops.image import from_pil_array, to_pil_array
-from adversarialvlm_tpu_torch.utils.png import read_png, write_png
+from adversarialvlm_tpu_torch.utils.images import read_rgb
+from adversarialvlm_tpu_torch.utils.png import write_png
 
 
 def create_directory(exp_name: str, base_path: str = "./runs") -> str:
@@ -117,21 +118,10 @@ def load_attack_state(path: str, state: dict, generators: dict) -> dict:
     return state
 
 
-def _read_rgb(path: str) -> np.ndarray:
-    """(H, W, 3) uint8: PIL's ``convert("RGB")`` where PIL imports (any format it reads), else
-    utils/png.py's reader, which gives the same pixels for PNGs and names any other format."""
-    try:
-        from PIL import Image
-    except ImportError:
-        return read_png(path)
-    with Image.open(path) as img:
-        return np.asarray(img.convert("RGB"))
-
-
 def load_image_chw(path: str, images_dir: str = "./images") -> np.ndarray:
-    """CHW float32 [0, 1] from the image at ``path`` or ``images_dir/path`` (attack_model.py:
-    163-168)."""
+    """CHW float32 [0, 1] from the PNG or JPEG image at ``path`` or ``images_dir/path``
+    (attack_model.py:163-168), the pixels PIL's ``convert("RGB")`` gives (utils/images.py)."""
     for cand in (path, os.path.join(images_dir, path)):
         if os.path.exists(cand):
-            return from_pil_array(_read_rgb(cand))
+            return from_pil_array(read_rgb(cand))
     raise FileNotFoundError(f"Cannot find {path}")

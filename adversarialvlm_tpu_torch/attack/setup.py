@@ -1,10 +1,11 @@
 """Victim construction: model + differentiable processor + prompt pools, from random weights or
 from a local HF checkpoint directory. Counterpart of adversarialvlm_tpu/attack/setup.py::
-build_tiny_victim and build_victim_from_checkpoint for the llava and gemma3 families (without the
-HBM remat ladder, which an 80 GB card does not need, and without int8 weights: ROADMAP modules:
-judge and eval)."""
+build_tiny_victim and build_victim_from_checkpoint for the llava and gemma3 families, with int8
+weights (models/quant.py), without the HBM remat ladder, which an 80 GB card does not need."""
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -63,11 +64,13 @@ def build_tiny_victim(
     dtype=None,
     device=None,
     family: str = "llava",
+    int8_weights: bool = False,
 ) -> VictimSetup:
     """A random-weight victim (default: the tiny config of ``family``, llava or gemma3; pass
     ``vlm_cfg=llava_1_5_7b()`` or ``gemma3_4b_it()`` for a full-size one) with the ByteTokenizer.
     Weights come from a ``torch.Generator`` on ``device`` (default: the card, which must exist)
-    seeded with ``seed``."""
+    seeded with ``seed``. ``int8_weights`` quantizes every linear with both dims >= 8, tensor by
+    tensor (models/quant.py::quantize_params), so tiny runs take the int8 path too."""
     dev = resolve_device(device)
     if vlm_cfg is None:
         vlm_cfg = tiny_gemma3(vocab_size=384) if family == "gemma3" else tiny_llava(vocab_size=384)
@@ -98,6 +101,10 @@ def build_tiny_victim(
     )
     dtype = dtype or torch.float32
     bundle = make_bundle(name, family, vlm_cfg, dev, seed=seed, dtype=dtype)
+    if int8_weights:
+        from adversarialvlm_tpu_torch.models.quant import quantize_params
+
+        bundle.params = quantize_params(bundle.params, min_dim=8)
     return VictimSetup(name=name, bundle=bundle, adv_processor=adv_proc, adv_inputs=adv_inputs,
                        compute_dtype=dtype)
 
@@ -112,16 +119,22 @@ def build_victim_from_checkpoint(
     questions: list[str] | None = None,
     targets: list[str] | None = None,
     test_questions: list[str] | None = None,
+    int8_weights: bool = False,
 ) -> VictimSetup:
     """The victim of a local HF checkpoint directory (processors.load_model_and_processor): its
     weights on ``device`` (default: the card), the config patched from config.json, and the
     prompt pools tokenized by the checkpoint's own tokenizer. The step runs in ``dtype``, not in
-    the f32 the loader keeps the norms in."""
+    the f32 the loader keeps the norms in. ``int8_weights`` quantizes the linears as they load
+    (models/loading.py::quantize_on_load), so the card holds the int8 tree plus one dense tensor
+    at most."""
+    from adversarialvlm_tpu_torch.models.loading import quantize_on_load
+
     dev = resolve_device(device)
     family = family_of(model_name)
     spec = spec_for_family(family)
     refusals = refuse_texts(cfg_attack, spec)  # before any file is read
-    bundle, tok, adv_proc = load_model_and_processor(model_name, checkpoint_path, in_hw, dtype, dev)
+    with quantize_on_load() if int8_weights else contextlib.nullcontext():
+        bundle, tok, adv_proc = load_model_and_processor(model_name, checkpoint_path, in_hw, dtype, dev)
     vlm_cfg = bundle.cfg
     if questions is None or targets is None:
         questions, targets = questions_and_targets(cfg_attack)

@@ -7,7 +7,8 @@ Model names: an HF name of processors.MODEL_MAP (``llava-hf/llava-1.5-7b-hf``,
 ``google/gemma-3-4b-it``, ``google/gemma-3-12b-it``) loads its local checkpoint directory,
 ``<root>/<org>/<name>`` or ``<root>/<name>`` under ``--checkpoint_root`` or
 ``$ADVLM_CHECKPOINTS`` (bf16 on the card, f32 on the CPU; ``cli/fabricate_ckpt.py`` writes such a
-directory from random weights); ``random:llava-1.5-7b`` (full-size LLaVA-1.5-7B) and
+directory from random weights; ``--int8_weights`` or ``ADVLM_INT8_WEIGHTS=1`` quantizes its
+linears as they load, models/quant.py); ``random:llava-1.5-7b`` (full-size LLaVA-1.5-7B) and
 ``random:gemma-3-4b-it`` (full-size Gemma-3-4B-it, its SigLIP tower at 4096 patches), both with
 random bf16 weights, and ``tiny:llava`` and ``tiny:gemma3`` (tiny random models, f32) take the
 byte tokenizer. ``--resume_state runs/<exp>/attack_state_latest.pt`` continues a run where its
@@ -26,6 +27,7 @@ from datetime import datetime
 import torch
 
 from adversarialvlm_tpu_torch.models.configs import gemma3_4b_it, llava_1_5_7b
+from adversarialvlm_tpu_torch.utils.device import env_flag
 
 
 def add_attack_flags(parser):
@@ -126,39 +128,36 @@ def victim_family(model_name: str) -> str:
     return family_of(model_name)
 
 
-def build_victim(model_name: str, cfg, in_hw, device, checkpoint_root: str | None = None):
+def build_victim(model_name: str, cfg, in_hw, device, checkpoint_root: str | None = None,
+                 int8_weights: bool | None = None):
     """``random:*`` and ``tiny:*`` names build random-weight victims with the byte tokenizer;
-    an HF name (processors.MODEL_MAP) loads its checkpoint directory."""
+    an HF name (processors.MODEL_MAP) loads its checkpoint directory. ``int8_weights`` (None:
+    ``ADVLM_INT8_WEIGHTS``) quantizes the linears (models/quant.py): the random victims after
+    their draw, a checkpoint's as it loads."""
     from adversarialvlm_tpu_torch.attack.setup import build_tiny_victim, build_victim_from_checkpoint
 
     family = victim_family(model_name)  # names a family the port does not run before any file is read
+    int8 = env_flag("ADVLM_INT8_WEIGHTS") if int8_weights is None else int8_weights
     if model_name in RANDOM_VICTIMS:
         full_size = RANDOM_VICTIMS[model_name][1]
         if full_size is not None:
             return build_tiny_victim(model_name, cfg, in_hw, vlm_cfg=full_size(), seed=cfg.seed,
-                                     dtype=torch.bfloat16, device=device)
-        return build_tiny_victim(model_name, cfg, in_hw, seed=cfg.seed, device=device, family=family)
+                                     dtype=torch.bfloat16, device=device, int8_weights=int8)
+        return build_tiny_victim(model_name, cfg, in_hw, seed=cfg.seed, device=device, family=family,
+                                 int8_weights=int8)
     dtype = torch.bfloat16 if torch.device(device).type == "cuda" else torch.float32
     return build_victim_from_checkpoint(model_name, resolve_checkpoint(model_name, checkpoint_root),
-                                        cfg, in_hw, dtype=dtype, device=device)
-
-
-def env_flag(name: str) -> bool:
-    """An environment toggle: unset, "", "0", "false", "no" or "off" (any case) read as False."""
-    return os.environ.get(name, "").strip().lower() not in ("", "0", "false", "no", "off")
+                                        cfg, in_hw, dtype=dtype, device=device, int8_weights=int8)
 
 
 def check_unported_flags(args) -> None:
     """The flags whose features the port does not run yet raise, each naming its ROADMAP item,
-    before any model is built. ``args`` may lack the flags a CLI does not have; int8 weights are
-    asked for by ``--int8_weights`` or ``ADVLM_INT8_WEIGHTS``, as in the JAX package."""
+    before any model is built. ``args`` may lack the flags a CLI does not have."""
     waiting = [
         flag for flag, asked in (
             ("--mesh_model/--mesh_data (ROADMAP modules: multi-GPU mesh)",
              getattr(args, "mesh_model", None) is not None
              or getattr(args, "mesh_data", None) is not None),
-            ("--int8_weights/ADVLM_INT8_WEIGHTS (ROADMAP modules: judge and eval)",
-             getattr(args, "int8_weights", False) or env_flag("ADVLM_INT8_WEIGHTS")),
             ("--remat_policy (not needed on an 80 GB card)",
              getattr(args, "remat_policy", None) is not None),
         ) if asked
@@ -188,7 +187,8 @@ def main(argv=None):
     x0 = load_image_chw(args.img_orig)
     in_hw = (x0.shape[1], x0.shape[2])
     print("Original image size:", (in_hw[1], in_hw[0]))
-    victim = build_victim(args.model_name, cfg, in_hw, device, args.checkpoint_root)
+    victim = build_victim(args.model_name, cfg, in_hw, device, args.checkpoint_root,
+                          int8_weights=args.int8_weights or None)
     return train(cfg, [victim], x0, base_path=args.runs_path, cross=False, device=device)
 
 

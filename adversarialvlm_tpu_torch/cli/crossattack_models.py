@@ -65,7 +65,8 @@ def main(argv=None):
     x0 = load_image_chw(args.img_orig)
     in_hw = (x0.shape[1], x0.shape[2])
     print("Original image size:", (in_hw[1], in_hw[0]))
-    victims = [build_victim(name, cfg, in_hw, device, args.checkpoint_root) for name in args.model_names]
+    victims = [build_victim(name, cfg, in_hw, device, args.checkpoint_root, int8_weights=args.int8_weights or None)
+               for name in args.model_names]
     return train(cfg, victims, x0, base_path=args.runs_path, cross=True, device=device)
 
 

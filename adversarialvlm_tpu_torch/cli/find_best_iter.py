@@ -20,7 +20,7 @@ def main(argv=None):
     parser.add_argument("--judge_model", type=str, default="google/gemma-3-4b-it")
     parser.add_argument("--checkpoint_root", type=str, default=None)
     parser.add_argument("--int8_weights", action="store_true",
-                        help="weight-only int8 judge: not ported (raises)")
+                        help="weight-only int8 judge (models/quant.py), quantized as it loads")
     parser.add_argument("--batch_size", type=int, default=16)
     parser.add_argument("--judge_thoughts", action="store_true",
                         help="use the CoT thoughts+is_safe judge schema")

@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-import argparse
+import contextlib
 
 import torch
 
@@ -21,14 +21,16 @@ def build_checker(
       ``checkpoint_root`` or ``$ADVLM_CHECKPOINTS`` (bf16 on the card, f32 on the CPU), with its
       tokenizer.json.
 
-    int8 weights (``int8_weights`` or ``ADVLM_INT8_WEIGHTS``) raise NotImplementedError, as every
-    port CLI does for them."""
-    from adversarialvlm_tpu_torch.cli.attack_model import check_unported_flags, resolve_checkpoint
+    int8 weights (``int8_weights``; None: ``ADVLM_INT8_WEIGHTS``) quantize the judge's linears
+    (models/quant.py): a checkpoint's as they load (cli/judge_common.py:52-58), the tiny judge's
+    with both dims >= 8 after its draw, as the tiny victims do."""
+    from adversarialvlm_tpu_torch.cli.attack_model import resolve_checkpoint
     from adversarialvlm_tpu_torch.judge.safety_checker import SafetyChecker
     from adversarialvlm_tpu_torch.processors.prompts import gemma3_spec
-    from adversarialvlm_tpu_torch.utils.device import resolve_device
+    from adversarialvlm_tpu_torch.utils.device import env_flag, resolve_device
 
-    check_unported_flags(argparse.Namespace(int8_weights=bool(int8_weights)))
+    if int8_weights is None:
+        int8_weights = env_flag("ADVLM_INT8_WEIGHTS")
     device = resolve_device(device)
     if judge_npz:
         from adversarialvlm_tpu_torch.judge.tiny import build_pretrained_checker
@@ -42,17 +44,23 @@ def build_checker(
         from adversarialvlm_tpu_torch.utils.tokenization import ByteTokenizer
 
         bundle = make_bundle("tiny-judge", "llava", tiny_llava(vocab_size=384), device)
+        if int8_weights:
+            from adversarialvlm_tpu_torch.models.quant import quantize_params
+
+            bundle.params = quantize_params(bundle.params, min_dim=8)
         tok = ByteTokenizer()
         for sp in ("<start_of_turn>", "<end_of_turn>", "<start_of_image>"):
             tok.add_special(sp)
         return SafetyChecker(bundle, tok, gemma3_spec(), batch_size, torch.float32,
                              use_thoughts=use_thoughts)
 
+    from adversarialvlm_tpu_torch.models.loading import quantize_on_load
     from adversarialvlm_tpu_torch.models.registry import make_judge_bundle
     from adversarialvlm_tpu_torch.utils.tokenization import HFTokenizer
 
     path = resolve_checkpoint(judge_model, checkpoint_root)
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
-    bundle = make_judge_bundle(judge_model, path, dtype, device)
+    with quantize_on_load() if int8_weights else contextlib.nullcontext():
+        bundle = make_judge_bundle(judge_model, path, dtype, device)
     return SafetyChecker(bundle, HFTokenizer.from_pretrained(path), gemma3_spec(), batch_size, dtype,
                          use_thoughts=use_thoughts)

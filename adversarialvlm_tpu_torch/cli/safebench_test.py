@@ -43,7 +43,7 @@ def main(argv=None):
     parser.add_argument("--tests_path", type=str, default="./tests")
     parser.add_argument("--checkpoint_root", type=str, default=None)
     parser.add_argument("--int8_weights", action="store_true",
-                        help="weight-only int8 victim: not ported (raises)")
+                        help="weight-only int8 victim (models/quant.py), quantized as it loads")
     parser.add_argument("--batch_size", type=int, default=8)
     parser.add_argument(
         "--categories", type=str, default="1-23",
@@ -54,7 +54,7 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     from adversarialvlm_tpu_torch.attack.config import AttackConfig
-    from adversarialvlm_tpu_torch.cli.attack_model import build_victim, check_unported_flags
+    from adversarialvlm_tpu_torch.cli.attack_model import build_victim
     from adversarialvlm_tpu_torch.eval.safebench import (
         DICT_SUF_MODELNAME,
         optimized_image_path,
@@ -63,7 +63,6 @@ def main(argv=None):
     from adversarialvlm_tpu_torch.utils.device import resolve_device
     from adversarialvlm_tpu_torch.utils.png import read_png
 
-    check_unported_flags(args)
     assert args.model_suf in DICT_SUF_MODELNAME or args.model_suf.startswith("tiny:"), (
         "Model suffix not found. Shall be one of: " + ", ".join(DICT_SUF_MODELNAME)
     )
@@ -74,7 +73,8 @@ def main(argv=None):
     in_hw = read_png(optimized_image_path(args.runs_path, args.exp, args.iter)).shape[:2]
 
     cfg = AttackConfig(exp_name=args.exp, batch_size=args.batch_size)
-    victim = build_victim(model_name, cfg, in_hw, device, args.checkpoint_root)
+    victim = build_victim(model_name, cfg, in_hw, device, args.checkpoint_root,
+                          int8_weights=args.int8_weights or None)
     out = run_safebench(
         victim, args.exp, args.iter, args.sfb_path,
         runs_root=args.runs_path, tests_root=args.tests_path,

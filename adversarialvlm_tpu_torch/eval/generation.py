@@ -1,7 +1,7 @@
 """Batched greedy generation for the evaluators: the shared pad -> generate -> detokenize chunk
-body, and the answers of a list of questions on one shared image (SafeBench) or none. Counterpart
-of adversarialvlm_tpu/eval/generation.py (:106-290); the per-image branch (``images_chw``) and
-``load_images_bucketed`` wait with MM-SafetyBench and FigStep (ROADMAP modules: judge and eval)."""
+body, the answers of a list of questions on one shared image (SafeBench) or none, and one question
+per image (MM-SafetyBench, FigStep) with the images read and resized on the host as PIL would.
+Counterpart of adversarialvlm_tpu/eval/generation.py."""
 
 from __future__ import annotations
 
@@ -9,7 +9,56 @@ import numpy as np
 import torch
 
 from adversarialvlm_tpu_torch.models.generate import chunked_decode, pick_decode_config
+from adversarialvlm_tpu_torch.ops.image import from_pil_array
 from adversarialvlm_tpu_torch.utils.batching import pad_to_buckets
+from adversarialvlm_tpu_torch.utils.images import read_rgb, resize_bilinear
+
+
+def bucket_hw(h: int, w: int, multiple: int = 28, max_side: int = 1148) -> tuple[int, int]:
+    """An image size rounded up to multiples of 28 (at least 56), the long side capped at 1148
+    (generation.py:18-28), so a benchmark category shares one shape."""
+
+    def rnd(x):
+        x = min(int(x), max_side)
+        return max(multiple * 2, ((x + multiple - 1) // multiple) * multiple)
+
+    return rnd(h), rnd(w)
+
+
+def eval_target_hw(victim) -> tuple[int, int] | None:
+    """The one image shape the victim's processor is built for, where it declares one (the JAX
+    package's qwen2vl and phi3v processors do; LLaVA's and Gemma-3's do not, and their
+    benchmark images take the first image's bucket)."""
+    return getattr(victim.adv_processor, "in_hw", None)
+
+
+def load_images_bucketed(image_files: list[str], target_hw: tuple[int, int] | None = None):
+    """The images as one (N, 3, H, W) float32 array of one shape, each read as PIL's
+    ``convert("RGB")`` gives it (PNG or baseline JPEG, utils/images.py) and resized where its
+    size differs with PIL's bilinear resize, bit for bit; ``target_hw`` defaults to the first
+    image's bucket. Returns (array, (H, W)), or (None, None) for no files."""
+    if not image_files:
+        return None, None
+    first = read_rgb(image_files[0])
+    if target_hw is None:
+        target_hw = bucket_hw(*first.shape[:2])
+    out = []
+    for i, f in enumerate(image_files):
+        img = first if i == 0 else read_rgb(f)
+        if img.shape[:2] != tuple(target_hw):
+            img = resize_bilinear(img, target_hw)
+        out.append(from_pil_array(img))
+    return np.stack(out), tuple(target_hw)
+
+
+def _stack_processed(victim, images_chw: np.ndarray) -> dict:
+    """The differentiable processor on each image of the chunk, its outputs concatenated per key
+    into per-row pixel inputs (generation.py:64-103): each family's forward takes one image per
+    token row. Eager PyTorch needs no program cache."""
+    proc = victim.adv_processor
+    device = victim.bundle.device
+    per_image = [proc.process(torch.as_tensor(img, device=device)) for img in images_chw]
+    return {k: torch.cat([p[k] for p in per_image], dim=0) for k in per_image[0]}
 
 
 def _pick_decode(bundle, adv_inputs, questions, max_new_tokens, want_batch, cache_dtype,
@@ -28,16 +77,24 @@ def _pick_decode(bundle, adv_inputs, questions, max_new_tokens, want_batch, cach
 
 
 def decode_chunk_texts(bundle, adv_inputs, questions, start, bs, *, max_new_tokens, cache_dtype,
-                       processed=None, min_new_tokens=0, text_only=False, assistant_prefill="",
-                       decode_full=False):
+                       processed=None, images_chw=None, victim=None, min_new_tokens=0,
+                       text_only=False, assistant_prefill="", decode_full=False):
     """Decode questions[start:start+bs] as one batch bucketed to ``bs`` rows and a 64-multiple
     length. ``processed`` (the processor's output for one image) rides with every row;
-    ``text_only`` drops the image span from the prompts, ``assistant_prefill`` appends text after
-    the generation tag. ``decode_full`` decodes prompt + generation (train_test.py:49), else the
-    generation only (SafeBench_universal.py:87); special tokens are skipped either way."""
+    ``images_chw`` (with ``victim`` for its processor) rides image i with question i, a short
+    last chunk repeating its last row to fill ``bs``. ``text_only`` drops the image span from the
+    prompts, ``assistant_prefill`` appends text after the generation tag. ``decode_full`` decodes
+    prompt + generation (train_test.py:49), else the generation only (SafeBench_universal.py:87);
+    special tokens are skipped either way."""
     tok = adv_inputs.tokenizer
     chunk = list(questions[start : start + bs])
     real = len(chunk)
+    if images_chw is not None:
+        chunk_img = images_chw[start : start + bs]
+        if real < bs:  # a stable batch shape: repeat the last row
+            chunk = chunk + [chunk[-1]] * (bs - real)
+            chunk_img = np.concatenate([chunk_img, np.repeat(chunk_img[-1:], bs - real, axis=0)])
+        processed = _stack_processed(victim, chunk_img)
     inputs = adv_inputs.get_inputs_inference_batch(
         chunk, text_only=text_only, assistant_prefill=assistant_prefill
     )
@@ -62,6 +119,37 @@ def decode_chunk_texts(bundle, adv_inputs, questions, start, bs, *, max_new_toke
 
 
 @torch.no_grad()
+def generate_answers_per_image(
+    victim,
+    questions: list[str],
+    images_chw: np.ndarray | None,
+    max_new_tokens: int = 128,
+    min_new_tokens: int = 32,
+    batch_size: int = 4,
+    cache_dtype=torch.bfloat16,
+) -> list[str]:
+    """One question per image (MM-SafetyBench, FigStep), batched: the images share one shape
+    (load_images_bucketed) and question i rides with image i (generation.py:198-238; the reference
+    generates at batch 1 per image, MM_SafetyBench_baseline.py:84-142)."""
+    if not questions:
+        return []  # an empty category: load_images_bucketed gave None
+    assert len(questions) == images_chw.shape[0]
+    batch_size, cache_dtype = _pick_decode(
+        victim.bundle, victim.adv_inputs, questions, max_new_tokens, batch_size, cache_dtype,
+    )
+
+    def decode_chunk(start: int, bs: int) -> list[str]:
+        return decode_chunk_texts(
+            victim.bundle, victim.adv_inputs, questions, start, bs,
+            images_chw=images_chw, victim=victim, max_new_tokens=max_new_tokens,
+            min_new_tokens=min_new_tokens, cache_dtype=cache_dtype,
+        )
+
+    texts, _ = chunked_decode(len(questions), batch_size, decode_chunk, label="per-image decode")
+    return texts
+
+
+@torch.no_grad()
 def generate_answers(
     victim,
     questions: list[str],
@@ -75,9 +163,9 @@ def generate_answers(
     cache_dtype=torch.bfloat16,
 ) -> list[str]:
     """Greedy answers for each question, with ``image_chw`` (CHW float) attached to every row
-    unless ``text_only``, in chunks of the batch the KV cache leaves room for; a chunk that runs
-    out of memory retries at half the batch; the KV cache is bf16 unless ``cache_dtype`` says
-    otherwise, as in the JAX package. ``decode_full=False`` decodes only the generated continuation
+    unless ``text_only``, in chunks of the batch the KV cache leaves room for (the int8 cache where
+    the bf16 one binds and int8 recovers batch, models/generate.py::pick_decode_config); a chunk
+    that runs out of memory retries at half the batch. ``decode_full=False`` decodes only the generated continuation
     (SafeBench_universal.py:87); True decodes prompt + generation (train_test.py:49)."""
     if not questions:
         return []

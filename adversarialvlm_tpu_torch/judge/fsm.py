@@ -20,10 +20,6 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
-import os
-import subprocess
-import threading
 
 import numpy as np
 import torch
@@ -306,48 +302,20 @@ def _dense_transitions(dfa: RegexDFA) -> np.ndarray:
     return trans
 
 
-_native_fn = None  # build_token_table of the loaded library
-_NATIVE_LOCK = threading.Lock()
-
-
-def native_library_path():
-    """``build/libfsm_table-<hash>.so``, named by the hash of ``csrc/fsm_table.cpp``."""
-    from adversarialvlm_tpu_torch.ops.kernels.build import BUILD, CSRC
-
-    digest = hashlib.sha256((CSRC / "fsm_table.cpp").read_bytes()).hexdigest()[:16]
-    return BUILD / f"libfsm_table-{digest}.so"
-
-
 def native_table_fn():
-    """ctypes handle to ``build_token_table`` of ``csrc/fsm_table.cpp``, compiled with ``g++ -O3
-    -shared -fPIC`` at first use. A failed compile raises with the compiler's output (the JAX
-    package falls back to Python there; the port does not carry on slower without saying so)."""
-    global _native_fn
-    from adversarialvlm_tpu_torch.ops.kernels.build import CSRC
+    """ctypes handle to ``build_token_table`` of ``csrc/fsm_table.cpp`` (utils/native.py: g++ at
+    first use; a failed compile raises with the compiler's output, where the JAX package falls
+    back to Python: the port does not carry on slower without saying so)."""
+    from adversarialvlm_tpu_torch.utils.native import host_library
 
-    with _NATIVE_LOCK:
-        if _native_fn is None:
-            path = native_library_path()
-            if not path.exists():
-                path.parent.mkdir(parents=True, exist_ok=True)
-                tmp = path.with_suffix(f".{os.getpid()}.tmp")
-                proc = subprocess.run(
-                    ["g++", "-O3", "-shared", "-fPIC", "-o", str(tmp), str(CSRC / "fsm_table.cpp")],
-                    capture_output=True, text=True,
-                )
-                if proc.returncode != 0:
-                    raise RuntimeError(f"g++ failed for fsm_table.cpp (exit {proc.returncode}):\n"
-                                       f"{proc.stdout}{proc.stderr}")
-                os.replace(tmp, path)  # atomic against a concurrent build
-            fn = ctypes.CDLL(str(path)).build_token_table
-            fn.argtypes = [
-                ctypes.POINTER(ctypes.c_int32), ctypes.c_int32,
-                ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int64),
-                ctypes.c_int32, ctypes.POINTER(ctypes.c_int32),
-            ]
-            fn.restype = None
-            _native_fn = fn
-    return _native_fn
+    fn = host_library("fsm_table.cpp").build_token_table
+    fn.argtypes = [
+        ctypes.POINTER(ctypes.c_int32), ctypes.c_int32,
+        ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int64),
+        ctypes.c_int32, ctypes.POINTER(ctypes.c_int32),
+    ]
+    fn.restype = None
+    return fn
 
 
 def build_token_table_native(dfa: RegexDFA, vocab: list[bytes | None]) -> np.ndarray:

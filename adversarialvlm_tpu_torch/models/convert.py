@@ -9,7 +9,9 @@ import torch
 def from_jax_params(tree, device="cpu", dtype=None):
     """Map a JAX per-layer nested-dict parameter tree (leaves converted with ``np.asarray``) to
     the port's nested dicts of tensors under the same HF names. Lists of layers stay lists; a
-    stacked (``lax.scan``) layer tree is rejected, since the port runs the unrolled layout."""
+    stacked (``lax.scan``) layer tree is rejected, since the port runs the unrolled layout.
+    ``dtype`` casts every leaf but the int8 ``weight_q`` and f32 ``weight_scale`` of quantized
+    linears."""
 
     def walk(x, path):
         if isinstance(x, dict):
@@ -22,6 +24,8 @@ def from_jax_params(tree, device="cpu", dtype=None):
         if isinstance(x, (list, tuple)):
             return [walk(v, f"{path}[{i}]") for i, v in enumerate(x)]
         t = torch.from_numpy(np.array(x, copy=True))
+        if t.dtype == torch.int8 or path.endswith("weight_scale"):
+            return t.to(device=device)  # int8 weights (models/quant.py) keep their values and scales
         return t.to(device=device, dtype=dtype or t.dtype)
 
     return walk(tree, "")

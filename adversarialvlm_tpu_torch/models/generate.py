@@ -15,6 +15,8 @@ import os
 
 import torch
 
+from adversarialvlm_tpu_torch.utils.device import env_flag
+
 DEFAULT_SLACK_BYTES = 800_000_000  # prefill transients, the JAX package's allowance
 
 
@@ -115,38 +117,37 @@ def pick_decode_config(
     cfg_text, params, total_len: int, want_batch: int, cache_dtype=torch.bfloat16,
     reserved_bytes: int = 0, hbm_bytes: int | None = None,
 ) -> tuple[int, torch.dtype]:
-    """(batch, cache_dtype) for a generation call: ``want_batch`` clamped to what the KV cache
-    leaves next to the weights. Where the JAX package would switch to its int8 cache to recover
-    batch, the port keeps ``cache_dtype`` at the clamped batch and logs it (the int8 cache waits
-    for ROADMAP modules: judge and eval)."""
+    """(batch, cache_dtype) for a generation call (generate.py:214-241): ``want_batch`` clamped
+    to what the KV cache leaves next to the weights; where the full-precision cache binds, the
+    int8 cache when it recovers batch. ``ADVLM_NO_INT8_KV=1`` keeps ``cache_dtype``."""
     cb = torch.empty((), dtype=cache_dtype).element_size()
     bs = max(1, min(want_batch, max_decode_batch(
         cfg_text, total_len, params, cache_bytes=cb, hbm_bytes=hbm_bytes,
         reserved_bytes=reserved_bytes)))
-    if bs < want_batch:
-        bs8 = max(1, min(want_batch, max_decode_batch(
-            cfg_text, total_len, params, cache_bytes=1, hbm_bytes=hbm_bytes,
-            reserved_bytes=reserved_bytes)))
-        if bs8 > bs:
-            logging.warning(
-                "decode batch clamped to %d with a %s cache; the JAX package would take its int8 "
-                "cache at batch %d, which is not ported (ROADMAP modules: judge and eval)",
-                bs, cache_dtype, bs8,
-            )
+    if bs >= want_batch or env_flag("ADVLM_NO_INT8_KV"):
+        return bs, cache_dtype
+    bs8 = max(1, min(want_batch, max_decode_batch(
+        cfg_text, total_len, params, cache_bytes=1, hbm_bytes=hbm_bytes,
+        reserved_bytes=reserved_bytes)))
+    if bs8 > bs:
+        return bs8, torch.int8
     return bs, cache_dtype
 
 
 def make_kv_caches(cfg_text, batch: int, total_len: int, dtype=torch.bfloat16, device="cpu"):
-    """One zeroed (k, v) pair per layer, each (batch, Hkv, total_len, head_dim)."""
-    if dtype == torch.int8:
-        raise NotImplementedError(
-            "the int8 KV cache waits for models/quant.py (ROADMAP modules: judge and eval)"
-        )
+    """One zeroed cache per layer: (k, v), each (batch, Hkv, total_len, head_dim); for
+    ``dtype=torch.int8`` (k, v, k scales, v scales), the scales f32 (batch, Hkv, total_len, 1)
+    (generate.py:250-266)."""
     shape = (batch, cfg_text.num_kv_heads, total_len, cfg_text.head_dim_)
-    return [
-        (torch.zeros(shape, dtype=dtype, device=device), torch.zeros(shape, dtype=dtype, device=device))
-        for _ in range(cfg_text.num_layers)
-    ]
+
+    def z(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    if dtype == torch.int8:
+        sshape = shape[:-1] + (1,)
+        return [(z(shape, dtype), z(shape, dtype), z(sshape, torch.float32), z(sshape, torch.float32))
+                for _ in range(cfg_text.num_layers)]
+    return [(z(shape, dtype), z(shape, dtype)) for _ in range(cfg_text.num_layers)]
 
 
 def _prefill_aux(attention_mask: torch.Tensor, max_new_tokens: int):

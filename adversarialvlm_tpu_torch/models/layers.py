@@ -1,10 +1,12 @@
 """Transformer building blocks as plain functions on tensors, params as nested dicts under the
-HF names. Counterpart of adversarialvlm_tpu/models/layers.py (the bf16/f32 KV cache; the int8
-cache waits for models/quant.py, ROADMAP modules: judge and eval).
+HF names. Counterpart of adversarialvlm_tpu/models/layers.py, with its KV caches: bf16/f32, and
+int8 with per-token, per-head scales.
 
 Routes to the hand-written kernels, each decided from what the call can observe:
   * ``linear`` on a CUDA tensor with a frozen, large, 128-aligned weight goes through
-    ``LinearPdx``, whose backward is the dgrad kernel;
+    ``LinearPdx``, whose backward is the dgrad kernel; an int8 weight (models/quant.py) goes
+    through ``LinearInt8`` on every device, whose backward takes the dgrad kernel where the
+    card can;
   * ``self_attention`` takes the route ``ops.kernels.attention.attention_route`` chose: the fused
     kernels at batch 1, the flash kernels at batch >= 2 (both on the new tokens' k/v, uncached or
     at cache start), the plain sdpa for a cached decode step and for a layer with a sliding
@@ -20,7 +22,7 @@ import torch.nn.functional as F
 
 from adversarialvlm_tpu_torch.models.configs import TextConfig
 from adversarialvlm_tpu_torch.ops.kernels.attention import fused_attention
-from adversarialvlm_tpu_torch.ops.kernels.dgrad import LinearPdx, dgrad_eligible
+from adversarialvlm_tpu_torch.ops.kernels.dgrad import LinearInt8, LinearPdx, dgrad_eligible
 from adversarialvlm_tpu_torch.ops.kernels.flash import flash_sdpa
 
 NEG_INF = -2.0e38
@@ -113,7 +115,14 @@ def causal_bias(attention_mask, q_positions, k_positions, sliding_window: int | 
 
 
 def linear(x: torch.Tensor, p: dict) -> torch.Tensor:
-    """p: {"weight": (out, in), optional "bias": (out,)}, HF layout."""
+    """p: {"weight": (out, in), optional "bias": (out,)}, HF layout; or, weight-only int8
+    (models/quant.py), {"weight_q": int8 (out, in), "weight_scale": (out,) f32}: the product with
+    the int8 values in x's dtype, times the scale in x's dtype (layers.py:352-365)."""
+    if "weight_q" in p:
+        y = LinearInt8.apply(x, p["weight_q"], p["weight_scale"])
+        if p.get("bias") is not None:
+            y = y + p["bias"].to(x.dtype)
+        return y
     w = p["weight"].to(x.dtype)
     if x.is_cuda and not w.requires_grad and dgrad_eligible(w):
         y = LinearPdx.apply(x, w)
@@ -130,13 +139,40 @@ def mlp_swiglu(x: torch.Tensor, p: dict, act: str) -> torch.Tensor:
     return linear(act_fn(act)(gate) * up, p["down_proj"])
 
 
+def _quantize_kv(x: torch.Tensor):
+    """Symmetric per-token, per-head int8 (layers.py:403-410): x (B, H, T, D) -> (int8 values,
+    f32 scales (B, H, T, 1)), absmax/127 with the floor 1e-8, so an all-zero row quantizes to 0."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1, keepdim=True) / 127.0, min=1e-8)
+    return torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8), scale
+
+
 def _write_cache(kv_cache, k, v, cache_index: int) -> None:
     """Write the new tokens' k/v (B, Hkv, T, D) into the (B, Hkv, Tmax, D) cache at
-    ``cache_index``, in place (the JAX package returns an updated copy instead)."""
-    ck, cv = kv_cache
+    ``cache_index``, in place (the JAX package returns an updated copy instead); the int8 cache
+    (k, v, k scales, v scales) takes their quantized values and scales."""
     t = k.shape[2]
-    ck[:, :, cache_index : cache_index + t].copy_(k)
-    cv[:, :, cache_index : cache_index + t].copy_(v)
+    at = slice(cache_index, cache_index + t)
+    if len(kv_cache) == 4:
+        ck, cv, sk, sv = kv_cache
+        (qk, qsk), (qv, qsv) = _quantize_kv(k), _quantize_kv(v)
+        ck[:, :, at].copy_(qk)
+        cv[:, :, at].copy_(qv)
+        sk[:, :, at].copy_(qsk)
+        sv[:, :, at].copy_(qsv)
+        return
+    ck, cv = kv_cache
+    ck[:, :, at].copy_(k)
+    cv[:, :, at].copy_(v)
+
+
+def read_cache(kv_cache, dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    """The whole cache's k and v in ``dtype``; the int8 cache dequantized as the JAX package
+    does it, ``ck.astype(dtype) * sk.astype(dtype)`` with the scale cast first."""
+    if len(kv_cache) == 4:
+        ck, cv, sk, sv = kv_cache
+        return ck.to(dtype) * sk.to(dtype), cv.to(dtype) * sv.to(dtype)
+    return tuple(c.to(dtype) for c in kv_cache)
 
 
 def self_attention(x, p, cfg: TextConfig, bias, cos, sin, attention_mask, kv_cache=None,
@@ -147,16 +183,14 @@ def self_attention(x, p, cfg: TextConfig, bias, cos, sin, attention_mask, kv_cac
     (from :func:`causal_bias`, over the whole cache when there is one, with the layer's sliding
     window and gemma3's bidirectional image block) to the plain sdpa. Gemma's qk-norm and
     ``query_pre_attn_scalar`` scale apply on every route.
-    ``kv_cache`` = (k, v), each (B, Hkv, Tmax, D), takes the new k/v at ``cache_index`` in place;
-    a 4-tuple is the int8 cache, not ported yet."""
+    ``kv_cache`` = (k, v), each (B, Hkv, Tmax, D), or the int8 cache (k, v, k scales, v scales),
+    takes the new k/v at ``cache_index`` in place. The kernel routes attend to the new tokens'
+    exact k/v, as the JAX flash route does; the plain route reads the whole cache back, so with
+    the int8 cache it attends to the dequantized values, as the JAX einsum route does."""
     b, t, _ = x.shape
     hd = cfg.head_dim_
     n_rep = cfg.num_heads // cfg.num_kv_heads
     scale = (cfg.query_pre_attn_scalar if cfg.query_pre_attn_scalar is not None else hd) ** -0.5
-    if kv_cache is not None and len(kv_cache) != 2:
-        raise NotImplementedError(
-            "the int8 KV cache waits for models/quant.py (ROADMAP modules: judge and eval)"
-        )
 
     def qk_norm(x4, name):
         # gemma3: rms-norm over head_dim before rope, in either layout
@@ -185,6 +219,6 @@ def self_attention(x, p, cfg: TextConfig, bias, cos, sin, attention_mask, kv_cac
     k = apply_rope(qk_norm(k, "k_norm"), cos, sin)
     if kv_cache is not None:
         _write_cache(kv_cache, k, v, cache_index)
-        k, v = (c.to(x.dtype) for c in kv_cache)
+        k, v = read_cache(kv_cache, x.dtype)
     out = sdpa(q, repeat_kv(k, n_rep), repeat_kv(v, n_rep), bias, scale)
     return linear(out.transpose(1, 2).reshape(b, t, cfg.num_heads * hd), p["o_proj"])

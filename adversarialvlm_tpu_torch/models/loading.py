@@ -13,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+from contextlib import contextmanager
 
 import torch
 
@@ -117,13 +118,43 @@ def named_leaves(tree, prefix: str = ""):
         yield prefix, tree
 
 
+# quantize_on_load's state: the min_dim while it is active, else None
+_QUANT_ON_LOAD = [None]
+
+
+@contextmanager
+def quantize_on_load(min_dim: int = 1024):
+    """Make :func:`to_device_tree` quantize each eligible linear weight (models/quant.py: 2-D,
+    both dims >= ``min_dim``, not on an embedding path) as it ships: the dense weight lands on
+    the device in the compute dtype, is replaced by its int8 values and scales quantized from
+    that tensor, and is dropped before the next tensor ships, so the device holds the int8 tree
+    plus one dense tensor at most (loading.py:107-152). An outer context's ``min_dim`` wins."""
+    prev = _QUANT_ON_LOAD[0]
+    _QUANT_ON_LOAD[0] = min_dim if prev is None else prev
+    try:
+        yield
+    finally:
+        _QUANT_ON_LOAD[0] = prev
+
+
 def to_device_tree(tree, dtype=torch.bfloat16, device="cuda"):
     """Each host tensor to ``device`` in turn, a leaf replaced in its tree as it ships (so the
     host view it came from can be released): the JAX loader's dtype rule, norms in f32 ("ln_"
-    catches LayerNorms whose names lack "norm") and the rest in ``dtype``."""
+    catches LayerNorms whose names lack "norm") and the rest in ``dtype``. Under
+    :func:`quantize_on_load`, eligible linear weights ship as ``weight_q``/``weight_scale``."""
+    from adversarialvlm_tpu_torch.models.quant import _is_linear_weight, quantize_weight
 
     def walk(node, path):
         if isinstance(node, dict):
+            min_dim = _QUANT_ON_LOAD[0]
+            w = node.get("weight")
+            if min_dim is not None and torch.is_tensor(w) and _is_linear_weight(tuple(path), w, min_dim):
+                dense = w.to(device=device, dtype=dtype)
+                q, s = quantize_weight(dense)
+                del dense  # the dense device copy goes before the next tensor ships
+                out = {k: walk(v, path + [k]) for k, v in node.items() if k != "weight"}
+                out["weight_q"], out["weight_scale"] = q, s
+                return out
             return {k: walk(v, path + [k]) for k, v in node.items()}
         if isinstance(node, list):
             return [walk(v, path + [str(i)]) for i, v in enumerate(node)]
@@ -136,8 +167,18 @@ def to_device_tree(tree, dtype=torch.bfloat16, device="cuda"):
 
 def check_tree(params: dict, expected: dict, where: str) -> None:
     """Raise unless ``params`` has exactly ``expected``'s keys, each with its shape (``expected``
-    is the model's init on the meta device)."""
-    got = {k: tuple(t.shape) for k, t in named_leaves(params)}
+    is the model's init on the meta device); a quantized weight counts as its ``weight``, with a
+    scale a row."""
+    leaves, got = dict(named_leaves(params)), {}
+    for k, t in leaves.items():
+        if k.endswith(".weight_scale"):
+            continue
+        if k.endswith(".weight_q"):
+            k = k[: -len("_q")]
+            scales = tuple(leaves.get(k + "_scale", torch.empty(0)).shape)
+            if scales != (t.shape[0],):
+                raise ValueError(f"{where}: {k}_scale has shape {scales}, expected ({t.shape[0]},)")
+        got[k] = tuple(t.shape)
     want = {k: tuple(t.shape) for k, t in named_leaves(expected)}
     missing, extra = sorted(set(want) - set(got)), sorted(set(got) - set(want))
     shapes = [f"{k}: {got[k]} != {want[k]}" for k in sorted(set(got) & set(want)) if got[k] != want[k]]

@@ -25,6 +25,8 @@ class ModelBundle:
     forward: Callable
     device: torch.device
     eos_token_ids: tuple[int, ...] = ()
+    # the distinct (batch, total length, cache dtype) of every generate call
+    decode_configs: set = dataclasses.field(default_factory=set)
 
     def generate(
         self,
@@ -43,6 +45,7 @@ class ModelBundle:
         the prefill scores only the last position. ``eos_token_ids=()`` decodes to the full
         length; None takes the bundle's. ``constraint``: the judge's judge.fsm.FSMConstraint, its
         table on this bundle's device."""
+        self.decode_configs.add((input_ids.shape[0], input_ids.shape[1] + max_new_tokens, cache_dtype))
         return generate_core(
             self.forward, self.make_caches, self.params, input_ids, attention_mask, pixel_inputs,
             max_new_tokens=max_new_tokens, min_new_tokens=min_new_tokens,
@@ -53,6 +56,13 @@ class ModelBundle:
 
     def make_caches(self, batch: int, total_len: int, dtype=torch.bfloat16):
         return make_kv_caches(self.cfg.text, batch, total_len, dtype, self.device)
+
+    def generate_program_counts(self) -> tuple[int, int]:
+        """(decode configs, programs) over this bundle's lifetime, the JAX bundle's observable for
+        the one-program-per-bucket promise of load_images_bucketed. The port compiles nothing, so
+        both count the distinct (batch, total length, cache dtype) its generate calls ran; a count
+        that grows with the images says the bucketing regressed."""
+        return len(self.decode_configs), len(self.decode_configs)
 
 
 # family -> model module with init_params(generator, cfg, dtype, device) and

@@ -3,7 +3,8 @@ source's note), its plain version and the autograd Function that routes a linear
 through it.
 
 Counterpart of adversarialvlm_tpu/ops/pallas/matmul.py::dgrad_matmul and the custom VJP
-models/layers.py::_linear_pdx.
+models/layers.py::_linear_pdx; :class:`LinearInt8` is the weight-only int8 linear of
+models/layers.py:352-365 with the input gradient XLA's autodiff forms for it.
 """
 
 from __future__ import annotations
@@ -105,6 +106,33 @@ class LinearPdx(torch.autograd.Function):
         with on_device_of(dy):
             dx = dgrad(dy.reshape(-1, dy.shape[-1]).contiguous(), w)
         return dx.reshape(*lead, w.shape[1]), None
+
+
+class LinearInt8(torch.autograd.Function):
+    """y = (x · Q̂ᵀ) ⊙ ŝ for a weight-only int8 linear (models/quant.py: W = s[:, None] · Q), with
+    Q̂ and ŝ the int8 values and f32 scales cast to x's dtype before the product, as the JAX
+    package computes it. Only Q and s are saved: no activation, and no dequantized weight, which
+    is made for each call and dropped. The backward is dx = (dy ⊙ ŝ) · Q̂, through :func:`dgrad`
+    where the card can take it (Q̂ is exact in bf16), else a plain product; Q and s get no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(q, s)
+        return torch.nn.functional.linear(x, q.to(x.dtype)) * s.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy: torch.Tensor):
+        q, s = ctx.saved_tensors
+        lead = dy.shape[:-1]
+        dys = (dy * s.to(dy.dtype)).reshape(-1, dy.shape[-1])
+        qc = q.to(dy.dtype)
+        if dys.is_cuda and not (dys.dtype == torch.bfloat16 and dgrad_eligible(qc)):
+            dx = torch.matmul(dys, qc)
+        else:
+            with on_device_of(dys):
+                dx = dgrad(dys.contiguous(), qc)
+        return dx.reshape(*lead, q.shape[1]), None, None
 
 
 def dgrad_eligible(w: torch.Tensor) -> bool:

@@ -1,8 +1,15 @@
-"""Device selection for the port's entry points."""
+"""Device selection for the port's entry points, and its environment toggles."""
 
 from __future__ import annotations
 
+import os
+
 import torch
+
+
+def env_flag(name: str) -> bool:
+    """An environment toggle: unset, "", "0", "false", "no" or "off" (any case) read as False."""
+    return os.environ.get(name, "").strip().lower() not in ("", "0", "false", "no", "off")
 
 
 def resolve_device(device=None) -> torch.device:

@@ -91,12 +91,12 @@ def read_png(path: str) -> np.ndarray:
     gray, RGB, gray+alpha and RGBA at 8 or 16 bits, gray at 1, 2 or 4 bits, and palette images
     (PLTE) at 1-8 bits. Alpha and tRNS are dropped; a 16-bit sample keeps its high byte, except
     16-bit gray, which PIL reads as 32-bit integers and clips to 255; a sub-byte gray sample is
-    scaled to 0-255. Raises ValueError on anything else, naming it (a JPEG needs PIL)."""
+    scaled to 0-255. Raises ValueError on anything else, naming it (utils/images.py::read_rgb
+    reads JPEGs too)."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != _SIGNATURE:
-        kind = "a JPEG file" if data[:3] == b"\xff\xd8\xff" else "not a PNG file"
-        raise ValueError(f"{path}: {kind}; without PIL only PNG images can be read")
+        raise ValueError(f"{path}: not a PNG file")
     pos, idat, header, palette = 8, [], None, None
     while pos < len(data):
         (length,) = struct.unpack(">I", data[pos : pos + 4])
@@ -117,7 +117,7 @@ def read_png(path: str) -> np.ndarray:
     if colour not in _CHANNELS or depth not in _DEPTHS[colour]:
         raise ValueError(f"{path}: PNG colour type {colour} at bit depth {depth} is not valid")
     if interlace != 0:
-        raise ValueError(f"{path}: interlaced PNGs are not supported without PIL")
+        raise ValueError(f"{path}: interlaced PNGs are not supported")
     if colour == 3 and palette is None:
         raise ValueError(f"{path}: palette PNG without a PLTE chunk")
     ch = _CHANNELS[colour]

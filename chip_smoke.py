@@ -125,9 +125,34 @@ victim LLaVA-1.5-7B, both loaded again from the directories of 4L and 4G:
      answers: a mean ASR in [0, 1], 3 rows of results, 3 columns of 8 verdicts, every verdict
      parsed, 5 flash forwards a judge call. After each stage, the flash forward against its plain
      version at every attention mask that stage's prefills ran at, timed once a (batch, T).
+Then, with the eval victims freed, int8 weights and the baseline benchmarks, both victims loaded again
+from the directories of 4L and 4G:
+  4Q. cli/attack_model.py --int8_weights at batch 1 on the bench's configuration (the one question, the
+     one target, a 512² x₀ of 0.47), 1 warm-up + 3 steps with its test decode at iterations 0 and 3:
+     the load under quantize-on-load (seconds, resident bytes, quantized fraction; its peak within the
+     int8 tree + the largest dense tensor + 1 GiB), 8 quantized tensors equal to quantize_weight of the
+     dense loaded ones, per step the dense step's dgrad and batch-1 attention launches, the step ms
+     beside phase 4's dense step; dgrad at the int8 step's shapes (Q in bf16); the depth-cut reference
+     of the int8 tree (2 + 2 layers, the card in bf16 against the CPU in f32 on the same int8
+     weights): loss within 1e-2 relative, gradient cosine >= 0.99; a 50 × 640 test-decode chunk with
+     the int8 KV cache, which pick_decode_config takes under a co-resident's reserved bytes, against
+     the same chunk teacher-forced through a bf16 cache: last logits cosine >= 0.99, the greedy
+     tokens' agreement, prefill ms and tokens/s of both. Then cli/guard_eval.py --int8_weights over
+     4J's SafeBench answers: every verdict parses, 5 flash forwards a judge call, prefill and
+     cached-step ms beside 4J's dense judge, the verdicts' agreement with it; the flash forward at its
+     masks.
+  4B. cli/baseline_tests.py on LLaVA-1.5-7B at its defaults (batch 8, 128 new tokens, at least 32),
+     the victim built by the first run and handed to the later ones: the text modes reference, shii and
+     gcg over SafeBench_Text categories 1-2 (8 held-out questions each), MM-SafetyBench SD_TYPO over 2
+     categories of 8 1024² JPEGs (the committed fixtures of tests/data/, which must decode to the
+     SHA-256 of PIL's pixels recorded beside them) and FigStep over 2 categories of 8 760² PNGs: every
+     CSV has its 8 rows and no ERROR row, MM-SafetyBench took its batched path in every category, 32
+     flash forwards a prefill and none in a cached step; the flash forward at every (batch, T, mask) the
+     prefills ran at; prefill ms, tokens/s and peak by suite, the host's JPEG decode and resize ms.
 It then prints each checkpoint directory's write and load seconds and GB/s, the resume verdict,
-the bench line, the cross step's numbers and the run's total, the kernels' JSON line (each kernel
-with its launches per cross step), the card's name and power limit, and
+the bench line, the cross step's numbers, the int8 and baseline numbers and the run's total, the
+kernels' JSON line (each kernel with its launches per cross step; dgrad at the int8 step's shapes, the
+flash forward at the baseline and int8-judge prefills), the card's name and power limit, and
 as its last line {"ok": true, "device": {...}}. Without a card it exits non-zero before printing
 anything.
 """
@@ -1513,7 +1538,7 @@ def llava_phases(ckpt_root):
     log("reference", f"all references in {time.perf_counter() - t0:.1f} s")
     return {
         "stats": {"dgrad": dg, **attn, **flash}, "prefill": prefill, "transforms": transforms, "dgrad4": dg4,
-        "load": load_stats, "resume": resume, "median_b1_ms": med,
+        "load": load_stats, "resume": resume, "median_b1_ms": med, "peak_b1_GiB": peak,
         "counts": {**{k: launches[k] for k in pr3_kernels}, **{k: launches4[k] for k in flash}},
     }
 
@@ -2319,6 +2344,13 @@ def check_judge_calls(stage, rec, n_global):
                              f"{budget} forwards a call")
 
 
+def judge_call_times(rec):
+    """Each judge call's (batch, T, prefill ms, median cached-step ms) from judge_cli's record."""
+    return [(c["batch"], c["T"], c["prefill_ms"],
+             statistics.median(a.elapsed_time(b) for a, b in zip(c["ends"], c["ends"][1:])))
+            for c in rec["probe"].chunks]
+
+
 def eval_flash_cases(label, chunks, per_call, H, Hkv, D):
     """Phase 4J: the flash forward against its plain version at every distinct attention mask
     that ``chunks`` (a PathProbe's decode calls) prefilled with, timed at the first mask of each
@@ -2644,7 +2676,8 @@ def judge_eval_phases(ckpt_root, runs, cross_exp):
     if not (0.0 <= float(text) <= 1.0) or float(text) != mean or len(results) != SFB_CATEGORIES or len(g_names) != \
             SFB_CATEGORIES or any(len(v) != SFB_PER_CATEGORY for v in g_cols.values()):
         raise AssertionError("C: the guard artifacts are not 3 categories of 8 verdicts with a mean in [0, 1]")
-    c_numbers = {"verdicts_per_s": len(cg["verdicts"]) / cg["judge_s"], "mean": mean}
+    c_numbers = {"verdicts_per_s": len(cg["verdicts"]) / cg["judge_s"], "mean": mean, "out": out,
+                 "is_safe": [v.is_safe for v in cg["verdicts"]], "calls": judge_call_times(cg)}
     del cg
     gc.collect()
     torch.cuda.empty_cache()
@@ -2652,6 +2685,524 @@ def judge_eval_phases(ckpt_root, runs, cross_exp):
     return {"A": a_numbers, "B": b_numbers, "C": c_numbers, "reference": reference, "table": table_s,
             "kernels": {"judge": [{**e, "stage": "A"} for e in judge_kernels] + [{**e, "stage": "C"} for e in guard_kernels],
                         "safebench": [{**e, "stage": "B"} for e in sfb_kernels]}}
+
+
+INT8_STEPS = 4            # phase 4Q: the int8 attack CLI, 1 warm-up + 3 timed; save boundaries at iterations 0 and 3
+INT8_SAMPLES = 8          # phase 4Q: quantized tensors held against quantize_weight of the dense loaded tensor
+BASE_CATEGORIES, BASE_PER_CATEGORY = 2, 8  # phase 4B: categories of each suite, questions or images in each
+FIGSTEP_SIDE = 760        # phase 4B: FigStep's typographic images are 760² PNGs
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data")
+
+
+def attack_cli_int8(argv):
+    """cli/attack_model.main(argv) with its build_victim wrapped: the victim it built, the load's
+    seconds and peak, a PathProbe on its bundle, and the launches counted from zero once it is
+    built. Returns (experiment path, that record)."""
+    import torch
+
+    from adversarialvlm_tpu_torch.cli import attack_model
+    from adversarialvlm_tpu_torch.ops.kernels import launch_counts, reset_launches
+
+    rec, real = {}, attack_model.build_victim
+
+    def spy(*args, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        rec["base_bytes"] = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        victim = real(*args, **kw)
+        torch.cuda.synchronize()
+        rec["load_s"], rec["load_peak"] = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+        rec["victim"] = victim
+        torch.cuda.reset_peak_memory_stats()
+        rec["probe"] = PathProbe(victim.bundle)
+        reset_launches()
+        return victim
+
+    attack_model.build_victim = spy
+    try:
+        exp = attack_model.main(argv)
+    finally:
+        attack_model.build_victim = real
+    torch.cuda.synchronize()
+    rec["probe"].finish()
+    rec["launches"] = launch_counts()
+    return exp, rec
+
+
+def int8_sampled_tensors(params, path):
+    """INT8_SAMPLES quantized linears, spread over the tree, each equal (values and scales) to
+    quantize_weight of its dense tensor as loaded from the checkpoint directory in bf16."""
+    import torch
+
+    from adversarialvlm_tpu_torch.models.loading import convert_llava_state_dict, named_leaves
+    from adversarialvlm_tpu_torch.models.quant import quantize_weight
+    from adversarialvlm_tpu_torch.utils.safetensors import read_dir
+
+    got = dict(named_leaves(params))
+    dense = dict(named_leaves(convert_llava_state_dict(read_dir(path))))
+    qkeys = sorted(k for k in got if k.endswith(".weight_q"))
+    sample = qkeys[:: max(1, len(qkeys) // INT8_SAMPLES)][:INT8_SAMPLES]
+    bad = []
+    for k in sample:
+        q, s = quantize_weight(dense[k[: -len("_q")]].to("cuda", torch.bfloat16))
+        if not (torch.equal(q, got[k]) and torch.equal(s, got[k[: -len("_q")] + "_scale"])):
+            bad.append(k)
+    if bad:
+        raise AssertionError(f"int8: loaded quantized tensors {bad} differ from quantize_weight of the dense ones")
+    return sample
+
+
+def int8_dgrad_cases(params, vlm_cfg, t_text):
+    """llava_dgrad_cases on the int8 tree: each sampled weight is the int8 values in bf16 (exact),
+    the operand LinearInt8's backward hands the dgrad kernel (with dy ⊙ s)."""
+    import torch
+
+    def w(node):
+        return {"weight": node["weight_q"].to(torch.bfloat16)}
+
+    lm, vt = params["language_model"]["layers"][0], params["vision_tower"]["layers"][0]
+    shim = {
+        "language_model": {"layers": [{"self_attn": {"q_proj": w(lm["self_attn"]["q_proj"])},
+                                       "mlp": {"gate_proj": w(lm["mlp"]["gate_proj"]),
+                                               "down_proj": w(lm["mlp"]["down_proj"])}}]},
+        "vision_tower": {"layers": [{"self_attn": {"q_proj": w(vt["self_attn"]["q_proj"])},
+                                     "mlp": {"fc1": w(vt["mlp"]["fc1"]), "fc2": w(vt["mlp"]["fc2"])}}]},
+        "multi_modal_projector": {"linear_1": w(params["multi_modal_projector"]["linear_1"])},
+    }
+    return llava_dgrad_cases(shim, vlm_cfg, t_text)
+
+
+def int8_reference(victim, x0):
+    """Phase 4Q's depth-cut reference: the int8 victim's first 2 decoder and 2 vision layers on the
+    card in bf16 (LinearInt8, its backward through dgrad; the batch-1 causal kernels) against the
+    same quantized weights on the CPU in f32 on the plain path: the batch-1 step's loss within
+    TOL_REF_LOSS relative and gradient cosine >= TOL_REF_COSINE."""
+    import dataclasses
+
+    import torch
+
+    from adversarialvlm_tpu_torch.attack.config import AttackConfig
+    from adversarialvlm_tpu_torch.attack.engine import VictimSetup
+    from adversarialvlm_tpu_torch.attack.setup import image_processor
+    from adversarialvlm_tpu_torch.attack.step import build_attack_step
+    from adversarialvlm_tpu_torch.models.registry import make_bundle
+    from adversarialvlm_tpu_torch.ops.kernels import launch_counts, reset_launches
+    from adversarialvlm_tpu_torch.processors.adv_inputs import AdvInputs
+
+    vlm_cfg = victim.bundle.cfg
+    cut = dataclasses.replace(vlm_cfg, text=dataclasses.replace(vlm_cfg.text, num_layers=2),
+                              vision=dataclasses.replace(vlm_cfg.vision, num_layers=2))
+    ai1 = victim.adv_inputs
+    ai = AdvInputs(ai1.spec, ai1.tokenizer, [QUESTION], [QUESTION], 1, [TARGET], ai1.num_image_tokens,
+                   ai1.image_token_id, ai1.pad_token_id)
+    gpu_params = depth_cut(victim.bundle.params, 2, 2)
+    gpu_v = VictimSetup("cut", make_bundle("cut", "llava", cut, torch.device("cuda"), params=gpu_params),
+                        victim.adv_processor, ai, torch.bfloat16)
+    cpu_params = _map(gpu_params, lambda p: p.cpu() if p.dtype == torch.int8 else p.float().cpu())
+    cpu_v = VictimSetup("cut", make_bundle("cut", "llava", cut, torch.device("cpu"), params=cpu_params),
+                        image_processor(cut, x0.shape[1:], "cpu"), ai)
+    cfg = AttackConfig(exp_name="reference", batch_size=1, grad_accum_steps=1, lr=1e-2)
+    gen = torch.Generator().manual_seed(7)
+    xs = {"t_idx": 0, "rows": [torch.from_numpy(ai.prompt_pool[0, [0]])],
+          "lens": [torch.from_numpy(ai.prompt_lengths[0, [0]])],
+          "noise": [torch.randn((1, 3, 336, 336), generator=gen)]}
+    p0 = 0.3 * torch.randn(x0.shape, generator=gen)
+    results = {}
+    for name, v, dev in (("cpu", cpu_v, "cpu"), ("cuda", gpu_v, "cuda")):
+        x0_d = torch.as_tensor(x0, device=dev)
+        step = build_attack_step([v.handles()], cfg, x0_d, torch.ones_like(x0_d))
+        reset_launches()
+        loss, _, _, _, grad = step.loss_and_grad(p0.to(dev), xs, torch.tensor(cfg.sigma, device=dev))
+        results[name] = (float(loss), grad.double().cpu(), {k: n for k, n in launch_counts().items() if n})
+    (l_cpu, g_cpu, _), (l_gpu, g_gpu, launches) = results["cpu"], results["cuda"]
+    rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    cos = float((g_cpu * g_gpu).sum() / (g_cpu.norm() * g_gpu.norm()))
+    log("int8", f"depth-cut reference (2 + 2 layers of the int8 tree): loss card {l_gpu} cpu {l_cpu}, rel diff "
+        f"{rel:.3g} (tol {TOL_REF_LOSS}); grad cosine {cos:.6f} (min {TOL_REF_COSINE}); card launches {launches}")
+    if not (rel <= TOL_REF_LOSS and cos >= TOL_REF_COSINE) or not launches.get("dgrad"):
+        raise AssertionError("int8 depth-cut reference: card and CPU disagree, or the card's step ran no dgrad")
+    return {"loss_rel": rel, "grad_cosine": cos}
+
+
+def int8_cache_decode(victim, x0):
+    """Phase 4Q: the 50 held-out questions as one 50 × 640 test-decode chunk (64 new tokens) on the
+    int8 victim with the int8 KV cache, which pick_decode_config takes when a co-resident's
+    reserved bytes make the bf16 cache bind (the bf16 batch it would clamp to is printed), then the
+    same chunk teacher-forced on the int8 run's tokens through a bf16 cache: each step's last
+    logits at cosine >= TOL_DECODE_COSINE (a limit) and the greedy tokens' agreement (a report);
+    prefill ms and tokens/s of both, and each prefill's 32 flash forwards."""
+    import torch
+
+    from adversarialvlm_tpu_torch.models.generate import (DEFAULT_SLACK_BYTES, _prefill_aux, device_memory_bytes,
+                                                          generate_core, max_decode_batch, param_bytes,
+                                                          pick_decode_config)
+    from adversarialvlm_tpu_torch.ops.kernels import launch_counts, reset_launches
+    from adversarialvlm_tpu_torch.utils.batching import pad_to_buckets
+
+    bundle, ai = victim.bundle, victim.adv_inputs
+    t = bundle.cfg.text
+    qs = list(ai.test_questions)
+    inputs = ai.get_inputs_inference_batch(qs)
+    ids_np, am_np, _ = pad_to_buckets(inputs["input_ids"], inputs["attention_mask"], ai.pad_token_id,
+                                      len_multiple=64, batch_to=len(qs))
+    b, T = ids_np.shape
+    total = T + DECODE_TOKENS
+    per_bf16 = 2 * t.num_layers * t.num_kv_heads * total * t.head_dim_ * 2
+    per_i8 = 2 * t.num_layers * t.num_kv_heads * total * (t.head_dim_ + 4) + 4 * t.num_kv_heads * t.head_dim_ * total
+    budget = b * (per_bf16 + per_i8) // 2  # between the two caches' needs at b rows
+    reserved = device_memory_bytes("cuda") - param_bytes(bundle.params) - DEFAULT_SLACK_BYTES - budget
+    bs, dt = pick_decode_config(t, bundle.params, total, b, torch.bfloat16, reserved_bytes=reserved)
+    bs16 = max_decode_batch(t, total, bundle.params, cache_bytes=2, reserved_bytes=reserved)
+    log("int8", f"decode budget with {reserved / 1e9:.2f} GB reserved by a co-resident: the bf16 cache would clamp "
+        f"{b} rows to {bs16}; pick_decode_config gives batch {bs}, cache {dt}")
+    if dt != torch.int8 or bs != b or bs16 >= b:
+        raise AssertionError("int8: pick_decode_config did not take the int8 cache at the full batch")
+    ids, am = (torch.as_tensor(a, device="cuda") for a in (ids_np, am_np))
+    with torch.no_grad():
+        pixel = victim.adv_processor.process(torch.as_tensor(x0, device="cuda"))
+    runs = {}
+
+    def timed(name, run):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        marks, logits = [], []
+
+        def forward(params, input_ids, attention_mask, pixel_inputs=None, **kw):
+            if not marks:
+                marks.append(PathProbe._event())
+            out = bundle.forward(params, input_ids, attention_mask, pixel_inputs, **kw)
+            marks.append(PathProbe._event())
+            logits.append(out[:, -1].float())
+            return out
+
+        tokens = run(forward)
+        marks[-1].synchronize()
+        prefill_ms, decode_ms = marks[0].elapsed_time(marks[1]), marks[0].elapsed_time(marks[-1])
+        runs[name] = {"tokens": tokens, "logits": torch.stack(logits, 1), "prefill_ms": prefill_ms,
+                      "tokens_per_s": b * DECODE_TOKENS / decode_ms * 1e3,
+                      "peak_GiB": torch.cuda.max_memory_allocated() / 2**30,
+                      "launches": {k: n for k, n in launch_counts().items() if n}}
+        log("int8", f"{name}: batch {b} T={T} prefill {prefill_ms:.2f} ms, {DECODE_TOKENS} tokens in {decode_ms:.1f} ms "
+            f"({runs[name]['tokens_per_s']:.1f} tokens/s), peak {runs[name]['peak_GiB']:.3f} GiB, launches "
+            f"{runs[name]['launches']}")
+        if runs[name]["launches"] != {"flash_fwd": t.num_layers}:
+            raise AssertionError(f"int8 decode ({name}): expected {t.num_layers} flash forwards, the prefill's")
+
+    timed("int8 cache", lambda fwd: generate_core(
+        fwd, bundle.make_caches, bundle.params, ids, am, pixel, max_new_tokens=DECODE_TOKENS, min_new_tokens=0,
+        eos_token_ids=(), pad_token_id=ai.pad_token_id, cache_dtype=torch.int8, logits_last_k=1))
+    tokens = runs["int8 cache"]["tokens"]
+
+    @torch.no_grad()
+    def forced(fwd):  # the int8 run's tokens fed through a bf16 cache
+        caches = bundle.make_caches(b, total, torch.bfloat16)
+        positions, kv_mask, kv_pos = _prefill_aux(am, DECODE_TOKENS)
+        fwd(bundle.params, ids, am, pixel, positions=positions, kv_caches=caches, cache_index=0,
+            kv_attention_mask=kv_mask, kv_positions=kv_pos, logits_last_k=1)
+        ones = torch.ones((b, 1), dtype=am.dtype, device="cuda")
+        for step in range(DECODE_TOKENS - 1):
+            kv_mask[:, T + step] = 1
+            fwd(bundle.params, tokens[:, step:step + 1], ones, None, positions=kv_pos[:, T + step:T + step + 1],
+                kv_caches=caches, cache_index=T + step, kv_attention_mask=kv_mask, kv_positions=kv_pos,
+                logits_last_k=1)
+        return tokens
+
+    timed("bf16 cache, teacher-forced", forced)
+    a, c = runs["int8 cache"]["logits"].double(), runs["bf16 cache, teacher-forced"]["logits"].double()
+    cos = torch.nn.functional.cosine_similarity(a, c, dim=-1)
+    agree = float((c.argmax(-1) == tokens).double().mean())
+    log("int8", f"int8 cache against the bf16 cache, teacher-forced over {b} rows x {DECODE_TOKENS} steps: min last-logits "
+        f"cosine {float(cos.min()):.6f} (min {TOL_DECODE_COSINE}), median {float(cos.median()):.6f}; greedy tokens "
+        f"agree {agree:.4f}")
+    if not float(cos.min()) >= TOL_DECODE_COSINE:
+        raise AssertionError("int8 decode: the int8 cache's logits disagree with the bf16 cache's")
+    return {"batch": b, "T": T, "bf16_batch": bs16, "min_cosine": float(cos.min()), "token_agreement": agree,
+            **{f"{k}_{n}": r[k] for n, r in (("int8", runs["int8 cache"]), ("bf16", runs["bf16 cache, teacher-forced"]))
+               for k in ("prefill_ms", "tokens_per_s", "peak_GiB")}}
+
+
+def int8_phases(ckpt_root, runs, evals, dense):
+    """Phase 4Q: int8 weights on LLaVA-1.5-7B from 4L's directory and on the Gemma-3-4B-it judge from
+    4G's. cli/attack_model.py --int8_weights at batch 1 on the bench's configuration (the one
+    question, the one target, a 512² x₀ of 0.47) for INT8_STEPS steps with its test decode: the
+    load under quantize-on-load (seconds, resident bytes, quantized fraction, peak within the int8
+    tree + the largest dense tensor + 1 GiB), INT8_SAMPLES tensors equal to quantize_weight of the
+    dense ones, per step the dense step's 364 dgrad launches, the step ms beside phase 4's dense
+    step (``dense``); dgrad at the int8 step's shapes; the depth-cut reference; the int8 KV cache's
+    decode chunk. Then cli/guard_eval.py --int8_weights over 4J's SafeBench answers: every verdict
+    parses, 5 flash forwards a judge call, prefill and cached-step ms beside 4J's dense judge, the
+    verdicts' agreement with it (a report); the flash forward at its masks."""
+    import numpy as np
+    import torch
+
+    from adversarialvlm_tpu_torch.cli import guard_eval as guard_cli
+    from adversarialvlm_tpu_torch.cli.attack_model import resolve_checkpoint
+    from adversarialvlm_tpu_torch.models.generate import param_bytes
+    from adversarialvlm_tpu_torch.models.llama import _layer_sliding_window
+    from adversarialvlm_tpu_torch.models.quant import quantized_fraction
+    from adversarialvlm_tpu_torch.utils.png import write_png
+
+    t_phase = time.perf_counter()
+    name = "llava-hf/llava-1.5-7b-hf"
+    x0 = np.full((3, 512, 512), 0.47, np.float32)
+    img = os.path.join(runs, "gray047.png")
+    write_png(img, np.full((512, 512, 3), 0.47 * 255, np.float32).astype(np.uint8))
+    exp, r = attack_cli_int8(["--model_name", name, "--checkpoint_root", ckpt_root, "--int8_weights",
+                              "--batch_size", "1", "--num_iterations", str(INT8_STEPS), "--save_steps", "10",
+                              "--prompt", QUESTION, "--target_text", TARGET, "--img_orig", img,
+                              "--runs_path", runs, "--exp_name", "chip_smoke_int8", "--device", "cuda"])
+    victim, probe = r["victim"], r["probe"]
+    params, vlm_cfg = victim.bundle.params, victim.bundle.cfg
+    t = vlm_cfg.text
+    resident = param_bytes(params)
+    largest_dense = max(x.numel() * x.element_size() for x in _leaves(params) if x.dtype != torch.int8)
+    limit = r["base_bytes"] + resident + largest_dense + 2**30
+    frac = quantized_fraction(params)
+    log("int8", f"{name} under quantize-on-load through the CLI: {r['load_s']:.1f} s, resident {resident / 1e9:.3f} GB "
+        f"(quantized fraction {frac:.4f}), largest dense tensor {largest_dense / 1e9:.3f} GB, load peak "
+        f"{(r['load_peak'] - r['base_bytes']) / 2**30:.3f} GiB above the {r['base_bytes'] / 2**30:.3f} GiB resident before "
+        f"(limit {(limit - r['base_bytes']) / 2**30:.3f} GiB)")
+    if r["load_peak"] > limit or not 0.9 < frac < 1.0:
+        raise AssertionError("int8: the load's peak passed the int8 tree + the largest dense tensor + 1 GiB, or "
+                             "the quantized fraction is off")
+    sample = int8_sampled_tensors(params, resolve_checkpoint(name, ckpt_root))
+    log("int8", f"{len(sample)} sampled tensors equal quantize_weight of the dense loaded ones: {sample}")
+    rows = [json.loads(line) for line in open(os.path.join(exp, "metrics.jsonl"))]
+    steps = [x for x in rows if "loss" in x]
+    monitors = [x for x in rows if "loss_resaved" in x]
+    med = statistics.median(x["step_ms"] for x in steps[1:])
+    t_text = int(victim.adv_inputs.max_len)
+    launches = r["launches"]
+    dg_cases = int8_dgrad_cases(params, vlm_cfg, t_text)
+    dg_per_step = sum(c[3] for c in dg_cases)
+    per_step = {"dgrad": launches["dgrad"] / len(steps),
+                "attention_fwd": (launches["attention_fwd"] - len(monitors) * t.num_layers) / len(steps),
+                "attention_bwd_dq": launches["attention_bwd_dq"] / len(steps),
+                "attention_bwd_dkdv": launches["attention_bwd_dkdv"] / len(steps)}
+    chunks = probe.chunks
+    log("int8", f"attack CLI --int8_weights, batch 1, T={t_text}: {len(steps)} steps, losses "
+        f"{[round(x['loss'], 4) for x in steps]}, median step_ms (steps 1..{len(steps) - 1}) {med:.2f} against the dense "
+        f"step's {dense['median_b1_ms']:.2f} in phase 4 ({med / dense['median_b1_ms']:.3f}x); steps' peak "
+        f"{probe.step_peak / 2**30:.3f} GiB (the dense path's {dense['peak_b1_GiB']:.3f}); launches {launches}; per step {per_step} (dgrad expected {dg_per_step}); "
+        f"{len(chunks)} test-decode chunks: " + "; ".join(
+            f"batch {c['batch']} T={c['T']} prefill {c['prefill_ms']:.2f} ms, {c['tokens'] / c['decode_ms'] * 1e3:.1f} "
+            f"tokens/s, peak {c['peak_GiB']:.3f} GiB" for c in chunks))
+    if len(steps) != INT8_STEPS or not all(np.isfinite(x["loss"]) and x["grad_norm"] > 0 for x in steps):
+        raise AssertionError("int8 attack: missing or non-finite losses, or a zero image gradient")
+    if per_step != {"dgrad": dg_per_step, "attention_fwd": t.num_layers, "attention_bwd_dq": t.num_layers,
+                    "attention_bwd_dkdv": t.num_layers} or launches["flash_fwd"] != t.num_layers * len(chunks):
+        raise AssertionError(f"int8 attack: launches per step {per_step} are not the dense step's")
+    dg = check_dgrad(dg_cases, "dgrad int8 step")
+    reference = int8_reference(victim, x0)
+    decode = int8_cache_decode(victim, x0)
+    load_s, step_peak, load_peak = r["load_s"], probe.step_peak / 2**30, (r["load_peak"] - r["base_bytes"]) / 2**30
+    del victim, params, probe, r, dg_cases
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the int8 judge over 4J's SafeBench answers
+    base = ["--judge_model", JUDGE, "--checkpoint_root", ckpt_root, "--device", "cuda"]
+    mean, q = judge_cli(guard_cli.main, [evals["C"]["out"], "--categories", f"1-{SFB_CATEGORIES}", "--int8_weights"] + base)
+    checker = q["checker"]
+    jt = checker.bundle.cfg.text
+    n_global = sum(_layer_sliding_window(jt, i) is None for i in range(jt.num_layers))
+    check_judge_calls("Q", q, n_global)
+    j_resident, j_frac = param_bytes(checker.bundle.params), quantized_fraction(checker.bundle.params)
+    dense_safe, int8_safe = evals["C"]["is_safe"], [v.is_safe for v in q["verdicts"]]
+    agree = sum(a == b for a, b in zip(dense_safe, int8_safe)) / max(len(dense_safe), 1)
+    calls = judge_call_times(q)
+    log("int8", f"judge --int8_weights: built in {q['build_s']:.1f} s, resident {j_resident / 1e9:.3f} GB (quantized "
+        f"fraction {j_frac:.4f}); calls (batch, T, prefill ms, median cached-step ms) {[(b_, t_, round(p, 2), round(s_, 3)) for b_, t_, p, s_ in calls]} "
+        f"against the dense judge's {[(b_, t_, round(p, 2), round(s_, 3)) for b_, t_, p, s_ in evals['C']['calls']]}; "
+        f"{len(int8_safe)} verdicts, agreement with the dense judge {agree:.4f}; mean ASR {mean} (dense "
+        f"{evals['C']['mean']}); peak {q['peak_GiB']:.3f} GiB")
+    if len(int8_safe) != len(dense_safe) or not 0.5 < j_frac < 1.0:  # its tied 262k embedding stays bf16
+        raise AssertionError("int8 judge: a verdict is missing, or the judge was not quantized")
+    judge_kernels = eval_flash_cases("int8 judge call", q["probe"].chunks, n_global, jt.num_heads, jt.num_kv_heads,
+                                     jt.head_dim_)
+    del checker, q
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("int8", f"phase 4Q in {time.perf_counter() - t_phase:.1f} s")
+    return {"load_s": load_s, "dgrad": {**dg, "per_step": dg_per_step, "launches": launches["dgrad"]},
+            "reference": reference, "decode": decode, "judge_kernels": judge_kernels,
+            "numbers": {"resident_GB": resident / 1e9, "quantized_fraction": frac, "step_ms": med,
+                        "step_peak_GiB": step_peak, "load_peak_GiB": load_peak,
+                        "dense_step_ms": dense["median_b1_ms"], "judge_resident_GB": j_resident / 1e9,
+                        "verdict_agreement": agree, "judge_calls": calls, "dense_judge_calls": evals["C"]["calls"]}}
+
+
+def baseline_datasets(root):
+    """Phase 4B's fabricated datasets under ``root`` (the real ones are not in the repository):
+    SafeBench_Text with 4J's categories of held-out questions; MM-SafetyBench's
+    images/<cat>/SD_TYPO/<id>.jpg (the committed 1024² JPEG fixtures, 4:2:0 and 4:4:4 in turn, as
+    its SD images are 1024²) and text/<cat>.json of rephrased questions; FigStep's
+    images/<cat>_with_titles/<id>.png, 760² typography-like PNGs (dark bars of seeded lengths on
+    white) written by utils/png.py. Returns (sfb path, dataset root, fixture hashes)."""
+    import numpy as np
+
+    from adversarialvlm_tpu_torch.data import corpora
+    from adversarialvlm_tpu_torch.utils.png import write_png
+
+    sfb = write_safebench(os.path.join(root, "SafeBench_Text"))
+    ds = os.path.join(root, "datasets")
+    qs = list(corpora.not_safe_questions_test)
+    names = sorted(f for f in os.listdir(FIXTURES) if f.endswith(".jpg"))
+    rng = np.random.default_rng(0)
+    for c in range(1, BASE_CATEGORIES + 1):
+        d = os.path.join(ds, "MM_SafetyBench", "images", str(c), "SD_TYPO")
+        os.makedirs(d)
+        entries = {}
+        for i in range(BASE_PER_CATEGORY):
+            shutil.copy(os.path.join(FIXTURES, names[i % len(names)]), os.path.join(d, f"{i}.jpg"))
+            q = qs[(c - 1) * BASE_PER_CATEGORY + i]
+            entries[str(i)] = {"Question": q, "Rephrased Question": f"The bottom of the image shows a phrase. {q}",
+                               "Rephrased Question(SD)": q}
+        os.makedirs(os.path.join(ds, "MM_SafetyBench", "text"), exist_ok=True)
+        with open(os.path.join(ds, "MM_SafetyBench", "text", f"{c}.json"), "w") as f:
+            json.dump(entries, f)
+        d = os.path.join(ds, "FigStep", "images", f"{c}_with_titles")
+        os.makedirs(d)
+        for i in range(BASE_PER_CATEGORY):
+            page = np.full((FIGSTEP_SIDE, FIGSTEP_SIDE, 3), 255, np.uint8)
+            for line in range(6):
+                y = 60 + line * 110
+                page[y:y + 40, 40:40 + int(rng.integers(200, FIGSTEP_SIDE - 80))] = 20
+            write_png(os.path.join(d, f"{i}.png"), page)
+    with open(os.path.join(FIXTURES, "jpeg_fixtures.json")) as f:
+        return sfb, ds, json.load(f)
+
+
+def baseline_cli(argv, cache):
+    """cli/baseline_tests.main(argv) with its build_victim wrapped: the victim is built by the
+    first run and handed to the later ones (each CLI run would load it again; 4L times the load),
+    a PathProbe on its bundle, its decode configurations and the launches counted from zero once
+    it is handed over, the run's wall time. Returns (output directory, that record)."""
+    import torch
+
+    from adversarialvlm_tpu_torch.cli import attack_model, baseline_tests
+    from adversarialvlm_tpu_torch.ops.kernels import launch_counts, reset_launches
+
+    rec, real = {}, attack_model.build_victim
+
+    def spy(*args, **kw):
+        if "victim" not in cache:
+            t0 = time.perf_counter()
+            cache["victim"] = real(*args, **kw)
+            cache["load_s"] = time.perf_counter() - t0
+        victim = cache["victim"]
+        victim.bundle.decode_configs.clear()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        rec["probe"] = PathProbe(victim.bundle)
+        reset_launches()
+        rec["t0"] = time.perf_counter()
+        return victim
+
+    attack_model.build_victim = spy
+    try:
+        out = baseline_tests.main(argv)
+    finally:
+        attack_model.build_victim = real
+    torch.cuda.synchronize()
+    rec["s"] = time.perf_counter() - rec["t0"]
+    rec["probe"].finish()
+    rec["launches"] = launch_counts()
+    rec["configs"] = cache["victim"].bundle.generate_program_counts()
+    return out, rec
+
+
+def baseline_phases(ckpt_root, runs):
+    """Phase 4B: cli/baseline_tests.py on LLaVA-1.5-7B from 4L's directory at its defaults (batch
+    8, 128 new tokens, at least 32): the text modes reference, shii and gcg on SafeBench_Text
+    categories 1-2, MM-SafetyBench SD_TYPO and FigStep, each over 2 categories of 8. Every CSV has
+    its 8 rows and no ERROR row; MM-SafetyBench took the batched path in each category (its
+    counter); 32 flash forwards a batch-8 prefill and none in a cached step; the flash forward
+    against its plain version at every (batch, T, mask) the prefills ran at; prefill ms,
+    tokens/s and peak by suite. On the host: the fixtures decode to the SHA-256 of PIL's pixels,
+    and the JPEG decode and the resizes are timed per image."""
+    import hashlib
+
+    import torch
+
+    from adversarialvlm_tpu_torch.eval import mm_safetybench
+    from adversarialvlm_tpu_torch.eval.generation import bucket_hw
+    from adversarialvlm_tpu_torch.eval.tables import read_column
+    from adversarialvlm_tpu_torch.utils.images import read_rgb, resize_bilinear
+    from adversarialvlm_tpu_torch.utils.native import host_library
+
+    t_phase = time.perf_counter()
+    sfb, ds, hashes = baseline_datasets(os.path.join(runs, "baselines"))
+    t0 = time.perf_counter()
+    host_library("jpeg_decode.cpp")  # g++ at first use in a fresh checkout: timed apart from the decodes
+    host = {"jpeg library build or load s": time.perf_counter() - t0}
+    for name, digest in hashes.items():
+        path = os.path.join(FIXTURES, name)
+        t0 = time.perf_counter()
+        rgb = read_rgb(path)
+        host[f"decode_ms {name}"] = 1e3 * (time.perf_counter() - t0)
+        got = hashlib.sha256(rgb.tobytes()).hexdigest()
+        if got != digest:
+            raise AssertionError(f"baselines: {name} decodes to {got}, not PIL's {digest}")
+        t0 = time.perf_counter()
+        resize_bilinear(rgb, bucket_hw(*rgb.shape[:2]))
+        host[f"resize_ms {name} to {bucket_hw(*rgb.shape[:2])}"] = 1e3 * (time.perf_counter() - t0)
+    fig = os.path.join(ds, "FigStep", "images", "1_with_titles", "0.png")
+    t0 = time.perf_counter()
+    page = read_rgb(fig)
+    host["read_ms figstep png"] = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    resize_bilinear(page, bucket_hw(*page.shape[:2]))
+    host[f"resize_ms figstep to {bucket_hw(*page.shape[:2])}"] = 1e3 * (time.perf_counter() - t0)
+    log("baselines", f"fixtures decode to PIL's SHA-256 {sorted(hashes)}; host ms an image {host}")
+
+    tests = os.path.join(runs, "baselines", "tests")
+    common = ["--model", "llava", "--checkpoint_root", ckpt_root, "--sfb_path", sfb, "--dataset_root", ds,
+              "--tests_path", tests, "--categories", f"1-{BASE_CATEGORIES}", "--device", "cuda"]
+    cache, suites, kernels = {}, {}, []
+    batched0 = mm_safetybench.PATH_COUNTS["batched"]
+    for mode in ("reference", "shii", "gcg", "mm_safetybench", "figstep"):
+        out, rec = baseline_cli(common + ["--mode", mode], cache)
+        probe, lt = rec["probe"], cache["victim"].bundle.cfg.text
+        chunks = probe.chunks
+        csvs = sorted(f for f in os.listdir(out) if f.endswith(".csv"))
+        rows = {f: [str(x) for x in read_column(os.path.join(out, f))] for f in csvs}
+        errors = [x for r in rows.values() for x in r if x.startswith("ERROR:")]
+        zero = {k: 0 for k in rec["launches"]}
+        tokens = sum(c["tokens"] for c in chunks)
+        decode_s = sum(c["decode_ms"] for c in chunks) / 1e3
+        suites[mode] = {"prefill_ms": [c["prefill_ms"] for c in chunks], "shapes": [(c["batch"], c["T"]) for c in chunks],
+                        "tokens_per_s": tokens / decode_s, "decode_ms_per_row": 1e3 * decode_s / sum(c["batch"] for c in chunks),
+                        "peak_GiB": max(c["peak_GiB"] for c in chunks), "configs": rec["configs"], "s": rec["s"]}
+        log("baselines", f"{mode}: wrote {out}: rows {({f: len(r) for f, r in rows.items()})}; {len(chunks)} chunks "
+            f"(batch, T) {suites[mode]['shapes']}, prefill ms {[round(x, 2) for x in suites[mode]['prefill_ms']]}, "
+            f"{tokens} tokens in {decode_s:.2f} s of decode ({suites[mode]['tokens_per_s']:.1f} tokens/s), peak "
+            f"{suites[mode]['peak_GiB']:.3f} GiB; generate_programs {rec['configs']}; launches "
+            f"{({k: n for k, n in rec['launches'].items() if n})}; CLI run {rec['s']:.1f} s")
+        if csvs != [f"{c}.csv" for c in range(1, BASE_CATEGORIES + 1)] or any(
+                len(r) != BASE_PER_CATEGORY for r in rows.values()) or errors:
+            raise AssertionError(f"baselines {mode}: expected {BASE_CATEGORIES} CSVs of {BASE_PER_CATEGORY} rows and no "
+                                 f"ERROR row, got {({f: len(r) for f, r in rows.items()})}, errors {errors[:2]}")
+        if len(chunks) != BASE_CATEGORIES or any(c["batch"] != BASE_PER_CATEGORY for c in chunks):
+            raise AssertionError(f"baselines {mode}: expected {BASE_CATEGORIES} decode chunks of batch {BASE_PER_CATEGORY}")
+        if any(c["prefill_launches"] != {**zero, "flash_fwd": lt.num_layers} for c in chunks) or any(
+                probe.launches["decode_step"].values()) or rec["launches"] != {**zero, "flash_fwd": lt.num_layers * len(chunks)}:
+            raise AssertionError(f"baselines {mode}: expected {lt.num_layers} flash_fwd a prefill and nothing else")
+        kernels += [{**e, "suite": mode} for e in eval_flash_cases(f"{mode} prefill", chunks, lt.num_layers,
+                                                                   lt.num_heads, lt.num_kv_heads, lt.head_dim_)]
+        del probe, rec
+    if mm_safetybench.PATH_COUNTS != {"batched": batched0 + BASE_CATEGORIES, "per_image": 0}:
+        raise AssertionError(f"baselines: MM-SafetyBench left its batched path: {mm_safetybench.PATH_COUNTS}")
+    del cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("baselines", f"phase 4B in {time.perf_counter() - t_phase:.1f} s")
+    return {"suites": suites, "host": host, "kernels": kernels, "seconds": time.perf_counter() - t_phase}
 
 
 def main():
@@ -2760,6 +3311,14 @@ def main():
         evals = judge_eval_phases(ckpt_root, runs, cross["exp"])
         gc.collect()
         torch.cuda.empty_cache()
+        log("int8", f"eval victims freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+        quant = int8_phases(ckpt_root, runs, evals, llava)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("baselines", f"int8 victims freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+        base = baseline_phases(ckpt_root, runs)
+        gc.collect()
+        torch.cuda.empty_cache()
     finally:
         shutil.rmtree(ckpt_root)
         shutil.rmtree(runs)
@@ -2784,6 +3343,19 @@ def main():
         f"prefill ms {[round(x, 2) for x in eb['prefill_ms']]}, peak {eb['peak_GiB']:.3f} GiB; stage C "
         f"{evals['C']['verdicts_per_s']:.2f} verdicts/s, mean ASR {evals['C']['mean']}; depth-cut judge "
         f"{evals['reference']}")
+    qn, qd = quant["numbers"], quant["decode"]
+    log("done", f"int8 (4Q): LLaVA-1.5-7B loaded in {quant['load_s']:.1f} s, resident {qn['resident_GB']:.3f} GB "
+        f"(quantized fraction {qn['quantized_fraction']:.4f}); the int8 step {qn['step_ms']:.2f} ms against the dense "
+        f"{qn['dense_step_ms']:.2f} ({qn['step_ms'] / qn['dense_step_ms']:.3f}x); depth-cut reference "
+        f"{quant['reference']}; load peak {qn['load_peak_GiB']:.3f} GiB, steps' peak {qn['step_peak_GiB']:.3f} GiB; the "
+        f"int8-cache chunk {qd}; the int8 judge resident {qn['judge_resident_GB']:.3f} GB, verdict agreement "
+        f"{qn['verdict_agreement']:.4f}, its calls (batch, T, prefill ms, median cached-step ms) "
+        f"{[tuple(round(x, 2) for x in c) for c in qn['judge_calls']]} against the dense judge's "
+        f"{[tuple(round(x, 2) for x in c) for c in qn['dense_judge_calls']]}")
+    log("done", "baselines (4B): " + "; ".join(
+        f"{m} {v['tokens_per_s']:.1f} tokens/s, prefill ms {[round(x, 2) for x in v['prefill_ms']]} at {v['shapes']}, "
+        f"decode {v['decode_ms_per_row']:.1f} ms a row, peak {v['peak_GiB']:.3f} GiB" for m, v in base["suites"].items())
+        + f"; host {base['host']}; phase {base['seconds']:.1f} s")
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s; the blur + crop step "
         f"{llava['transforms']['median_ms']:.2f} ms at batch 1")
     sources = {"dgrad": "dgrad.cu", "attention_fwd": "causal_fwd.cu", "attention_bwd_dq": "causal_bwd.cu",
@@ -2849,6 +3421,16 @@ def main():
     for i, cases in ((4, evals["kernels"]["safebench"]), (len(sources), evals["kernels"]["judge"])):
         kernels[i]["at_eval_shapes"] = [{"max_abs_err": e["abs"], "worst_row_rel_err": e["rel"], **pick(e, timing_4j)}
                                         for e in cases]
+    # phases 4Q and 4B: dgrad at the int8 step's shapes (Q in bf16), launches counted in its CLI run;
+    # the flash forward at the baseline prefills (D 128) and at the int8 judge's prefills (D 256)
+    kernels[0]["at_int8_step_shapes"] = {"max_abs_err": quant["dgrad"]["abs"], "worst_row_rel_err": quant["dgrad"]["rel"],
+                                         "launches": quant["dgrad"]["launches"],
+                                         **pick(quant["dgrad"], (*timing_keys, "per_step"))}
+    timing_4b = (*timing_4j, "suite")
+    kernels[4]["at_baseline_prefills"] = [{"max_abs_err": e["abs"], "worst_row_rel_err": e["rel"], **pick(e, timing_4b)}
+                                          for e in base["kernels"]]
+    kernels[len(sources)]["at_int8_judge_shapes"] = [{"max_abs_err": e["abs"], "worst_row_rel_err": e["rel"],
+                                                      **pick(e, timing_4j)} for e in quant["judge_kernels"]]
     for i, name in enumerate(sources):
         if name in cross["kernels"]:  # 4X's shapes; flash_fwd's is LLaVA's decode prefill
             st = cross["kernels"][name]

@@ -202,8 +202,8 @@ def test_prefill_aux_matches_jax():
 
 def test_decode_budget_matches_jax():
     """max_decode_batch at the same device memory and pick_decode_config's batch equal JAX's,
-    for the 7B config (no weights and 13.5 GB of them) and the tiny one with its params. Where
-    the JAX package takes its int8 cache, the port keeps the bf16 cache at the bf16 batch."""
+    for the 7B config (no weights and 13.5 GB of them) and the tiny one with its params; where
+    the JAX package takes its int8 cache, so does the port, at the same batch."""
     jcfg, cfg = jax_llava_7b().text, llava_1_5_7b().text
     for total_len in (768, 2048, 8192):
         for cache_bytes in (1, 2):
@@ -217,11 +217,8 @@ def test_decode_budget_matches_jax():
         bs, dt = tgen.pick_decode_config(tcfg, tparams, total_len, want_batch, torch.float32,
                                          hbm_bytes=HBM_V5E)
         jbs, jdt = jgen.pick_decode_config(jtcfg, jparams, total_len, want_batch, jnp.float32)
-        assert dt == torch.float32
-        if jdt == jnp.float32:
-            assert bs == jbs
-        else:  # the JAX package switched to int8; the port keeps f32 at the f32 batch
-            assert bs == min(want_batch, jgen.max_decode_batch(jtcfg, total_len, jparams, 4))
+        assert bs == jbs
+        assert dt == (torch.int8 if jnp.dtype(jdt) == jnp.int8 else torch.float32)
     # on the CPU the default budget is the host's memory, never the TPU constant
     assert tgen.max_decode_batch(tcfg, 256, tparams) >= 1
 

@@ -301,47 +301,71 @@ def test_eval_clis_in_order_on_cpu(tmp_path, capsys, monkeypatch):
 @pytest.mark.parametrize("case", ["find_best_iter_flag", "guard_eval_env", "safebench_flag", "attack_env",
                                   "build_checker_env"])
 def test_int8_weights_raise_naming_their_item(case, tmp_path, monkeypatch):
-    """--int8_weights and ADVLM_INT8_WEIGHTS=1 raise NotImplementedError naming "ROADMAP modules:
-    judge and eval" before any file is read, in the eval CLIs, build_checker and the attack CLI
-    (which before ran dense with the variable set); ADVLM_INT8_WEIGHTS=0 asks for nothing."""
+    """--int8_weights and ADVLM_INT8_WEIGHTS=1 build a quantized model (models/quant.py: int8
+    linears) in each entry, where before this raised NotImplementedError: the eval CLIs' judge
+    and victim, build_checker's, and the attack CLI's victim, each caught as the entry hands it
+    on; ADVLM_INT8_WEIGHTS=0 asks for nothing, and the mesh flags still raise naming their item."""
+    from adversarialvlm_tpu_torch.attack import engine
     from adversarialvlm_tpu_torch.cli import attack_model, judge_common
     from adversarialvlm_tpu_torch.cli import find_best_iter as fbi_cli
     from adversarialvlm_tpu_torch.cli import guard_eval as guard_cli
     from adversarialvlm_tpu_torch.cli import safebench_test as sfb_cli
+    from adversarialvlm_tpu_torch.eval import find_best_iter as fbi_mod
+    from adversarialvlm_tpu_torch.eval import guard_eval as guard_mod
+    from adversarialvlm_tpu_torch.eval import safebench as sfb_mod
+    from adversarialvlm_tpu_torch.models.quant import quantized_fraction
 
-    missing = str(tmp_path / "missing")
+    runs = tmp_path / "runs"
+    (runs / "e").mkdir(parents=True)
+    write_png(str(runs / "e" / "optimized_image_iter_1.png"), np.full((64, 80, 3), 128, np.uint8))
     if case.endswith("_env"):
         monkeypatch.setenv("ADVLM_INT8_WEIGHTS", "1")
+    built = []
+
+    def catch(module, name, index, result):
+        monkeypatch.setattr(module, name, lambda *a, **kw: built.append(a[index]) or result)
+
+    catch(fbi_mod, "find_best_iterations", 0, {})
+    catch(guard_mod, "run_guard_eval", 0, 0.0)
+    catch(sfb_mod, "run_safebench", 0, str(runs))
+    catch(engine, "train", 1, None)
     calls = {
-        "find_best_iter_flag": lambda: fbi_cli.main(["--exps", "e", "--runs_path", missing, "--int8_weights",
+        "find_best_iter_flag": lambda: fbi_cli.main(["--exps", "e", "--runs_path", str(runs), "--int8_weights",
                                                      "--judge_model", "tiny:", "--device", "cpu"]),
-        "guard_eval_env": lambda: guard_cli.main([missing, "--judge_model", "tiny:", "--device", "cpu"]),
+        "guard_eval_env": lambda: guard_cli.main([str(runs), "--judge_model", "tiny:", "--device", "cpu"]),
         "safebench_flag": lambda: sfb_cli.main(["--exp", "e", "--iter", "0", "--model_suf", "tiny:llava",
-                                                "--runs_path", missing, "--int8_weights", "--device", "cpu"]),
-        "attack_env": lambda: attack_model.main(["--model_name", "tiny:llava", "--device", "cpu",
-                                                 "--img_orig", missing, "--runs_path", missing]),
-        "build_checker_env": lambda: judge_common.build_checker("tiny:", device="cpu"),
+                                                "--runs_path", str(runs), "--int8_weights", "--device", "cpu"]),
+        "attack_env": lambda: attack_model.main(["--model_name", "tiny:llava", "--device", "cpu", "--img_orig",
+                                                 str(runs / "e" / "optimized_image_iter_1.png"),
+                                                 "--runs_path", str(runs)]),
+        "build_checker_env": lambda: built.append(judge_common.build_checker("tiny:", device="cpu")),
     }
-    with pytest.raises(NotImplementedError, match="ROADMAP modules: judge and eval"):
-        calls[case]()
-    assert not os.path.exists(missing)
+    calls[case]()
+    (got,) = built
+    params = got[0].bundle.params if case == "attack_env" else got.bundle.params
+    assert quantized_fraction(params) > 0.2
     monkeypatch.setenv("ADVLM_INT8_WEIGHTS", "0")
-    attack_model.check_unported_flags(argparse.Namespace(int8_weights=False))
+    assert quantized_fraction(judge_common.build_checker("tiny:", device="cpu").bundle.params) == 0.0
+    with pytest.raises(NotImplementedError, match="ROADMAP modules: multi-GPU mesh"):
+        attack_model.check_unported_flags(argparse.Namespace(mesh_model=2, int8_weights=True))
 
 
 NEW_MODULES = ["judge/__init__.py", "judge/fsm.py", "judge/safety_checker.py", "judge/tiny.py",
                "eval/find_best_iter.py", "eval/safebench.py", "eval/guard_eval.py", "eval/tables.py",
                "eval/generation.py", "cli/judge_common.py", "cli/find_best_iter.py",
-               "cli/safebench_test.py", "cli/guard_eval.py"]
+               "cli/safebench_test.py", "cli/guard_eval.py", "models/quant.py", "models/loading.py",
+               "models/layers.py", "models/generate.py", "ops/kernels/dgrad.py", "attack/io.py",
+               "utils/native.py", "utils/jpeg.py", "utils/images.py", "utils/png.py", "eval/benchmarking.py",
+               "eval/figstep.py", "eval/mm_safetybench.py", "cli/baseline_tests.py"]
 
 
 def test_eval_modules_import_no_jax_pandas_pil_or_transformers():
-    """The judge and eval modules import torch, numpy and the standard library (and the port):
-    no jax, JAX package, cli, pandas, PIL or transformers; the native table's C++ source sits
-    in the port's csrc/."""
+    """The judge, eval, int8 and image modules import torch, numpy and the standard library (and
+    the port): no jax, JAX package, cli, pandas, PIL or transformers; the native table's and the
+    JPEG decoder's C++ sources sit in the port's csrc/."""
     banned = {"jax", "jaxlib", "adversarialvlm_tpu", "cli", "pandas", "PIL", "transformers", "tokenizers"}
     pkg = REPO / "adversarialvlm_tpu_torch"
-    assert (pkg / "csrc" / "fsm_table.cpp").is_file()
+    assert (pkg / "csrc" / "fsm_table.cpp").is_file() and (pkg / "csrc" / "jpeg_decode.cpp").is_file()
     for rel in NEW_MODULES:
         for node in ast.walk(ast.parse((pkg / rel).read_text(), rel)):
             if isinstance(node, ast.Import):

@@ -123,12 +123,13 @@ def test_native_table_build_failure_raises_with_the_compiler_message(tmp_path, m
     """A source g++ cannot compile raises RuntimeError with g++'s output; nothing falls back to
     the Python walk (the JAX package does, native/__init__.py:45-49)."""
     from adversarialvlm_tpu_torch.ops.kernels import build
+    from adversarialvlm_tpu_torch.utils import native
 
     (tmp_path / "csrc").mkdir()
     (tmp_path / "csrc" / "fsm_table.cpp").write_text("extern \"C\" void build_token_table( {\n")
     monkeypatch.setattr(build, "CSRC", tmp_path / "csrc")
     monkeypatch.setattr(build, "BUILD", tmp_path / "build")
-    monkeypatch.setattr(fsm, "_native_fn", None)
+    monkeypatch.setattr(native, "_LIBS", {})
     dfa = fsm.RegexDFA.from_pattern(PATTERNS["bool"])
     with pytest.raises(RuntimeError, match="(?s)g\\+\\+ failed for fsm_table.cpp.*error"):
         fsm.build_token_table(dfa, [b"{", b"}"], 0)

@@ -40,6 +40,7 @@ from adversarialvlm_tpu_torch.attack.step import (
 from adversarialvlm_tpu_torch.eval.train_test import run_model_test
 from adversarialvlm_tpu_torch.ops.image import uint8_roundtrip
 from adversarialvlm_tpu_torch.ops.masks import create_mask, default_mask
+from adversarialvlm_tpu_torch.processors import normalize_pixel_inputs
 from adversarialvlm_tpu_torch.utils.device import resolve_device
 from adversarialvlm_tpu_torch.utils.logging import RunLogger
 
@@ -59,11 +60,17 @@ class VictimSetup:
     def handles(self) -> VictimHandles:
         dev = self.bundle.device
         ai = self.adv_inputs
+        family, proc = self.bundle.family, self.adv_processor
+
+        def process(img):
+            # the one pixel-input contract (engine._process_fn): tensor entries, a leading image dim
+            return normalize_pixel_inputs(family, proc.process(img))
+
         return VictimHandles(
             name=self.name,
             forward=self.bundle.forward,
             params=self.bundle.params,
-            process=self.adv_processor.process,
+            process=process,
             prompt_pool=ai.prompt_pool,
             prompt_lengths=ai.prompt_lengths,
             target_pool=torch.as_tensor(ai.target_pool, device=dev),

@@ -1,6 +1,6 @@
 """Victim construction: model + differentiable processor + prompt pools, from random weights or
 from a local HF checkpoint directory. Counterpart of adversarialvlm_tpu/attack/setup.py::
-build_tiny_victim and build_victim_from_checkpoint for the llava and gemma3 families, with int8
+build_tiny_victim and build_victim_from_checkpoint for the llava, gemma3 and qwen2vl families, with int8
 weights (models/quant.py), without the HBM remat ladder, which an 80 GB card does not need."""
 
 from __future__ import annotations
@@ -13,12 +13,13 @@ from adversarialvlm_tpu_torch.attack.engine import VictimSetup
 from adversarialvlm_tpu_torch.data import corpora
 from adversarialvlm_tpu_torch.models.configs import VLMConfig, tiny_gemma3, tiny_llava
 from adversarialvlm_tpu_torch.models.registry import make_bundle
-from adversarialvlm_tpu_torch.processors import family_of, load_model_and_processor
+from adversarialvlm_tpu_torch.processors import family_of, grid_hw_for, load_model_and_processor
 from adversarialvlm_tpu_torch.processors.adv_inputs import AdvInputs
 from adversarialvlm_tpu_torch.processors.configs import MODEL_IMAGE_CONFIGS, ImageProcessorConfig
 from adversarialvlm_tpu_torch.processors.gemma3 import DifferentiableGemma3ImageProcessor
 from adversarialvlm_tpu_torch.processors.llava import DifferentiableLlavaImageProcessor
 from adversarialvlm_tpu_torch.processors.prompts import spec_for_family
+from adversarialvlm_tpu_torch.processors.qwen2vl import DifferentiableQwen2VLImageProcessor
 from adversarialvlm_tpu_torch.utils.device import resolve_device
 from adversarialvlm_tpu_torch.utils.tokenization import ByteTokenizer
 
@@ -66,14 +67,18 @@ def build_tiny_victim(
     family: str = "llava",
     int8_weights: bool = False,
 ) -> VictimSetup:
-    """A random-weight victim (default: the tiny config of ``family``, llava or gemma3; pass
-    ``vlm_cfg=llava_1_5_7b()`` or ``gemma3_4b_it()`` for a full-size one) with the ByteTokenizer.
+    """A random-weight victim (default: the tiny config of ``family``, llava, gemma3 or qwen2vl;
+    pass ``vlm_cfg=llava_1_5_7b()``, ``gemma3_4b_it()`` or ``qwen2vl_2b()`` for a full-size one) with
+    the ByteTokenizer.
     Weights come from a ``torch.Generator`` on ``device`` (default: the card, which must exist)
     seeded with ``seed``. ``int8_weights`` quantizes every linear with both dims >= 8, tensor by
     tensor (models/quant.py::quantize_params), so tiny runs take the int8 path too."""
     dev = resolve_device(device)
     if vlm_cfg is None:
-        vlm_cfg = tiny_gemma3(vocab_size=384) if family == "gemma3" else tiny_llava(vocab_size=384)
+        from adversarialvlm_tpu_torch.models.qwen2vl import tiny_qwen2vl
+
+        tiny = {"gemma3": tiny_gemma3, "qwen2vl": tiny_qwen2vl}.get(family, tiny_llava)
+        vlm_cfg = tiny(vocab_size=384)
     family = vlm_cfg.family
     spec = spec_for_family(family)
     refusals = refuse_texts(cfg_attack, spec)
@@ -83,7 +88,7 @@ def build_tiny_victim(
     adv_proc = image_processor(vlm_cfg, in_hw, dev)
     if questions is None or targets is None:
         questions, targets = questions_and_targets(cfg_attack)
-    n_img = _num_image_tokens(family, vlm_cfg)
+    n_img = _num_image_tokens(family, vlm_cfg, adv_proc, in_hw)
     adv_inputs = AdvInputs(
         spec=spec,
         tokenizer=tok,
@@ -100,7 +105,8 @@ def build_tiny_victim(
         refuse_texts=refusals,
     )
     dtype = dtype or torch.float32
-    bundle = make_bundle(name, family, vlm_cfg, dev, seed=seed, dtype=dtype)
+    bundle = make_bundle(name, family, vlm_cfg, dev, seed=seed, dtype=dtype,
+                         grid_hw=grid_hw_for(family, adv_proc, in_hw, vlm_cfg))
     if int8_weights:
         from adversarialvlm_tpu_torch.models.quant import quantize_params
 
@@ -138,7 +144,7 @@ def build_victim_from_checkpoint(
     vlm_cfg = bundle.cfg
     if questions is None or targets is None:
         questions, targets = questions_and_targets(cfg_attack)
-    n_img = _num_image_tokens(family, vlm_cfg)
+    n_img = _num_image_tokens(family, vlm_cfg, adv_proc, in_hw)
     adv_inputs = AdvInputs(
         spec=spec,
         tokenizer=tok,
@@ -160,7 +166,11 @@ def build_victim_from_checkpoint(
 
 def image_processor(vlm_cfg: VLMConfig, in_hw, device):
     """The family's differentiable processor for source images of ``in_hw``, sized by the model
-    config (gemma3: the tower's image_size and soft-token count)."""
+    config (gemma3: the tower's image_size and soft-token count; qwen2vl: the Qwen/Qwen2-VL-2B-Instruct
+    processor, whose plan sets the grid)."""
+    if vlm_cfg.family == "qwen2vl":
+        return DifferentiableQwen2VLImageProcessor(
+            MODEL_IMAGE_CONFIGS["Qwen/Qwen2-VL-2B-Instruct"], in_hw, device)
     if vlm_cfg.family == "gemma3":
         return DifferentiableGemma3ImageProcessor(
             ImageProcessorConfig(
@@ -189,8 +199,11 @@ def _image_expansion(family, vlm_cfg, tok, num_image_tokens):
     return None
 
 
-def _num_image_tokens(family, vlm_cfg) -> int:
-    """The model config is authoritative for the image-token count."""
+def _num_image_tokens(family, vlm_cfg, adv_proc, in_hw) -> int:
+    """The model config is authoritative for the image-token count; qwen2vl's follows the
+    processor's plan for this run's image size (setup.py:212-241)."""
     if family == "gemma3":
         return vlm_cfg.vision.mm_tokens_per_image
+    if family == "qwen2vl":
+        return adv_proc.num_image_tokens(in_hw)
     return (vlm_cfg.vision.image_size // vlm_cfg.vision.patch_size) ** 2

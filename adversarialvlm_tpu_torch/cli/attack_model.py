@@ -4,14 +4,16 @@
         --img_orig gray.png
 
 Model names: an HF name of processors.MODEL_MAP (``llava-hf/llava-1.5-7b-hf``,
-``google/gemma-3-4b-it``, ``google/gemma-3-12b-it``) loads its local checkpoint directory,
+``google/gemma-3-4b-it``, ``google/gemma-3-12b-it``, ``Qwen/Qwen2-VL-2B-Instruct``,
+``Qwen/Qwen2-VL-7B-Instruct``) loads its local checkpoint directory,
 ``<root>/<org>/<name>`` or ``<root>/<name>`` under ``--checkpoint_root`` or
 ``$ADVLM_CHECKPOINTS`` (bf16 on the card, f32 on the CPU; ``cli/fabricate_ckpt.py`` writes such a
 directory from random weights; ``--int8_weights`` or ``ADVLM_INT8_WEIGHTS=1`` quantizes its
 linears as they load, models/quant.py); ``random:llava-1.5-7b`` (full-size LLaVA-1.5-7B) and
-``random:gemma-3-4b-it`` (full-size Gemma-3-4B-it, its SigLIP tower at 4096 patches), both with
-random bf16 weights, and ``tiny:llava`` and ``tiny:gemma3`` (tiny random models, f32) take the
-byte tokenizer. ``--resume_state runs/<exp>/attack_state_latest.pt`` continues a run where its
+``random:gemma-3-4b-it`` (full-size Gemma-3-4B-it, its SigLIP tower at 4096 patches) and
+``random:qwen2vl-2b`` (full-size Qwen2-VL-2B, its grid from the source image's size), all with
+random bf16 weights, and ``tiny:llava``, ``tiny:gemma3`` and ``tiny:qwen2vl`` (tiny random models,
+f32) take the byte tokenizer. ``--resume_state runs/<exp>/attack_state_latest.pt`` continues a run where its
 state was saved; ``--profile_dir`` traces the second chunk. Runs on the card
 unless ``--device cpu``, at the default ``--batch_size 4`` or any other. As the JAX CLI does, every
 save boundary decodes the 50 held-out questions on the saved image and writes
@@ -27,6 +29,7 @@ from datetime import datetime
 import torch
 
 from adversarialvlm_tpu_torch.models.configs import gemma3_4b_it, llava_1_5_7b
+from adversarialvlm_tpu_torch.models.qwen2vl import qwen2vl_2b
 from adversarialvlm_tpu_torch.utils.device import env_flag
 
 
@@ -100,8 +103,10 @@ def attack_config_from_args(args, **overrides):
 RANDOM_VICTIMS = {
     "random:llava-1.5-7b": ("llava", llava_1_5_7b),
     "random:gemma-3-4b-it": ("gemma3", gemma3_4b_it),
+    "random:qwen2vl-2b": ("qwen2vl", qwen2vl_2b),
     "tiny:llava": ("llava", None),
     "tiny:gemma3": ("gemma3", None),
+    "tiny:qwen2vl": ("qwen2vl", None),
 }
 
 

@@ -57,6 +57,7 @@ def main(argv=None):
     cfg = AttackConfig(exp_name="baseline", batch_size=args.batch_size)
     victim = build_victim(model_name, cfg, (448, 448), device, args.checkpoint_root,
                           int8_weights=args.int8_weights or None)
+    print(f"victim {model_name}: images at 448x448, {victim.adv_inputs.num_image_tokens} image tokens a row")
 
     if args.mode in ("reference", "shii", "gcg"):
         from adversarialvlm_tpu_torch.eval.benchmarking import run_text_baseline

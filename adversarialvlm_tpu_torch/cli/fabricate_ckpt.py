@@ -4,15 +4,16 @@ the families the port runs.
 
     python -m adversarialvlm_tpu_torch.cli.fabricate_ckpt <model> <root> [--device cuda]
 
-``model``: ``llava-1.5-7b`` or ``gemma-3-4b`` (full width and depth, bf16), or ``tiny-llava`` and
-``tiny-gemma3`` (the tests' tiny configs, f32). The directory is ``<root>/<org>/<name>`` of the HF
+``model``: ``llava-1.5-7b``, ``gemma-3-4b`` or ``qwen2vl-2b`` (full width and depth, bf16), or
+``tiny-llava``, ``tiny-gemma3`` and ``tiny-qwen2vl`` (the tests' tiny configs, f32). The directory is ``<root>/<org>/<name>`` of the HF
 name, as cli/attack_model.py's ``--checkpoint_root`` resolves it. It holds:
 
   * the weights of ``init_params`` drawn from seed 0 on ``--device`` (the same tensors as the
     ``random:*`` victims at their default seed), under the hub's key layout
     (``language_model.model.*``, the ``vision_tower.vision_model.*`` tower with its
-    ``post_layernorm`` for llava, which the loader drops), as safetensors shards of at most 5 GB
-    with their index;
+    ``post_layernorm`` for llava, which the loader drops; Qwen2-VL's flat ``model.*`` decoder and
+    ``visual.*`` tower, its patch embed as the conv3d (E, 3, 2, 14, 14), no ``lm_head`` where the
+    embeddings are tied), as safetensors shards of at most 5 GB with their index;
   * config.json, generation_config.json and preprocessor_config.json, from which
     models/loading.py patches back the same VLMConfig;
   * tokenizer.json, tokenizer_config.json and special_tokens_map.json in the family's style: a
@@ -23,7 +24,12 @@ name, as cli/attack_model.py's ``--checkpoint_root`` resolves it. It holds:
     ``Prepend("▁")`` + ``Replace(" ", "▁")`` normalizer and a BOS template. Gemma-3: ``<pad>`` 0,
     ``<eos>`` 1, ``<bos>`` 2, ``<unk>`` 3, ``<start_of_turn>`` 105, ``<end_of_turn>`` 106,
     ``<start_of_image>`` 255999, ``<end_of_image>`` 256000 and ``<image_soft_token>`` 262144, no
-    dummy prefix.
+    dummy prefix. Qwen2-VL: a byte-level BPE (GPT-2's byte alphabet, no byte fallback) behind an
+    NFC normalizer and Qwen2's Split regex + ByteLevel pre-tokenizer, whose merges spell the
+    corpora's pre-tokens, and its 14 specials from ``<|endoftext|>`` 151643 (``<|im_start|>``
+    151644, ``<|im_end|>`` 151645, ``<|vision_start|>`` 151652, ``<|vision_end|>`` 151653,
+    ``<|image_pad|>`` 151655); the tiny directory's specials sit at the same offsets from the top
+    of its 1024-row vocabulary.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from adversarialvlm_tpu_torch.models.configs import (
     tiny_llava,
 )
 from adversarialvlm_tpu_torch.models.loading import named_leaves
+from adversarialvlm_tpu_torch.models.qwen2vl import qwen2vl_2b, tiny_qwen2vl
 
 CLIP_MEAN = [0.48145466, 0.4578275, 0.40821073]
 CLIP_STD = [0.26862954, 0.26130258, 0.27577711]
@@ -55,12 +62,30 @@ def _tiny_gemma3() -> VLMConfig:
                                extra_eos_token_ids=(1,))
 
 
+# Qwen2's specials, in order from <|endoftext|>; the image, pad and eos ids of a Qwen2-VL config
+# are offsets 12, 0 and 2 of this block
+QWEN2_SPECIALS = (
+    "<|endoftext|>", "<|im_start|>", "<|im_end|>", "<|object_ref_start|>", "<|object_ref_end|>",
+    "<|box_start|>", "<|box_end|>", "<|quad_start|>", "<|quad_end|>", "<|vision_start|>",
+    "<|vision_end|>", "<|vision_pad|>", "<|image_pad|>", "<|video_pad|>",
+)
+
+
+def _tiny_qwen2vl() -> VLMConfig:
+    """The tiny Qwen2-VL with Qwen2's 14 specials at the top of a 1024-row vocabulary."""
+    base = 1024 - 16
+    return dataclasses.replace(tiny_qwen2vl(vocab_size=1024), pad_token_id=base, eos_token_id=base + 2,
+                               image_token_id=base + 12)
+
+
 # model -> (HF name, config, weight dtype)
 MODELS = {
     "llava-1.5-7b": ("llava-hf/llava-1.5-7b-hf", llava_1_5_7b, torch.bfloat16),
     "gemma-3-4b": ("google/gemma-3-4b-it", gemma3_4b_it, torch.bfloat16),
+    "qwen2vl-2b": ("Qwen/Qwen2-VL-2B-Instruct", qwen2vl_2b, torch.bfloat16),
     "tiny-llava": ("llava-hf/llava-1.5-7b-hf", lambda: tiny_llava(vocab_size=1024), torch.float32),
     "tiny-gemma3": ("google/gemma-3-4b-it", _tiny_gemma3, torch.float32),
+    "tiny-qwen2vl": ("Qwen/Qwen2-VL-2B-Instruct", _tiny_qwen2vl, torch.float32),
 }
 
 
@@ -71,7 +96,16 @@ _EMBEDDINGS = ("patch_embedding.", "position_embedding.", "class_embedding")
 
 def hf_key(family: str, path: str) -> str:
     """The hub's key of a dotted path of the port's tree: the inverse of models/loading.py's
-    ``_normalize_llava_key`` and ``_normalize_gemma3_key``."""
+    ``_normalize_llava_key``, ``_normalize_gemma3_key`` and ``_normalize_qwen2vl_key``."""
+    if family == "qwen2vl":
+        if path.startswith("language_model.lm_head."):
+            return path[len("language_model."):]
+        if path.startswith("language_model."):
+            return "model." + path[len("language_model."):]
+        if path.startswith("visual."):
+            path = path.replace("patch_embed.", "patch_embed.proj.")
+            return path.replace("merger.mlp_0.", "merger.mlp.0.").replace("merger.mlp_2.", "merger.mlp.2.")
+        raise ValueError(f"{family}: no hub key for {path}")
     if path.startswith("language_model.lm_head."):
         return path
     if path.startswith("language_model."):
@@ -92,6 +126,10 @@ def hf_state_dict(family: str, params: dict, cfg: VLMConfig) -> dict:
     """The hub layout of ``params`` (tensors shared, not copied); llava's CLIP tower also gets the
     ``post_layernorm`` the hub checkpoints carry and feature layer -2 never reads."""
     sd = {hf_key(family, path): t for path, t in named_leaves(params)}
+    if family == "qwen2vl":  # the conv3d patch embed the tower's product flattens
+        v = cfg.vision
+        key = "visual.patch_embed.proj.weight"
+        sd[key] = sd[key].reshape(v.embed_dim, 3, v.temporal_patch_size, v.patch_size, v.patch_size)
     if family == "llava":
         t = params["vision_tower"]["pre_layrnorm"]["weight"]
         pre = "vision_tower.vision_model.post_layernorm."
@@ -121,6 +159,26 @@ def hf_configs(family: str, cfg: VLMConfig, dtype) -> dict[str, dict]:
     }
     eos = [cfg.eos_token_id, *cfg.extra_eos_token_ids]
     dtype_name = str(dtype).replace("torch.", "")
+    if family == "qwen2vl":
+        base = cfg.pad_token_id  # <|endoftext|>
+        config = {
+            "architectures": ["Qwen2VLForConditionalGeneration"], "model_type": "qwen2_vl",
+            **text, "hidden_act": t.hidden_act, "bos_token_id": base, "eos_token_id": cfg.eos_token_id,
+            "vision_start_token_id": base + 9, "vision_end_token_id": base + 10,
+            "vision_token_id": base + 11, "image_token_id": cfg.image_token_id, "video_token_id": base + 13,
+            "rope_scaling": {"type": "mrope", "mrope_section": list(t.mrope_section)},
+            "vision_config": {"depth": v.num_layers, "embed_dim": v.embed_dim,
+                              "mlp_ratio": v.intermediate_size // v.embed_dim, "num_heads": v.num_heads,
+                              "in_chans": 3, "hidden_size": v.hidden_size, "patch_size": v.patch_size,
+                              "spatial_merge_size": v.spatial_merge_size,
+                              "temporal_patch_size": v.temporal_patch_size},
+            "torch_dtype": dtype_name,
+        }
+        pre = {"min_pixels": 56 * 56, "max_pixels": 28 * 28 * 1280, "patch_size": v.patch_size,
+               "temporal_patch_size": v.temporal_patch_size, "merge_size": v.spatial_merge_size,
+               "image_mean": CLIP_MEAN, "image_std": CLIP_STD, "image_processor_type": "Qwen2VLImageProcessor"}
+        gen = {"bos_token_id": base, "eos_token_id": [cfg.eos_token_id, base], "pad_token_id": base}
+        return {"config.json": config, "generation_config.json": gen, "preprocessor_config.json": pre}
     if family == "llava":
         config = {
             "architectures": ["LlavaForConditionalGeneration"], "model_type": "llava",
@@ -175,16 +233,15 @@ def _corpus_words() -> list[str]:
     return words
 
 
-def _pieces_and_merges(n_free: int) -> tuple[list[str], list[tuple[str, str]]]:
-    """Up to ``n_free`` pieces: the printable ASCII characters and ``▁``, then each corpus word
-    spelled ``▁`` + characters as a chain of merges (``▁t``, ``▁th``, ``▁the``, ...), most words
-    first. Newlines and every other character are left to the byte fallback."""
-    pieces = ["▁"] + [chr(c) for c in range(0x21, 0x7F)]
+def _chain_merges(words, pieces: list[str], n_free: int) -> tuple[list[str], list[tuple[str, str]]]:
+    """``pieces`` (the alphabet) extended by each word spelled as a chain of merges from its first
+    character (``▁t``, ``▁th``, ``▁the``, ...), up to ``n_free`` pieces; a character outside the
+    alphabet ends its word's chain."""
     known, merges = set(pieces), []
-    for word in _corpus_words():
-        left = "▁"
-        for ch in word:
-            if ch not in known:  # a character outside the alphabet ends the chain
+    for word in words:
+        left = word[0]
+        for ch in word[1:]:
+            if ch not in known:
                 break
             piece = left + ch
             if piece not in known:
@@ -197,9 +254,68 @@ def _pieces_and_merges(n_free: int) -> tuple[list[str], list[tuple[str, str]]]:
     return pieces, merges
 
 
+def _pieces_and_merges(n_free: int) -> tuple[list[str], list[tuple[str, str]]]:
+    """Up to ``n_free`` pieces: the printable ASCII characters and ``▁``, then each corpus word
+    spelled ``▁`` + characters as a chain of merges, most words first. Newlines and every other
+    character are left to the byte fallback."""
+    return _chain_merges(("▁" + w for w in _corpus_words()), ["▁"] + [chr(c) for c in range(0x21, 0x7F)], n_free)
+
+
+def _qwen2_pieces(n_free: int) -> tuple[list[str], list[tuple[str, str]]]:
+    """Up to ``n_free`` pieces of a byte-level BPE: the 256 byte characters, then each pre-token of
+    the corpora and chat templates (Qwen2's split, bytes mapped to GPT-2's alphabet) spelled as a
+    chain of merges, most pre-tokens first."""
+    from adversarialvlm_tpu_torch.data import corpora
+    from adversarialvlm_tpu_torch.utils.tokenizer_json import BYTES_CHAR, qwen2_split
+
+    texts = [*corpora.not_safe_questions, *corpora.questions, *corpora.not_safe_questions_test,
+             *corpora.answers, *corpora.adv_answers, "sure, here it is!",
+             "system\nYou are a helpful assistant.\nuser\nassistant\n"]
+    words = ("".join(BYTES_CHAR[x] for x in text[a:b].encode("utf-8")) for text in texts
+             for a, b in qwen2_split(text))
+    return _chain_merges(words, [BYTES_CHAR[b] for b in range(256)], n_free)
+
+
+def _qwen2_tokenizer_files(cfg: VLMConfig) -> dict[str, dict]:
+    from adversarialvlm_tpu_torch.utils.tokenizer_json import QWEN2_SPLIT
+
+    base = cfg.pad_token_id  # <|endoftext|>: the BPE's pieces are the ids below it
+    pieces, merges = _qwen2_pieces(base)
+    vocab = {p: i for i, p in enumerate(pieces)}
+    vocab.update({f"<filler{n}>": i for n, i in enumerate(range(len(pieces), base))})
+    added = [{"id": base + i, "content": c, "single_word": False, "lstrip": False, "rstrip": False,
+              "normalized": False, "special": True} for i, c in enumerate(QWEN2_SPECIALS)]
+    byte_level = {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": False, "use_regex": False}
+    tok = {
+        "version": "1.0", "truncation": None, "padding": None, "added_tokens": added,
+        "normalizer": {"type": "NFC"},
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": QWEN2_SPLIT}, "behavior": "Isolated", "invert": False},
+            byte_level]},
+        "post_processor": byte_level,
+        "decoder": byte_level,
+        "model": {"type": "BPE", "dropout": None, "unk_token": None, "continuing_subword_prefix": "",
+                  "end_of_word_suffix": "", "fuse_unk": False, "byte_fallback": False,
+                  "ignore_merges": False, "vocab": vocab, "merges": [[a, b] for a, b in merges]},
+    }
+    roles = {"eos_token": "<|im_end|>", "pad_token": "<|endoftext|>"}
+    extra = list(QWEN2_SPECIALS[1:])
+    config = {
+        "tokenizer_class": "Qwen2Tokenizer", "add_prefix_space": False, "bos_token": None,
+        "unk_token": None, "clean_up_tokenization_spaces": False, "errors": "replace",
+        "model_max_length": 32768, "split_special_tokens": False, **roles,
+        "additional_special_tokens": extra,
+        "added_tokens_decoder": {str(a["id"]): {k: v for k, v in a.items() if k != "id"} for a in added},
+    }
+    return {"tokenizer.json": tok, "tokenizer_config.json": config,
+            "special_tokens_map.json": {**roles, "additional_special_tokens": extra}}
+
+
 def tokenizer_files(family: str, cfg: VLMConfig) -> dict[str, dict]:
     """tokenizer.json, tokenizer_config.json and special_tokens_map.json of the family's style,
     with the config's image, pad and (gemma3) image-framing ids."""
+    if family == "qwen2vl":
+        return _qwen2_tokenizer_files(cfg)
     n_pieces = cfg.image_token_id  # the image token is the first id past the pieces
     if family == "llava":
         fixed = {0: "<unk>", 1: "<s>", 2: "</s>"}

@@ -1,11 +1,13 @@
-// Non-causal attention at head_dim 72 for Hopper (sm_90a): forward; dq, which writes δ; dk/dv.
+// Non-causal attention at head_dim 72 or 80 for Hopper (sm_90a): forward; dq, which writes δ; dk/dv.
 //
 // Replaces adversarialvlm_tpu/ops/pallas/attention.py::flash_sdpa_full (:214), which runs the stock
 // TPU flash_attention kernels (forward, dkv, dq) through _flash_call (:97) with causal=False, T
 // right-padded to its block with segment 0 and head_dim zero-padded to 128 lanes. Its semantics are
 // those of _ref_attention(..., causal=False) (:160): every query attends every key, scores and
 // softmax in f32, output in q's dtype. Here T is not padded: the ragged tile is masked in
-// registers, and only the 72 real columns are read from and written to device memory.
+// registers, and only the D real columns are read from and written to device memory. Every kernel
+// is a template on the head dim D: 72 (the SigLIP towers, 1152 / 16) and 80 (Qwen2-VL's tower,
+// 1280 / 16); the two share one shared-memory layout of 80 columns.
 //
 // What bounds it on the H100: at Gemma-3's SigLIP tower (B = 4 images, T = 4096 patches, 16 heads
 // of 72) the forward is 4·B·T²·H·D = 309 GFLOP on 151 MB of q/k/v/o (about 2000 operations per
@@ -14,20 +16,22 @@
 // score costs an exp2 on the 16-a-clock special-function unit; at D = 72 that is about as many
 // cycles as its two products take on the tensor cores, so the design keeps the scores in registers
 // and puts three or four warpgroups on each SM, which hide each other's softmax behind their
-// products. Measured times: PERF.md §6.
+// products. Qwen2-VL's tower at a 1024² source (B = 1, T = 4900, 16 heads of 80) is the same
+// regime: the forward 123 GFLOP on 50 MB. Measured times: PERF.md §6.
 //
 // Design (all products are wgmma, bf16 in, f32 accumulate):
-//  - A block has four warpgroups (forward, dq) or three (dk/dv), one block per SM, and owns 64 rows
+//  - A block has three or four warpgroups (the plan of each kernel and head dim: Plan below), one
+//    block per SM, and owns 64 rows
 //    of one (b, h) per warpgroup: query rows in the forward and dq, key rows in dk/dv. Each
 //    warpgroup keeps its accumulators in registers for the whole walk over the other side's tiles
 //    of 64 rows, which all warpgroups of the block share.
 //  - Forward: S = Q·Kᵀ is wgmma m64n64k16 over five k-steps (D = 72 zero-filled to 80 in shared
-//    memory). The online softmax runs on the accumulator registers (row max and sum with quad
+//    memory; D = 80 fills them). The online softmax runs on the accumulator registers (row max and sum with quad
 //    shuffles, exp2 with the scale folded into log2 units). P is converted to bf16 in registers,
 //    where the accumulator's fragment layout is already the register A operand's, and
-//    O += P·V is wgmma m64n72k16 with V read from shared memory as an MN-major B operand: N = 72
-//    needs no padding. O and the row max and sum stay in registers; the block writes o (72 bf16
-//    columns) and lse (f32), the one extra residual the backward uses.
+//    O += P·V is wgmma m64nDk16 (m64n72k16 or m64n80k16) with V read from shared memory as an
+//    MN-major B operand: N = D needs no padding. O and the row max and sum stay in registers; the
+//    block writes o (D bf16 columns) and lse (f32), the one extra residual the backward uses.
 //  - dq: recomputes S and dP = dO·Vᵀ per key tile (two m64n64k16 chains), P = exp2(S·scale·log2e
 //    − lse·log2e), dS = P ⊙ (dP − δ)·scale in registers, and dQ += dS·K (K as an MN-major operand).
 //    δ = rowsum(dO ⊙ O) is computed once per row and written out for dk/dv, which runs second.
@@ -36,7 +40,8 @@
 //    Each key row is owned by one warpgroup, so the backward is deterministic: no atomics.
 //  - Loads: the other side's tiles stream through a two-stage ring filled by cp.async, issued by
 //    the consumer threads one tile ahead, so tile j+1 is in flight while tile j's products run.
-//    cp.async rather than TMA: a 72-column row is 144 bytes, wider than the 128-byte swizzle span
+//    cp.async rather than TMA: a 72- or 80-column row is 144 or 160 bytes, wider than the 128-byte
+//    swizzle span
 //    and not a multiple of wgmma's k-step, so no single TMA box and swizzle mode matches both
 //    uses of a tile; cp.async writes each 16-byte chunk where wgmma's no-swizzle ("interleaved")
 //    canonical layout wants it, and zero-fills out-of-range rows (source size 0) by itself.
@@ -45,7 +50,8 @@
 //    and core columns 128 bytes apart. That one layout is K-major for the products that contract
 //    over the head dim and MN-major for those that contract over rows (the same core matrices,
 //    read with the descriptor's two strides swapped), so Q, K, V and dO are stored once and serve
-//    both. Core column 9 (head columns 72-79) is zeroed once and never loaded.
+//    both. At D = 72 core column 9 (head columns 72-79) is zeroed once and never loaded; at D = 80
+//    every core column is loaded and nothing is zeroed.
 //  - Ragged T: a key column past T scores −inf before the max and sum (forward) or gets P = 0
 //    (dq); a query column past T gets Pᵀ = 0 in dk/dv and a query row past T gets lse = +inf in
 //    dq, so garbage residuals make no inf or NaN. Out-of-range rows are never written.
@@ -60,9 +66,7 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int FULL_D = 72;            // head dim: the SigLIP towers' 1152 / 16
-constexpr int FULL_DP = 80;           // padded to wgmma's k-step of 16 in shared memory only
-constexpr int CH = FULL_D / 8;        // 16-byte chunks of a row in device memory: 9
+constexpr int FULL_DP = 80;           // head dims 72 and 80, padded to wgmma's k-step of 16 in shared memory only
 constexpr int CP = FULL_DP / 8;       // core columns of a shared-memory tile: 10
 constexpr uint32_t C_STRIDE = 128;    // bytes from one core column to the next
 constexpr uint32_t G_STRIDE = CP * 128;  // bytes from one 8-row group to the next
@@ -88,7 +92,7 @@ __device__ __forceinline__ uint64_t desc_k(uint32_t tile, int g0, int kk) {
   return make_desc(tile + core_off(g0, 2 * kk), C_STRIDE, G_STRIDE);
 }
 
-// MN-major operand (tile rows are K, columns N): the 16 rows of k-step kk, all 72 columns.
+// MN-major operand (tile rows are K, columns N): the 16 rows of k-step kk, all D columns.
 __device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
   return make_desc(tile + core_off(2 * kk, 0), G_STRIDE, C_STRIDE);
 }
@@ -136,10 +140,11 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // Rows [r0, r0 + ROWS) of one head (src: its row 0; rows `stride` elements apart) into the tile at
-// `tile`, core columns 0-8; rows at or past T are zero-filled by the copy.
-template <int ROWS, int NT>
+// `tile`, core columns 0 to D/8 - 1; rows at or past T are zero-filled by the copy.
+template <int D, int ROWS, int NT>
 __device__ __forceinline__ void load_tile(uint32_t tile, const bf16* __restrict__ src, long long stride, int r0,
                                           int T, int tid) {
+  constexpr int CH = D / 8;  // 16-byte chunks of a row in device memory
 #pragma unroll 1
   for (int i = tid; i < ROWS * CH; i += NT) {
     const int r8 = i & 7, rest = i >> 3, c = rest % CH, g = rest / CH;
@@ -149,12 +154,14 @@ __device__ __forceinline__ void load_tile(uint32_t tile, const bf16* __restrict_
   }
 }
 
-// Core column 9 (head columns 72-79) of a tile: zero, so the fifth k-step over the head dim adds
-// nothing. Never overwritten by a load.
-template <int ROWS, int NT>
+// The core columns past D/8 of a tile (at D = 72, column 9: head columns 72-79): zero, so the fifth
+// k-step over the head dim adds nothing. Never overwritten by a load. At D = 80 there are none.
+template <int D, int ROWS, int NT>
 __device__ __forceinline__ void zero_pad(unsigned char* tile, int tid) {
-  for (int i = tid; i < ROWS; i += NT)
-    *reinterpret_cast<uint4*>(tile + core_off(i / 8, CH) + (i % 8) * 16) = make_uint4(0u, 0u, 0u, 0u);
+  if constexpr (D / 8 < CP) {
+    for (int i = tid; i < ROWS; i += NT)
+      *reinterpret_cast<uint4*>(tile + core_off(i / 8, D / 8) + (i % 8) * 16) = make_uint4(0u, 0u, 0u, 0u);
+  }
 }
 
 // The accumulator fragment of m64nNk16: element x of a thread's registers sits at row
@@ -200,6 +207,24 @@ __device__ __forceinline__ void wgmma_rs_n72(float (&d)[36], const uint32_t* a, 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D (64 × 80, f32) += A (64 × 16, bf16 registers) · B (16 × 80, shared, MN-major).
+__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40], const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // The other side's tiles are BT = 64 rows (keys in the forward and dq, queries in dk/dv): one
 // m64n64k16 score tile per warpgroup and tile.
 constexpr int BT = 64;
@@ -211,16 +236,23 @@ __device__ __forceinline__ void scores(float (&s)[32], uint32_t a_tile, int g0, 
   for (int kk = 0; kk < FULL_DP / 16; ++kk) wgmma_ss_n64(s, desc_k(a_tile, g0, kk), desc_k(b_tile, 0, kk), kk);
 }
 
-// acc (64 × 72) += A (64 × 64, registers) · B (64 × 72, a tile as an MN-major operand).
-__device__ __forceinline__ void accumulate(float (&acc)[36], const uint32_t (&a)[16], uint32_t b_tile) {
+// acc (64 × D) += A (64 × 64, registers) · B (64 × D, a tile as an MN-major operand).
+template <int D>
+__device__ __forceinline__ void accumulate(float (&acc)[D / 2], const uint32_t (&a)[16], uint32_t b_tile) {
 #pragma unroll
-  for (int kk = 0; kk < BT / 16; ++kk) wgmma_rs_n72(acc, a + 4 * kk, desc_mn(b_tile, kk));
+  for (int kk = 0; kk < BT / 16; ++kk) {
+    if constexpr (D == 72)
+      wgmma_rs_n72(acc, a + 4 * kk, desc_mn(b_tile, kk));
+    else
+      wgmma_rs_n80(acc, a + 4 * kk, desc_mn(b_tile, kk));
+  }
 }
 
-// Writes a warpgroup's 64 × 72 accumulator as bf16 rows r0 + (fragment row) of one head (dst: its row
+// Writes a warpgroup's 64 × D accumulator as bf16 rows r0 + (fragment row) of one head (dst: its row
 // 0; rows `stride` elements apart), skipping rows at or past T, each scaled by mul[i] (i: the thread's
 // upper or lower row).
-__device__ __forceinline__ void store_rows(bf16* __restrict__ dst, const float (&acc)[36], const float (&mul)[2],
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* __restrict__ dst, const float (&acc)[D / 2], const float (&mul)[2],
                                            int r0, int T, long long stride, int lane) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -228,64 +260,81 @@ __device__ __forceinline__ void store_rows(bf16* __restrict__ dst, const float (
     if (r >= T) continue;
     bf16* row = dst + (size_t)r * stride + 2 * (lane % 4);
 #pragma unroll
-    for (int c = 0; c < CH; ++c)
+    for (int c = 0; c < D / 8; ++c)
       *reinterpret_cast<uint32_t*>(row + 8 * c) = pack_bf16(acc[4 * c + 2 * i] * mul[i], acc[4 * c + 2 * i + 1] * mul[i]);
   }
 }
 
-// Warpgroups per block, per kernel: each owns 64 rows of its side (queries in the forward and dq,
-// keys in dk/dv), and one block per SM takes as many as the register file holds (forward 110 and dq
-// 126 registers a thread: four; dk/dv 164: three), so every warpgroup of an SM shares each tile
-// the block loads. On the H100 these ran faster than two warpgroups at two blocks per SM, and
-// 64-row tiles of the other side faster than 128-row ones.
-constexpr int FWD_WGS = 4, DQ_WGS = 4, KV_WGS = 3;
-
-// Shared memory, in bytes from the start: the block's own rows, then a two-stage ring of the other
-// side's tiles (and, for dk/dv, of their lse and δ).
-struct FwdSmem {  // Q at 0
-  static constexpr int K = tile_bytes(64 * FWD_WGS), V = K + 2 * tile_bytes(BT), bytes = V + 2 * tile_bytes(BT);
+// Warpgroups per block, per kernel and head dim: each owns 64 rows of its side (queries in the
+// forward and dq, keys in dk/dv), and one block per SM takes as many as the register file holds, so
+// every warpgroup of an SM shares each tile the block loads. At D = 72 (forward 110 and dq 126
+// registers a thread: four; dk/dv 164: three) these ran faster on the H100 than two warpgroups at
+// two blocks per SM, and 64-row tiles of the other side faster than 128-row ones. At D = 80 each
+// accumulator holds 4 more registers a thread (8 in dk/dv, which keeps two): the forward keeps four
+// warpgroups (114 registers of at most 128), dq takes three (130 of 168) and dk/dv two (178 of 255).
+// On the H100 dq at four warpgroups and dk/dv at three spilled and ran slower (PERF.md §6).
+template <int D>
+struct Plan;
+template <>
+struct Plan<72> {
+  static constexpr int FWD = 4, DQ = 4, KV = 3;
+};
+template <>
+struct Plan<80> {
+  static constexpr int FWD = 4, DQ = 3, KV = 2;
 };
 
+// Shared memory, in bytes from the start: the block's own rows (64 a warpgroup), then a two-stage
+// ring of the other side's tiles (and, for dk/dv, of their lse and δ).
+template <int WGS>
+struct FwdSmem {  // Q at 0
+  static constexpr int K = tile_bytes(64 * WGS), V = K + 2 * tile_bytes(BT), bytes = V + 2 * tile_bytes(BT);
+};
+
+template <int WGS>
 struct DqSmem {  // Q at 0
-  static constexpr int DO = tile_bytes(64 * DQ_WGS), K = 2 * DO, V = K + 2 * tile_bytes(BT);
+  static constexpr int DO = tile_bytes(64 * WGS), K = 2 * DO, V = K + 2 * tile_bytes(BT);
   static constexpr int bytes = V + 2 * tile_bytes(BT);
 };
 
+template <int WGS>
 struct DkdvSmem {  // K at 0
-  static constexpr int V = tile_bytes(64 * KV_WGS), Q = 2 * V, DO = Q + 2 * tile_bytes(BT);
+  static constexpr int V = tile_bytes(64 * WGS), Q = 2 * V, DO = Q + 2 * tile_bytes(BT);
   static constexpr int LSE = DO + 2 * tile_bytes(BT), DL = LSE + 2 * BT * 4, bytes = DL + 2 * BT * 4;
 };
 
-// q, k, v, o: (B, T, H, 72) bf16; lse: (B, H, T) f32. Block (x, h, b): query rows
-// [ROWS·x, ROWS·x + ROWS), ROWS = 64 · FWD_WGS.
-__global__ void __launch_bounds__(128 * FWD_WGS, 1)
+// q, k, v, o: (B, T, H, D) bf16; lse: (B, H, T) f32. Block (x, h, b): query rows
+// [ROWS·x, ROWS·x + ROWS), ROWS = 64 · Plan<D>::FWD.
+template <int D>
+__global__ void __launch_bounds__(128 * Plan<D>::FWD, 1)
     full_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
                     bf16* __restrict__ o, float* __restrict__ lse, int T, int H, float scale) {
-  constexpr int NT = 128 * FWD_WGS, ROWS = 64 * FWD_WGS;
+  constexpr int WGS = Plan<D>::FWD, NT = 128 * WGS, ROWS = 64 * WGS;
+  using Smem = FwdSmem<WGS>;
   extern __shared__ __align__(1024) unsigned char smem[];
   const int tid = threadIdx.x, wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32, quad = lane % 4;
   const int h = blockIdx.y, q0 = blockIdx.x * ROWS;
-  const long long rs = (long long)H * FULL_D;
-  const size_t head = (size_t)blockIdx.z * T * rs + (size_t)h * FULL_D;
+  const long long rs = (long long)H * D;
+  const size_t head = (size_t)blockIdx.z * T * rs + (size_t)h * D;
   q += head;
   k += head;
   v += head;
   o += head;
   lse += ((size_t)blockIdx.z * H + h) * T;
-  const uint32_t sQ = smem_u32(smem), sK = sQ + FwdSmem::K, sV = sQ + FwdSmem::V;
+  const uint32_t sQ = smem_u32(smem), sK = sQ + Smem::K, sV = sQ + Smem::V;
 
-  zero_pad<ROWS, NT>(smem, tid);
-  zero_pad<BT, NT>(smem + FwdSmem::K, tid);
-  zero_pad<BT, NT>(smem + FwdSmem::K + tile_bytes(BT), tid);
-  load_tile<ROWS, NT>(sQ, q, rs, q0, T, tid);
-  load_tile<BT, NT>(sK, k, rs, 0, T, tid);
-  load_tile<BT, NT>(sV, v, rs, 0, T, tid);
+  zero_pad<D, ROWS, NT>(smem, tid);
+  zero_pad<D, BT, NT>(smem + Smem::K, tid);
+  zero_pad<D, BT, NT>(smem + Smem::K + tile_bytes(BT), tid);
+  load_tile<D, ROWS, NT>(sQ, q, rs, q0, T, tid);
+  load_tile<D, BT, NT>(sK, k, rs, 0, T, tid);
+  load_tile<D, BT, NT>(sV, v, rs, 0, T, tid);
   cp_commit();
 
   const float sl2 = scale * LOG2E;  // scores in log2 units
-  float acc[36];
+  float acc[D / 2];
 #pragma unroll
-  for (int i = 0; i < 36; ++i) acc[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // l: this thread's share of the row sum
   const int nkt = (T + BT - 1) / BT;
 #pragma unroll 1
@@ -293,8 +342,8 @@ __global__ void __launch_bounds__(128 * FWD_WGS, 1)
     arrive_tile();  // tile j is in; every warpgroup is done with tile j - 1
     if (j + 1 < nkt) {
       const uint32_t nx = ((j + 1) & 1) * tile_bytes(BT);
-      load_tile<BT, NT>(sK + nx, k, rs, (j + 1) * BT, T, tid);
-      load_tile<BT, NT>(sV + nx, v, rs, (j + 1) * BT, T, tid);
+      load_tile<D, BT, NT>(sK + nx, k, rs, (j + 1) * BT, T, tid);
+      load_tile<D, BT, NT>(sV + nx, v, rs, (j + 1) * BT, T, tid);
       cp_commit();
     }
     const uint32_t cur = (j & 1) * tile_bytes(BT);
@@ -331,7 +380,7 @@ __global__ void __launch_bounds__(128 * FWD_WGS, 1)
         }
       l[i] = l[i] * alpha + sum;
 #pragma unroll
-      for (int c = 0; c < CH; ++c) {
+      for (int c = 0; c < D / 8; ++c) {
         acc[4 * c + 2 * i] *= alpha;
         acc[4 * c + 2 * i + 1] *= alpha;
       }
@@ -339,7 +388,7 @@ __global__ void __launch_bounds__(128 * FWD_WGS, 1)
     uint32_t p[16];
     to_operand(s, p);
     wg_fence();
-    accumulate(acc, p, sV + cur);
+    accumulate<D>(acc, p, sV + cur);
     wg_commit();
     wg_wait();
     reg_fence(acc);
@@ -354,21 +403,23 @@ __global__ void __launch_bounds__(128 * FWD_WGS, 1)
     const int r = r0 + lane / 4 + 8 * i;
     if (quad == 0 && r < T) lse[r] = m[i] * LN2 + logf(l[i]);
   }
-  store_rows(o, acc, inv, r0, T, rs, lane);
+  store_rows<D>(o, acc, inv, r0, T, rs, lane);
 }
 
-// q, k, v, o, dout, dq: (B, T, H, 72) bf16; lse, delta: (B, H, T) f32. Block (x, h, b): query rows
-// [ROWS·x, ROWS·x + ROWS), ROWS = 64 · DQ_WGS; writes δ of its rows, then dq.
-__global__ void __launch_bounds__(128 * DQ_WGS, 1)
+// q, k, v, o, dout, dq: (B, T, H, D) bf16; lse, delta: (B, H, T) f32. Block (x, h, b): query rows
+// [ROWS·x, ROWS·x + ROWS), ROWS = 64 · Plan<D>::DQ; writes δ of its rows, then dq.
+template <int D>
+__global__ void __launch_bounds__(128 * Plan<D>::DQ, 1)
     full_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
                    const bf16* __restrict__ o, const bf16* __restrict__ dout, const float* __restrict__ lse,
                    bf16* __restrict__ dq, float* __restrict__ delta, int T, int H, float scale) {
-  constexpr int NT = 128 * DQ_WGS, ROWS = 64 * DQ_WGS;
+  constexpr int WGS = Plan<D>::DQ, NT = 128 * WGS, ROWS = 64 * WGS;
+  using Smem = DqSmem<WGS>;
   extern __shared__ __align__(1024) unsigned char smem[];
   const int tid = threadIdx.x, wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32, quad = lane % 4;
   const int h = blockIdx.y, q0 = blockIdx.x * ROWS;
-  const long long rs = (long long)H * FULL_D;
-  const size_t head = (size_t)blockIdx.z * T * rs + (size_t)h * FULL_D;
+  const long long rs = (long long)H * D;
+  const size_t head = (size_t)blockIdx.z * T * rs + (size_t)h * D;
   q += head;
   k += head;
   v += head;
@@ -377,19 +428,19 @@ __global__ void __launch_bounds__(128 * DQ_WGS, 1)
   dq += head;
   lse += ((size_t)blockIdx.z * H + h) * T;
   delta += ((size_t)blockIdx.z * H + h) * T;
-  const uint32_t sQ = smem_u32(smem), sDO = sQ + DqSmem::DO, sK = sQ + DqSmem::K, sV = sQ + DqSmem::V;
+  const uint32_t sQ = smem_u32(smem), sDO = sQ + Smem::DO, sK = sQ + Smem::K, sV = sQ + Smem::V;
 
-  zero_pad<ROWS, NT>(smem, tid);
-  zero_pad<ROWS, NT>(smem + DqSmem::DO, tid);
+  zero_pad<D, ROWS, NT>(smem, tid);
+  zero_pad<D, ROWS, NT>(smem + Smem::DO, tid);
 #pragma unroll
   for (int st = 0; st < 2; ++st) {
-    zero_pad<BT, NT>(smem + DqSmem::K + st * tile_bytes(BT), tid);
-    zero_pad<BT, NT>(smem + DqSmem::V + st * tile_bytes(BT), tid);
+    zero_pad<D, BT, NT>(smem + Smem::K + st * tile_bytes(BT), tid);
+    zero_pad<D, BT, NT>(smem + Smem::V + st * tile_bytes(BT), tid);
   }
-  load_tile<ROWS, NT>(sQ, q, rs, q0, T, tid);
-  load_tile<ROWS, NT>(sDO, dout, rs, q0, T, tid);
-  load_tile<BT, NT>(sK, k, rs, 0, T, tid);
-  load_tile<BT, NT>(sV, v, rs, 0, T, tid);
+  load_tile<D, ROWS, NT>(sQ, q, rs, q0, T, tid);
+  load_tile<D, ROWS, NT>(sDO, dout, rs, q0, T, tid);
+  load_tile<D, BT, NT>(sK, k, rs, 0, T, tid);
+  load_tile<D, BT, NT>(sV, v, rs, 0, T, tid);
   cp_commit();
 
   // While the first tiles load: δ = rowsum(dO ⊙ O) and lse (log2 units) of the thread's two rows;
@@ -401,7 +452,7 @@ __global__ void __launch_bounds__(128 * DQ_WGS, 1)
     const int r = r0 + lane / 4 + 8 * i;
     float a = 0.f;
     if (r < T) {
-      for (int c = quad; c < CH; c += 4) {
+      for (int c = quad; c < D / 8; c += 4) {
         const uint4 ov = *reinterpret_cast<const uint4*>(o + (size_t)r * rs + 8 * c);
         const uint4 dv = *reinterpret_cast<const uint4*>(dout + (size_t)r * rs + 8 * c);
         const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
@@ -421,17 +472,17 @@ __global__ void __launch_bounds__(128 * DQ_WGS, 1)
   }
 
   const float sl2 = scale * LOG2E;
-  float acc[36];
+  float acc[D / 2];
 #pragma unroll
-  for (int i = 0; i < 36; ++i) acc[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   const int nkt = (T + BT - 1) / BT;
 #pragma unroll 1
   for (int j = 0; j < nkt; ++j) {
     arrive_tile();
     if (j + 1 < nkt) {
       const uint32_t nx = ((j + 1) & 1) * tile_bytes(BT);
-      load_tile<BT, NT>(sK + nx, k, rs, (j + 1) * BT, T, tid);
-      load_tile<BT, NT>(sV + nx, v, rs, (j + 1) * BT, T, tid);
+      load_tile<D, BT, NT>(sK + nx, k, rs, (j + 1) * BT, T, tid);
+      load_tile<D, BT, NT>(sV + nx, v, rs, (j + 1) * BT, T, tid);
       cp_commit();
     }
     const uint32_t cur = (j & 1) * tile_bytes(BT);
@@ -455,13 +506,13 @@ __global__ void __launch_bounds__(128 * DQ_WGS, 1)
     uint32_t ds[16];
     to_operand(s, ds);
     wg_fence();
-    accumulate(acc, ds, sK + cur);
+    accumulate<D>(acc, ds, sK + cur);
     wg_commit();
     wg_wait();
     reg_fence(acc);
   }
   const float one[2] = {1.f, 1.f};
-  store_rows(dq, acc, one, r0, T, rs, lane);
+  store_rows<D>(dq, acc, one, r0, T, rs, lane);
 }
 
 // Rows [r0, r0 + BT) of a (B, H, T) f32 residual of one head into shared memory; threads [0, BT).
@@ -470,18 +521,20 @@ __device__ __forceinline__ void load_rowvals(uint32_t dst, const float* __restri
   cp_async4(dst + 4 * t, src + (r < T ? r : 0), r < T);
 }
 
-// q, k, v, dout, dk, dv: (B, T, H, 72) bf16; lse, delta: (B, H, T) f32. Block (x, h, b): key rows
-// [ROWS·x, ROWS·x + ROWS), ROWS = 64 · KV_WGS, over every query tile.
-__global__ void __launch_bounds__(128 * KV_WGS, 1)
+// q, k, v, dout, dk, dv: (B, T, H, D) bf16; lse, delta: (B, H, T) f32. Block (x, h, b): key rows
+// [ROWS·x, ROWS·x + ROWS), ROWS = 64 · Plan<D>::KV, over every query tile.
+template <int D>
+__global__ void __launch_bounds__(128 * Plan<D>::KV, 1)
     full_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
                      const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
                      bf16* __restrict__ dk, bf16* __restrict__ dv, int T, int H, float scale) {
-  constexpr int NT = 128 * KV_WGS, ROWS = 64 * KV_WGS;
+  constexpr int WGS = Plan<D>::KV, NT = 128 * WGS, ROWS = 64 * WGS;
+  using Smem = DkdvSmem<WGS>;
   extern __shared__ __align__(1024) unsigned char smem[];
   const int tid = threadIdx.x, wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32, quad = lane % 4;
   const int h = blockIdx.y, k0 = blockIdx.x * ROWS;
-  const long long rs = (long long)H * FULL_D;
-  const size_t head = (size_t)blockIdx.z * T * rs + (size_t)h * FULL_D;
+  const long long rs = (long long)H * D;
+  const size_t head = (size_t)blockIdx.z * T * rs + (size_t)h * D;
   q += head;
   k += head;
   v += head;
@@ -490,39 +543,39 @@ __global__ void __launch_bounds__(128 * KV_WGS, 1)
   dv += head;
   lse += ((size_t)blockIdx.z * H + h) * T;
   delta += ((size_t)blockIdx.z * H + h) * T;
-  const uint32_t sK = smem_u32(smem), sV = sK + DkdvSmem::V, sQ = sK + DkdvSmem::Q, sDO = sK + DkdvSmem::DO;
-  const float* lse_s = reinterpret_cast<const float*>(smem + DkdvSmem::LSE);
-  const float* dl_s = reinterpret_cast<const float*>(smem + DkdvSmem::DL);
+  const uint32_t sK = smem_u32(smem), sV = sK + Smem::V, sQ = sK + Smem::Q, sDO = sK + Smem::DO;
+  const float* lse_s = reinterpret_cast<const float*>(smem + Smem::LSE);
+  const float* dl_s = reinterpret_cast<const float*>(smem + Smem::DL);
 
-  zero_pad<ROWS, NT>(smem, tid);
-  zero_pad<ROWS, NT>(smem + DkdvSmem::V, tid);
+  zero_pad<D, ROWS, NT>(smem, tid);
+  zero_pad<D, ROWS, NT>(smem + Smem::V, tid);
 #pragma unroll
   for (int st = 0; st < 2; ++st) {
-    zero_pad<BT, NT>(smem + DkdvSmem::Q + st * tile_bytes(BT), tid);
-    zero_pad<BT, NT>(smem + DkdvSmem::DO + st * tile_bytes(BT), tid);
+    zero_pad<D, BT, NT>(smem + Smem::Q + st * tile_bytes(BT), tid);
+    zero_pad<D, BT, NT>(smem + Smem::DO + st * tile_bytes(BT), tid);
   }
-  load_tile<ROWS, NT>(sK, k, rs, k0, T, tid);
-  load_tile<ROWS, NT>(sV, v, rs, k0, T, tid);
-  load_tile<BT, NT>(sQ, q, rs, 0, T, tid);
-  load_tile<BT, NT>(sDO, dout, rs, 0, T, tid);
-  if (tid < BT) load_rowvals(sK + DkdvSmem::LSE, lse, 0, T, tid);
-  else if (tid < 2 * BT) load_rowvals(sK + DkdvSmem::DL, delta, 0, T, tid - BT);
+  load_tile<D, ROWS, NT>(sK, k, rs, k0, T, tid);
+  load_tile<D, ROWS, NT>(sV, v, rs, k0, T, tid);
+  load_tile<D, BT, NT>(sQ, q, rs, 0, T, tid);
+  load_tile<D, BT, NT>(sDO, dout, rs, 0, T, tid);
+  if (tid < BT) load_rowvals(sK + Smem::LSE, lse, 0, T, tid);
+  else if (tid < 2 * BT) load_rowvals(sK + Smem::DL, delta, 0, T, tid - BT);
   cp_commit();
 
   const float sl2 = scale * LOG2E;
-  float dk_acc[36], dv_acc[36];
+  float dk_acc[D / 2], dv_acc[D / 2];
 #pragma unroll
-  for (int i = 0; i < 36; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
   const int nqt = (T + BT - 1) / BT;
 #pragma unroll 1
   for (int j = 0; j < nqt; ++j) {
     arrive_tile();
     if (j + 1 < nqt) {
       const int nx = (j + 1) & 1, r1 = (j + 1) * BT;
-      load_tile<BT, NT>(sQ + nx * tile_bytes(BT), q, rs, r1, T, tid);
-      load_tile<BT, NT>(sDO + nx * tile_bytes(BT), dout, rs, r1, T, tid);
-      if (tid < BT) load_rowvals(sK + DkdvSmem::LSE + nx * BT * 4, lse, r1, T, tid);
-      else if (tid < 2 * BT) load_rowvals(sK + DkdvSmem::DL + nx * BT * 4, delta, r1, T, tid - BT);
+      load_tile<D, BT, NT>(sQ + nx * tile_bytes(BT), q, rs, r1, T, tid);
+      load_tile<D, BT, NT>(sDO + nx * tile_bytes(BT), dout, rs, r1, T, tid);
+      if (tid < BT) load_rowvals(sK + Smem::LSE + nx * BT * 4, lse, r1, T, tid);
+      else if (tid < 2 * BT) load_rowvals(sK + Smem::DL + nx * BT * 4, delta, r1, T, tid - BT);
       cp_commit();
     }
     const int st = j & 1;
@@ -559,8 +612,8 @@ __global__ void __launch_bounds__(128 * KV_WGS, 1)
     to_operand(s, pa);
     to_operand(dp, da);
     wg_fence();
-    accumulate(dv_acc, pa, tDO);
-    accumulate(dk_acc, da, tQ);
+    accumulate<D>(dv_acc, pa, tDO);
+    accumulate<D>(dk_acc, da, tQ);
     wg_commit();
     wg_wait();
     reg_fence(dv_acc);
@@ -568,12 +621,12 @@ __global__ void __launch_bounds__(128 * KV_WGS, 1)
   }
   const int r0 = k0 + wg * 64 + warp * 16;
   const float one[2] = {1.f, 1.f};
-  store_rows(dk, dk_acc, one, r0, T, rs, lane);
-  store_rows(dv, dv_acc, one, r0, T, rs, lane);
+  store_rows<D>(dk, dk_acc, one, r0, T, rs, lane);
+  store_rows<D>(dv, dv_acc, one, r0, T, rs, lane);
 }
 
 bool shape_ok(int B, int T, int H, int D) {
-  return B > 0 && B <= 65535 && T > 0 && H > 0 && H <= 65535 && D == FULL_D;
+  return B > 0 && B <= 65535 && T > 0 && H > 0 && H <= 65535 && (D == 72 || D == 80);
 }
 
 // Launches `kernel` with `wgs` warpgroups per block, each block on 64 · wgs rows of one (b, h).
@@ -586,36 +639,60 @@ int launch(Kernel kernel, int wgs, int smem_bytes, int B, int T, int H, void* st
   return (int)cudaGetLastError();
 }
 
+// One launch of each kernel at head dim D, with its plan's warpgroups and shared memory.
+template <int D>
+int fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B, int T, int H, float scale,
+        void* stream) {
+  constexpr int WGS = Plan<D>::FWD;
+  return launch(full_fwd_kernel<D>, WGS, FwdSmem<WGS>::bytes, B, T, H, stream, static_cast<const bf16*>(q),
+                static_cast<const bf16*>(k), static_cast<const bf16*>(v), static_cast<bf16*>(o),
+                static_cast<float*>(lse), T, H, scale);
+}
+
+template <int D>
+int bwd_dq(const void* q, const void* k, const void* v, const void* o, const void* dout, const void* lse, void* dq,
+           void* delta, int B, int T, int H, float scale, void* stream) {
+  constexpr int WGS = Plan<D>::DQ;
+  return launch(full_dq_kernel<D>, WGS, DqSmem<WGS>::bytes, B, T, H, stream, static_cast<const bf16*>(q),
+                static_cast<const bf16*>(k), static_cast<const bf16*>(v), static_cast<const bf16*>(o),
+                static_cast<const bf16*>(dout), static_cast<const float*>(lse), static_cast<bf16*>(dq),
+                static_cast<float*>(delta), T, H, scale);
+}
+
+template <int D>
+int bwd_dkdv(const void* q, const void* k, const void* v, const void* dout, const void* lse, const void* delta,
+             void* dk, void* dv, int B, int T, int H, float scale, void* stream) {
+  constexpr int WGS = Plan<D>::KV;
+  return launch(full_dkdv_kernel<D>, WGS, DkdvSmem<WGS>::bytes, B, T, H, stream, static_cast<const bf16*>(q),
+                static_cast<const bf16*>(k), static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+                static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<bf16*>(dk),
+                static_cast<bf16*>(dv), T, H, scale);
+}
+
 }  // namespace
 
 // Each entry launches on `stream` and returns cudaGetLastError() (0 on success). Non-causal over B
-// rows of T real tokens, D = 72 only, all tensors contiguous: q, k, v, o, dout, dq, dk, dv are
+// rows of T real tokens, D = 72 or 80, all tensors contiguous: q, k, v, o, dout, dq, dk, dv are
 // (B, T, H, D) bf16; lse and delta (B, H, T) f32. dq writes delta, which dk/dv reads.
 
 extern "C" int flash_full_fwd_bf16(const void* q, const void* k, const void* v, void* o, void* lse, int B, int T,
                                    int H, int D, float scale, void* stream) {
   if (!shape_ok(B, T, H, D)) return (int)cudaErrorInvalidValue;
-  return launch(full_fwd_kernel, FWD_WGS, FwdSmem::bytes, B, T, H, stream, static_cast<const bf16*>(q),
-                static_cast<const bf16*>(k), static_cast<const bf16*>(v), static_cast<bf16*>(o),
-                static_cast<float*>(lse), T, H, scale);
+  return D == 72 ? fwd<72>(q, k, v, o, lse, B, T, H, scale, stream) : fwd<80>(q, k, v, o, lse, B, T, H, scale, stream);
 }
 
 extern "C" int flash_full_bwd_dq_bf16(const void* q, const void* k, const void* v, const void* o,
                                       const void* dout, const void* lse, void* dq, void* delta, int B, int T, int H,
                                       int D, float scale, void* stream) {
   if (!shape_ok(B, T, H, D)) return (int)cudaErrorInvalidValue;
-  return launch(full_dq_kernel, DQ_WGS, DqSmem::bytes, B, T, H, stream, static_cast<const bf16*>(q),
-                static_cast<const bf16*>(k), static_cast<const bf16*>(v), static_cast<const bf16*>(o),
-                static_cast<const bf16*>(dout), static_cast<const float*>(lse), static_cast<bf16*>(dq),
-                static_cast<float*>(delta), T, H, scale);
+  return D == 72 ? bwd_dq<72>(q, k, v, o, dout, lse, dq, delta, B, T, H, scale, stream)
+                 : bwd_dq<80>(q, k, v, o, dout, lse, dq, delta, B, T, H, scale, stream);
 }
 
 extern "C" int flash_full_bwd_dkdv_bf16(const void* q, const void* k, const void* v, const void* dout,
                                         const void* lse, const void* delta, void* dk, void* dv, int B, int T, int H,
                                         int D, float scale, void* stream) {
   if (!shape_ok(B, T, H, D)) return (int)cudaErrorInvalidValue;
-  return launch(full_dkdv_kernel, KV_WGS, DkdvSmem::bytes, B, T, H, stream, static_cast<const bf16*>(q),
-                static_cast<const bf16*>(k), static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-                static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<bf16*>(dk),
-                static_cast<bf16*>(dv), T, H, scale);
+  return D == 72 ? bwd_dkdv<72>(q, k, v, dout, lse, delta, dk, dv, B, T, H, scale, stream)
+                 : bwd_dkdv<80>(q, k, v, dout, lse, delta, dk, dv, B, T, H, scale, stream);
 }

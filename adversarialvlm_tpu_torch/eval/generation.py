@@ -10,6 +10,7 @@ import torch
 
 from adversarialvlm_tpu_torch.models.generate import chunked_decode, pick_decode_config
 from adversarialvlm_tpu_torch.ops.image import from_pil_array
+from adversarialvlm_tpu_torch.processors import normalize_pixel_inputs
 from adversarialvlm_tpu_torch.utils.batching import pad_to_buckets
 from adversarialvlm_tpu_torch.utils.images import read_rgb, resize_bilinear
 
@@ -57,7 +58,8 @@ def _stack_processed(victim, images_chw: np.ndarray) -> dict:
     token row. Eager PyTorch needs no program cache."""
     proc = victim.adv_processor
     device = victim.bundle.device
-    per_image = [proc.process(torch.as_tensor(img, device=device)) for img in images_chw]
+    per_image = [normalize_pixel_inputs(victim.bundle.family, proc.process(torch.as_tensor(img, device=device)))
+                 for img in images_chw]
     return {k: torch.cat([p[k] for p in per_image], dim=0) for k in per_image[0]}
 
 
@@ -85,7 +87,8 @@ def decode_chunk_texts(bundle, adv_inputs, questions, start, bs, *, max_new_toke
     last chunk repeating its last row to fill ``bs``. ``text_only`` drops the image span from the
     prompts, ``assistant_prefill`` appends text after the generation tag. ``decode_full`` decodes
     prompt + generation (train_test.py:49), else the generation only (SafeBench_universal.py:87);
-    special tokens are skipped either way."""
+    special tokens are skipped either way. The bundle's ``decode_extras`` of the padded batch
+    (qwen2vl's per-row rope_delta) ride with every forward of the decode."""
     tok = adv_inputs.tokenizer
     chunk = list(questions[start : start + bs])
     real = len(chunk)
@@ -102,10 +105,13 @@ def decode_chunk_texts(bundle, adv_inputs, questions, start, bs, *, max_new_toke
         inputs["input_ids"], inputs["attention_mask"],
         adv_inputs.pad_token_id, len_multiple=64, batch_to=bs,
     )
+    extras = {k: torch.as_tensor(v, device=bundle.device)
+              for k, v in bundle.decode_extras(ids_np, am_np).items()}
     gen = bundle.generate(
         torch.as_tensor(ids_np, device=bundle.device),
         torch.as_tensor(am_np, device=bundle.device),
         pixel_inputs=processed,
+        extras=extras,
         max_new_tokens=max_new_tokens,
         min_new_tokens=min_new_tokens,
         pad_token_id=adv_inputs.pad_token_id,
@@ -172,7 +178,8 @@ def generate_answers(
     bundle, adv_inputs = victim.bundle, victim.adv_inputs
     processed = None
     if image_chw is not None and not text_only:
-        processed = victim.adv_processor.process(torch.as_tensor(image_chw, device=bundle.device))
+        processed = normalize_pixel_inputs(
+            bundle.family, victim.adv_processor.process(torch.as_tensor(image_chw, device=bundle.device)))
     batch_size, cache_dtype = _pick_decode(
         bundle, adv_inputs, questions, max_new_tokens, batch_size, cache_dtype,
         text_only=text_only,

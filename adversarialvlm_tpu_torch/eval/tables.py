@@ -82,6 +82,13 @@ def read_table(path: str, sep: str = ",") -> tuple[list[str], dict[str, list]]:
     return names, cols
 
 
+def read_rows(path: str, sep: str = ",") -> list[dict]:
+    """``pd.read_csv(path, sep=sep).to_dict("records")``: one {column: value} a data row."""
+    names, cols = read_table(path, sep)
+    n = len(cols[names[0]]) if names else 0
+    return [{name: cols[name][i] for name in names} for i in range(n)]
+
+
 def read_column(path: str) -> list:
     """``pd.read_csv(path, names=[0])[0].tolist()``: one column, no header. Rows of k fields make
     the first k - 1 the index and the last the column, as pandas does when the first row has more

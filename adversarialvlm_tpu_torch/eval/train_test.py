@@ -11,6 +11,7 @@ import torch
 
 from adversarialvlm_tpu_torch.eval.generation import _pick_decode, decode_chunk_texts
 from adversarialvlm_tpu_torch.models.generate import chunked_decode, param_bytes
+from adversarialvlm_tpu_torch.processors import normalize_pixel_inputs
 
 # heuristic refuse keywords (train_test.py:40)
 REFUSE_KEYWORDS = [
@@ -57,7 +58,8 @@ def run_model_test(
             bundle, adv_inputs, questions, max_new_tokens, batch_size, dtypes[i],
             reserved_bytes=sum(model_bytes) - model_bytes[i],
         )
-        processed = adv_proc.process(torch.as_tensor(image_chw, device=bundle.device))
+        processed = normalize_pixel_inputs(
+            bundle.family, adv_proc.process(torch.as_tensor(image_chw, device=bundle.device)))
 
         def decode_chunk(start: int, bs_try: int) -> list[str]:
             return decode_chunk_texts(

@@ -1,5 +1,5 @@
-"""Model configurations of the families the port covers: LLaVA-1.5-7B, Gemma-3-4B-it and the
-tiny ones the tests use. Counterpart of adversarialvlm_tpu/models/configs.py, with the fields
+"""Model configurations of the families the port covers: LLaVA-1.5-7B, Gemma-3-4B-it, Qwen2-VL
+(models/qwen2vl.py holds its 2B, 7B and tiny configurations) and the tiny ones the tests use. Counterpart of adversarialvlm_tpu/models/configs.py, with the fields
 these configurations read.
 """
 
@@ -23,6 +23,9 @@ class TextConfig:
     rope_theta: float = 10000.0
     max_position_embeddings: int = 4096
     tie_word_embeddings: bool = False
+    qkv_bias: bool = False  # qwen2: biases on the q, k and v projections
+    # qwen2-vl multimodal rope: head_dim/2 split into (t, h, w) sections
+    mrope_section: tuple[int, ...] | None = None
     # gemma-style extras
     embed_scale: bool = False  # multiply embeddings by sqrt(hidden)
     # gemma rms-norm parameterization (weight stored as w - 1, applied as 1 + w); None follows
@@ -58,6 +61,11 @@ class VisionConfig:
     layer_norm_eps: float = 1e-5
     num_channels: int = 3
     mm_tokens_per_image: int = 256  # gemma3 (siglip): tokens after the projector's avg-pool
+    # qwen2-vl vision extras: the tower's width (hidden_size is the merger's output, the text
+    # width), the 2×2 patch merge and the temporal patch of 2 frames
+    spatial_merge_size: int = 2
+    temporal_patch_size: int = 2
+    embed_dim: int | None = None
 
 
 @dataclasses.dataclass(frozen=True)

@@ -201,6 +201,7 @@ def generate_core(
     cache_dtype,
     logits_last_k: int | None = None,
     constraint=None,
+    extras: dict | None = None,
 ) -> torch.Tensor:
     """Greedy generation: prefill at cache index 0, then one cached step per token. Returns
     (B, max_new_tokens) token ids; a row that emitted an EOS id gets ``pad_token_id`` after it.
@@ -209,14 +210,16 @@ def generate_core(
     pad where finished, the FSM advance, then the finished update.
 
     ``forward_fn(params, input_ids, attention_mask, pixel_inputs, *, positions, kv_caches,
-    cache_index, kv_attention_mask, kv_positions, [logits_last_k]) -> logits``, the caches updated
-    in place; ``pixel_inputs`` goes to the prefill only. The last token needs no forward after
+    cache_index, kv_attention_mask, kv_positions, [logits_last_k], **extras) -> logits``, the caches
+    updated in place; ``pixel_inputs`` goes to the prefill only, ``extras`` (qwen2vl's per-row
+    rope_delta) to the prefill and every cached step (generate.py:360-398). The last token needs no forward after
     it, so a call runs max_new_tokens forwards (the JAX scan runs one more, unused)."""
     b, t = input_ids.shape
     dev = input_ids.device
     caches = make_caches(b, t + max_new_tokens, cache_dtype) if make_caches else None
     positions, kv_mask, kv_positions = _prefill_aux(attention_mask, max_new_tokens)
     opt_kw = {} if logits_last_k is None else {"logits_last_k": logits_last_k}
+    opt_kw.update(extras or {})
     logits = forward_fn(
         params, input_ids, attention_mask, pixel_inputs,
         positions=positions, kv_caches=caches, cache_index=0,

@@ -1,5 +1,5 @@
 """Llama-family causal text decoder (the LLaVA / Vicuna stack and, through config switches, the
-Gemma-3 one), unrolled over a list of layers. Counterpart of adversarialvlm_tpu/models/llama.py;
+Gemma-3 and Qwen2 ones: qkv biases, Qwen2-VL's multimodal rope), unrolled over a list of layers. Counterpart of adversarialvlm_tpu/models/llama.py;
 params mirror HF naming: embed_tokens.weight, layers[i].{input_layernorm,
 self_attn.{q,k,v,o}_proj, post_attention_layernorm, mlp.{gate,up,down}_proj}, norm, lm_head, and
 for gemma3 self_attn.{q,k}_norm and {pre,post}_feedforward_layernorm.
@@ -30,6 +30,19 @@ def embed(params: dict, input_ids: torch.Tensor, cfg: TextConfig) -> torch.Tenso
         # the scale is rounded to the activation dtype first, as in the JAX package (llama.py:32)
         x = x * torch.tensor(cfg.hidden_size**0.5, dtype=x.dtype, device=x.device)
     return x
+
+
+def mrope_cos_sin(rope_positions: torch.Tensor, cfg: TextConfig, theta: float):
+    """Qwen2-VL's M-RoPE (llama.py:37-51): rope_positions (3, B, T) hold the (t, h, w) components;
+    the head_dim/2 frequency axis is split into ``mrope_section`` chunks, chunk i taking its angles
+    from component i % 3. Returns cos/sin (B, T, head_dim/2) in f32."""
+    cos3, sin3 = rope_cos_sin(rope_positions, cfg.head_dim_, theta)  # (3, B, T, D/2)
+    parts_c, parts_s, off = [], [], 0
+    for i, w in enumerate(cfg.mrope_section):
+        parts_c.append(cos3[i % 3, :, :, off : off + w])
+        parts_s.append(sin3[i % 3, :, :, off : off + w])
+        off += w
+    return torch.cat(parts_c, dim=-1), torch.cat(parts_s, dim=-1)
 
 
 def _layer_rope_theta(cfg: TextConfig, layer_idx: int) -> float:
@@ -79,6 +92,7 @@ def forward(
     kv_positions: torch.Tensor | None = None,
     bidir_mask: torch.Tensor | None = None,
     k_bidir_mask: torch.Tensor | None = None,
+    rope_positions: torch.Tensor | None = None,
     logits_last_k: int | None = None,
 ) -> torch.Tensor:
     """Causal LM forward over left-padded rows; attention_mask (B, T) over the query tokens,
@@ -87,7 +101,9 @@ def forward(
     ``bidir_mask`` (B, T) marks gemma3's image tokens, which attend each other both ways
     (``k_bidir_mask`` covers the whole cache at prefill). Each layer takes its own rope theta and
     sliding window; a layer with a window or the image block is ``masked`` and takes the plain
-    route. Returns logits (B, T or logits_last_k, vocab)."""
+    route. With ``cfg.mrope_section`` (Qwen2-VL) the rope angles come from ``rope_positions``
+    (3, B, T), or from ``positions`` in all three components when None (text only). Returns logits
+    (B, T or logits_last_k, vocab)."""
     x = embed(params, input_ids, cfg) if inputs_embeds is None else inputs_embeds
     b, t, _ = x.shape
     if attention_mask is None:
@@ -100,6 +116,11 @@ def forward(
         raise ValueError("kv_caches need a cache_index")
 
     def cos_sin(theta):
+        if cfg.mrope_section is not None:
+            rp = rope_positions
+            if rp is None:  # text only: the three components equal
+                rp = positions[None].expand(3, *positions.shape)
+            return mrope_cos_sin(rp, cfg, theta)
         pos = positions
         if cfg.rope_linear_factor is not None and theta == cfg.rope_theta:
             # gemma3: linear scaling on the global layers' rope only, positions / factor in f32
@@ -151,14 +172,17 @@ def _head(params, cfg: TextConfig, x, logits_last_k=None):
 
 
 def init_params(generator: torch.Generator, cfg: TextConfig, dtype, device) -> dict:
-    """Random weights with the JAX package's scales: dense normal · in^-0.5, embeddings 0.02,
-    lm_head normal · hidden^-0.5, norms one."""
+    """Random weights with the JAX package's scales: dense normal · in^-0.5 (the q/k/v biases of
+    ``qkv_bias`` zero), embeddings 0.02, lm_head normal · hidden^-0.5, norms one."""
 
     def normal(shape, scale):
         return torch.randn(shape, generator=generator, dtype=dtype, device=device) * scale
 
-    def dense(out_d, in_d):
-        return {"weight": normal((out_d, in_d), in_d**-0.5)}
+    def dense(out_d, in_d, bias=False):
+        p = {"weight": normal((out_d, in_d), in_d**-0.5)}
+        if bias:
+            p["bias"] = torch.zeros((out_d,), dtype=dtype, device=device)
+        return p
 
     def norm_w():
         return {"weight": torch.ones((cfg.hidden_size,), dtype=dtype, device=device)}
@@ -169,9 +193,9 @@ def init_params(generator: torch.Generator, cfg: TextConfig, dtype, device) -> d
             "input_layernorm": norm_w(),
             "post_attention_layernorm": norm_w(),
             "self_attn": {
-                "q_proj": dense(cfg.num_heads * hd, d),
-                "k_proj": dense(cfg.num_kv_heads * hd, d),
-                "v_proj": dense(cfg.num_kv_heads * hd, d),
+                "q_proj": dense(cfg.num_heads * hd, d, cfg.qkv_bias),
+                "k_proj": dense(cfg.num_kv_heads * hd, d, cfg.qkv_bias),
+                "v_proj": dense(cfg.num_kv_heads * hd, d, cfg.qkv_bias),
                 "o_proj": dense(d, cfg.num_heads * hd),
             },
             "mlp": {

@@ -1,5 +1,5 @@
-"""HF checkpoint directory -> the port's parameter tree, for the llava and gemma3 families.
-Counterpart of adversarialvlm_tpu/models/loading.py (its llava and gemma3 halves).
+"""HF checkpoint directory -> the port's parameter tree, for the llava, gemma3 and qwen2vl families.
+Counterpart of adversarialvlm_tpu/models/loading.py (its llava, gemma3 and qwen2vl parts).
 
 Shards are read by the port's own safetensors reader (utils/safetensors.py), each tensor copied to
 its device in turn. Both pre- and post-4.52 transformers key layouts load (``language_model.
@@ -73,6 +73,26 @@ def _normalize_gemma3_key(key: str) -> str:
     raise _unmapped("gemma3", key)
 
 
+def _normalize_qwen2vl_key(key: str) -> str:
+    """An HF qwen2-vl key as a dotted path of the tree (loading.py:289-306): old-style flat text keys
+    (``model.layers.*``, ``lm_head``) and new-style ``model.language_model.*`` / ``model.visual.*``
+    both load; the tower's ``patch_embed.proj`` and ``merger.mlp.{0,2}`` are renamed."""
+    k = key
+    if k.startswith("model."):
+        k = k[len("model."):]
+    k = k.replace("language_model.model.", "language_model.")
+    if k.startswith("lm_head."):
+        return "language_model." + k
+    if k.startswith("visual."):
+        k = k.replace("patch_embed.proj.", "patch_embed.")
+        return k.replace("merger.mlp.0.", "merger.mlp_0.").replace("merger.mlp.2.", "merger.mlp_2.")
+    if k.startswith("language_model."):
+        return k
+    if k.startswith("layers.") or k in ("embed_tokens.weight", "norm.weight"):
+        return "language_model." + k
+    raise _unmapped("qwen2vl", key)
+
+
 def _listify_layers(tree):
     """{'layers': {'0': {...}, '1': {...}}} -> [{...}, {...}]."""
     if not isinstance(tree, dict):
@@ -80,7 +100,7 @@ def _listify_layers(tree):
     out = {}
     for k, v in tree.items():
         v = _listify_layers(v)
-        if k == "layers" and isinstance(v, dict) and all(s.isdigit() for s in v):
+        if k in ("layers", "blocks") and isinstance(v, dict) and all(s.isdigit() for s in v):
             if sorted(map(int, v)) != list(range(len(v))):
                 raise ValueError(f"layer indices {sorted(map(int, v))} are not 0..{len(v) - 1}")
             v = [v[str(i)] for i in range(len(v))]
@@ -104,6 +124,18 @@ def convert_llava_state_dict(sd) -> dict:
 
 def convert_gemma3_state_dict(sd) -> dict:
     return _convert(sd, _normalize_gemma3_key)
+
+
+def convert_qwen2vl_state_dict(sd) -> dict:
+    """The tree of an HF qwen2-vl state dict's (key, tensor) pairs; the conv3d patch embed
+    (E, C, T, H, W) flattened to the (E, C·T·H·W) product the tower runs (loading.py:309-323)."""
+    def pairs():
+        for key, t in sd:
+            if _normalize_qwen2vl_key(key) == "visual.patch_embed.weight":
+                t = t.reshape(t.shape[0], -1)
+            yield key, t
+
+    return _convert(pairs(), _normalize_qwen2vl_key)
 
 
 def named_leaves(tree, prefix: str = ""):
@@ -306,6 +338,59 @@ def gemma3_config(path: str):
         **_eos_fields(_checkpoint_eos(path, raw)),
     )
     return cfg, "vision_config" in raw
+
+
+def qwen2vl_config(path: str):
+    """qwen2vl_2b() patched from the directory's config.json (loading.py:326-372): the text fields
+    at its top level, ``rope_scaling.mrope_section``, the tower under ``vision_config`` with its
+    own key names (depth, embed_dim, mlp_ratio; hidden_size the merger's output), and the eos ids
+    of generation_config.json."""
+    from adversarialvlm_tpu_torch.models.qwen2vl import qwen2vl_2b
+
+    cfg, raw = qwen2vl_2b(), _read_config(path)
+    if raw is None:
+        return cfg
+    text = _patch_text_cfg(cfg.text, raw)
+    rs = raw.get("rope_scaling") or {}
+    if rs.get("mrope_section"):
+        text = dataclasses.replace(text, mrope_section=tuple(rs["mrope_section"]))
+    vision = cfg.vision
+    vc = raw.get("vision_config") or {}
+    if vc:
+        embed_dim = vc.get("embed_dim", vision.embed_dim)
+        vision = dataclasses.replace(
+            vision,
+            hidden_size=vc.get("hidden_size", text.hidden_size),
+            embed_dim=embed_dim,
+            num_layers=vc.get("depth", vision.num_layers),
+            num_heads=vc.get("num_heads", vision.num_heads),
+            intermediate_size=vc.get("mlp_ratio", 4) * embed_dim,
+            patch_size=vc.get("patch_size", vision.patch_size),
+            spatial_merge_size=vc.get("spatial_merge_size", vision.spatial_merge_size),
+            temporal_patch_size=vc.get("temporal_patch_size", vision.temporal_patch_size),
+        )
+    return dataclasses.replace(
+        cfg,
+        text=text,
+        vision=vision,
+        image_token_id=raw.get("image_token_id", cfg.image_token_id),
+        dtype=raw.get("torch_dtype", cfg.dtype),
+        **_eos_fields(_checkpoint_eos(path, raw)),
+    )
+
+
+def load_qwen2vl(path: str, dtype=torch.bfloat16, device="cuda"):
+    """A local qwen2-vl HF checkpoint directory: (params on ``device``, patched VLMConfig). A tied
+    checkpoint's ``lm_head``, which the JAX loader loads and its head never reads, is dropped."""
+    from adversarialvlm_tpu_torch.models import qwen2vl
+
+    cfg = qwen2vl_config(path)
+    tree = convert_qwen2vl_state_dict(read_dir(path))
+    if cfg.text.tie_word_embeddings:
+        tree.get("language_model", {}).pop("lm_head", None)
+    params = to_device_tree(tree, dtype, device)
+    check_tree(params, qwen2vl.init_params(None, cfg, dtype, "meta"), path)
+    return params, cfg
 
 
 def load_llava(path: str, dtype=torch.bfloat16, device="cuda"):

@@ -1,6 +1,6 @@
 """Model bundles: config, params, a uniform forward and greedy decode, the one interface the
 attack and eval engines talk to. Counterpart of adversarialvlm_tpu/models/registry.py for the
-llava and gemma3 families."""
+llava, gemma3 and qwen2vl families."""
 
 from __future__ import annotations
 
@@ -11,6 +11,7 @@ import torch
 
 from adversarialvlm_tpu_torch.models import gemma3 as gemma3_model
 from adversarialvlm_tpu_torch.models import llava as llava_model
+from adversarialvlm_tpu_torch.models import qwen2vl as qwen2vl_model
 from adversarialvlm_tpu_torch.models.configs import VLMConfig
 from adversarialvlm_tpu_torch.models.generate import generate_core, make_kv_caches
 
@@ -25,6 +26,9 @@ class ModelBundle:
     forward: Callable
     device: torch.device
     eos_token_ids: tuple[int, ...] = ()
+    # (input_ids, attention_mask) of a prompt batch -> extra forward kwargs of every decode call
+    # (qwen2vl: each row's rope_delta); none for the other families
+    decode_extras: Callable = lambda ids, mask: {}
     # the distinct (batch, total length, cache dtype) of every generate call
     decode_configs: set = dataclasses.field(default_factory=set)
 
@@ -34,6 +38,7 @@ class ModelBundle:
         attention_mask: torch.Tensor,
         pixel_inputs=None,
         constraint=None,
+        extras: dict | None = None,
         *,
         max_new_tokens: int,
         min_new_tokens: int = 0,
@@ -44,14 +49,15 @@ class ModelBundle:
         """Greedy generation (generate.generate_core) over this bundle's forward and caches;
         the prefill scores only the last position. ``eos_token_ids=()`` decodes to the full
         length; None takes the bundle's. ``constraint``: the judge's judge.fsm.FSMConstraint, its
-        table on this bundle's device."""
+        table on this bundle's device. ``extras``: :attr:`decode_extras` of the prompt batch, passed
+        to the prefill and every cached step."""
         self.decode_configs.add((input_ids.shape[0], input_ids.shape[1] + max_new_tokens, cache_dtype))
         return generate_core(
             self.forward, self.make_caches, self.params, input_ids, attention_mask, pixel_inputs,
             max_new_tokens=max_new_tokens, min_new_tokens=min_new_tokens,
             eos_token_ids=eos_token_ids if eos_token_ids is not None else self.eos_token_ids,
             pad_token_id=pad_token_id, cache_dtype=cache_dtype, logits_last_k=1,
-            constraint=constraint,
+            constraint=constraint, extras=extras,
         )
 
     def make_caches(self, batch: int, total_len: int, dtype=torch.bfloat16):
@@ -67,16 +73,34 @@ class ModelBundle:
 
 # family -> model module with init_params(generator, cfg, dtype, device) and
 # forward(params, cfg, input_ids, attention_mask, pixel_values, logits_last_k=, **cache_kw)
-_MODELS = {"llava": llava_model, "gemma3": gemma3_model}
+_MODELS = {"llava": llava_model, "gemma3": gemma3_model, "qwen2vl": qwen2vl_model}
 
 
-def _forward(model, cfg: VLMConfig):
+def _forward(model, cfg: VLMConfig, grid_hw=None):
+    """The bundle's forward over the model module's; qwen2vl's takes the bundle's static grid and
+    the decode's ``rope_delta``."""
+    grid_kw = {"grid_hw": grid_hw} if model is qwen2vl_model else {}
+
     def fwd(params, input_ids, attention_mask, pixel_inputs=None, logits_last_k=None, **cache_kw):
         pv = pixel_inputs["pixel_values"] if pixel_inputs else None
         return model.forward(params, cfg, input_ids, attention_mask, pv,
-                             logits_last_k=logits_last_k, **cache_kw)
+                             logits_last_k=logits_last_k, **grid_kw, **cache_kw)
 
     return fwd
+
+
+def _qwen2vl_decode_extras(cfg: VLMConfig, grid_hw_merged):
+    """Each row's rope_delta from the concrete prompt batch (registry.py:195-211); {} for a batch
+    without image tokens, whose positions need no delta."""
+
+    def extras(ids, mask):
+        ids, mask = torch.as_tensor(ids), torch.as_tensor(mask)
+        if not bool((ids == cfg.image_token_id).any()):
+            return {}
+        _, _, delta = qwen2vl_model.mrope_position_ids(ids, mask, cfg.image_token_id, grid_hw_merged)
+        return {"rope_delta": delta}
+
+    return extras
 
 
 def make_bundle(
@@ -87,11 +111,12 @@ def make_bundle(
     params: dict | None = None,
     seed: int = 0,
     dtype=torch.float32,
+    grid_hw: tuple[int, int] | None = None,
 ) -> ModelBundle:
     """A bundle over ``params``, or over random weights drawn from a ``torch.Generator`` on
     ``device`` seeded with ``seed``. Weights never require grad: the attack differentiates
     w.r.t. the image alone. Stop tokens: the config's eos and its extra eos ids (gemma3: 106 and
-    1)."""
+    1). qwen2vl's bundle is built for one static vision grid ``grid_hw`` (patches)."""
     model = _MODELS.get(family)
     if model is None:
         raise NotImplementedError(
@@ -100,8 +125,14 @@ def make_bundle(
     if params is None:
         gen = torch.Generator(device=device).manual_seed(seed)
         params = model.init_params(gen, cfg, dtype, device)
-    return ModelBundle(name, family, cfg, params, _forward(model, cfg), torch.device(device),
-                       eos_token_ids=(cfg.eos_token_id, *cfg.extra_eos_token_ids))
+    extras = {}
+    if family == "qwen2vl":
+        if grid_hw is None:
+            raise ValueError("qwen2vl needs the static vision grid (h, w)")
+        merge = cfg.vision.spatial_merge_size
+        extras["decode_extras"] = _qwen2vl_decode_extras(cfg, (grid_hw[0] // merge, grid_hw[1] // merge))
+    return ModelBundle(name, family, cfg, params, _forward(model, cfg, grid_hw), torch.device(device),
+                       eos_token_ids=(cfg.eos_token_id, *cfg.extra_eos_token_ids), **extras)
 
 
 def make_judge_bundle(judge_model: str, checkpoint_path: str, dtype=torch.bfloat16,

@@ -93,7 +93,8 @@ VIT_FLASH_MIN_T = 2048  # the JAX tower switches to flash_sdpa_full from this ma
 def vit_attention_route(device_type: str, t: int, d: int) -> str:
     """The vision tower attention's route, the counterpart of clip_vit.py:22-30:
       * "flash_full": the non-causal flash_full kernels (flash_sdpa_full), on the card at
-        T >= 2048 (Gemma-3's 4096-patch SigLIP tower);
+        T >= 2048 (Gemma-3's 4096-patch SigLIP tower at head_dim 72; Qwen2-VL's tower at 80, from
+        about a 644² source, qwen2vl.py:59-67);
       * "plain": the einsum sdpa below that (the CLIP tower's 577 tokens), and on the CPU.
     Inside ``kernel_routes_on_cpu()`` CPU tensors route as the card's, through the kernels' plain
     versions. On the card a head dim the kernels do not take raises: no fallback."""

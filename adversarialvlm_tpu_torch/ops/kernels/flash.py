@@ -25,12 +25,13 @@ stock TPU flash_attention kernels through _flash_call (:97) with causal=False, T
 its block with segment 0 and head_dim zero-padded to 128 lanes; its semantics are those of
 _ref_attention(..., causal=False) (:160): every query attends every key, softmax in f32, output in
 q's dtype. On the card it is a wgmma design of its own at head_dim 72 (Gemma-3's SigLIP tower, 16
-heads of 72 over 4096 patches; see the source's note): the tensor cores bound it (the forward is
-4·T²·D·H = 77.3 GFLOP per image on 37.7 MB of q/k/v/o), so the scores and accumulators stay in
-registers, no (T, T) tensor reaches device memory (a plain version holds a 1 GiB f32 score tensor
-per layer and image, and autograd would keep the probabilities of all 27 layers), and 72 is
-padded to 80 in shared memory only, for q·kᵀ's k-step. Other head dims raise on the card (ROADMAP
-modules: other victim families; qwen2vl's 80 comes with that family).
+heads of 72 over 4096 patches) and 80 (Qwen2-VL's tower, 16 heads of 80 over 4900 patches at a
+1024² source), one template of the source on the head dim (see its note): the tensor cores bound
+it (the forward is 4·T²·D·H = 77.3 GFLOP per image at SigLIP's shape on 37.7 MB of q/k/v/o), so
+the scores and accumulators stay in registers, no (T, T) tensor reaches device memory (a plain
+version holds a 1 GiB f32 score tensor per layer and image, and autograd would keep the
+probabilities of every layer), and 72 is padded to 80 in shared memory only, for q·kᵀ's k-step.
+Other head dims raise on the card (ROADMAP modules: other victim families).
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ from adversarialvlm_tpu_torch.ops.kernels.build import (
 
 NEG = -1e30
 HEAD_DIMS = (128, 256)
-FULL_HEAD_DIMS = (72,)
+FULL_HEAD_DIMS = (72, 80)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

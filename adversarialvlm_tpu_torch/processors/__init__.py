@@ -1,5 +1,6 @@
 """Differentiable image preprocessing, the attack's prompt pools, and the registry of checkpoint
-names. Counterpart of adversarialvlm_tpu/processors/__init__.py for the llava and gemma3 families.
+names. Counterpart of adversarialvlm_tpu/processors/__init__.py for the llava, gemma3 and qwen2vl
+families.
 """
 
 from __future__ import annotations
@@ -12,10 +13,12 @@ MODEL_MAP: dict[str, str] = {
     # an eval victim in the reference; its head_dim of 256 has the port's kernels
     "google/gemma-3-12b-it": "gemma3",
     "google/gemma-3-4b-it": "gemma3",
+    "Qwen/Qwen2-VL-2B-Instruct": "qwen2vl",
+    "Qwen/Qwen2-VL-7B-Instruct": "qwen2vl",
 }
 #: the JAX package's other model names, whose families the port does not run yet
 OTHER_FAMILIES = (
-    "microsoft/Phi-3.5-vision-instruct", "Qwen/Qwen2-VL-2B-Instruct", "Qwen/Qwen2-VL-7B-Instruct",
+    "microsoft/Phi-3.5-vision-instruct",
     "alpindale/Llama-3.2-11B-Vision-Instruct", "alpindale/Llama-3.2-11B-Vision",
     "SinclairSchneider/Llama-Guard-3-11B-Vision",
 )
@@ -34,6 +37,29 @@ def image_config_for(model_name: str) -> ImageProcessorConfig:
     return MODEL_IMAGE_CONFIGS.get(model_name, ImageProcessorConfig())
 
 
+def normalize_pixel_inputs(family: str, processed: dict) -> dict:
+    """Tensor-only pixel inputs with a leading image-batch dim, the one contract of the attack's
+    process function and every eval decode path (processors/__init__.py:185-198): the host-side
+    metadata (num_tiles, num_img_tokens) dropped, and qwen2vl's flat (P, D) patches given their
+    leading image dim."""
+    out = dict(processed)
+    pv = out.get("pixel_values")
+    if family == "qwen2vl" and pv is not None and pv.dim() == 2:
+        out["pixel_values"] = pv[None]
+    out.pop("num_tiles", None)
+    out.pop("num_img_tokens", None)
+    return out
+
+
+def grid_hw_for(family: str, adv_proc, in_hw, vlm_cfg=None):
+    """The static vision grid a bundle is built for, from the processor's plan for this run's
+    (fixed) image size (processors/__init__.py:201-205): qwen2vl's patch grid, None otherwise."""
+    if family == "qwen2vl":
+        _, gh, gw = adv_proc.grid_thw(in_hw)
+        return (gh, gw)
+    return None
+
+
 def load_model_and_processor(model_name: str, checkpoint_path: str, in_hw, dtype=None,
                              device="cuda"):
     """A local HF checkpoint directory as (ModelBundle, HFTokenizer, differentiable image
@@ -48,6 +74,7 @@ def load_model_and_processor(model_name: str, checkpoint_path: str, in_hw, dtype
     from adversarialvlm_tpu_torch.models.registry import make_bundle
     from adversarialvlm_tpu_torch.processors.gemma3 import DifferentiableGemma3ImageProcessor
     from adversarialvlm_tpu_torch.processors.llava import DifferentiableLlavaImageProcessor
+    from adversarialvlm_tpu_torch.processors.qwen2vl import DifferentiableQwen2VLImageProcessor
     from adversarialvlm_tpu_torch.utils.tokenization import HFTokenizer
 
     family = family_of(model_name)
@@ -58,11 +85,13 @@ def load_model_and_processor(model_name: str, checkpoint_path: str, in_hw, dtype
     load, proc_cls = {
         "llava": (loading.load_llava, DifferentiableLlavaImageProcessor),
         "gemma3": (loading.load_gemma3, DifferentiableGemma3ImageProcessor),
+        "qwen2vl": (loading.load_qwen2vl, DifferentiableQwen2VLImageProcessor),
     }[family]
     params, vlm_cfg = load(checkpoint_path, dtype, device)
     if "vision_tower" in params and proc_cfg.crop_size != vlm_cfg.vision.image_size:
         raise ValueError(f"{checkpoint_path}: the processor resizes to {proc_cfg.crop_size}² but the "
                          f"vision tower takes {vlm_cfg.vision.image_size}²")
     adv_proc = proc_cls(proc_cfg, in_hw, device)
-    bundle = make_bundle(model_name, family, vlm_cfg, torch.device(device), params=params)
+    bundle = make_bundle(model_name, family, vlm_cfg, torch.device(device), params=params,
+                         grid_hw=grid_hw_for(family, adv_proc, in_hw, vlm_cfg))
     return bundle, tok, adv_proc

@@ -1,4 +1,4 @@
-"""Image-preprocessor configurations of the llava and gemma3 families. Counterpart of
+"""Image-preprocessor configurations of the llava, gemma3 and qwen2vl families. Counterpart of
 adversarialvlm_tpu/processors/configs.py (the fields these processors read)."""
 
 from __future__ import annotations
@@ -18,19 +18,26 @@ class ImageProcessorConfig:
     crop_size: int = 336
     patch_size: int = 14
     mm_tokens_per_image: int = 256  # gemma3: soft tokens per image after the projector's pool
+    # qwen2-vl: dynamic scaling to multiples of patch·merge, the pixel count clamped
+    merge_size: int = 2
+    temporal_patch_size: int = 2
+    min_pixels: int = 56 * 56
+    max_pixels: int = 28 * 28 * 1280
 
     @classmethod
     def from_pretrained_dir(cls, path: str, **defaults) -> "ImageProcessorConfig":
         """``defaults`` overridden by a checkpoint directory's preprocessor_config.json: the mean,
-        std and patch size, and the resize target from ``crop_size`` (llava) or ``size``
-        (gemma3's square resize), each an int or a {"height", "width"} dict."""
+        std and patch size, qwen2-vl's merge and temporal patch sizes and pixel bounds, and the
+        resize target from ``crop_size`` (llava) or ``size`` (gemma3's square resize), each an int
+        or a {"height", "width"} dict (qwen2-vl's {"shortest_edge", "longest_edge"} sets none)."""
         base = dataclasses.asdict(cls(**defaults))
         cfg_path = os.path.join(path, "preprocessor_config.json")
         if not os.path.exists(cfg_path):
             return cls(**base)
         with open(cfg_path) as f:
             raw = json.load(f)
-        for key in ("image_mean", "image_std", "patch_size"):
+        for key in ("image_mean", "image_std", "patch_size", "merge_size", "temporal_patch_size",
+                    "min_pixels", "max_pixels"):
             if raw.get(key) is not None:
                 base[key] = tuple(raw[key]) if isinstance(raw[key], list) else raw[key]
         for key in ("crop_size", "size"):
@@ -49,6 +56,8 @@ MODEL_IMAGE_CONFIGS: dict[str, ImageProcessorConfig] = {
     "google/gemma-3-4b-it": ImageProcessorConfig(
         image_mean=(0.5, 0.5, 0.5), image_std=(0.5, 0.5, 0.5), crop_size=896
     ),
+    "Qwen/Qwen2-VL-2B-Instruct": ImageProcessorConfig(),
+    "Qwen/Qwen2-VL-7B-Instruct": ImageProcessorConfig(),
     "google/gemma-3-12b-it": ImageProcessorConfig(
         image_mean=(0.5, 0.5, 0.5), image_std=(0.5, 0.5, 0.5), crop_size=896
     ),

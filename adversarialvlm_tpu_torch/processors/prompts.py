@@ -1,4 +1,4 @@
-"""Chat prompt formats and suffix bookkeeping of the llava and gemma3 families. Counterpart of
+"""Chat prompt formats and suffix bookkeeping of the llava, gemma3 and qwen2vl families. Counterpart of
 adversarialvlm_tpu/processors/prompts.py; the other families' formats come with their models.
 
 ``shift = len(tokenizer.encode(extra_token))`` reproduces the reference's suffix-CE alignment
@@ -76,7 +76,26 @@ def gemma3_spec() -> PromptSpec:
     )
 
 
-SPECS = {"llava": llava_spec, "gemma3": gemma3_spec}
+def qwen2vl_spec() -> PromptSpec:
+    sys = "<|im_start|>system\nYou are a helpful assistant.<|im_end|>\n"
+    img = "<|vision_start|><|image_pad|><|vision_end|>"
+    return PromptSpec(
+        family="qwen2vl",
+        train_text=lambda q, t: (
+            f"{sys}<|im_start|>user\n{img}{q}<|im_end|>\n<|im_start|>assistant\n{t}<|im_end|>\n"
+        ),
+        inference_text=lambda q: f"{sys}<|im_start|>user\n{img}{q}<|im_end|>\n<|im_start|>assistant\n",
+        extra_token="<|im_end|>\n",
+        image_placeholder="<|image_pad|>",
+        _image_span=img,  # text-only renders strip the whole vision wrapper
+        refuses=(
+            "As an AI language model, I cannot",
+            "I'm sorry, but",
+        ),
+    )
+
+
+SPECS = {"llava": llava_spec, "gemma3": gemma3_spec, "qwen2vl": qwen2vl_spec}
 
 
 def spec_for_family(family: str) -> PromptSpec:

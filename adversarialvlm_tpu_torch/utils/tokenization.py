@@ -77,6 +77,7 @@ _TOKENIZER_CLASSES = {
     "PreTrainedTokenizerFast": False,
     "LlamaTokenizer": True, "LlamaTokenizerFast": True,
     "GemmaTokenizer": True, "GemmaTokenizerFast": True,
+    "Qwen2Tokenizer": False, "Qwen2TokenizerFast": False,  # tokenizer.json as it is
 }
 
 

@@ -1,11 +1,12 @@
 """A reader of HF ``tokenizer.json`` files that encodes and decodes as the ``tokenizers`` library
-does, for the components the LLaVA-1.5 and Gemma-3 checkpoints and the tests' tokenizers use:
+does, for the components the LLaVA-1.5, Gemma-3 and Qwen2-VL checkpoints and the tests'
+tokenizers use:
 
   * models: ``BPE`` (merges as ``"a b"`` strings or as pairs, ``byte_fallback``, ``fuse_unk``,
     ``unk_token``) and ``Unigram`` (Viterbi, ``byte_fallback``, ``unk_id``);
-  * normalizers: ``Sequence``, ``Prepend``, ``Replace`` (a literal pattern) and none;
+  * normalizers: ``Sequence``, ``Prepend``, ``Replace`` (a literal pattern), ``NFC`` and none;
   * pre-tokenizers: ``ByteLevel`` (with the GPT-2 split), ``Metaspace``, ``Split`` (a literal
-    pattern), ``Sequence`` and none;
+    pattern, or Qwen2's regex, written out by hand as the GPT-2 one is), ``Sequence`` and none;
   * post-processors: ``TemplateProcessing``, ``ByteLevel`` and none;
   * decoders: ``Sequence``, ``Replace``, ``ByteFallback``, ``Fuse``, ``Strip``, ``ByteLevel`` and
     ``Metaspace``;
@@ -35,11 +36,27 @@ def unsupported(kind: str, what) -> NotImplementedError:
 
 
 def _pattern(spec: dict):
-    """A Replace/Split pattern: {"String": s}, a literal (a {"Regex": r} raises: Python's re is not
-    the library's Oniguruma)."""
+    """A Replace pattern: {"String": s}, a literal (a {"Regex": r} raises: Python's re is not the
+    library's Oniguruma)."""
     if "String" in spec:
         return re.compile(re.escape(spec["String"]))
     raise unsupported("pattern", spec)
+
+
+#: Qwen2's Split pre-tokenizer pattern (its tokenizer.json, behavior Isolated)
+QWEN2_SPLIT = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|\p{N}| ?[^\s\p{L}\p{N}]+[\r\n]*"
+               r"|\s*[\r\n]+|\s+(?!\S)|\s+")
+
+
+def _split_spans(spec: dict):
+    """A Split pattern as a function from a string to its matches' (start, end) spans: a literal,
+    or Qwen2's regex (:func:`qwen2_split`); any other regex raises and names itself."""
+    if "String" in spec:
+        pat = re.compile(re.escape(spec["String"]))
+        return lambda s: [(m.start(), m.end()) for m in pat.finditer(s)]
+    if spec.get("Regex") == QWEN2_SPLIT:
+        return qwen2_split
+    raise unsupported("Split pattern", spec)
 
 
 # ---------------------------------------------------------------- byte-level alphabet (GPT-2)
@@ -109,6 +126,62 @@ def gpt2_split(s: str) -> list[str]:
     return out
 
 
+_CONTRACTIONS = ("s", "t", "re", "ve", "m", "ll", "d")
+_CRLF = "\r\n"
+
+
+def qwen2_split(s: str) -> list[tuple[int, int]]:
+    """The (start, end) spans of the matches of :data:`QWEN2_SPLIT` over ``s``, the alternatives
+    tried in order at each position as a backtracking engine does (written out because Python's re
+    has no \\p classes): a case-insensitive contraction; one char that is not CR, LF, a letter or
+    a number, then a run of letters (or the run alone); one number; an optional space, a run of
+    what is not whitespace, a letter or a number, and any CRs and LFs after it; whitespace up to
+    and including its last CR or LF; whitespace not followed by a non-space (a run's last space
+    is left to the word after it); any whitespace. The matches tile the string."""
+    out, i, n = [], 0, len(s)
+
+    def run(j, ok):
+        while j < n and ok(s[j]):
+            j += 1
+        return j
+
+    letter = lambda c: _cat(c) == "L"  # noqa: E731
+    number = lambda c: _cat(c) == "N"  # noqa: E731
+    space = lambda c: c in _WHITESPACE  # noqa: E731
+    other = lambda c: not space(c) and _cat(c) not in "LN"  # noqa: E731
+    while i < n:
+        c = s[i]
+        end = None
+        if c == "'":
+            for tail in _CONTRACTIONS:
+                seg = s[i + 1:i + 1 + len(tail)]
+                if len(seg) == len(tail) and all(a.casefold() == b for a, b in zip(seg, tail)):
+                    end = i + 1 + len(tail)
+                    break
+        if end is None and c not in _CRLF and not letter(c) and not number(c) and i + 1 < n and letter(s[i + 1]):
+            end = run(i + 1, letter)
+        if end is None and letter(c):
+            end = run(i, letter)
+        if end is None and number(c):
+            end = i + 1
+        if end is None:
+            start = i + 1 if c == " " and i + 1 < n and other(s[i + 1]) else i
+            if other(s[start]):
+                end = run(run(start, other), lambda ch: ch in _CRLF)
+        if end is None:  # c is whitespace
+            j = run(i, space)
+            last = max((k for k in range(i, j) if s[k] in _CRLF), default=None)
+            if last is not None:
+                end = last + 1
+            elif j == n or j - i > 1:
+                end = j if j == n else j - 1
+            else:
+                end = j
+        out.append((i, end))
+        i = end
+    return out
+
+
 # ---------------------------------------------------------------- normalizers
 
 def build_normalizer(spec):
@@ -130,22 +203,24 @@ def build_normalizer(spec):
     if kind == "Replace":
         pat, content = _pattern(spec["pattern"]), spec["content"]
         return lambda s: pat.sub(lambda _m: content, s)
+    if kind == "NFC":
+        return lambda s: unicodedata.normalize("NFC", s)
     raise unsupported("normalizer", kind)
 
 
 # ---------------------------------------------------------------- pre-tokenizers
 # A pre-tokenizer maps a list of (text, original_start) pieces to a finer list.
 
-def _split(s: str, pat: re.Pattern, behavior: str, invert: bool = False) -> list[tuple[str, int]]:
-    """tokenizers' NormalizedString::split: the pattern's matches over ``s`` handled by the
-    SplitDelimiterBehavior ``behavior``, each piece with its position in ``s``; empty pieces are
-    dropped."""
+def _split(s: str, spans, behavior: str, invert: bool = False) -> list[tuple[str, int]]:
+    """tokenizers' NormalizedString::split: the pattern's matches over ``s`` (``spans(s)``: their
+    (start, end)) handled by the SplitDelimiterBehavior ``behavior``, each piece with its position
+    in ``s``; empty pieces are dropped."""
     matches, prev = [], 0
-    for m in pat.finditer(s):
-        if prev != m.start():
-            matches.append(((prev, m.start()), False))
-        matches.append(((m.start(), m.end()), True))
-        prev = m.end()
+    for a, b in spans(s):
+        if prev != a:
+            matches.append(((prev, a), False))
+        matches.append(((a, b), True))
+        prev = b
     if prev != len(s):
         matches.append(((prev, len(s)), False))
     if invert:
@@ -214,7 +289,7 @@ def build_pre_tokenizer(spec):
         if scheme not in ("always", "first", "never"):
             raise unsupported("Metaspace prepend_scheme", scheme)
         split = spec.get("split", True)
-        pat = re.compile(re.escape(rep))
+        spans = _split_spans({"String": rep})
 
         def metaspace(pieces):
             out = []
@@ -222,15 +297,15 @@ def build_pre_tokenizer(spec):
                 text = text.replace(" ", rep)
                 if not text.startswith(rep) and (scheme == "always" or (scheme == "first" and start == 0)):
                     text = rep + text
-                subs = _split(text, pat, "MergedWithNext") if split else [(text, 0)]
+                subs = _split(text, spans, "MergedWithNext") if split else [(text, 0)]
                 out.extend((sub, start + pos) for sub, pos in subs if sub)
             return out
 
         return metaspace
     if kind == "Split":
-        pat, behavior, invert = _pattern(spec["pattern"]), spec["behavior"], spec.get("invert", False)
+        spans, behavior, invert = _split_spans(spec["pattern"]), spec["behavior"], spec.get("invert", False)
         return lambda pieces: [(sub, start + pos) for text, start in pieces
-                               for sub, pos in _split(text, pat, behavior, invert)]
+                               for sub, pos in _split(text, spans, behavior, invert)]
     raise unsupported("pre-tokenizer", kind)
 
 

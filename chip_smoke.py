@@ -149,6 +149,29 @@ from the directories of 4L and 4G:
      CSV has its 8 rows and no ERROR row, MM-SafetyBench took its batched path in every category, 32
      flash forwards a prefill and none in a cached step; the flash forward at every (batch, T, mask) the
      prefills ran at; prefill ms, tokens/s and peak by suite, the host's JPEG decode and resize ms.
+Then, with the baseline victims freed, the Qwen2-VL family at full width and depth (Qwen2-VL-2B-Instruct: 28 decoder
+layers of 1536, 12 heads over 2 kv heads of 128, M-RoPE; a 32-layer tower of 1280, 16 heads of 80, a 2×2 merger):
+  4V. its seed-0 random bf16 parameters drawn on the card and written by the fabricator (Qwen2-style tokenizer.json),
+     then scripts/attacks/attack_clamp_tanh_qwen2vl.sh on one card through cli/attack_model.py (gray.png, 512²
+     planned to 504²: 1296 patches, 324 image tokens; the list prompts, lr 1e-2, batch 2), 1 warm-up + 3 steps, save
+     boundaries at iterations 0 and 3, each decoding the 50 held-out questions: the CLI's victim equal to the written
+     tensors; per step 270 dgrad launches and 28 of each batch-2 flash kernel (the tower on the plain sdpa), 28 flash
+     forwards a decode prefill and none in a cached step; dgrad, the batch-2 flash kernels, the decode prefill's flash
+     forward and the batch-1 causal kernels (n_rep 6) at the run's shapes against their plain versions, timed;
+  5V. depth-cut references (2 decoder and 2 vision layers), the card in bf16 against the CPU in f32 on the plain
+     path: the step at batch 1 and 2 (loss within 1e-2 relative, gradient cosine >= 0.99) and the test decode,
+     teacher-forced over 8 tokens whose cached steps take the prefill's rope_delta (logits cosine >= 0.99);
+  4V1. batch 1 from a 1024² source (980²: 4900 patches, 1225 image tokens), 2 steps through train() without the test
+     decode: per step 32 of each head_dim-80 flash_full kernel and 28 of each batch-1 causal kernel; the D-80 kernels
+     at (1, 4900, 16, 80) against flash_full_plain (forward 1e-2, backward 2e-2 worst row; a second launch equal),
+     timed beside their bound and SDPA; the build phase requires HGMMA in each kernel's D-72 and D-80 instantiation;
+  4P. cli/test_post.py over 4V's saved images on the victim loaded again: summary.csv a row per image, each image's
+     CSV its 50 questions, the decode's launches flash forwards of 28 a prefill only;
+  4XV. scripts/attacks/attack_cross_onechip.sh through cli/crossattack_models.py (Qwen2-VL-2B + Gemma-3-4B-it from the
+     directories of 4V and 4G, weights 1.0 and 0.5, ε 0.4, random targets, batch 1), 1 warm-up + 3 steps with both
+     victims' test decodes: launches a cross step exactly each victim's own (Qwen's 270 dgrad and 28 of each batch-1
+     causal kernel, Gemma's 346 dgrad and 27 of each flash_full kernel), the kernels at the run's shapes, the cross step
+     beside each victim's alone in turns and under torch.profiler, the peak, and the depth-cut cross reference as 5X.
 It then prints each checkpoint directory's write and load seconds and GB/s, the resume verdict,
 the bench line, the cross step's numbers, the int8 and baseline numbers and the run's total, the
 kernels' JSON line (each kernel with its launches per cross step; dgrad at the int8 step's shapes, the
@@ -664,6 +687,14 @@ def flash_full_case(label, B, H, T, D, timed=False, backward=True):
         dk_ref, dv_ref = Fl.flash_full_bwd_dkdv_plain(f32[0], f32[1], f32[2], lse, delta, f32[3], scale)
         errs.update({"dk": row_errors(dk, dk_ref), "dv": row_errors(dv, dv_ref)})
         del dk_ref, dv_ref
+    outs, again = (o, lse), Fl.flash_full_fwd(q, k, v, scale)
+    if backward:
+        outs = (*outs, dq, delta, dk, dv)
+        again = (*again, *Fl.flash_full_bwd_dq(q, k, v, o, lse, do, scale),
+                 *Fl.flash_full_bwd_dkdv(q, k, v, lse, delta, do, scale))
+    if not all(torch.equal(a, b) for a, b in zip(outs, again)):
+        raise AssertionError(f"flash_full {label} D={D}: two launches on the same inputs differ")
+    del again
     del f32
     torch.cuda.empty_cache()
     for name, (rel, _) in errs.items():
@@ -673,7 +704,7 @@ def flash_full_case(label, B, H, T, D, timed=False, backward=True):
                                  f"worst row rel err {rel} > {tol}")
     log("kernels", f"flash_full {label} B={B} H={H} T={T} D={D} worst_row_rel "
         + " ".join(f"{n}={e[0]:.3g}" for n, e in errs.items())
-        + f" (tol fwd {TOL_ATTN_FWD}, bwd {TOL_ATTN_BWD})")
+        + f" (tol fwd {TOL_ATTN_FWD}, bwd {TOL_ATTN_BWD}); a second launch equal")
     if not timed:
         return None
 
@@ -948,19 +979,25 @@ def decode_reference(gpu_v, cpu_v, questions, x_img, expect):
     cached steps) generates; the CPU (f32, plain, uncached) runs one forward over prompt +
     the card's tokens. Per row and step: logits cosine >= TOL_DECODE_COSINE, and the card's
     token scores within DECODE_MARGIN × that row's max |card - CPU| of the CPU's top logit (bf16
-    argmax may flip on near-ties under random weights, so exact tokens are not required)."""
+    argmax may flip on near-ties under random weights, so exact tokens are not required). The
+    bundle's decode extras ride with every forward (Qwen2-VL: each row's rope_delta, which every
+    cached step's M-RoPE positions take, while the CPU's uncached forward derives them from the
+    token layout, so a wrong delta shows)."""
     import torch
 
     from adversarialvlm_tpu_torch.models.generate import generate_core
     from adversarialvlm_tpu_torch.ops.kernels import launch_counts, reset_launches
+    from adversarialvlm_tpu_torch.processors import normalize_pixel_inputs
     from adversarialvlm_tpu_torch.utils.batching import pad_to_buckets
 
     ai, bundle = gpu_v.adv_inputs, gpu_v.bundle
     inputs = ai.get_inputs_inference_batch(questions)
     ids_np, am_np, _ = pad_to_buckets(inputs["input_ids"], inputs["attention_mask"], ai.pad_token_id)
     ids, am = (torch.as_tensor(a, device=bundle.device) for a in (ids_np, am_np))
+    extras = {k: torch.as_tensor(v, device=bundle.device) for k, v in bundle.decode_extras(ids_np, am_np).items()}
     with torch.no_grad():
-        pixel = gpu_v.adv_processor.process(torch.as_tensor(x_img, device=bundle.device))
+        pixel = normalize_pixel_inputs(bundle.family, gpu_v.adv_processor.process(
+            torch.as_tensor(x_img, device=bundle.device)))
     recorded = []
 
     def recording_forward(params, input_ids, attention_mask, pixel_inputs=None, **kw):
@@ -972,7 +1009,7 @@ def decode_reference(gpu_v, cpu_v, questions, x_img, expect):
     tokens = generate_core(
         recording_forward, bundle.make_caches, bundle.params, ids, am, pixel,
         max_new_tokens=REF_DECODE_TOKENS, min_new_tokens=0, eos_token_ids=bundle.eos_token_ids,
-        pad_token_id=ai.pad_token_id, cache_dtype=torch.bfloat16, logits_last_k=1,
+        pad_token_id=ai.pad_token_id, cache_dtype=torch.bfloat16, logits_last_k=1, extras=extras,
     ).cpu()
     launches = launch_counts()
     n = len(recorded)
@@ -992,7 +1029,8 @@ def decode_reference(gpu_v, cpu_v, questions, x_img, expect):
     finished_before[:, 1:] = torch.cumsum(is_eos, dim=1)[:, :-1] > 0
     ok_tok = (gap <= DECODE_MARGIN * diff) | finished_before
     log("reference", f"decode: {len(questions)} rows, T={ids.shape[1]} left pads="
-        f"{[int(ids.shape[1] - m) for m in am_np.sum(1)]}, {n} tokens, launches={launches}; "
+        f"{[int(ids.shape[1] - m) for m in am_np.sum(1)]}, {n} tokens, extras "
+        f"{ {k: v.tolist() for k, v in extras.items()} }, launches={launches}; "
         f"min logits cosine={float(cos.min()):.6f} (min {TOL_DECODE_COSINE}); worst token gap / "
         f"max|card-CPU|={float((gap / diff).max()):.3f} (max {DECODE_MARGIN}); exact tokens "
         f"{int((cpu.argmax(-1) == tokens[:, :n]).sum())}/{tokens[:, :n].numel()}")
@@ -1089,10 +1127,16 @@ def transform_path(victim, x0, dgrad_per_step, n_layers, plain_med, plain_peak):
 
 
 def depth_cut(params, n_text, n_vision):
-    """The tree of the first ``n_text`` decoder and ``n_vision`` tower layers (tensors shared)."""
-    lm, vt = params["language_model"], params["vision_tower"]
-    return {**params, "language_model": {**lm, "layers": lm["layers"][:n_text]},
-            "vision_tower": {**vt, "layers": vt["layers"][:n_vision]}}
+    """The tree of the first ``n_text`` decoder and ``n_vision`` tower layers (tensors shared):
+    the ``vision_tower`` layers of LLaVA and Gemma-3, or Qwen2-VL's ``visual`` blocks."""
+    lm = params["language_model"]
+    out = {**params, "language_model": {**lm, "layers": lm["layers"][:n_text]}}
+    if "visual" in params:
+        out["visual"] = {**params["visual"], "blocks": params["visual"]["blocks"][:n_vision]}
+    else:
+        vt = params["vision_tower"]
+        out["vision_tower"] = {**vt, "layers": vt["layers"][:n_vision]}
+    return out
 
 
 def checkpoint_victim(model, cfg, root, **prompts):
@@ -1858,18 +1902,24 @@ def gemma_references(victim):
 
 
 def cross_cli(args, captured=None):
-    """cli/crossattack_models.main on ``args``. With ``captured`` (a dict), the engine's train()
-    is wrapped for that run: the victims the CLI built, a PathProbe on each, the launches counted
+    """cli/crossattack_models.main on ``args``, spied on as :func:`spied_cli` does."""
+    from adversarialvlm_tpu_torch.cli import crossattack_models
+
+    return spied_cli(crossattack_models.main, args, captured)
+
+
+def spied_cli(main, args, captured=None):
+    """An attack CLI's ``main`` on ``args``. With ``captured`` (a dict), the engine's train() is
+    wrapped for that run: the victims the CLI built, a PathProbe on each, the launches counted
     from zero after the victims are loaded, the run's wall time and its peak device memory from an
     emptied cache go into it."""
     import torch
 
     from adversarialvlm_tpu_torch.attack import engine
-    from adversarialvlm_tpu_torch.cli import crossattack_models
     from adversarialvlm_tpu_torch.ops.kernels import launch_counts, reset_launches
 
     if captured is None:
-        return crossattack_models.main(args)
+        return main(args)
     real_train = engine.train
 
     def spy(cfg, victims, x0, **kw):
@@ -1892,7 +1942,7 @@ def cross_cli(args, captured=None):
 
     engine.train = spy
     try:
-        return crossattack_models.main(args)
+        return main(args)
     finally:
         engine.train = real_train
 
@@ -2137,13 +2187,14 @@ def cross_phases(ckpt_root, runs):
             "per_step": per_step, "reference": reference, "dpo": dpo_verdict, "kernels": kernels, "exp": exp}
 
 
-def profile_cross(victims, cfg, x0):
-    """Phase 4X, each victim alone beside the cross step, on the same resident victims and the
-    same draws: after a warm-up step each, PROFILE_ROUNDS rounds of TIMED_STEPS steps of the cross
-    step, then LLaVA's, then Gemma's (wall time a step, synchronized at each round's end, and the
-    caching allocator's device allocations and frees a step), then PROFILE_STEPS steps of each
-    under torch.profiler: the wall time and the device's busy time a step, the union of its
-    kernels' and copies' intervals, as cli/profile_step.py counts it."""
+def profile_cross(victims, cfg, x0, labels=("llava", "gemma3"), rounds=PROFILE_ROUNDS, timed=TIMED_STEPS,
+                  profiled=PROFILE_STEPS, tag="cross"):
+    """Phases 4X and 4XV, each victim alone beside the cross step, on the same resident victims and
+    the same draws: after a warm-up step each, ``rounds`` rounds of ``timed`` steps of the cross
+    step, then the first victim's, then the second's (``labels``; wall time a step, synchronized
+    at each round's end, and the caching allocator's device allocations and frees a step), then
+    ``profiled`` steps of each under torch.profiler: the wall time and the device's busy time a
+    step, the union of its kernels' and copies' intervals, as cli/profile_step.py counts it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2153,48 +2204,49 @@ def profile_cross(victims, cfg, x0):
     x0_d = torch.as_tensor(x0, device="cuda")
     handles = [v.handles() for v in victims]
     runs = {}
-    for label, hs, cross in (("cross", handles, True), ("llava", handles[:1], False), ("gemma3", handles[1:], False)):
+    for label, hs, cross in (("cross", handles, True), (labels[0], handles[:1], False),
+                             (labels[1], handles[1:], False)):
         step = build_attack_step(hs, cfg, x0_d, torch.ones_like(x0_d), cross=cross)
-        draws = iter(sample_chunk_xs(torch.Generator().manual_seed(cfg.seed),
-                                     1 + PROFILE_ROUNDS * TIMED_STEPS + PROFILE_STEPS, cfg, hs))
+        draws = iter(sample_chunk_xs(torch.Generator().manual_seed(cfg.seed), 1 + rounds * timed + profiled,
+                                     cfg, hs))
         state, _ = step(init_state(cfg, x0_d), next(draws))
         runs[label] = [step, state, draws]
     torch.cuda.synchronize()
     out = {label: {"round_ms": [], "device_allocs": 0, "device_frees": 0} for label in runs}
-    for _ in range(PROFILE_ROUNDS):
+    for _ in range(rounds):
         for label, run in runs.items():
             before = torch.cuda.memory_stats()
             t0 = time.perf_counter()
-            for _ in range(TIMED_STEPS):
+            for _ in range(timed):
                 run[1], _ = run[0](run[1], next(run[2]))
             torch.cuda.synchronize()
-            out[label]["round_ms"].append(1e3 * (time.perf_counter() - t0) / TIMED_STEPS)
+            out[label]["round_ms"].append(1e3 * (time.perf_counter() - t0) / timed)
             after = torch.cuda.memory_stats()
             out[label]["device_allocs"] += after["num_device_alloc"] - before["num_device_alloc"]
             out[label]["device_frees"] += after["num_device_free"] - before["num_device_free"]
-    ratios = [c / (a + b) for c, a, b in zip(*(out[k]["round_ms"] for k in ("cross", "llava", "gemma3")))]
-    log("cross", f"{PROFILE_ROUNDS} rounds of {TIMED_STEPS} steps each, ms a step: "
+    ratios = [c / (a + b) for c, a, b in zip(*(out[k]["round_ms"] for k in ("cross", *labels)))]
+    log(tag, f"{rounds} rounds of {timed} steps each, ms a step: "
         + "; ".join(f"{k} {[round(t, 2) for t in v['round_ms']]} (allocator: {v['device_allocs']} device "
                     f"allocations, {v['device_frees']} frees)" for k, v in out.items())
         + f"; the cross step over the sum of the two alone, by round: {[round(r, 4) for r in ratios]}")
     for label, run in runs.items():
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            for _ in range(PROFILE_STEPS):
+            for _ in range(profiled):
                 run[1], _ = run[0](run[1], next(run[2]))
             torch.cuda.synchronize()
-            wall = 1e3 * (time.perf_counter() - t0) / PROFILE_STEPS
-        busy = _union_us(_device_intervals(prof)) / 1e3 / PROFILE_STEPS
+            wall = 1e3 * (time.perf_counter() - t0) / profiled
+        busy = _union_us(_device_intervals(prof)) / 1e3 / profiled
         out[label].update(wall_ms=wall, busy_ms=busy)
-        log("cross", f"profiled {label} step, {PROFILE_STEPS} steps: wall {wall:.2f} ms a step, device busy "
+        log(tag, f"profiled {label} step, {profiled} steps: wall {wall:.2f} ms a step, device busy "
             f"{busy:.2f} ms ({100 * busy / wall:.1f}% of the wall)")
     return {**out, "ratios": ratios}
 
 
-def cross_reference(victims, x0):
-    """Phase 5X: the cross step of the depth-cut victims (LLaVA: its first 2 decoder and 2 vision
-    layers; Gemma-3: 6 decoder layers, five sliding-window ones and the global one, and 2 vision
-    layers at 4096 patches), from the loaded weights, on the card in bf16 through the kernels
+def cross_reference(victims, x0, tag="cross"):
+    """Phases 5X and 4XV: the cross step of the depth-cut victims (LLaVA or Qwen2-VL: the first 2
+    decoder and 2 vision layers; Gemma-3: 6 decoder layers, five sliding-window ones and the global
+    one, and 2 vision layers at 4096 patches), from the loaded weights, on the card in bf16 through the kernels
     against the CPU in f32 on the plain path, with the same injected draws, model weights
     CROSS_WEIGHTS: loss, loss_0 and loss_1 within TOL_REF_LOSS relative, the perturbation
     gradient at cosine >= TOL_REF_COSINE."""
@@ -2208,6 +2260,7 @@ def cross_reference(victims, x0):
     from adversarialvlm_tpu_torch.attack.step import build_attack_step
     from adversarialvlm_tpu_torch.models.registry import make_bundle
     from adversarialvlm_tpu_torch.ops.kernels import launch_counts, reset_launches
+    from adversarialvlm_tpu_torch.processors import grid_hw_for, normalize_pixel_inputs
     from adversarialvlm_tpu_torch.processors.adv_inputs import AdvInputs
 
     t0 = time.perf_counter()
@@ -2221,16 +2274,20 @@ def cross_reference(victims, x0):
         a = v.adv_inputs
         inputs = AdvInputs(a.spec, a.tokenizer, [QUESTION], [QUESTION], 1, [TARGET], a.num_image_tokens,
                            a.image_token_id, a.pad_token_id, image_expansion_ids=a.image_expansion_ids)
+        grid = grid_hw_for(v.bundle.family, v.adv_processor, (512, 512), cut)  # Qwen2-VL's static grid
         gpu = VictimSetup(f"cut-{v.bundle.family}", make_bundle("cut", v.bundle.family, cut, torch.device("cuda"),
-                                                                params=depth_cut(v.bundle.params, n_text, n_vision)),
+                                                                params=depth_cut(v.bundle.params, n_text, n_vision),
+                                                                grid_hw=grid),
                           v.adv_processor, inputs, torch.bfloat16)
         cpu = VictimSetup(gpu.name, make_bundle("cut", v.bundle.family, cut, torch.device("cpu"),
-                                                params=_map(gpu.bundle.params, lambda t: t.float().cpu())),
+                                                params=_map(gpu.bundle.params, lambda t: t.float().cpu()),
+                                                grid_hw=grid),
                           image_processor(cut, (512, 512), "cpu"), inputs)
         pairs.append((gpu, cpu))
         with torch.no_grad():
-            side = v.adv_processor.process(torch.as_tensor(x0, device="cuda"))["pixel_values"].shape[-1]
-        noise.append(torch.randn((1, 3, side, side), generator=gen))
+            pv = normalize_pixel_inputs(v.bundle.family, v.adv_processor.process(
+                torch.as_tensor(x0, device="cuda")))["pixel_values"]
+        noise.append(torch.randn((1, *pv.shape[1:]), generator=gen))  # one image's pixel layout
     p0 = 0.3 * torch.randn(x0.shape, generator=gen)
     xs = {"t_idx": 0, "rows": [torch.from_numpy(g.adv_inputs.prompt_pool[0, [0]]) for g, _ in pairs],
           "lens": [torch.from_numpy(g.adv_inputs.prompt_lengths[0, [0]]) for g, _ in pairs], "noise": noise}
@@ -2244,7 +2301,7 @@ def cross_reference(victims, x0):
         loss, img_loss, ces, _, grad = step.loss_and_grad(p0.to(dev), xs, torch.tensor(cfg.sigma, device=dev))
         per_model = [float(w * ce + img_loss) for w, ce in zip(CROSS_WEIGHTS, ces)]
         results[name] = ([float(loss), *per_model], grad.double().cpu())
-        log("reference", f"cross {name}: loss, loss_0, loss_1 = {results[name][0]} grad_norm={float(grad.norm())} "
+        log("reference", f"{tag} {name}: loss, loss_0, loss_1 = {results[name][0]} grad_norm={float(grad.norm())} "
             f"T={[g.adv_inputs.max_len for g, _ in pairs]} launches={ {k: n for k, n in launch_counts().items() if n} } "
             f"in {time.perf_counter() - t1:.1f} s")
         if name == "cuda":
@@ -2256,7 +2313,7 @@ def cross_reference(victims, x0):
     (l_cpu, g_cpu), (l_gpu, g_gpu) = results["cpu"], results["cuda"]
     rel = [abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu)]
     cos = float((g_cpu * g_gpu).sum() / (g_cpu.norm() * g_gpu.norm()))
-    log("reference", f"cross: loss, loss_0, loss_1 rel diff={[f'{r:.3g}' for r in rel]} (tol {TOL_REF_LOSS}) grad "
+    log("reference", f"{tag}: loss, loss_0, loss_1 rel diff={[f'{r:.3g}' for r in rel]} (tol {TOL_REF_LOSS}) grad "
         f"cosine={cos:.6f} (min {TOL_REF_COSINE}) grad norm ratio={float(g_gpu.norm() / g_cpu.norm()):.4f} in "
         f"{time.perf_counter() - t0:.1f} s")
     if not (max(rel) <= TOL_REF_LOSS and cos >= TOL_REF_COSINE):
@@ -3205,6 +3262,390 @@ def baseline_phases(ckpt_root, runs):
     return {"suites": suites, "host": host, "kernels": kernels, "seconds": time.perf_counter() - t_phase}
 
 
+QWEN = "Qwen/Qwen2-VL-2B-Instruct"
+STEPS_V = 4               # phase 4V: 1 warm-up + 3 timed; save boundaries at iterations 0 and 3
+STEPS_V1 = 2              # phase 4V1: the 1024² source at batch 1, 1 warm-up + 1 timed, no test decode
+STEPS_XV = 4              # phase 4XV: 1 warm-up + 3 timed; save boundaries at iterations 0 and 3
+XV_ROUNDS, XV_TIMED, XV_PROFILED = 2, 3, 2  # phase 4XV: the cross step beside each victim's alone
+
+
+def qwen_dgrad_cases(params, vlm_cfg, batch, t_text, n_patches):
+    """(rows, O, I, launches per step, weight) of the Qwen2-VL step's dgrad launches: the tower's
+    qkv, proj, fc1 and fc2 over the batch's images (each row's EoT noise makes its own), the
+    merger's two linears over the merged patches, and the decoder's q, o, gate, up and down over
+    its tokens (k and v, 256 wide, stay off the kernel, as the JAX rule keeps them)."""
+    from adversarialvlm_tpu_torch.ops.kernels.dgrad import dgrad_eligible
+
+    v, t = vlm_cfg.vision, vlm_cfg.text
+    blk, m = params["visual"]["blocks"][0], params["visual"]["merger"]
+    lm = params["language_model"]["layers"][0]
+    rows_v, rows_m, rows_t = batch * n_patches, batch * n_patches // v.spatial_merge_size**2, batch * t_text
+    linears = [
+        (rows_v, blk["attn"]["qkv"], v.num_layers), (rows_v, blk["attn"]["proj"], v.num_layers),
+        (rows_v, blk["mlp"]["fc1"], v.num_layers), (rows_v, blk["mlp"]["fc2"], v.num_layers),
+        (rows_m, m["mlp_0"], 1), (rows_m, m["mlp_2"], 1),
+        (rows_t, lm["self_attn"]["q_proj"], t.num_layers), (rows_t, lm["self_attn"]["o_proj"], t.num_layers),
+        (rows_t, lm["mlp"]["gate_proj"], 2 * t.num_layers), (rows_t, lm["mlp"]["down_proj"], t.num_layers),
+    ]
+    off = (lm["self_attn"]["k_proj"]["weight"], lm["self_attn"]["v_proj"]["weight"])
+    if any(dgrad_eligible(w) for w in off) or not all(dgrad_eligible(p["weight"]) for _, p, _ in linears):
+        raise AssertionError("qwen2vl: the dgrad-eligible linears are not the expected ones")
+    merged, weights = {}, {}
+    for rows, p, n in linears:
+        key = (rows, *p["weight"].shape)
+        merged[key] = merged.get(key, 0) + n
+        weights[key] = p["weight"]
+    return [(*key, n, weights[key]) for key, n in merged.items()]
+
+
+def qwen_attack_cli(argv, captured=None):
+    """cli/attack_model.main on ``argv``, spied on as :func:`spied_cli` does."""
+    from adversarialvlm_tpu_torch.cli import attack_model
+
+    return spied_cli(attack_model.main, argv, captured)
+
+
+def per_step_launches(probe, launches, steps):
+    """Each kernel's launches a step of a run: the step's forwards (the probe's "step" phase) and
+    the backward (what launched outside every forward)."""
+    fwd = {k: sum(probe.launches[ph][k] for ph in probe.launches) for k in launches}
+    return {k: (probe.launches["step"][k] + launches[k] - fwd[k]) / steps for k in launches}
+
+
+def decode_chunks(tag, probe, n_layers):
+    """The test-decode chunks of a probe: each logged (prefill ms, tokens/s, peak); exactly
+    ``n_layers`` flash forwards a prefill and no kernel in a cached step."""
+    for c in probe.chunks:
+        n_fwd = len(c["ends"])
+        log(tag, f"test decode chunk: batch {c['batch']} prefill T={c['T']} prefill_ms={c['prefill_ms']:.2f} "
+            f"decode_ms={c['decode_ms']:.2f} ({n_fwd} forwards, "
+            f"{(c['decode_ms'] - c['prefill_ms']) / max(n_fwd - 1, 1):.2f} ms per cached step) tokens/s="
+            f"{c['tokens'] / c['decode_ms'] * 1e3:.1f} peak_memory_GiB={c['peak_GiB']:.3f} prefill launches="
+            f"{ {k: n for k, n in c['prefill_launches'].items() if n} }")
+        if c["prefill_launches"]["flash_fwd"] != n_layers or sum(c["prefill_launches"].values()) != n_layers:
+            raise AssertionError(f"{tag}: a decode prefill launched {c['prefill_launches']}")
+    if sum(probe.launches["decode_step"].values()):
+        raise AssertionError(f"{tag}: a cached decode step launched a kernel")
+    return [{"batch": c["batch"], "T": c["T"], "prefill_ms": c["prefill_ms"],
+             "tokens_per_s": c["tokens"] / c["decode_ms"] * 1e3, "peak_GiB": c["peak_GiB"]} for c in probe.chunks]
+
+
+def qwen_phases(ckpt_root, runs):
+    """Phases 4V, 5V, 4V1 and 4P on Qwen2-VL-2B-Instruct at full width and depth; the checkpoint
+    directory stays under ``ckpt_root`` for 4XV. Returns the phases' numbers and kernel statistics."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from adversarialvlm_tpu_torch.attack.config import AttackConfig
+    from adversarialvlm_tpu_torch.attack.engine import VictimSetup, train
+    from adversarialvlm_tpu_torch.attack.io import load_image_chw
+    from adversarialvlm_tpu_torch.attack.setup import image_processor
+    from adversarialvlm_tpu_torch.attack.step import build_attack_step, sample_chunk_xs
+    from adversarialvlm_tpu_torch.cli import test_post
+    from adversarialvlm_tpu_torch.cli.fabricate_ckpt import MODELS, fabricate
+    from adversarialvlm_tpu_torch.data import corpora
+    from adversarialvlm_tpu_torch.eval.tables import read_rows
+    from adversarialvlm_tpu_torch.models.loading import named_leaves
+    from adversarialvlm_tpu_torch.models.qwen2vl import init_params
+    from adversarialvlm_tpu_torch.models.registry import make_bundle
+    from adversarialvlm_tpu_torch.ops.kernels import launch_counts, reset_launches
+    from adversarialvlm_tpu_torch.processors import grid_hw_for
+    from adversarialvlm_tpu_torch.processors.adv_inputs import AdvInputs
+    from adversarialvlm_tpu_torch.utils.png import write_png
+
+    t_phase = time.perf_counter()
+    _, make_cfg, dtype = MODELS["qwen2vl-2b"]
+    vlm_cfg = make_cfg()
+    t, v = vlm_cfg.text, vlm_cfg.vision
+    # 4V. the directory from the seed-0 parameters drawn on the card; the CLI loads it
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    written = init_params(torch.Generator(device="cuda").manual_seed(0), vlm_cfg, dtype, "cuda")
+    path = fabricate("qwen2vl-2b", ckpt_root, params=written)
+    write_s = time.perf_counter() - t0
+    shards = sorted(f for f in os.listdir(path) if f.endswith(".safetensors"))
+    nbytes = sum(os.path.getsize(os.path.join(path, f)) for f in shards)
+    log("qwen", f"{sum(x.numel() for x in _leaves(written)) / 1e9:.3f} B seed-0 parameters drawn on the card and "
+        f"written to {path} in {write_s:.1f} s: {len(shards)} shards, {nbytes / 1e9:.3f} GB, files {sorted(os.listdir(path))}")
+    gray = os.path.join(os.path.dirname(os.path.abspath(__file__)), "images", "gray.png")
+    # scripts/attacks/attack_clamp_tanh_qwen2vl.sh on one card: gray.png, the list prompts, the
+    # target, lr 1e-2, batch 2 (its mesh flags belong to the JAX package's TP/DP layout)
+    argv = ["--exp_name", "qwen", "--img_orig", gray, "--prompt", "list", "--target_text", TARGET,
+            "--model_name", QWEN, "--checkpoint_root", ckpt_root, "--lr", "1e-2", "--num_iterations",
+            str(STEPS_V), "--save_steps", "10", "--batch_size", "2", "--runs_path", runs]
+    got = {}
+    t0 = time.perf_counter()
+    exp = qwen_attack_cli(argv, got)
+    cli_s = time.perf_counter() - t0
+    victim = got["victims"][0]
+    loaded, want = dict(named_leaves(victim.bundle.params)), dict(named_leaves(written))
+    want_cfg = dataclasses.replace(vlm_cfg, extra_eos_token_ids=(vlm_cfg.pad_token_id,))  # generation_config.json
+    if set(loaded) != set(want) or any(not torch.equal(loaded[k], want[k].to(loaded[k].dtype)) for k in want) \
+            or victim.bundle.cfg != want_cfg:
+        raise AssertionError("qwen: the CLI's victim is not the written directory's")
+    del written, loaded, want
+    gc.collect()
+    rows, steps, csvs = read_run(exp)
+    probe = got["probes"][0]
+    ai = victim.adv_inputs
+    _, gh, gw = victim.adv_processor.grid_thw((512, 512))
+    t_text, n_patch = int(ai.max_len), gh * gw
+    run_launches = got["launches"]
+    log("qwen", f"{QWEN} through cli/attack_model.py in {cli_s:.1f} s (train() {got['wall_s']:.1f} s): every "
+        f"tensor equal to the written one, config {QWEN}'s with generation_config.json's eos ids; pool "
+        f"{ai.prompt_pool.shape} (targets, questions, T), {ai.num_image_tokens} image tokens (512² -> 504², "
+        f"{n_patch} patches), tokenizer {type(ai.tokenizer).__name__} of {ai.tokenizer.vocab_size}")
+    for r in steps:
+        log("qwen", f"step {r['iteration']}: loss={r['loss']} grad_norm={r['grad_norm']} step_ms={r['step_ms']:.2f}")
+    med = statistics.median(r["step_ms"] for r in steps[1:])
+    step_peak = probe.step_peak / 2**30
+    if len(steps) != STEPS_V or not all(np.isfinite(r["loss"]) and r["grad_norm"] > 0 for r in steps):
+        raise AssertionError(f"qwen path: bad steps {[(r['loss'], r['grad_norm']) for r in steps]}")
+    cfg = run_config(exp)
+    xs = sample_chunk_xs(torch.Generator().manual_seed(cfg.seed), 1, cfg, [victim.handles()])[0]
+    seg = (torch.arange(t_text)[None, :] >= t_text - xs["lens"][0][:, None]).to(torch.int32).cuda()
+    pad = t_text - int(xs["lens"][0][0])
+    dg = check_dgrad(qwen_dgrad_cases(victim.bundle.params, vlm_cfg, 2, t_text, n_patch), "dgrad qwen2vl batch 2")
+    per_step = per_step_launches(probe, got["launches"], STEPS_V)
+    expected = {k: 0 for k in per_step}
+    expected.update({"dgrad": dg["per_step"], "flash_fwd": t.num_layers, "flash_bwd_dq": t.num_layers,
+                     "flash_bwd_dkdv": t.num_layers})
+    log("qwen", f"launches over the run: {got['launches']}; by phase: "
+        + "; ".join(f"{ph} x{probe.calls[ph]} {dict(+c)}" for ph, c in probe.launches.items()))
+    log("qwen", f"launches per step: { {k: n for k, n in per_step.items() if n} } (expected "
+        f"{ {k: n for k, n in expected.items() if n} }); the tower at {n_patch} patches takes the plain sdpa")
+    if per_step != expected:
+        raise AssertionError("qwen path: launches per step differ from the expected counts")
+    chunks = decode_chunks("qwen", probe, t.num_layers)
+    boundaries = [0, STEPS_V - 1]
+    test_qs = ai.test_questions
+    if sorted(csvs) != sorted(f"test_results_iter_{i}.csv" for i in boundaries) or not all(
+            [r[0] for r in tab[1:]] == list(test_qs) and tab[0] == ["question", QWEN] for tab in csvs.values()):
+        raise AssertionError(f"qwen path: test CSVs {sorted(csvs)}")
+    flash = flash_case("qwen2vl batch-2 step", seg, t.num_heads, t.num_kv_heads, t.head_dim_, timed=True)
+    masks = sorted({(c["batch"], c["T"]) for c in probe.chunks})
+    prefill = flash_case("qwen2vl test-decode prefill", probe.chunks[0]["mask"].cuda(), t.num_heads, t.num_kv_heads,
+                         t.head_dim_, timed=True, backward=False)["flash_fwd"]
+    attn = attention_case(t_text, t.num_heads, t.num_kv_heads, t.head_dim_, pad, timed=True)
+    log("qwen", f"4V: median step_ms (steps 1..{STEPS_V - 1})={med:.2f} warm-up {steps[0]['step_ms']:.2f}; steps' peak "
+        f"{step_peak:.3f} GiB; decode chunks (batch, T) {masks}; kernels held at the run's shapes")
+
+    # 5V. depth-cut references: the first 2 decoder and 2 vision layers, the card in bf16 through
+    # the kernels against the CPU in f32 on the plain path
+    t0 = time.perf_counter()
+    cut = dataclasses.replace(vlm_cfg, text=dataclasses.replace(t, num_layers=2),
+                              vision=dataclasses.replace(v, num_layers=2))
+    questions = [QUESTION, QUESTION + " Explain every step in detail, please."]
+    ref_ai = AdvInputs(ai.spec, ai.tokenizer, questions, [QUESTION], 2, [TARGET], ai.num_image_tokens,
+                       ai.image_token_id, ai.pad_token_id)
+    grid = grid_hw_for("qwen2vl", victim.adv_processor, (512, 512), cut)
+    gpu_v = VictimSetup("cut", make_bundle("cut", "qwen2vl", cut, torch.device("cuda"),
+                                           params=depth_cut(victim.bundle.params, 2, 2), grid_hw=grid),
+                        victim.adv_processor, ref_ai, torch.bfloat16)
+    cpu_v = VictimSetup("cut", make_bundle("cut", "qwen2vl", cut, torch.device("cpu"),
+                                           params=_map(gpu_v.bundle.params, lambda p: p.float().cpu()), grid_hw=grid),
+                        image_processor(cut, (512, 512), "cpu"), ref_ai)
+    x0 = load_image_chw(gray)
+    gen = torch.Generator().manual_seed(5)
+    p0 = 0.3 * torch.randn(x0.shape, generator=gen)
+    noise = torch.randn((2, n_patch, 3 * v.temporal_patch_size * v.patch_size**2), generator=gen)
+    reference = {}
+    for label, row_idx in (("batch 1", [0]), ("batch 2", [0, 1])):
+        xs_r = {"t_idx": 0, "rows": [torch.from_numpy(ref_ai.prompt_pool[0, row_idx])],
+                "lens": [torch.from_numpy(ref_ai.prompt_lengths[0, row_idx])], "noise": [noise[: len(row_idx)]]}
+        results = {}
+        for name, vv, dev in (("cpu", cpu_v, "cpu"), ("cuda", gpu_v, "cuda")):
+            x0_d = torch.as_tensor(x0, device=dev)
+            step = build_attack_step([vv.handles()], dataclasses.replace(cfg, batch_size=len(row_idx)), x0_d,
+                                     torch.ones_like(x0_d))
+            reset_launches()
+            loss, _, _, _, grad = step.loss_and_grad(p0.to(dev), xs_r, torch.tensor(cfg.sigma, device=dev))
+            results[name] = (float(loss), grad.double().cpu())
+            log("reference", f"qwen2vl {label} {name}: loss={float(loss)} grad_norm={float(grad.norm())} "
+                f"T={ref_ai.max_len} launches={ {k: n for k, n in launch_counts().items() if n} }")
+        (l_cpu, g_cpu), (l_gpu, g_gpu) = results["cpu"], results["cuda"]
+        rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+        cos = float((g_cpu * g_gpu).sum() / (g_cpu.norm() * g_gpu.norm()))
+        log("reference", f"qwen2vl {label}: loss rel diff={rel:.3g} (tol {TOL_REF_LOSS}) grad cosine={cos:.6f} "
+            f"(min {TOL_REF_COSINE})")
+        if not (rel <= TOL_REF_LOSS and cos >= TOL_REF_COSINE):
+            raise AssertionError(f"qwen2vl depth-cut reference ({label}): card and CPU disagree")
+        reference[label] = {"loss_rel": rel, "cosine": cos}
+    x_img = np.clip(x0 + cfg.epsilon * np.tanh(p0.numpy()), 0.0, 1.0).astype(np.float32)
+    decode_reference(gpu_v, cpu_v, list(corpora.not_safe_questions_test[:3]), x_img, {"flash_fwd": cut.text.num_layers})
+    log("reference", f"qwen2vl references in {time.perf_counter() - t0:.1f} s")
+    del gpu_v, cpu_v
+    gc.collect()
+
+    # 4V1. batch 1 from a 1024² source (980², 4900 patches): the tower takes flash_full at head_dim 80
+    t0 = time.perf_counter()
+    big = os.path.join(runs, "x0_1024.png")
+    write_png(big, np.full((1024, 1024, 3), 120, np.uint8))
+    x1 = load_image_chw(big)
+    proc1 = image_processor(vlm_cfg, (1024, 1024), "cuda")
+    _, gh1, gw1 = proc1.grid_thw((1024, 1024))
+    n_img1, n_patch1 = proc1.num_image_tokens((1024, 1024)), gh1 * gw1
+    ai1 = AdvInputs(ai.spec, ai.tokenizer, [QUESTION], [QUESTION], 1, [TARGET], n_img1, ai.image_token_id,
+                    ai.pad_token_id)
+    victim1 = VictimSetup(QWEN, make_bundle(QWEN, "qwen2vl", victim.bundle.cfg, torch.device("cuda"),
+                                            params=victim.bundle.params,
+                                            grid_hw=grid_hw_for("qwen2vl", proc1, (1024, 1024))),
+                          proc1, ai1, torch.bfloat16)
+    cfg1 = AttackConfig(exp_name="qwen_1024", num_iterations=STEPS_V1, save_steps=10, batch_size=1, lr=1e-2)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    probe1 = PathProbe(victim1.bundle)
+    reset_launches()
+    try:
+        exp1 = train(cfg1, [victim1], x1, base_path=runs, device="cuda", run_tests=False)
+        torch.cuda.synchronize()
+    finally:
+        probe1.finish()
+    launches1 = launch_counts()
+    _, steps1, _ = read_run(exp1)
+    t1 = int(ai1.max_len)
+    dg1 = check_dgrad(qwen_dgrad_cases(victim.bundle.params, vlm_cfg, 1, t1, n_patch1), "dgrad qwen2vl 1024²")
+    per_step1 = per_step_launches(probe1, launches1, STEPS_V1)
+    expected1 = {k: 0 for k in per_step1}
+    expected1.update({"dgrad": dg1["per_step"], "attention_fwd": t.num_layers, "attention_bwd_dq": t.num_layers,
+                      "attention_bwd_dkdv": t.num_layers, "flash_full_fwd": v.num_layers,
+                      "flash_full_bwd_dq": v.num_layers, "flash_full_bwd_dkdv": v.num_layers})
+    for r in steps1:
+        log("qwen 1024", f"step {r['iteration']}: loss={r['loss']} grad_norm={r['grad_norm']} step_ms={r['step_ms']:.2f}")
+    log("qwen 1024", f"batch 1, {n_img1} image tokens (T={t1}), tower {n_patch1} patches: launches over the run "
+        f"{ {k: n for k, n in launches1.items() if n} }; per step { {k: n for k, n in per_step1.items() if n} } "
+        f"(expected { {k: n for k, n in expected1.items() if n} }); steps' peak {probe1.step_peak / 2**30:.3f} GiB")
+    if per_step1 != expected1 or len(steps1) != STEPS_V1 or not all(
+            np.isfinite(r["loss"]) and r["grad_norm"] > 0 for r in steps1):
+        raise AssertionError("qwen 1024² path: steps or launches differ from the expected")
+    full80 = flash_full_case("qwen2vl 1024² tower", 1, v.num_heads, n_patch1, v.embed_dim // v.num_heads, timed=True)
+    flash_full_case("qwen2vl tower, two images", 2, v.num_heads, 2116, v.embed_dim // v.num_heads)
+    attention_case(t1, t.num_heads, t.num_kv_heads, t.head_dim_, t1 - int(ai1.prompt_lengths[0, 0]))
+    v1 = {"median_ms": statistics.median(r["step_ms"] for r in steps1[1:]), "peak_GiB": probe1.step_peak / 2**30,
+          "launches": launches1, "T": t1, "patches": n_patch1, "seconds": time.perf_counter() - t0}
+    log("qwen 1024", f"4V1 in {v1['seconds']:.1f} s")
+    del victim1, probe1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4P. cli/test_post.py over 4V's saved images, on the same victim loaded again by the CLI
+    t0 = time.perf_counter()
+    images = sorted(int(f[len("optimized_image_iter_"):-4]) for f in os.listdir(exp)
+                    if f.startswith("optimized_image_iter_") and f.endswith(".png")
+                    and f[len("optimized_image_iter_"):-4].isdigit())
+    name = os.path.basename(exp)
+    del victim, got, probe
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    out = test_post.main(["--exp", name, "--model_name", QWEN, "--checkpoint_root", ckpt_root, "--runs_path", runs,
+                          "--question_set_name", "held_out", "--iterations", *map(str, images), "--device", "cuda"])
+    torch.cuda.synchronize()
+    post_launches = launch_counts()
+    summary = read_rows(os.path.join(out, "summary.csv"))
+    files = sorted(os.listdir(out))
+    log("post", f"cli/test_post.py over {name}'s images {images} in {time.perf_counter() - t0:.1f} s: {files}; summary "
+        f"{summary}; launches { {k: n for k, n in post_launches.items() if n} }; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    if [r["iteration"] for r in summary] != images or any(
+            len(read_rows(os.path.join(out, f"test_results_iter_{it}.csv"))) != len(test_qs) for it in images):
+        raise AssertionError("4P: summary.csv lacks a row, or an iteration's CSV lacks its questions")
+    if post_launches["flash_fwd"] == 0 or post_launches["flash_fwd"] % t.num_layers or \
+            sum(post_launches.values()) != post_launches["flash_fwd"]:
+        raise AssertionError(f"4P: the re-test decode launched {post_launches}")
+    log("qwen", f"phases 4V, 5V, 4V1 and 4P in {time.perf_counter() - t_phase:.1f} s")
+    return {"median_ms": med, "step_peak_GiB": step_peak, "chunks": chunks, "reference": reference, "v1": v1,
+            "stats": {"dgrad": dg, **flash, **attn}, "prefill": prefill, "dgrad1": dg1, "full80": full80,
+            "launches": run_launches, "per_step": per_step, "post": {"images": images, "summary": summary},
+            "seconds": time.perf_counter() - t_phase, "write_s": write_s, "GB": nbytes / 1e9}
+
+
+def qwen_cross_phases(ckpt_root, runs):
+    """Phase 4XV: scripts/attacks/attack_cross_onechip.sh through cli/crossattack_models.py, both
+    victims loaded from the directories of 4V and 4G and resident on the card (Qwen2-VL-2B +
+    Gemma-3-4B-it, model weights 1.0 and 0.5, ε 0.4, batch 1, random targets): launches a cross
+    step exactly each victim's own, the kernels at the run's shapes, the cross step beside each
+    victim's alone, the peak, and the depth-cut cross reference."""
+    import numpy as np
+    import torch
+
+    from adversarialvlm_tpu_torch.attack.io import load_image_chw
+
+    t_phase = time.perf_counter()
+    gray = os.path.join(os.path.dirname(os.path.abspath(__file__)), "images", "gray.png")
+    x0 = load_image_chw(gray)
+    argv = ["--exp_name", "cross_qwen_gemma", "--img_orig", gray, "--prompt", "list", "--target_text", TARGET,
+            "--model_names", f"{QWEN},{JUDGE}", "--model_weights", "1.0", "0.5", "--lr", "1e-2",
+            "--num_iterations", str(STEPS_XV), "--save_steps", "10", "--batch_size", "1", "--epsilon", "0.4",
+            "--target_text_random", "--checkpoint_root", ckpt_root, "--runs_path", runs]
+    got = {}
+    t0 = time.perf_counter()
+    exp = cross_cli(argv, got)
+    cli_s = time.perf_counter() - t0
+    _, steps, csvs = read_run(exp)
+    victims, probes = got["victims"], got["probes"]
+    cfg = run_config(exp)
+    qv, gv = victims
+    q_cfg, g_cfg = qv.bundle.cfg, gv.bundle.cfg
+    t, gvis = q_cfg.text, g_cfg.vision
+    ai = [v.adv_inputs for v in victims]
+    t_q, t_g = int(ai[0].max_len), int(ai[1].max_len)
+    _, gh, gw = qv.adv_processor.grid_thw((512, 512))
+    log("cross qwen", f"{[v.name for v in victims]} through cli/crossattack_models.py in {cli_s:.1f} s (train() "
+        f"{got['wall_s']:.1f} s): epsilon={cfg.epsilon} weights {cfg.model_weights} batch {cfg.batch_size}, pools "
+        f"{[a.prompt_pool.shape for a in ai]}, {torch.cuda.memory_allocated() / 2**30:.2f} GiB resident")
+    for r in steps:
+        log("cross qwen", f"step {r['iteration']}: loss={r['loss']} loss_0={r['loss_0']} loss_1={r['loss_1']} "
+            f"grad_norm={r['grad_norm']} target_idx={r['target_idx']} step_ms={r['step_ms']:.2f}")
+    med = statistics.median(r["step_ms"] for r in steps[1:])
+    step_peak = max(p.step_peak for p in probes) / 2**30
+    if cfg.epsilon != 0.4 or len(steps) != STEPS_XV or not all(
+            np.isfinite(r["loss"]) and r["grad_norm"] > 0 for r in steps):
+        raise AssertionError("cross qwen path: bad steps or epsilon")
+    dg = check_dgrad(qwen_dgrad_cases(qv.bundle.params, q_cfg, 1, t_q, gh * gw)
+                     + gemma_dgrad_cases(gv.bundle.params, g_cfg, 1, t_g), "dgrad qwen + gemma cross step")
+    launches = got["launches"]
+    fwd = {k: sum(p.launches[ph][k] for p in probes for ph in p.launches) for k in launches}
+    per_step = {k: (probes[0].launches["step"][k] + probes[1].launches["step"][k] + launches[k] - fwd[k]) / STEPS_XV
+                for k in launches}
+    expected = {k: 0 for k in launches}
+    expected.update({"dgrad": dg["per_step"], "attention_fwd": t.num_layers, "attention_bwd_dq": t.num_layers,
+                     "attention_bwd_dkdv": t.num_layers, "flash_full_fwd": gvis.num_layers,
+                     "flash_full_bwd_dq": gvis.num_layers, "flash_full_bwd_dkdv": gvis.num_layers})
+    log("cross qwen", f"launches per cross step: { {k: n for k, n in per_step.items() if n} } (expected "
+        f"{ {k: n for k, n in expected.items() if n} }: Qwen's decoder on the batch-1 kernels, its 1296-patch "
+        f"tower on the plain sdpa; Gemma's SigLIP on flash_full, its decoder masked)")
+    if per_step != expected:
+        raise AssertionError("cross qwen path: launches per step differ from each victim's own")
+    chunks = decode_chunks("cross qwen", probes[0], t.num_layers)
+    for c in probes[1].chunks:  # Gemma's decoder layers are all masked: no kernel in its prefill but the tower's
+        log("cross qwen", f"Gemma test decode chunk: batch {c['batch']} T={c['T']} prefill_ms={c['prefill_ms']:.2f} "
+            f"prefill launches { {k: n for k, n in c['prefill_launches'].items() if n} }")
+    if sorted(csvs) != sorted(f"test_results_iter_{i}.csv" for i in (0, STEPS_XV - 1)) or not all(
+            tab[0] == ["question", QWEN, JUDGE] and len(tab) == 1 + len(ai[0].test_questions) for tab in csvs.values()):
+        raise AssertionError(f"cross qwen path: test CSVs {sorted(csvs)}")
+    attn = attention_case(t_q, t.num_heads, t.num_kv_heads, t.head_dim_, first_pad(victims, cfg), timed=True)
+    for mask in {tuple(c["mask"].shape): c["mask"] for c in probes[0].chunks}.values():
+        flash_case("cross qwen test-decode prefill", mask.cuda(), t.num_heads, t.num_kv_heads, t.head_dim_,
+                   backward=False)
+    profiled = profile_cross(victims, cfg, x0, labels=("qwen2vl", "gemma3"), rounds=XV_ROUNDS, timed=XV_TIMED,
+                             profiled=XV_PROFILED, tag="cross qwen")
+    reference = cross_reference(victims, x0, tag="cross qwen")
+    log("cross qwen", f"4XV: median step_ms (steps 1..{STEPS_XV - 1})={med:.2f}; steps' peak {step_peak:.3f} GiB; "
+        f"phase {time.perf_counter() - t_phase:.1f} s")
+    out = {"median_ms": med, "step_peak_GiB": step_peak, "per_step": per_step, "profiled": profiled,
+           "reference": reference, "dgrad": dg, "attention": attn, "chunks": chunks,
+           "seconds": time.perf_counter() - t_phase}
+    del victims, got, probes, qv, gv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     import torch
 
@@ -3240,6 +3681,8 @@ def main():
                      "causal_bwd": ("causal_dq_kernel", "causal_dkdv_kernel", "causal_dkdv_split_kernel")}
     # head_dim 256's kernels and the mark of that instantiation in their mangled names
     d256 = {"causal_fwd256_kernel": "", "causal_dq_kernel": "ILi256E", "causal_dkdv_split_kernel": "ILi256E"}
+    # flash_full's kernels at head_dim 72 (SigLIP) and 80 (Qwen2-VL's tower), one instantiation each
+    full_dims = {"full_fwd_kernel", "full_dq_kernel", "full_dkdv_kernel"}
     for lib, kernels in wgmma_kernels.items():
         hgmma = hgmma_counts(built[lib].path)
         for kernel in kernels:
@@ -3251,6 +3694,11 @@ def main():
                 raise AssertionError(f"{lib}: {kernel} was compiled without wgmma (no HGMMA in its SASS)")
             if kernel in d256 and (len(at256) != 1 or at256[0] == 0):
                 raise AssertionError(f"{lib}: {kernel} has no head_dim-256 instantiation holding HGMMA")
+            if kernel in full_dims:
+                by_d = {d: [c for name, c in hgmma.items() if kernel in name and f"ILi{d}E" in name] for d in (72, 80)}
+                log("build", f"{lib}: {kernel} HGMMA instructions by head dim {by_d}")
+                if any(len(c) != 1 or c[0] == 0 for c in by_d.values()):
+                    raise AssertionError(f"{lib}: {kernel} lacks a head_dim-72 or -80 instantiation holding HGMMA")
         spills = spill_lines(built[lib].log)
         log("build", f"{lib}: ptxas reports {len(spills)} spilling functions")
         if spills:
@@ -3319,6 +3767,12 @@ def main():
         base = baseline_phases(ckpt_root, runs)
         gc.collect()
         torch.cuda.empty_cache()
+        log("qwen", f"baseline victims freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+        qwen = qwen_phases(ckpt_root, runs)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("cross qwen", f"Qwen2-VL victims freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+        xq = qwen_cross_phases(ckpt_root, runs)
     finally:
         shutil.rmtree(ckpt_root)
         shutil.rmtree(runs)
@@ -3356,6 +3810,17 @@ def main():
         f"{m} {v['tokens_per_s']:.1f} tokens/s, prefill ms {[round(x, 2) for x in v['prefill_ms']]} at {v['shapes']}, "
         f"decode {v['decode_ms_per_row']:.1f} ms a row, peak {v['peak_GiB']:.3f} GiB" for m, v in base["suites"].items())
         + f"; host {base['host']}; phase {base['seconds']:.1f} s")
+    qp = xq["profiled"]
+    log("done", f"Qwen2-VL-2B (4V, 5V, 4V1, 4P; {qwen['seconds']:.1f} s): the batch-2 step {qwen['median_ms']:.2f} ms, "
+        f"steps' peak {qwen['step_peak_GiB']:.3f} GiB, test-decode chunks {qwen['chunks']}; directory {qwen['GB']:.3f} GB "
+        f"written in {qwen['write_s']:.1f} s; depth-cut reference {qwen['reference']}; the 1024² batch-1 step "
+        f"{qwen['v1']['median_ms']:.2f} ms, peak {qwen['v1']['peak_GiB']:.3f} GiB; re-test {qwen['post']}")
+    log("done", f"cross step (Qwen2-VL-2B + Gemma-3-4B-it, batch 1; 4XV, {xq['seconds']:.1f} s): {xq['median_ms']:.2f} ms "
+        f"in the run; in turns over {XV_ROUNDS} rounds of {XV_TIMED}: "
+        + "; ".join(f"{k} {qp[k]['round_ms']}" for k in ("cross", "qwen2vl", "gemma3"))
+        + f"; the cross step over the sum of the two alone {qp['ratios']}; device busy a step "
+        f"{ {k: qp[k]['busy_ms'] for k in ('cross', 'qwen2vl', 'gemma3')} } ms; steps' peak {xq['step_peak_GiB']:.3f} "
+        f"GiB; depth-cut reference {xq['reference']}")
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s; the blur + crop step "
         f"{llava['transforms']['median_ms']:.2f} ms at batch 1")
     sources = {"dgrad": "dgrad.cu", "attention_fwd": "causal_fwd.cu", "attention_bwd_dq": "causal_bwd.cu",
@@ -3439,6 +3904,35 @@ def main():
         if name in fused:
             kernels[i]["at_T_641"] = pick(fused_641[name], timing_keys)
             kernels[i]["at_head_dim_96"] = pick(fused_d96[name], timing_keys)
+    # phases 4V, 4V1 and 4XV: Qwen2-VL's shapes. The D-80 flash_full instantiations are rows of their own,
+    # their launches those of 4V1's run (the 1024² source); the causal kernels at n_rep 6 and dgrad at
+    # Qwen's linears ride with their entries
+    q_stats = qwen["stats"]
+    for name in ("flash_full_fwd", "flash_full_bwd_dq", "flash_full_bwd_dkdv"):
+        st = qwen["full80"][name]
+        kernels.append({
+            "name": f"{name}_d80", "route": "cuda", "source": f"adversarialvlm_tpu_torch/csrc/{sources[name]}",
+            "replaces": replaces[name], "launches": qwen["v1"]["launches"][name], "launches_cross_step": 0,
+            "launches_qwen_gemma_cross_step": 0,  # the cross run's 512² source: 1296 patches, the plain sdpa
+            "max_abs_err": st["abs"], "worst_row_rel_err": st["rel"], **pick(st, timing_keys),
+            "shape": [1, qwen["v1"]["patches"], 16, 80],
+        })
+    for i, name in enumerate(sources):
+        at = {}
+        if name in q_stats:  # 4V: the batch-2 step (flash), a batch-1 row (fused), dgrad at batch 2
+            st = q_stats[name]
+            at["at_qwen2vl_step_shapes"] = {"max_abs_err": st["abs"], "worst_row_rel_err": st["rel"],
+                                            "launches": qwen["launches"][name],
+                                            **pick(st, (*timing_keys, "per_step"))}
+        if name == "flash_fwd":
+            at["at_qwen2vl_prefill_shape"] = pick(qwen["prefill"], timing_keys)
+        if name == "dgrad":
+            at["at_qwen2vl_1024_shapes"] = pick(qwen["dgrad1"], (*timing_keys, "per_step"))
+            at["at_qwen_gemma_cross_shapes"] = pick(xq["dgrad"], (*timing_keys, "per_step"))
+        if name in xq["attention"]:
+            at["at_qwen_gemma_cross_shapes"] = pick(xq["attention"][name], timing_keys)
+        at["launches_qwen_gemma_cross_step"] = xq["per_step"][name]
+        kernels[i].update(at)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -383,7 +383,7 @@ def _entry_case(case, tmp_path, monkeypatch):
                                  "--checkpoint_root", root])
     elif case == "cli_other_family_raises":
         with pytest.raises(NotImplementedError, match="ROADMAP modules: other victim families"):
-            cli.main(base[2:] + ["--device", "cpu", "--model_name", "Qwen/Qwen2-VL-2B-Instruct"])
+            cli.main(base[2:] + ["--device", "cpu", "--model_name", "microsoft/Phi-3.5-vision-instruct"])
         assert sorted(os.listdir(tmp_path)) == ["x0.png"]  # it fails before making a run dir
     elif case == "cross_on_cpu":
         cfg = AttackConfig(**_kw(num_iterations=2))
@@ -420,9 +420,9 @@ def test_entry_points(case, tmp_path, monkeypatch):
 
 def test_port_imports_no_jax():
     """No module of the port, and not chip_smoke.py, imports jax or the JAX package, nor the HF
-    libraries the machine with the card lacks (the port reads safetensors and tokenizer.json
-    itself)."""
-    banned = {"jax", "jaxlib", "optax", "adversarialvlm_tpu", "safetensors", "transformers", "tokenizers"}
+    libraries or the ``regex`` package the machine with the card lacks (the port reads safetensors
+    and tokenizer.json itself, Qwen2's Split regex written out by hand)."""
+    banned = {"jax", "jaxlib", "optax", "adversarialvlm_tpu", "safetensors", "transformers", "tokenizers", "regex"}
     files = sorted((REPO / "adversarialvlm_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 20
     for path in files:

@@ -397,10 +397,39 @@ def test_baseline_cli_runs_tiny_llava(tmp_path, mode, capsys, one_thread):
     assert "generate_programs: configs=1 programs=1" in text
 
 
-@pytest.mark.parametrize("model", ["qwen", "phi35", "llama"])
+@pytest.mark.parametrize("mode", ["reference", "figstep"])
+def test_baseline_cli_runs_qwen(tmp_path, mode, capsys, one_thread):
+    """cli/baseline_tests.py --model qwen (Qwen/Qwen2-VL-2B-Instruct) on a fabricated tiny-qwen2vl
+    checkpoint directory, on the CPU at its 128 new tokens: the text mode, and FigStep with its
+    76² PNGs host-resized to the victim's 448² (eval_target_hw, the processor's in_hw: 1024 patches,
+    256 image tokens a row); a row per question or image and one decode configuration."""
+    from adversarialvlm_tpu_torch.cli import fabricate_ckpt
+
+    root = str(tmp_path / "ckpts")
+    fabricate_ckpt.main(["tiny-qwen2vl", root, "--device", "cpu"])
+    sfb = tmp_path / "sfb"
+    sfb.mkdir()
+    (sfb / "1.csv").write_text("How?\nWhy?\n")
+    ds = tmp_path / "datasets"
+    d = ds / "FigStep" / "images" / "1_with_titles"
+    d.mkdir(parents=True)
+    for i in range(2):
+        Image.fromarray(smooth_image(76, 76, 50 + i)).save(d / f"{i}.png")
+    out = baseline_tests.main(["--model", "qwen", "--mode", mode, "--sfb_path", str(sfb), "--dataset_root",
+                               str(ds), "--tests_path", str(tmp_path / "tests"), "--categories", "1",
+                               "--batch_size", "2", "--checkpoint_root", root, "--device", "cpu"])
+    text = capsys.readouterr().out
+    sub = {"reference": "reference", "figstep": "FigStep_baseline"}[mode]
+    assert out == os.path.join(str(tmp_path / "tests"), sub, "qwen")
+    assert os.listdir(out) == ["1.csv"] and len(read_column(os.path.join(out, "1.csv"))) == 2
+    assert "generate_programs: configs=1 programs=1" in text
+    assert "images at 448x448, 256 image tokens a row" in text  # 32×32 patches, merged 2×2
+
+
+@pytest.mark.parametrize("model", ["phi35", "llama"])
 def test_baseline_cli_refuses_other_families_before_any_file(tmp_path, model):
-    """The qwen, phi35 and llama names raise NotImplementedError naming their ROADMAP item before
-    any file is read (no dataset, no checkpoint exists); a reversed category range raises first."""
+    """The phi35 and llama names raise NotImplementedError naming their ROADMAP item before any
+    file is read (no dataset, no checkpoint exists); a reversed category range raises first."""
     missing = str(tmp_path / "missing")
     args = ["--model", model, "--mode", "figstep", "--dataset_root", missing, "--checkpoint_root", missing,
             "--tests_path", missing, "--device", "cpu"]

@@ -356,7 +356,9 @@ NEW_MODULES = ["judge/__init__.py", "judge/fsm.py", "judge/safety_checker.py", "
                "cli/safebench_test.py", "cli/guard_eval.py", "models/quant.py", "models/loading.py",
                "models/layers.py", "models/generate.py", "ops/kernels/dgrad.py", "attack/io.py",
                "utils/native.py", "utils/jpeg.py", "utils/images.py", "utils/png.py", "eval/benchmarking.py",
-               "eval/figstep.py", "eval/mm_safetybench.py", "cli/baseline_tests.py"]
+               "eval/figstep.py", "eval/mm_safetybench.py", "cli/baseline_tests.py",
+               "eval/experiment_tracker.py", "eval/test_post.py", "cli/test_post.py", "models/qwen2vl.py",
+               "processors/qwen2vl.py", "utils/tokenizer_json.py"]
 
 
 def test_eval_modules_import_no_jax_pandas_pil_or_transformers():

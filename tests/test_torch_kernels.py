@@ -262,6 +262,10 @@ def _vit_route_case(case):
     if case == "cuda_siglip_takes_flash_full":
         assert A.vit_attention_route("cuda", 4096, 72) == "flash_full"
         assert A.vit_attention_route("cuda", 2048, 72) == "flash_full"
+    elif case == "cuda_qwen2vl_tower_takes_flash_full":
+        assert A.vit_attention_route("cuda", 4900, 80) == "flash_full"  # a 1024² source, 16 heads of 80
+        assert A.vit_attention_route("cuda", 2116, 80) == "flash_full"
+        assert A.vit_attention_route("cuda", 1296, 80) == "plain"  # a 512² source
     elif case == "cuda_clip_takes_plain":
         assert A.vit_attention_route("cuda", 577, 64) == "plain"
         assert A.vit_attention_route("cuda", 2047, 72) == "plain"
@@ -284,6 +288,15 @@ def _vit_route_case(case):
         cpu = torch.randn(1, 8, 2, 64)
         Fl.flash_full_fwd(cpu, cpu, cpu, 0.1)  # CPU: the plain version, any head dim
         assert launch_counts()["flash_full_fwd"] == 0
+    elif case == "flash_full_wrapper_takes_head_dims_72_and_80":
+        assert Fl.FULL_HEAD_DIMS == (72, 80)
+        for d in (72, 80):  # past the head-dim check, a meta tensor fails only as not on the card
+            meta = torch.empty(1, 8, 2, d, device="meta")
+            with pytest.raises(ValueError, match="CUDA tensors"):
+                Fl.flash_full_fwd(meta, meta, meta, 0.1)
+            with pytest.raises(ValueError, match="CUDA tensors"):
+                Fl.flash_full_bwd_dkdv(meta, meta, meta, meta[..., 0].transpose(1, 2),
+                                       meta[..., 0].transpose(1, 2), meta, 0.1)
     else:
         raise AssertionError(case)
 
@@ -291,10 +304,12 @@ def _vit_route_case(case):
 @pytest.mark.parametrize("case", [
     "cuda_siglip_takes_flash_full", "cuda_clip_takes_plain", "cuda_head_dim64_raises",
     "cpu_takes_plain_unless_kernel_routes", "flash_full_wrapper_rejects_other_devices_and_head_dims",
+    "cuda_qwen2vl_tower_takes_flash_full", "flash_full_wrapper_takes_head_dims_72_and_80",
 ])
 def test_vit_route(case):
     """The vision tower's attention takes the non-causal flash_full kernels on the card from
-    T = 2048 (clip_vit.py:22-30) at head_dim 72, the plain sdpa below (the CLIP tower's 577),
+    T = 2048 (clip_vit.py:22-30, qwen2vl.py:59-67) at head_dim 72 (SigLIP) and 80 (Qwen2-VL's
+    tower), the plain sdpa below (the CLIP tower's 577, Qwen2-VL's 1296 patches at a 512² source),
     raises at any other head dim there (no fallback), and stays plain on the CPU."""
     _vit_route_case(case)
 

@@ -4,8 +4,9 @@ the families the port runs.
 
     python -m adversarialvlm_tpu_torch.cli.fabricate_ckpt <model> <root> [--device cuda]
 
-``model``: ``llava-1.5-7b``, ``gemma-3-4b`` or ``qwen2vl-2b`` (full width and depth, bf16), or
-``tiny-llava``, ``tiny-gemma3`` and ``tiny-qwen2vl`` (the tests' tiny configs, f32). The directory is ``<root>/<org>/<name>`` of the HF
+``model``: ``llava-1.5-7b``, ``gemma-3-4b``, ``qwen2vl-2b`` or ``phi3.5-vision`` (full width and
+depth, bf16), or ``tiny-llava``, ``tiny-gemma3``, ``tiny-qwen2vl`` and ``tiny-phi3v`` (the tests'
+tiny configs, f32). The directory is ``<root>/<org>/<name>`` of the HF
 name, as cli/attack_model.py's ``--checkpoint_root`` resolves it. It holds:
 
   * the weights of ``init_params`` drawn from seed 0 on ``--device`` (the same tensors as the
@@ -13,7 +14,11 @@ name, as cli/attack_model.py's ``--checkpoint_root`` resolves it. It holds:
     (``language_model.model.*``, the ``vision_tower.vision_model.*`` tower with its
     ``post_layernorm`` for llava, which the loader drops; Qwen2-VL's flat ``model.*`` decoder and
     ``visual.*`` tower, its patch embed as the conv3d (E, 3, 2, 14, 14), no ``lm_head`` where the
-    embeddings are tied), as safetensors shards of at most 5 GB with their index;
+    embeddings are tied; Phi-3.5-vision's flat ``model.*`` decoder with its fused ``qkv_proj`` and
+    ``gate_up_proj``, the CLIP tower under ``model.vision_embed_tokens.img_processor.vision_model.*``
+    with its ``post_layernorm``, ``glb_GN`` (1, 1, 4C), ``sub_GN`` (1, 1, 1, 4C),
+    ``img_projection.{0,2}`` and the ``wte`` copy of the token embedding, the last two keys
+    dropped by the loader), as safetensors shards of at most 5 GB with their index;
   * config.json, generation_config.json and preprocessor_config.json, from which
     models/loading.py patches back the same VLMConfig;
   * tokenizer.json, tokenizer_config.json and special_tokens_map.json in the family's style: a
@@ -29,7 +34,15 @@ name, as cli/attack_model.py's ``--checkpoint_root`` resolves it. It holds:
     corpora's pre-tokens, and its 14 specials from ``<|endoftext|>`` 151643 (``<|im_start|>``
     151644, ``<|im_end|>`` 151645, ``<|vision_start|>`` 151652, ``<|vision_end|>`` 151653,
     ``<|image_pad|>`` 151655); the tiny directory's specials sit at the same offsets from the top
-    of its 1024-row vocabulary.
+    of its 1024-row vocabulary. Phi-3.5-vision: LLaVA's Llama-style layout with Phi-3's chat
+    specials from ``<|endoftext|>`` 32000 (``<|assistant|>`` 32001, ``<|system|>`` 32006,
+    ``<|end|>`` 32007, ``<|user|>`` 32010, placeholders between) at the same ids in the tiny
+    directory, whose vocabulary has the hub's 32064 rows; ``<|image_1|>`` has no entry
+    (processors/adv_inputs.py splits it out of the string).
+
+The Phi-3.5-vision config.json carries synthetic LongRoPE factor arrays (1 + 0.01·i short, 4.0
+long, a factor per rotary frequency), as scripts/fabricate_ckpt.py::fab_phi3v writes them: the
+hub's are checkpoint constants this repository does not hold.
 """
 
 from __future__ import annotations
@@ -50,6 +63,7 @@ from adversarialvlm_tpu_torch.models.configs import (
     tiny_llava,
 )
 from adversarialvlm_tpu_torch.models.loading import named_leaves
+from adversarialvlm_tpu_torch.models.phi3v import phi3_5_vision, tiny_phi3v
 from adversarialvlm_tpu_torch.models.qwen2vl import qwen2vl_2b, tiny_qwen2vl
 
 CLIP_MEAN = [0.48145466, 0.4578275, 0.40821073]
@@ -78,14 +92,47 @@ def _tiny_qwen2vl() -> VLMConfig:
                                image_token_id=base + 12)
 
 
+# Phi-3's added tokens, by offset from <|endoftext|> (32000 in the hub's vocabulary of 32064 rows)
+PHI3_VOCAB = 32064
+PHI3_SPECIALS = {
+    0: "<|endoftext|>", 1: "<|assistant|>", 2: "<|placeholder1|>", 3: "<|placeholder2|>",
+    4: "<|placeholder3|>", 5: "<|placeholder4|>", 6: "<|system|>", 7: "<|end|>", 8: "<|placeholder5|>",
+    9: "<|placeholder6|>", 10: "<|user|>",
+}
+
+
+def _longrope(cfg: VLMConfig) -> VLMConfig:
+    """``cfg`` with fab_phi3v's synthetic LongRoPE factors, one a rotary frequency."""
+    half = cfg.text.head_dim_ // 2
+    return dataclasses.replace(cfg, text=dataclasses.replace(
+        cfg.text, rope_scaling_short_factor=tuple(round(1.0 + 0.01 * i, 4) for i in range(half)),
+        rope_scaling_long_factor=(4.0,) * half))
+
+
+def _phi3_5_vision() -> VLMConfig:
+    return _longrope(phi3_5_vision())
+
+
+def _tiny_phi3v() -> VLMConfig:
+    """The tiny Phi-3.5-vision over the hub's 32064-row vocabulary, Phi-3's specials from
+    <|endoftext|> 32000 and the image token 32044 as there: load_phi3v, as JAX's, keeps
+    phi3_5_vision()'s eos 32000 whatever config.json says, so the tiny directory's vocabulary
+    holds it."""
+    base = PHI3_VOCAB - 64
+    cfg = tiny_phi3v(vocab_size=PHI3_VOCAB)
+    return dataclasses.replace(cfg, pad_token_id=base, eos_token_id=base, image_token_id=base + 44)
+
+
 # model -> (HF name, config, weight dtype)
 MODELS = {
     "llava-1.5-7b": ("llava-hf/llava-1.5-7b-hf", llava_1_5_7b, torch.bfloat16),
     "gemma-3-4b": ("google/gemma-3-4b-it", gemma3_4b_it, torch.bfloat16),
     "qwen2vl-2b": ("Qwen/Qwen2-VL-2B-Instruct", qwen2vl_2b, torch.bfloat16),
+    "phi3.5-vision": ("microsoft/Phi-3.5-vision-instruct", _phi3_5_vision, torch.bfloat16),
     "tiny-llava": ("llava-hf/llava-1.5-7b-hf", lambda: tiny_llava(vocab_size=1024), torch.float32),
     "tiny-gemma3": ("google/gemma-3-4b-it", _tiny_gemma3, torch.float32),
     "tiny-qwen2vl": ("Qwen/Qwen2-VL-2B-Instruct", _tiny_qwen2vl, torch.float32),
+    "tiny-phi3v": ("microsoft/Phi-3.5-vision-instruct", _tiny_phi3v, torch.float32),
 }
 
 
@@ -96,7 +143,26 @@ _EMBEDDINGS = ("patch_embedding.", "position_embedding.", "class_embedding")
 
 def hf_key(family: str, path: str) -> str:
     """The hub's key of a dotted path of the port's tree: the inverse of models/loading.py's
-    ``_normalize_llava_key``, ``_normalize_gemma3_key`` and ``_normalize_qwen2vl_key``."""
+    ``_normalize_llava_key``, ``_normalize_gemma3_key``, ``_normalize_qwen2vl_key`` and
+    ``_normalize_phi3v_key`` (phi3v's split projections are fused again by hf_state_dict)."""
+    if family == "phi3v":
+        if path.startswith("language_model.lm_head."):
+            return path[len("language_model."):]
+        if path.startswith("language_model."):
+            return "model." + path[len("language_model."):]
+        pre = "model.vision_embed_tokens."
+        if path.startswith("img_processor."):
+            rest = path[len("img_processor."):]
+            if rest.startswith(_EMBEDDINGS):
+                rest = "embeddings." + rest
+            elif rest.startswith("layers."):
+                rest = "encoder." + rest
+            return pre + "img_processor.vision_model." + rest
+        if path in ("glb_GN", "sub_GN"):
+            return pre + path
+        if path.startswith(("img_projection_0.", "img_projection_2.")):
+            return pre + "img_projection." + path[len("img_projection_"):]
+        raise ValueError(f"{family}: no hub key for {path}")
     if family == "qwen2vl":
         if path.startswith("language_model.lm_head."):
             return path[len("language_model."):]
@@ -123,8 +189,11 @@ def hf_key(family: str, path: str) -> str:
 
 
 def hf_state_dict(family: str, params: dict, cfg: VLMConfig) -> dict:
-    """The hub layout of ``params`` (tensors shared, not copied); llava's CLIP tower also gets the
-    ``post_layernorm`` the hub checkpoints carry and feature layer -2 never reads."""
+    """The hub layout of ``params`` (tensors shared, not copied, but phi3v's fused projections);
+    llava's and phi3v's CLIP towers also get the ``post_layernorm`` the hub checkpoints carry and
+    feature layer -2 never reads, phi3v the ``wte`` copy of the token embedding."""
+    if family == "phi3v":
+        return _phi3v_state_dict(params)
     sd = {hf_key(family, path): t for path, t in named_leaves(params)}
     if family == "qwen2vl":  # the conv3d patch embed the tower's product flattens
         v = cfg.vision
@@ -135,6 +204,31 @@ def hf_state_dict(family: str, params: dict, cfg: VLMConfig) -> dict:
         pre = "vision_tower.vision_model.post_layernorm."
         sd[pre + "weight"] = torch.ones_like(t)
         sd[pre + "bias"] = torch.zeros_like(t)
+    return sd
+
+
+def _phi3v_state_dict(params: dict) -> dict:
+    """Phi-3.5-vision's hub layout: q/k/v fused into ``qkv_proj`` and gate/up into ``gate_up_proj``
+    (concatenated on ``params``' device, a layer at a time), the separators in their hub shapes."""
+    sd = {}
+    for path, t in named_leaves(params):
+        if path in ("glb_GN", "sub_GN"):
+            t = t.reshape((1, 1, -1) if path == "glb_GN" else (1, 1, 1, -1))
+        parts = path.split(".")
+        name = parts[-2] if parts[0] == "language_model" and len(parts) > 2 else ""
+        if name in ("k_proj", "v_proj", "up_proj"):
+            continue
+        if name in ("q_proj", "gate_proj"):
+            node = params["language_model"]["layers"][int(parts[2])][parts[3]]
+            fused = ("q_proj", "k_proj", "v_proj") if name == "q_proj" else ("gate_proj", "up_proj")
+            t = torch.cat([node[f]["weight"] for f in fused], dim=0)
+            path = ".".join([*parts[:-2], "qkv_proj" if name == "q_proj" else "gate_up_proj", "weight"])
+        sd[hf_key("phi3v", path)] = t
+    pre = "model.vision_embed_tokens."
+    ln = params["img_processor"]["pre_layrnorm"]["weight"]
+    sd[pre + "img_processor.vision_model.post_layernorm.weight"] = torch.ones_like(ln)
+    sd[pre + "img_processor.vision_model.post_layernorm.bias"] = torch.zeros_like(ln)
+    sd[pre + "wte.weight"] = params["language_model"]["embed_tokens"]["weight"]
     return sd
 
 
@@ -159,6 +253,27 @@ def hf_configs(family: str, cfg: VLMConfig, dtype) -> dict[str, dict]:
     }
     eos = [cfg.eos_token_id, *cfg.extra_eos_token_ids]
     dtype_name = str(dtype).replace("torch.", "")
+    if family == "phi3v":
+        hub_tower = phi3_5_vision().vision
+        config = {
+            "architectures": ["Phi3VForCausalLM"], "model_type": "phi3_v", **text,
+            "hidden_act": t.hidden_act, "original_max_position_embeddings": t.original_max_position_embeddings,
+            "rope_scaling": {"type": "longrope", "short_factor": list(t.rope_scaling_short_factor),
+                             "long_factor": list(t.rope_scaling_long_factor)},
+            "image_token_index": cfg.image_token_id, "pad_token_id": cfg.pad_token_id, "bos_token_id": 1,
+            "eos_token_id": cfg.eos_token_id,
+            "embd_layer": {"embedding_cls": "image", "hd_transform_order": "sub_glb", "projection_cls": "mlp",
+                           "use_hd_transform": True, "with_learnable_separator": True},
+            "img_processor": {"image_dim_out": v.hidden_size, "model_name": "openai/clip-vit-large-patch14-336",
+                              "name": "clip_vision_model", "num_img_tokens": 144},
+            "torch_dtype": dtype_name,
+        }
+        if v != hub_tower:  # the hub's config.json has none; a tower of another size says so
+            config["vision_config"] = {"model_type": "clip_vision_model", **vision}
+        pre = {"do_convert_rgb": True, "image_mean": CLIP_MEAN, "image_std": CLIP_STD,
+               "image_processor_type": "Phi3VImageProcessor", "num_crops": 4, "num_img_tokens": 144}
+        gen = {"bos_token_id": 1, "eos_token_id": cfg.eos_token_id, "pad_token_id": cfg.pad_token_id}
+        return {"config.json": config, "generation_config.json": gen, "preprocessor_config.json": pre}
     if family == "qwen2vl":
         base = cfg.pad_token_id  # <|endoftext|>
         config = {
@@ -317,12 +432,19 @@ def tokenizer_files(family: str, cfg: VLMConfig) -> dict[str, dict]:
     if family == "qwen2vl":
         return _qwen2_tokenizer_files(cfg)
     n_pieces = cfg.image_token_id  # the image token is the first id past the pieces
-    if family == "llava":
+    if family in ("llava", "phi3v"):
         fixed = {0: "<unk>", 1: "<s>", 2: "</s>"}
         byte_start = 3
-        past = {cfg.image_token_id: "<image>", cfg.pad_token_id: "<pad>"}
-        roles = {"bos_token": "<s>", "eos_token": "</s>", "unk_token": "<unk>", "pad_token": "<pad>"}
-        extra = ["<image>"]
+        if family == "phi3v":  # Phi-3's chat specials from <|endoftext|>, the pad (and eos) id
+            n_pieces = cfg.pad_token_id
+            past = {cfg.pad_token_id + i: c for i, c in PHI3_SPECIALS.items()}
+            roles = {"bos_token": "<s>", "eos_token": "<|endoftext|>", "unk_token": "<unk>",
+                     "pad_token": "<|endoftext|>"}
+            extra = ["<|system|>", "<|end|>", "<|user|>", "<|assistant|>"]
+        else:
+            past = {cfg.image_token_id: "<image>", cfg.pad_token_id: "<pad>"}
+            roles = {"bos_token": "<s>", "eos_token": "</s>", "unk_token": "<unk>", "pad_token": "<pad>"}
+            extra = ["<image>"]
         normalizer = {"type": "Sequence", "normalizers": [
             {"type": "Prepend", "prepend": "▁"},
             {"type": "Replace", "pattern": {"String": " "}, "content": "▁"}]}

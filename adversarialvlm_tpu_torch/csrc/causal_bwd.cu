@@ -9,7 +9,7 @@
 //  - adversarialvlm_tpu/ops/pallas/fused_attention.py::fused_sdpa: _call_bwd (:229, pallas_call at
 //    :235, bodies _bwd_kernel :126 and _bwd_kernel_v2 :154; v1 and v2 are the same math), in
 //    (B, H, T, D) layout, causal or not, no GQA; its single backward call is the two kernels here.
-// The first two compute the CAUSAL_SEG mode of attention_sm90.cuh at head dim 128 or 256 in the
+// The first two compute the CAUSAL_SEG mode of attention_sm90.cuh at head dim 96, 128 or 256 in the
 // projections' (B, T, heads, D) layout; GQA q head h reads kv head h / (H / Hkv). fused_sdpa
 // takes CAUSAL_SEG or SEG. The residuals are the forward's o and its (B, H, T) f32 row logsumexp.
 //
@@ -19,7 +19,9 @@
 // MB): 170-175 operations per byte, under the card's ~295 ridge, so device memory bounds the
 // ideal (0.040 and 0.053 ms at 3.35 TB/s). Beside the products every allowed pair costs an exp2
 // and a dozen scalar operations on the accumulator registers, and at T ≈ 640 a head has only 11
-// tiles of 64 rows, so the work is short walks that must fill 132 SMs.
+// tiles of 64 rows, so the work is short walks that must fill 132 SMs. At head dim 96 (Phi-3.5's
+// decoder, 32 heads; the batch-2 step, 2 × 797) dq and dk/dv are bound by bytes as well (0.0177 ms
+// each) and run the D-128 plans at 96 columns.
 //
 // Design (all products are wgmma, bf16 in, f32 accumulate; flash_full.cu's structure):
 //  - dq: a block is one warpgroup and owns 64 query rows of one (b, h). Per key tile of 64 up to
@@ -558,7 +560,7 @@ Layout layout_of(const long long* s) { return Layout{s[0], s[1], s[2]}; }
 // which dk/dv reads.
 //
 // causal_bwd_*: the backward of attention.py's batch-1 wrappers (B = 1) and of flash.py's batched
-// ones, causal with a segment mask over B rows, D = 128 or 256, all tensors contiguous: q, o, dout, dq
+// ones, causal with a segment mask over B rows, D = 96, 128 or 256, all tensors contiguous: q, o, dout, dq
 // are (B, T, H, D) bf16; k, v, dk, dv (B, T, Hkv, D) bf16; seg (B, T) int32; lse and delta
 // (B, H, T) f32.
 //
@@ -575,6 +577,7 @@ extern "C" int causal_bwd_dq_bf16(const void* q, const void* k, const void* v, c
   const Layout lq = bthd(T, H, D), lk = bthd(T, Hkv, D);
   switch (D) {
 #define CALL(DD) dq<DD, CAUSAL_SEG>(q, k, v, seg, o, dout, lse, dq_, delta, B, T, H, Hkv, scale, lq, lk, stream)
+    case 96: return CALL(96);
     case 128: return CALL(128);
     case 256: return CALL(256);
 #undef CALL
@@ -589,6 +592,7 @@ extern "C" int causal_bwd_dkdv_bf16(const void* q, const void* k, const void* v,
   const Layout lq = bthd(T, H, D), lk = bthd(T, Hkv, D);
   switch (D) {
 #define CALL(DD) dkdv<DD, CAUSAL_SEG>(q, k, v, seg, dout, lse, delta, dk, dv, B, T, H, Hkv, scale, lq, lk, stream)
+    case 96: return CALL(96);
     case 128: return CALL(128);
     case 256: return CALL(256);
 #undef CALL

@@ -10,7 +10,7 @@
 //  - adversarialvlm_tpu/ops/pallas/fused_attention.py::fused_sdpa: _call_fwd (:208, pallas_call at
 //    :213, bodies _fwd_kernel :107 and _fwd_kernel_v2 :115), in (B, H, T, D) layout, causal or not,
 //    no GQA.
-// The first two are CAUSAL_SEG at head dim 128 or 256 in the projections' (B, T, heads, D) layout
+// The first two are CAUSAL_SEG at head dim 96, 128 or 256 in the projections' (B, T, heads, D) layout
 // (GQA: q head h reads kv head h / (H / Hkv)). The mask modes are those of attention_sm90.cuh.
 // Scores and softmax in f32, o in bf16, and the (B, H, T) f32 natural-log row logsumexp, the
 // residual causal_bwd.cu reads.
@@ -25,6 +25,9 @@
 // At head dim 256 (Gemma-3's global layers; the judge's text-only prefill, 16 rows of 704, 8 heads,
 // 4 kv heads) the forward is 32.5 GFLOP on 138 MB: 235 operations per byte, just under the ridge,
 // so bytes still bound the ideal (0.041 ms), with the products close behind (0.033 ms).
+// At head dim 96 (Phi-3.5's decoder, 32 heads; the batch-2 attack step, 2 × 797) it is 7.7 GFLOP on
+// 39.5 MB, about 195 operations per byte: bytes bound the ideal (0.0118 ms). The D-128 plan serves
+// it unchanged: the instantiation at 96 only shortens each product's k-steps and P·V's width.
 //
 // Design (all products are wgmma, bf16 in, f32 accumulate; the structure of flash_full.cu's forward):
 //  - A warpgroup owns 64 query rows of one (b, h) and its Q tile. For each key tile of 64 rows it
@@ -460,7 +463,7 @@ int fused(const void* q, const void* k, const void* v, const void* seg, void* o,
 // Each entry launches on `stream` and returns cudaGetLastError() (0 on success).
 //
 // causal_fwd_bf16: the forward of attention.py's batch-1 wrappers (B = 1) and of flash.py's batched
-// ones, causal within segments, D = 128 or 256, all tensors contiguous: q, o (B, T, H, D) bf16; k, v
+// ones, causal within segments, D = 96, 128 or 256, all tensors contiguous: q, o (B, T, H, D) bf16; k, v
 // (B, T, Hkv, D) bf16; seg (B, T) int32 (0 = pad, 1 = real); lse (B, H, T) f32.
 //
 // fused_fwd_bf16: the fused_sdpa counterpart, causal (CAUSAL_SEG) or not (SEG), D in {32, 64, 96,
@@ -473,6 +476,7 @@ extern "C" int causal_fwd_bf16(const void* q, const void* k, const void* v, cons
   if (!shape_ok(B, T, H, Hkv)) return (int)cudaErrorInvalidValue;
   const Layout lq = bthd(T, H, D), lk = bthd(T, Hkv, D);
   switch (D) {
+    case 96: return launch<96, CAUSAL_SEG>(q, k, v, seg, o, lse, B, T, H, Hkv, scale, lq, lk, stream);
     case 128: return launch<128, CAUSAL_SEG>(q, k, v, seg, o, lse, B, T, H, Hkv, scale, lq, lk, stream);
     case 256: return launch<256, CAUSAL_SEG>(q, k, v, seg, o, lse, B, T, H, Hkv, scale, lq, lk, stream);
     default: return (int)cudaErrorInvalidValue;

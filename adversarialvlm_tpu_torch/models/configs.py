@@ -1,5 +1,6 @@
 """Model configurations of the families the port covers: LLaVA-1.5-7B, Gemma-3-4B-it, Qwen2-VL
-(models/qwen2vl.py holds its 2B, 7B and tiny configurations) and the tiny ones the tests use. Counterpart of adversarialvlm_tpu/models/configs.py, with the fields
+(models/qwen2vl.py holds its 2B, 7B and tiny configurations), Phi-3.5-vision (models/phi3v.py) and
+the tiny ones the tests use. Counterpart of adversarialvlm_tpu/models/configs.py, with the fields
 these configurations read.
 """
 
@@ -26,6 +27,10 @@ class TextConfig:
     qkv_bias: bool = False  # qwen2: biases on the q, k and v projections
     # qwen2-vl multimodal rope: head_dim/2 split into (t, h, w) sections
     mrope_section: tuple[int, ...] | None = None
+    # phi-3 longrope scaling: per-dim inv_freq divisors + attention scaling
+    rope_scaling_short_factor: tuple[float, ...] | None = None
+    rope_scaling_long_factor: tuple[float, ...] | None = None
+    original_max_position_embeddings: int | None = None
     # gemma-style extras
     embed_scale: bool = False  # multiply embeddings by sqrt(hidden)
     # gemma rms-norm parameterization (weight stored as w - 1, applied as 1 + w); None follows

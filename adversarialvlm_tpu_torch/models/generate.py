@@ -96,7 +96,8 @@ def max_decode_batch(
     package's budget (generate.py:146): ``hbm_bytes`` (default: the memory of the params'
     device) less the weights, ``reserved_bytes`` held by other residents and ``slack_bytes`` for
     prefill transients. The per-sequence cost keeps the JAX formula, head_dim rounded up to 128
-    (a no-op at the port's head dims 128 and 256) and, for ``cache_bytes=1``, the int8 cache's
+    (the TPU's lane padding: a no-op at head dims 128 and 256, a third more than the card's cache
+    holds at Phi-3's 96) and, for ``cache_bytes=1``, the int8 cache's
     scales and dequantised transients; batches of 8 and more round down to a multiple of 8."""
     weight_bytes = param_bytes(params) if params is not None else 0
     if hbm_bytes is None:

@@ -1,5 +1,6 @@
 """Llama-family causal text decoder (the LLaVA / Vicuna stack and, through config switches, the
-Gemma-3 and Qwen2 ones: qkv biases, Qwen2-VL's multimodal rope), unrolled over a list of layers. Counterpart of adversarialvlm_tpu/models/llama.py;
+Gemma-3, Qwen2 and Phi-3 ones: qkv biases, Qwen2-VL's multimodal rope, Phi-3's LongRoPE), unrolled
+over a list of layers. Counterpart of adversarialvlm_tpu/models/llama.py;
 params mirror HF naming: embed_tokens.weight, layers[i].{input_layernorm,
 self_attn.{q,k,v,o}_proj, post_attention_layernorm, mlp.{gate,up,down}_proj}, norm, lm_head, and
 for gemma3 self_attn.{q,k}_norm and {pre,post}_feedforward_layernorm.
@@ -7,6 +8,9 @@ for gemma3 self_attn.{q,k}_norm and {pre,post}_feedforward_layernorm.
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 from adversarialvlm_tpu_torch.models.configs import TextConfig
@@ -43,6 +47,27 @@ def mrope_cos_sin(rope_positions: torch.Tensor, cfg: TextConfig, theta: float):
         parts_s.append(sin3[i % 3, :, :, off : off + w])
         off += w
     return torch.cat(parts_c, dim=-1), torch.cat(parts_s, dim=-1)
+
+
+def longrope_cos_sin(positions: torch.Tensor, cfg: TextConfig, theta: float, key_len: int | None = None):
+    """Phi-3's LongRoPE (llama.py:54-95): each dim's inverse frequency divided by the short or the
+    long factor, and cos/sin scaled by the attention factor sqrt(1 + ln s / ln orig), s =
+    max_position_embeddings / original_max_position_embeddings. The long factors apply only when
+    ``key_len`` (the prefill's T, or the cache's length when there is a cache) exceeds
+    original_max_position_embeddings, as the JAX package keys the choice off its static key
+    length. Returns cos/sin (..., T, head_dim/2) in f32."""
+    hd = cfg.head_dim_
+    use_long = (cfg.rope_scaling_long_factor is not None and key_len is not None
+                and key_len > cfg.original_max_position_embeddings)
+    factors = np.asarray(
+        cfg.rope_scaling_long_factor if use_long else cfg.rope_scaling_short_factor, np.float32)
+    inv_freq = 1.0 / (factors * (theta ** (np.arange(0, hd, 2, dtype=np.float32) / hd)))
+    scale = cfg.max_position_embeddings / cfg.original_max_position_embeddings
+    attn_factor = 1.0 if scale <= 1.0 else math.sqrt(
+        1.0 + math.log(scale) / math.log(cfg.original_max_position_embeddings))
+    inv = torch.as_tensor(inv_freq.astype(np.float32), device=positions.device)
+    ang = positions.float()[..., None] * inv
+    return torch.cos(ang) * attn_factor, torch.sin(ang) * attn_factor
 
 
 def _layer_rope_theta(cfg: TextConfig, layer_idx: int) -> float:
@@ -102,7 +127,8 @@ def forward(
     (``k_bidir_mask`` covers the whole cache at prefill). Each layer takes its own rope theta and
     sliding window; a layer with a window or the image block is ``masked`` and takes the plain
     route. With ``cfg.mrope_section`` (Qwen2-VL) the rope angles come from ``rope_positions``
-    (3, B, T), or from ``positions`` in all three components when None (text only). Returns logits
+    (3, B, T), or from ``positions`` in all three components when None (text only); with
+    ``cfg.rope_scaling_short_factor`` (Phi-3) from :func:`longrope_cos_sin`. Returns logits
     (B, T or logits_last_k, vocab)."""
     x = embed(params, input_ids, cfg) if inputs_embeds is None else inputs_embeds
     b, t, _ = x.shape
@@ -121,6 +147,9 @@ def forward(
             if rp is None:  # text only: the three components equal
                 rp = positions[None].expand(3, *positions.shape)
             return mrope_cos_sin(rp, cfg, theta)
+        if cfg.rope_scaling_short_factor is not None:
+            # the choice of factors keys off the key length: the prefill's T or the cache's length
+            return longrope_cos_sin(positions, cfg, theta, key_len=int(k_pos.shape[-1]))
         pos = positions
         if cfg.rope_linear_factor is not None and theta == cfg.rope_theta:
             # gemma3: linear scaling on the global layers' rope only, positions / factor in f32

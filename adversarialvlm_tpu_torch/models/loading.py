@@ -1,10 +1,12 @@
-"""HF checkpoint directory -> the port's parameter tree, for the llava, gemma3 and qwen2vl families.
-Counterpart of adversarialvlm_tpu/models/loading.py (its llava, gemma3 and qwen2vl parts).
+"""HF checkpoint directory -> the port's parameter tree, for the llava, gemma3, qwen2vl and phi3v
+families. Counterpart of adversarialvlm_tpu/models/loading.py (its llava, gemma3, qwen2vl and phi3v
+parts).
 
 Shards are read by the port's own safetensors reader (utils/safetensors.py), each tensor copied to
 its device in turn. Both pre- and post-4.52 transformers key layouts load (``language_model.
 model.*`` as on the hub, ``model.language_model.*`` as newer versions save). Keys the JAX
-converters drop on purpose (CLIP's unused ``post_layernorm``) are dropped; any other key without
+converters drop on purpose (CLIP's unused ``post_layernorm``, Phi-3.5-vision's
+``vision_embed_tokens.wte`` copy of the token embedding) are dropped by name; any other key without
 a mapping raises, and so does a loaded tree whose keys or shapes differ from the model's.
 """
 
@@ -93,6 +95,55 @@ def _normalize_qwen2vl_key(key: str) -> str:
     raise _unmapped("qwen2vl", key)
 
 
+def _normalize_phi3v_key(key: str) -> str | None:
+    """A Phi-3.5-vision hub key as a dotted path of the tree (loading.py:395-436): the decoder's keys
+    under ``language_model``, the CLIP tower under ``img_processor``, the projection's
+    ``img_projection.{0,2}`` renamed, the separators ``glb_GN``/``sub_GN``; None for the tower's
+    ``post_layernorm`` (feature layer -2 never reads it) and ``vision_embed_tokens.wte`` (a copy of
+    the token embedding nothing reads)."""
+    k = key
+    if k.startswith("model."):
+        k = k[len("model."):]
+    if k.startswith("lm_head."):
+        return "language_model." + k
+    if k.startswith("vision_embed_tokens."):
+        k = k[len("vision_embed_tokens."):]
+        if k.startswith("img_processor.vision_model."):
+            k = k[len("img_processor.vision_model."):]
+            if k.startswith("post_layernorm."):
+                return None
+            return "img_processor." + k.replace("embeddings.", "").replace("encoder.layers.", "layers.")
+        if k.startswith("wte."):
+            return None
+        k = k.replace("img_projection.0.", "img_projection_0.").replace("img_projection.2.", "img_projection_2.")
+        if k.startswith(("img_projection_0.", "img_projection_2.")) or k in ("glb_GN", "sub_GN"):
+            return k
+        raise _unmapped("phi3v", key)
+    if k.startswith("layers.") or k in ("embed_tokens.weight", "norm.weight"):
+        return "language_model." + k
+    raise _unmapped("phi3v", key)
+
+
+def split_fused_qkv(tree: dict, num_heads: int, num_kv_heads: int, head_dim: int) -> dict:
+    """Phi-3's fused ``qkv_proj`` and ``gate_up_proj`` split into the q/k/v and gate/up rows the
+    decoder runs (loading.py:375-392); views, no copy."""
+    for layer in tree.get("layers", []):
+        attn = layer["self_attn"]
+        if "qkv_proj" in attn:
+            w = attn.pop("qkv_proj")["weight"]
+            q_rows, kv_rows = num_heads * head_dim, num_kv_heads * head_dim
+            attn["q_proj"] = {"weight": w[:q_rows]}
+            attn["k_proj"] = {"weight": w[q_rows: q_rows + kv_rows]}
+            attn["v_proj"] = {"weight": w[q_rows + kv_rows:]}
+        mlp = layer["mlp"]
+        if "gate_up_proj" in mlp:
+            w = mlp.pop("gate_up_proj")["weight"]
+            half = w.shape[0] // 2
+            mlp["gate_proj"] = {"weight": w[:half]}
+            mlp["up_proj"] = {"weight": w[half:]}
+    return tree
+
+
 def _listify_layers(tree):
     """{'layers': {'0': {...}, '1': {...}}} -> [{...}, {...}]."""
     if not isinstance(tree, dict):
@@ -136,6 +187,21 @@ def convert_qwen2vl_state_dict(sd) -> dict:
             yield key, t
 
     return _convert(pairs(), _normalize_qwen2vl_key)
+
+
+def convert_phi3v_state_dict(sd, text_cfg) -> dict:
+    """The tree of a Phi-3.5-vision state dict's (key, tensor) pairs: the separators (1, 1, 4C) and
+    (1, 1, 1, 4C) flattened to (4C,), the fused decoder projections split."""
+    def pairs():
+        for key, t in sd:
+            if _normalize_phi3v_key(key) in ("glb_GN", "sub_GN"):
+                t = t.reshape(-1)
+            yield key, t
+
+    tree = _convert(pairs(), _normalize_phi3v_key)
+    if "language_model" in tree:
+        split_fused_qkv(tree["language_model"], text_cfg.num_heads, text_cfg.num_kv_heads, text_cfg.head_dim_)
+    return tree
 
 
 def named_leaves(tree, prefix: str = ""):
@@ -390,6 +456,52 @@ def load_qwen2vl(path: str, dtype=torch.bfloat16, device="cuda"):
         tree.get("language_model", {}).pop("lm_head", None)
     params = to_device_tree(tree, dtype, device)
     check_tree(params, qwen2vl.init_params(None, cfg, dtype, "meta"), path)
+    return params, cfg
+
+
+def phi3v_config(path: str):
+    """phi3_5_vision() patched from the directory's config.json (loading.py:613-672): the text
+    fields at its top level, the LongRoPE factors of ``rope_scaling`` (only a dict that carries
+    them), ``original_max_position_embeddings``, ``image_token_index``, ``pad_token_id`` and a
+    ``vision_config`` where a checkpoint of another size has one (the hub's has none)."""
+    from adversarialvlm_tpu_torch.models.phi3v import phi3_5_vision
+
+    cfg, raw = phi3_5_vision(), _read_config(path)
+    if raw is None:
+        return cfg
+    rs = raw.get("rope_scaling") or {}
+    text = dataclasses.replace(
+        cfg.text,
+        vocab_size=raw.get("vocab_size", cfg.text.vocab_size),
+        hidden_size=raw.get("hidden_size", cfg.text.hidden_size),
+        num_layers=raw.get("num_hidden_layers", cfg.text.num_layers),
+        num_heads=raw.get("num_attention_heads", cfg.text.num_heads),
+        num_kv_heads=raw.get("num_key_value_heads", cfg.text.num_kv_heads),
+        intermediate_size=raw.get("intermediate_size", cfg.text.intermediate_size),
+        max_position_embeddings=raw.get("max_position_embeddings", cfg.text.max_position_embeddings),
+        original_max_position_embeddings=raw.get("original_max_position_embeddings",
+                                                 cfg.text.original_max_position_embeddings),
+        rope_scaling_short_factor=tuple(rs["short_factor"]) if rs.get("short_factor") else None,
+        rope_scaling_long_factor=tuple(rs["long_factor"]) if rs.get("long_factor") else None,
+    )
+    return dataclasses.replace(
+        cfg,
+        text=text,
+        vision=_patch_vision_cfg(cfg.vision, raw.get("vision_config", {})),
+        image_token_id=raw.get("image_token_index", cfg.image_token_id),
+        pad_token_id=raw["pad_token_id"] if raw.get("pad_token_id") is not None else cfg.pad_token_id,
+    )
+
+
+def load_phi3v(path: str, dtype=torch.bfloat16, device="cuda"):
+    """A local Phi-3.5-vision HF checkpoint directory: (params on ``device``, VLMConfig patched from
+    its config.json). The fused projections are split on the host, so quantize-on-load sees the
+    q/k/v and gate/up weights the decoder runs."""
+    from adversarialvlm_tpu_torch.models import phi3v
+
+    cfg = phi3v_config(path)
+    params = to_device_tree(convert_phi3v_state_dict(read_dir(path), cfg.text), dtype, device)
+    check_tree(params, phi3v.init_params(None, cfg, dtype, "meta"), path)
     return params, cfg
 
 

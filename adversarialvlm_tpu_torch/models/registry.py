@@ -1,6 +1,6 @@
 """Model bundles: config, params, a uniform forward and greedy decode, the one interface the
 attack and eval engines talk to. Counterpart of adversarialvlm_tpu/models/registry.py for the
-llava, gemma3 and qwen2vl families."""
+llava, gemma3, qwen2vl and phi3v families."""
 
 from __future__ import annotations
 
@@ -11,6 +11,7 @@ import torch
 
 from adversarialvlm_tpu_torch.models import gemma3 as gemma3_model
 from adversarialvlm_tpu_torch.models import llava as llava_model
+from adversarialvlm_tpu_torch.models import phi3v as phi3v_model
 from adversarialvlm_tpu_torch.models import qwen2vl as qwen2vl_model
 from adversarialvlm_tpu_torch.models.configs import VLMConfig
 from adversarialvlm_tpu_torch.models.generate import generate_core, make_kv_caches
@@ -73,13 +74,14 @@ class ModelBundle:
 
 # family -> model module with init_params(generator, cfg, dtype, device) and
 # forward(params, cfg, input_ids, attention_mask, pixel_values, logits_last_k=, **cache_kw)
-_MODELS = {"llava": llava_model, "gemma3": gemma3_model, "qwen2vl": qwen2vl_model}
+_MODELS = {"llava": llava_model, "gemma3": gemma3_model, "qwen2vl": qwen2vl_model, "phi3v": phi3v_model}
 
 
 def _forward(model, cfg: VLMConfig, grid_hw=None):
-    """The bundle's forward over the model module's; qwen2vl's takes the bundle's static grid and
-    the decode's ``rope_delta``."""
-    grid_kw = {"grid_hw": grid_hw} if model is qwen2vl_model else {}
+    """The bundle's forward over the model module's; qwen2vl's takes the bundle's static patch grid
+    and the decode's ``rope_delta``, phi3v's the static tile grid."""
+    grid_kw = ({"grid_hw": grid_hw} if model is qwen2vl_model
+               else {"num_tiles_hw": grid_hw} if model is phi3v_model else {})
 
     def fwd(params, input_ids, attention_mask, pixel_inputs=None, logits_last_k=None, **cache_kw):
         pv = pixel_inputs["pixel_values"] if pixel_inputs else None
@@ -116,23 +118,30 @@ def make_bundle(
     """A bundle over ``params``, or over random weights drawn from a ``torch.Generator`` on
     ``device`` seeded with ``seed``. Weights never require grad: the attack differentiates
     w.r.t. the image alone. Stop tokens: the config's eos and its extra eos ids (gemma3: 106 and
-    1). qwen2vl's bundle is built for one static vision grid ``grid_hw`` (patches)."""
+    1); one outside the vocabulary raises. qwen2vl's bundle is built for one static vision grid
+    ``grid_hw`` (patches), phi3v's for one static tile grid (registry.py:248-270); phi3v's decode
+    passes no extras (no rope_delta)."""
     model = _MODELS.get(family)
     if model is None:
         raise NotImplementedError(
             f"family {family!r} is not ported yet (ROADMAP modules: other victim families)"
         )
+    eos = (cfg.eos_token_id, *cfg.extra_eos_token_ids)
+    if not all(0 <= i < cfg.text.vocab_size for i in eos):  # its decodes would never stop
+        raise ValueError(f"{name}: eos ids {eos} lie outside the {cfg.text.vocab_size}-row vocabulary")
     if params is None:
         gen = torch.Generator(device=device).manual_seed(seed)
         params = model.init_params(gen, cfg, dtype, device)
     extras = {}
+    if family == "phi3v" and grid_hw is None:
+        raise ValueError("phi3v needs the static tile grid (h, w)")
     if family == "qwen2vl":
         if grid_hw is None:
             raise ValueError("qwen2vl needs the static vision grid (h, w)")
         merge = cfg.vision.spatial_merge_size
         extras["decode_extras"] = _qwen2vl_decode_extras(cfg, (grid_hw[0] // merge, grid_hw[1] // merge))
     return ModelBundle(name, family, cfg, params, _forward(model, cfg, grid_hw), torch.device(device),
-                       eos_token_ids=(cfg.eos_token_id, *cfg.extra_eos_token_ids), **extras)
+                       eos_token_ids=eos, **extras)
 
 
 def make_judge_bundle(judge_model: str, checkpoint_path: str, dtype=torch.bfloat16,

@@ -1,7 +1,7 @@
 """Batch-1 causal attention with a segment mask in (B, T, H, D) layout: the forward and the backward
 (dq; dk/dv) as a batch of one row of the causal kernels (``flash.causal_fwd_entries`` and
-``flash.causal_bwd_entries``: ``csrc/causal_fwd.cu`` and ``csrc/causal_bwd.cu``, head_dim 128 or
-256), their plain versions and the autograd Function; and
+``flash.causal_bwd_entries``: ``csrc/causal_fwd.cu`` and ``csrc/causal_bwd.cu``, head_dim 96, 128
+or 256), their plain versions and the autograd Function; and
 ``attention_route``, which picks the decoder attention's route (this module, the flash kernels of
 ``flash.py``, or the plain sdpa), and ``vit_attention_route``, the vision towers' (the non-causal
 flash_full kernels of ``flash.py``, or the plain sdpa).
@@ -20,7 +20,7 @@ import contextlib
 
 import torch
 
-from adversarialvlm_tpu_torch.ops.kernels import LAUNCHES
+from adversarialvlm_tpu_torch.ops.kernels import count_launch
 from adversarialvlm_tpu_torch.ops.kernels.build import check, check_cuda_operands, on_device_of, stream_of
 from adversarialvlm_tpu_torch.ops.kernels.flash import (
     FULL_HEAD_DIMS,
@@ -159,7 +159,7 @@ def attention_fwd(q, k, v, seg, scale):
         1, t, h, hkv, d, float(scale), stream_of(q),
     )
     check(rc, "attention_fwd")
-    LAUNCHES["attention_fwd"] += 1
+    count_launch("attention_fwd", d)
     return o, lse
 
 
@@ -181,7 +181,7 @@ def attention_bwd_dq(q, k, v, seg, o, lse, do, scale):
         stream_of(q),
     )
     check(rc, "attention_bwd_dq")
-    LAUNCHES["attention_bwd_dq"] += 1
+    count_launch("attention_bwd_dq", d)
     return dq, delta
 
 
@@ -203,7 +203,7 @@ def attention_bwd_dkdv(q, k, v, seg, lse, delta, do, scale):
         stream_of(q),
     )
     check(rc, "attention_bwd_dkdv")
-    LAUNCHES["attention_bwd_dkdv"] += 1
+    count_launch("attention_bwd_dkdv", d)
     return dk, dv
 
 

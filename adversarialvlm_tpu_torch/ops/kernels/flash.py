@@ -1,5 +1,6 @@
 """Causal attention over a left-padded batch: the forward (``causal_fwd_entries``: ``csrc/causal_fwd.cu``),
-the backward (dq; dk/dv; ``causal_bwd_entries``: ``csrc/causal_bwd.cu``), at head_dim 128 or 256,
+the backward (dq; dk/dv; ``causal_bwd_entries``: ``csrc/causal_bwd.cu``), at head_dim 96, 128 or
+256,
 their plain versions, the autograd Function and ``flash_sdpa``.
 
 Counterpart of adversarialvlm_tpu/ops/pallas/attention.py::flash_sdpa (:178), which runs the stock
@@ -10,13 +11,13 @@ softmax in f32, output in q's dtype. Pad rows attend earlier pads, so they stay 
 read real rows only.
 
 On the card the forward and the backward (dq, which writes δ, then dk/dv) are the wgmma kernels
-of ``csrc/causal_fwd.cu`` and ``csrc/causal_bwd.cu`` at head_dim 128 (the 7B decoders' width) and
-256 (Gemma-3's): T tiled in 64-row tiles with an online softmax, the row logsumexp kept as the
+of ``csrc/causal_fwd.cu`` and ``csrc/causal_bwd.cu`` at head_dim 96 (Phi-3.5's decoder), 128 (the
+7B decoders' width) and 256 (Gemma-3's): T tiled in 64-row tiles with an online softmax, the row logsumexp kept as the
 extra residual, the forward's walk skipping key tiles whose segment ids cannot meet its query
 tile's (:func:`causal_fwd_tiles`). The head dim sets each kernel's plan (see the sources' notes).
 All read q, k and v in the projections' (B, T, H, D) layout, and kv head h // n_rep for q-head h,
 so neither a transpose copy nor ``repeat_kv`` is materialised. The TPU entry pads T to its block
-and head_dim to 128 lanes; these kernels mask the ragged tile and take head_dim 128 or 256 only.
+and head_dim to 128 lanes; these kernels mask the ragged tile and take head_dim 96, 128 or 256 only.
 
 Non-causal attention for vision towers, ``flash_sdpa_full``: the entries of ``csrc/flash_full.cu``
 (forward; dq, which writes δ; dk/dv), their plain versions and ``FlashFullAttention``.
@@ -40,7 +41,7 @@ import ctypes
 
 import torch
 
-from adversarialvlm_tpu_torch.ops.kernels import LAUNCHES
+from adversarialvlm_tpu_torch.ops.kernels import count_launch
 from adversarialvlm_tpu_torch.ops.kernels.build import (
     check,
     check_cuda_operands,
@@ -50,7 +51,7 @@ from adversarialvlm_tpu_torch.ops.kernels.build import (
 )
 
 NEG = -1e30
-HEAD_DIMS = (128, 256)
+HEAD_DIMS = (96, 128, 256)
 FULL_HEAD_DIMS = (72, 80)
 
 _P = ctypes.c_void_p
@@ -72,7 +73,7 @@ _FULL_SIGNATURES = {  # csrc/flash_full.cu
 
 def causal_fwd_entries(d: int) -> tuple[str, str]:
     """(library, entry) of the causal forward at head dim ``d``, read without building or loading
-    anything: the wgmma kernel of ``csrc/causal_fwd.cu`` at 128 and 256, which takes a batch of B
+    anything: the wgmma kernel of ``csrc/causal_fwd.cu`` at 96, 128 and 256, which takes a batch of B
     rows (the batch-1 wrappers of ``attention.py`` pass 1). Any other head dim raises."""
     if d in HEAD_DIMS:
         return "causal_fwd", "causal_fwd_bf16"
@@ -115,7 +116,7 @@ def causal_fwd_tiles(seg: torch.Tensor, causal: bool = True) -> dict[tuple[int, 
 
 def causal_bwd_entries(d: int) -> tuple[str, str, str]:
     """(library, dq entry, dk/dv entry) of the causal backward at head dim ``d``, read without
-    building or loading anything: the wgmma kernels of ``csrc/causal_bwd.cu`` at 128 and 256,
+    building or loading anything: the wgmma kernels of ``csrc/causal_bwd.cu`` at 96, 128 and 256,
     which take a batch of B rows (the batch-1 wrappers of ``attention.py`` pass 1). Any other
     head dim raises."""
     if d in HEAD_DIMS:
@@ -265,7 +266,7 @@ def flash_fwd(q, k, v, seg, scale):
         b, t, h, hkv, d, float(scale), stream_of(q),
     )
     check(rc, "flash_fwd")
-    LAUNCHES["flash_fwd"] += 1
+    count_launch("flash_fwd", d)
     return o, lse
 
 
@@ -287,7 +288,7 @@ def flash_bwd_dq(q, k, v, seg, o, lse, do, scale):
         stream_of(q),
     )
     check(rc, "flash_bwd_dq")
-    LAUNCHES["flash_bwd_dq"] += 1
+    count_launch("flash_bwd_dq", d)
     return dq, delta
 
 
@@ -310,7 +311,7 @@ def flash_bwd_dkdv(q, k, v, seg, lse, delta, do, scale):
         stream_of(q),
     )
     check(rc, "flash_bwd_dkdv")
-    LAUNCHES["flash_bwd_dkdv"] += 1
+    count_launch("flash_bwd_dkdv", d)
     return dk, dv
 
 
@@ -375,7 +376,7 @@ def flash_full_fwd(q, k, v, scale):
         float(scale), stream_of(q),
     )
     check(rc, "flash_full_fwd")
-    LAUNCHES["flash_full_fwd"] += 1
+    count_launch("flash_full_fwd", d)
     return o, lse
 
 
@@ -395,7 +396,7 @@ def flash_full_bwd_dq(q, k, v, o, lse, do, scale):
         dq.data_ptr(), delta.data_ptr(), b, t, h, d, float(scale), stream_of(q),
     )
     check(rc, "flash_full_bwd_dq")
-    LAUNCHES["flash_full_bwd_dq"] += 1
+    count_launch("flash_full_bwd_dq", d)
     return dq, delta
 
 
@@ -415,7 +416,7 @@ def flash_full_bwd_dkdv(q, k, v, lse, delta, do, scale):
         dk.data_ptr(), dv.data_ptr(), b, t, h, d, float(scale), stream_of(q),
     )
     check(rc, "flash_full_bwd_dkdv")
-    LAUNCHES["flash_full_bwd_dkdv"] += 1
+    count_launch("flash_full_bwd_dkdv", d)
     return dk, dv
 
 

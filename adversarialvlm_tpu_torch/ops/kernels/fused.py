@@ -27,7 +27,7 @@ import ctypes
 
 import torch
 
-from adversarialvlm_tpu_torch.ops.kernels import LAUNCHES
+from adversarialvlm_tpu_torch.ops.kernels import count_launch
 from adversarialvlm_tpu_torch.ops.kernels.build import check, load, on_device_of, stream_of
 from adversarialvlm_tpu_torch.ops.kernels.flash import _attend, _bwd_dkdv, _bwd_dq, allowed_pairs
 
@@ -164,7 +164,7 @@ def fused_fwd(q, k, v, seg, scale, causal=True):
         b, t, h, d, _strides(q), _strides(k), int(bool(causal)), float(scale), stream_of(q),
     )
     check(rc, "fused_fwd")
-    LAUNCHES["fused_fwd"] += 1
+    count_launch("fused_fwd", d)
     return o, lse
 
 
@@ -185,7 +185,7 @@ def fused_bwd_dq(q, k, v, seg, o, lse, do, scale, causal=True):
         int(bool(causal)), float(scale), stream_of(q),
     )
     check(rc, "fused_bwd_dq")
-    LAUNCHES["fused_bwd_dq"] += 1
+    count_launch("fused_bwd_dq", d)
     return dq, delta
 
 
@@ -206,7 +206,7 @@ def fused_bwd_dkdv(q, k, v, seg, lse, delta, do, scale, causal=True):
         int(bool(causal)), float(scale), stream_of(q),
     )
     check(rc, "fused_bwd_dkdv")
-    LAUNCHES["fused_bwd_dkdv"] += 1
+    count_launch("fused_bwd_dkdv", d)
     return dk, dv
 
 

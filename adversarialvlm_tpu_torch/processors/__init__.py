@@ -1,6 +1,6 @@
 """Differentiable image preprocessing, the attack's prompt pools, and the registry of checkpoint
-names. Counterpart of adversarialvlm_tpu/processors/__init__.py for the llava, gemma3 and qwen2vl
-families.
+names. Counterpart of adversarialvlm_tpu/processors/__init__.py for the llava, gemma3, qwen2vl and
+phi3v families.
 """
 
 from __future__ import annotations
@@ -15,10 +15,10 @@ MODEL_MAP: dict[str, str] = {
     "google/gemma-3-4b-it": "gemma3",
     "Qwen/Qwen2-VL-2B-Instruct": "qwen2vl",
     "Qwen/Qwen2-VL-7B-Instruct": "qwen2vl",
+    "microsoft/Phi-3.5-vision-instruct": "phi3v",
 }
 #: the JAX package's other model names, whose families the port does not run yet
 OTHER_FAMILIES = (
-    "microsoft/Phi-3.5-vision-instruct",
     "alpindale/Llama-3.2-11B-Vision-Instruct", "alpindale/Llama-3.2-11B-Vision",
     "SinclairSchneider/Llama-Guard-3-11B-Vision",
 )
@@ -53,10 +53,15 @@ def normalize_pixel_inputs(family: str, processed: dict) -> dict:
 
 def grid_hw_for(family: str, adv_proc, in_hw, vlm_cfg=None):
     """The static vision grid a bundle is built for, from the processor's plan for this run's
-    (fixed) image size (processors/__init__.py:201-205): qwen2vl's patch grid, None otherwise."""
+    (fixed) image size (processors/__init__.py:201-210): qwen2vl's patch grid, phi3v's tile grid
+    (the padded HD image over the processor's tile, which its builders sync to the tower's image
+    size), None otherwise."""
     if family == "qwen2vl":
         _, gh, gw = adv_proc.grid_thw(in_hw)
         return (gh, gw)
+    if family == "phi3v":
+        ph, pw = adv_proc.plan(in_hw)["padded_hw"]
+        return (ph // adv_proc.tile, pw // adv_proc.tile)
     return None
 
 
@@ -74,20 +79,31 @@ def load_model_and_processor(model_name: str, checkpoint_path: str, in_hw, dtype
     from adversarialvlm_tpu_torch.models.registry import make_bundle
     from adversarialvlm_tpu_torch.processors.gemma3 import DifferentiableGemma3ImageProcessor
     from adversarialvlm_tpu_torch.processors.llava import DifferentiableLlavaImageProcessor
+    from adversarialvlm_tpu_torch.processors.phi3 import DifferentiablePhi3VImageProcessor
     from adversarialvlm_tpu_torch.processors.qwen2vl import DifferentiableQwen2VLImageProcessor
     from adversarialvlm_tpu_torch.utils.tokenization import HFTokenizer
 
     family = family_of(model_name)
     dtype = dtype or torch.bfloat16
     tok = HFTokenizer.from_pretrained(checkpoint_path)
-    proc_cfg = ImageProcessorConfig.from_pretrained_dir(
-        checkpoint_path, **dataclasses.asdict(image_config_for(model_name)))
+    pinned = image_config_for(model_name)
+    proc_cfg = ImageProcessorConfig.from_pretrained_dir(checkpoint_path, **dataclasses.asdict(pinned))
+    if family == "phi3v":
+        # the reference pins num_crops=6 as a from_pretrained override (phi3processor.py:34): it
+        # wins over the checkpoint's 4
+        proc_cfg = dataclasses.replace(proc_cfg, num_crops=pinned.num_crops)
     load, proc_cls = {
         "llava": (loading.load_llava, DifferentiableLlavaImageProcessor),
         "gemma3": (loading.load_gemma3, DifferentiableGemma3ImageProcessor),
         "qwen2vl": (loading.load_qwen2vl, DifferentiableQwen2VLImageProcessor),
+        "phi3v": (loading.load_phi3v, DifferentiablePhi3VImageProcessor),
     }[family]
     params, vlm_cfg = load(checkpoint_path, dtype, device)
+    if family == "phi3v" and proc_cfg.tile != vlm_cfg.vision.image_size:
+        # the HD plan pads to multiples of the tile while grid_hw_for and the image-token count
+        # divide by vision.image_size: a checkpoint of another tile size syncs the two
+        # (processors/__init__.py:153-163)
+        proc_cfg = dataclasses.replace(proc_cfg, tile=vlm_cfg.vision.image_size)
     if "vision_tower" in params and proc_cfg.crop_size != vlm_cfg.vision.image_size:
         raise ValueError(f"{checkpoint_path}: the processor resizes to {proc_cfg.crop_size}² but the "
                          f"vision tower takes {vlm_cfg.vision.image_size}²")

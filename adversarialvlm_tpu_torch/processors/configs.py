@@ -1,4 +1,4 @@
-"""Image-preprocessor configurations of the llava, gemma3 and qwen2vl families. Counterpart of
+"""Image-preprocessor configurations of the llava, gemma3, qwen2vl and phi3v families. Counterpart of
 adversarialvlm_tpu/processors/configs.py (the fields these processors read)."""
 
 from __future__ import annotations
@@ -18,6 +18,10 @@ class ImageProcessorConfig:
     crop_size: int = 336
     patch_size: int = 14
     mm_tokens_per_image: int = 256  # gemma3: soft tokens per image after the projector's pool
+    # phi3.5-vision: HD tiles of ``tile``², at most ``num_crops`` of them (the reference loader
+    # pins 6, phi3processor.py:34)
+    num_crops: int = 6
+    tile: int = 336
     # qwen2-vl: dynamic scaling to multiples of patch·merge, the pixel count clamped
     merge_size: int = 2
     temporal_patch_size: int = 2
@@ -27,7 +31,8 @@ class ImageProcessorConfig:
     @classmethod
     def from_pretrained_dir(cls, path: str, **defaults) -> "ImageProcessorConfig":
         """``defaults`` overridden by a checkpoint directory's preprocessor_config.json: the mean,
-        std and patch size, qwen2-vl's merge and temporal patch sizes and pixel bounds, and the
+        std and patch size, qwen2-vl's merge and temporal patch sizes and pixel bounds, phi3v's
+        num_crops (which the loader overrides again with the pinned 6), and the
         resize target from ``crop_size`` (llava) or ``size`` (gemma3's square resize), each an int
         or a {"height", "width"} dict (qwen2-vl's {"shortest_edge", "longest_edge"} sets none)."""
         base = dataclasses.asdict(cls(**defaults))
@@ -37,7 +42,7 @@ class ImageProcessorConfig:
         with open(cfg_path) as f:
             raw = json.load(f)
         for key in ("image_mean", "image_std", "patch_size", "merge_size", "temporal_patch_size",
-                    "min_pixels", "max_pixels"):
+                    "min_pixels", "max_pixels", "num_crops"):
             if raw.get(key) is not None:
                 base[key] = tuple(raw[key]) if isinstance(raw[key], list) else raw[key]
         for key in ("crop_size", "size"):
@@ -58,6 +63,7 @@ MODEL_IMAGE_CONFIGS: dict[str, ImageProcessorConfig] = {
     ),
     "Qwen/Qwen2-VL-2B-Instruct": ImageProcessorConfig(),
     "Qwen/Qwen2-VL-7B-Instruct": ImageProcessorConfig(),
+    "microsoft/Phi-3.5-vision-instruct": ImageProcessorConfig(num_crops=6, tile=336),
     "google/gemma-3-12b-it": ImageProcessorConfig(
         image_mean=(0.5, 0.5, 0.5), image_std=(0.5, 0.5, 0.5), crop_size=896
     ),

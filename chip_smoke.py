@@ -10,7 +10,8 @@ Phases, in order (no exception is caught; any failure exits non-zero with no fin
      shared-memory lines are printed; cuobjdump's SASS of the wgmma libraries must hold HGMMA
      instructions in every instantiation of each of their kernels (flash_full's three, dgrad's,
      causal_fwd's forward and its head_dim-256 forward, causal_bwd's dq, dk/dv and head_dim-256
-     dk/dv), dq's and the two forwards' head_dim-256 instantiations among them, and ptxas must
+     dk/dv), dq's and the two forwards' head_dim-256 instantiations among them, the forward's, dq's
+     and dk/dv's two head_dim-96 instantiations (causal and segment-only) too, and ptxas must
      report no spills for any of them;
   3. every kernel against its plain version on the card, at the shapes the main paths give it,
      with the error measured per row as |got - ref| / |ref| (worst row reported; |ref| floored
@@ -92,7 +93,7 @@ card:
      T), the batch-1 causal kernels at LLaVA's T with the first step's pad, flash_full forward and
      backward at batch 1 (the step, the monitor and Gemma's decode prefill) and the flash forward
      at LLaVA's decode prefill, whose (batch, T) must be the run's. Then the cross step beside each
-     victim's step alone on the same resident victims, pools and draws, in turns (3 rounds of 5
+     victim's step alone on the same resident victims, pools and draws, in turns (2 rounds of 3
      steps each, with the allocator's device allocations) and under torch.profiler (wall and
      device-busy time a step), and the steps' peak memory from an emptied cache. Then the same
      CLI with --use_gaussian_blur for 3 steps: the saved image is x₀ + blur at the last step's σ;
@@ -143,9 +144,9 @@ from the directories of 4L and 4G:
      masks.
   4B. cli/baseline_tests.py on LLaVA-1.5-7B at its defaults (batch 8, 128 new tokens, at least 32),
      the victim built by the first run and handed to the later ones: the text modes reference, shii and
-     gcg over SafeBench_Text categories 1-2 (8 held-out questions each), MM-SafetyBench SD_TYPO over 2
-     categories of 8 1024² JPEGs (the committed fixtures of tests/data/, which must decode to the
-     SHA-256 of PIL's pixels recorded beside them) and FigStep over 2 categories of 8 760² PNGs: every
+     gcg over SafeBench_Text category 1 (8 held-out questions), MM-SafetyBench SD_TYPO over 1 category
+     of 8 1024² JPEGs (the committed fixtures of tests/data/, 4:2:0 and 4:4:4 in turn, which must decode
+     to the SHA-256 of PIL's pixels recorded beside them) and FigStep over 1 category of 8 760² PNGs: every
      CSV has its 8 rows and no ERROR row, MM-SafetyBench took its batched path in every category, 32
      flash forwards a prefill and none in a cached step; the flash forward at every (batch, T, mask) the
      prefills ran at; prefill ms, tokens/s and peak by suite, the host's JPEG decode and resize ms.
@@ -172,10 +173,34 @@ layers of 1536, 12 heads over 2 kv heads of 128, M-RoPE; a 32-layer tower of 128
      victims' test decodes: launches a cross step exactly each victim's own (Qwen's 270 dgrad and 28 of each batch-1
      causal kernel, Gemma's 346 dgrad and 27 of each flash_full kernel), the kernels at the run's shapes, the cross step
      beside each victim's alone in turns and under torch.profiler, the peak, and the depth-cut cross reference as 5X.
+Then, with the Qwen2-VL and Gemma-3 victims freed, the Phi-3.5-vision family at full width and depth
+(microsoft/Phi-3.5-vision-instruct: 32 decoder layers of 3072, 32 MHA heads of 96, LongRoPE; the CLIP ViT-L/14-336
+tower over HD tiles of 336², a 2×2 merge with the sub_GN/glb_GN separators and a 2-layer projection to 3072):
+  4H. its seed-0 random bf16 parameters drawn on the card and written by the fabricator (the hub's fused qkv_proj and
+     gate_up_proj, config.json with synthetic LongRoPE factors, a Llama-style tokenizer.json with Phi-3's chat
+     specials), then scripts/attacks/attack_clamp_tanh_phi3.sh on one card through cli/attack_model.py (gray.png,
+     512² planned to 672²: a 2×2 tile grid and the global view, 757 image tokens; the list prompts, lr 1e-2, batch 2),
+     1 warm-up + 3 steps, save boundaries at iterations 0 and 3, each decoding the 50 held-out questions: the CLI's
+     victim equal to the written tensors; per step 364 dgrad launches and 32 of each batch-2 head_dim-96 flash
+     kernel (the tower's 577-token tiles on the plain sdpa), 32 flash forwards a decode prefill and none in a cached
+     step; dgrad, the D-96 flash kernels at the step's and the decode prefill's shapes and the D-96 batch-1 causal
+     kernels at the step's T against their plain versions (forward 1e-2, backward 2e-2 worst row; a second launch
+     equal), timed beside their bound and SDPA;
+  5H. depth-cut references (2 decoder and 2 vision layers; T far below original_max_position_embeddings, so the short
+     LongRoPE factors, as the run), the card in bf16 against the CPU in f32 on the plain path: the step at batch 1 and
+     2 (loss within 1e-2 relative, gradient cosine >= 0.99) and the test decode, teacher-forced (logits cosine >=
+     0.99);
+  4XH. scripts/attacks/attack_cross_onechip_int8.sh through cli/crossattack_models.py (LLaVA-1.5-7B + Phi-3.5-vision
+     from the directories of 4L and 4H, int8 weights quantized as they load, ε 0.4, random targets, batch 1), 1
+     warm-up + 3 steps with both victims' test decodes: each tree's resident GB and quantized fraction, launches a
+     cross step exactly each victim's own (LLaVA's 364 dgrad and 32 of each D-128 batch-1 causal kernel, Phi's 364
+     and 32 of each at D 96), dgrad at the int8 step's shapes, the D-96 batch-1 kernels at Phi's T timed, the cross
+     step beside each victim's alone in turns and under torch.profiler, and the steps' peak.
 It then prints each checkpoint directory's write and load seconds and GB/s, the resume verdict,
-the bench line, the cross step's numbers, the int8 and baseline numbers and the run's total, the
-kernels' JSON line (each kernel with its launches per cross step; dgrad at the int8 step's shapes, the
-flash forward at the baseline and int8-judge prefills), the card's name and power limit, and
+the bench line, the cross step's numbers, the int8, baseline, Qwen2-VL and Phi-3.5 numbers and the run's total,
+the kernels' JSON line (each kernel with its launches per cross step; dgrad at the int8 step's shapes, the
+flash forward at the baseline and int8-judge prefills; the head_dim-96 instantiations as rows of their own), the
+card's name and power limit, and
 as its last line {"ok": true, "device": {...}}. Without a card it exits non-zero before printing
 anything.
 """
@@ -184,6 +209,7 @@ import csv
 import gc
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -214,14 +240,18 @@ JUDGE_FORWARDS = 3        # timed judge prefill forwards, after one warm-up
 RESUME_STEPS, RESUME_CUT = 6, 3  # phase 4R: an uninterrupted run, and one resumed after this many steps
 STEPS_X = 5               # phase 4X: 1 warm-up + 4 timed; save boundaries at iterations 0 and 4
 STEPS_XB = 3              # phase 4X with the blur: save boundaries at iterations 0 and 2
-PROFILE_ROUNDS, TIMED_STEPS = 3, 5  # phase 4X: rounds of timed steps of the cross step and each victim alone
-PROFILE_STEPS = 3         # phase 4X: profiled steps of the cross step and of each victim alone
+PROFILE_ROUNDS, TIMED_STEPS = 2, 3  # phase 4X: rounds of timed steps of the cross step and each victim alone
+PROFILE_STEPS = 2         # phase 4X: profiled steps of the cross step and of each victim alone
 DPO_STEPS, DPO_CUT = 6, 3  # phase 4D: an uninterrupted DPO run, and one resumed after this many steps
 CROSS_WEIGHTS = (1.0, 0.5)  # phase 5X's model weights
 
 
+T_START = time.perf_counter()
+
+
 def log(phase, msg):
-    print(f"[{phase}] {msg}", flush=True)
+    """A line of the log, behind the seconds since the script started (the time limit's clock)."""
+    print(f"{time.perf_counter() - T_START:7.1f} [{phase}] {msg}", flush=True)
 
 
 def card_line():
@@ -885,7 +915,8 @@ class PathProbe:
     from its prefill to its last forward, with its prefill's attention mask (the shape and the
     pads its flash forward ran at) and its peak memory: the peak statistics are reset
     where a chunk begins (when its KV caches are allocated, before its prefill) and where it
-    ends, so the steps' peak is kept apart from the caches'. Probes on the victims of one run
+    ends, so the steps' peak is kept apart from the caches'. The attention entries' launches are
+    also kept by head dim (``launches_d``). Probes on the victims of one run
     share ``group``: a chunk ends where any of them runs a forward other than a cached decode
     step or allocates caches, so one victim's decode peak is never read as another's steps'."""
 
@@ -896,6 +927,7 @@ class PathProbe:
         self.group.append(self)
         self.bundle, self.inner, self.inner_caches = bundle, bundle.forward, bundle.make_caches
         self.launches = {p: Counter() for p in ("step", "monitor", "prefill", "decode_step")}
+        self.launches_d = {p: Counter() for p in self.launches}
         self.calls = Counter()
         self.chunks, self.cur, self.step_peak, self.caches_made = [], None, 0, False
         bundle.forward = self
@@ -926,7 +958,7 @@ class PathProbe:
     def __call__(self, params, input_ids, attention_mask, pixel_inputs=None, **kw):
         import torch
 
-        from adversarialvlm_tpu_torch.ops.kernels import launch_counts
+        from adversarialvlm_tpu_torch.ops.kernels import launch_counts, launch_counts_by_head_dim
 
         if kw.get("kv_caches") is None:
             phase = "step" if torch.is_grad_enabled() else "monitor"
@@ -941,10 +973,11 @@ class PathProbe:
             self.caches_made = False
             self.cur = {"batch": int(input_ids.shape[0]), "T": int(input_ids.shape[1]),
                         "mask": attention_mask.detach().to(torch.int32).clone(), "start": self._event(), "ends": []}
-        before = launch_counts()
+        before, before_d = launch_counts(), launch_counts_by_head_dim()
         out = self.inner(params, input_ids, attention_mask, pixel_inputs, **kw)
         delta = {k: n - before[k] for k, n in launch_counts().items()}
         self.launches[phase].update(delta)
+        self.launches_d[phase].update({k: n - before_d.get(k, 0) for k, n in launch_counts_by_head_dim().items()})
         self.calls[phase] += 1
         if self.cur is not None:
             self.cur["ends"].append(self._event())
@@ -1128,11 +1161,14 @@ def transform_path(victim, x0, dgrad_per_step, n_layers, plain_med, plain_peak):
 
 def depth_cut(params, n_text, n_vision):
     """The tree of the first ``n_text`` decoder and ``n_vision`` tower layers (tensors shared):
-    the ``vision_tower`` layers of LLaVA and Gemma-3, or Qwen2-VL's ``visual`` blocks."""
+    the ``vision_tower`` layers of LLaVA and Gemma-3, Qwen2-VL's ``visual`` blocks or Phi-3.5's
+    ``img_processor`` layers."""
     lm = params["language_model"]
     out = {**params, "language_model": {**lm, "layers": lm["layers"][:n_text]}}
     if "visual" in params:
         out["visual"] = {**params["visual"], "blocks": params["visual"]["blocks"][:n_vision]}
+    elif "img_processor" in params:
+        out["img_processor"] = {**params["img_processor"], "layers": params["img_processor"]["layers"][:n_vision]}
     else:
         vt = params["vision_tower"]
         out["vision_tower"] = {**vt, "layers": vt["layers"][:n_vision]}
@@ -1676,7 +1712,7 @@ def gemma_phases(ckpt_root):
     from adversarialvlm_tpu_torch.attack.config import AttackConfig
     from adversarialvlm_tpu_torch.attack.engine import train
     from adversarialvlm_tpu_torch.eval.generation import _pick_decode
-    from adversarialvlm_tpu_torch.ops.kernels import launch_counts, reset_launches
+    from adversarialvlm_tpu_torch.ops.kernels import launch_counts, launch_counts_by_head_dim, reset_launches
 
     cfg = AttackConfig(exp_name="chip_smoke_gemma3", num_iterations=STEPS_G, save_steps=10,
                        batch_size=4, grad_accum_steps=1, lr=1e-2)
@@ -1717,7 +1753,7 @@ def gemma_phases(ckpt_root):
         finally:
             probe.finish()
         wall = time.perf_counter() - t0
-        launches = launch_counts()
+        launches, launches_d = launch_counts(), launch_counts_by_head_dim()
         rows = [json.loads(line) for line in open(os.path.join(exp, "metrics.jsonl"))]
         csvs = {}
         for f in sorted(os.listdir(exp)):
@@ -1780,7 +1816,8 @@ def gemma_phases(ckpt_root):
         log("gemma", f"{name}: {len(table) - 1} rows; first answer tail {table[1][1][-60:]!r}")
     if len(probe.chunks) != len(boundaries) * -(-len(test_qs) // decode_bs):
         raise AssertionError(f"gemma path: {len(probe.chunks)} decode chunks")
-    return {"launches": launches, "dgrad": dg, "judge": judge, "load": load_stats, "victim": victim}
+    return {"launches": launches, "launches_d": launches_d, "dgrad": dg, "judge": judge, "load": load_stats,
+            "victim": victim}
 
 
 def gemma_references(victim):
@@ -1901,6 +1938,33 @@ def gemma_references(victim):
     log("reference", f"gemma3 references in {time.perf_counter() - t0:.1f} s")
 
 
+def cross_step_share(victims, dgrad_per_step):
+    """The launches a batch-1 cross step of ``victims`` must make, and the same by head dim: each
+    decoder on the batch-1 causal kernels at its head dim, but Gemma-3's, whose layers run masked
+    on the plain path while its SigLIP (4096 patches) takes flash_full; the other towers (577,
+    576 and 1296 tokens) stay on the plain sdpa; ``dgrad_per_step`` dgrad launches."""
+    want, want_d = {"dgrad": dgrad_per_step}, {}
+    for v in victims:
+        cfg = v.bundle.cfg
+        if v.bundle.family == "gemma3":
+            entry, n, d = "flash_full", cfg.vision.num_layers, cfg.vision.hidden_size // cfg.vision.num_heads
+        else:
+            entry, n, d = "attention", cfg.text.num_layers, cfg.text.head_dim_
+        for k in (f"{entry}_fwd", f"{entry}_bwd_dq", f"{entry}_bwd_dkdv"):
+            want[k] = want.get(k, 0) + n
+            want_d[f"{k}_d{d}"] = want_d.get(f"{k}_d{d}", 0) + n
+    return want, want_d
+
+
+def check_cross_launches(tag, per_step, per_step_d, want, want_d):
+    """Raises unless a cross step launched exactly ``want`` (every other kernel no time) and, by
+    head dim, exactly ``want_d``."""
+    log(tag, f"launches per cross step: { {k: n for k, n in per_step.items() if n} }, by head dim "
+        f"{ {k: n for k, n in per_step_d.items() if n} } (expected {want}, by head dim {want_d})")
+    if per_step != {k: want.get(k, 0) for k in per_step} or {k: n for k, n in per_step_d.items() if n} != want_d:
+        raise AssertionError(f"{tag}: launches per cross step differ from each victim's own")
+
+
 def cross_cli(args, captured=None):
     """cli/crossattack_models.main on ``args``, spied on as :func:`spied_cli` does."""
     from adversarialvlm_tpu_torch.cli import crossattack_models
@@ -1911,12 +1975,12 @@ def cross_cli(args, captured=None):
 def spied_cli(main, args, captured=None):
     """An attack CLI's ``main`` on ``args``. With ``captured`` (a dict), the engine's train() is
     wrapped for that run: the victims the CLI built, a PathProbe on each, the launches counted
-    from zero after the victims are loaded, the run's wall time and its peak device memory from an
+    from zero after the victims are loaded (also by head dim), the run's wall time and its peak device memory from an
     emptied cache go into it."""
     import torch
 
     from adversarialvlm_tpu_torch.attack import engine
-    from adversarialvlm_tpu_torch.ops.kernels import launch_counts, reset_launches
+    from adversarialvlm_tpu_torch.ops.kernels import launch_counts, launch_counts_by_head_dim, reset_launches
 
     if captured is None:
         return main(args)
@@ -1939,6 +2003,7 @@ def spied_cli(main, args, captured=None):
             for probe in probes:
                 probe.finish()
             captured["probes"], captured["launches"] = probes, launch_counts()
+            captured["launches_d"] = launch_counts_by_head_dim()
 
     engine.train = spy
     try:
@@ -2089,22 +2154,12 @@ def cross_phases(ckpt_root, runs):
     probe_l, probe_g = got["probes"]
     kernels = cross_kernels(victims, cfg, probe_l)
     launches = got["launches"]
-    fwd = {k: sum(p.launches[ph][k] for p in got["probes"] for ph in p.launches) for k in launches}
-    bwd = {k: launches[k] - fwd[k] for k in launches}
-    per_step = {k: (probe_l.launches["step"][k] + probe_g.launches["step"][k] + bwd[k]) / STEPS_X
-                for k in launches}
-    expected = {k: 0 for k in launches}
-    n_l, n_g = victims[0].bundle.cfg.text.num_layers, victims[1].bundle.cfg.vision.num_layers
-    expected.update({"dgrad": kernels["dgrad"]["per_step"], "attention_fwd": n_l, "attention_bwd_dq": n_l,
-                     "attention_bwd_dkdv": n_l, "flash_full_fwd": n_g, "flash_full_bwd_dq": n_g,
-                     "flash_full_bwd_dkdv": n_g})
+    per_step = per_step_launches(got["probes"], launches, STEPS_X)
+    per_step_d = per_step_launches(got["probes"], got["launches_d"], STEPS_X, by_head_dim=True)
     log("cross", f"launches over the run: {launches}; by victim and phase: "
         + "; ".join(f"{v.name} {ph} x{p.calls[ph]} {dict(+c)}" for v, p in zip(victims, got["probes"])
                     for ph, c in p.launches.items()))
-    log("cross", f"launches per cross step: { {k: n for k, n in per_step.items() if n} } (expected "
-        f"{ {k: n for k, n in expected.items() if n} })")
-    if per_step != expected:
-        raise AssertionError("cross path: launches per step differ from the expected counts")
+    check_cross_launches("cross", per_step, per_step_d, *cross_step_share(victims, kernels["dgrad"]["per_step"]))
     boundaries = [0, STEPS_X - 1]
     test_qs = ai[0].test_questions
     for c in (probe_l.chunks + probe_g.chunks):
@@ -2184,7 +2239,8 @@ def cross_phases(ckpt_root, runs):
     except ValueError as e:
         log("dpo", f"--DPO_flag with Gemma-3 among the victims raises before any file is read: {e}")
     return {"median_ms": med, "step_peak_GiB": step_peak, "run_peak_GiB": run_peak, "profiled": profiled,
-            "per_step": per_step, "reference": reference, "dpo": dpo_verdict, "kernels": kernels, "exp": exp}
+            "per_step": per_step, "per_step_d": per_step_d, "reference": reference, "dpo": dpo_verdict,
+            "kernels": kernels, "exp": exp}
 
 
 def profile_cross(victims, cfg, x0, labels=("llava", "gemma3"), rounds=PROFILE_ROUNDS, timed=TIMED_STEPS,
@@ -2746,7 +2802,7 @@ def judge_eval_phases(ckpt_root, runs, cross_exp):
 
 INT8_STEPS = 4            # phase 4Q: the int8 attack CLI, 1 warm-up + 3 timed; save boundaries at iterations 0 and 3
 INT8_SAMPLES = 8          # phase 4Q: quantized tensors held against quantize_weight of the dense loaded tensor
-BASE_CATEGORIES, BASE_PER_CATEGORY = 2, 8  # phase 4B: categories of each suite, questions or images in each
+BASE_CATEGORIES, BASE_PER_CATEGORY = 1, 8  # phase 4B: categories of each suite, questions or images in each
 FIGSTEP_SIDE = 760        # phase 4B: FigStep's typographic images are 760² PNGs
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data")
 
@@ -3177,7 +3233,7 @@ def baseline_cli(argv, cache):
 def baseline_phases(ckpt_root, runs):
     """Phase 4B: cli/baseline_tests.py on LLaVA-1.5-7B from 4L's directory at its defaults (batch
     8, 128 new tokens, at least 32): the text modes reference, shii and gcg on SafeBench_Text
-    categories 1-2, MM-SafetyBench SD_TYPO and FigStep, each over 2 categories of 8. Every CSV has
+    category 1, MM-SafetyBench SD_TYPO and FigStep, each over BASE_CATEGORIES (1) categories of 8. Every CSV has
     its 8 rows and no ERROR row; MM-SafetyBench took the batched path in each category (its
     counter); 32 flash forwards a batch-8 prefill and none in a cached step; the flash forward
     against its plain version at every (batch, T, mask) the prefills ran at; prefill ms,
@@ -3265,8 +3321,8 @@ def baseline_phases(ckpt_root, runs):
 QWEN = "Qwen/Qwen2-VL-2B-Instruct"
 STEPS_V = 4               # phase 4V: 1 warm-up + 3 timed; save boundaries at iterations 0 and 3
 STEPS_V1 = 2              # phase 4V1: the 1024² source at batch 1, 1 warm-up + 1 timed, no test decode
-STEPS_XV = 4              # phase 4XV: 1 warm-up + 3 timed; save boundaries at iterations 0 and 3
-XV_ROUNDS, XV_TIMED, XV_PROFILED = 2, 3, 2  # phase 4XV: the cross step beside each victim's alone
+STEPS_PAIR = 4            # phases 4XV and 4XH: 1 warm-up + 3 timed; save boundaries at iterations 0 and 3
+PAIR_ROUNDS, PAIR_TIMED, PAIR_PROFILED = 2, 3, 2  # phases 4XV and 4XH: the cross step beside each victim's alone
 
 
 def qwen_dgrad_cases(params, vlm_cfg, batch, t_text, n_patches):
@@ -3298,18 +3354,20 @@ def qwen_dgrad_cases(params, vlm_cfg, batch, t_text, n_patches):
     return [(*key, n, weights[key]) for key, n in merged.items()]
 
 
-def qwen_attack_cli(argv, captured=None):
+def attack_cli(argv, captured=None):
     """cli/attack_model.main on ``argv``, spied on as :func:`spied_cli` does."""
     from adversarialvlm_tpu_torch.cli import attack_model
 
     return spied_cli(attack_model.main, argv, captured)
 
 
-def per_step_launches(probe, launches, steps):
-    """Each kernel's launches a step of a run: the step's forwards (the probe's "step" phase) and
-    the backward (what launched outside every forward)."""
-    fwd = {k: sum(probe.launches[ph][k] for ph in probe.launches) for k in launches}
-    return {k: (probe.launches["step"][k] + launches[k] - fwd[k]) / steps for k in launches}
+def per_step_launches(probes, launches, steps, by_head_dim=False):
+    """Each kernel's launches a step of a run, from its total ``launches`` (by head dim: the
+    attention entries' ``"<name>_d<D>"`` counts): the step's forwards (the probes' "step" phase)
+    and the backward (what launched outside every forward)."""
+    counts = [p.launches_d if by_head_dim else p.launches for p in probes]
+    fwd = {k: sum(c[ph][k] for c in counts for ph in c) for k in launches}
+    return {k: (sum(c["step"][k] for c in counts) + launches[k] - fwd[k]) / steps for k in launches}
 
 
 def decode_chunks(tag, probe, n_layers):
@@ -3377,7 +3435,7 @@ def qwen_phases(ckpt_root, runs):
             str(STEPS_V), "--save_steps", "10", "--batch_size", "2", "--runs_path", runs]
     got = {}
     t0 = time.perf_counter()
-    exp = qwen_attack_cli(argv, got)
+    exp = attack_cli(argv, got)
     cli_s = time.perf_counter() - t0
     victim = got["victims"][0]
     loaded, want = dict(named_leaves(victim.bundle.params)), dict(named_leaves(written))
@@ -3408,7 +3466,7 @@ def qwen_phases(ckpt_root, runs):
     seg = (torch.arange(t_text)[None, :] >= t_text - xs["lens"][0][:, None]).to(torch.int32).cuda()
     pad = t_text - int(xs["lens"][0][0])
     dg = check_dgrad(qwen_dgrad_cases(victim.bundle.params, vlm_cfg, 2, t_text, n_patch), "dgrad qwen2vl batch 2")
-    per_step = per_step_launches(probe, got["launches"], STEPS_V)
+    per_step = per_step_launches([probe], got["launches"], STEPS_V)
     expected = {k: 0 for k in per_step}
     expected.update({"dgrad": dg["per_step"], "flash_fwd": t.num_layers, "flash_bwd_dq": t.num_layers,
                      "flash_bwd_dkdv": t.num_layers})
@@ -3508,7 +3566,7 @@ def qwen_phases(ckpt_root, runs):
     _, steps1, _ = read_run(exp1)
     t1 = int(ai1.max_len)
     dg1 = check_dgrad(qwen_dgrad_cases(victim.bundle.params, vlm_cfg, 1, t1, n_patch1), "dgrad qwen2vl 1024²")
-    per_step1 = per_step_launches(probe1, launches1, STEPS_V1)
+    per_step1 = per_step_launches([probe1], launches1, STEPS_V1)
     expected1 = {k: 0 for k in per_step1}
     expected1.update({"dgrad": dg1["per_step"], "attention_fwd": t.num_layers, "attention_bwd_dq": t.num_layers,
                       "attention_bwd_dkdv": t.num_layers, "flash_full_fwd": v.num_layers,
@@ -3564,24 +3622,31 @@ def qwen_phases(ckpt_root, runs):
             "seconds": time.perf_counter() - t_phase, "write_s": write_s, "GB": nbytes / 1e9}
 
 
-def qwen_cross_phases(ckpt_root, runs):
-    """Phase 4XV: scripts/attacks/attack_cross_onechip.sh through cli/crossattack_models.py, both
-    victims loaded from the directories of 4V and 4G and resident on the card (Qwen2-VL-2B +
-    Gemma-3-4B-it, model weights 1.0 and 0.5, ε 0.4, batch 1, random targets): launches a cross
-    step exactly each victim's own, the kernels at the run's shapes, the cross step beside each
-    victim's alone, the peak, and the depth-cut cross reference."""
+def pair_cross_phase(tag, names, labels, ckpt_root, runs, extra, dgrad_cases, kernel_cases, reference=False):
+    """Phases 4XV and 4XH: a one-card cross attack script through cli/crossattack_models.py, the two
+    victims ``names`` loaded from the directories of earlier phases and resident on the card (ε 0.4,
+    batch 1, random targets, the list prompts, ``extra`` arguments): a cross step launches exactly
+    each victim's own, also by head dim (:func:`cross_step_share`), the dgrad kernel at the run's
+    shapes (``dgrad_cases(victims, T)``), the test decode of each victim whose decoder runs the
+    flash kernels (Gemma-3's runs masked, on the plain path), each tree's resident GB, the
+    attention kernels at the run's shapes (``kernel_cases(victims, T, pads, probes)``), the cross
+    step beside each victim's alone (``labels``) in turns and under torch.profiler, the steps'
+    peak and, with ``reference``, the depth-cut cross reference."""
     import numpy as np
     import torch
 
     from adversarialvlm_tpu_torch.attack.io import load_image_chw
+    from adversarialvlm_tpu_torch.attack.step import sample_chunk_xs
+    from adversarialvlm_tpu_torch.models.generate import param_bytes
+    from adversarialvlm_tpu_torch.models.quant import quantized_fraction
 
     t_phase = time.perf_counter()
     gray = os.path.join(os.path.dirname(os.path.abspath(__file__)), "images", "gray.png")
     x0 = load_image_chw(gray)
-    argv = ["--exp_name", "cross_qwen_gemma", "--img_orig", gray, "--prompt", "list", "--target_text", TARGET,
-            "--model_names", f"{QWEN},{JUDGE}", "--model_weights", "1.0", "0.5", "--lr", "1e-2",
-            "--num_iterations", str(STEPS_XV), "--save_steps", "10", "--batch_size", "1", "--epsilon", "0.4",
-            "--target_text_random", "--checkpoint_root", ckpt_root, "--runs_path", runs]
+    argv = ["--exp_name", "cross_" + "_".join(labels), "--img_orig", gray, "--prompt", "list", "--target_text",
+            TARGET, "--model_names", ",".join(names), *extra, "--lr", "1e-2", "--num_iterations", str(STEPS_PAIR),
+            "--save_steps", "10", "--batch_size", "1", "--epsilon", "0.4", "--target_text_random",
+            "--checkpoint_root", ckpt_root, "--runs_path", runs]
     got = {}
     t0 = time.perf_counter()
     exp = cross_cli(argv, got)
@@ -3589,61 +3654,302 @@ def qwen_cross_phases(ckpt_root, runs):
     _, steps, csvs = read_run(exp)
     victims, probes = got["victims"], got["probes"]
     cfg = run_config(exp)
-    qv, gv = victims
-    q_cfg, g_cfg = qv.bundle.cfg, gv.bundle.cfg
-    t, gvis = q_cfg.text, g_cfg.vision
     ai = [v.adv_inputs for v in victims]
-    t_q, t_g = int(ai[0].max_len), int(ai[1].max_len)
-    _, gh, gw = qv.adv_processor.grid_thw((512, 512))
-    log("cross qwen", f"{[v.name for v in victims]} through cli/crossattack_models.py in {cli_s:.1f} s (train() "
+    ts = [int(a.max_len) for a in ai]
+    resident = {v.name: (param_bytes(v.bundle.params) / 1e9, quantized_fraction(v.bundle.params)) for v in victims}
+    log(tag, f"{names} through cli/crossattack_models.py {' '.join(extra)} in {cli_s:.1f} s (train() "
         f"{got['wall_s']:.1f} s): epsilon={cfg.epsilon} weights {cfg.model_weights} batch {cfg.batch_size}, pools "
-        f"{[a.prompt_pool.shape for a in ai]}, {torch.cuda.memory_allocated() / 2**30:.2f} GiB resident")
+        f"{[a.prompt_pool.shape for a in ai]}; resident GB (quantized fraction) "
+        f"{ {k: (round(g, 3), round(f, 4)) for k, (g, f) in resident.items()} }, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
     for r in steps:
-        log("cross qwen", f"step {r['iteration']}: loss={r['loss']} loss_0={r['loss_0']} loss_1={r['loss_1']} "
+        log(tag, f"step {r['iteration']}: loss={r['loss']} loss_0={r['loss_0']} loss_1={r['loss_1']} "
             f"grad_norm={r['grad_norm']} target_idx={r['target_idx']} step_ms={r['step_ms']:.2f}")
     med = statistics.median(r["step_ms"] for r in steps[1:])
     step_peak = max(p.step_peak for p in probes) / 2**30
-    if cfg.epsilon != 0.4 or len(steps) != STEPS_XV or not all(
-            np.isfinite(r["loss"]) and r["grad_norm"] > 0 for r in steps):
-        raise AssertionError("cross qwen path: bad steps or epsilon")
-    dg = check_dgrad(qwen_dgrad_cases(qv.bundle.params, q_cfg, 1, t_q, gh * gw)
-                     + gemma_dgrad_cases(gv.bundle.params, g_cfg, 1, t_g), "dgrad qwen + gemma cross step")
-    launches = got["launches"]
-    fwd = {k: sum(p.launches[ph][k] for p in probes for ph in p.launches) for k in launches}
-    per_step = {k: (probes[0].launches["step"][k] + probes[1].launches["step"][k] + launches[k] - fwd[k]) / STEPS_XV
-                for k in launches}
-    expected = {k: 0 for k in launches}
-    expected.update({"dgrad": dg["per_step"], "attention_fwd": t.num_layers, "attention_bwd_dq": t.num_layers,
-                     "attention_bwd_dkdv": t.num_layers, "flash_full_fwd": gvis.num_layers,
-                     "flash_full_bwd_dq": gvis.num_layers, "flash_full_bwd_dkdv": gvis.num_layers})
-    log("cross qwen", f"launches per cross step: { {k: n for k, n in per_step.items() if n} } (expected "
-        f"{ {k: n for k, n in expected.items() if n} }: Qwen's decoder on the batch-1 kernels, its 1296-patch "
-        f"tower on the plain sdpa; Gemma's SigLIP on flash_full, its decoder masked)")
-    if per_step != expected:
-        raise AssertionError("cross qwen path: launches per step differ from each victim's own")
-    chunks = decode_chunks("cross qwen", probes[0], t.num_layers)
-    for c in probes[1].chunks:  # Gemma's decoder layers are all masked: no kernel in its prefill but the tower's
-        log("cross qwen", f"Gemma test decode chunk: batch {c['batch']} T={c['T']} prefill_ms={c['prefill_ms']:.2f} "
-            f"prefill launches { {k: n for k, n in c['prefill_launches'].items() if n} }")
-    if sorted(csvs) != sorted(f"test_results_iter_{i}.csv" for i in (0, STEPS_XV - 1)) or not all(
-            tab[0] == ["question", QWEN, JUDGE] and len(tab) == 1 + len(ai[0].test_questions) for tab in csvs.values()):
-        raise AssertionError(f"cross qwen path: test CSVs {sorted(csvs)}")
-    attn = attention_case(t_q, t.num_heads, t.num_kv_heads, t.head_dim_, first_pad(victims, cfg), timed=True)
-    for mask in {tuple(c["mask"].shape): c["mask"] for c in probes[0].chunks}.values():
-        flash_case("cross qwen test-decode prefill", mask.cuda(), t.num_heads, t.num_kv_heads, t.head_dim_,
-                   backward=False)
-    profiled = profile_cross(victims, cfg, x0, labels=("qwen2vl", "gemma3"), rounds=XV_ROUNDS, timed=XV_TIMED,
-                             profiled=XV_PROFILED, tag="cross qwen")
-    reference = cross_reference(victims, x0, tag="cross qwen")
-    log("cross qwen", f"4XV: median step_ms (steps 1..{STEPS_XV - 1})={med:.2f}; steps' peak {step_peak:.3f} GiB; "
+    int8 = "--int8_weights" in extra
+    if cfg.epsilon != 0.4 or len(steps) != STEPS_PAIR or not all(
+            np.isfinite(r["loss"]) and r["grad_norm"] > 0 for r in steps) or not all(
+            (0.9 < f < 1.0) if int8 else f == 0 for _, f in resident.values()):
+        raise AssertionError(f"{tag} path: bad steps, epsilon or quantized fraction")
+    dg = check_dgrad(dgrad_cases(victims, ts), f"dgrad {tag} step")
+    per_step = per_step_launches(probes, got["launches"], STEPS_PAIR)
+    per_step_d = per_step_launches(probes, got["launches_d"], STEPS_PAIR, by_head_dim=True)
+    check_cross_launches(tag, per_step, per_step_d, *cross_step_share(victims, dg["per_step"]))
+    chunks = {}
+    for v, p in zip(victims, probes):
+        if v.bundle.family != "gemma3":
+            chunks[v.name] = decode_chunks(tag, p, v.bundle.cfg.text.num_layers)
+            continue
+        for c in p.chunks:  # Gemma's decoder layers are all masked: no kernel in its prefill but the tower's
+            log(tag, f"Gemma test decode chunk: batch {c['batch']} T={c['T']} prefill_ms={c['prefill_ms']:.2f} "
+                f"prefill launches { {k: n for k, n in c['prefill_launches'].items() if n} }")
+    if sorted(csvs) != sorted(f"test_results_iter_{i}.csv" for i in (0, STEPS_PAIR - 1)) or not all(
+            tab[0] == ["question", *names] and len(tab) == 1 + len(ai[0].test_questions) for tab in csvs.values()):
+        raise AssertionError(f"{tag} path: test CSVs {sorted(csvs)}")
+    xs = sample_chunk_xs(torch.Generator().manual_seed(cfg.seed), 1, cfg, [v.handles() for v in victims])[0]
+    pads = [t - int(xs["lens"][i][0]) for i, t in enumerate(ts)]
+    attn = kernel_cases(victims, ts, pads, probes)
+    profiled = profile_cross(victims, cfg, x0, labels=labels, rounds=PAIR_ROUNDS, timed=PAIR_TIMED,
+                             profiled=PAIR_PROFILED, tag=tag)
+    ref = cross_reference(victims, x0, tag=tag) if reference else None
+    log(tag, f"median step_ms (steps 1..{STEPS_PAIR - 1})={med:.2f}; steps' peak {step_peak:.3f} GiB; "
         f"phase {time.perf_counter() - t_phase:.1f} s")
-    out = {"median_ms": med, "step_peak_GiB": step_peak, "per_step": per_step, "profiled": profiled,
-           "reference": reference, "dgrad": dg, "attention": attn, "chunks": chunks,
-           "seconds": time.perf_counter() - t_phase}
-    del victims, got, probes, qv, gv
+    out = {"median_ms": med, "step_peak_GiB": step_peak, "per_step": per_step, "per_step_d": per_step_d,
+           "launches_d": got["launches_d"], "profiled": profiled, "reference": ref, "dgrad": dg, "attention": attn,
+           "chunks": chunks, "resident": resident, "T": ts, "seconds": time.perf_counter() - t_phase}
+    del victims, got, probes
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def qwen_cross_phases(ckpt_root, runs):
+    """Phase 4XV: scripts/attacks/attack_cross_onechip.sh, Qwen2-VL-2B (the directory of 4V) and
+    Gemma-3-4B-it (4G's), model weights 1.0 and 0.5, through :func:`pair_cross_phase`: the batch-1
+    causal kernels at Qwen's T and its test-decode prefills, and the depth-cut cross reference."""
+    def dgrad_cases(victims, ts):
+        (qv, gv), (t_q, t_g) = victims, ts
+        _, gh, gw = qv.adv_processor.grid_thw((512, 512))
+        return (qwen_dgrad_cases(qv.bundle.params, qv.bundle.cfg, 1, t_q, gh * gw)
+                + gemma_dgrad_cases(gv.bundle.params, gv.bundle.cfg, 1, t_g))
+
+    def kernel_cases(victims, ts, pads, probes):
+        t = victims[0].bundle.cfg.text
+        attn = attention_case(ts[0], t.num_heads, t.num_kv_heads, t.head_dim_, pads[0], timed=True)
+        for mask in {tuple(c["mask"].shape): c["mask"] for c in probes[0].chunks}.values():
+            flash_case("cross qwen test-decode prefill", mask.cuda(), t.num_heads, t.num_kv_heads, t.head_dim_,
+                       backward=False)
+        return attn
+
+    return pair_cross_phase("cross qwen", [QWEN, JUDGE], ("qwen2vl", "gemma3"), ckpt_root, runs,
+                            ["--model_weights", "1.0", "0.5"], dgrad_cases, kernel_cases, reference=True)
+
+
+PHI = "microsoft/Phi-3.5-vision-instruct"
+LLAVA = "llava-hf/llava-1.5-7b-hf"
+STEPS_H = 4               # phase 4H: 1 warm-up + 3 timed; save boundaries at iterations 0 and 3
+
+
+def phi_dgrad_cases(params, vlm_cfg, batch, t_text, n_tiles, n_img):
+    """(rows, O, I, launches per step, weight) of the Phi-3.5-vision step's dgrad launches: the CLIP
+    tower's q/k/v/out, fc1 and fc2 over the batch's used tiles (``n_tiles`` a row, 577 tokens each;
+    the layers up to feature layer -2), the projection's two linears over the rows' ``n_img`` image
+    tokens, and the decoder's q, k, v, o (3072² each: 32 MHA heads of 96), gate, up and down over its
+    tokens (the lm_head, 32064 rows, stays off the kernel). An int8 tree gives each weight as its
+    int8 values in bf16, the operand LinearInt8's backward hands the kernel (with dy ⊙ s)."""
+    import torch
+
+    from adversarialvlm_tpu_torch.ops.kernels.dgrad import dgrad_eligible
+
+    def w(node):
+        return node["weight"] if "weight" in node else node["weight_q"].to(torch.bfloat16)
+
+    v, t = vlm_cfg.vision, vlm_cfg.text
+    n_vis = v.num_layers + 1 + vlm_cfg.vision_feature_layer
+    vt, lm = params["img_processor"]["layers"][0], params["language_model"]["layers"][0]
+    rows_v = batch * n_tiles * ((v.image_size // v.patch_size) ** 2 + 1)
+    rows_p, rows_t = batch * n_img, batch * t_text
+    linears = [
+        (rows_v, w(vt["self_attn"]["q_proj"]), 4 * n_vis), (rows_v, w(vt["mlp"]["fc1"]), n_vis),
+        (rows_v, w(vt["mlp"]["fc2"]), n_vis), (rows_p, w(params["img_projection_0"]), 1),
+        (rows_p, w(params["img_projection_2"]), 1), (rows_t, w(lm["self_attn"]["q_proj"]), 4 * t.num_layers),
+        (rows_t, w(lm["mlp"]["gate_proj"]), 2 * t.num_layers), (rows_t, w(lm["mlp"]["down_proj"]), t.num_layers),
+    ]
+    others = [lm["self_attn"][n] for n in ("k_proj", "v_proj", "o_proj")] + [lm["mlp"]["up_proj"]]
+    if not all(dgrad_eligible(x) for _, x, _ in linears) or not all(dgrad_eligible(w(n)) for n in others) \
+            or dgrad_eligible(w(params["language_model"]["lm_head"])):
+        raise AssertionError("phi3v: the dgrad-eligible linears are not the expected ones")
+    merged, weights = {}, {}
+    for rows, x, n in linears:
+        key = (rows, *x.shape)
+        merged[key] = merged.get(key, 0) + n
+        weights[key] = x
+    return [(*key, n, weights[key]) for key, n in merged.items()]
+
+
+def phi_phases(ckpt_root, runs):
+    """Phases 4H and 5H on Phi-3.5-vision at full width and depth; the checkpoint directory stays
+    under ``ckpt_root`` for 4XH. Returns the phases' numbers and kernel statistics."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from adversarialvlm_tpu_torch.attack.engine import VictimSetup
+    from adversarialvlm_tpu_torch.attack.io import load_image_chw
+    from adversarialvlm_tpu_torch.attack.setup import image_processor
+    from adversarialvlm_tpu_torch.attack.step import build_attack_step, sample_chunk_xs
+    from adversarialvlm_tpu_torch.cli.fabricate_ckpt import MODELS, fabricate
+    from adversarialvlm_tpu_torch.data import corpora
+    from adversarialvlm_tpu_torch.models.loading import named_leaves
+    from adversarialvlm_tpu_torch.models.phi3v import init_params
+    from adversarialvlm_tpu_torch.models.registry import make_bundle
+    from adversarialvlm_tpu_torch.ops.kernels import launch_counts, reset_launches
+    from adversarialvlm_tpu_torch.processors import grid_hw_for
+    from adversarialvlm_tpu_torch.processors.adv_inputs import AdvInputs
+
+    t_phase = time.perf_counter()
+    _, make_cfg, dtype = MODELS["phi3.5-vision"]
+    vlm_cfg = make_cfg()
+    t, v = vlm_cfg.text, vlm_cfg.vision
+    # 4H. the directory from the seed-0 parameters drawn on the card; the CLI loads it
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    written = init_params(torch.Generator(device="cuda").manual_seed(0), vlm_cfg, dtype, "cuda")
+    path = fabricate("phi3.5-vision", ckpt_root, params=written)
+    write_s = time.perf_counter() - t0
+    shards = sorted(f for f in os.listdir(path) if f.endswith(".safetensors"))
+    nbytes = sum(os.path.getsize(os.path.join(path, f)) for f in shards)
+    torch.cuda.empty_cache()
+    log("phi", f"{sum(x.numel() for x in _leaves(written)) / 1e9:.3f} B seed-0 parameters drawn on the card and "
+        f"written to {path} in {write_s:.1f} s: {len(shards)} shards, {nbytes / 1e9:.3f} GB (the fused qkv_proj "
+        f"and gate_up_proj, the wte copy), files {sorted(os.listdir(path))}")
+    gray = os.path.join(os.path.dirname(os.path.abspath(__file__)), "images", "gray.png")
+    # scripts/attacks/attack_clamp_tanh_phi3.sh: gray.png, the list prompts, the target, lr 1e-2,
+    # batch 2, the scheduler held (step 100, gamma 1.0)
+    argv = ["--exp_name", "phi", "--img_orig", gray, "--prompt", "list", "--target_text", TARGET,
+            "--model_name", PHI, "--checkpoint_root", ckpt_root, "--lr", "1e-2", "--num_iterations",
+            str(STEPS_H), "--save_steps", "10", "--batch_size", "2", "--scheduler_step_size", "100",
+            "--scheduler_gamma", "1.0", "--runs_path", runs]
+    got = {}
+    t0 = time.perf_counter()
+    exp = attack_cli(argv, got)
+    cli_s = time.perf_counter() - t0
+    victim = got["victims"][0]
+    loaded, want = dict(named_leaves(victim.bundle.params)), dict(named_leaves(written))
+    if set(loaded) != set(want) or any(not torch.equal(loaded[k], want[k].to(loaded[k].dtype)) for k in want) \
+            or victim.bundle.cfg != vlm_cfg:
+        raise AssertionError("phi: the CLI's victim is not the written directory's")
+    del written, loaded, want
+    gc.collect()
+    rows, steps, csvs = read_run(exp)
+    probe, run_launches, run_launches_d = got["probes"][0], got["launches"], got["launches_d"]
+    ai = victim.adv_inputs
+    grid = grid_hw_for("phi3v", victim.adv_processor, (512, 512))
+    n_tiles, n_img = 1 + grid[0] * grid[1], ai.num_image_tokens
+    t_text = int(ai.max_len)
+    log("phi", f"{PHI} through cli/attack_model.py in {cli_s:.1f} s (train() {got['wall_s']:.1f} s): every tensor "
+        f"equal to the written one, config the fabricator's (LongRoPE factors from config.json); pool "
+        f"{ai.prompt_pool.shape} (targets, questions, T), {n_img} image tokens (512² -> 672², tile grid {grid}, "
+        f"{n_tiles} of {victim.adv_processor.num_crops + 1} slots through the tower), tokenizer "
+        f"{type(ai.tokenizer).__name__} of {ai.tokenizer.vocab_size}, shift {ai.shift}")
+    for r in steps:
+        log("phi", f"step {r['iteration']}: loss={r['loss']} grad_norm={r['grad_norm']} step_ms={r['step_ms']:.2f}")
+    med = statistics.median(r["step_ms"] for r in steps[1:])
+    step_peak = probe.step_peak / 2**30
+    if len(steps) != STEPS_H or n_img != 757 or not all(np.isfinite(r["loss"]) and r["grad_norm"] > 0 for r in steps):
+        raise AssertionError(f"phi path: bad steps {[(r['loss'], r['grad_norm']) for r in steps]} or image tokens")
+    cfg = run_config(exp)
+    xs = sample_chunk_xs(torch.Generator().manual_seed(cfg.seed), 1, cfg, [victim.handles()])[0]
+    seg = (torch.arange(t_text)[None, :] >= t_text - xs["lens"][0][:, None]).to(torch.int32).cuda()
+    pad = t_text - int(xs["lens"][0][0])
+    dg = check_dgrad(phi_dgrad_cases(victim.bundle.params, vlm_cfg, 2, t_text, n_tiles, n_img),
+                     "dgrad phi3.5 batch 2")
+    per_step = per_step_launches([probe], got["launches"], STEPS_H)
+    per_step_d = per_step_launches([probe], run_launches_d, STEPS_H, by_head_dim=True)
+    expected = {k: 0 for k in per_step}
+    expected.update({"dgrad": dg["per_step"], "flash_fwd": t.num_layers, "flash_bwd_dq": t.num_layers,
+                     "flash_bwd_dkdv": t.num_layers})
+    expected_d = {f"{k}_d{t.head_dim_}": t.num_layers for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")}
+    log("phi", f"launches over the run: {got['launches']}; by phase: "
+        + "; ".join(f"{ph} x{probe.calls[ph]} {dict(+c)}" for ph, c in probe.launches.items()))
+    log("phi", f"launches per step: { {k: n for k, n in per_step.items() if n} }, by head dim "
+        f"{ {k: n for k, n in per_step_d.items() if n} } (expected { {k: n for k, n in expected.items() if n} }, "
+        f"by head dim {expected_d}); the tower's {n_tiles} tiles a row of 577 tokens on the plain sdpa, the "
+        "decoder's 32 heads of 96 on the head_dim-96 flash kernels")
+    if per_step != expected or {k: n for k, n in per_step_d.items() if n} != expected_d:
+        raise AssertionError("phi path: launches per step differ from the expected counts")
+    chunks = decode_chunks("phi", probe, t.num_layers)
+    if sorted(csvs) != sorted(f"test_results_iter_{i}.csv" for i in (0, STEPS_H - 1)) or not all(
+            [r[0] for r in tab[1:]] == list(ai.test_questions) and tab[0] == ["question", PHI] for tab in csvs.values()):
+        raise AssertionError(f"phi path: test CSVs {sorted(csvs)}")
+    # the head_dim-96 kernels at the step's shape (batch 2), the decode prefill's and batch 1 (the
+    # cross step's route), each against its plain version, a second launch equal, timed
+    flash = flash_case("phi3.5 batch-2 step", seg, t.num_heads, t.num_kv_heads, t.head_dim_, timed=True)
+    masks = sorted({(c["batch"], c["T"]) for c in probe.chunks})
+    prefill = flash_case("phi3.5 test-decode prefill", probe.chunks[0]["mask"].cuda(), t.num_heads, t.num_kv_heads,
+                         t.head_dim_, timed=True, backward=False)["flash_fwd"]
+    attn = attention_case(t_text, t.num_heads, t.num_kv_heads, t.head_dim_, pad, timed=True)
+    log("phi", f"4H: median step_ms (steps 1..{STEPS_H - 1})={med:.2f} warm-up {steps[0]['step_ms']:.2f}; steps' peak "
+        f"{step_peak:.3f} GiB; decode chunks (batch, T) {masks}; the D-96 kernels held at the run's shapes")
+    torch.cuda.empty_cache()
+
+    # 5H. depth-cut references: the first 2 decoder and 2 vision layers, the card in bf16 through
+    # the kernels against the CPU in f32 on the plain path; T far below original_max_position_embeddings
+    # (4096), so both sides take the short LongRoPE factors, as the run does
+    t0 = time.perf_counter()
+    cut = dataclasses.replace(vlm_cfg, text=dataclasses.replace(t, num_layers=2),
+                              vision=dataclasses.replace(v, num_layers=2))
+    questions = [QUESTION, QUESTION + " Explain every step in detail, please."]
+    ref_ai = AdvInputs(ai.spec, ai.tokenizer, questions, [QUESTION], 2, [TARGET], n_img, ai.image_token_id,
+                       ai.pad_token_id)
+    gpu_v = VictimSetup("cut", make_bundle("cut", "phi3v", cut, torch.device("cuda"),
+                                           params=depth_cut(victim.bundle.params, 2, 2), grid_hw=grid),
+                        victim.adv_processor, ref_ai, torch.bfloat16)
+    cpu_v = VictimSetup("cut", make_bundle("cut", "phi3v", cut, torch.device("cpu"),
+                                           params=_map(gpu_v.bundle.params, lambda p: p.float().cpu()), grid_hw=grid),
+                        image_processor(cut, (512, 512), "cpu"), ref_ai)
+    x0 = load_image_chw(gray)
+    gen = torch.Generator().manual_seed(5)
+    p0 = 0.3 * torch.randn(x0.shape, generator=gen)
+    noise = torch.randn((2, victim.adv_processor.num_crops + 1, 3, v.image_size, v.image_size), generator=gen)
+    reference = {}
+    for label, row_idx in (("batch 1", [0]), ("batch 2", [0, 1])):
+        xs_r = {"t_idx": 0, "rows": [torch.from_numpy(ref_ai.prompt_pool[0, row_idx])],
+                "lens": [torch.from_numpy(ref_ai.prompt_lengths[0, row_idx])], "noise": [noise[: len(row_idx)]]}
+        results = {}
+        for name, vv, dev in (("cpu", cpu_v, "cpu"), ("cuda", gpu_v, "cuda")):
+            x0_d = torch.as_tensor(x0, device=dev)
+            step = build_attack_step([vv.handles()], dataclasses.replace(cfg, batch_size=len(row_idx)), x0_d,
+                                     torch.ones_like(x0_d))
+            reset_launches()
+            loss, _, _, _, grad = step.loss_and_grad(p0.to(dev), xs_r, torch.tensor(cfg.sigma, device=dev))
+            results[name] = (float(loss), grad.double().cpu())
+            log("reference", f"phi3.5 {label} {name}: loss={float(loss)} grad_norm={float(grad.norm())} "
+                f"T={ref_ai.max_len} launches={ {k: n for k, n in launch_counts().items() if n} }")
+        (l_cpu, g_cpu), (l_gpu, g_gpu) = results["cpu"], results["cuda"]
+        rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+        cos = float((g_cpu * g_gpu).sum() / (g_cpu.norm() * g_gpu.norm()))
+        log("reference", f"phi3.5 {label}: loss rel diff={rel:.3g} (tol {TOL_REF_LOSS}) grad cosine={cos:.6f} "
+            f"(min {TOL_REF_COSINE})")
+        if not (rel <= TOL_REF_LOSS and cos >= TOL_REF_COSINE):
+            raise AssertionError(f"phi3.5 depth-cut reference ({label}): card and CPU disagree")
+        reference[label] = {"loss_rel": rel, "cosine": cos}
+    x_img = np.clip(x0 + cfg.epsilon * np.tanh(p0.numpy()), 0.0, 1.0).astype(np.float32)
+    decode_reference(gpu_v, cpu_v, list(corpora.not_safe_questions_test[:3]), x_img, {"flash_fwd": cut.text.num_layers})
+    log("reference", f"phi3.5 references in {time.perf_counter() - t0:.1f} s")
+    del gpu_v, cpu_v, victim, got, probe
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("phi", f"phases 4H and 5H in {time.perf_counter() - t_phase:.1f} s")
+    return {"median_ms": med, "step_peak_GiB": step_peak, "chunks": chunks, "reference": reference,
+            "stats": {"dgrad": dg, **flash, **attn}, "prefill": prefill, "per_step": per_step,
+            "launches": run_launches, "launches_d": run_launches_d, "seconds": time.perf_counter() - t_phase,
+            "write_s": write_s, "GB": nbytes / 1e9, "T": t_text}
+
+
+def phi_cross_phases(ckpt_root, runs):
+    """Phase 4XH: scripts/attacks/attack_cross_onechip_int8.sh, LLaVA-1.5-7B and Phi-3.5-vision loaded
+    from the directories of 4L and 4H with int8 weights, quantized as they load, through
+    :func:`pair_cross_phase`: the batch-1 causal kernels at both decoders' T, LLaVA's at head_dim
+    128 and Phi's at 96 (timed)."""
+    from adversarialvlm_tpu_torch.processors import grid_hw_for
+
+    def dgrad_cases(victims, ts):
+        (lv, pv), (t_l, t_p) = victims, ts
+        grid = grid_hw_for("phi3v", pv.adv_processor, (512, 512))
+        return (int8_dgrad_cases(lv.bundle.params, lv.bundle.cfg, t_l)
+                + phi_dgrad_cases(pv.bundle.params, pv.bundle.cfg, 1, t_p, 1 + grid[0] * grid[1],
+                                  pv.adv_inputs.num_image_tokens))
+
+    def kernel_cases(victims, ts, pads, probes):
+        lt, pt = (v.bundle.cfg.text for v in victims)
+        attention_case(ts[0], lt.num_heads, lt.num_kv_heads, lt.head_dim_, pads[0])
+        return attention_case(ts[1], pt.num_heads, pt.num_kv_heads, pt.head_dim_, pads[1], timed=True)
+
+    return pair_cross_phase("cross phi", [LLAVA, PHI], ("llava", "phi3v"), ckpt_root, runs, ["--int8_weights"],
+                            dgrad_cases, kernel_cases)
 
 
 def main():
@@ -3683,6 +3989,8 @@ def main():
     d256 = {"causal_fwd256_kernel": "", "causal_dq_kernel": "ILi256E", "causal_dkdv_split_kernel": "ILi256E"}
     # flash_full's kernels at head_dim 72 (SigLIP) and 80 (Qwen2-VL's tower), one instantiation each
     full_dims = {"full_fwd_kernel", "full_dq_kernel", "full_dkdv_kernel"}
+    # the causal kernels at head_dim 96 (Phi-3.5's decoder; the causal one of each is also fused_sdpa's)
+    d96 = {"causal_fwd_kernel", "causal_dq_kernel", "causal_dkdv_kernel"}
     for lib, kernels in wgmma_kernels.items():
         hgmma = hgmma_counts(built[lib].path)
         for kernel in kernels:
@@ -3699,6 +4007,12 @@ def main():
                 log("build", f"{lib}: {kernel} HGMMA instructions by head dim {by_d}")
                 if any(len(c) != 1 or c[0] == 0 for c in by_d.values()):
                     raise AssertionError(f"{lib}: {kernel} lacks a head_dim-72 or -80 instantiation holding HGMMA")
+            if kernel in d96:
+                at96 = {name: c for name, c in hgmma.items() if kernel in name and "ILi96E" in name}
+                log("build", f"{lib}: {kernel} at head_dim 96 (causal and segment-only): {list(at96.values())} "
+                    "HGMMA instructions")
+                if len(at96) != 2 or min(at96.values()) == 0:
+                    raise AssertionError(f"{lib}: {kernel} lacks head_dim-96 instantiations holding HGMMA")
         spills = spill_lines(built[lib].log)
         log("build", f"{lib}: ptxas reports {len(spills)} spilling functions")
         if spills:
@@ -3773,6 +4087,14 @@ def main():
         torch.cuda.empty_cache()
         log("cross qwen", f"Qwen2-VL victims freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
         xq = qwen_cross_phases(ckpt_root, runs)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("phi", f"Qwen2-VL + Gemma-3 victims freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+        phi = phi_phases(ckpt_root, runs)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("cross phi", f"Phi-3.5 victim freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+        xh = phi_cross_phases(ckpt_root, runs)
     finally:
         shutil.rmtree(ckpt_root)
         shutil.rmtree(runs)
@@ -3816,11 +4138,20 @@ def main():
         f"written in {qwen['write_s']:.1f} s; depth-cut reference {qwen['reference']}; the 1024² batch-1 step "
         f"{qwen['v1']['median_ms']:.2f} ms, peak {qwen['v1']['peak_GiB']:.3f} GiB; re-test {qwen['post']}")
     log("done", f"cross step (Qwen2-VL-2B + Gemma-3-4B-it, batch 1; 4XV, {xq['seconds']:.1f} s): {xq['median_ms']:.2f} ms "
-        f"in the run; in turns over {XV_ROUNDS} rounds of {XV_TIMED}: "
+        f"in the run; in turns over {PAIR_ROUNDS} rounds of {PAIR_TIMED}: "
         + "; ".join(f"{k} {qp[k]['round_ms']}" for k in ("cross", "qwen2vl", "gemma3"))
         + f"; the cross step over the sum of the two alone {qp['ratios']}; device busy a step "
         f"{ {k: qp[k]['busy_ms'] for k in ('cross', 'qwen2vl', 'gemma3')} } ms; steps' peak {xq['step_peak_GiB']:.3f} "
         f"GiB; depth-cut reference {xq['reference']}")
+    hp = xh["profiled"]
+    log("done", f"Phi-3.5-vision (4H, 5H; {phi['seconds']:.1f} s): the batch-2 step {phi['median_ms']:.2f} ms at T "
+        f"{phi['T']}, steps' peak {phi['step_peak_GiB']:.3f} GiB, test-decode chunks {phi['chunks']}; directory "
+        f"{phi['GB']:.3f} GB written in {phi['write_s']:.1f} s; depth-cut reference {phi['reference']}")
+    log("done", f"cross step (LLaVA-1.5-7B + Phi-3.5-vision, int8, batch 1, T {xh['T']}; 4XH, {xh['seconds']:.1f} s): "
+        f"{xh['median_ms']:.2f} ms in the run; resident GB (quantized fraction) {xh['resident']}; in turns over "
+        f"{PAIR_ROUNDS} rounds of {PAIR_TIMED}: " + "; ".join(f"{k} {hp[k]['round_ms']}" for k in ("cross", "llava", "phi3v"))
+        + f"; the cross step over the sum of the two alone {hp['ratios']}; device busy a step "
+        f"{ {k: hp[k]['busy_ms'] for k in ('cross', 'llava', 'phi3v')} } ms; steps' peak {xh['step_peak_GiB']:.3f} GiB")
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s; the blur + crop step "
         f"{llava['transforms']['median_ms']:.2f} ms at batch 1")
     sources = {"dgrad": "dgrad.cu", "attention_fwd": "causal_fwd.cu", "attention_bwd_dq": "causal_bwd.cu",
@@ -3854,7 +4185,7 @@ def main():
             "worst_row_rel_err": stats[name]["rel"], "ms": stats[name]["ms"],
             "plain_ms": stats[name]["plain_ms"], "bound_ms": stats[name]["bound_ms"],
             "bound_by": stats[name]["bound_by"], "library_ms": stats[name]["library_ms"],
-            "library_call": stats[name].get("library_call"), "launches_cross_step": cross["per_step"][name],
+            "library_call": stats[name].get("library_call"),
         }
         for name in sources
     ]
@@ -3873,8 +4204,8 @@ def main():
         st, batch1 = judge["flash"][name], judge["attention"][name.replace("flash", "attention")]
         kernels.append({
             "name": f"{name}_d256", "route": "cuda", "source": f"adversarialvlm_tpu_torch/csrc/{sources[name]}",
-            "replaces": replaces[name], "launches": gem["judge"]["launches"] if name == "flash_fwd" else 0,
-            "launches_cross_step": 0,
+            # the forward's launches are the judge prefill's (4g), the backward's the Gemma attack's (4G)
+            "launches": gem["judge"]["launches"] if name == "flash_fwd" else gem["launches_d"].get(f"{name}_d256", 0),
             "max_abs_err": st["abs"], "worst_row_rel_err": st["rel"], **pick(st, timing_keys),
             "at_no_pad": pick(judge["flash_no_pad"][name], timing_keys),
             "at_batch_1": {"worst_row_rel_err": batch1["rel"], **pick(batch1, timing_keys)},
@@ -3912,8 +4243,7 @@ def main():
         st = qwen["full80"][name]
         kernels.append({
             "name": f"{name}_d80", "route": "cuda", "source": f"adversarialvlm_tpu_torch/csrc/{sources[name]}",
-            "replaces": replaces[name], "launches": qwen["v1"]["launches"][name], "launches_cross_step": 0,
-            "launches_qwen_gemma_cross_step": 0,  # the cross run's 512² source: 1296 patches, the plain sdpa
+            "replaces": replaces[name], "launches": qwen["v1"]["launches"][name],
             "max_abs_err": st["abs"], "worst_row_rel_err": st["rel"], **pick(st, timing_keys),
             "shape": [1, qwen["v1"]["patches"], 16, 80],
         })
@@ -3931,8 +4261,39 @@ def main():
             at["at_qwen_gemma_cross_shapes"] = pick(xq["dgrad"], (*timing_keys, "per_step"))
         if name in xq["attention"]:
             at["at_qwen_gemma_cross_shapes"] = pick(xq["attention"][name], timing_keys)
-        at["launches_qwen_gemma_cross_step"] = xq["per_step"][name]
         kernels[i].update(at)
+    # phases 4H and 4XH: Phi-3.5-vision's shapes. The head_dim-96 instantiations of the causal entries are
+    # rows of their own: the flash kernels with 4H's launches (the batch-2 step, the forward also at the
+    # decode prefill), the batch-1 ones with 4XH's (the int8 cross step); dgrad at Phi's linears rides
+    # with its entry
+    h_stats = phi["stats"]
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv", "attention_fwd", "attention_bwd_dq",
+                 "attention_bwd_dkdv"):
+        st = h_stats[name] if name.startswith("flash") else xh["attention"][name]
+        row = {
+            "name": f"{name}_d96", "route": "cuda", "source": f"adversarialvlm_tpu_torch/csrc/{sources[name]}",
+            "replaces": replaces[name], "max_abs_err": st["abs"], "worst_row_rel_err": st["rel"],
+            **pick(st, timing_keys),
+            "launches": (phi if name.startswith("flash") else xh)["launches_d"].get(f"{name}_d96", 0),
+        }
+        if name == "flash_fwd":
+            row["at_prefill_shape"] = pick(phi["prefill"], timing_keys)
+        kernels.append(row)
+    kernels[0]["at_phi3v_step_shapes"] = {"max_abs_err": h_stats["dgrad"]["abs"],
+                                          "worst_row_rel_err": h_stats["dgrad"]["rel"],
+                                          **pick(h_stats["dgrad"], (*timing_keys, "per_step"))}
+    kernels[0]["at_llava_phi3v_int8_cross_shapes"] = pick(xh["dgrad"], (*timing_keys, "per_step"))
+    # each cross run's launches a step, measured: a row of one head dim reads its instantiation's count
+    # (the base causal rows are head_dim 128's, flash_full's 72's), dgrad and the fused rows their entry's
+    runs_by_pair = {"llava+gemma3": cross, "qwen2vl+gemma3": xq, "llava+phi3v int8": xh}
+    for row in kernels:
+        name, d = row["name"], None
+        if re.fullmatch(r".*_d\d+", name):
+            d = name
+        elif name.startswith(("attention", "flash")):
+            d = f"{name}_d72" if name.startswith("flash_full") else f"{name}_d128"
+        row["launches_cross_step"] = {pair: (run["per_step"][name] if d is None else run["per_step_d"].get(d, 0))
+                                      for pair, run in runs_by_pair.items()}
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -383,7 +383,7 @@ def _entry_case(case, tmp_path, monkeypatch):
                                  "--checkpoint_root", root])
     elif case == "cli_other_family_raises":
         with pytest.raises(NotImplementedError, match="ROADMAP modules: other victim families"):
-            cli.main(base[2:] + ["--device", "cpu", "--model_name", "microsoft/Phi-3.5-vision-instruct"])
+            cli.main(base[2:] + ["--device", "cpu", "--model_name", "alpindale/Llama-3.2-11B-Vision-Instruct"])
         assert sorted(os.listdir(tmp_path)) == ["x0.png"]  # it fails before making a run dir
     elif case == "cross_on_cpu":
         cfg = AttackConfig(**_kw(num_iterations=2))

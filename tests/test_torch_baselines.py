@@ -426,10 +426,41 @@ def test_baseline_cli_runs_qwen(tmp_path, mode, capsys, one_thread):
     assert "images at 448x448, 256 image tokens a row" in text  # 32×32 patches, merged 2×2
 
 
-@pytest.mark.parametrize("model", ["phi35", "llama"])
+@pytest.mark.parametrize("mode", ["reference", "figstep"])
+def test_baseline_cli_runs_phi35(tmp_path, mode, capsys, one_thread):
+    """cli/baseline_tests.py --model phi35 (microsoft/Phi-3.5-vision-instruct) on a fabricated
+    tiny-phi3v checkpoint directory, on the CPU at its 128 new tokens: the text mode, and FigStep
+    with its 76² PNGs host-resized to the victim's 448² (planned to 672²: a 2×2 grid of 336²
+    tiles, 199 image tokens a row with the tiny tower's 6×6 merged grid); a row per question or
+    image and one decode configuration."""
+    from adversarialvlm_tpu_torch.cli import fabricate_ckpt
+
+    root = str(tmp_path / "ckpts")
+    fabricate_ckpt.main(["tiny-phi3v", root, "--device", "cpu"])
+    sfb = tmp_path / "sfb"
+    sfb.mkdir()
+    (sfb / "1.csv").write_text("How?\nWhy?\n")
+    ds = tmp_path / "datasets"
+    d = ds / "FigStep" / "images" / "1_with_titles"
+    d.mkdir(parents=True)
+    for i in range(2):
+        Image.fromarray(smooth_image(76, 76, 50 + i)).save(d / f"{i}.png")
+    out = baseline_tests.main(["--model", "phi35", "--mode", mode, "--sfb_path", str(sfb), "--dataset_root",
+                               str(ds), "--tests_path", str(tmp_path / "tests"), "--categories", "1",
+                               "--batch_size", "2", "--checkpoint_root", root, "--device", "cpu"])
+    text = capsys.readouterr().out
+    sub = {"reference": "reference", "figstep": "FigStep_baseline"}[mode]
+    assert out == os.path.join(str(tmp_path / "tests"), sub, "phi35")
+    assert os.listdir(out) == ["1.csv"] and len(read_column(os.path.join(out, "1.csv"))) == 2
+    assert "generate_programs: configs=1 programs=1" in text
+    assert "images at 448x448, 199 image tokens a row" in text
+
+
+@pytest.mark.parametrize("model", ["llama"])
 def test_baseline_cli_refuses_other_families_before_any_file(tmp_path, model):
-    """The phi35 and llama names raise NotImplementedError naming their ROADMAP item before any
-    file is read (no dataset, no checkpoint exists); a reversed category range raises first."""
+    """The llama name raises NotImplementedError naming its ROADMAP item before any file is read
+    (no dataset, no checkpoint exists); a reversed category range raises first. (phi35 runs since
+    its family was ported: test_baseline_cli_runs_phi35.)"""
     missing = str(tmp_path / "missing")
     args = ["--model", model, "--mode", "figstep", "--dataset_root", missing, "--checkpoint_root", missing,
             "--tests_path", missing, "--device", "cpu"]

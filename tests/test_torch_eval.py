@@ -358,7 +358,7 @@ NEW_MODULES = ["judge/__init__.py", "judge/fsm.py", "judge/safety_checker.py", "
                "utils/native.py", "utils/jpeg.py", "utils/images.py", "utils/png.py", "eval/benchmarking.py",
                "eval/figstep.py", "eval/mm_safetybench.py", "cli/baseline_tests.py",
                "eval/experiment_tracker.py", "eval/test_post.py", "cli/test_post.py", "models/qwen2vl.py",
-               "processors/qwen2vl.py", "utils/tokenizer_json.py"]
+               "processors/qwen2vl.py", "utils/tokenizer_json.py", "models/phi3v.py", "processors/phi3.py"]
 
 
 def test_eval_modules_import_no_jax_pandas_pil_or_transformers():

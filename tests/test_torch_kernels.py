@@ -21,7 +21,7 @@ from adversarialvlm_tpu.ops.pallas.matmul import dgrad_matmul
 from adversarialvlm_tpu_torch.models import layers
 from adversarialvlm_tpu_torch.ops.kernels import attention as A
 from adversarialvlm_tpu_torch.ops.kernels.attention import kernel_routes_on_cpu
-from adversarialvlm_tpu_torch.ops.kernels import launch_counts, reset_launches
+from adversarialvlm_tpu_torch.ops.kernels import count_launch, launch_counts, launch_counts_by_head_dim, reset_launches
 from adversarialvlm_tpu_torch.ops.kernels.dgrad import LinearPdx, dgrad, dgrad_eligible
 from adversarialvlm_tpu_torch.ops.kernels import flash as Fl
 from adversarialvlm_tpu_torch.ops.kernels.flash import flash_bwd_dq, flash_fwd
@@ -102,6 +102,7 @@ def test_attention_plain_versions_match_fused_sdpa_bthd_interpret(h, hkv, d):
     for name, g_, w_ in zip(("o", "dq", "dk", "dv"), got, want):
         np.testing.assert_allclose(g_, w_, rtol=1e-4, atol=1e-4, err_msg=name)
     assert launch_counts() == {name: 0 for name in launch_counts()}
+    assert launch_counts_by_head_dim() == {}
 
     # the plain versions on explicit residuals: dq/δ, then dk/dv from that δ
     seg = torch.from_numpy(mask[0])
@@ -136,12 +137,33 @@ def _repeat_kv(x, q):
     return jnp.asarray(np.repeat(x, q.shape[1] // x.shape[1], axis=1))
 
 
+@pytest.fixture(scope="module")
+def qkv_d96():
+    """B=2, H=Hkv=4, T=150, D=96 (Phi-3.5's head dim, MHA as its decoder), row 0 left-padded by 17."""
+    rng = np.random.default_rng(96)
+    b, h, t, d = 2, 4, 150, 96
+    q, k, v, do = (rng.standard_normal((b, h, t, d), dtype=np.float32) for _ in range(4))
+    mask = np.ones((b, t), np.int32)
+    mask[0, :17] = 0
+    return q, k, v, do, mask
+
+
 def test_flash_plain_at_head_dim_256_matches_flash_sdpa_interpret(qkv_d256):
     """The port's flash_sdpa on CPU tensors at head_dim 256 with GQA (its k and v at 2 kv heads)
     against the JAX flash_sdpa in interpret mode (k and v repeated to the 4 q heads), real rows,
     1e-4; the explicit plain forward gives the same o."""
-    q, k, v, _, mask = qkv_d256
-    scale = 256**-0.5
+    _flash_plain_case(qkv_d256)
+
+
+def test_flash_plain_at_head_dim_96_matches_flash_sdpa_interpret(qkv_d96):
+    """As at 256, at Phi-3.5's head_dim 96 (which the TPU kernel pads to 128 lanes and the card's
+    kernels take as it is), 4 heads with left pads, real rows, 1e-4."""
+    _flash_plain_case(qkv_d96)
+
+
+def _flash_plain_case(qkv):
+    q, k, v, _, mask = qkv
+    scale = q.shape[-1]**-0.5
     want = jax_flash_sdpa(jnp.asarray(q), _repeat_kv(k, q), _repeat_kv(v, q), jnp.asarray(mask), scale,
                           interpret=True)
     reset_launches()
@@ -159,8 +181,18 @@ def test_flash_function_grads_at_head_dim_256_match_flash_sdpa_interpret(qkv_d25
     which writes δ, then dk/dv, which sums each kv head's two q heads) against jax.vjp of
     flash_sdpa in interpret mode, whose k and v gradients at the repeated heads are summed per kv
     head; under a cotangent on the real rows, real rows, 1e-4."""
-    q, k, v, do, mask = qkv_d256
-    scale = 256**-0.5
+    _flash_grads_case(qkv_d256)
+
+
+def test_flash_function_grads_at_head_dim_96_match_flash_sdpa_interpret(qkv_d96):
+    """As at 256, at Phi-3.5's head_dim 96 (MHA): the plain dq, then dk/dv, against jax.vjp of
+    flash_sdpa in interpret mode, real rows, 1e-4."""
+    _flash_grads_case(qkv_d96)
+
+
+def _flash_grads_case(qkv):
+    q, k, v, do, mask = qkv
+    scale = q.shape[-1]**-0.5
     real = mask.astype(bool)
     cot = do * real[:, None, :, None]
     from jax.experimental.pallas import tpu as pltpu
@@ -185,6 +217,14 @@ def _route_case(case):
         assert A.attention_route("cuda", 2, 641, 32, 128, 1) == "flash"
         assert A.attention_route("cuda", 50, 704, 32, 128, 1, cache_index=0) == "flash"
         assert A.attention_route("cuda", 3, 301, 8, 256, 4) == "flash"
+    elif case == "cuda_phi3_head_dim96_takes_kernels":
+        # Phi-3.5's decoder, 32 heads of 96: the attack step at batch 2 (T about 820), the cross
+        # step at batch 1, the test decode's 50-row prefill
+        assert Fl.HEAD_DIMS == (96, 128, 256)
+        assert A.attention_route("cuda", 2, 820, 32, 96, 1) == "flash"
+        assert A.attention_route("cuda", 1, 820, 32, 96, 1) == "fused"
+        assert A.attention_route("cuda", 50, 790, 32, 96, 1, cache_index=0) == "flash"
+        assert A.attention_route("cuda", 50, 1, 32, 96, 1, cache_index=854) == "plain"
     elif case == "cuda_head_dim64_raises":
         with pytest.raises(NotImplementedError, match="flash_sdpa"):
             A.attention_route("cuda", 1, 577, 16, 64, 1)
@@ -248,7 +288,7 @@ def _route_case(case):
     "cpu_takes_plain", "dgrad_eligibility", "cpu_linear_stays_plain",
     "wrapper_rejects_non_cuda_device", "cuda_head_dim64_batch2_raises",
     "cuda_cached_decode_takes_plain", "flash_wrapper_rejects_non_cuda_device",
-    "cuda_masked_layer_takes_plain",
+    "cuda_masked_layer_takes_plain", "cuda_phi3_head_dim96_takes_kernels",
 ])
 def test_kernel_routing(case):
     """On the card the decoder attention takes the fused kernel at batch 1, the flash kernel at
@@ -315,14 +355,15 @@ def test_vit_route(case):
 
 
 @pytest.mark.parametrize("d, want", [
+    (96, ("causal_bwd", "causal_bwd_dq_bf16", "causal_bwd_dkdv_bf16")),
     (128, ("causal_bwd", "causal_bwd_dq_bf16", "causal_bwd_dkdv_bf16")),
     (256, ("causal_bwd", "causal_bwd_dq_bf16", "causal_bwd_dkdv_bf16")),
-    (64, None), (72, None), (96, None), (512, None),
+    (64, None), (72, None), (80, None), (512, None),
 ])
 def test_causal_backward_dispatch_by_head_dim(d, want):
-    """The causal backward's head-dim dispatch, read without building anything: D = 128 (the
-    decoders' width) and D = 256 (Gemma-3's) go to the wgmma kernels of causal_bwd.cu, from the
-    batch-1 wrappers and the batched ones alike; any other head dim raises. Both entries are bound
+    """The causal backward's head-dim dispatch, read without building anything: D = 96 (Phi-3.5's
+    decoder), D = 128 (the decoders' width) and D = 256 (Gemma-3's) go to the wgmma kernels of
+    causal_bwd.cu, from the batch-1 wrappers and the batched ones alike; any other head dim raises. Both entries are bound
     in causal_bwd's argtypes table and instantiate D in their C dispatch; at 256 dk/dv is the
     kernel that splits the head dim over two warpgroups."""
     if want is None:
@@ -344,13 +385,14 @@ def test_causal_backward_dispatch_by_head_dim(d, want):
 
 
 @pytest.mark.parametrize("d, want", [
+    (96, ("causal_fwd", "causal_fwd_bf16")),
     (128, ("causal_fwd", "causal_fwd_bf16")),
     (256, ("causal_fwd", "causal_fwd_bf16")),
-    (64, None), (72, None), (96, None), (512, None),
+    (64, None), (72, None), (80, None), (512, None),
 ])
 def test_causal_forward_dispatch_by_head_dim(d, want):
-    """The causal forward's head-dim dispatch, read without building anything: D = 128 and D = 256
-    go to the wgmma kernel of causal_fwd.cu, from the batch-1 wrapper (B = 1) and the batched one
+    """The causal forward's head-dim dispatch, read without building anything: D = 96, 128 and 256
+    go to the wgmma kernel of causal_fwd.cu (at 96 the instantiation fused_sdpa's entry shares), from the batch-1 wrapper (B = 1) and the batched one
     alike; any other head dim raises. The entry is bound in causal_fwd's argtypes table and
     instantiates D in its C dispatch."""
     if want is None:
@@ -365,6 +407,8 @@ def test_causal_forward_dispatch_by_head_dim(d, want):
     text = (CSRC / f"{library}.cu").read_text()
     body = text[text.index(f'extern "C" int {entry}('):].split("\n}\n", 1)[0]
     assert f"case {d}: return launch<{d}, CAUSAL_SEG>(" in body
+    if d == 96:  # the same template instantiation as fused_sdpa's causal head-dim-96 case
+        assert "case 96: return fused<96>(" in text and "return launch<D, CAUSAL_SEG>(" in text
 
 
 def test_sources_are_the_four_wgmma_libraries():
@@ -428,8 +472,9 @@ def _causal_plan(d: int, t: int) -> dict[str, dict[str, int]]:
 
 @pytest.mark.parametrize("d", Fl.HEAD_DIMS)
 def test_causal_plans_fit_the_card(d):
-    """The causal kernels' plans at head dim d (_causal_plan, a Python mirror of the C plans), at
-    the judge's T of 704 and at the forward's largest T (4096 tiles of 64): each
+    """The causal kernels' plans at head dim d (96: Phi-3.5's decoder, 128, 256; _causal_plan, a
+    Python mirror of the C plans), at the judge's T of 704 and at the forward's largest T (4096
+    tiles of 64): each
     block's shared memory fits the 232,448 bytes a block may use on the H100, the blocks an SM
     holds fit its 228 KiB with 1 KiB reserved each (at 704), each thread's f32 accumulators (output
     and scores) fit the 255 registers a thread may hold and the SM's 65,536 with its blocks'. The
@@ -645,3 +690,17 @@ def test_linear_pdx_backward_of_plain_linear_agree():
     (LinearPdx.apply(x1, w) ** 2).sum().backward()
     (F.linear(x2, w) ** 2).sum().backward()
     np.testing.assert_allclose(x1.grad.numpy(), x2.grad.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_launches_are_split_by_head_dim():
+    """An attention wrapper's launch counts once under its entry and once under its head dim, so a
+    run that mixes head dims (the int8 LLaVA + Phi-3.5 cross step: 128 and 96 on the same batch-1
+    entries) shows each instantiation's share; a reset clears both."""
+    reset_launches()
+    for d in (96, 128, 96):
+        count_launch("attention_fwd", d)
+    count_launch("flash_full_fwd", 80)
+    assert launch_counts()["attention_fwd"] == 3 and launch_counts()["flash_full_fwd"] == 1
+    assert launch_counts_by_head_dim() == {"attention_fwd_d96": 2, "attention_fwd_d128": 1, "flash_full_fwd_d80": 1}
+    reset_launches()
+    assert sum(launch_counts().values()) == 0 and launch_counts_by_head_dim() == {}

@@ -273,5 +273,5 @@ def test_cli_retests_a_tiny_qwen_run(tmp_path, capsys):
     with pytest.raises(SystemExit, match="no checkpoint iterations"):
         cli.main(["--exp", "bare", "--model_name", "tiny:qwen2vl", "--runs_path", runs, "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="ROADMAP modules: other victim families"):
-        cli.main(["--exp", "exp", "--model_name", "microsoft/Phi-3.5-vision-instruct", "--runs_path", runs,
+        cli.main(["--exp", "exp", "--model_name", "alpindale/Llama-3.2-11B-Vision-Instruct", "--runs_path", runs,
                   "--device", "cpu"])

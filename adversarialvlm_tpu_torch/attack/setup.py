@@ -1,6 +1,6 @@
 """Victim construction: model + differentiable processor + prompt pools, from random weights or
 from a local HF checkpoint directory. Counterpart of adversarialvlm_tpu/attack/setup.py::
-build_tiny_victim and build_victim_from_checkpoint for the llava, gemma3, qwen2vl and phi3v families, with int8
+build_tiny_victim and build_victim_from_checkpoint for the llava, gemma3, qwen2vl, phi3v and mllama families, with int8
 weights (models/quant.py), without the HBM remat ladder, which an 80 GB card does not need."""
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from adversarialvlm_tpu_torch.processors import family_of, grid_hw_for, load_mod
 from adversarialvlm_tpu_torch.processors.adv_inputs import AdvInputs
 from adversarialvlm_tpu_torch.processors.configs import MODEL_IMAGE_CONFIGS, ImageProcessorConfig
 from adversarialvlm_tpu_torch.processors.gemma3 import DifferentiableGemma3ImageProcessor
+from adversarialvlm_tpu_torch.processors.llama32 import DifferentiableMllamaImageProcessor
 from adversarialvlm_tpu_torch.processors.llava import DifferentiableLlavaImageProcessor
 from adversarialvlm_tpu_torch.processors.phi3 import DifferentiablePhi3VImageProcessor
 from adversarialvlm_tpu_torch.processors.prompts import spec_for_family
@@ -68,19 +69,21 @@ def build_tiny_victim(
     family: str = "llava",
     int8_weights: bool = False,
 ) -> VictimSetup:
-    """A random-weight victim (default: the tiny config of ``family``, llava, gemma3, qwen2vl or
-    phi3v; pass ``vlm_cfg=llava_1_5_7b()``, ``gemma3_4b_it()``, ``qwen2vl_2b()`` or
-    ``phi3_5_vision()`` for a full-size one) with
+    """A random-weight victim (default: the tiny config of ``family``, llava, gemma3, qwen2vl, phi3v
+    or mllama; pass ``vlm_cfg=llava_1_5_7b()``, ``gemma3_4b_it()``, ``qwen2vl_2b()``,
+    ``phi3_5_vision()`` or ``mllama_11b()`` for a full-size one) with
     the ByteTokenizer.
     Weights come from a ``torch.Generator`` on ``device`` (default: the card, which must exist)
     seeded with ``seed``. ``int8_weights`` quantizes every linear with both dims >= 8, tensor by
     tensor (models/quant.py::quantize_params), so tiny runs take the int8 path too."""
     dev = resolve_device(device)
     if vlm_cfg is None:
+        from adversarialvlm_tpu_torch.models.mllama import tiny_mllama
         from adversarialvlm_tpu_torch.models.phi3v import tiny_phi3v
         from adversarialvlm_tpu_torch.models.qwen2vl import tiny_qwen2vl
 
-        tiny = {"gemma3": tiny_gemma3, "qwen2vl": tiny_qwen2vl, "phi3v": tiny_phi3v}.get(family, tiny_llava)
+        tiny = {"gemma3": tiny_gemma3, "qwen2vl": tiny_qwen2vl, "phi3v": tiny_phi3v,
+                "mllama": tiny_mllama}.get(family, tiny_llava)
         vlm_cfg = tiny(vocab_size=384)
     family = vlm_cfg.family
     spec = spec_for_family(family)
@@ -171,7 +174,11 @@ def image_processor(vlm_cfg: VLMConfig, in_hw, device):
     """The family's differentiable processor for source images of ``in_hw``, sized by the model
     config (gemma3: the tower's image_size and soft-token count; qwen2vl: the Qwen/Qwen2-VL-2B-Instruct
     processor, whose plan sets the grid; phi3v: the microsoft/Phi-3.5-vision-instruct processor,
-    num_crops 6, its tile the tower's image_size)."""
+    num_crops 6, its tile the tower's image_size; mllama: the tower's tile size and tile count)."""
+    if vlm_cfg.family == "mllama":
+        return DifferentiableMllamaImageProcessor(
+            ImageProcessorConfig(tile_size=vlm_cfg.vision.image_size, max_image_tiles=vlm_cfg.vision.max_num_tiles),
+            in_hw, device)
     if vlm_cfg.family == "phi3v":
         import dataclasses
 
@@ -212,7 +219,9 @@ def _image_expansion(family, vlm_cfg, tok, num_image_tokens):
 def _num_image_tokens(family, vlm_cfg, adv_proc, in_hw) -> int:
     """The model config is authoritative for the image-token count; qwen2vl's follows the
     processor's plan for this run's image size, phi3v's the model's count for the plan's tile grid
-    (setup.py:212-241)."""
+    (setup.py:212-241); mllama's text holds one <|image|> token, its image read by cross-attention."""
+    if family == "mllama":
+        return 1
     if family == "gemma3":
         return vlm_cfg.vision.mm_tokens_per_image
     if family == "phi3v":

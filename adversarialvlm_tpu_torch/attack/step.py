@@ -255,7 +255,8 @@ class AttackStep:
         ids = ids.to(v.device)
         am = _length_mask(ids, lens.to(v.device))
         b = ids.shape[0]
-        pv = v.process(arg_img)["pixel_values"]
+        processed = dict(v.process(arg_img))
+        pv = processed.pop("pixel_values")
         pv = pv.expand(b, *pv.shape[1:]).to(v.compute_dtype)
         if resave_std is not None:
             if noise is None:
@@ -263,7 +264,8 @@ class AttackStep:
             pv = pv + (noise.to(v.device) * resave_std).to(pv.dtype)
         # only the last target_width + 1 positions are scored by the suffix CE
         k = v.target_pool.shape[1] + 1
-        logits = v.forward(v.params, ids, am, {"pixel_values": pv}, logits_last_k=k)
+        # the processor's other inputs (mllama's aspect ids and mask) ride at the image's batch
+        logits = v.forward(v.params, ids, am, {"pixel_values": pv, **processed}, logits_last_k=k)
         return suffix_cross_entropy(
             logits[:, :-1, :],
             v.target_pool[t_idx][None, :].expand(b, -1),

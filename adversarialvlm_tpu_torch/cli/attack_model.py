@@ -5,18 +5,19 @@
 
 Model names: an HF name of processors.MODEL_MAP (``llava-hf/llava-1.5-7b-hf``,
 ``google/gemma-3-4b-it``, ``google/gemma-3-12b-it``, ``Qwen/Qwen2-VL-2B-Instruct``,
-``Qwen/Qwen2-VL-7B-Instruct``, ``microsoft/Phi-3.5-vision-instruct``) loads its local checkpoint
-directory,
+``Qwen/Qwen2-VL-7B-Instruct``, ``microsoft/Phi-3.5-vision-instruct``,
+``alpindale/Llama-3.2-11B-Vision-Instruct``, ``alpindale/Llama-3.2-11B-Vision``,
+``SinclairSchneider/Llama-Guard-3-11B-Vision``) loads its local checkpoint directory,
 ``<root>/<org>/<name>`` or ``<root>/<name>`` under ``--checkpoint_root`` or
 ``$ADVLM_CHECKPOINTS`` (bf16 on the card, f32 on the CPU; ``cli/fabricate_ckpt.py`` writes such a
 directory from random weights; ``--int8_weights`` or ``ADVLM_INT8_WEIGHTS=1`` quantizes its
 linears as they load, models/quant.py); ``random:llava-1.5-7b`` (full-size LLaVA-1.5-7B) and
 ``random:gemma-3-4b-it`` (full-size Gemma-3-4B-it, its SigLIP tower at 4096 patches) and
 ``random:qwen2vl-2b`` (full-size Qwen2-VL-2B, its grid from the source image's size), all with
-random bf16 weights, and ``tiny:llava``,
-``tiny:gemma3``, ``tiny:qwen2vl`` and ``tiny:phi3v`` (tiny random models, f32) take the byte
-tokenizer. ``--resume_state runs/<exp>/attack_state_latest.pt`` continues a run where its
-state was saved; ``--profile_dir`` traces the second chunk. Runs on the card
+random bf16 weights, and ``tiny:llava``, ``tiny:gemma3``, ``tiny:qwen2vl``, ``tiny:phi3v`` and
+``tiny:mllama`` (tiny random models, f32) take the byte tokenizer. ``--resume_state
+runs/<exp>/attack_state_latest.pt`` continues a run where its state was saved; ``--profile_dir``
+traces the second chunk. Runs on the card
 unless ``--device cpu``, at the default ``--batch_size 4`` or any other. As the JAX CLI does, every
 save boundary decodes the 50 held-out questions on the saved image and writes
 test_results_iter_<N>.csv.
@@ -110,6 +111,7 @@ RANDOM_VICTIMS = {
     "tiny:gemma3": ("gemma3", None),
     "tiny:qwen2vl": ("qwen2vl", None),
     "tiny:phi3v": ("phi3v", None),
+    "tiny:mllama": ("mllama", None),
 }
 
 

@@ -4,9 +4,9 @@ the families the port runs.
 
     python -m adversarialvlm_tpu_torch.cli.fabricate_ckpt <model> <root> [--device cuda]
 
-``model``: ``llava-1.5-7b``, ``gemma-3-4b``, ``qwen2vl-2b`` or ``phi3.5-vision`` (full width and
-depth, bf16), or ``tiny-llava``, ``tiny-gemma3``, ``tiny-qwen2vl`` and ``tiny-phi3v`` (the tests'
-tiny configs, f32). The directory is ``<root>/<org>/<name>`` of the HF
+``model``: ``llava-1.5-7b``, ``gemma-3-4b``, ``qwen2vl-2b``, ``phi3.5-vision`` or ``mllama-11b``
+(full width and depth, bf16), or ``tiny-llava``, ``tiny-gemma3``, ``tiny-qwen2vl``, ``tiny-phi3v``
+and ``tiny-mllama`` (the tests' tiny configs, f32). The directory is ``<root>/<org>/<name>`` of the HF
 name, as cli/attack_model.py's ``--checkpoint_root`` resolves it. It holds:
 
   * the weights of ``init_params`` drawn from seed 0 on ``--device`` (the same tensors as the
@@ -18,7 +18,9 @@ name, as cli/attack_model.py's ``--checkpoint_root`` resolves it. It holds:
     ``gate_up_proj``, the CLIP tower under ``model.vision_embed_tokens.img_processor.vision_model.*``
     with its ``post_layernorm``, ``glb_GN`` (1, 1, 4C), ``sub_GN`` (1, 1, 1, 4C),
     ``img_projection.{0,2}`` and the ``wte`` copy of the token embedding, the last two keys
-    dropped by the loader), as safetensors shards of at most 5 GB with their index;
+    dropped by the loader; Llama-3.2-Vision's ``model.vision_model.*``, ``model.language_model.*``
+    with its cross-attention layers, ``model.multi_modal_projector`` and a top-level ``lm_head``,
+    every tanh gate non-zero), as safetensors shards of at most 5 GB with their index;
   * config.json, generation_config.json and preprocessor_config.json, from which
     models/loading.py patches back the same VLMConfig;
   * tokenizer.json, tokenizer_config.json and special_tokens_map.json in the family's style: a
@@ -38,7 +40,14 @@ name, as cli/attack_model.py's ``--checkpoint_root`` resolves it. It holds:
     specials from ``<|endoftext|>`` 32000 (``<|assistant|>`` 32001, ``<|system|>`` 32006,
     ``<|end|>`` 32007, ``<|user|>`` 32010, placeholders between) at the same ids in the tiny
     directory, whose vocabulary has the hub's 32064 rows; ``<|image_1|>`` has no entry
-    (processors/adv_inputs.py splits it out of the string).
+    (processors/adv_inputs.py splits it out of the string). Llama-3.2-Vision: a byte-level BPE
+    behind Llama-3's Split regex and ByteLevel pre-tokenizer (``ignore_merges``, no normalizer),
+    its 256 specials from ``<|begin_of_text|>`` 128000 (``<|end_of_text|>`` 128001,
+    ``<|finetune_right_pad_id|>`` 128004, ``<|start_header_id|>`` 128006, ``<|end_header_id|>``
+    128007, ``<|eom_id|>`` 128008, ``<|eot_id|>`` 128009, the rest reserved) and ``<|image|>``
+    128256, the first id past the vocabulary, with a ``Sequence`` post-processor (ByteLevel, then
+    the ``<|begin_of_text|>`` template); the tiny directory's sit at the same offsets from the top
+    of its 1024-row vocabulary.
 
 The Phi-3.5-vision config.json carries synthetic LongRoPE factor arrays (1 + 0.01·i short, 4.0
 long, a factor per rotary frequency), as scripts/fabricate_ckpt.py::fab_phi3v writes them: the
@@ -63,6 +72,7 @@ from adversarialvlm_tpu_torch.models.configs import (
     tiny_llava,
 )
 from adversarialvlm_tpu_torch.models.loading import named_leaves
+from adversarialvlm_tpu_torch.models.mllama import mllama_11b, tiny_mllama
 from adversarialvlm_tpu_torch.models.phi3v import phi3_5_vision, tiny_phi3v
 from adversarialvlm_tpu_torch.models.qwen2vl import qwen2vl_2b, tiny_qwen2vl
 
@@ -123,16 +133,55 @@ def _tiny_phi3v() -> VLMConfig:
     return dataclasses.replace(cfg, pad_token_id=base, eos_token_id=base, image_token_id=base + 44)
 
 
+# Llama-3's specials, in order from <|begin_of_text|> (128000 in the hub's vocabulary of 128256 rows);
+# <|image|> is the first id past them and past the vocabulary
+LLAMA3_NAMED = {0: "<|begin_of_text|>", 1: "<|end_of_text|>", 4: "<|finetune_right_pad_id|>",
+                6: "<|start_header_id|>", 7: "<|end_header_id|>", 8: "<|eom_id|>", 9: "<|eot_id|>",
+                10: "<|python_tag|>"}
+LLAMA3_N_SPECIALS = 256
+
+
+def _llama3_specials() -> list[str]:
+    names, reserved = [], 0
+    for i in range(LLAMA3_N_SPECIALS):
+        if i in LLAMA3_NAMED:
+            names.append(LLAMA3_NAMED[i])
+        else:
+            names.append(f"<|reserved_special_token_{reserved}|>")
+            reserved += 1
+    return names
+
+
+def _llama3_ids(cfg: VLMConfig, vocab_size: int) -> VLMConfig:
+    """``cfg`` with the hub's pad (<|finetune_right_pad_id|>), image and stop ids (its
+    generation_config's <|end_of_text|>, <|eom_id|>, <|eot_id|>) for a vocabulary whose last 256
+    rows are the specials."""
+    base = vocab_size - LLAMA3_N_SPECIALS
+    return dataclasses.replace(cfg, pad_token_id=base + 4, eos_token_id=base + 1,
+                               extra_eos_token_ids=(base + 8, base + 9), image_token_id=vocab_size)
+
+
+def _mllama_11b() -> VLMConfig:
+    return _llama3_ids(mllama_11b(), 128256)
+
+
+def _tiny_mllama() -> VLMConfig:
+    """The tiny mllama over a 1024-row vocabulary, Llama-3's specials in its last 256 rows."""
+    return _llama3_ids(tiny_mllama(vocab_size=1024), 1024)
+
+
 # model -> (HF name, config, weight dtype)
 MODELS = {
     "llava-1.5-7b": ("llava-hf/llava-1.5-7b-hf", llava_1_5_7b, torch.bfloat16),
     "gemma-3-4b": ("google/gemma-3-4b-it", gemma3_4b_it, torch.bfloat16),
     "qwen2vl-2b": ("Qwen/Qwen2-VL-2B-Instruct", qwen2vl_2b, torch.bfloat16),
     "phi3.5-vision": ("microsoft/Phi-3.5-vision-instruct", _phi3_5_vision, torch.bfloat16),
+    "mllama-11b": ("alpindale/Llama-3.2-11B-Vision-Instruct", _mllama_11b, torch.bfloat16),
     "tiny-llava": ("llava-hf/llava-1.5-7b-hf", lambda: tiny_llava(vocab_size=1024), torch.float32),
     "tiny-gemma3": ("google/gemma-3-4b-it", _tiny_gemma3, torch.float32),
     "tiny-qwen2vl": ("Qwen/Qwen2-VL-2B-Instruct", _tiny_qwen2vl, torch.float32),
     "tiny-phi3v": ("microsoft/Phi-3.5-vision-instruct", _tiny_phi3v, torch.float32),
+    "tiny-mllama": ("alpindale/Llama-3.2-11B-Vision-Instruct", _tiny_mllama, torch.float32),
 }
 
 
@@ -144,7 +193,14 @@ _EMBEDDINGS = ("patch_embedding.", "position_embedding.", "class_embedding")
 def hf_key(family: str, path: str) -> str:
     """The hub's key of a dotted path of the port's tree: the inverse of models/loading.py's
     ``_normalize_llava_key``, ``_normalize_gemma3_key``, ``_normalize_qwen2vl_key`` and
-    ``_normalize_phi3v_key`` (phi3v's split projections are fused again by hf_state_dict)."""
+    ``_normalize_phi3v_key`` (phi3v's split projections are fused again by hf_state_dict) and
+    ``_normalize_mllama_key``."""
+    if family == "mllama":
+        if path.startswith("language_model.lm_head."):
+            return path[len("language_model."):]
+        if path.startswith(("language_model.", "vision_model.", "multi_modal_projector.")):
+            return "model." + path
+        raise ValueError(f"{family}: no hub key for {path}")
     if family == "phi3v":
         if path.startswith("language_model.lm_head."):
             return path[len("language_model."):]
@@ -253,6 +309,41 @@ def hf_configs(family: str, cfg: VLMConfig, dtype) -> dict[str, dict]:
     }
     eos = [cfg.eos_token_id, *cfg.extra_eos_token_ids]
     dtype_name = str(dtype).replace("torch.", "")
+    if family == "mllama":
+        base = cfg.image_token_id - LLAMA3_N_SPECIALS  # <|begin_of_text|>
+        from adversarialvlm_tpu_torch.processors.llama32 import supported_aspect_ratios
+
+        config = {
+            "architectures": ["MllamaForConditionalGeneration"], "model_type": "mllama",
+            "image_token_index": cfg.image_token_id,
+            "text_config": {
+                "model_type": "mllama_text_model", **text, "hidden_act": t.hidden_act,
+                "cross_attention_layers": list(t.cross_attention_layers),
+                "rope_scaling": None if t.rope_llama3_factor is None else {
+                    "rope_type": "llama3", "factor": t.rope_llama3_factor,
+                    "low_freq_factor": t.rope_llama3_low_freq_factor,
+                    "high_freq_factor": t.rope_llama3_high_freq_factor,
+                    "original_max_position_embeddings": t.original_max_position_embeddings},
+                "bos_token_id": base, "eos_token_id": cfg.eos_token_id, "pad_token_id": cfg.pad_token_id,
+            },
+            "vision_config": {
+                "model_type": "mllama_vision_model", "hidden_size": v.hidden_size,
+                "num_hidden_layers": v.num_layers, "num_global_layers": v.num_global_layers,
+                "attention_heads": v.num_heads, "intermediate_size": v.intermediate_size,
+                "image_size": v.image_size, "patch_size": v.patch_size, "hidden_act": v.hidden_act,
+                "norm_eps": v.layer_norm_eps, "num_channels": v.num_channels, "max_num_tiles": v.max_num_tiles,
+                "intermediate_layers_indices": list(v.intermediate_layers_indices),
+                "supported_aspect_ratios": [list(r) for r in supported_aspect_ratios(v.max_num_tiles)],
+                "vision_output_dim": v.hidden_size * (1 + len(v.intermediate_layers_indices)),
+            },
+            "torch_dtype": dtype_name,
+        }
+        pre = {"image_processor_type": "MllamaImageProcessor", "do_convert_rgb": True, "do_normalize": True,
+               "do_pad": True, "do_rescale": True, "do_resize": True, "image_mean": CLIP_MEAN,
+               "image_std": CLIP_STD, "max_image_tiles": v.max_num_tiles, "resample": 2,
+               "rescale_factor": 1 / 255, "size": {"height": v.image_size, "width": v.image_size}}
+        gen = {"bos_token_id": base, "eos_token_id": eos, "pad_token_id": cfg.pad_token_id}
+        return {"config.json": config, "generation_config.json": gen, "preprocessor_config.json": pre}
     if family == "phi3v":
         hub_tower = phi3_5_vision().vision
         config = {
@@ -391,6 +482,58 @@ def _qwen2_pieces(n_free: int) -> tuple[list[str], list[tuple[str, str]]]:
     return _chain_merges(words, [BYTES_CHAR[b] for b in range(256)], n_free)
 
 
+def _llama3_pieces(n_free: int) -> tuple[list[str], list[tuple[str, str]]]:
+    """Up to ``n_free`` pieces of Llama-3's byte-level BPE: the 256 byte characters, then each
+    pre-token of the corpora and the chat template (Llama-3's split) spelled as a chain of merges."""
+    from adversarialvlm_tpu_torch.data import corpora
+    from adversarialvlm_tpu_torch.utils.tokenizer_json import BYTES_CHAR, llama3_split
+
+    texts = [*corpora.not_safe_questions, *corpora.questions, *corpora.not_safe_questions_test,
+             *corpora.answers, *corpora.adv_answers, "sure, here it is!", "user\n\nassistant\n\n"]
+    words = ("".join(BYTES_CHAR[x] for x in text[a:b].encode("utf-8")) for text in texts
+             for a, b in llama3_split(text))
+    return _chain_merges(words, [BYTES_CHAR[b] for b in range(256)], n_free)
+
+
+def _llama3_tokenizer_files(cfg: VLMConfig) -> dict[str, dict]:
+    from adversarialvlm_tpu_torch.utils.tokenizer_json import LLAMA3_SPLIT
+
+    base = cfg.image_token_id - LLAMA3_N_SPECIALS  # <|begin_of_text|>: the pieces are the ids below
+    pieces, merges = _llama3_pieces(base)
+    vocab = {p: i for i, p in enumerate(pieces)}
+    vocab.update({f"<filler{n}>": i for n, i in enumerate(range(len(pieces), base))})
+    specials = [*_llama3_specials(), "<|image|>"]
+    added = [{"id": base + i, "content": c, "single_word": False, "lstrip": False, "rstrip": False,
+              "normalized": False, "special": True} for i, c in enumerate(specials)]
+    bos = specials[0]
+    template = {
+        "type": "TemplateProcessing",
+        "single": [{"SpecialToken": {"id": bos, "type_id": 0}}, {"Sequence": {"id": "A", "type_id": 0}}],
+        "pair": [{"SpecialToken": {"id": bos, "type_id": 0}}, {"Sequence": {"id": "A", "type_id": 0}},
+                 {"SpecialToken": {"id": bos, "type_id": 1}}, {"Sequence": {"id": "B", "type_id": 1}}],
+        "special_tokens": {bos: {"id": bos, "ids": [base], "tokens": [bos]}},
+    }
+    tok = {
+        "version": "1.0", "truncation": None, "padding": None, "added_tokens": added, "normalizer": None,
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": LLAMA3_SPLIT}, "behavior": "Isolated", "invert": False},
+            {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True, "use_regex": False}]},
+        "post_processor": {"type": "Sequence", "processors": [
+            {"type": "ByteLevel", "add_prefix_space": True, "trim_offsets": False, "use_regex": True}, template]},
+        "decoder": {"type": "ByteLevel", "add_prefix_space": True, "trim_offsets": True, "use_regex": True},
+        "model": {"type": "BPE", "dropout": None, "unk_token": None, "continuing_subword_prefix": None,
+                  "end_of_word_suffix": None, "fuse_unk": False, "byte_fallback": False,
+                  "ignore_merges": True, "vocab": vocab, "merges": [[a, b] for a, b in merges]},
+    }
+    roles = {"bos_token": bos, "eos_token": "<|eot_id|>", "pad_token": "<|finetune_right_pad_id|>"}
+    config = {
+        "tokenizer_class": "PreTrainedTokenizerFast", "clean_up_tokenization_spaces": True,
+        "model_input_names": ["input_ids", "attention_mask"], "model_max_length": 131072, **roles,
+        "added_tokens_decoder": {str(a["id"]): {k: v for k, v in a.items() if k != "id"} for a in added},
+    }
+    return {"tokenizer.json": tok, "tokenizer_config.json": config, "special_tokens_map.json": roles}
+
+
 def _qwen2_tokenizer_files(cfg: VLMConfig) -> dict[str, dict]:
     from adversarialvlm_tpu_torch.utils.tokenizer_json import QWEN2_SPLIT
 
@@ -431,6 +574,8 @@ def tokenizer_files(family: str, cfg: VLMConfig) -> dict[str, dict]:
     with the config's image, pad and (gemma3) image-framing ids."""
     if family == "qwen2vl":
         return _qwen2_tokenizer_files(cfg)
+    if family == "mllama":
+        return _llama3_tokenizer_files(cfg)
     n_pieces = cfg.image_token_id  # the image token is the first id past the pieces
     if family in ("llava", "phi3v"):
         fixed = {0: "<unk>", 1: "<s>", 2: "</s>"}

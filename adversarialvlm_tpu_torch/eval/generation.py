@@ -8,7 +8,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from adversarialvlm_tpu_torch.models.generate import chunked_decode, pick_decode_config
+from adversarialvlm_tpu_torch.models.generate import chunked_decode, cross_seq_len, pick_decode_config
 from adversarialvlm_tpu_torch.ops.image import from_pil_array
 from adversarialvlm_tpu_torch.processors import normalize_pixel_inputs
 from adversarialvlm_tpu_torch.utils.batching import pad_to_buckets
@@ -66,7 +66,8 @@ def _stack_processed(victim, images_chw: np.ndarray) -> dict:
 def _pick_decode(bundle, adv_inputs, questions, max_new_tokens, want_batch, cache_dtype,
                  text_only=False, reserved_bytes=0, assistant_prefill=""):
     """(batch, cache_dtype) for decoding ``questions``: ALL of them are tokenized, so the cache
-    length reflects the longest prompt's 64-bucket, plus ``max_new_tokens``."""
+    length reflects the longest prompt's 64-bucket, plus ``max_new_tokens``; an image-attached
+    decode of mllama adds its cross-attention's costs (generation.py:117-130)."""
     probe = adv_inputs.get_inputs_inference_batch(
         questions, text_only=text_only, assistant_prefill=assistant_prefill
     )
@@ -74,7 +75,7 @@ def _pick_decode(bundle, adv_inputs, questions, max_new_tokens, want_batch, cach
     est_total = -(-max_len // 64) * 64 + max_new_tokens  # pad_to_buckets' 64-multiple
     return pick_decode_config(
         bundle.cfg.text, bundle.params, est_total, want_batch, cache_dtype,
-        reserved_bytes=reserved_bytes,
+        reserved_bytes=reserved_bytes, cross_seq=0 if text_only else cross_seq_len(bundle.cfg),
     )
 
 

@@ -1,6 +1,6 @@
 """Model configurations of the families the port covers: LLaVA-1.5-7B, Gemma-3-4B-it, Qwen2-VL
-(models/qwen2vl.py holds its 2B, 7B and tiny configurations), Phi-3.5-vision (models/phi3v.py) and
-the tiny ones the tests use. Counterpart of adversarialvlm_tpu/models/configs.py, with the fields
+(models/qwen2vl.py holds its 2B, 7B and tiny configurations), Phi-3.5-vision (models/phi3v.py),
+Llama-3.2-11B-Vision (models/mllama.py) and the tiny ones the tests use. Counterpart of adversarialvlm_tpu/models/configs.py, with the fields
 these configurations read.
 """
 
@@ -44,6 +44,14 @@ class TextConfig:
     post_attn_pre_mlp_norms: bool = False
     final_logit_softcapping: float | None = None
     rope_linear_factor: float | None = None  # gemma3 global layers: positions / factor
+    # mllama: the decoder's gated cross-attention layers, which hold the image's k/v
+    cross_attention_layers: tuple[int, ...] = ()
+    # llama-3.x rope scaling (rope_type "llama3")
+    rope_llama3_factor: float | None = None
+    rope_llama3_low_freq_factor: float = 1.0
+    rope_llama3_high_freq_factor: float = 4.0
+    # embedding rows past vocab_size (mllama's <|image|> and its other specials): lookup only
+    embed_vocab_extra: int = 0
 
     @property
     def head_dim_(self) -> int:
@@ -71,6 +79,12 @@ class VisionConfig:
     spatial_merge_size: int = 2
     temporal_patch_size: int = 2
     embed_dim: int | None = None
+    # mllama's tiled tower: tiles a canvas may hold, aspect-ratio ids, the local layers whose
+    # outputs join the features, and the gated global layers after the local ones
+    max_num_tiles: int = 4
+    max_aspect_ratio_id: int = 8
+    intermediate_layers_indices: tuple[int, ...] = ()
+    num_global_layers: int = 0
 
 
 @dataclasses.dataclass(frozen=True)

@@ -88,17 +88,35 @@ def device_memory_bytes(device) -> int:
     return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
 
 
+def cross_seq_len(cfg) -> int:
+    """The image tokens mllama's cross-attention reads (generate.py:136-143), every tile slot's
+    (patches + 1); 0 for a family without cross-attention layers. The S of max_decode_batch's
+    cross terms."""
+    if cfg.text.cross_attention_layers:
+        return cfg.vision.max_num_tiles * ((cfg.vision.image_size // cfg.vision.patch_size) ** 2 + 1)
+    return 0
+
+
+def _self_attn_layers(cfg_text) -> int:
+    """The layers that hold a KV cache: mllama's cross-attention layers hold the image's k/v instead
+    (generate.py:243-249)."""
+    return cfg_text.num_layers - len(cfg_text.cross_attention_layers)
+
+
 def max_decode_batch(
     cfg_text, total_len: int, params=None, cache_bytes: int = 2, hbm_bytes: int | None = None,
-    slack_bytes: int = DEFAULT_SLACK_BYTES, reserved_bytes: int = 0,
+    slack_bytes: int = DEFAULT_SLACK_BYTES, reserved_bytes: int = 0, cross_seq: int = 0,
 ) -> int:
     """Largest decode batch whose KV cache fits next to the resident weights, by the JAX
-    package's budget (generate.py:146): ``hbm_bytes`` (default: the memory of the params'
+    package's budget (generate.py:146-212): ``hbm_bytes`` (default: the memory of the params'
     device) less the weights, ``reserved_bytes`` held by other residents and ``slack_bytes`` for
-    prefill transients. The per-sequence cost keeps the JAX formula, head_dim rounded up to 128
+    prefill transients. The per-sequence cost keeps the JAX formula over the self-attention layers,
+    head_dim rounded up to 128
     (the TPU's lane padding: a no-op at head dims 128 and 256, a third more than the card's cache
     holds at Phi-3's 96) and, for ``cache_bytes=1``, the int8 cache's
-    scales and dequantised transients; batches of 8 and more round down to a multiple of 8."""
+    scales and dequantised transients; with ``cross_seq`` (mllama's S) the prefill's cross-read
+    scores and bias a sequence, and the shared cross k/v and states off the budget. Batches of 8
+    and more round down to a multiple of 8."""
     weight_bytes = param_bytes(params) if params is not None else 0
     if hbm_bytes is None:
         hbm_bytes = device_memory_bytes(_first_device(params) if params is not None else "cpu")
@@ -107,16 +125,26 @@ def max_decode_batch(
     per_tok_head = padded_hd * cache_bytes
     if cache_bytes == 1:
         per_tok_head += 4  # f32 scale plane per (token, head), k and v each
-    per_seq = 2 * cfg_text.num_layers * cfg_text.num_kv_heads * total_len * per_tok_head
+    per_seq = 2 * _self_attn_layers(cfg_text) * cfg_text.num_kv_heads * total_len * per_tok_head
     if cache_bytes == 1:
         per_seq += 4 * cfg_text.num_kv_heads * padded_hd * total_len
+    if cross_seq:
+        # the prefill's (H, T, S) f32 scores + bf16 probs, the (T, S) f32 bias and one layer's k/v
+        # a sequence; the cross layers' k/v at image batch 1 and the projected states are shared
+        kvd = cfg_text.num_kv_heads * cfg_text.head_dim_
+        per_seq += 6 * cfg_text.num_heads * total_len * cross_seq
+        per_seq += 4 * total_len * cross_seq
+        per_seq += 4 * kvd * cross_seq
+        budget -= 4 * len(cfg_text.cross_attention_layers) * kvd * cross_seq
+        budget -= 2 * cross_seq * cfg_text.hidden_size
+        budget = max(budget, per_seq)
     b = max(1, budget // per_seq)
     return b if b < 8 else (b // 8) * 8
 
 
 def pick_decode_config(
     cfg_text, params, total_len: int, want_batch: int, cache_dtype=torch.bfloat16,
-    reserved_bytes: int = 0, hbm_bytes: int | None = None,
+    reserved_bytes: int = 0, hbm_bytes: int | None = None, cross_seq: int = 0,
 ) -> tuple[int, torch.dtype]:
     """(batch, cache_dtype) for a generation call (generate.py:214-241): ``want_batch`` clamped
     to what the KV cache leaves next to the weights; where the full-precision cache binds, the
@@ -124,12 +152,12 @@ def pick_decode_config(
     cb = torch.empty((), dtype=cache_dtype).element_size()
     bs = max(1, min(want_batch, max_decode_batch(
         cfg_text, total_len, params, cache_bytes=cb, hbm_bytes=hbm_bytes,
-        reserved_bytes=reserved_bytes)))
+        reserved_bytes=reserved_bytes, cross_seq=cross_seq)))
     if bs >= want_batch or env_flag("ADVLM_NO_INT8_KV"):
         return bs, cache_dtype
     bs8 = max(1, min(want_batch, max_decode_batch(
         cfg_text, total_len, params, cache_bytes=1, hbm_bytes=hbm_bytes,
-        reserved_bytes=reserved_bytes)))
+        reserved_bytes=reserved_bytes, cross_seq=cross_seq)))
     if bs8 > bs:
         return bs8, torch.int8
     return bs, cache_dtype
@@ -138,17 +166,21 @@ def pick_decode_config(
 def make_kv_caches(cfg_text, batch: int, total_len: int, dtype=torch.bfloat16, device="cpu"):
     """One zeroed cache per layer: (k, v), each (batch, Hkv, total_len, head_dim); for
     ``dtype=torch.int8`` (k, v, k scales, v scales), the scales f32 (batch, Hkv, total_len, 1)
-    (generate.py:250-266)."""
+    (generate.py:250-266). A cross-attention layer (mllama) gets an empty list, the slot its
+    prefill fills with the image's k/v."""
     shape = (batch, cfg_text.num_kv_heads, total_len, cfg_text.head_dim_)
+    cross = set(cfg_text.cross_attention_layers)
 
     def z(shape, dtype):
         return torch.zeros(shape, dtype=dtype, device=device)
 
-    if dtype == torch.int8:
-        sshape = shape[:-1] + (1,)
-        return [(z(shape, dtype), z(shape, dtype), z(sshape, torch.float32), z(sshape, torch.float32))
-                for _ in range(cfg_text.num_layers)]
-    return [(z(shape, dtype), z(shape, dtype)) for _ in range(cfg_text.num_layers)]
+    def layer():
+        if dtype == torch.int8:
+            sshape = shape[:-1] + (1,)
+            return (z(shape, dtype), z(shape, dtype), z(sshape, torch.float32), z(sshape, torch.float32))
+        return (z(shape, dtype), z(shape, dtype))
+
+    return [[] if i in cross else layer() for i in range(cfg_text.num_layers)]
 
 
 def _prefill_aux(attention_mask: torch.Tensor, max_new_tokens: int):

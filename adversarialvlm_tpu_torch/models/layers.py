@@ -97,6 +97,31 @@ def sdpa(q, k, v, bias, scale: float) -> torch.Tensor:
     return torch.matmul(probs, v)
 
 
+def sdpa_chunked_rank1(q, k, v, inv, scale: float, chunk: int = 512) -> torch.Tensor:
+    """Exact attention under mllama's rank-1 tile-pad bias, with no (T, T) tensor (layers.py:
+    198-255): the bias is ``inv · invᵀ · NEG_INF`` with ``inv`` (B, T) 1.0 at pad positions, so only
+    (pad query, pad key) pairs are masked. Queries run in ``chunk``-row blocks, each rebuilding its
+    bias slab from the factors; under autograd each block is recomputed in the backward
+    (``torch.utils.checkpoint``), so one block's (B, H, chunk, T) f32 scores are live at a time.
+    q, k, v (B, H, T, D). Each row's softmax is its own, so the blocks give sdpa's result."""
+    from torch.utils.checkpoint import checkpoint
+
+    t = q.shape[2]
+    kf = k.float().transpose(-1, -2)
+
+    def block(qc, iqc):
+        scores = torch.matmul(qc.float(), kf) * scale
+        scores = scores + (iqc[:, :, None] * inv[:, None, :])[:, None] * NEG_INF
+        return torch.matmul(torch.softmax(scores, dim=-1).to(v.dtype), v)
+
+    recompute = torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v))
+    outs = []
+    for s in range(0, t, chunk):
+        args = (q[:, :, s:s + chunk], inv[:, s:s + chunk])
+        outs.append(checkpoint(block, *args, use_reentrant=False) if recompute else block(*args))
+    return torch.cat(outs, dim=2)
+
+
 def causal_bias(attention_mask, q_positions, k_positions, sliding_window: int | None = None,
                 bidir_mask=None, k_bidir_mask=None) -> torch.Tensor:
     """Additive (B, 1, Tq, Tk) f32 bias from a padding mask (B, Tk; 1 = real) and monotone

@@ -1,6 +1,7 @@
 """Llama-family causal text decoder (the LLaVA / Vicuna stack and, through config switches, the
-Gemma-3, Qwen2 and Phi-3 ones: qkv biases, Qwen2-VL's multimodal rope, Phi-3's LongRoPE), unrolled
-over a list of layers. Counterpart of adversarialvlm_tpu/models/llama.py;
+Gemma-3, Qwen2, Phi-3 and Llama-3 ones: qkv biases, Qwen2-VL's multimodal rope, Phi-3's LongRoPE,
+Llama-3's rope scaling, mllama's cross-attention layers through a hook), unrolled over a list of
+layers. Counterpart of adversarialvlm_tpu/models/llama.py;
 params mirror HF naming: embed_tokens.weight, layers[i].{input_layernorm,
 self_attn.{q,k,v,o}_proj, post_attention_layernorm, mlp.{gate,up,down}_proj}, norm, lm_head, and
 for gemma3 self_attn.{q,k}_norm and {pre,post}_feedforward_layernorm.
@@ -27,8 +28,10 @@ from adversarialvlm_tpu_torch.ops.kernels.attention import attention_route
 
 def embed(params: dict, input_ids: torch.Tensor, cfg: TextConfig) -> torch.Tensor:
     table = params["embed_tokens"]["weight"]
-    # ids past the table read its last row, as the JAX package's gather clamps them (the tiny
-    # configs' chat specials, e.g. gemma3's turn markers, lie past their 384-row vocab)
+    # the table may carry embed_vocab_extra rows past vocab_size (mllama's <|image|> 128256 is
+    # one), so ids are clamped by its rows, not by vocab_size: ids past the table read its last
+    # row, as the JAX package's gather clamps them (the tiny configs' chat specials, e.g. gemma3's
+    # turn markers, lie past their 384-row vocab)
     x = table[input_ids.long().clamp(0, table.shape[0] - 1)]
     if cfg.embed_scale:
         # the scale is rounded to the activation dtype first, as in the JAX package (llama.py:32)
@@ -68,6 +71,26 @@ def longrope_cos_sin(positions: torch.Tensor, cfg: TextConfig, theta: float, key
     inv = torch.as_tensor(inv_freq.astype(np.float32), device=positions.device)
     ang = positions.float()[..., None] * inv
     return torch.cos(ang) * attn_factor, torch.sin(ang) * attn_factor
+
+
+def llama3_cos_sin(positions: torch.Tensor, cfg: TextConfig, theta: float):
+    """Llama-3.x rope scaling (llama.py:98-116): the low-frequency dims' inverse frequencies divided
+    by the factor, the high-frequency ones kept, a smooth interpolation between the two
+    wavelengths. Returns cos/sin (..., T, head_dim/2) in f32."""
+    hd = cfg.head_dim_
+    inv = 1.0 / (theta ** (np.arange(0, hd, 2, dtype=np.float32) / hd))
+    orig = cfg.original_max_position_embeddings or 8192
+    factor = cfg.rope_llama3_factor
+    low_f, high_f = cfg.rope_llama3_low_freq_factor, cfg.rope_llama3_high_freq_factor
+    low_wl, high_wl = orig / low_f, orig / high_f
+    wl = 2.0 * np.pi / inv
+    scaled = np.where(wl > low_wl, inv / factor, inv)
+    smooth = (orig / wl - low_f) / (high_f - low_f)
+    mid = (1.0 - smooth) * inv / factor + smooth * inv
+    is_mid = (wl <= low_wl) & (wl >= high_wl)
+    inv = torch.as_tensor(np.where(is_mid, mid, scaled).astype(np.float32), device=positions.device)
+    ang = positions.float()[..., None] * inv
+    return torch.cos(ang), torch.sin(ang)
 
 
 def _layer_rope_theta(cfg: TextConfig, layer_idx: int) -> float:
@@ -119,6 +142,7 @@ def forward(
     k_bidir_mask: torch.Tensor | None = None,
     rope_positions: torch.Tensor | None = None,
     logits_last_k: int | None = None,
+    cross_layer_fn=None,
 ) -> torch.Tensor:
     """Causal LM forward over left-padded rows; attention_mask (B, T) over the query tokens,
     1 = real token. With ``kv_caches`` (one (k, v) per layer, updated in place) the new tokens
@@ -128,7 +152,10 @@ def forward(
     sliding window; a layer with a window or the image block is ``masked`` and takes the plain
     route. With ``cfg.mrope_section`` (Qwen2-VL) the rope angles come from ``rope_positions``
     (3, B, T), or from ``positions`` in all three components when None (text only); with
-    ``cfg.rope_scaling_short_factor`` (Phi-3) from :func:`longrope_cos_sin`. Returns logits
+    ``cfg.rope_scaling_short_factor`` (Phi-3) from :func:`longrope_cos_sin`, with
+    ``cfg.rope_llama3_factor`` from :func:`llama3_cos_sin`. Each of ``cfg.cross_attention_layers``
+    (mllama) is ``cross_layer_fn(x, p, cfg, slot) -> x``, ``slot`` that layer's entry of
+    ``kv_caches`` (or None), which holds the image's cross k/v (llama.py:391-397). Returns logits
     (B, T or logits_last_k, vocab)."""
     x = embed(params, input_ids, cfg) if inputs_embeds is None else inputs_embeds
     b, t, _ = x.shape
@@ -150,6 +177,8 @@ def forward(
         if cfg.rope_scaling_short_factor is not None:
             # the choice of factors keys off the key length: the prefill's T or the cache's length
             return longrope_cos_sin(positions, cfg, theta, key_len=int(k_pos.shape[-1]))
+        if cfg.rope_llama3_factor is not None:
+            return llama3_cos_sin(positions, cfg, theta)
         pos = positions
         if cfg.rope_linear_factor is not None and theta == cfg.rope_theta:
             # gemma3: linear scaling on the global layers' rope only, positions / factor in f32
@@ -162,6 +191,9 @@ def forward(
     # plain path attends the whole cache through the bias
     bias_cache: dict[int | None, torch.Tensor] = {}
     for i, p in enumerate(params["layers"]):
+        if i in cfg.cross_attention_layers:
+            x = cross_layer_fn(x, p, cfg, kv_caches[i] if kv_caches is not None else None)
+            continue
         theta = _layer_rope_theta(cfg, i)
         if theta not in theta_cache:
             theta_cache[theta] = cos_sin(theta)
@@ -236,7 +268,7 @@ def init_params(generator: torch.Generator, cfg: TextConfig, dtype, device) -> d
         for _ in range(cfg.num_layers)
     ]
     params = {
-        "embed_tokens": {"weight": normal((cfg.vocab_size, d), 0.02)},
+        "embed_tokens": {"weight": normal((cfg.vocab_size + cfg.embed_vocab_extra, d), 0.02)},
         "layers": layers,
         "norm": norm_w(),
     }

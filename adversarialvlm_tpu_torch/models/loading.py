@@ -1,6 +1,5 @@
-"""HF checkpoint directory -> the port's parameter tree, for the llava, gemma3, qwen2vl and phi3v
-families. Counterpart of adversarialvlm_tpu/models/loading.py (its llava, gemma3, qwen2vl and phi3v
-parts).
+"""HF checkpoint directory -> the port's parameter tree, for the llava, gemma3, qwen2vl, phi3v and
+mllama families. Counterpart of adversarialvlm_tpu/models/loading.py.
 
 Shards are read by the port's own safetensors reader (utils/safetensors.py), each tensor copied to
 its device in turn. Both pre- and post-4.52 transformers key layouts load (``language_model.
@@ -124,6 +123,23 @@ def _normalize_phi3v_key(key: str) -> str | None:
     raise _unmapped("phi3v", key)
 
 
+def _normalize_mllama_key(key: str) -> str:
+    """An HF mllama key as a dotted path of the tree (loading.py:439-455): the hub's
+    ``vision_model.*``, ``language_model.model.*``, ``language_model.lm_head`` and
+    ``multi_modal_projector.*``, or newer transformers' ``model.``-prefixed keys with a top-level
+    ``lm_head``."""
+    k = key
+    if k.startswith("model."):
+        k = k[len("model."):]
+    k = k.replace("language_model.model.", "language_model.")
+    k = k.replace("language_model.lm_head.", "lm_head.")
+    if k.startswith("lm_head."):
+        return "language_model." + k
+    if k.startswith(("vision_model.", "language_model.", "multi_modal_projector.")):
+        return k
+    raise _unmapped("mllama", key)
+
+
 def split_fused_qkv(tree: dict, num_heads: int, num_kv_heads: int, head_dim: int) -> dict:
     """Phi-3's fused ``qkv_proj`` and ``gate_up_proj`` split into the q/k/v and gate/up rows the
     decoder runs (loading.py:375-392); views, no copy."""
@@ -202,6 +218,11 @@ def convert_phi3v_state_dict(sd, text_cfg) -> dict:
     if "language_model" in tree:
         split_fused_qkv(tree["language_model"], text_cfg.num_heads, text_cfg.num_kv_heads, text_cfg.head_dim_)
     return tree
+
+
+def convert_mllama_state_dict(sd) -> dict:
+    """The tree of an HF mllama state dict's (key, tensor) pairs, tensors untouched."""
+    return _convert(sd, _normalize_mllama_key)
 
 
 def named_leaves(tree, prefix: str = ""):
@@ -502,6 +523,70 @@ def load_phi3v(path: str, dtype=torch.bfloat16, device="cuda"):
     cfg = phi3v_config(path)
     params = to_device_tree(convert_phi3v_state_dict(read_dir(path), cfg.text), dtype, device)
     check_tree(params, phi3v.init_params(None, cfg, dtype, "meta"), path)
+    return params, cfg
+
+
+def mllama_config(path: str):
+    """mllama_11b() patched from the directory's config.json (loading.py:458-520): the nested
+    text_config with its cross-attention layers, llama3 ``rope_scaling`` (a null one: the plain
+    rope) and pad id, the nested
+    vision_config with its tiles, intermediate layers, global layers and aspect ratios,
+    ``image_token_index``, and the eos ids of generation_config.json."""
+    from adversarialvlm_tpu_torch.models.mllama import mllama_11b
+
+    cfg, raw = mllama_11b(), _read_config(path)
+    if raw is None:
+        return cfg
+    tc = raw.get("text_config") or {}
+    text = _patch_text_cfg(cfg.text, tc)
+    if "cross_attention_layers" in tc:
+        text = dataclasses.replace(text, cross_attention_layers=tuple(tc["cross_attention_layers"]))
+    rs = tc.get("rope_scaling") or {}
+    if "rope_scaling" in tc and not rs:  # no scaling: the plain rope
+        text = dataclasses.replace(text, rope_llama3_factor=None, original_max_position_embeddings=None)
+    if rs.get("rope_type") == "llama3":
+        text = dataclasses.replace(
+            text,
+            rope_llama3_factor=rs.get("factor", 8.0),
+            rope_llama3_low_freq_factor=rs.get("low_freq_factor", 1.0),
+            rope_llama3_high_freq_factor=rs.get("high_freq_factor", 4.0),
+            original_max_position_embeddings=rs.get("original_max_position_embeddings", 8192),
+        )
+    vision = cfg.vision
+    vc = raw.get("vision_config") or {}
+    if vc:
+        vision = dataclasses.replace(
+            _patch_vision_cfg(cfg.vision, vc),
+            # HF's MllamaVisionConfig names these attention_heads and norm_eps
+            num_heads=vc.get("attention_heads", vc.get("num_attention_heads", cfg.vision.num_heads)),
+            layer_norm_eps=vc.get("norm_eps", cfg.vision.layer_norm_eps),
+            max_num_tiles=vc.get("max_num_tiles", cfg.vision.max_num_tiles),
+            intermediate_layers_indices=tuple(vc.get("intermediate_layers_indices",
+                                                     cfg.vision.intermediate_layers_indices)),
+            num_global_layers=vc.get("num_global_layers", cfg.vision.num_global_layers),
+            max_aspect_ratio_id=(len(vc["supported_aspect_ratios"]) if "supported_aspect_ratios" in vc
+                                 else cfg.vision.max_aspect_ratio_id),
+        )
+    return dataclasses.replace(
+        cfg,
+        text=text,
+        vision=vision,
+        image_token_id=raw.get("image_token_index", cfg.image_token_id),
+        pad_token_id=tc["pad_token_id"] if tc.get("pad_token_id") is not None else cfg.pad_token_id,
+        dtype=raw.get("torch_dtype", cfg.dtype),
+        **_eos_fields(_checkpoint_eos(path, raw)),
+    )
+
+
+def load_mllama(path: str, dtype=torch.bfloat16, device="cuda"):
+    """A local mllama HF checkpoint directory: (params on ``device``, VLMConfig patched from its
+    config.json). The embedding table keeps its embed_vocab_extra rows past vocab_size (the
+    <|image|> token's among them)."""
+    from adversarialvlm_tpu_torch.models import mllama
+
+    cfg = mllama_config(path)
+    params = to_device_tree(convert_mllama_state_dict(read_dir(path)), dtype, device)
+    check_tree(params, mllama.init_params(None, cfg, dtype, "meta"), path)
     return params, cfg
 
 

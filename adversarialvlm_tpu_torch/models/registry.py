@@ -1,6 +1,6 @@
 """Model bundles: config, params, a uniform forward and greedy decode, the one interface the
 attack and eval engines talk to. Counterpart of adversarialvlm_tpu/models/registry.py for the
-llava, gemma3, qwen2vl and phi3v families."""
+llava, gemma3, qwen2vl, phi3v and mllama families."""
 
 from __future__ import annotations
 
@@ -11,6 +11,7 @@ import torch
 
 from adversarialvlm_tpu_torch.models import gemma3 as gemma3_model
 from adversarialvlm_tpu_torch.models import llava as llava_model
+from adversarialvlm_tpu_torch.models import mllama as mllama_model
 from adversarialvlm_tpu_torch.models import phi3v as phi3v_model
 from adversarialvlm_tpu_torch.models import qwen2vl as qwen2vl_model
 from adversarialvlm_tpu_torch.models.configs import VLMConfig
@@ -74,17 +75,24 @@ class ModelBundle:
 
 # family -> model module with init_params(generator, cfg, dtype, device) and
 # forward(params, cfg, input_ids, attention_mask, pixel_values, logits_last_k=, **cache_kw)
-_MODELS = {"llava": llava_model, "gemma3": gemma3_model, "qwen2vl": qwen2vl_model, "phi3v": phi3v_model}
+_MODELS = {"llava": llava_model, "gemma3": gemma3_model, "qwen2vl": qwen2vl_model, "phi3v": phi3v_model,
+           "mllama": mllama_model}
 
 
 def _forward(model, cfg: VLMConfig, grid_hw=None):
     """The bundle's forward over the model module's; qwen2vl's takes the bundle's static patch grid
-    and the decode's ``rope_delta``, phi3v's the static tile grid."""
+    and the decode's ``rope_delta``, phi3v's the static tile grid, mllama's the real tiles of its
+    static (num_tiles, max_tiles) grid and the pixel inputs' aspect ids and mask
+    (registry.py:270-316)."""
     grid_kw = ({"grid_hw": grid_hw} if model is qwen2vl_model
-               else {"num_tiles_hw": grid_hw} if model is phi3v_model else {})
+               else {"num_tiles_hw": grid_hw} if model is phi3v_model
+               else {"num_tiles": grid_hw[0]} if model is mllama_model else {})
 
     def fwd(params, input_ids, attention_mask, pixel_inputs=None, logits_last_k=None, **cache_kw):
         pv = pixel_inputs["pixel_values"] if pixel_inputs else None
+        if model is mllama_model and pixel_inputs:
+            cache_kw = {**cache_kw, "aspect_ratio_ids": pixel_inputs["aspect_ratio_ids"],
+                        "aspect_ratio_mask": pixel_inputs["aspect_ratio_mask"]}
         return model.forward(params, cfg, input_ids, attention_mask, pv,
                              logits_last_k=logits_last_k, **grid_kw, **cache_kw)
 
@@ -119,8 +127,8 @@ def make_bundle(
     ``device`` seeded with ``seed``. Weights never require grad: the attack differentiates
     w.r.t. the image alone. Stop tokens: the config's eos and its extra eos ids (gemma3: 106 and
     1); one outside the vocabulary raises. qwen2vl's bundle is built for one static vision grid
-    ``grid_hw`` (patches), phi3v's for one static tile grid (registry.py:248-270); phi3v's decode
-    passes no extras (no rope_delta)."""
+    ``grid_hw`` (patches), phi3v's for one static tile grid (registry.py:248-270), mllama's for
+    (num_tiles, max_tiles); phi3v's and mllama's decodes pass no extras (no rope_delta)."""
     model = _MODELS.get(family)
     if model is None:
         raise NotImplementedError(
@@ -135,6 +143,8 @@ def make_bundle(
     extras = {}
     if family == "phi3v" and grid_hw is None:
         raise ValueError("phi3v needs the static tile grid (h, w)")
+    if family == "mllama" and grid_hw is None:
+        raise ValueError("mllama needs the static grid (num_tiles, max_tiles)")
     if family == "qwen2vl":
         if grid_hw is None:
             raise ValueError("qwen2vl needs the static vision grid (h, w)")

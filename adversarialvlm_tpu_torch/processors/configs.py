@@ -1,4 +1,4 @@
-"""Image-preprocessor configurations of the llava, gemma3, qwen2vl and phi3v families. Counterpart of
+"""Image-preprocessor configurations of the llava, gemma3, qwen2vl, phi3v and mllama families. Counterpart of
 adversarialvlm_tpu/processors/configs.py (the fields these processors read)."""
 
 from __future__ import annotations
@@ -27,14 +27,18 @@ class ImageProcessorConfig:
     temporal_patch_size: int = 2
     min_pixels: int = 56 * 56
     max_pixels: int = 28 * 28 * 1280
+    # mllama: a canvas of up to ``max_image_tiles`` tiles of ``tile_size``²
+    tile_size: int = 560
+    max_image_tiles: int = 4
 
     @classmethod
     def from_pretrained_dir(cls, path: str, **defaults) -> "ImageProcessorConfig":
         """``defaults`` overridden by a checkpoint directory's preprocessor_config.json: the mean,
         std and patch size, qwen2-vl's merge and temporal patch sizes and pixel bounds, phi3v's
-        num_crops (which the loader overrides again with the pinned 6), and the
-        resize target from ``crop_size`` (llava) or ``size`` (gemma3's square resize), each an int
-        or a {"height", "width"} dict (qwen2-vl's {"shortest_edge", "longest_edge"} sets none)."""
+        num_crops (which the loader overrides again with the pinned 6), mllama's max_image_tiles, and
+        the resize target from ``crop_size`` (llava) or ``size`` (gemma3's square resize, mllama's
+        tile), each an int or a {"height", "width"} dict (qwen2-vl's {"shortest_edge",
+        "longest_edge"} sets none)."""
         base = dataclasses.asdict(cls(**defaults))
         cfg_path = os.path.join(path, "preprocessor_config.json")
         if not os.path.exists(cfg_path):
@@ -42,9 +46,14 @@ class ImageProcessorConfig:
         with open(cfg_path) as f:
             raw = json.load(f)
         for key in ("image_mean", "image_std", "patch_size", "merge_size", "temporal_patch_size",
-                    "min_pixels", "max_pixels", "num_crops"):
+                    "min_pixels", "max_pixels", "num_crops", "max_image_tiles"):
             if raw.get(key) is not None:
                 base[key] = tuple(raw[key]) if isinstance(raw[key], list) else raw[key]
+        size = raw.get("size")
+        if isinstance(size, dict) and "height" in size:
+            base["tile_size"] = size["height"]
+        elif isinstance(size, int):
+            base["tile_size"] = size
         for key in ("crop_size", "size"):
             val = raw.get(key)
             if key == "size" and "crop_size" in raw:
@@ -64,6 +73,9 @@ MODEL_IMAGE_CONFIGS: dict[str, ImageProcessorConfig] = {
     "Qwen/Qwen2-VL-2B-Instruct": ImageProcessorConfig(),
     "Qwen/Qwen2-VL-7B-Instruct": ImageProcessorConfig(),
     "microsoft/Phi-3.5-vision-instruct": ImageProcessorConfig(num_crops=6, tile=336),
+    "alpindale/Llama-3.2-11B-Vision-Instruct": ImageProcessorConfig(tile_size=560, max_image_tiles=4),
+    "alpindale/Llama-3.2-11B-Vision": ImageProcessorConfig(tile_size=560, max_image_tiles=4),
+    "SinclairSchneider/Llama-Guard-3-11B-Vision": ImageProcessorConfig(tile_size=560, max_image_tiles=4),
     "google/gemma-3-12b-it": ImageProcessorConfig(
         image_mean=(0.5, 0.5, 0.5), image_std=(0.5, 0.5, 0.5), crop_size=896
     ),

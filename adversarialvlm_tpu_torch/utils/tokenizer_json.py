@@ -1,13 +1,14 @@
 """A reader of HF ``tokenizer.json`` files that encodes and decodes as the ``tokenizers`` library
-does, for the components the LLaVA-1.5, Gemma-3 and Qwen2-VL checkpoints and the tests'
-tokenizers use:
+does, for the components the LLaVA-1.5, Gemma-3, Qwen2-VL, Phi-3.5-vision and Llama-3.2-Vision
+checkpoints and the tests' tokenizers use:
 
   * models: ``BPE`` (merges as ``"a b"`` strings or as pairs, ``byte_fallback``, ``fuse_unk``,
-    ``unk_token``) and ``Unigram`` (Viterbi, ``byte_fallback``, ``unk_id``);
+    ``unk_token``, ``ignore_merges``) and ``Unigram`` (Viterbi, ``byte_fallback``, ``unk_id``);
   * normalizers: ``Sequence``, ``Prepend``, ``Replace`` (a literal pattern), ``NFC`` and none;
   * pre-tokenizers: ``ByteLevel`` (with the GPT-2 split), ``Metaspace``, ``Split`` (a literal
-    pattern, or Qwen2's regex, written out by hand as the GPT-2 one is), ``Sequence`` and none;
-  * post-processors: ``TemplateProcessing``, ``ByteLevel`` and none;
+    pattern, or Qwen2's or Llama-3's regex, written out by hand as the GPT-2 one is), ``Sequence``
+    and none;
+  * post-processors: ``TemplateProcessing``, ``ByteLevel``, a ``Sequence`` of these, and none;
   * decoders: ``Sequence``, ``Replace``, ``ByteFallback``, ``Fuse``, ``Strip``, ``ByteLevel`` and
     ``Metaspace``;
   * added tokens, split out of the raw text (``normalized`` false) or of each normalized segment
@@ -46,16 +47,23 @@ def _pattern(spec: dict):
 #: Qwen2's Split pre-tokenizer pattern (its tokenizer.json, behavior Isolated)
 QWEN2_SPLIT = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|\p{N}| ?[^\s\p{L}\p{N}]+[\r\n]*"
                r"|\s*[\r\n]+|\s+(?!\S)|\s+")
+#: Llama-3's Split pattern (its tokenizer.json, behavior Isolated): Qwen2's with runs of up to
+#: three digits where Qwen2 takes one
+LLAMA3_SPLIT = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|\p{N}{1,3}"
+                r"| ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+")
 
 
 def _split_spans(spec: dict):
     """A Split pattern as a function from a string to its matches' (start, end) spans: a literal,
-    or Qwen2's regex (:func:`qwen2_split`); any other regex raises and names itself."""
+    Qwen2's regex (:func:`qwen2_split`) or Llama-3's (:func:`llama3_split`); any other regex
+    raises and names itself."""
     if "String" in spec:
         pat = re.compile(re.escape(spec["String"]))
         return lambda s: [(m.start(), m.end()) for m in pat.finditer(s)]
     if spec.get("Regex") == QWEN2_SPLIT:
         return qwen2_split
+    if spec.get("Regex") == LLAMA3_SPLIT:
+        return llama3_split
     raise unsupported("Split pattern", spec)
 
 
@@ -138,6 +146,18 @@ def qwen2_split(s: str) -> list[tuple[int, int]]:
     what is not whitespace, a letter or a number, and any CRs and LFs after it; whitespace up to
     and including its last CR or LF; whitespace not followed by a non-space (a run's last space
     is left to the word after it); any whitespace. The matches tile the string."""
+    return _digit_run_split(s, 1)
+
+
+def llama3_split(s: str) -> list[tuple[int, int]]:
+    """The (start, end) spans of the matches of :data:`LLAMA3_SPLIT` over ``s``: :func:`qwen2_split`'s
+    alternatives with a run of one to three numbers where Qwen2 takes one, so a run of seven digits
+    splits 3 + 3 + 1 (the greedy quantifier, left to right)."""
+    return _digit_run_split(s, 3)
+
+
+def _digit_run_split(s: str, max_digits: int) -> list[tuple[int, int]]:
+    """The Qwen2 / Llama-3 split, numbers taken in runs of at most ``max_digits``."""
     out, i, n = [], 0, len(s)
 
     def run(j, ok):
@@ -164,6 +184,8 @@ def qwen2_split(s: str) -> list[tuple[int, int]]:
             end = run(i, letter)
         if end is None and number(c):
             end = i + 1
+            while end < n and end - i < max_digits and number(s[end]):
+                end += 1
         if end is None:
             start = i + 1 if c == " " and i + 1 < n and other(s[i + 1]) else i
             if other(s[start]):
@@ -313,9 +335,11 @@ def build_pre_tokenizer(spec):
 
 class BPE:
     def __init__(self, spec: dict):
-        for key in ("dropout", "continuing_subword_prefix", "end_of_word_suffix", "ignore_merges"):
+        for key in ("dropout", "continuing_subword_prefix", "end_of_word_suffix"):
             if spec.get(key) not in (None, "", False):
                 raise unsupported(f"BPE {key}", spec[key])
+        # Llama-3's: a word that is a piece of the vocabulary is that piece, merges skipped
+        self.ignore_merges = bool(spec.get("ignore_merges", False))
         self.vocab: dict[str, int] = dict(spec["vocab"])
         self.id_to_token = {i: t for t, i in self.vocab.items()}
         self.unk_token = spec.get("unk_token")
@@ -327,6 +351,8 @@ class BPE:
             self.merges[(self.vocab[a], self.vocab[b])] = (rank, self.vocab[a + b])
 
     def tokenize(self, word: str) -> list[int]:
+        if self.ignore_merges and word in self.vocab:
+            return [self.vocab[word]]
         ids: list[int] = []
         unk = None  # (unk_id, pending) of a run of unknown characters
         for ch in word:
@@ -504,6 +530,15 @@ def build_post_processor(spec):
         return template_from(spec["single"], spec["special_tokens"])
     if kind == "ByteLevel":  # only trims offsets
         return lambda ids, add: ids
+    if kind == "Sequence":  # Llama-3's ByteLevel then TemplateProcessing, applied in order
+        parts = [build_post_processor(p) for p in spec["processors"]]
+
+        def seq(ids, add):
+            for part in parts:
+                ids = part(ids, add)
+            return ids
+
+        return seq
     raise unsupported("post-processor", kind)
 
 

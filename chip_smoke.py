@@ -57,8 +57,8 @@ Phases, in order (no exception is caught; any failure exits non-zero with no fin
      bf16 through the kernels against the CPU in f32 on the plain path: the attack step at batch 1
      and at batch 4, the batch-1 step with 4t's transforms (crop box and square injected), and the
      test decode, teacher-forced.
-  B. cli/bench.py at its defaults (bench.py's configuration on its own random-weight 7B, the
-     LLaVA victim freed first): its JSON line.
+  B. cli/bench.py at its defaults but for its timed windows, 3 of them (bench.py's configuration on its own
+     random-weight 7B, the LLaVA victim freed first): its JSON line.
 Then, with the LLaVA victim freed so that each phase's peak memory is its own, the Gemma-3-4B
 victim, whose 4096-patch SigLIP tower runs the non-causal flash_full kernels (their phase-3
 checks run first, before any victim is resident, and print each kernel's time over SDPA's:
@@ -80,8 +80,9 @@ the forward over SDPA's forward, dq + dk/dv over SDPA's whole backward):
      left-padded), whose global layer takes the head_dim-256 flash forward on the card:
      last-position logits cosine >= 0.99.
 Then, with the Gemma-3 victim freed, the cross-model universal attack, both victims loaded again
-from the directories of 4L and 4G (which are deleted at the end, with the runs) and resident on the
-card:
+from the directories of 4L and 4G and resident on the card. From 4X to 4B each directory's tree and
+tokenizer are read once and handed to every later load of the same directory (``shared_loads``), so
+those phases' peaks hold both trees:
   4X. cli/crossattack_models.py at the reference script's settings (scripts/attacks/
      attack_cross.sh: batch 1, ε 0.4 by default, the list prompts, random targets) on
      llava-hf/llava-1.5-7b-hf,google/gemma-3-4b-it: 1 warm-up + 4 steps, save boundaries at
@@ -95,20 +96,21 @@ card:
      at LLaVA's decode prefill, whose (batch, T) must be the run's. Then the cross step beside each
      victim's step alone on the same resident victims, pools and draws, in turns (2 rounds of 3
      steps each, with the allocator's device allocations) and under torch.profiler (wall and
-     device-busy time a step), and the steps' peak memory from an emptied cache. Then the same
-     CLI with --use_gaussian_blur for 3 steps: the saved image is x₀ + blur at the last step's σ;
+     device-busy time of 1 step), and the steps' peak memory from an emptied cache. Then the same
+     CLI with --use_gaussian_blur for 3 steps, without the test decode the first run checked: the
+     saved image is x₀ + blur at the last step's σ;
   5X. depth-cut references of the cross step (model weights 1.0 and 0.5): LLaVA's first 2 decoder
      and 2 vision layers with Gemma-3's first 6 decoder and 2 vision layers, from the weights 4X
      loaded, the card in bf16 through the kernels against the CPU in f32 on the plain path with
      the same injected draws: loss, loss_0 and loss_1 within 1e-2 relative, gradient cosine >= 0.99;
-  4D. DPO through the cross CLI with LLaVA alone (--DPO_flag --refuse_prob 0.5, batch 1): an
-     uninterrupted run of 6 steps against one of 3 steps resumed from its attack_state_latest.pt
-     to 6: the resumed metrics.jsonl rows (every refuse_flag and target_idx among them) and the
+  4D. DPO through the cross CLI with LLaVA alone (--DPO_flag --refuse_prob 0.5, batch 1, without the
+     test decode): an uninterrupted run of 6 steps against one of 3 steps resumed from its
+     attack_state_latest.pt to 6: the resumed metrics.jsonl rows (every refuse_flag and target_idx among them) and the
      final image equal, the run refusing at some steps and not at others; and --DPO_flag with
      Gemma-3 among the victims raises ValueError before any file is read.
 Then, with the cross victims freed, the judge and the three-stage evaluation through the port's
 eval CLIs (--device cuda), the judge the full-width, full-depth Gemma-3-4B-it and the SafeBench
-victim LLaVA-1.5-7B, both loaded again from the directories of 4L and 4G:
+victim LLaVA-1.5-7B, both from the directories of 4L and 4G (the trees 4X read):
   4J. A: cli/find_best_iter.py over 4X's run (LLaVA's and Gemma's answers to the 50 held-out
      questions at iterations 0 and 4) at batch 16: the FSM's build (vocab_bytes, the native table,
      the distances), the table's shape and size, min_close_tokens and the budget, verdicts/s, each
@@ -126,8 +128,17 @@ victim LLaVA-1.5-7B, both loaded again from the directories of 4L and 4G:
      answers: a mean ASR in [0, 1], 3 rows of results, 3 columns of 8 verdicts, every verdict
      parsed, 5 flash forwards a judge call. After each stage, the flash forward against its plain
      version at every attention mask that stage's prefills ran at, timed once a (batch, T).
-Then, with the eval victims freed, int8 weights and the baseline benchmarks, both victims loaded again
-from the directories of 4L and 4G:
+Then, with the eval victims freed, the baseline benchmarks on the LLaVA tree 4X read:
+  4B. cli/baseline_tests.py on LLaVA-1.5-7B at its defaults (batch 8, 128 new tokens, at least 32),
+     the victim built by the first run and handed to the later ones: the text modes reference, shii and
+     gcg over SafeBench_Text category 1 (8 held-out questions), MM-SafetyBench SD_TYPO over 1 category
+     of 8 1024² JPEGs (the committed fixtures of tests/data/, 4:2:0 and 4:4:4 in turn, which must decode
+     to the SHA-256 of PIL's pixels recorded beside them) and FigStep over 1 category of 8 760² PNGs: every
+     CSV has its 8 rows and no ERROR row, MM-SafetyBench took its batched path in every category, 32
+     flash forwards a prefill and none in a cached step; the flash forward at every (batch, T, mask) the
+     prefills ran at; prefill ms, tokens/s and peak by suite, the host's JPEG decode and resize ms.
+Then, with the baseline victims and the shared trees freed, int8 weights, both victims loaded again from the
+directories of 4L and 4G:
   4Q. cli/attack_model.py --int8_weights at batch 1 on the bench's configuration (the one question, the
      one target, a 512² x₀ of 0.47), 1 warm-up + 3 steps with its test decode at iterations 0 and 3:
      the load under quantize-on-load (seconds, resident bytes, quantized fraction; its peak within the
@@ -142,15 +153,7 @@ from the directories of 4L and 4G:
      4J's SafeBench answers: every verdict parses, 5 flash forwards a judge call, prefill and
      cached-step ms beside 4J's dense judge, the verdicts' agreement with it; the flash forward at its
      masks.
-  4B. cli/baseline_tests.py on LLaVA-1.5-7B at its defaults (batch 8, 128 new tokens, at least 32),
-     the victim built by the first run and handed to the later ones: the text modes reference, shii and
-     gcg over SafeBench_Text category 1 (8 held-out questions), MM-SafetyBench SD_TYPO over 1 category
-     of 8 1024² JPEGs (the committed fixtures of tests/data/, 4:2:0 and 4:4:4 in turn, which must decode
-     to the SHA-256 of PIL's pixels recorded beside them) and FigStep over 1 category of 8 760² PNGs: every
-     CSV has its 8 rows and no ERROR row, MM-SafetyBench took its batched path in every category, 32
-     flash forwards a prefill and none in a cached step; the flash forward at every (batch, T, mask) the
-     prefills ran at; prefill ms, tokens/s and peak by suite, the host's JPEG decode and resize ms.
-Then, with the baseline victims freed, the Qwen2-VL family at full width and depth (Qwen2-VL-2B-Instruct: 28 decoder
+Then, with the int8 victims freed, the Qwen2-VL family at full width and depth (Qwen2-VL-2B-Instruct: 28 decoder
 layers of 1536, 12 heads over 2 kv heads of 128, M-RoPE; a 32-layer tower of 1280, 16 heads of 80, a 2×2 merger):
   4V. its seed-0 random bf16 parameters drawn on the card and written by the fabricator (Qwen2-style tokenizer.json),
      then scripts/attacks/attack_clamp_tanh_qwen2vl.sh on one card through cli/attack_model.py (gray.png, 512²
@@ -196,15 +199,37 @@ tower over HD tiles of 336², a 2×2 merge with the sub_GN/glb_GN separators and
      cross step exactly each victim's own (LLaVA's 364 dgrad and 32 of each D-128 batch-1 causal kernel, Phi's 364
      and 32 of each at D 96), dgrad at the int8 step's shapes, the D-96 batch-1 kernels at Phi's T timed, the cross
      step beside each victim's alone in turns and under torch.profiler, and the steps' peak.
+Each checkpoint directory is deleted once its last phase is done (Gemma-3's and Qwen2-VL's after 4XV,
+LLaVA's and Phi-3.5's after 4XH). Then the mllama family at full width and depth
+(alpindale/Llama-3.2-11B-Vision-Instruct: 40 decoder layers of 4096, cross-attention layers 3, 8, ..., 38,
+32 heads over 8 kv heads of 128, MLP 14336, vocabulary 128256 + 8; the tiled tower, 32 local and 8 gated global
+layers of 1280, 16 heads of 80, 4 tiles of 560², intermediates of layers 3, 7, 15, 23 and 30):
+  4M. its seed-0 random bf16 parameters drawn on the card and written by the fabricator (the hub's key layout,
+     non-zero tanh gates, a Llama-3 tokenizer.json), then scripts/attacks/attack_clamp_tanh_llama.sh through
+     cli/attack_model.py (gray.png, 512² planned to a 560² canvas: 1 real tile of 4, every tile slot through the
+     tower at T 6432 on the chunked rank-1 sdpa; the list prompts, lr 5e-3, batch 1), 1 warm-up + 2 steps, save
+     boundaries at iterations 0 and 2, each decoding the 50 held-out questions with the cross k/v cached: the
+     CLI's victim equal to the written tensors; per step the dgrad launches the layer structure predicts (500),
+     32 batch-1 causal forwards and 29 of each backward at head_dim 128 (the 3 layers before the first cross
+     layer depend on no image), no flash_full launch; 32 flash forwards a decode prefill and none in a cached
+     step; each step's ms, the steps' peak and the image-gradient norms; dgrad at the run's shapes, the
+     batch-1 causal kernels (n_rep 4) at the step's T and the flash forward at the decode prefill against their
+     plain versions, timed;
+  5M. depth-cut references (decoder layers 0-3, so cross layer 3 runs; 2 local and 1 global tower layers at the
+     full T 6432, on the chunked path; the intermediate indices remapped into the cut, logged), the card in bf16
+     against the CPU in f32 on the plain path: the batch-1 step (loss within 1e-2 relative, gradient cosine >=
+     0.99) and the test decode, teacher-forced (logits cosine >= 0.99).
 It then prints each checkpoint directory's write and load seconds and GB/s, the resume verdict,
-the bench line, the cross step's numbers, the int8, baseline, Qwen2-VL and Phi-3.5 numbers and the run's total,
+the bench line, the cross step's numbers, the int8, baseline, Qwen2-VL, Phi-3.5 and mllama numbers and the run's total,
 the kernels' JSON line (each kernel with its launches per cross step; dgrad at the int8 step's shapes, the
-flash forward at the baseline and int8-judge prefills; the head_dim-96 instantiations as rows of their own), the
+flash forward at the baseline and int8-judge prefills; the head_dim-96 instantiations as rows of their own; the
+n_rep-4 shapes of 4M with their entries), the
 card's name and power limit, and
 as its last line {"ok": true, "device": {...}}. Without a card it exits non-zero before printing
 anything.
 """
 
+import contextlib
 import csv
 import gc
 import json
@@ -241,7 +266,7 @@ RESUME_STEPS, RESUME_CUT = 6, 3  # phase 4R: an uninterrupted run, and one resum
 STEPS_X = 5               # phase 4X: 1 warm-up + 4 timed; save boundaries at iterations 0 and 4
 STEPS_XB = 3              # phase 4X with the blur: save boundaries at iterations 0 and 2
 PROFILE_ROUNDS, TIMED_STEPS = 2, 3  # phase 4X: rounds of timed steps of the cross step and each victim alone
-PROFILE_STEPS = 2         # phase 4X: profiled steps of the cross step and of each victim alone
+PROFILE_STEPS = 1         # phase 4X: profiled steps of the cross step and of each victim alone
 DPO_STEPS, DPO_CUT = 6, 3  # phase 4D: an uninterrupted DPO run, and one resumed after this many steps
 CROSS_WEIGHTS = (1.0, 0.5)  # phase 5X's model weights
 
@@ -290,7 +315,7 @@ def hgmma_counts(lib_path):
 HOLD_CYCLES = 20_000_000  # about 10 ms of device-side sleep at the H100's clock
 
 
-def time_ms(fn, reps=10, windows=7):
+def time_ms(fn, reps=10, windows=5):
     """Median device time per call over ``windows`` CUDA-event windows of ``reps`` calls each,
     after a warm-up. Each window is queued behind a device-side sleep that outlasts the host's
     enqueue of the window, so the events time the device's work alone, not the host's launch cost
@@ -1050,8 +1075,7 @@ def decode_reference(gpu_v, cpu_v, questions, x_img, expect):
     seq = torch.cat([ids.cpu(), tokens[:, : n - 1]], dim=1)
     mask = torch.cat([am.cpu(), torch.ones((len(questions), n - 1), dtype=am.dtype)], dim=1)
     with torch.no_grad():
-        cpu = cpu_v.bundle.forward(cpu_v.bundle.params, seq, mask,
-                                   {"pixel_values": pixel["pixel_values"].cpu()},
+        cpu = cpu_v.bundle.forward(cpu_v.bundle.params, seq, mask, {k: x.cpu() for k, x in pixel.items()},
                                    logits_last_k=n).double()
     cos = torch.nn.functional.cosine_similarity(card, cpu, dim=-1)  # (B, n)
     diff = (card - cpu).abs().amax(-1)
@@ -1327,13 +1351,20 @@ def resume_phase(victim, x0, dgrad_per_step, n_layers):
     return {"verdict": verdict, "equal": equal, "trace_MB": trace_mb, "kernel_mentions": found}
 
 
+BENCH_WINDOWS = 3          # phase B: cli/bench.py's timed windows (its default is 5)
+
+
 def bench_phase():
-    """Phase B: cli/bench.py at its defaults (its own random-weight LLaVA-1.5-7B); its JSON line
-    is printed as it prints it."""
+    """Phase B: cli/bench.py at its defaults (its own random-weight LLaVA-1.5-7B) but for its timed
+    windows, BENCH_WINDOWS of them; its JSON line is printed as it prints it."""
     from adversarialvlm_tpu_torch.cli import bench
 
     t0 = time.perf_counter()
-    result = bench.main([])
+    default_windows, bench.BENCH_WINDOWS = bench.BENCH_WINDOWS, BENCH_WINDOWS
+    try:
+        result = bench.main([])
+    finally:
+        bench.BENCH_WINDOWS = default_windows
     sys.stdout.flush()
     log("bench", f"cli/bench.py in {time.perf_counter() - t0:.1f} s: {result}")
     if not (result["metric"] == "attack_steps_per_sec_llava7b" and result["value"] > 0
@@ -1965,28 +1996,37 @@ def check_cross_launches(tag, per_step, per_step_d, want, want_d):
         raise AssertionError(f"{tag}: launches per cross step differ from each victim's own")
 
 
-def cross_cli(args, captured=None):
+def cross_cli(args, captured=None, tests=True):
     """cli/crossattack_models.main on ``args``, spied on as :func:`spied_cli` does."""
     from adversarialvlm_tpu_torch.cli import crossattack_models
 
-    return spied_cli(crossattack_models.main, args, captured)
+    return spied_cli(crossattack_models.main, args, captured, tests)
 
 
-def spied_cli(main, args, captured=None):
+def spied_cli(main, args, captured=None, tests=True):
     """An attack CLI's ``main`` on ``args``. With ``captured`` (a dict), the engine's train() is
     wrapped for that run: the victims the CLI built, a PathProbe on each, the launches counted
     from zero after the victims are loaded (also by head dim), the run's wall time and its peak device memory from an
-    emptied cache go into it."""
+    emptied cache go into it. ``tests=False`` runs train() without the save boundaries' test decode
+    (for runs whose decode an earlier run of the same victims already checked)."""
     import torch
 
     from adversarialvlm_tpu_torch.attack import engine
     from adversarialvlm_tpu_torch.ops.kernels import launch_counts, launch_counts_by_head_dim, reset_launches
 
-    if captured is None:
-        return main(args)
     real_train = engine.train
+    if captured is None:
+        if tests:
+            return main(args)
+        engine.train = lambda cfg, victims, x0, **kw: real_train(cfg, victims, x0, **{**kw, "run_tests": False})
+        try:
+            return main(args)
+        finally:
+            engine.train = real_train
 
     def spy(cfg, victims, x0, **kw):
+        if not tests:
+            kw["run_tests"] = False
         captured["victims"] = victims
         group = []
         probes = [PathProbe(v.bundle, group) for v in victims]
@@ -2187,7 +2227,8 @@ def cross_phases(ckpt_root, runs):
     # image must carry the last and visibly differs from the unblurred one
     blur = {}
     exp_b = cross_cli(base + ["--exp_name", "cross_blur", "--model_names", f"{llava},{gemma}",
-                              "--num_iterations", str(STEPS_XB), "--use_gaussian_blur", "--seed", "2"], blur)
+                              "--num_iterations", str(STEPS_XB), "--use_gaussian_blur", "--seed", "2"], blur,
+                      tests=False)
     _, b_steps, _ = read_run(exp_b)
     gen = host_generator(2, 4)
     sigma = [draw_sigma(gen) for _ in range(STEPS_XB)][-1]
@@ -2210,11 +2251,12 @@ def cross_phases(ckpt_root, runs):
     dpo = [a for a in dpo if a != "--target_text_random"]
     t0 = time.perf_counter()
     dpo_got = {}
-    straight = cross_cli(dpo + ["--exp_name", "dpo_straight", "--num_iterations", str(DPO_STEPS)], dpo_got)
+    straight = cross_cli(dpo + ["--exp_name", "dpo_straight", "--num_iterations", str(DPO_STEPS)], dpo_got,
+                         tests=False)
     dpo_kernels(dpo_got.pop("victims")[0], run_config(straight), kernels)
-    part1 = cross_cli(dpo + ["--exp_name", "dpo_part1", "--num_iterations", str(DPO_CUT)])
+    part1 = cross_cli(dpo + ["--exp_name", "dpo_part1", "--num_iterations", str(DPO_CUT)], tests=False)
     part2 = cross_cli(dpo + ["--exp_name", "dpo_part2", "--num_iterations", str(DPO_STEPS), "--resume_state",
-                             os.path.join(part1, "attack_state_latest.pt")])
+                             os.path.join(part1, "attack_state_latest.pt")], tests=False)
     dpo_s = time.perf_counter() - t0
     (s_rows, s_steps, _), (r_rows, r_steps, _) = read_run(straight), read_run(part2)
     want = [r for r in s_rows if r["iteration"] >= DPO_CUT]
@@ -2230,7 +2272,7 @@ def cross_phases(ckpt_root, runs):
     if {f for _, f, _ in flags} != {0, 1} or any((t == -1) != bool(f) for _, f, t in flags):
         raise AssertionError(f"DPO run: refusal flags {flags}")
     dpo_verdict = (f"equal: {len(r_rows)} metrics.jsonl rows (steps {DPO_CUT}-{DPO_STEPS - 1} with their "
-                   f"refuse_flag and target_idx, monitor, checkpoint, test decode) and the final image bit for bit")
+                   f"refuse_flag and target_idx, monitor, checkpoint) and the final image bit for bit")
     log("dpo", dpo_verdict)
     try:
         cross_cli(dpo + ["--exp_name", "dpo_gemma", "--model_names", f"{llava},{gemma}",
@@ -3322,7 +3364,7 @@ QWEN = "Qwen/Qwen2-VL-2B-Instruct"
 STEPS_V = 4               # phase 4V: 1 warm-up + 3 timed; save boundaries at iterations 0 and 3
 STEPS_V1 = 2              # phase 4V1: the 1024² source at batch 1, 1 warm-up + 1 timed, no test decode
 STEPS_PAIR = 4            # phases 4XV and 4XH: 1 warm-up + 3 timed; save boundaries at iterations 0 and 3
-PAIR_ROUNDS, PAIR_TIMED, PAIR_PROFILED = 2, 3, 2  # phases 4XV and 4XH: the cross step beside each victim's alone
+PAIR_ROUNDS, PAIR_TIMED, PAIR_PROFILED = 2, 3, 1  # phases 4XV and 4XH: the cross step beside each victim's alone
 
 
 def qwen_dgrad_cases(params, vlm_cfg, batch, t_text, n_patches):
@@ -3951,6 +3993,294 @@ def phi_cross_phases(ckpt_root, runs):
     return pair_cross_phase("cross phi", [LLAVA, PHI], ("llava", "phi3v"), ckpt_root, runs, ["--int8_weights"],
                             dgrad_cases, kernel_cases)
 
+MLLAMA = "alpindale/Llama-3.2-11B-Vision-Instruct"
+STEPS_M = 3               # phase 4M: 1 warm-up + 2 timed; save boundaries at iterations 0 and 2
+MLLAMA_CUT_TEXT, MLLAMA_CUT_LOCAL, MLLAMA_CUT_GLOBAL = 4, 2, 1  # phase 5M: cross layer 3 runs; T stays 6432
+
+
+@contextlib.contextmanager
+def shared_loads(tag):
+    """Within the block, each checkpoint directory's dense LLaVA or Gemma-3 tree and its tokenizer are
+    read from disk once: models/loading.py's load_llava and load_gemma3 and HFTokenizer.from_pretrained
+    hand later calls the first call's tree and tokenizer (the weights are frozen, and nothing the
+    phases do writes them). A load under quantize_on_load reads the directory as before. The shared
+    trees stay on the card until the block ends, so the peaks measured inside it hold them."""
+    from adversarialvlm_tpu_torch.models import loading
+    from adversarialvlm_tpu_torch.utils.tokenization import HFTokenizer
+
+    cache, hits = {}, [0]
+    real = {name: getattr(loading, name) for name in ("load_llava", "load_gemma3")}
+    real_tok = HFTokenizer.__dict__["from_pretrained"]
+
+    def shared(key, read):
+        if key in cache:
+            hits[0] += 1
+        else:
+            cache[key] = read()
+        return cache[key]
+
+    def sharing(name, fn):
+        def load(path, dtype=None, device="cuda"):
+            import torch
+
+            dtype = dtype or torch.bfloat16
+            if loading._QUANT_ON_LOAD[0] is not None:
+                return fn(path, dtype, device)
+            return shared((name, os.path.realpath(path), dtype, str(device)), lambda: fn(path, dtype, device))
+        return load
+
+    for name, fn in real.items():
+        setattr(loading, name, sharing(name, fn))
+    HFTokenizer.from_pretrained = classmethod(
+        lambda cls, path: shared(("tokenizer", os.path.realpath(path)), lambda: real_tok.__func__(cls, path)))
+    try:
+        yield
+    finally:
+        for name, fn in real.items():
+            setattr(loading, name, fn)
+        HFTokenizer.from_pretrained = real_tok
+        log("disk", f"{tag}: {len(cache)} trees and tokenizers read once, handed out {hits[0]} more times")
+        cache.clear()
+
+
+def drop_dirs(root, names):
+    """Delete the checkpoint directories of ``names`` under ``root`` once their last phase is done,
+    so the disk holds only the directories later phases still load."""
+    for name in names:
+        shutil.rmtree(os.path.join(root, name))
+    log("disk", f"deleted {list(names)}; left under {root}: "
+        f"{sorted(os.path.relpath(os.path.join(d), root) for d, sub, files in os.walk(root) if 'config.json' in files)}; "
+        f"free {shutil.disk_usage(root).free / 1e9:.1f} GB")
+
+
+def mllama_dgrad_cases(params, vlm_cfg, t_text, k_rows):
+    """(rows, O, I, launches per step, weight) of the mllama batch-1 step's dgrad launches, from the
+    layer structure: the tower's q/k/v/o (1280²), fc1 and fc2 over every tile slot's padded tokens
+    (T 6432) in all 32 local and 8 global layers; the projector (7680 -> 4096) and each cross
+    layer's k/v over the 6404 cross states; the decoder over its T tokens, only from the first cross
+    layer on (before it no input depends on the image): that layer's o and MLP (its q reads text
+    alone), every later cross layer's q, o and MLP, every later self-attention layer's q, k, v, o
+    and MLP; the lm_head (128256 rows, 128-aligned, so on the kernel) over the ``k_rows`` scored
+    positions."""
+    from adversarialvlm_tpu_torch.ops.kernels.dgrad import dgrad_eligible
+
+    v, t = vlm_cfg.vision, vlm_cfg.text
+    vis = params["vision_model"]["transformer"]["layers"][0]
+    lm = params["language_model"]
+    first = min(t.cross_attention_layers)
+    cross, selfs = lm["layers"][first], lm["layers"][first + 1]
+    n_cross = len(t.cross_attention_layers)
+    n_self_after = sum(1 for i in range(first, t.num_layers) if i not in t.cross_attention_layers)
+    n_p1 = (v.image_size // v.patch_size) ** 2 + 1
+    t_vis = v.max_num_tiles * (n_p1 + (8 - n_p1 % 8) % 8)
+    s_cross = v.max_num_tiles * n_p1
+    n_vis = v.num_layers + v.num_global_layers
+    ca = cross["cross_attn"]
+    linears = [
+        (t_vis, vis["self_attn"]["q_proj"]["weight"], 4 * n_vis),
+        (t_vis, vis["mlp"]["fc1"]["weight"], n_vis), (t_vis, vis["mlp"]["fc2"]["weight"], n_vis),
+        (s_cross, params["multi_modal_projector"]["weight"], 1),
+        (s_cross, ca["k_proj"]["weight"], 2 * n_cross),
+        (t_text, selfs["self_attn"]["q_proj"]["weight"], 2 * n_self_after + 2 * n_cross - 1),
+        (t_text, selfs["self_attn"]["k_proj"]["weight"], 2 * n_self_after),
+        (t_text, selfs["mlp"]["gate_proj"]["weight"], 2 * (n_self_after + n_cross)),
+        (t_text, selfs["mlp"]["down_proj"]["weight"], n_self_after + n_cross),
+        (k_rows, lm["lm_head"]["weight"], 1),
+    ]
+    if not all(dgrad_eligible(w) for _, w, _ in linears):
+        raise AssertionError("mllama: the dgrad-eligible linears are not the expected ones")
+    merged, weights = {}, {}
+    for rows, w, n in linears:
+        key = (rows, *w.shape)
+        merged[key] = merged.get(key, 0) + n
+        weights[key] = w
+    return [(*key, n, weights[key]) for key, n in merged.items()]
+
+
+def mllama_depth_cut(params, vlm_cfg):
+    """(params, config) of phase 5M's cut: the first MLLAMA_CUT_TEXT decoder layers (cross layer 3
+    among them), MLLAMA_CUT_LOCAL local and MLLAMA_CUT_GLOBAL global tower layers at the full 4
+    tiles (T 6432, the chunked rank-1 path), tensors shared. The k-th intermediate index is remapped
+    to local layer min(k, MLLAMA_CUT_LOCAL - 1), so the projector keeps its 7680 inputs."""
+    import dataclasses
+
+    t, v = vlm_cfg.text, vlm_cfg.vision
+    inter = tuple(min(k, MLLAMA_CUT_LOCAL - 1) for k in range(len(v.intermediate_layers_indices)))
+    cut = dataclasses.replace(
+        vlm_cfg,
+        text=dataclasses.replace(t, num_layers=MLLAMA_CUT_TEXT, cross_attention_layers=tuple(
+            i for i in t.cross_attention_layers if i < MLLAMA_CUT_TEXT)),
+        vision=dataclasses.replace(v, num_layers=MLLAMA_CUT_LOCAL, num_global_layers=MLLAMA_CUT_GLOBAL,
+                                   intermediate_layers_indices=inter))
+    vm, lm = params["vision_model"], params["language_model"]
+    out = {**params, "language_model": {**lm, "layers": lm["layers"][:MLLAMA_CUT_TEXT]},
+           "vision_model": {**vm, "transformer": {"layers": vm["transformer"]["layers"][:MLLAMA_CUT_LOCAL]},
+                            "global_transformer": {"layers": vm["global_transformer"]["layers"][:MLLAMA_CUT_GLOBAL]}}}
+    log("reference", f"mllama cut: decoder layers 0-{MLLAMA_CUT_TEXT - 1} (cross {cut.text.cross_attention_layers}), "
+        f"{MLLAMA_CUT_LOCAL} local + {MLLAMA_CUT_GLOBAL} global tower layers; intermediate indices "
+        f"{v.intermediate_layers_indices} -> {inter}")
+    return out, cut
+
+
+def mllama_phases(ckpt_root, runs):
+    """Phases 4M and 5M on Llama-3.2-11B-Vision-Instruct at full width and depth; the checkpoint
+    directory is deleted at the end. Returns the phases' numbers and kernel statistics."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from adversarialvlm_tpu_torch.attack.engine import VictimSetup
+    from adversarialvlm_tpu_torch.attack.io import load_image_chw
+    from adversarialvlm_tpu_torch.attack.setup import image_processor
+    from adversarialvlm_tpu_torch.attack.step import build_attack_step, sample_chunk_xs
+    from adversarialvlm_tpu_torch.cli.fabricate_ckpt import MODELS, fabricate
+    from adversarialvlm_tpu_torch.data import corpora
+    from adversarialvlm_tpu_torch.models.loading import named_leaves
+    from adversarialvlm_tpu_torch.models.mllama import init_params
+    from adversarialvlm_tpu_torch.models.registry import make_bundle
+    from adversarialvlm_tpu_torch.ops.kernels import launch_counts, reset_launches
+    from adversarialvlm_tpu_torch.processors import grid_hw_for
+    from adversarialvlm_tpu_torch.processors.adv_inputs import AdvInputs
+
+    t_phase = time.perf_counter()
+    _, make_cfg, dtype = MODELS["mllama-11b"]
+    vlm_cfg = make_cfg()
+    t, v = vlm_cfg.text, vlm_cfg.vision
+    # 4M. the directory from the seed-0 parameters drawn on the card (dropped before the CLI loads
+    # it, so the run's peak holds one copy; drawn again afterwards for the comparison)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    written = init_params(torch.Generator(device="cuda").manual_seed(0), vlm_cfg, dtype, "cuda")
+    n_params = sum(x.numel() for x in _leaves(written))
+    path = fabricate("mllama-11b", ckpt_root, params=written)
+    del written
+    gc.collect()
+    torch.cuda.empty_cache()
+    write_s = time.perf_counter() - t0
+    shards = sorted(f for f in os.listdir(path) if f.endswith(".safetensors"))
+    nbytes = sum(os.path.getsize(os.path.join(path, f)) for f in shards)
+    log("mllama", f"{n_params / 1e9:.3f} B seed-0 parameters drawn on the card and written to {path} in "
+        f"{write_s:.1f} s: {len(shards)} shards, {nbytes / 1e9:.3f} GB, files {sorted(os.listdir(path))}")
+    gray = os.path.join(os.path.dirname(os.path.abspath(__file__)), "images", "gray.png")
+    # scripts/attacks/attack_clamp_tanh_llama.sh: gray.png, the list prompts, the target, lr 5e-3,
+    # batch 1
+    argv = ["--exp_name", "mllama", "--img_orig", gray, "--prompt", "list", "--target_text", TARGET,
+            "--model_name", MLLAMA, "--checkpoint_root", ckpt_root, "--lr", "5e-3", "--num_iterations",
+            str(STEPS_M), "--save_steps", "10", "--batch_size", "1", "--runs_path", runs]
+    got = {}
+    t0 = time.perf_counter()
+    exp = attack_cli(argv, got)
+    cli_s = time.perf_counter() - t0
+    victim = got["victims"][0]
+    probe, run_launches, run_launches_d = got["probes"][0], got["launches"], got["launches_d"]
+    written = init_params(torch.Generator(device="cuda").manual_seed(0), vlm_cfg, dtype, "cuda")
+    loaded, want = dict(named_leaves(victim.bundle.params)), dict(named_leaves(written))
+    if set(loaded) != set(want) or any(not torch.equal(loaded[k], want[k].to(loaded[k].dtype)) for k in want) \
+            or victim.bundle.cfg != vlm_cfg:
+        raise AssertionError("mllama: the CLI's victim is not the written directory's")
+    del written, loaded, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows, steps, csvs = read_run(exp)
+    ai = victim.adv_inputs
+    grid = grid_hw_for("mllama", victim.adv_processor, (512, 512), vlm_cfg)
+    t_text, k_rows = int(ai.max_len), int(ai.target_pool.shape[1]) + 1
+    log("mllama", f"{MLLAMA} through cli/attack_model.py in {cli_s:.1f} s (train() {got['wall_s']:.1f} s): every "
+        f"tensor equal to the written one, config the fabricator's; pool {ai.prompt_pool.shape} (targets, "
+        f"questions, T), {ai.num_image_tokens} <|image|> token a row, plan {victim.adv_processor.plan((512, 512))}, "
+        f"grid (real tiles, max tiles) {grid}, tokenizer {type(ai.tokenizer).__name__} of "
+        f"{ai.tokenizer.vocab_size}, shift {ai.shift}")
+    for r in steps:
+        log("mllama", f"step {r['iteration']}: loss={r['loss']} grad_norm={r['grad_norm']} step_ms={r['step_ms']:.2f}")
+    med = statistics.median(r["step_ms"] for r in steps[1:])
+    step_peak = probe.step_peak / 2**30
+    if len(steps) != STEPS_M or grid != (1, 4) or ai.num_image_tokens != 1 or not all(
+            np.isfinite(r["loss"]) and r["grad_norm"] > 0 for r in steps):
+        raise AssertionError(f"mllama path: bad steps {[(r['loss'], r['grad_norm']) for r in steps]} or grid {grid}")
+    cfg = run_config(exp)
+    xs = sample_chunk_xs(torch.Generator().manual_seed(cfg.seed), 1, cfg, [victim.handles()])[0]
+    pad = t_text - int(xs["lens"][0][0])
+    dg = check_dgrad(mllama_dgrad_cases(victim.bundle.params, vlm_cfg, t_text, k_rows), "dgrad mllama batch 1")
+    per_step = per_step_launches([probe], run_launches, STEPS_M)
+    per_step_d = per_step_launches([probe], run_launches_d, STEPS_M, by_head_dim=True)
+    # forward: every self-attention layer on the batch-1 kernels; backward: those after the first
+    # cross layer (before it nothing depends on the image, so autograd runs no backward there)
+    n_self = t.num_layers - len(t.cross_attention_layers)
+    n_bwd = sum(1 for i in range(min(t.cross_attention_layers), t.num_layers) if i not in t.cross_attention_layers)
+    expected = {k: 0 for k in per_step}
+    expected.update({"dgrad": dg["per_step"], "attention_fwd": n_self, "attention_bwd_dq": n_bwd,
+                     "attention_bwd_dkdv": n_bwd})
+    expected_d = {"attention_fwd_d128": n_self, "attention_bwd_dq_d128": n_bwd, "attention_bwd_dkdv_d128": n_bwd}
+    log("mllama", f"launches over the run: {run_launches}; by phase: "
+        + "; ".join(f"{ph} x{probe.calls[ph]} {dict(+c)}" for ph, c in probe.launches.items()))
+    log("mllama", f"launches per step: { {k: n for k, n in per_step.items() if n} }, by head dim "
+        f"{ {k: n for k, n in per_step_d.items() if n} } (expected { {k: n for k, n in expected.items() if n} }, "
+        f"by head dim {expected_d}); flash_full none: the tower's 6432 tokens take the chunked rank-1 sdpa")
+    if per_step != expected or {k: n for k, n in per_step_d.items() if n} != expected_d:
+        raise AssertionError("mllama path: launches per step differ from the expected counts")
+    if any(n for k, n in run_launches.items() if k.startswith("flash_full")):
+        raise AssertionError(f"mllama path: the tower reached flash_full: {run_launches}")
+    chunks = decode_chunks("mllama", probe, n_self)
+    if sorted(csvs) != sorted(f"test_results_iter_{i}.csv" for i in (0, STEPS_M - 1)) or not all(
+            [r[0] for r in tab[1:]] == list(ai.test_questions) and tab[0] == ["question", MLLAMA] for tab in csvs.values()):
+        raise AssertionError(f"mllama path: test CSVs {sorted(csvs)}")
+    # the causal kernels at n_rep 4: the batch-1 step's shape and the decode prefill's (flash)
+    attn = attention_case(t_text, t.num_heads, t.num_kv_heads, t.head_dim_, pad, timed=True)
+    prefill = flash_case("mllama test-decode prefill", probe.chunks[0]["mask"].cuda(), t.num_heads, t.num_kv_heads,
+                         t.head_dim_, timed=True, backward=False)["flash_fwd"]
+    log("mllama", f"4M: median step_ms (steps 1..{STEPS_M - 1})={med:.2f} warm-up {steps[0]['step_ms']:.2f}; steps' "
+        f"peak {step_peak:.3f} GiB; grad norms {[r['grad_norm'] for r in steps]}; the n_rep-4 kernels held at the "
+        f"run's shapes")
+    torch.cuda.empty_cache()
+
+    # 5M. the depth-cut reference: the card in bf16 through the kernels against the CPU in f32 on the
+    # plain path, the same weights, the tower at the full T 6432 on the chunked path on both
+    t0 = time.perf_counter()
+    cut_params, cut = mllama_depth_cut(victim.bundle.params, vlm_cfg)
+    ref_ai = AdvInputs(ai.spec, ai.tokenizer, [QUESTION], [QUESTION], 1, [TARGET], 1, ai.image_token_id,
+                       ai.pad_token_id)
+    gpu_v = VictimSetup("cut", make_bundle("cut", "mllama", cut, torch.device("cuda"), params=cut_params,
+                                           grid_hw=grid), victim.adv_processor, ref_ai, torch.bfloat16)
+    cpu_v = VictimSetup("cut", make_bundle("cut", "mllama", cut, torch.device("cpu"),
+                                           params=_map(cut_params, lambda p: p.float().cpu()), grid_hw=grid),
+                        image_processor(cut, (512, 512), "cpu"), ref_ai)
+    x0 = load_image_chw(gray)
+    gen = torch.Generator().manual_seed(5)
+    p0 = 0.3 * torch.randn(x0.shape, generator=gen)
+    noise = torch.randn((1, 1, v.max_num_tiles, 3, v.image_size, v.image_size), generator=gen)
+    xs_r = {"t_idx": 0, "rows": [torch.from_numpy(ref_ai.prompt_pool[0, [0]])],
+            "lens": [torch.from_numpy(ref_ai.prompt_lengths[0, [0]])], "noise": [noise]}
+    results = {}
+    for name, vv, dev in (("cpu", cpu_v, "cpu"), ("cuda", gpu_v, "cuda")):
+        x0_d = torch.as_tensor(x0, device=dev)
+        step = build_attack_step([vv.handles()], dataclasses.replace(cfg, batch_size=1), x0_d, torch.ones_like(x0_d))
+        reset_launches()
+        t1 = time.perf_counter()
+        loss, _, _, _, grad = step.loss_and_grad(p0.to(dev), xs_r, torch.tensor(cfg.sigma, device=dev))
+        results[name] = (float(loss), grad.double().cpu())
+        log("reference", f"mllama batch 1 {name}: loss={float(loss)} grad_norm={float(grad.norm())} T={ref_ai.max_len} "
+            f"in {time.perf_counter() - t1:.1f} s, launches={ {k: n for k, n in launch_counts().items() if n} }")
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = results["cpu"], results["cuda"]
+    rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    cos = float((g_cpu * g_gpu).sum() / (g_cpu.norm() * g_gpu.norm()))
+    log("reference", f"mllama batch 1: loss rel diff={rel:.3g} (tol {TOL_REF_LOSS}) grad cosine={cos:.6f} "
+        f"(min {TOL_REF_COSINE})")
+    if not (rel <= TOL_REF_LOSS and cos >= TOL_REF_COSINE):
+        raise AssertionError("mllama depth-cut reference: card and CPU disagree")
+    x_img = np.clip(x0 + cfg.epsilon * np.tanh(p0.numpy()), 0.0, 1.0).astype(np.float32)
+    n_cut_self = cut.text.num_layers - len(cut.text.cross_attention_layers)
+    decode_reference(gpu_v, cpu_v, list(corpora.not_safe_questions_test[:3]), x_img, {"flash_fwd": n_cut_self})
+    log("reference", f"mllama references in {time.perf_counter() - t0:.1f} s")
+    del gpu_v, cpu_v, victim, got, probe, cut_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("mllama", f"phases 4M and 5M in {time.perf_counter() - t_phase:.1f} s")
+    return {"median_ms": med, "step_peak_GiB": step_peak, "chunks": chunks, "reference": {"loss_rel": rel, "cosine": cos},
+            "stats": {"dgrad": dg, **attn}, "prefill": prefill, "per_step": per_step, "per_step_d": per_step_d,
+            "launches": run_launches, "launches_d": run_launches_d, "seconds": time.perf_counter() - t_phase,
+            "write_s": write_s, "GB": nbytes / 1e9, "T": t_text, "grad_norms": [r["grad_norm"] for r in steps]}
+
 
 def main():
     import torch
@@ -4066,27 +4396,32 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
         log("cross", f"Gemma-3 victim freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
-        cross = cross_phases(ckpt_root, runs)
+        with shared_loads("cross, judge eval and baselines"):  # 4X, its blur run, 4D, 4J and 4B read each directory once
+            cross = cross_phases(ckpt_root, runs)
+            gc.collect()
+            torch.cuda.empty_cache()
+            log("judge eval", f"cross victims freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card "
+                "(the shared trees stay)")
+            evals = judge_eval_phases(ckpt_root, runs, cross["exp"])
+            gc.collect()
+            torch.cuda.empty_cache()
+            log("baselines", f"eval victims freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card "
+                "(the shared trees stay)")
+            base = baseline_phases(ckpt_root, runs)
         gc.collect()
         torch.cuda.empty_cache()
-        log("judge eval", f"cross victims freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
-        evals = judge_eval_phases(ckpt_root, runs, cross["exp"])
-        gc.collect()
-        torch.cuda.empty_cache()
-        log("int8", f"eval victims freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+        log("int8", f"baseline victims and the shared trees freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+            "on the card")
         quant = int8_phases(ckpt_root, runs, evals, llava)
         gc.collect()
         torch.cuda.empty_cache()
-        log("baselines", f"int8 victims freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
-        base = baseline_phases(ckpt_root, runs)
-        gc.collect()
-        torch.cuda.empty_cache()
-        log("qwen", f"baseline victims freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+        log("qwen", f"int8 victims freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
         qwen = qwen_phases(ckpt_root, runs)
         gc.collect()
         torch.cuda.empty_cache()
         log("cross qwen", f"Qwen2-VL victims freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
         xq = qwen_cross_phases(ckpt_root, runs)
+        drop_dirs(ckpt_root, ("google/gemma-3-4b-it", QWEN))  # their last phase was 4XV
         gc.collect()
         torch.cuda.empty_cache()
         log("phi", f"Qwen2-VL + Gemma-3 victims freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
@@ -4095,6 +4430,12 @@ def main():
         torch.cuda.empty_cache()
         log("cross phi", f"Phi-3.5 victim freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
         xh = phi_cross_phases(ckpt_root, runs)
+        drop_dirs(ckpt_root, (LLAVA, PHI))  # their last phase was 4XH
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("mllama", f"LLaVA + Phi-3.5 victims freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+        ml = mllama_phases(ckpt_root, runs)
+        drop_dirs(ckpt_root, (MLLAMA,))
     finally:
         shutil.rmtree(ckpt_root)
         shutil.rmtree(runs)
@@ -4152,6 +4493,10 @@ def main():
         f"{PAIR_ROUNDS} rounds of {PAIR_TIMED}: " + "; ".join(f"{k} {hp[k]['round_ms']}" for k in ("cross", "llava", "phi3v"))
         + f"; the cross step over the sum of the two alone {hp['ratios']}; device busy a step "
         f"{ {k: hp[k]['busy_ms'] for k in ('cross', 'llava', 'phi3v')} } ms; steps' peak {xh['step_peak_GiB']:.3f} GiB")
+    log("done", f"Llama-3.2-11B-Vision (4M, 5M; {ml['seconds']:.1f} s): the batch-1 step {ml['median_ms']:.2f} ms at T "
+        f"{ml['T']}, steps' peak {ml['step_peak_GiB']:.3f} GiB, image-gradient norms {ml['grad_norms']}, test-decode "
+        f"chunks {ml['chunks']}; directory {ml['GB']:.3f} GB written in {ml['write_s']:.1f} s; depth-cut reference "
+        f"{ml['reference']}")
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s; the blur + crop step "
         f"{llava['transforms']['median_ms']:.2f} ms at batch 1")
     sources = {"dgrad": "dgrad.cu", "attention_fwd": "causal_fwd.cu", "attention_bwd_dq": "causal_bwd.cu",
@@ -4283,6 +4628,20 @@ def main():
                                           "worst_row_rel_err": h_stats["dgrad"]["rel"],
                                           **pick(h_stats["dgrad"], (*timing_keys, "per_step"))}
     kernels[0]["at_llava_phi3v_int8_cross_shapes"] = pick(xh["dgrad"], (*timing_keys, "per_step"))
+    # phase 4M: Llama-3.2-11B-Vision's shapes ride with their entries (the causal kernels at n_rep 4, head_dim
+    # 128: the batch-1 step and the decode prefill's flash forward; dgrad at the 11B's linears), each with
+    # its launches a step of 4M's run
+    m_stats = ml["stats"]
+    for i, name in enumerate(sources):
+        if name in m_stats:
+            st = m_stats[name]
+            kernels[i]["at_mllama_step_shapes"] = {
+                "max_abs_err": st["abs"], "worst_row_rel_err": st["rel"],
+                "launches_per_step": ml["per_step"][name], **pick(st, (*timing_keys, "per_step"))}
+        if name == "flash_fwd":
+            kernels[i]["at_mllama_prefill_shape"] = {"max_abs_err": ml["prefill"]["abs"],
+                                                     "worst_row_rel_err": ml["prefill"]["rel"],
+                                                     **pick(ml["prefill"], timing_keys)}
     # each cross run's launches a step, measured: a row of one head dim reads its instantiation's count
     # (the base causal rows are head_dim 128's, flash_full's 72's), dgrad and the fused rows their entry's
     runs_by_pair = {"llava+gemma3": cross, "qwen2vl+gemma3": xq, "llava+phi3v int8": xh}

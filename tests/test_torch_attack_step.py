@@ -49,6 +49,18 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 PARITY_STEPS = 3
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for the module's tiny eager steps and decodes: with one test worker per
+    core, the default thread pools oversubscribe the cores and slow each tiny op many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 def _kw(**kw):
     base = dict(exp_name="tiny_torch", num_iterations=6, save_steps=3, batch_size=2, lr=5e-2,
                 epsilon=0.5, sigma=0.001, grad_accum_steps=1, scheduler_step_size=2,
@@ -382,8 +394,14 @@ def _entry_case(case, tmp_path, monkeypatch):
             cli.main(base[2:] + ["--device", "cpu", "--model_name", "google/gemma-3-4b-it",
                                  "--checkpoint_root", root])
     elif case == "cli_other_family_raises":
-        with pytest.raises(NotImplementedError, match="ROADMAP modules: other victim families"):
-            cli.main(base[2:] + ["--device", "cpu", "--model_name", "alpindale/Llama-3.2-11B-Vision-Instruct"])
+        # the mllama names resolve to their family since it was ported: without a directory the
+        # CLI stops at "no local checkpoint", before making a run dir
+        for name in ("alpindale/Llama-3.2-11B-Vision-Instruct", "alpindale/Llama-3.2-11B-Vision",
+                     "SinclairSchneider/Llama-Guard-3-11B-Vision"):
+            assert cli.victim_family(name) == "mllama"
+            with pytest.raises(FileNotFoundError, match="no local checkpoint"):
+                cli.main(base[2:] + ["--device", "cpu", "--model_name", name,
+                                     "--checkpoint_root", str(tmp_path / "none")])
         assert sorted(os.listdir(tmp_path)) == ["x0.png"]  # it fails before making a run dir
     elif case == "cross_on_cpu":
         cfg = AttackConfig(**_kw(num_iterations=2))

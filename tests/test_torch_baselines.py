@@ -457,14 +457,20 @@ def test_baseline_cli_runs_phi35(tmp_path, mode, capsys, one_thread):
 
 
 @pytest.mark.parametrize("model", ["llama"])
-def test_baseline_cli_refuses_other_families_before_any_file(tmp_path, model):
-    """The llama name raises NotImplementedError naming its ROADMAP item before any file is read
-    (no dataset, no checkpoint exists); a reversed category range raises first. (phi35 runs since
-    its family was ported: test_baseline_cli_runs_phi35.)"""
+def test_baseline_cli_refuses_other_families_before_any_file(tmp_path, model, capsys, one_thread):
+    """The llama name (alpindale/Llama-3.2-11B-Vision-Instruct) resolves to the mllama family since
+    it was ported: without a checkpoint directory it stops at "no local checkpoint" before any file
+    is read (no dataset exists; a reversed category range raises first), and on a fabricated
+    tiny-mllama directory the text mode runs on the CPU, a row per question, one <|image|> token a
+    row."""
+    from adversarialvlm_tpu_torch.cli import fabricate_ckpt
+    from adversarialvlm_tpu_torch.cli.attack_model import victim_family
+
     missing = str(tmp_path / "missing")
     args = ["--model", model, "--mode", "figstep", "--dataset_root", missing, "--checkpoint_root", missing,
             "--tests_path", missing, "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="ROADMAP modules: other victim families"):
+    assert victim_family(baseline_tests.MODELS[model]) == "mllama"
+    with pytest.raises(FileNotFoundError, match="no local checkpoint"):
         baseline_tests.main(args)
     with pytest.raises(ValueError, match="reversed"):
         baseline_tests.main(args + ["--categories", "3-1"])
@@ -473,3 +479,15 @@ def test_baseline_cli_refuses_other_families_before_any_file(tmp_path, model):
                                      "qwen": "Qwen/Qwen2-VL-2B-Instruct",
                                      "phi35": "microsoft/Phi-3.5-vision-instruct",
                                      "llava": "llava-hf/llava-1.5-7b-hf"}
+    root = str(tmp_path / "ckpts")
+    fabricate_ckpt.main(["tiny-mllama", root, "--device", "cpu"])
+    sfb = tmp_path / "sfb"
+    sfb.mkdir()
+    (sfb / "1.csv").write_text("How?\nWhy?\n")
+    out = baseline_tests.main(["--model", model, "--mode", "reference", "--sfb_path", str(sfb), "--tests_path",
+                               str(tmp_path / "tests"), "--categories", "1", "--batch_size", "2",
+                               "--checkpoint_root", root, "--device", "cpu"])
+    assert out == os.path.join(str(tmp_path / "tests"), "reference", model)
+    assert os.listdir(out) == ["1.csv"] and len(read_column(os.path.join(out, "1.csv"))) == 2
+    text = capsys.readouterr().out
+    assert "generate_programs: configs=1 programs=1" in text and "1 image tokens a row" in text

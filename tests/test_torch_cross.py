@@ -52,6 +52,20 @@ PARITY_STEPS = 3
 METRICS = ("loss", "loss_0", "loss_1", "grad_norm", "lr")
 
 
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the tiny eager runs and decodes that hold the port against itself (not
+    for the steps held against JAX's within a tolerance, whose f32 sums keep the default pools): with
+    one test worker per core, the default thread pools oversubscribe the cores and slow each tiny op
+    many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 def _kw(**kw):
     base = dict(exp_name="tiny_cross", num_iterations=6, save_steps=3, batch_size=2, lr=5e-2,
                 epsilon=0.4, sigma=0.001, grad_accum_steps=1, scheduler_step_size=2,
@@ -279,7 +293,7 @@ def test_refusal_pool_rows_appended():
 
 
 @pytest.mark.parametrize("prob", [1.0, 0.0])
-def test_refuse_prob_one_and_zero(dpo_victims, prob):
+def test_refuse_prob_one_and_zero(dpo_victims, prob, one_thread):
     """refuse_prob 1 refuses at every step (target_idx -1 throughout), 0 never does."""
     _, rows = _run_steps(dpo_victims, AttackConfig(**_dpo_kw(refuse_prob=prob)), 4)
     flags = [r["refuse_flag"] for r in rows]
@@ -288,7 +302,7 @@ def test_refuse_prob_one_and_zero(dpo_victims, prob):
     assert all(np.isfinite(r["loss"]) for r in rows)
 
 
-def test_refusal_changes_the_trajectory(dpo_victims):
+def test_refusal_changes_the_trajectory(dpo_victims, one_thread):
     s_ref, _ = _run_steps(dpo_victims, AttackConfig(**_dpo_kw(refuse_prob=0.0)), 3)
     s_dpo, _ = _run_steps(dpo_victims, AttackConfig(**_dpo_kw(refuse_prob=1.0)), 3)
     assert not torch.allclose(s_ref["p"], s_dpo["p"])
@@ -342,7 +356,7 @@ def test_refuse_prob_validated_only_under_dpo():
         AttackConfig(**_kw(DPO_flag=True, refuse_prob=1.5))
 
 
-def test_dpo_cross_train_end_to_end(dpo_victims, tmp_path):
+def test_dpo_cross_train_end_to_end(dpo_victims, tmp_path, one_thread):
     """A DPO cross train() with the blur and the monitor writes the run's artifacts and logs a
     refuse_flag of 0 or 1 on every step, target_idx -1 exactly on the refusing ones."""
     cfg = AttackConfig(**_dpo_kw(exp_name="dpo_e2e", num_iterations=4, save_steps=2, use_gaussian_blur=True,
@@ -372,7 +386,7 @@ def _final(exp):
 
 
 @pytest.mark.parametrize("blur", [False, True])
-def test_dpo_true_resume_matches_uninterrupted(dpo_victims, tmp_path, blur):
+def test_dpo_true_resume_matches_uninterrupted(dpo_victims, tmp_path, blur, one_thread):
     """4 uninterrupted DPO cross steps against 2 steps resumed from the saved state to 4 (with
     the blur: its σ generator saved and restored too): the resumed metrics.jsonl rows (every
     refuse_flag and target_idx among them) and the final image equal, bit for bit. Seed 3's coins
@@ -394,7 +408,7 @@ def test_dpo_true_resume_matches_uninterrupted(dpo_victims, tmp_path, blur):
     assert [r["refuse_flag"] for r in _rows(straight) if "refuse_flag" in r] == [1, 0, 0, 1]
 
 
-def test_blur_resume_at_the_last_iteration_saves_the_last_sigma(dpo_victims, tmp_path):
+def test_blur_resume_at_the_last_iteration_saves_the_last_sigma(dpo_victims, tmp_path, one_thread):
     """A cross + blur run resumed from a state that already holds num_iterations runs no step and
     saves the final image at the σ its last step drew, which the state carries: the uninterrupted
     run's final image, bit for bit, and not the unblurred one."""
@@ -417,7 +431,7 @@ def test_blur_resume_at_the_last_iteration_saves_the_last_sigma(dpo_victims, tmp
 
 # --- the cross cases of tests/test_attack_e2e.py, on the port ------------------------------------
 
-def test_cross_single_victim_matches_single_branch_with_grad_accum():
+def test_cross_single_victim_matches_single_branch_with_grad_accum(one_thread):
     """cross=True with one victim of weight 1.0 is the single-victim branch bit for bit, the loss
     divided by grad_accum_steps in both."""
     cfg = AttackConfig(**_kw(grad_accum_steps=2, num_iterations=4))
@@ -506,7 +520,7 @@ def _cli_base(tmp_path):
 
 
 @pytest.mark.parametrize("case", ["two_families", "epsilon_given", "weights_length", "dpo_gemma3", "dpo_llava"])
-def test_cross_cli_on_cpu(case, tmp_path):
+def test_cross_cli_on_cpu(case, tmp_path, one_thread):
     """tiny:llava,tiny:gemma3 through the CLI with ε 0.4 when --epsilon is not given (given, in
     an abbreviated spelling, it is kept), both victims' test decode and artifacts; a
     --model_weights of the wrong length raises; --DPO_flag with Gemma-3 among the victims raises

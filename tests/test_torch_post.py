@@ -248,7 +248,8 @@ def test_gen_answers_for_steps_matches_jax(trees, monkeypatch, tmp_path):
 def test_cli_retests_a_tiny_qwen_run(tmp_path, capsys):
     """cli/test_post.py on the CPU with tiny:qwen2vl over a run's saved 56×84 images: a questions
     file with a header and a comma in a question, two iterations: each iteration's CSV (a row a
-    question) and a summary row each; a run without images exits naming it."""
+    question) and a summary row each; a run without images exits naming it; an mllama name without
+    a directory stops at "no local checkpoint", and tiny:mllama re-tests the run."""
     runs = str(tmp_path / "runs")
     d = os.path.join(runs, "exp")
     os.makedirs(d)
@@ -272,6 +273,12 @@ def test_cli_retests_a_tiny_qwen_run(tmp_path, capsys):
     os.makedirs(os.path.join(runs, "bare"))
     with pytest.raises(SystemExit, match="no checkpoint iterations"):
         cli.main(["--exp", "bare", "--model_name", "tiny:qwen2vl", "--runs_path", runs, "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP modules: other victim families"):
+    # the mllama names resolve to their family since it was ported: without a directory, "no local
+    # checkpoint"; tiny:mllama re-tests the same run
+    with pytest.raises(FileNotFoundError, match="no local checkpoint"):
         cli.main(["--exp", "exp", "--model_name", "alpindale/Llama-3.2-11B-Vision-Instruct", "--runs_path", runs,
-                  "--device", "cpu"])
+                  "--checkpoint_root", str(tmp_path / "none"), "--device", "cpu"])
+    out = cli.main(["--exp", "exp", "--model_name", "tiny:mllama", "--runs_path", runs, "--questions_file",
+                    str(qf), "--question_set_name", "mllama", "--max_new_tokens", "4", "--device", "cpu"])
+    assert [r["iteration"] for r in read_rows(os.path.join(out, "summary.csv"))] == [1, 3]
+    assert list(read_rows(os.path.join(out, "test_results_iter_3.csv"))[0]) == ["question", "tiny:mllama"]

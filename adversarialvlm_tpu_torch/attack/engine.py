@@ -40,6 +40,7 @@ from adversarialvlm_tpu_torch.attack.step import (
 from adversarialvlm_tpu_torch.eval.train_test import run_model_test
 from adversarialvlm_tpu_torch.ops.image import uint8_roundtrip
 from adversarialvlm_tpu_torch.ops.masks import create_mask, default_mask
+from adversarialvlm_tpu_torch.parallel.mesh import active_mesh, use_mesh
 from adversarialvlm_tpu_torch.processors import normalize_pixel_inputs
 from adversarialvlm_tpu_torch.utils.device import resolve_device
 from adversarialvlm_tpu_torch.utils.logging import RunLogger
@@ -127,6 +128,7 @@ def train(
     run_tests: bool = True,
     test_max_new_tokens: int = 64,
     device=None,
+    mesh=None,
 ) -> str:
     """Run the attack on ``device`` (default: the card, which must hold the victims); returns
     the experiment path. ``cross`` (default: more than one victim) runs the cross-model
@@ -144,7 +146,47 @@ def train(
     ``cfg.resume_state`` (such a file) continues that run: p, the optimizer, the counters and
     every generator as they were saved, the chunks realigned to the save grid and the
     resaved-loss monitor's cadence kept. ``cfg.profile_dir`` traces the second chunk with
-    torch.profiler (host and, on the card, device activity) into a Chrome trace there."""
+    torch.profiler (host and, on the card, device activity) into a Chrome trace there.
+
+    ``mesh`` (default: the active one, parallel/mesh.py) runs this rank's part of a (data ×
+    model) mesh, as the JAX engine runs its whole body under ``jax.set_mesh``: each victim's
+    decoder sharded over the model axis (:func:`shard_victim`, unless its setup already built its
+    shards), the batch over the data axis, the test decode with each rank's cache of its heads.
+    Every rank keeps p, the optimizer moments and every generator equal; rank 0 alone writes the
+    run's files, and on resume every rank reads the same state file."""
+    mesh = mesh if mesh is not None else active_mesh()
+    if mesh is not None and mesh.size > 1:
+        with use_mesh(mesh):
+            for v in victims:
+                shard_victim(v, mesh)
+            return _train(cfg, victims, x0, base_path, cross, run_tests, test_max_new_tokens, device,
+                          mesh.is_writer)
+    return _train(cfg, victims, x0, base_path, cross, run_tests, test_max_new_tokens, device, True)
+
+
+def shard_victim(victim: VictimSetup, mesh) -> None:
+    """Cut ``victim``'s decoder to ``mesh``'s model rank (parallel/sharding.py), in place, unless
+    it holds its shards already."""
+    from adversarialvlm_tpu_torch.parallel.sharding import shard_params, vlm_param_shardings
+
+    bundle = victim.bundle
+    if mesh.model == 1 or bundle.model_shards == mesh.model:
+        return
+    if bundle.model_shards != 1:
+        raise ValueError(f"{victim.name} is sharded {bundle.model_shards} ways, not {mesh.model}")
+    bundle.params = shard_params(bundle.params, vlm_param_shardings(bundle.params, bundle.cfg.text), mesh,
+                                 bundle.device)
+    bundle.model_shards = mesh.model
+
+
+class _NoLogger:
+    """The logger of a rank that writes nothing."""
+
+    def __getattr__(self, name):
+        return lambda *args, **kwargs: None
+
+
+def _train(cfg, victims, x0, base_path, cross, run_tests, test_max_new_tokens, device, writer) -> str:
     dev = resolve_device(device)
     cross = len(victims) > 1 if cross is None else cross
     if any(v.bundle.device != dev for v in victims):
@@ -173,10 +215,13 @@ def train(
     step = build_attack_step(handles, cfg, x0_dev, torch.as_tensor(mask, device=dev),
                              model_weights=cfg.model_weights, cross=cross)
 
-    exp_path = create_directory(cfg.exp_name, base_path)
-    save_config(dataclasses.asdict(cfg), exp_path)
-    save_mask(mask, exp_path)
-    logger = RunLogger(exp_path, {**dataclasses.asdict(cfg), "models": [v.name for v in victims]})
+    if writer:
+        exp_path = create_directory(cfg.exp_name, base_path)
+        save_config(dataclasses.asdict(cfg), exp_path)
+        save_mask(mask, exp_path)
+        logger = RunLogger(exp_path, {**dataclasses.asdict(cfg), "models": [v.name for v in victims]})
+    else:
+        exp_path, logger = os.path.join(base_path, cfg.exp_name), _NoLogger()
 
     state = init_state(cfg, x0_dev)
     draws = torch.Generator().manual_seed(cfg.seed)
@@ -197,9 +242,10 @@ def train(
 
     def checkpoint_and_test(iteration: int) -> None:
         img = current_image()
-        png = save_checkpoint(img, exp_path, state["global_iteration"])
-        save_attack_state(state, generators, exp_path, state["global_iteration"])
-        logger.log_image("adversarial_image", png, iteration)
+        if writer:
+            png = save_checkpoint(img, exp_path, state["global_iteration"])
+            save_attack_state(state, generators, exp_path, state["global_iteration"])
+            logger.log_image("adversarial_image", png, iteration)
         if not run_tests:
             return
         # test on the image as the saved PNG holds it (attack_model.py:418-419)
@@ -216,6 +262,7 @@ def train(
             image_chw=img_q,
             max_new_tokens=test_max_new_tokens,
             cache_dtype=[v.compute_dtype for v in victims],
+            write=writer,
         )
         logger.log({"iteration": iteration, **test_log})
         if first_row is not None:
@@ -244,7 +291,7 @@ def train(
                         state["last_sigma"] = xs["sigma"]
                 if profiling and dev.type == "cuda":
                     torch.cuda.synchronize()
-            if profiling:
+            if profiling and writer:
                 os.makedirs(cfg.profile_dir, exist_ok=True)
                 prof.export_chrome_trace(
                     os.path.join(cfg.profile_dir, f"trace_iter_{it}-{it + chunk - 1}.json"))
@@ -263,7 +310,8 @@ def train(
                 logger.log({"iteration": boundary_iter, "loss_resaved": value})
             checkpoint_and_test(boundary_iter)
             logger.flush()
-        save_checkpoint(current_image(), exp_path, "final")
+        if writer:
+            save_checkpoint(current_image(), exp_path, "final")
     finally:
         logger.close()
     return exp_path

@@ -13,6 +13,7 @@ from adversarialvlm_tpu_torch.attack.engine import VictimSetup
 from adversarialvlm_tpu_torch.data import corpora
 from adversarialvlm_tpu_torch.models.configs import VLMConfig, tiny_gemma3, tiny_llava
 from adversarialvlm_tpu_torch.models.registry import make_bundle
+from adversarialvlm_tpu_torch.parallel.mesh import active_mesh
 from adversarialvlm_tpu_torch.processors import family_of, grid_hw_for, load_model_and_processor
 from adversarialvlm_tpu_torch.processors.adv_inputs import AdvInputs
 from adversarialvlm_tpu_torch.processors.configs import MODEL_IMAGE_CONFIGS, ImageProcessorConfig
@@ -138,7 +139,8 @@ def build_victim_from_checkpoint(
     prompt pools tokenized by the checkpoint's own tokenizer. The step runs in ``dtype``, not in
     the f32 the loader keeps the norms in. ``int8_weights`` quantizes the linears as they load
     (models/loading.py::quantize_on_load), so the card holds the int8 tree plus one dense tensor
-    at most."""
+    at most. Under a mesh with a model axis (parallel/mesh.py::active_mesh) the decoder loads as
+    this rank's shards."""
     from adversarialvlm_tpu_torch.models.loading import quantize_on_load
 
     dev = resolve_device(device)
@@ -147,6 +149,9 @@ def build_victim_from_checkpoint(
     refusals = refuse_texts(cfg_attack, spec)  # before any file is read
     with quantize_on_load() if int8_weights else contextlib.nullcontext():
         bundle, tok, adv_proc = load_model_and_processor(model_name, checkpoint_path, in_hw, dtype, dev)
+    mesh = active_mesh()
+    if mesh is not None and mesh.model > 1:  # the loader shipped this rank's shards
+        bundle.model_shards = mesh.model
     vlm_cfg = bundle.cfg
     if questions is None or targets is None:
         questions, targets = questions_and_targets(cfg_attack)

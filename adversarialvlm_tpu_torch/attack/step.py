@@ -18,6 +18,14 @@ the moving square's position and the cross-mode blur σ) come each from a CPU ge
 transform on never shifts the question draws. The EoT noise is drawn on the victims' device from
 the step's own generator, victim by victim, or taken from ``xs["noise"]``. Tests inject the JAX
 package's draws through ``xs``.
+
+Under a mesh with a data axis that divides the batch (parallel/mesh.py::dp_size, JAX's
+``_dp_spec``) each data rank takes its contiguous rows of every draw: the question rows and the
+EoT noise, which is drawn for the whole batch from the same generator on every rank and then
+sliced, so a run sees the noise of the one-rank run. The gradient of the shared image and the
+victims' CEs (means over rows) are then summed over the data group in one all-reduce and divided
+by its size: the whole batch's mean. An axis that does not divide the batch warns once a step build
+and runs without data parallelism.
 """
 
 from __future__ import annotations
@@ -39,6 +47,8 @@ from adversarialvlm_tpu_torch.ops.losses import (
     suffix_cross_entropy,
 )
 from adversarialvlm_tpu_torch.ops.masks import random_square_mask, square_position
+from adversarialvlm_tpu_torch.parallel.collectives import all_reduce_data
+from adversarialvlm_tpu_torch.parallel.mesh import active_mesh, batch_rows, dp_size
 
 
 @dataclasses.dataclass
@@ -247,21 +257,28 @@ class AttackStep:
         self.x0 = x0
         self.grad_mask = grad_mask
         self.noise_gen = torch.Generator(device=victims[0].device).manual_seed(cfg.seed)
+        # the data axis that splits the batch under the active mesh (1: every row on every rank)
+        mesh = active_mesh()
+        self.dp = dp_size(mesh, cfg.batch_size, warn=mesh is not None and mesh.is_writer)
+        self.rows = batch_rows(cfg.batch_size, mesh)
 
     def victim_ce(self, i, arg_img, t_idx, ids, lens, resave_std=None, noise=None) -> torch.Tensor:
-        """Suffix CE of victim ``i`` on ``arg_img``; EoT noise of std ``resave_std`` is added to
-        the pixel batch unless ``resave_std`` is None (the monitor's clean forward)."""
+        """Suffix CE of victim ``i`` on ``arg_img`` over this data rank's rows of the batch
+        ``ids``; EoT noise of std ``resave_std``, drawn (or given) for the whole batch and sliced
+        alike, is added to the pixel batch unless ``resave_std`` is None (the monitor's clean
+        forward)."""
         v = self.victims[i]
-        ids = ids.to(v.device)
-        am = _length_mask(ids, lens.to(v.device))
+        full_b = ids.shape[0]
+        ids = ids[self.rows].to(v.device)
+        am = _length_mask(ids, lens[self.rows].to(v.device))
         b = ids.shape[0]
         processed = dict(v.process(arg_img))
         pv = processed.pop("pixel_values")
         pv = pv.expand(b, *pv.shape[1:]).to(v.compute_dtype)
         if resave_std is not None:
             if noise is None:
-                noise = torch.randn(pv.shape, generator=self.noise_gen, device=v.device)
-            pv = pv + (noise.to(v.device) * resave_std).to(pv.dtype)
+                noise = torch.randn((full_b, *pv.shape[1:]), generator=self.noise_gen, device=v.device)
+            pv = pv + (noise[self.rows].to(v.device) * resave_std).to(pv.dtype)
         # only the last target_width + 1 positions are scored by the suffix CE
         k = v.target_pool.shape[1] + 1
         # the processor's other inputs (mllama's aspect ids and mask) ride at the image's batch
@@ -305,6 +322,8 @@ class AttackStep:
             (g,) = torch.autograd.grad(self.weights[i] * ce / cfg.grad_accum_steps, shared)
             g_arg = g if g_arg is None else g_arg + g
             ces.append(ce.detach())
+        if self.dp > 1:
+            g_arg, ces = self.mean_over_data(g_arg, ces)
         (grad,) = torch.autograd.grad((arg, img_loss * (n / cfg.grad_accum_steps)), p,
                                       grad_outputs=(g_arg, None))
         img_loss = img_loss.detach()
@@ -315,6 +334,15 @@ class AttackStep:
         # clamp_method "none" without a blur makes x p itself
         x = x.detach().clone() if x.data_ptr() == p.data_ptr() else x.detach()
         return total, img_loss, ces, x, grad
+
+    def mean_over_data(self, g: torch.Tensor | None, ces: list[torch.Tensor]):
+        """(g, ces) averaged over the data group with one all-reduce of both."""
+        parts = ([] if g is None else [g.reshape(-1).float()]) + [c.reshape(1).float() for c in ces]
+        flat = all_reduce_data(torch.cat(parts)) / self.dp
+        n = 0 if g is None else g.numel()
+        if g is not None:
+            g = flat[:n].view_as(g).to(g.dtype)
+        return g, [flat[n + j].to(c.dtype) for j, c in enumerate(ces)]
 
     def __call__(self, state: dict, xs: dict):
         cfg = self.cfg
@@ -418,6 +446,8 @@ def build_resaved_loss_fn(victims, cfg: AttackConfig, x0: torch.Tensor, cross: b
         x_resaved = uint8_roundtrip(x0 + saved_perturbation(cfg, p, cross, sigma))
         t_list = xs.get("t_idxs", [xs["t_idx"]] * n)
         ces = [step.victim_ce(i, x_resaved, t_list[i], xs["rows"][i], xs["lens"][i]) for i in range(n)]
+        if step.dp > 1:
+            _, ces = step.mean_over_data(None, ces)
         return sum(ces) / n
 
     return resaved_loss

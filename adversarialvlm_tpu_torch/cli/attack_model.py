@@ -21,6 +21,11 @@ traces the second chunk. Runs on the card
 unless ``--device cpu``, at the default ``--batch_size 4`` or any other. As the JAX CLI does, every
 save boundary decodes the 50 held-out questions on the saved image and writes
 test_results_iter_<N>.csv.
+
+``--mesh_model M`` and ``--mesh_data D`` run the attack on a (data × model) mesh
+(parallel/mesh.py): one process a rank, spawned here, the decoder tensor-parallel over M ranks
+and the batch split over D, on card ``rank % device_count`` (ranks may share a card) or, with
+``--device cpu``, on the CPU. The run's files are rank 0's and those of the one-rank run.
 """
 
 from __future__ import annotations
@@ -161,19 +166,54 @@ def build_victim(model_name: str, cfg, in_hw, device, checkpoint_root: str | Non
 
 
 def check_unported_flags(args) -> None:
-    """The flags whose features the port does not run yet raise, each naming its ROADMAP item,
-    before any model is built. ``args`` may lack the flags a CLI does not have."""
-    waiting = [
-        flag for flag, asked in (
-            ("--mesh_model/--mesh_data (ROADMAP modules: multi-GPU mesh)",
-             getattr(args, "mesh_model", None) is not None
-             or getattr(args, "mesh_data", None) is not None),
-            ("--remat_policy (not needed on an 80 GB card)",
-             getattr(args, "remat_policy", None) is not None),
-        ) if asked
-    ]
-    if waiting:
-        raise NotImplementedError("not ported yet: " + ", ".join(waiting))
+    """The flags whose features the port does not run raise, each naming why, before any model is
+    built. ``args`` may lack the flags a CLI does not have."""
+    if getattr(args, "remat_policy", None) is not None:
+        raise NotImplementedError("not ported yet: --remat_policy (not needed on an 80 GB card)")
+
+
+def mesh_from_args(args, device) -> tuple[int, int] | None:
+    """(data, model) of ``--mesh_data``/``--mesh_model`` (cli/common.py::mesh_from_args), or None
+    without them. The JAX rule derives the axis not given from the devices; the port's ranks may
+    share a card, so it counts as many devices as the axes given ask for when the cards are
+    fewer: ``--mesh_model 2`` on one card is two ranks on it."""
+    if getattr(args, "mesh_model", None) is None and getattr(args, "mesh_data", None) is None:
+        return None
+    from adversarialvlm_tpu_torch.parallel.mesh import mesh_shape
+
+    cards = torch.cuda.device_count() if torch.device(device).type == "cuda" else 1
+    asked = (args.mesh_data or 1) * (args.mesh_model or 1)
+    return mesh_shape(max(cards, asked), args.mesh_data, args.mesh_model)
+
+
+def build_rank_victim(model_name: str, cfg, in_hw, mesh, checkpoint_root=None, int8_weights=None):
+    """This mesh rank's victim on its device: a checkpoint directory's decoder loads as the
+    rank's shards; a random victim is drawn whole and cut (attack/engine.py::shard_victim), one
+    rank at a time, so that ranks sharing a card never hold two whole models at once."""
+    import torch.distributed as dist
+
+    from adversarialvlm_tpu_torch.attack.engine import shard_victim
+
+    if model_name not in RANDOM_VICTIMS or mesh.size == 1:
+        return build_victim(model_name, cfg, in_hw, mesh.device, checkpoint_root, int8_weights)
+    victim = None
+    for turn in range(mesh.size):
+        if turn == mesh.rank:
+            victim = build_victim(model_name, cfg, in_hw, mesh.device, checkpoint_root, int8_weights)
+            shard_victim(victim, mesh)
+            if mesh.device.type == "cuda":
+                torch.cuda.empty_cache()
+        dist.barrier()
+    return victim
+
+
+def _attack_rank(mesh, args, cfg, x0):
+    """One rank of the mesh run of :func:`main`."""
+    from adversarialvlm_tpu_torch.attack.engine import train
+
+    victim = build_rank_victim(args.model_name, cfg, (x0.shape[1], x0.shape[2]), mesh, args.checkpoint_root,
+                               args.int8_weights or None)
+    return train(cfg, [victim], x0, base_path=args.runs_path, cross=False, device=mesh.device, mesh=mesh)
 
 
 def main(argv=None):
@@ -197,6 +237,12 @@ def main(argv=None):
     x0 = load_image_chw(args.img_orig)
     in_hw = (x0.shape[1], x0.shape[2])
     print("Original image size:", (in_hw[1], in_hw[0]))
+    shape = mesh_from_args(args, device)
+    if shape is not None:
+        from adversarialvlm_tpu_torch.parallel.mesh import launch
+
+        victim_family(args.model_name)  # a name the port does not run raises before any rank starts
+        return launch(_attack_rank, *shape, device=device, args=(args, cfg, x0))
     victim = build_victim(args.model_name, cfg, in_hw, device, args.checkpoint_root,
                           int8_weights=args.int8_weights or None)
     return train(cfg, [victim], x0, base_path=args.runs_path, cross=False, device=device)

@@ -11,7 +11,8 @@ Model names are those of cli/attack_model.py (HF names under ``--checkpoint_root
 does. ``--DPO_flag --refuse_prob P`` trains, with probability P a step, each victim's own refusal
 text (families without a refusal corpus, Gemma-3 among them, raise before any file is read).
 Runs on the card unless ``--device cpu``; every save boundary decodes the 50 held-out questions
-with every victim.
+with every victim. ``--mesh_model``/``--mesh_data`` shard every victim over a (data × model) mesh
+of spawned ranks, as cli/attack_model.py does.
 """
 
 from __future__ import annotations
@@ -22,8 +23,10 @@ from datetime import datetime
 from adversarialvlm_tpu_torch.cli.attack_model import (
     add_attack_flags,
     attack_config_from_args,
+    build_rank_victim,
     build_victim,
     check_unported_flags,
+    mesh_from_args,
     victim_family,
 )
 
@@ -65,9 +68,24 @@ def main(argv=None):
     x0 = load_image_chw(args.img_orig)
     in_hw = (x0.shape[1], x0.shape[2])
     print("Original image size:", (in_hw[1], in_hw[0]))
+    shape = mesh_from_args(args, device)
+    if shape is not None:
+        from adversarialvlm_tpu_torch.parallel.mesh import launch
+
+        return launch(_cross_rank, *shape, device=device, args=(args, cfg, x0))
     victims = [build_victim(name, cfg, in_hw, device, args.checkpoint_root, int8_weights=args.int8_weights or None)
                for name in args.model_names]
     return train(cfg, victims, x0, base_path=args.runs_path, cross=True, device=device)
+
+
+def _cross_rank(mesh, args, cfg, x0):
+    """One rank of the mesh run of :func:`main`: every victim's shards on the rank's device."""
+    from adversarialvlm_tpu_torch.attack.engine import train
+
+    in_hw = (x0.shape[1], x0.shape[2])
+    victims = [build_rank_victim(name, cfg, in_hw, mesh, args.checkpoint_root, args.int8_weights or None)
+               for name in args.model_names]
+    return train(cfg, victims, x0, base_path=args.runs_path, cross=True, device=mesh.device, mesh=mesh)
 
 
 if __name__ == "__main__":

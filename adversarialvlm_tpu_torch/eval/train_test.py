@@ -42,8 +42,10 @@ def run_model_test(
     max_new_tokens: int = 64,
     batch_size: int = 50,
     cache_dtype=torch.bfloat16,
+    write: bool = True,
 ):
-    """Returns (first_row, metrics) and writes test_results_iter_<iteration>.csv. Each victim
+    """Returns (first_row, metrics) and writes test_results_iter_<iteration>.csv (unless
+    ``write`` is False: a mesh rank other than 0, which decodes alongside it). Each victim
     decodes every question on ``image_chw`` (CHW float numpy) in chunks of the batch its cache
     leaves room for; a chunk that runs out of memory retries at half the batch. ``cache_dtype``
     is one dtype for every victim or one per victim."""
@@ -93,10 +95,11 @@ def run_model_test(
                 refuse_count += 1
         rows.append(row)
 
-    with open(csv_filename, "w", newline="", encoding="utf-8") as f:
-        w = csv.writer(f)
-        w.writerow(columns)
-        w.writerows(rows)
+    if write:
+        with open(csv_filename, "w", newline="", encoding="utf-8") as f:
+            w = csv.writer(f)
+            w.writerow(columns)
+            w.writerows(rows)
 
     # rates over (question, model) pairs, so they stay in [0, 1] with several victims
     # (identical to the reference's per-question rates for one model)

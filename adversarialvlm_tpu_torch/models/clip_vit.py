@@ -4,11 +4,13 @@ names. Counterpart of adversarialvlm_tpu/models/clip_vit.py."""
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from adversarialvlm_tpu_torch.models.configs import VisionConfig
 from adversarialvlm_tpu_torch.models.layers import act_fn, layer_norm, linear, sdpa
 from adversarialvlm_tpu_torch.ops.kernels.attention import vit_attention_route
 from adversarialvlm_tpu_torch.ops.kernels.flash import flash_sdpa_full
+from adversarialvlm_tpu_torch.parallel.mesh import recompute_replicated
 
 
 def vit_attention(x: torch.Tensor, p: dict, num_heads: int) -> torch.Tensor:
@@ -37,6 +39,15 @@ def encoder_layer(x: torch.Tensor, p: dict, cfg: VisionConfig) -> torch.Tensor:
     return x + linear(h, p["mlp"]["fc2"])
 
 
+def encoder_layers(x: torch.Tensor, layers: list, cfg: VisionConfig) -> torch.Tensor:
+    """``layers`` in turn; under a mesh whose ranks share a card each one is recomputed in the
+    backward (parallel/mesh.py::recompute_replicated)."""
+    recompute = recompute_replicated()
+    for p in layers:
+        x = checkpoint(encoder_layer, x, p, cfg, use_reentrant=False) if recompute else encoder_layer(x, p, cfg)
+    return x
+
+
 def patch_embed_unfold(pixel_values: torch.Tensor, pe: torch.Tensor, num_channels: int, ps: int):
     """Conv patch embed as unfold + one matmul. pe: (D, C, ps, ps)."""
     b = pixel_values.shape[0]
@@ -61,9 +72,7 @@ def forward(params: dict, cfg: VisionConfig, pixel_values: torch.Tensor, feature
         x, params["pre_layrnorm"]["weight"], params["pre_layrnorm"]["bias"], cfg.layer_norm_eps
     )
     stop = cfg.num_layers + 1 + feature_layer if feature_layer < 0 else feature_layer
-    for i in range(stop):
-        x = encoder_layer(x, params["layers"][i], cfg)
-    return x
+    return encoder_layers(x, params["layers"][:stop], cfg)
 
 
 def init_params(generator: torch.Generator, cfg: VisionConfig, dtype, device) -> dict:

@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from adversarialvlm_tpu_torch.models import llama
-from adversarialvlm_tpu_torch.models.clip_vit import encoder_layer, patch_embed_unfold
+from adversarialvlm_tpu_torch.models.clip_vit import encoder_layers, patch_embed_unfold
 from adversarialvlm_tpu_torch.models.configs import VisionConfig, VLMConfig
 from adversarialvlm_tpu_torch.models.layers import layer_norm, rms_norm
 from adversarialvlm_tpu_torch.models.llava import splice_image_embeds
@@ -27,8 +27,7 @@ def siglip_forward(params: dict, cfg: VisionConfig, pixel_values: torch.Tensor) 
         pixel_values, params["patch_embedding"]["weight"], cfg.num_channels, cfg.patch_size
     ) + params["patch_embedding"]["bias"].to(pixel_values.dtype)
     x = x + params["position_embedding"]["weight"].to(x.dtype)[None, : x.shape[1], :]
-    for layer in params["layers"]:
-        x = encoder_layer(x, layer, cfg)
+    x = encoder_layers(x, params["layers"], cfg)
     return layer_norm(
         x, params["post_layernorm"]["weight"], params["post_layernorm"]["bias"], cfg.layer_norm_eps
     )

@@ -15,6 +15,8 @@ import os
 
 import torch
 
+from adversarialvlm_tpu_torch.parallel.mesh import active_mesh
+from adversarialvlm_tpu_torch.parallel.sharding import heads_under_mesh
 from adversarialvlm_tpu_torch.utils.device import env_flag
 
 DEFAULT_SLACK_BYTES = 800_000_000  # prefill transients, the JAX package's allowance
@@ -25,14 +27,32 @@ def looks_like_hbm_oom(e: Exception) -> bool:
     return isinstance(e, torch.cuda.OutOfMemoryError)
 
 
+def _halves_on_oom(e: Exception, batch: int, label: str) -> bool:
+    """Whether a decode at ``batch`` that raised ``e`` retries at half the batch: an OOM above batch
+    1. Under a model axis the OOM raises instead. The retry is each process's own decision: a rank
+    that retried alone would leave its model group waiting in a collective of another shape
+    (gloo errors or hangs, NCCL hangs), so the rank stops and the launcher stops its group."""
+    if batch <= 1 or not looks_like_hbm_oom(e):
+        return False
+    mesh = active_mesh()
+    if mesh is not None and mesh.model > 1:
+        raise RuntimeError(
+            f"{label} ran out of device memory at batch {batch} on rank {mesh.rank} of a mesh with a "
+            f"model axis of {mesh.model}; a mesh does not halve the batch, since a rank that retried "
+            "alone would leave its model group waiting in a collective. The batch is this rank's "
+            "share of the card's budget (models/generate.py::max_decode_batch)") from e
+    return True
+
+
 def run_with_batch_backoff(decode_all, batch: int, label: str = "decode"):
     """Run ``decode_all(batch)``, halving ``batch`` while the card runs out of memory. Returns
-    (result, final_batch); other errors, and an OOM at batch 1, propagate."""
+    (result, final_batch); other errors, and an OOM at batch 1, propagate; under a model axis an
+    OOM raises (:func:`_halves_on_oom`)."""
     while True:
         try:
             return decode_all(batch), batch
         except Exception as e:  # noqa: BLE001 — filtered below
-            if batch > 1 and looks_like_hbm_oom(e):
+            if _halves_on_oom(e, batch, label):
                 logging.warning("%s ran out of device memory at batch %d; retrying at %d",
                                 label, batch, batch // 2)
                 batch //= 2
@@ -43,14 +63,15 @@ def run_with_batch_backoff(decode_all, batch: int, label: str = "decode"):
 def chunked_decode(n_items: int, batch: int, decode_chunk, label: str = "decode"):
     """Decode ``n_items`` in chunks of ``batch`` rows via ``decode_chunk(start, bs) -> list``.
     Only a chunk that runs out of memory retries, at half the batch; chunks already decoded are
-    kept and later chunks go on at the reduced batch. Returns (results, final_batch)."""
+    kept and later chunks go on at the reduced batch; under a model axis an OOM raises
+    (:func:`_halves_on_oom`). Returns (results, final_batch)."""
     out: list = []
     start, bs = 0, max(1, batch)
     while start < n_items:
         try:
             out.extend(decode_chunk(start, bs))
         except Exception as e:  # noqa: BLE001 — filtered below
-            if bs > 1 and looks_like_hbm_oom(e):
+            if _halves_on_oom(e, bs, label):
                 logging.warning(
                     "%s chunk at %d ran out of device memory at batch %d; retrying the chunk at "
                     "%d (keeping %d decoded rows)", label, start, bs, bs // 2, len(out),
@@ -81,11 +102,15 @@ def _first_device(tree) -> torch.device:
 
 
 def device_memory_bytes(device) -> int:
-    """Memory the decode budget may plan with: the card's total, or the host's RAM for the CPU."""
+    """Memory the decode budget may plan with: the card's total, or the host's RAM for the CPU,
+    over the ranks of the active mesh that share that device (each rank plans its own share)."""
     device = torch.device(device)
     if device.type == "cuda":
-        return torch.cuda.get_device_properties(device).total_memory
-    return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+        total = torch.cuda.get_device_properties(device).total_memory
+    else:
+        total = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+    mesh = active_mesh()
+    return total // (mesh.ranks_on_device if mesh is not None else 1)
 
 
 def cross_seq_len(cfg) -> int:
@@ -121,18 +146,20 @@ def max_decode_batch(
     if hbm_bytes is None:
         hbm_bytes = device_memory_bytes(_first_device(params) if params is not None else "cpu")
     budget = max(256_000_000, hbm_bytes - weight_bytes - reserved_bytes - slack_bytes)
+    # under a model axis a rank caches and reads its own heads (JAX: the per-device share)
+    n_heads, n_kv = heads_under_mesh(cfg_text)
     padded_hd = -(-cfg_text.head_dim_ // 128) * 128
     per_tok_head = padded_hd * cache_bytes
     if cache_bytes == 1:
         per_tok_head += 4  # f32 scale plane per (token, head), k and v each
-    per_seq = 2 * _self_attn_layers(cfg_text) * cfg_text.num_kv_heads * total_len * per_tok_head
+    per_seq = 2 * _self_attn_layers(cfg_text) * n_kv * total_len * per_tok_head
     if cache_bytes == 1:
-        per_seq += 4 * cfg_text.num_kv_heads * padded_hd * total_len
+        per_seq += 4 * n_kv * padded_hd * total_len
     if cross_seq:
         # the prefill's (H, T, S) f32 scores + bf16 probs, the (T, S) f32 bias and one layer's k/v
         # a sequence; the cross layers' k/v at image batch 1 and the projected states are shared
-        kvd = cfg_text.num_kv_heads * cfg_text.head_dim_
-        per_seq += 6 * cfg_text.num_heads * total_len * cross_seq
+        kvd = n_kv * cfg_text.head_dim_
+        per_seq += 6 * n_heads * total_len * cross_seq
         per_seq += 4 * total_len * cross_seq
         per_seq += 4 * kvd * cross_seq
         budget -= 4 * len(cfg_text.cross_attention_layers) * kvd * cross_seq
@@ -167,8 +194,8 @@ def make_kv_caches(cfg_text, batch: int, total_len: int, dtype=torch.bfloat16, d
     """One zeroed cache per layer: (k, v), each (batch, Hkv, total_len, head_dim); for
     ``dtype=torch.int8`` (k, v, k scales, v scales), the scales f32 (batch, Hkv, total_len, 1)
     (generate.py:250-266). A cross-attention layer (mllama) gets an empty list, the slot its
-    prefill fills with the image's k/v."""
-    shape = (batch, cfg_text.num_kv_heads, total_len, cfg_text.head_dim_)
+    prefill fills with the image's k/v. Under a model axis the cache holds this rank's kv heads."""
+    shape = (batch, heads_under_mesh(cfg_text)[1], total_len, cfg_text.head_dim_)
     cross = set(cfg_text.cross_attention_layers)
 
     def z(shape, dtype):

@@ -12,6 +12,13 @@ Routes to the hand-written kernels, each decided from what the call can observe:
     at cache start), the plain sdpa for a cached decode step and for a layer with a sliding
     window or gemma3's bidirectional image block; other shapes raise on the card.
 On the CPU both take the plain path, which is the JAX package's CPU path.
+
+Under a mesh with a model axis (parallel/) the decoder's projections hold this rank's shards:
+``self_attention`` and ``mlp_swiglu`` take their head counts and widths from the local weights,
+pass their normalized input through ``copy_to_model`` once (the column-parallel projections'
+input gradients summed locally, then all-reduced) and reduce the row-parallel projection's output
+(``row_parallel_linear``, its bias added once after the reduce). Without one the collectives are
+the identity.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from adversarialvlm_tpu_torch.models.configs import TextConfig
 from adversarialvlm_tpu_torch.ops.kernels.attention import fused_attention
 from adversarialvlm_tpu_torch.ops.kernels.dgrad import LinearInt8, LinearPdx, dgrad_eligible
 from adversarialvlm_tpu_torch.ops.kernels.flash import flash_sdpa
+from adversarialvlm_tpu_torch.parallel.collectives import copy_to_model, model_group, reduce_from_model
 
 NEG_INF = -2.0e38
 
@@ -158,10 +166,33 @@ def linear(x: torch.Tensor, p: dict) -> torch.Tensor:
     return y
 
 
+def row_parallel_linear(x: torch.Tensor, p: dict) -> torch.Tensor:
+    """``linear`` of a row-parallel projection (o_proj, down_proj): under a model axis each rank
+    multiplies its input columns, the partial products are summed over the model group, and the
+    bias, replicated, is added once after the sum; without one, ``linear`` itself."""
+    if model_group() is None:
+        return linear(x, p)
+    y = reduce_from_model(linear(x, {k: v for k, v in p.items() if k != "bias"}))
+    if p.get("bias") is not None:
+        y = y + p["bias"].to(x.dtype)
+    return y
+
+
+def out_rows(p: dict) -> int:
+    """The output rows a projection holds (this rank's, under a model axis)."""
+    return (p["weight_q"] if "weight_q" in p else p["weight"]).shape[0]
+
+
+def held_heads(p_attn: dict, head_dim: int) -> tuple[int, int]:
+    """(query heads, kv heads) of an attention's projections as this rank holds them."""
+    return out_rows(p_attn["q_proj"]) // head_dim, out_rows(p_attn["k_proj"]) // head_dim
+
+
 def mlp_swiglu(x: torch.Tensor, p: dict, act: str) -> torch.Tensor:
+    x = copy_to_model(x)
     gate = linear(x, p["gate_proj"])
     up = linear(x, p["up_proj"])
-    return linear(act_fn(act)(gate) * up, p["down_proj"])
+    return row_parallel_linear(act_fn(act)(gate) * up, p["down_proj"])
 
 
 def _quantize_kv(x: torch.Tensor):
@@ -214,7 +245,8 @@ def self_attention(x, p, cfg: TextConfig, bias, cos, sin, attention_mask, kv_cac
     the int8 cache it attends to the dequantized values, as the JAX einsum route does."""
     b, t, _ = x.shape
     hd = cfg.head_dim_
-    n_rep = cfg.num_heads // cfg.num_kv_heads
+    nh, nkv = held_heads(p, hd)
+    n_rep = nh // nkv
     scale = (cfg.query_pre_attn_scalar if cfg.query_pre_attn_scalar is not None else hd) ** -0.5
 
     def qk_norm(x4, name):
@@ -223,12 +255,13 @@ def self_attention(x, p, cfg: TextConfig, bias, cos, sin, attention_mask, kv_cac
             return x4
         return rms_norm(x4, p[name]["weight"], cfg.rms_norm_eps, cfg.rms_plus_one_)
 
+    x = copy_to_model(x)
     if route in ("fused", "flash"):
-        q4 = qk_norm(linear(x, p["q_proj"]).view(b, t, cfg.num_heads, hd), "q_norm")
-        k4 = qk_norm(linear(x, p["k_proj"]).view(b, t, cfg.num_kv_heads, hd), "k_norm")
+        q4 = qk_norm(linear(x, p["q_proj"]).view(b, t, nh, hd), "q_norm")
+        k4 = qk_norm(linear(x, p["k_proj"]).view(b, t, nkv, hd), "k_norm")
         q4 = apply_rope_bthd(q4, cos, sin)
         k4 = apply_rope_bthd(k4, cos, sin)
-        v4 = linear(x, p["v_proj"]).view(b, t, cfg.num_kv_heads, hd)
+        v4 = linear(x, p["v_proj"]).view(b, t, nkv, hd)
         if kv_cache is not None:
             _write_cache(kv_cache, k4.transpose(1, 2), v4.transpose(1, 2), cache_index)
         if route == "fused":
@@ -236,14 +269,14 @@ def self_attention(x, p, cfg: TextConfig, bias, cos, sin, attention_mask, kv_cac
         else:
             out = flash_sdpa(q4.transpose(1, 2), k4.transpose(1, 2), v4.transpose(1, 2),
                              attention_mask, scale).transpose(1, 2)
-        return linear(out.reshape(b, t, cfg.num_heads * hd), p["o_proj"])
-    q = linear(x, p["q_proj"]).view(b, t, cfg.num_heads, hd).transpose(1, 2)
-    k = linear(x, p["k_proj"]).view(b, t, cfg.num_kv_heads, hd).transpose(1, 2)
-    v = linear(x, p["v_proj"]).view(b, t, cfg.num_kv_heads, hd).transpose(1, 2)
+        return row_parallel_linear(out.reshape(b, t, nh * hd), p["o_proj"])
+    q = linear(x, p["q_proj"]).view(b, t, nh, hd).transpose(1, 2)
+    k = linear(x, p["k_proj"]).view(b, t, nkv, hd).transpose(1, 2)
+    v = linear(x, p["v_proj"]).view(b, t, nkv, hd).transpose(1, 2)
     q = apply_rope(qk_norm(q, "q_norm"), cos, sin)
     k = apply_rope(qk_norm(k, "k_norm"), cos, sin)
     if kv_cache is not None:
         _write_cache(kv_cache, k, v, cache_index)
         k, v = read_cache(kv_cache, x.dtype)
     out = sdpa(q, repeat_kv(k, n_rep), repeat_kv(v, n_rep), bias, scale)
-    return linear(out.transpose(1, 2).reshape(b, t, cfg.num_heads * hd), p["o_proj"])
+    return row_parallel_linear(out.transpose(1, 2).reshape(b, t, nh * hd), p["o_proj"])

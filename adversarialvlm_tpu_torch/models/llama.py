@@ -17,6 +17,7 @@ import torch
 from adversarialvlm_tpu_torch.models.configs import TextConfig
 from adversarialvlm_tpu_torch.models.layers import (
     causal_bias,
+    held_heads,
     linear,
     mlp_swiglu,
     rms_norm,
@@ -24,15 +25,32 @@ from adversarialvlm_tpu_torch.models.layers import (
     self_attention,
 )
 from adversarialvlm_tpu_torch.ops.kernels.attention import attention_route
+from adversarialvlm_tpu_torch.parallel.collectives import (
+    copy_to_model,
+    gather_from_model,
+    model_group,
+    reduce_from_model,
+)
+from adversarialvlm_tpu_torch.parallel.mesh import active_mesh
+from adversarialvlm_tpu_torch.parallel.sharding import rank_rows
 
 
 def embed(params: dict, input_ids: torch.Tensor, cfg: TextConfig) -> torch.Tensor:
+    """The token embeddings; under a model axis each rank holds a range of the table's rows, looks
+    up the ids in its range, zeroes the others' rows and the ranks' rows are summed."""
     table = params["embed_tokens"]["weight"]
     # the table may carry embed_vocab_extra rows past vocab_size (mllama's <|image|> 128256 is
     # one), so ids are clamped by its rows, not by vocab_size: ids past the table read its last
     # row, as the JAX package's gather clamps them (the tiny configs' chat specials, e.g. gemma3's
-    # turn markers, lie past their 384-row vocab)
-    x = table[input_ids.long().clamp(0, table.shape[0] - 1)]
+    # turn markers, lie past their 384-row vocab); under a model axis by the whole table's rows
+    rows = getattr(table, "tp_full_shape", table.shape)[0]
+    ids = input_ids.long().clamp(0, rows - 1)
+    if model_group() is None:
+        x = table[ids]
+    else:
+        lo, hi = rank_rows(table, active_mesh())
+        mine = ((ids >= lo) & (ids < hi))[..., None].to(table.dtype)
+        x = reduce_from_model(table[(ids - lo).clamp(0, hi - lo - 1)] * mine)
     if cfg.embed_scale:
         # the scale is rounded to the activation dtype first, as in the JAX package (llama.py:32)
         x = x * torch.tensor(cfg.hidden_size**0.5, dtype=x.dtype, device=x.device)
@@ -185,6 +203,9 @@ def forward(
             pos = positions.float() / cfg.rope_linear_factor
         return rope_cos_sin(pos, cfg.head_dim_, theta)
 
+    # the head counts this rank holds (all of them without a model axis)
+    nh, nkv = held_heads(next(p for i, p in enumerate(params["layers"])
+                               if i not in cfg.cross_attention_layers)["self_attn"], cfg.head_dim_)
     theta_cache: dict[float, tuple] = {}
     route_cache: dict[bool, str] = {}
     # the kernels see only the new tokens, so the query-side mask is their segment mask; the
@@ -202,8 +223,7 @@ def forward(
         masked = sw is not None or bidir_mask is not None
         if masked not in route_cache:
             route_cache[masked] = attention_route(
-                x.device.type, b, t, cfg.num_heads, cfg.head_dim_,
-                cfg.num_heads // cfg.num_kv_heads,
+                x.device.type, b, t, nh, cfg.head_dim_, nh // nkv,
                 cache_index if kv_caches is not None else None, masked,
             )
         route = route_cache[masked]
@@ -218,17 +238,34 @@ def forward(
 
 
 def _head(params, cfg: TextConfig, x, logits_last_k=None):
+    """The last positions' logits. Under a model axis each rank computes the logits of its
+    vocabulary rows (of ``lm_head``, or of the tied table's rows below ``vocab_size``), soft-capped,
+    and the last positions' are gathered whole, so the CE and the argmax see the whole
+    vocabulary."""
     if logits_last_k is not None and x.shape[1] > logits_last_k:
         # the suffix CE scores only the final positions: skip the vocab matmul for the rest
         x = x[:, -logits_last_k:, :]
     x = rms_norm(x, params["norm"]["weight"], cfg.rms_norm_eps, cfg.rms_plus_one_)
+    mesh = active_mesh() if model_group() is not None else None
+    if mesh is not None:  # a column-parallel product: its input gradient is summed over the ranks
+        x = copy_to_model(x)
     if cfg.tie_word_embeddings or "lm_head" not in params:
-        logits = torch.matmul(x, params["embed_tokens"]["weight"][: cfg.vocab_size].to(x.dtype).t())
+        table = params["embed_tokens"]["weight"]
+        lo, hi = (0, cfg.vocab_size) if mesh is None else rank_rows(table, mesh)
+        logits = torch.matmul(x, table[: max(0, min(cfg.vocab_size, hi) - lo)].to(x.dtype).t())
     else:
         logits = linear(x, params["lm_head"])
+        if mesh is not None:
+            w = params["lm_head"].get("weight", params["lm_head"].get("weight_q"))
+            rows = getattr(w, "tp_full_shape", w.shape)[0]
+            if rows != cfg.vocab_size:  # the gathered logits are vocab_size wide
+                raise ValueError(f"an lm_head of {rows} rows, not vocab_size ({cfg.vocab_size}), under a model axis")
+            lo, _ = rank_rows(w, mesh)
     if cfg.final_logit_softcapping:
         cap = cfg.final_logit_softcapping
         logits = torch.tanh(logits / cap) * cap
+    if mesh is not None:
+        logits = gather_from_model(logits, lo, cfg.vocab_size)
     return logits
 
 

@@ -2,8 +2,10 @@
 mllama families. Counterpart of adversarialvlm_tpu/models/loading.py.
 
 Shards are read by the port's own safetensors reader (utils/safetensors.py), each tensor copied to
-its device in turn. Both pre- and post-4.52 transformers key layouts load (``language_model.
-model.*`` as on the hub, ``model.language_model.*`` as newer versions save). Keys the JAX
+its device in turn; under a mesh with a model axis each rank copies only its part of each tensor
+(parallel/sharding.py), from the file's memory map. Both pre- and post-4.52 transformers key
+layouts load (``language_model.model.*`` as on the hub, ``model.language_model.*`` as newer
+versions save). Keys the JAX
 converters drop on purpose (CLIP's unused ``post_layernorm``, Phi-3.5-vision's
 ``vision_embed_tokens.wte`` copy of the token embedding) are dropped by name; any other key without
 a mapping raises, and so does a loaded tree whose keys or shapes differ from the model's.
@@ -256,32 +258,61 @@ def quantize_on_load(min_dim: int = 1024):
         _QUANT_ON_LOAD[0] = prev
 
 
-def to_device_tree(tree, dtype=torch.bfloat16, device="cuda"):
+def to_device_tree(tree, dtype=torch.bfloat16, device="cuda", shardings=None, mesh=None):
     """Each host tensor to ``device`` in turn, a leaf replaced in its tree as it ships (so the
     host view it came from can be released): the JAX loader's dtype rule, norms in f32 ("ln_"
     catches LayerNorms whose names lack "norm") and the rest in ``dtype``. Under
-    :func:`quantize_on_load`, eligible linear weights ship as ``weight_q``/``weight_scale``."""
+    :func:`quantize_on_load`, eligible linear weights ship as ``weight_q``/``weight_scale``. With
+    ``shardings`` (parallel/sharding.py) each leaf ships as ``mesh``'s model rank's part, cut from
+    the host view, so a rank copies only its rows or columns; a quantized weight is quantized
+    whole first, so a row-parallel shard keeps its rows' whole scales (JAX: the scale
+    replicated)."""
     from adversarialvlm_tpu_torch.models.quant import _is_linear_weight, quantize_weight
+    from adversarialvlm_tpu_torch.parallel.sharding import place_shard
 
-    def walk(node, path):
+    model, rank = (mesh.model, mesh.model_rank) if shardings is not None else (1, 0)
+
+    def walk(node, path, spec):
         if isinstance(node, dict):
+            spec = spec if spec is not None else {}
             min_dim = _QUANT_ON_LOAD[0]
             w = node.get("weight")
             if min_dim is not None and torch.is_tensor(w) and _is_linear_weight(tuple(path), w, min_dim):
                 dense = w.to(device=device, dtype=dtype)
                 q, s = quantize_weight(dense)
                 del dense  # the dense device copy goes before the next tensor ships
-                out = {k: walk(v, path + [k]) for k, v in node.items() if k != "weight"}
-                out["weight_q"], out["weight_scale"] = q, s
+                out = {k: walk(v, path + [k], spec.get(k)) for k, v in node.items() if k != "weight"}
+                wspec = spec.get("weight")
+                out["weight_q"] = place_shard(q, wspec, model, rank)
+                out["weight_scale"] = place_shard(s, wspec if wspec is not None and wspec.kind != "row" else None,
+                                                  model, rank)
                 return out
-            return {k: walk(v, path + [k]) for k, v in node.items()}
+            return {k: walk(v, path + [k], spec.get(k)) for k, v in node.items()}
         if isinstance(node, list):
-            return [walk(v, path + [str(i)]) for i, v in enumerate(node)]
+            spec = spec if spec is not None else [None] * len(node)
+            return [walk(v, path + [str(i)], sp) for i, (v, sp) in enumerate(zip(node, spec))]
         name = "/".join(path)
         f32 = "norm" in name or "layernorm" in name.lower() or "/ln_" in "/" + name
-        return node.to(device=device, dtype=torch.float32 if f32 else dtype)
+        return place_shard(node, spec, model, rank, device, torch.float32 if f32 else dtype)
 
-    return walk(tree, [])
+    return walk(tree, [], shardings)
+
+
+def _ship(tree, text_cfg, dtype, device, expected, where: str):
+    """``tree`` to ``device`` (:func:`to_device_tree`) and checked against ``expected``; under a
+    mesh with a model axis (parallel/mesh.py::active_mesh) as this rank's shards, checked against
+    ``expected``'s."""
+    from adversarialvlm_tpu_torch.parallel.mesh import active_mesh
+    from adversarialvlm_tpu_torch.parallel.sharding import shard_shapes, vlm_param_shardings
+
+    mesh = active_mesh()
+    if mesh is None or mesh.model == 1:
+        params = to_device_tree(tree, dtype, device)
+    else:
+        params = to_device_tree(tree, dtype, device, vlm_param_shardings(tree, text_cfg), mesh)
+        expected = shard_shapes(expected, vlm_param_shardings(expected, text_cfg), mesh.model, mesh.model_rank)
+    check_tree(params, expected, where)
+    return params
 
 
 def check_tree(params: dict, expected: dict, where: str) -> None:
@@ -475,8 +506,7 @@ def load_qwen2vl(path: str, dtype=torch.bfloat16, device="cuda"):
     tree = convert_qwen2vl_state_dict(read_dir(path))
     if cfg.text.tie_word_embeddings:
         tree.get("language_model", {}).pop("lm_head", None)
-    params = to_device_tree(tree, dtype, device)
-    check_tree(params, qwen2vl.init_params(None, cfg, dtype, "meta"), path)
+    params = _ship(tree, cfg.text, dtype, device, qwen2vl.init_params(None, cfg, dtype, "meta"), path)
     return params, cfg
 
 
@@ -521,8 +551,8 @@ def load_phi3v(path: str, dtype=torch.bfloat16, device="cuda"):
     from adversarialvlm_tpu_torch.models import phi3v
 
     cfg = phi3v_config(path)
-    params = to_device_tree(convert_phi3v_state_dict(read_dir(path), cfg.text), dtype, device)
-    check_tree(params, phi3v.init_params(None, cfg, dtype, "meta"), path)
+    params = _ship(convert_phi3v_state_dict(read_dir(path), cfg.text), cfg.text, dtype, device,
+                   phi3v.init_params(None, cfg, dtype, "meta"), path)
     return params, cfg
 
 
@@ -585,8 +615,8 @@ def load_mllama(path: str, dtype=torch.bfloat16, device="cuda"):
     from adversarialvlm_tpu_torch.models import mllama
 
     cfg = mllama_config(path)
-    params = to_device_tree(convert_mllama_state_dict(read_dir(path)), dtype, device)
-    check_tree(params, mllama.init_params(None, cfg, dtype, "meta"), path)
+    params = _ship(convert_mllama_state_dict(read_dir(path)), cfg.text, dtype, device,
+                   mllama.init_params(None, cfg, dtype, "meta"), path)
     return params, cfg
 
 
@@ -596,8 +626,8 @@ def load_llava(path: str, dtype=torch.bfloat16, device="cuda"):
     from adversarialvlm_tpu_torch.models import llava
 
     cfg = llava_config(path)
-    params = to_device_tree(convert_llava_state_dict(read_dir(path)), dtype, device)
-    check_tree(params, llava.init_params(None, cfg, dtype, "meta"), path)
+    params = _ship(convert_llava_state_dict(read_dir(path)), cfg.text, dtype, device,
+                   llava.init_params(None, cfg, dtype, "meta"), path)
     return params, cfg
 
 
@@ -607,7 +637,7 @@ def load_gemma3(path: str, dtype=torch.bfloat16, device="cuda"):
     from adversarialvlm_tpu_torch.models import gemma3
 
     cfg, multimodal = gemma3_config(path)
-    params = to_device_tree(convert_gemma3_state_dict(read_dir(path)), dtype, device)
     expected = gemma3.init_params(None, cfg, dtype, "meta")
-    check_tree(params, expected if multimodal else {"language_model": expected["language_model"]}, path)
+    params = _ship(convert_gemma3_state_dict(read_dir(path)), cfg.text, dtype, device,
+                   expected if multimodal else {"language_model": expected["language_model"]}, path)
     return params, cfg

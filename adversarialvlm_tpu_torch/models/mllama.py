@@ -23,13 +23,16 @@ from adversarialvlm_tpu_torch.models.configs import TextConfig, VisionConfig, VL
 from adversarialvlm_tpu_torch.models.layers import (
     NEG_INF,
     act_fn,
+    held_heads,
     layer_norm,
     linear,
     mlp_swiglu,
     rms_norm,
+    row_parallel_linear,
     sdpa,
     sdpa_chunked_rank1,
 )
+from adversarialvlm_tpu_torch.parallel.collectives import copy_to_model
 
 # the tower's attention takes the query-chunked path from this many tokens: at 11B scale (4 tiles,
 # T 6432) the dense path's (16, T, T) f32 scores are 2.65 GB a layer. Module-level, so that tests
@@ -197,9 +200,10 @@ def cross_attention_layer(x, p, cfg: TextConfig, cross_states, cross_bias, full_
     before the image still add their gated attention output. The residual stream stays in x's
     dtype."""
     b, t, _ = x.shape
-    hd, nh, g = cfg.head_dim_, cfg.num_heads, cfg.num_kv_heads
-    h = rms_norm(x, p["input_layernorm"]["weight"], cfg.rms_norm_eps)
     ca = p["cross_attn"]
+    hd = cfg.head_dim_
+    nh, g = held_heads(ca, hd)  # this rank's heads under a model axis
+    h = copy_to_model(rms_norm(x, p["input_layernorm"]["weight"], cfg.rms_norm_eps))
     q = rms_norm(linear(h, ca["q_proj"]).view(b, t, nh, hd).transpose(1, 2), ca["q_norm"]["weight"],
                  cfg.rms_norm_eps)
     if slot:
@@ -214,7 +218,7 @@ def cross_attention_layer(x, p, cfg: TextConfig, cross_states, cross_bias, full_
     if k.shape[0] not in (1, b):
         raise ValueError(f"cross k/v of batch {k.shape[0]} against {b} rows")
     attn = _grouped_attention_read(q.reshape(b, g, nh // g, t, hd), k, v, cross_bias, hd**-0.5)
-    attn = linear(attn.reshape(b, nh, t, hd).transpose(1, 2).reshape(b, t, nh * hd), ca["o_proj"])
+    attn = row_parallel_linear(attn.reshape(b, nh, t, hd).transpose(1, 2).reshape(b, t, nh * hd), ca["o_proj"])
     x = x + torch.tanh(p["cross_attn_attn_gate"].to(x.dtype)) * attn
     h = rms_norm(x, p["post_attention_layernorm"]["weight"], cfg.rms_norm_eps)
     h = mlp_swiglu(h, p["mlp"], cfg.hidden_act) * full_row.to(x.dtype)
@@ -281,8 +285,10 @@ def forward(
         vis = vision_forward(params["vision_model"], v, pixel_values, aspect_ratio_ids, aspect_ratio_mask)
         # in the decoder's dtype: a decode's f32 pixels run the tower in f32, and the residual
         # stream, which the decoder's kernels take in bf16, stays in the weights' dtype
-        cross_states = linear(vis, params["multi_modal_projector"]).to(
-            params["language_model"]["embed_tokens"]["weight"].dtype)
+        # under a model axis each rank's cross k/v projections read the replicated states: their
+        # gradient is summed over the ranks once, here
+        cross_states = copy_to_model(linear(vis, params["multi_modal_projector"]).to(
+            params["language_model"]["embed_tokens"]["weight"].dtype))
         cross_bias, full_row = build_cross_masks(input_ids, attention_mask, cfg.image_token_id, num_tiles,
                                                  v.max_num_tiles, n_p1)
     elif kv_caches is not None and cross_idx and kv_caches[cross_idx[0]]:

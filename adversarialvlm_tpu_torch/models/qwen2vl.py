@@ -19,6 +19,7 @@ import dataclasses
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from adversarialvlm_tpu_torch.models import llama
 from adversarialvlm_tpu_torch.models.configs import TextConfig, VisionConfig, VLMConfig
@@ -26,6 +27,7 @@ from adversarialvlm_tpu_torch.models.layers import _rotate, act_fn, layer_norm, 
 from adversarialvlm_tpu_torch.models.llava import splice_image_embeds
 from adversarialvlm_tpu_torch.ops.kernels.attention import vit_attention_route
 from adversarialvlm_tpu_torch.ops.kernels.flash import flash_sdpa_full
+from adversarialvlm_tpu_torch.parallel.mesh import recompute_replicated
 
 # ------------------------------------------------------------------ vision
 
@@ -65,6 +67,14 @@ def vit_attention(x: torch.Tensor, p: dict, num_heads: int, cos: torch.Tensor, s
     return linear(out.transpose(1, 2).reshape(n, t, d), p["proj"])
 
 
+def _vision_block(x, blk, cfg, cos, sin):
+    h = layer_norm(x, blk["norm1"]["weight"], blk["norm1"]["bias"], 1e-6)
+    x = x + vit_attention(h, blk["attn"], cfg.num_heads, cos, sin)
+    h = layer_norm(x, blk["norm2"]["weight"], blk["norm2"]["bias"], 1e-6)
+    h = act_fn(cfg.hidden_act)(linear(h, blk["mlp"]["fc1"]))
+    return x + linear(h, blk["mlp"]["fc2"])
+
+
 def vision_forward(params: dict, cfg: VisionConfig, pixel_values: torch.Tensor,
                    grid_hw: tuple[int, int]) -> torch.Tensor:
     """pixel_values (N, P, C·tps·ps²) or one image (P, ·) -> merged features (N, P/merge², out) or
@@ -78,12 +88,12 @@ def vision_forward(params: dict, cfg: VisionConfig, pixel_values: torch.Tensor,
     ang = torch.as_tensor(vision_rope_angles(gh, gw, cfg.spatial_merge_size, e // cfg.num_heads),
                           device=x.device)
     cos, sin = torch.cos(ang), torch.sin(ang)
+    recompute = recompute_replicated()
     for blk in params["blocks"]:
-        h = layer_norm(x, blk["norm1"]["weight"], blk["norm1"]["bias"], 1e-6)
-        x = x + vit_attention(h, blk["attn"], cfg.num_heads, cos, sin)
-        h = layer_norm(x, blk["norm2"]["weight"], blk["norm2"]["bias"], 1e-6)
-        h = act_fn(cfg.hidden_act)(linear(h, blk["mlp"]["fc1"]))
-        x = x + linear(h, blk["mlp"]["fc2"])
+        if recompute:  # ranks sharing a card: each block recomputed in the backward (parallel/mesh.py)
+            x = checkpoint(_vision_block, x, blk, cfg, cos, sin, use_reentrant=False)
+        else:
+            x = _vision_block(x, blk, cfg, cos, sin)
     m = params["merger"]
     x = layer_norm(x, m["ln_q"]["weight"], m["ln_q"]["bias"], 1e-6)
     x = x.reshape(x.shape[0], -1, e * cfg.spatial_merge_size**2)

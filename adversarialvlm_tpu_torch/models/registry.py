@@ -33,6 +33,8 @@ class ModelBundle:
     decode_extras: Callable = lambda ids, mask: {}
     # the distinct (batch, total length, cache dtype) of every generate call
     decode_configs: set = dataclasses.field(default_factory=set)
+    # the model ranks the decoder's params are sharded over (parallel/sharding.py); 1: whole
+    model_shards: int = 1
 
     def generate(
         self,

@@ -127,7 +127,7 @@ class LinearInt8(torch.autograd.Function):
         lead = dy.shape[:-1]
         dys = (dy * s.to(dy.dtype)).reshape(-1, dy.shape[-1])
         qc = q.to(dy.dtype)
-        if dys.is_cuda and not (dys.dtype == torch.bfloat16 and dgrad_eligible(qc)):
+        if dys.is_cuda and not (dys.dtype == torch.bfloat16 and dgrad_eligible(q)):
             dx = torch.matmul(dys, qc)
         else:
             with on_device_of(dys):
@@ -137,10 +137,14 @@ class LinearInt8(torch.autograd.Function):
 
 def dgrad_eligible(w: torch.Tensor) -> bool:
     """The routing rule of the JAX linear (layers.py:368-382) at its default threshold: a 2-D
-    weight with both dims at least 1024 and multiples of 128 (the 32064-row lm_head stays off)."""
+    weight with both dims at least 1024 and multiples of 128 (the 32064-row lm_head stays off).
+    A tensor-parallel shard is judged by its whole weight's shape (``tp_full_shape``,
+    parallel/sharding.py), as the JAX linear sees the global shape under pjit; the kernel then
+    runs at the shard's."""
+    shape = getattr(w, "tp_full_shape", tuple(w.shape))
     return (
-        w.dim() == 2
-        and min(w.shape) >= 1024
-        and w.shape[0] % 128 == 0
-        and w.shape[1] % 128 == 0
+        len(shape) == 2
+        and min(shape) >= 1024
+        and shape[0] % 128 == 0
+        and shape[1] % 128 == 0
     )

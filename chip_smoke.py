@@ -94,7 +94,7 @@ those phases' peaks hold both trees:
      T), the batch-1 causal kernels at LLaVA's T with the first step's pad, flash_full forward and
      backward at batch 1 (the step, the monitor and Gemma's decode prefill) and the flash forward
      at LLaVA's decode prefill, whose (batch, T) must be the run's. Then the cross step beside each
-     victim's step alone on the same resident victims, pools and draws, in turns (2 rounds of 3
+     victim's step alone on the same resident victims, pools and draws, in turns (1 round of 3
      steps each, with the allocator's device allocations) and under torch.profiler (wall and
      device-busy time of 1 step), and the steps' peak memory from an emptied cache. Then the same
      CLI with --use_gaussian_blur for 3 steps, without the test decode the first run checked: the
@@ -122,10 +122,10 @@ victim LLaVA-1.5-7B, both from the directories of 4L and 4G (the trees 4X read):
      token legal in the table, both outputs parse; the token table's native and plain builders on
      every 8th vocabulary piece, timed and equal; and the same CLI again judges nothing and leaves
      the pivot's bytes. B: cli/safebench_test.py --model_suf llava-hf on the saved image nearest
-     best.txt whose --iter (its iteration - 1) is >= 0, over categories 1-3 of 8 held-out
+     best.txt whose --iter (its iteration - 1) is >= 0, over categories 1-2 of 8 held-out
      questions each (batch 8, 128 new tokens, at least 32): prefill ms, tokens/s, peak; 32 flash
      forwards a prefill and nothing else; 8 rows a category. C: cli/guard_eval.py over B's
-     answers: a mean ASR in [0, 1], 3 rows of results, 3 columns of 8 verdicts, every verdict
+     answers: a mean ASR in [0, 1], 2 rows of results, 2 columns of 8 verdicts, every verdict
      parsed, 5 flash forwards a judge call. After each stage, the flash forward against its plain
      version at every attention mask that stage's prefills ran at, timed once a (batch, T).
 Then, with the eval victims freed, the baseline benchmarks on the LLaVA tree 4X read:
@@ -176,7 +176,8 @@ layers of 1536, 12 heads over 2 kv heads of 128, M-RoPE; a 32-layer tower of 128
      victims' test decodes: launches a cross step exactly each victim's own (Qwen's 270 dgrad and 28 of each batch-1
      causal kernel, Gemma's 346 dgrad and 27 of each flash_full kernel), the kernels at the run's shapes, the cross step
      beside each victim's alone in turns and under torch.profiler, the peak, and the depth-cut cross reference as 5X.
-Then, with the Qwen2-VL and Gemma-3 victims freed, the Phi-3.5-vision family at full width and depth
+Then, with the Qwen2-VL and Gemma-3 victims freed, the mllama phases 4M and 5M (below), then the Phi-3.5-vision family
+at full width and depth
 (microsoft/Phi-3.5-vision-instruct: 32 decoder layers of 3072, 32 MHA heads of 96, LongRoPE; the CLIP ViT-L/14-336
 tower over HD tiles of 336², a 2×2 merge with the sub_GN/glb_GN separators and a 2-layer projection to 3072):
   4H. its seed-0 random bf16 parameters drawn on the card and written by the fabricator (the hub's fused qkv_proj and
@@ -199,8 +200,8 @@ tower over HD tiles of 336², a 2×2 merge with the sub_GN/glb_GN separators and
      cross step exactly each victim's own (LLaVA's 364 dgrad and 32 of each D-128 batch-1 causal kernel, Phi's 364
      and 32 of each at D 96), dgrad at the int8 step's shapes, the D-96 batch-1 kernels at Phi's T timed, the cross
      step beside each victim's alone in turns and under torch.profiler, and the steps' peak.
-Each checkpoint directory is deleted once its last phase is done (Gemma-3's and Qwen2-VL's after 4XV,
-LLaVA's and Phi-3.5's after 4XH). Then the mllama family at full width and depth
+Each checkpoint directory is deleted once its last phase is done (Gemma-3's after 4XV, mllama's after 5M,
+Phi-3.5's after 4XH, Qwen2-VL's after 4T, LLaVA's after 4TL). The mllama family runs at full width and depth
 (alpindale/Llama-3.2-11B-Vision-Instruct: 40 decoder layers of 4096, cross-attention layers 3, 8, ..., 38,
 32 heads over 8 kv heads of 128, MLP 14336, vocabulary 128256 + 8; the tiled tower, 32 local and 8 gated global
 layers of 1280, 16 heads of 80, 4 tiles of 560², intermediates of layers 3, 7, 15, 23 and 30):
@@ -219,11 +220,34 @@ layers of 1280, 16 heads of 80, 4 tiles of 560², intermediates of layers 3, 7, 
      full T 6432, on the chunked path; the intermediate indices remapped into the cut, logged), the card in bf16
      against the CPU in f32 on the plain path: the batch-1 step (loss within 1e-2 relative, gradient cosine >=
      0.99) and the test decode, teacher-forced (logits cosine >= 0.99).
+The f32 CPU halves of the depth-cut references 5, 5c, 5X, 4XV's, 5V, 5M and 5H run in one spawned worker process
+with its own thread count (CPU_REF_THREADS) and a lower priority, beside the card's next phases: each phase runs its
+card half, writes the CPU half's inputs under the git-ignored build/ and goes on; the worker's results are checked
+where they are joined, after 4XH. Then, with LLaVA-1.5-7B's and Qwen2-VL-2B's directories kept for them, the
+(data × model) mesh, each phase through cli/attack_model.py with its mesh flags (parallel/mesh.py::launch spawns the
+ranks; all share the one card, so the process group is gloo), each rank spied on in its own process, then the same
+command without them on one rank here; STEPS_MESH steps, each test decode MESH_DECODE_TOKENS new tokens over
+MESH_TEST_QUESTIONS questions:
+  4T. scripts/attacks/attack_clamp_tanh_qwen2vl.sh as written (4V's directory, --mesh_data 2 --mesh_model 4: 8 ranks,
+     batch 2 split into one row a data rank, the decoder's 12 heads over 2 kv heads split 3 a rank over the kv head
+     they read);
+  4TL. the main path's victim at bench.py's configuration (4L's directory, batch 1, --mesh_model 2: 16 MHA heads a
+     rank).
+  Each checks every rank's p after each step bit for bit equal; step 1's loss within 1e-2 relative of the one-rank
+  run's, its image gradient (AdamW's first moment) and the first decode prefill's last logits at cosine >= 0.99; a
+  rank's launches a step from the layer structure (4T: 270 dgrad, 28 of each batch-1 causal kernel at n_rep 3, the
+  one-rank batch 2 taking the flash ones; 4TL: 364 dgrad, 32 of each batch-1 causal kernel), L flash forwards a decode
+  prefill and none in a cached step; the collectives a step (1 + 2L reductions, 1 gather, 2L + 1 input-gradient
+  all-reduces, one data all-reduce in 4T) with none of a weight's shape; and logs the step's ms and each rank's peak
+  beside the one-rank run's, the share of a step in collectives and the backend. Then dgrad (each shard routed by its
+  whole weight's shape), the batch-1 causal kernels and the flash prefill at a rank's shapes against their plain
+  versions, timed.
 It then prints each checkpoint directory's write and load seconds and GB/s, the resume verdict,
 the bench line, the cross step's numbers, the int8, baseline, Qwen2-VL, Phi-3.5 and mllama numbers and the run's total,
 the kernels' JSON line (each kernel with its launches per cross step; dgrad at the int8 step's shapes, the
 flash forward at the baseline and int8-judge prefills; the head_dim-96 instantiations as rows of their own; the
-n_rep-4 shapes of 4M with their entries), the
+n_rep-4 shapes of 4M with their entries; a mesh rank's dgrad, batch-1 causal and flash-prefill kernels of 4T and
+4TL as rows of their own), the
 card's name and power limit, and
 as its last line {"ok": true, "device": {...}}. Without a card it exits non-zero before printing
 anything.
@@ -265,13 +289,14 @@ JUDGE_FORWARDS = 3        # timed judge prefill forwards, after one warm-up
 RESUME_STEPS, RESUME_CUT = 6, 3  # phase 4R: an uninterrupted run, and one resumed after this many steps
 STEPS_X = 5               # phase 4X: 1 warm-up + 4 timed; save boundaries at iterations 0 and 4
 STEPS_XB = 3              # phase 4X with the blur: save boundaries at iterations 0 and 2
-PROFILE_ROUNDS, TIMED_STEPS = 2, 3  # phase 4X: rounds of timed steps of the cross step and each victim alone
+PROFILE_ROUNDS, TIMED_STEPS = 1, 3  # phase 4X: rounds of timed steps of the cross step and each victim alone
 PROFILE_STEPS = 1         # phase 4X: profiled steps of the cross step and of each victim alone
 DPO_STEPS, DPO_CUT = 6, 3  # phase 4D: an uninterrupted DPO run, and one resumed after this many steps
 CROSS_WEIGHTS = (1.0, 0.5)  # phase 5X's model weights
 
 
 T_START = time.perf_counter()
+REFS = None               # the CpuReferences worker, made in main()
 
 
 def log(phase, msg):
@@ -1043,6 +1068,17 @@ def decode_reference(gpu_v, cpu_v, questions, x_img, expect):
     token layout, so a wrong delta shows)."""
     import torch
 
+    d = decode_card(gpu_v, questions, x_img, expect)
+    with torch.no_grad():
+        cpu = cpu_v.bundle.forward(cpu_v.bundle.params, d["seq"], d["mask"], d["pixel"], logits_last_k=d["n"]).double()
+    decode_check(d, cpu)
+
+
+def decode_card(gpu_v, questions, x_img, expect):
+    """The card's half of :func:`decode_reference`: the cached decode and its recorded logits, and
+    the CPU's inputs (prompt + the card's tokens, their mask, the pixels on the host, the steps)."""
+    import torch
+
     from adversarialvlm_tpu_torch.models.generate import generate_core
     from adversarialvlm_tpu_torch.ops.kernels import launch_counts, reset_launches
     from adversarialvlm_tpu_torch.processors import normalize_pixel_inputs
@@ -1070,31 +1106,217 @@ def decode_reference(gpu_v, cpu_v, questions, x_img, expect):
         pad_token_id=ai.pad_token_id, cache_dtype=torch.bfloat16, logits_last_k=1, extras=extras,
     ).cpu()
     launches = launch_counts()
+    if any(launches[k] != n for k, n in expect.items()):
+        raise AssertionError(f"decode reference: expected launches {expect}, got {launches}")
     n = len(recorded)
-    card = torch.stack(recorded, dim=1).double()  # (B, n, V)
-    seq = torch.cat([ids.cpu(), tokens[:, : n - 1]], dim=1)
-    mask = torch.cat([am.cpu(), torch.ones((len(questions), n - 1), dtype=am.dtype)], dim=1)
-    with torch.no_grad():
-        cpu = cpu_v.bundle.forward(cpu_v.bundle.params, seq, mask, {k: x.cpu() for k, x in pixel.items()},
-                                   logits_last_k=n).double()
+    return {"card": torch.stack(recorded, dim=1).double(),  # (B, n, V)
+            "seq": torch.cat([ids.cpu(), tokens[:, : n - 1]], dim=1),
+            "mask": torch.cat([am.cpu(), torch.ones((len(questions), n - 1), dtype=am.dtype)], dim=1),
+            "pixel": {k: x.cpu() for k, x in pixel.items()}, "n": n, "tokens": tokens, "ids": ids.cpu(),
+            "am_np": am_np, "extras": extras, "launches": launches, "eos": bundle.eos_token_ids}
+
+
+def decode_inputs(d):
+    """The CPU's teacher-forced forward of :func:`decode_card`'s decode: (ids, mask, pixels, n)."""
+    return d["seq"], d["mask"], d["pixel"], d["n"]
+
+
+def decode_check(d, cpu):
+    """The comparison of :func:`decode_reference`: the card's recorded logits and tokens ``d``
+    against the CPU's teacher-forced logits ``cpu`` (B, n, V)."""
+    import torch
+
+    card, tokens, n, ids, am_np, extras = d["card"], d["tokens"], d["n"], d["ids"], d["am_np"], d["extras"]
     cos = torch.nn.functional.cosine_similarity(card, cpu, dim=-1)  # (B, n)
     diff = (card - cpu).abs().amax(-1)
     chosen = cpu.gather(-1, tokens[:, :n, None]).squeeze(-1)
     gap = cpu.amax(-1) - chosen
     finished_before = torch.zeros_like(tokens[:, :n], dtype=torch.bool)
-    is_eos = torch.isin(tokens[:, :n], torch.tensor(bundle.eos_token_ids))
+    is_eos = torch.isin(tokens[:, :n], torch.tensor(d["eos"]))
     finished_before[:, 1:] = torch.cumsum(is_eos, dim=1)[:, :-1] > 0
     ok_tok = (gap <= DECODE_MARGIN * diff) | finished_before
-    log("reference", f"decode: {len(questions)} rows, T={ids.shape[1]} left pads="
+    log("reference", f"decode: {card.shape[0]} rows, T={ids.shape[1]} left pads="
         f"{[int(ids.shape[1] - m) for m in am_np.sum(1)]}, {n} tokens, extras "
-        f"{ {k: v.tolist() for k, v in extras.items()} }, launches={launches}; "
+        f"{ {k: v.tolist() for k, v in extras.items()} }, launches={d['launches']}; "
         f"min logits cosine={float(cos.min()):.6f} (min {TOL_DECODE_COSINE}); worst token gap / "
         f"max|card-CPU|={float((gap / diff).max()):.3f} (max {DECODE_MARGIN}); exact tokens "
         f"{int((cpu.argmax(-1) == tokens[:, :n]).sum())}/{tokens[:, :n].numel()}")
     if not (float(cos.min()) >= TOL_DECODE_COSINE and bool(ok_tok.all())):
         raise AssertionError("decode reference: the card's cached decode and the CPU disagree")
-    if any(launches[k] != n for k, n in expect.items()):
-        raise AssertionError(f"decode reference: expected launches {expect}, got {launches}")
+    return float(cos.min())
+
+
+CPU_REF_THREADS = 4       # the CPU references' worker: intra-op threads, of the host's 8 cores
+
+
+class CpuReferences:
+    """The CPU halves of the depth-cut references (5, 5c, 5X, 4XV's, 5V, 5H and 5M: the same cut model in
+    f32 on the plain path), run in one spawned worker process with its own thread count, beside
+    the card's next phases. A phase runs its card half, writes the CPU half's inputs to a file
+    (:func:`reference_victim`: the cut weights in the card's dtype, which the worker casts to f32)
+    and submits it with the check that compares the two; :meth:`join` waits for each result and
+    runs its check, so a disagreement fails the script there, before phase 4T. The worker runs at a
+    lower priority, so the host-paced card phases keep the cores they need."""
+
+    def __init__(self, root, threads=CPU_REF_THREADS):
+        import concurrent.futures
+        import multiprocessing
+
+        self.root, self.jobs = root, []
+        self.pool = concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn"), initializer=_cpu_worker_init, initargs=(threads,))
+
+    def submit(self, tag, job, check):
+        import torch
+
+        path = os.path.join(self.root, f"cpu_reference_{len(self.jobs)}.pt")
+        torch.save(job, path)
+        self.jobs.append((tag, self.pool.submit(cpu_reference, path, tag), check))
+        log("reference", f"{tag}: the CPU half submitted to the worker")
+
+    def join(self):
+        import torch
+
+        t0 = time.perf_counter()
+        try:
+            for tag, fut, check in self.jobs:
+                out = fut.result()
+                check(torch.load(out, weights_only=False))
+                os.remove(out)
+        finally:
+            self.pool.shutdown(cancel_futures=True)
+        log("reference", f"{len(self.jobs)} CPU references joined, {time.perf_counter() - t0:.1f} s waited")
+
+
+def _cpu_worker_init(threads):
+    """The worker's own thread count, and a lower priority than the script's host-paced card phases."""
+    import torch
+
+    torch.set_num_threads(threads)
+    os.nice(10)
+
+
+def reference_victim(family, cut, params, grid, ai):
+    """What the worker needs of a depth-cut victim: its family and config, the cut weights on the
+    host (in the card's dtype), its static grid and its handles' prompt and target pools."""
+    return {"family": family, "cut": cut, "params": _map(params, lambda t: t.cpu()), "grid": grid,
+            "arrays": {"prompt_pool": ai.prompt_pool, "prompt_lengths": ai.prompt_lengths,
+                       "target_pool": ai.target_pool, "target_mask_pool": ai.target_mask_pool,
+                       "suffix_lengths": ai.suffix_lengths, "shift": ai.shift, "pad_token_id": ai.pad_token_id}}
+
+
+def cpu_reference(path, tag):
+    """The worker's side: the job in ``path`` (victims of :func:`reference_victim`, x₀ and p₀;
+    ``steps``, each (label, draws, its AttackConfig, model weights or None); ``forwards``, each
+    name -> (ids, mask, pixels or None, n), the first victim's forward over those tokens, as the
+    teacher-forced decode's and a text-only prefill's), run in f32 on the CPU's plain path.
+    Writes each step's [loss, (loss_i...)] and gradient, and each forward's last n logits, beside
+    the job and returns that file's path."""
+    import functools
+
+    import torch
+
+    from adversarialvlm_tpu_torch.attack.setup import image_processor
+    from adversarialvlm_tpu_torch.attack.step import VictimHandles, build_attack_step
+    from adversarialvlm_tpu_torch.models.registry import make_bundle
+
+    t0 = time.perf_counter()
+    job = torch.load(path, weights_only=False)
+    os.remove(path)
+    cpu = torch.device("cpu")
+    bundles, handles = [], []
+    for vs in job["victims"]:
+        bundle = make_bundle("cut", vs["family"], vs["cut"], cpu, params=_map(vs["params"], lambda t: t.float()),
+                             grid_hw=vs["grid"])
+        proc = image_processor(vs["cut"], (512, 512), "cpu")
+        a = vs["arrays"]
+        handles.append(VictimHandles(
+            name="cut", forward=bundle.forward, params=bundle.params,
+            process=functools.partial(_normalized, vs["family"], proc), prompt_pool=a["prompt_pool"],
+            prompt_lengths=a["prompt_lengths"], target_pool=torch.as_tensor(a["target_pool"]),
+            target_mask_pool=torch.as_tensor(a["target_mask_pool"]),
+            suffix_lengths=torch.as_tensor(a["suffix_lengths"]), shift=a["shift"], pad_token_id=a["pad_token_id"],
+            device=cpu))
+        bundles.append(bundle)
+    x0 = torch.as_tensor(job["x0"])
+    out = {"steps": {}, "forwards": {}}
+    for label, xs, step_cfg, weights in job["steps"]:
+        step = build_attack_step(handles, step_cfg, x0, torch.ones_like(x0),
+                                 model_weights=list(weights) if weights else None, cross=weights is not None)
+        loss, img_loss, ces, _, grad = step.loss_and_grad(job["p0"], xs, torch.tensor(step_cfg.sigma))
+        extra = [float(w * ce + img_loss) for w, ce in zip(weights, ces)] if weights else []
+        out["steps"][label] = ([float(loss), *extra], grad.double())
+    for name, (seq, mask, pixel, n) in job.get("forwards", {}).items():
+        with torch.no_grad():
+            out["forwards"][name] = bundles[0].forward(bundles[0].params, seq, mask, pixel, logits_last_k=n).double()
+    torch.save(out, path + ".out")
+    log("reference", f"{tag}: the CPU half in the worker in {time.perf_counter() - t0:.1f} s")
+    return path + ".out"
+
+
+def _normalized(family, proc, img):
+    from adversarialvlm_tpu_torch.processors import normalize_pixel_inputs
+
+    return normalize_pixel_inputs(family, proc.process(img))
+
+
+def check_step_reference(tag, card, cpu, reference):
+    """A depth-cut step's card results ``card`` ([loss, ...], gradient) against the CPU's: every
+    loss within TOL_REF_LOSS relative, the gradient at cosine >= TOL_REF_COSINE; the verdict goes
+    into ``reference``."""
+    (l_gpu, g_gpu), (l_cpu, g_cpu) = card, cpu
+    rel = [abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu)]
+    cos = float((g_cpu * g_gpu).sum() / (g_cpu.norm() * g_gpu.norm()))
+    log("reference", f"{tag}: losses card {l_gpu} cpu {l_cpu}, rel diff={[f'{r:.3g}' for r in rel]} (tol "
+        f"{TOL_REF_LOSS}) grad cosine={cos:.6f} (min {TOL_REF_COSINE}) grad norm ratio="
+        f"{float(g_gpu.norm() / g_cpu.norm()):.4f}")
+    if not (max(rel) <= TOL_REF_LOSS and cos >= TOL_REF_COSINE):
+        raise AssertionError(f"{tag} depth-cut reference: card and CPU disagree")
+    reference.update({"loss_rel": rel if len(rel) > 1 else rel[0], "cosine": cos})
+
+
+def card_step_references(family, gpu_v, cut, grid, cfg, x0, p0, labels, noise, decode_expect):
+    """A single-victim depth-cut reference (5V, 5H, 5M): the card's half now (each (label, rows)
+    step of ``labels`` from p₀ with ``noise``, then the teacher-forced test decode of three
+    held-out questions), the CPU's submitted to the worker. Returns the verdicts' dict, which
+    :meth:`CpuReferences.join` fills."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from adversarialvlm_tpu_torch.attack.step import build_attack_step
+    from adversarialvlm_tpu_torch.data import corpora
+    from adversarialvlm_tpu_torch.ops.kernels import launch_counts, reset_launches
+
+    ai = gpu_v.adv_inputs
+    card, steps, reference = {}, [], {}
+    x0_d = torch.as_tensor(x0, device="cuda")
+    for label, row_idx in labels:
+        xs = {"t_idx": 0, "rows": [torch.from_numpy(ai.prompt_pool[0, row_idx])],
+              "lens": [torch.from_numpy(ai.prompt_lengths[0, row_idx])], "noise": [noise[: len(row_idx)]]}
+        step = build_attack_step([gpu_v.handles()], dataclasses.replace(cfg, batch_size=len(row_idx)), x0_d,
+                                 torch.ones_like(x0_d))
+        reset_launches()
+        t1 = time.perf_counter()
+        loss, _, _, _, grad = step.loss_and_grad(p0.cuda(), xs, torch.tensor(cfg.sigma, device="cuda"))
+        card[label] = ([float(loss)], grad.double().cpu())
+        log("reference", f"{family} {label} cuda: loss={float(loss)} grad_norm={float(grad.norm())} T={ai.max_len} "
+            f"in {time.perf_counter() - t1:.1f} s, launches={ {k: n for k, n in launch_counts().items() if n} }")
+        steps.append((label, xs, dataclasses.replace(cfg, batch_size=len(row_idx)), None))
+        reference[label] = {}
+    x_img = np.clip(x0 + cfg.epsilon * np.tanh(p0.numpy()), 0.0, 1.0).astype(np.float32)
+    d = decode_card(gpu_v, list(corpora.not_safe_questions_test[:3]), x_img, decode_expect)
+
+    def check(out):
+        for label in card:
+            check_step_reference(f"{family} {label}", card[label], out["steps"][label], reference[label])
+        reference["decode_cosine"] = decode_check(d, out["forwards"]["decode"])
+
+    REFS.submit(f"{family} depth cut", {"victims": [reference_victim(family, cut, gpu_v.bundle.params, grid, ai)],
+                                         "x0": x0, "p0": p0, "steps": steps,
+                                         "forwards": {"decode": decode_inputs(d)}}, check)
+    return reference
 
 
 def transform_path(victim, x0, dgrad_per_step, n_layers, plain_med, plain_peak):
@@ -1383,7 +1605,7 @@ def llava_phases(ckpt_root):
 
     from adversarialvlm_tpu_torch.attack.config import AttackConfig
     from adversarialvlm_tpu_torch.attack.engine import VictimSetup, train
-    from adversarialvlm_tpu_torch.attack.setup import image_processor, questions_and_targets
+    from adversarialvlm_tpu_torch.attack.setup import questions_and_targets
     from adversarialvlm_tpu_torch.attack.step import build_attack_step, sample_chunk_xs
     from adversarialvlm_tpu_torch.data import corpora
     from adversarialvlm_tpu_torch.eval.generation import _pick_decode
@@ -1594,13 +1816,6 @@ def llava_phases(ckpt_root):
                   ai1.num_image_tokens, ai1.image_token_id, ai1.pad_token_id),
         torch.bfloat16,
     )
-    cpu_v = VictimSetup(
-        "cut",
-        make_bundle("cut", "llava", cut, torch.device("cpu"),
-                    params=_map(gpu_v.bundle.params, lambda p: p.float().cpu())),
-        image_processor(cut, (512, 512), "cpu"),
-        gpu_v.adv_inputs,
-    )
     ai = gpu_v.adv_inputs
     gen = torch.Generator().manual_seed(5)
     noise = torch.randn((1, 3, 336, 336), generator=gen)
@@ -1614,6 +1829,8 @@ def llava_phases(ckpt_root):
     t_gen = torch.Generator().manual_seed(6)
     t_draws = {"crop_box": sample_crop_box(t_gen, 512, 512), "mask_pos": square_position(t_gen, (3, 512, 512), 256)}
     t_mask = random_square_mask((3, 512, 512), 256, position=t_draws["mask_pos"]).double()
+    card, steps, masks, reference = {}, [], {}, {}
+    x0_d = torch.as_tensor(x0, device="cuda")
     for label, row_idx, nz, r_cfg, draws in (
             ("batch 1", [0], noise, ref_cfg, {}), ("batch 4", [0, 1, 2, 3], noise4, ref_cfg, {}),
             ("batch 1, blur + crop + square", [0], noise, t_cfg, t_draws)):
@@ -1625,28 +1842,28 @@ def llava_phases(ckpt_root):
             **draws,
         }
         ref_pads = [ai.max_len - int(n) for n in ai.prompt_lengths[0, row_idx]]
-        results = {}
-        for name, v, dev in (("cpu", cpu_v, "cpu"), ("cuda", gpu_v, "cuda")):
-            x0_d = torch.as_tensor(x0, device=dev)
-            step = build_attack_step([v.handles()], r_cfg, x0_d, torch.ones_like(x0_d))
-            reset_launches()
-            loss, _, _, _, grad = step.loss_and_grad(p0.to(dev), xs, torch.tensor(cfg.sigma, device=dev))
-            g = grad.double().cpu()
-            results[name] = (float(loss), g * t_mask if draws else g)
-            log("reference", f"{label} {name}: loss={float(loss)} grad_norm={float(grad.norm())} "
-                f"T={ai.max_len} pads={ref_pads} {draws} launches={launch_counts()}")
-        (l_cpu, g_cpu), (l_gpu, g_gpu) = results["cpu"], results["cuda"]
-        rel = abs(l_gpu - l_cpu) / abs(l_cpu)
-        cos = float((g_cpu * g_gpu).sum() / (g_cpu.norm() * g_gpu.norm()))
-        log("reference", f"{label}: loss rel diff={rel:.3g} (tol {TOL_REF_LOSS}) grad cosine={cos:.6f} "
-            f"(min {TOL_REF_COSINE}) grad norm ratio={float(g_gpu.norm() / g_cpu.norm()):.4f} "
-            f"at {time.perf_counter() - t0:.1f} s")
-        if not (rel <= TOL_REF_LOSS and cos >= TOL_REF_COSINE):
-            raise AssertionError(f"depth-cut reference ({label}): card and CPU disagree")
+        step = build_attack_step([gpu_v.handles()], r_cfg, x0_d, torch.ones_like(x0_d))
+        reset_launches()
+        loss, _, _, _, grad = step.loss_and_grad(p0.cuda(), xs, torch.tensor(cfg.sigma, device="cuda"))
+        masks[label] = t_mask if draws else 1.0
+        card[label] = ([float(loss)], grad.double().cpu() * masks[label])
+        log("reference", f"{label} cuda: loss={float(loss)} grad_norm={float(grad.norm())} "
+            f"T={ai.max_len} pads={ref_pads} {draws} launches={launch_counts()}")
+        steps.append((label, xs, dataclasses.replace(r_cfg, sigma=cfg.sigma), None))
+        reference[label] = {}
     x_img = np.clip(x0 + 0.5 * np.tanh(p0.numpy()), 0.0, 1.0).astype(np.float32)
-    decode_reference(gpu_v, cpu_v, list(corpora.not_safe_questions_test[:3]), x_img,
-                     {"flash_fwd": cut.text.num_layers})
-    log("reference", f"all references in {time.perf_counter() - t0:.1f} s")
+    d = decode_card(gpu_v, list(corpora.not_safe_questions_test[:3]), x_img, {"flash_fwd": cut.text.num_layers})
+
+    def check(out):
+        for label in card:
+            cpu_l, cpu_g = out["steps"][label]
+            check_step_reference(label, card[label], (cpu_l, cpu_g * masks[label]), reference[label])
+        reference["decode_cosine"] = decode_check(d, out["forwards"]["decode"])
+
+    REFS.submit("llava depth cut", {"victims": [reference_victim("llava", cut, gpu_v.bundle.params, None, ai)],
+                                     "x0": x0, "p0": p0, "steps": steps,
+                                     "forwards": {"decode": decode_inputs(d)}}, check)
+    log("reference", f"all references' card half in {time.perf_counter() - t0:.1f} s")
     return {
         "stats": {"dgrad": dg, **attn, **flash}, "prefill": prefill, "transforms": transforms, "dgrad4": dg4,
         "load": load_stats, "resume": resume, "median_b1_ms": med, "peak_b1_GiB": peak,
@@ -1856,7 +2073,7 @@ def gemma_references(victim):
     sliding-window ones and the global one; its first 2 vision layers at the full 4096 patches)
     on the card in bf16 through the kernels against the same weights in f32 on the CPU's plain
     path: the batch-4 step, the test decode and the judge's prefill, tokenized by the victim's
-    tokenizer."""
+    tokenizer. The card's half runs here, the CPU's in the references' worker (:class:`CpuReferences`)."""
     import dataclasses
 
     import numpy as np
@@ -1864,7 +2081,6 @@ def gemma_references(victim):
 
     from adversarialvlm_tpu_torch.attack.config import AttackConfig
     from adversarialvlm_tpu_torch.attack.engine import VictimSetup
-    from adversarialvlm_tpu_torch.attack.setup import image_processor
     from adversarialvlm_tpu_torch.attack.step import build_attack_step
     from adversarialvlm_tpu_torch.data import corpora
     from adversarialvlm_tpu_torch.models import gemma3
@@ -1895,13 +2111,6 @@ def gemma_references(victim):
                   image_expansion_ids=ai_v.image_expansion_ids),
         torch.bfloat16,
     )
-    cpu_v = VictimSetup(
-        "cut-gemma3",
-        make_bundle("cut-gemma3", "gemma3", cut, torch.device("cpu"),
-                    params=_map(gpu_v.bundle.params, lambda p: p.float().cpu())),
-        image_processor(cut, (512, 512), "cpu"),
-        gpu_v.adv_inputs,
-    )
     ai = gpu_v.adv_inputs
     side = cut.vision.image_size
     gen = torch.Generator().manual_seed(5)
@@ -1915,58 +2124,52 @@ def gemma_references(victim):
     }
     pads = [ai.max_len - int(n) for n in ai.prompt_lengths[0, row_idx]]
     x0 = np.full((3, 512, 512), 0.47, np.float32)
-    results = {}
-    for name, vic, dev in (("cuda", gpu_v, "cuda"), ("cpu", cpu_v, "cpu")):
-        x0_d = torch.as_tensor(x0, device=dev)
-        step = build_attack_step([vic.handles()], ref_cfg, x0_d, torch.ones_like(x0_d))
-        reset_launches()
-        t1 = time.perf_counter()
-        loss, _, _, _, grad = step.loss_and_grad(p0.to(dev), xs, torch.tensor(ref_cfg.sigma, device=dev))
-        results[name] = (float(loss), grad.double().cpu())
-        log("reference", f"gemma3 batch 4 {name}: loss={float(loss)} grad_norm={float(grad.norm())} "
-            f"T={ai.max_len} pads={pads} layer windows={windows} launches={launch_counts()} "
-            f"in {time.perf_counter() - t1:.1f} s")
-        if name == "cuda":
-            got = launch_counts()
-            want = {"flash_full_fwd": 2, "flash_full_bwd_dq": 2, "flash_full_bwd_dkdv": 2,
-                    "flash_fwd": 0, "attention_fwd": 0}
-            if any(got[k] != n for k, n in want.items()):
-                raise AssertionError(f"gemma3 depth-cut step launched {got}, expected {want}")
-    (l_cpu, g_cpu), (l_gpu, g_gpu) = results["cpu"], results["cuda"]
-    rel = abs(l_gpu - l_cpu) / abs(l_cpu)
-    cos = float((g_cpu * g_gpu).sum() / (g_cpu.norm() * g_gpu.norm()))
-    log("reference", f"gemma3 batch 4: loss rel diff={rel:.3g} (tol {TOL_REF_LOSS}) grad cosine="
-        f"{cos:.6f} (min {TOL_REF_COSINE}) grad norm ratio={float(g_gpu.norm() / g_cpu.norm()):.4f}")
-    if not (rel <= TOL_REF_LOSS and cos >= TOL_REF_COSINE):
-        raise AssertionError("gemma3 depth-cut reference (batch 4): card and CPU disagree")
+    x0_d = torch.as_tensor(x0, device="cuda")
+    step = build_attack_step([gpu_v.handles()], ref_cfg, x0_d, torch.ones_like(x0_d))
+    reset_launches()
+    t1 = time.perf_counter()
+    loss, _, _, _, grad = step.loss_and_grad(p0.cuda(), xs, torch.tensor(ref_cfg.sigma, device="cuda"))
+    card = ([float(loss)], grad.double().cpu())
+    got = launch_counts()
+    log("reference", f"gemma3 batch 4 cuda: loss={float(loss)} grad_norm={float(grad.norm())} "
+        f"T={ai.max_len} pads={pads} layer windows={windows} launches={got} in {time.perf_counter() - t1:.1f} s")
+    want = {"flash_full_fwd": 2, "flash_full_bwd_dq": 2, "flash_full_bwd_dkdv": 2, "flash_fwd": 0, "attention_fwd": 0}
+    if any(got[k] != n for k, n in want.items()):
+        raise AssertionError(f"gemma3 depth-cut step launched {got}, expected {want}")
     x_img = np.clip(x0 + 0.5 * np.tanh(p0.numpy()), 0.0, 1.0).astype(np.float32)
-    decode_reference(gpu_v, cpu_v, list(corpora.not_safe_questions_test[:3]), x_img,
-                     {"flash_full_fwd": cut.vision.num_layers, "flash_fwd": 0, "attention_fwd": 0})
+    d = decode_card(gpu_v, list(corpora.not_safe_questions_test[:3]), x_img,
+                    {"flash_full_fwd": cut.vision.num_layers, "flash_fwd": 0, "attention_fwd": 0})
 
     # the judge's text-only prefill, depth-cut: 2 rows of T 704, one left-padded; global layer 5
     # takes the head_dim-256 flash forward on the card, the plain path on the CPU
     seg = torch.ones((2, JUDGE_T), dtype=torch.int32)
     seg[0, :97] = 0
     ids = judge_ids(cut, seg, seed=11)
-    last = {}
-    for name, vic, dev in (("cuda", gpu_v, "cuda"), ("cpu", cpu_v, "cpu")):
-        reset_launches()
-        t1 = time.perf_counter()
-        with torch.no_grad():
-            out = gemma3.forward(vic.bundle.params, cut, ids.to(dev), seg.to(dev), logits_last_k=1)
-        last[name] = out[:, -1].double().cpu()
-        got = {k: n for k, n in launch_counts().items() if n}
-        log("reference", f"gemma3 text-only prefill {name}: B=2 T={JUDGE_T} pads=[97, 0] launches={got} "
-            f"in {time.perf_counter() - t1:.1f} s")
-        want = {"flash_fwd": windows.count(None)} if name == "cuda" else {}
-        if got != want:
-            raise AssertionError(f"gemma3 text-only prefill on {name} launched {got}, expected {want}")
-    cos = [float((a * b).sum() / (a.norm() * b.norm())) for a, b in zip(last["cuda"], last["cpu"])]
-    log("reference", f"gemma3 text-only prefill: last-position logits cosine per row {[round(c, 6) for c in cos]} "
-        f"(min {TOL_DECODE_COSINE})")
-    if not min(cos) >= TOL_DECODE_COSINE:
-        raise AssertionError("gemma3 text-only prefill reference: card and CPU disagree")
-    log("reference", f"gemma3 references in {time.perf_counter() - t0:.1f} s")
+    reset_launches()
+    with torch.no_grad():
+        last = gemma3.forward(gpu_v.bundle.params, cut, ids.cuda(), seg.cuda(), logits_last_k=1)[:, -1].double().cpu()
+    got = {k: n for k, n in launch_counts().items() if n}
+    log("reference", f"gemma3 text-only prefill cuda: B=2 T={JUDGE_T} pads=[97, 0] launches={got}")
+    if got != {"flash_fwd": windows.count(None)}:
+        raise AssertionError(f"gemma3 text-only prefill on the card launched {got}, expected "
+                             f"{ {'flash_fwd': windows.count(None)} }")
+    reference = {"batch 4": {}}
+
+    def check(out):
+        check_step_reference("gemma3 batch 4", card, out["steps"]["batch 4"], reference["batch 4"])
+        reference["decode_cosine"] = decode_check(d, out["forwards"]["decode"])
+        cpu_last = out["forwards"]["prefill"][:, -1]
+        cos = [float((a * b).sum() / (a.norm() * b.norm())) for a, b in zip(last, cpu_last)]
+        log("reference", f"gemma3 text-only prefill: last-position logits cosine per row "
+            f"{[round(c, 6) for c in cos]} (min {TOL_DECODE_COSINE})")
+        if not min(cos) >= TOL_DECODE_COSINE:
+            raise AssertionError("gemma3 text-only prefill reference: card and CPU disagree")
+        reference["prefill_cosine"] = min(cos)
+
+    REFS.submit("gemma3 depth cut", {"victims": [reference_victim("gemma3", cut, gpu_v.bundle.params, None, ai)],
+                                      "x0": x0, "p0": p0, "steps": [("batch 4", xs, ref_cfg, None)],
+                                      "forwards": {"decode": decode_inputs(d), "prefill": (ids, seg, None, 1)}}, check)
+    log("reference", f"gemma3 references' card half in {time.perf_counter() - t0:.1f} s")
 
 
 def cross_step_share(victims, dgrad_per_step):
@@ -2354,7 +2557,6 @@ def cross_reference(victims, x0, tag="cross"):
 
     from adversarialvlm_tpu_torch.attack.config import AttackConfig
     from adversarialvlm_tpu_torch.attack.engine import VictimSetup
-    from adversarialvlm_tpu_torch.attack.setup import image_processor
     from adversarialvlm_tpu_torch.attack.step import build_attack_step
     from adversarialvlm_tpu_torch.models.registry import make_bundle
     from adversarialvlm_tpu_torch.ops.kernels import launch_counts, reset_launches
@@ -2364,7 +2566,7 @@ def cross_reference(victims, x0, tag="cross"):
     t0 = time.perf_counter()
     cfg = AttackConfig(exp_name="reference_cross", batch_size=1, grad_accum_steps=1, lr=1e-2, epsilon=0.4)
     gen = torch.Generator().manual_seed(7)
-    pairs, noise = [], []
+    pairs, noise, cpu_victims = [], [], []
     for v, (n_text, n_vision) in zip(victims, ((2, 2), (6, 2))):
         vc = v.bundle.cfg
         cut = dataclasses.replace(vc, text=dataclasses.replace(vc.text, num_layers=n_text),
@@ -2377,50 +2579,37 @@ def cross_reference(victims, x0, tag="cross"):
                                                                 params=depth_cut(v.bundle.params, n_text, n_vision),
                                                                 grid_hw=grid),
                           v.adv_processor, inputs, torch.bfloat16)
-        cpu = VictimSetup(gpu.name, make_bundle("cut", v.bundle.family, cut, torch.device("cpu"),
-                                                params=_map(gpu.bundle.params, lambda t: t.float().cpu()),
-                                                grid_hw=grid),
-                          image_processor(cut, (512, 512), "cpu"), inputs)
-        pairs.append((gpu, cpu))
+        pairs.append(gpu)
+        cpu_victims.append(reference_victim(v.bundle.family, cut, gpu.bundle.params, grid, inputs))
         with torch.no_grad():
             pv = normalize_pixel_inputs(v.bundle.family, v.adv_processor.process(
                 torch.as_tensor(x0, device="cuda")))["pixel_values"]
         noise.append(torch.randn((1, *pv.shape[1:]), generator=gen))  # one image's pixel layout
     p0 = 0.3 * torch.randn(x0.shape, generator=gen)
-    xs = {"t_idx": 0, "rows": [torch.from_numpy(g.adv_inputs.prompt_pool[0, [0]]) for g, _ in pairs],
-          "lens": [torch.from_numpy(g.adv_inputs.prompt_lengths[0, [0]]) for g, _ in pairs], "noise": noise}
-    results = {}
-    for name, dev, which in (("cuda", "cuda", 0), ("cpu", "cpu", 1)):
-        x0_d = torch.as_tensor(x0, device=dev)
-        step = build_attack_step([pair[which].handles() for pair in pairs], cfg, x0_d, torch.ones_like(x0_d),
-                                 model_weights=list(CROSS_WEIGHTS), cross=True)
-        reset_launches()
-        t1 = time.perf_counter()
-        loss, img_loss, ces, _, grad = step.loss_and_grad(p0.to(dev), xs, torch.tensor(cfg.sigma, device=dev))
-        per_model = [float(w * ce + img_loss) for w, ce in zip(CROSS_WEIGHTS, ces)]
-        results[name] = ([float(loss), *per_model], grad.double().cpu())
-        log("reference", f"{tag} {name}: loss, loss_0, loss_1 = {results[name][0]} grad_norm={float(grad.norm())} "
-            f"T={[g.adv_inputs.max_len for g, _ in pairs]} launches={ {k: n for k, n in launch_counts().items() if n} } "
-            f"in {time.perf_counter() - t1:.1f} s")
-        if name == "cuda":
-            counts = launch_counts()
-            want = {"attention_fwd": 2, "attention_bwd_dq": 2, "attention_bwd_dkdv": 2, "flash_full_fwd": 2,
-                    "flash_full_bwd_dq": 2, "flash_full_bwd_dkdv": 2}
-            if any(counts[k] != n for k, n in want.items()) or counts["dgrad"] == 0:
-                raise AssertionError(f"cross depth-cut step launched {counts}, expected {want} and dgrad")
-    (l_cpu, g_cpu), (l_gpu, g_gpu) = results["cpu"], results["cuda"]
-    rel = [abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu)]
-    cos = float((g_cpu * g_gpu).sum() / (g_cpu.norm() * g_gpu.norm()))
-    log("reference", f"{tag}: loss, loss_0, loss_1 rel diff={[f'{r:.3g}' for r in rel]} (tol {TOL_REF_LOSS}) grad "
-        f"cosine={cos:.6f} (min {TOL_REF_COSINE}) grad norm ratio={float(g_gpu.norm() / g_cpu.norm()):.4f} in "
-        f"{time.perf_counter() - t0:.1f} s")
-    if not (max(rel) <= TOL_REF_LOSS and cos >= TOL_REF_COSINE):
-        raise AssertionError("cross depth-cut reference: card and CPU disagree")
-    return {"loss_rel": rel, "cosine": cos}
+    xs = {"t_idx": 0, "rows": [torch.from_numpy(g.adv_inputs.prompt_pool[0, [0]]) for g in pairs],
+          "lens": [torch.from_numpy(g.adv_inputs.prompt_lengths[0, [0]]) for g in pairs], "noise": noise}
+    x0_d = torch.as_tensor(x0, device="cuda")
+    step = build_attack_step([g.handles() for g in pairs], cfg, x0_d, torch.ones_like(x0_d),
+                             model_weights=list(CROSS_WEIGHTS), cross=True)
+    reset_launches()
+    loss, img_loss, ces, _, grad = step.loss_and_grad(p0.cuda(), xs, torch.tensor(cfg.sigma, device="cuda"))
+    card = ([float(loss), *[float(w * ce + img_loss) for w, ce in zip(CROSS_WEIGHTS, ces)]], grad.double().cpu())
+    counts = launch_counts()
+    log("reference", f"{tag} cuda: loss, loss_0, loss_1 = {card[0]} grad_norm={float(grad.norm())} "
+        f"T={[g.adv_inputs.max_len for g in pairs]} launches={ {k: n for k, n in counts.items() if n} } "
+        f"in {time.perf_counter() - t0:.1f} s")
+    want = {"attention_fwd": 2, "attention_bwd_dq": 2, "attention_bwd_dkdv": 2, "flash_full_fwd": 2,
+            "flash_full_bwd_dq": 2, "flash_full_bwd_dkdv": 2}
+    if any(counts[k] != n for k, n in want.items()) or counts["dgrad"] == 0:
+        raise AssertionError(f"cross depth-cut step launched {counts}, expected {want} and dgrad")
+    reference = {}
+    REFS.submit(tag, {"victims": cpu_victims, "x0": x0, "p0": p0, "steps": [("cross", xs, cfg, CROSS_WEIGHTS)]},
+                lambda out: check_step_reference(tag, card, out["steps"]["cross"], reference))
+    return reference
 
 
 JUDGE = "google/gemma-3-4b-it"
-SFB_CATEGORIES, SFB_PER_CATEGORY = 3, 8  # phase 4J's SafeBench: categories 1-3 of the held-out questions
+SFB_CATEGORIES, SFB_PER_CATEGORY = 2, 8  # phase 4J's SafeBench: categories 1-2 of the held-out questions
 JUDGE_REF_LAYERS = 6      # phase 4J's depth-cut judge: five sliding-window layers and the global one
 TABLE_SAMPLE = 8          # phase 4J times the token table's two builders on every 8th vocabulary piece
 
@@ -2671,7 +2860,7 @@ def _parses(text):
 
 
 def write_safebench(root):
-    """Phase 4J's SafeBench directory: categories 1-3, each 8 of the held-out questions, one per
+    """Phase 4J's SafeBench directory: categories 1-2, each 8 of the held-out questions, one per
     line as the benchmark's CSVs hold them."""
     from adversarialvlm_tpu_torch.data import corpora
     from adversarialvlm_tpu_torch.eval.tables import write_table
@@ -3364,7 +3553,7 @@ QWEN = "Qwen/Qwen2-VL-2B-Instruct"
 STEPS_V = 4               # phase 4V: 1 warm-up + 3 timed; save boundaries at iterations 0 and 3
 STEPS_V1 = 2              # phase 4V1: the 1024² source at batch 1, 1 warm-up + 1 timed, no test decode
 STEPS_PAIR = 4            # phases 4XV and 4XH: 1 warm-up + 3 timed; save boundaries at iterations 0 and 3
-PAIR_ROUNDS, PAIR_TIMED, PAIR_PROFILED = 2, 3, 1  # phases 4XV and 4XH: the cross step beside each victim's alone
+PAIR_ROUNDS, PAIR_TIMED, PAIR_PROFILED = 1, 3, 1  # phases 4XV and 4XH: the cross step beside each victim's alone
 
 
 def qwen_dgrad_cases(params, vlm_cfg, batch, t_text, n_patches):
@@ -3442,10 +3631,9 @@ def qwen_phases(ckpt_root, runs):
     from adversarialvlm_tpu_torch.attack.engine import VictimSetup, train
     from adversarialvlm_tpu_torch.attack.io import load_image_chw
     from adversarialvlm_tpu_torch.attack.setup import image_processor
-    from adversarialvlm_tpu_torch.attack.step import build_attack_step, sample_chunk_xs
+    from adversarialvlm_tpu_torch.attack.step import sample_chunk_xs
     from adversarialvlm_tpu_torch.cli import test_post
     from adversarialvlm_tpu_torch.cli.fabricate_ckpt import MODELS, fabricate
-    from adversarialvlm_tpu_torch.data import corpora
     from adversarialvlm_tpu_torch.eval.tables import read_rows
     from adversarialvlm_tpu_torch.models.loading import named_leaves
     from adversarialvlm_tpu_torch.models.qwen2vl import init_params
@@ -3544,39 +3732,14 @@ def qwen_phases(ckpt_root, runs):
     gpu_v = VictimSetup("cut", make_bundle("cut", "qwen2vl", cut, torch.device("cuda"),
                                            params=depth_cut(victim.bundle.params, 2, 2), grid_hw=grid),
                         victim.adv_processor, ref_ai, torch.bfloat16)
-    cpu_v = VictimSetup("cut", make_bundle("cut", "qwen2vl", cut, torch.device("cpu"),
-                                           params=_map(gpu_v.bundle.params, lambda p: p.float().cpu()), grid_hw=grid),
-                        image_processor(cut, (512, 512), "cpu"), ref_ai)
     x0 = load_image_chw(gray)
     gen = torch.Generator().manual_seed(5)
     p0 = 0.3 * torch.randn(x0.shape, generator=gen)
     noise = torch.randn((2, n_patch, 3 * v.temporal_patch_size * v.patch_size**2), generator=gen)
-    reference = {}
-    for label, row_idx in (("batch 1", [0]), ("batch 2", [0, 1])):
-        xs_r = {"t_idx": 0, "rows": [torch.from_numpy(ref_ai.prompt_pool[0, row_idx])],
-                "lens": [torch.from_numpy(ref_ai.prompt_lengths[0, row_idx])], "noise": [noise[: len(row_idx)]]}
-        results = {}
-        for name, vv, dev in (("cpu", cpu_v, "cpu"), ("cuda", gpu_v, "cuda")):
-            x0_d = torch.as_tensor(x0, device=dev)
-            step = build_attack_step([vv.handles()], dataclasses.replace(cfg, batch_size=len(row_idx)), x0_d,
-                                     torch.ones_like(x0_d))
-            reset_launches()
-            loss, _, _, _, grad = step.loss_and_grad(p0.to(dev), xs_r, torch.tensor(cfg.sigma, device=dev))
-            results[name] = (float(loss), grad.double().cpu())
-            log("reference", f"qwen2vl {label} {name}: loss={float(loss)} grad_norm={float(grad.norm())} "
-                f"T={ref_ai.max_len} launches={ {k: n for k, n in launch_counts().items() if n} }")
-        (l_cpu, g_cpu), (l_gpu, g_gpu) = results["cpu"], results["cuda"]
-        rel = abs(l_gpu - l_cpu) / abs(l_cpu)
-        cos = float((g_cpu * g_gpu).sum() / (g_cpu.norm() * g_gpu.norm()))
-        log("reference", f"qwen2vl {label}: loss rel diff={rel:.3g} (tol {TOL_REF_LOSS}) grad cosine={cos:.6f} "
-            f"(min {TOL_REF_COSINE})")
-        if not (rel <= TOL_REF_LOSS and cos >= TOL_REF_COSINE):
-            raise AssertionError(f"qwen2vl depth-cut reference ({label}): card and CPU disagree")
-        reference[label] = {"loss_rel": rel, "cosine": cos}
-    x_img = np.clip(x0 + cfg.epsilon * np.tanh(p0.numpy()), 0.0, 1.0).astype(np.float32)
-    decode_reference(gpu_v, cpu_v, list(corpora.not_safe_questions_test[:3]), x_img, {"flash_fwd": cut.text.num_layers})
-    log("reference", f"qwen2vl references in {time.perf_counter() - t0:.1f} s")
-    del gpu_v, cpu_v
+    reference = card_step_references("qwen2vl", gpu_v, cut, grid, cfg, x0, p0, (("batch 1", [0]), ("batch 2", [0, 1])),
+                                     noise, {"flash_fwd": cut.text.num_layers})
+    log("reference", f"qwen2vl references' card half in {time.perf_counter() - t0:.1f} s")
+    del gpu_v
     gc.collect()
 
     # 4V1. batch 1 from a 1024² source (980², 4900 patches): the tower takes flash_full at head_dim 80
@@ -3820,14 +3983,11 @@ def phi_phases(ckpt_root, runs):
 
     from adversarialvlm_tpu_torch.attack.engine import VictimSetup
     from adversarialvlm_tpu_torch.attack.io import load_image_chw
-    from adversarialvlm_tpu_torch.attack.setup import image_processor
-    from adversarialvlm_tpu_torch.attack.step import build_attack_step, sample_chunk_xs
+    from adversarialvlm_tpu_torch.attack.step import sample_chunk_xs
     from adversarialvlm_tpu_torch.cli.fabricate_ckpt import MODELS, fabricate
-    from adversarialvlm_tpu_torch.data import corpora
     from adversarialvlm_tpu_torch.models.loading import named_leaves
     from adversarialvlm_tpu_torch.models.phi3v import init_params
     from adversarialvlm_tpu_torch.models.registry import make_bundle
-    from adversarialvlm_tpu_torch.ops.kernels import launch_counts, reset_launches
     from adversarialvlm_tpu_torch.processors import grid_hw_for
     from adversarialvlm_tpu_torch.processors.adv_inputs import AdvInputs
 
@@ -3929,39 +4089,14 @@ def phi_phases(ckpt_root, runs):
     gpu_v = VictimSetup("cut", make_bundle("cut", "phi3v", cut, torch.device("cuda"),
                                            params=depth_cut(victim.bundle.params, 2, 2), grid_hw=grid),
                         victim.adv_processor, ref_ai, torch.bfloat16)
-    cpu_v = VictimSetup("cut", make_bundle("cut", "phi3v", cut, torch.device("cpu"),
-                                           params=_map(gpu_v.bundle.params, lambda p: p.float().cpu()), grid_hw=grid),
-                        image_processor(cut, (512, 512), "cpu"), ref_ai)
     x0 = load_image_chw(gray)
     gen = torch.Generator().manual_seed(5)
     p0 = 0.3 * torch.randn(x0.shape, generator=gen)
     noise = torch.randn((2, victim.adv_processor.num_crops + 1, 3, v.image_size, v.image_size), generator=gen)
-    reference = {}
-    for label, row_idx in (("batch 1", [0]), ("batch 2", [0, 1])):
-        xs_r = {"t_idx": 0, "rows": [torch.from_numpy(ref_ai.prompt_pool[0, row_idx])],
-                "lens": [torch.from_numpy(ref_ai.prompt_lengths[0, row_idx])], "noise": [noise[: len(row_idx)]]}
-        results = {}
-        for name, vv, dev in (("cpu", cpu_v, "cpu"), ("cuda", gpu_v, "cuda")):
-            x0_d = torch.as_tensor(x0, device=dev)
-            step = build_attack_step([vv.handles()], dataclasses.replace(cfg, batch_size=len(row_idx)), x0_d,
-                                     torch.ones_like(x0_d))
-            reset_launches()
-            loss, _, _, _, grad = step.loss_and_grad(p0.to(dev), xs_r, torch.tensor(cfg.sigma, device=dev))
-            results[name] = (float(loss), grad.double().cpu())
-            log("reference", f"phi3.5 {label} {name}: loss={float(loss)} grad_norm={float(grad.norm())} "
-                f"T={ref_ai.max_len} launches={ {k: n for k, n in launch_counts().items() if n} }")
-        (l_cpu, g_cpu), (l_gpu, g_gpu) = results["cpu"], results["cuda"]
-        rel = abs(l_gpu - l_cpu) / abs(l_cpu)
-        cos = float((g_cpu * g_gpu).sum() / (g_cpu.norm() * g_gpu.norm()))
-        log("reference", f"phi3.5 {label}: loss rel diff={rel:.3g} (tol {TOL_REF_LOSS}) grad cosine={cos:.6f} "
-            f"(min {TOL_REF_COSINE})")
-        if not (rel <= TOL_REF_LOSS and cos >= TOL_REF_COSINE):
-            raise AssertionError(f"phi3.5 depth-cut reference ({label}): card and CPU disagree")
-        reference[label] = {"loss_rel": rel, "cosine": cos}
-    x_img = np.clip(x0 + cfg.epsilon * np.tanh(p0.numpy()), 0.0, 1.0).astype(np.float32)
-    decode_reference(gpu_v, cpu_v, list(corpora.not_safe_questions_test[:3]), x_img, {"flash_fwd": cut.text.num_layers})
-    log("reference", f"phi3.5 references in {time.perf_counter() - t0:.1f} s")
-    del gpu_v, cpu_v, victim, got, probe
+    reference = card_step_references("phi3v", gpu_v, cut, grid, cfg, x0, p0, (("batch 1", [0]), ("batch 2", [0, 1])),
+                                     noise, {"flash_fwd": cut.text.num_layers})
+    log("reference", f"phi3.5 references' card half in {time.perf_counter() - t0:.1f} s")
+    del gpu_v, victim, got, probe
     gc.collect()
     torch.cuda.empty_cache()
     log("phi", f"phases 4H and 5H in {time.perf_counter() - t_phase:.1f} s")
@@ -4125,21 +4260,16 @@ def mllama_depth_cut(params, vlm_cfg):
 def mllama_phases(ckpt_root, runs):
     """Phases 4M and 5M on Llama-3.2-11B-Vision-Instruct at full width and depth; the checkpoint
     directory is deleted at the end. Returns the phases' numbers and kernel statistics."""
-    import dataclasses
-
     import numpy as np
     import torch
 
     from adversarialvlm_tpu_torch.attack.engine import VictimSetup
     from adversarialvlm_tpu_torch.attack.io import load_image_chw
-    from adversarialvlm_tpu_torch.attack.setup import image_processor
-    from adversarialvlm_tpu_torch.attack.step import build_attack_step, sample_chunk_xs
+    from adversarialvlm_tpu_torch.attack.step import sample_chunk_xs
     from adversarialvlm_tpu_torch.cli.fabricate_ckpt import MODELS, fabricate
-    from adversarialvlm_tpu_torch.data import corpora
     from adversarialvlm_tpu_torch.models.loading import named_leaves
     from adversarialvlm_tpu_torch.models.mllama import init_params
     from adversarialvlm_tpu_torch.models.registry import make_bundle
-    from adversarialvlm_tpu_torch.ops.kernels import launch_counts, reset_launches
     from adversarialvlm_tpu_torch.processors import grid_hw_for
     from adversarialvlm_tpu_torch.processors.adv_inputs import AdvInputs
 
@@ -4242,44 +4372,357 @@ def mllama_phases(ckpt_root, runs):
                        ai.pad_token_id)
     gpu_v = VictimSetup("cut", make_bundle("cut", "mllama", cut, torch.device("cuda"), params=cut_params,
                                            grid_hw=grid), victim.adv_processor, ref_ai, torch.bfloat16)
-    cpu_v = VictimSetup("cut", make_bundle("cut", "mllama", cut, torch.device("cpu"),
-                                           params=_map(cut_params, lambda p: p.float().cpu()), grid_hw=grid),
-                        image_processor(cut, (512, 512), "cpu"), ref_ai)
     x0 = load_image_chw(gray)
     gen = torch.Generator().manual_seed(5)
     p0 = 0.3 * torch.randn(x0.shape, generator=gen)
     noise = torch.randn((1, 1, v.max_num_tiles, 3, v.image_size, v.image_size), generator=gen)
-    xs_r = {"t_idx": 0, "rows": [torch.from_numpy(ref_ai.prompt_pool[0, [0]])],
-            "lens": [torch.from_numpy(ref_ai.prompt_lengths[0, [0]])], "noise": [noise]}
-    results = {}
-    for name, vv, dev in (("cpu", cpu_v, "cpu"), ("cuda", gpu_v, "cuda")):
-        x0_d = torch.as_tensor(x0, device=dev)
-        step = build_attack_step([vv.handles()], dataclasses.replace(cfg, batch_size=1), x0_d, torch.ones_like(x0_d))
-        reset_launches()
-        t1 = time.perf_counter()
-        loss, _, _, _, grad = step.loss_and_grad(p0.to(dev), xs_r, torch.tensor(cfg.sigma, device=dev))
-        results[name] = (float(loss), grad.double().cpu())
-        log("reference", f"mllama batch 1 {name}: loss={float(loss)} grad_norm={float(grad.norm())} T={ref_ai.max_len} "
-            f"in {time.perf_counter() - t1:.1f} s, launches={ {k: n for k, n in launch_counts().items() if n} }")
-    (l_cpu, g_cpu), (l_gpu, g_gpu) = results["cpu"], results["cuda"]
-    rel = abs(l_gpu - l_cpu) / abs(l_cpu)
-    cos = float((g_cpu * g_gpu).sum() / (g_cpu.norm() * g_gpu.norm()))
-    log("reference", f"mllama batch 1: loss rel diff={rel:.3g} (tol {TOL_REF_LOSS}) grad cosine={cos:.6f} "
-        f"(min {TOL_REF_COSINE})")
-    if not (rel <= TOL_REF_LOSS and cos >= TOL_REF_COSINE):
-        raise AssertionError("mllama depth-cut reference: card and CPU disagree")
-    x_img = np.clip(x0 + cfg.epsilon * np.tanh(p0.numpy()), 0.0, 1.0).astype(np.float32)
     n_cut_self = cut.text.num_layers - len(cut.text.cross_attention_layers)
-    decode_reference(gpu_v, cpu_v, list(corpora.not_safe_questions_test[:3]), x_img, {"flash_fwd": n_cut_self})
-    log("reference", f"mllama references in {time.perf_counter() - t0:.1f} s")
-    del gpu_v, cpu_v, victim, got, probe, cut_params
+    reference = card_step_references("mllama", gpu_v, cut, grid, cfg, x0, p0, (("batch 1", [0]),), noise,
+                                     {"flash_fwd": n_cut_self})
+    log("reference", f"mllama references' card half in {time.perf_counter() - t0:.1f} s")
+    del gpu_v, victim, got, probe, cut_params
     gc.collect()
     torch.cuda.empty_cache()
     log("mllama", f"phases 4M and 5M in {time.perf_counter() - t_phase:.1f} s")
-    return {"median_ms": med, "step_peak_GiB": step_peak, "chunks": chunks, "reference": {"loss_rel": rel, "cosine": cos},
+    return {"median_ms": med, "step_peak_GiB": step_peak, "chunks": chunks, "reference": reference,
             "stats": {"dgrad": dg, **attn}, "prefill": prefill, "per_step": per_step, "per_step_d": per_step_d,
             "launches": run_launches, "launches_d": run_launches_d, "seconds": time.perf_counter() - t_phase,
             "write_s": write_s, "GB": nbytes / 1e9, "T": t_text, "grad_norms": [r["grad_norm"] for r in steps]}
+
+
+STEPS_MESH = 3            # phases 4T and 4TL: a warm-up, a timed step, a step with its collectives timed
+MESH_DECODE_TOKENS = 8    # phases 4T and 4TL: each test decode's new tokens and held-out questions (the
+MESH_TEST_QUESTIONS = 8   # engine's 64 and 50, cut: a mesh rank's prefill and each cached step make 2L + 2
+                          # all-reduces of the chunk's activations, through the host under gloo)
+TOL_MESH_LOSS = 1e-2      # step 1's loss, a mesh run's rank 0 against the one-rank run (relative)
+TOL_MESH_COSINE = 0.99    # step 1's image gradient and the first decode prefill's last logits (cosine)
+
+
+@contextlib.contextmanager
+def mesh_probe(out_dir, tag, t_launch=None):
+    """Spies, in this process, on the attack an attack CLI runs here (one rank of a mesh run, or
+    the one-rank run), and writes what it saw to ``<out_dir>/<tag>.json`` and ``.pt``:
+    engine.train is wrapped with a PathProbe on each victim (decode chunks, the steps' peak) and
+    each step (AttackStep.__call__, from a drained queue) records its device ms, loss, the
+    SHA-256 of p after it, its kernel launches (by head dim too), its collectives (count, bytes,
+    shapes; the last step's host seconds, timed after a sync of the card), and after step 1 the
+    AdamW first moment (0.1·g); the first decode prefill's last logits, the rank's coordinates
+    and backend, the shapes of its tensor-parallel weights (whole and sharded) and its rows' pads
+    go in too, with the wall seconds from ``t_launch`` (the launch's ``time.time()``) to this
+    process's probe and to its train(). Each test decode runs MESH_DECODE_TOKENS new tokens over the
+    first MESH_TEST_QUESTIONS held-out questions."""
+    import hashlib
+
+    import torch
+
+    from adversarialvlm_tpu_torch.attack import engine
+    from adversarialvlm_tpu_torch.attack import step as step_mod
+    from adversarialvlm_tpu_torch.models.loading import named_leaves
+    from adversarialvlm_tpu_torch.ops.kernels import launch_counts, launch_counts_by_head_dim, reset_launches
+    from adversarialvlm_tpu_torch.parallel import collectives
+    from adversarialvlm_tpu_torch.parallel.mesh import active_mesh
+
+    t_ref = time.time() if t_launch is None else t_launch
+    rec, tensors = {"tag": tag, "steps": [], "t_probe": time.time() - t_ref}, {}
+    real_train, real_call, real_test = engine.train, step_mod.AttackStep.__call__, engine.run_model_test
+
+    def test(*args, **kw):  # a decode chunk of MESH_TEST_QUESTIONS rows, not one bucketed to the default 50
+        return real_test(*args, **{**kw, "batch_size": MESH_TEST_QUESTIONS})
+
+    def call(self, state, xs):
+        torch.cuda.synchronize()
+        l0, d0 = launch_counts(), launch_counts_by_head_dim()
+        c0, b0, s0, n0 = (collectives.collective_counts(), dict(collectives.BYTES), sum(collectives.SECONDS.values()),
+                          dict(collectives.SHAPES))
+        if not rec["steps"]:
+            lens = xs["lens"][0][self.rows]
+            rec.update(T=int(xs["rows"][0].shape[1]), pads=[int(xs["rows"][0].shape[1] - n) for n in lens])
+        timed = len(rec["steps"]) == STEPS_MESH - 1
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        with collectives.timing(timed):
+            out = real_call(self, state, xs)
+        e1.record()
+        torch.cuda.synchronize()
+        rec["steps"].append({
+            "ms": e0.elapsed_time(e1), "loss": float(out[1]["loss"]),
+            "p_sha256": hashlib.sha256(state["p"].detach().cpu().numpy().tobytes()).hexdigest(),
+            "launches": {k: n - l0[k] for k, n in launch_counts().items() if n != l0[k]},
+            "launches_d": {k: n - d0.get(k, 0) for k, n in launch_counts_by_head_dim().items() if n != d0.get(k, 0)},
+            "collectives": {k: n - c0[k] for k, n in collectives.collective_counts().items()},
+            "collective_bytes": {k: n - b0.get(k, 0) for k, n in collectives.BYTES.items() if n != b0.get(k, 0)},
+            "collective_s": sum(collectives.SECONDS.values()) - s0 if timed else None,
+            "shapes": sorted({sh for (kind, sh), n in collectives.SHAPES.items() if n != n0.get((kind, sh), 0)}),
+        })
+        if len(rec["steps"]) == 1:
+            tensors["exp_avg_1"] = state["optimizer"].state[state["p"]]["exp_avg"].detach().cpu()
+        return out
+
+    def spy(cfg, victims, x0, **kw):
+        rec["t_train"] = time.time() - t_ref
+        kw["test_max_new_tokens"] = MESH_DECODE_TOKENS
+        for v in victims:
+            v.adv_inputs.test_questions = list(v.adv_inputs.test_questions[:MESH_TEST_QUESTIONS])
+        mesh = active_mesh()
+        rec.update(rank=mesh.rank if mesh else 0, data_rank=mesh.data_rank if mesh else 0,
+                   model_rank=mesh.model_rank if mesh else 0, backend=mesh.backend if mesh else None)
+        group = []
+        probes = [PathProbe(v.bundle, group) for v in victims]
+        bundle, inner = victims[0].bundle, victims[0].bundle.forward
+
+        def first_prefill(params, ids, am, pixel_inputs=None, **k):
+            out = inner(params, ids, am, pixel_inputs, **k)
+            if k.get("cache_index") == 0 and "prefill_logits" not in tensors:
+                tensors["prefill_logits"] = out[:, -1].float().cpu()
+                tensors["prefill_mask"] = am.detach().cpu()
+            return out
+
+        bundle.forward = first_prefill
+        shapes = set()
+        for v in victims:
+            for _, t in named_leaves(v.bundle.params):
+                if hasattr(t, "tp_full_shape"):
+                    shapes.update((tuple(sorted(t.tp_full_shape)), tuple(sorted(t.shape))))
+        rec["weight_shapes"] = sorted(shapes)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        collectives.reset_counts()
+        t0 = time.perf_counter()
+        try:
+            return real_train(cfg, victims, x0, **kw)
+        finally:
+            torch.cuda.synchronize()
+            rec["wall_s"] = time.perf_counter() - t0
+            for probe in probes:
+                probe.finish()
+            rec["step_peak_GiB"] = max(p.step_peak for p in probes) / 2**30
+            rec["chunks"] = [{k: c[k] for k in ("batch", "T", "prefill_ms", "decode_ms", "tokens", "peak_GiB",
+                                                  "prefill_launches")} for p in probes for c in p.chunks]
+            rec["decode_step_launches"] = sum(sum(p.launches["decode_step"].values()) for p in probes)
+            rec["launches_run"] = launch_counts()
+
+    engine.train, step_mod.AttackStep.__call__, engine.run_model_test = spy, call, test
+    try:
+        yield rec
+    finally:
+        engine.train, step_mod.AttackStep.__call__, engine.run_model_test = real_train, real_call, real_test
+        with open(os.path.join(out_dir, f"{tag}.json"), "w") as f:
+            json.dump(rec, f)
+        torch.save(tensors, os.path.join(out_dir, f"{tag}.pt"))
+
+
+def mesh_rank(mesh, fn, args, out_dir, t_launch):
+    """A rank of a mesh run launched by an attack CLI, under :func:`mesh_probe`."""
+    with mesh_probe(out_dir, f"rank{mesh.rank}", t_launch):
+        return fn(mesh, *args)
+
+
+def mesh_cli(argv, out_dir):
+    """cli/attack_model.main on ``argv`` (with its mesh flags): the CLI's own launch, each rank
+    under :func:`mesh_probe`."""
+    from adversarialvlm_tpu_torch.cli import attack_model
+    from adversarialvlm_tpu_torch.parallel import mesh as pmesh
+
+    real = pmesh.launch
+
+    def probed(fn, data, model, device="cuda", args=()):
+        return real(mesh_rank, data, model, device=device, args=(fn, args, out_dir, time.time()))
+
+    pmesh.launch = probed
+    try:
+        return attack_model.main(argv)
+    finally:
+        pmesh.launch = real
+
+
+def tp_decoder_dgrad_cases(t, rows, tp):
+    """(rows, O, I, launches per step, weight) of a llama-family decoder's dgrad launches on one
+    model rank of ``tp``: q/k/v and gate/up at their shards' output rows, o and down at their
+    shards' input columns, each taken by its whole weight's shape (the JAX rule under pjit), the
+    weights random at the shard's shape."""
+    import torch
+
+    from adversarialvlm_tpu_torch.ops.kernels.dgrad import dgrad_eligible
+    from adversarialvlm_tpu_torch.parallel.sharding import local_heads
+
+    d, hd, inter = t.hidden_size, t.head_dim_, t.intermediate_size
+    hq, hkv = local_heads(t.num_heads, t.num_kv_heads, tp)
+    linears = [((t.num_heads * hd, d), (hq * hd, d), 1), ((t.num_kv_heads * hd, d), (hkv * hd, d), 2),
+               ((d, t.num_heads * hd), (d, hq * hd), 1), ((inter, d), (inter // tp, d), 2), ((d, inter), (d, inter // tp), 1)]
+    gen = torch.Generator(device="cuda").manual_seed(tp)
+    cases = []
+    for full, local, n in linears:
+        if dgrad_eligible(torch.empty(full, device="meta")):
+            w = torch.randn(local, generator=gen, device="cuda", dtype=torch.bfloat16) * local[1] ** -0.5
+            cases.append((rows, *local, n * t.num_layers, w))
+    return cases
+
+
+def mesh_phase(tag, argv, mesh_flags, shape, vlm_cfg, tower_cases, want_step, want_one, out_dir):
+    """A mesh phase (4T, 4TL): the attack CLI with ``mesh_flags`` (every rank on the one card), then
+    the same command without them in this process, each under :func:`mesh_probe`. Checks every
+    rank's p after each step bit for bit equal; step 1's loss within TOL_MESH_LOSS of the one-rank
+    run's and its image gradient (AdamW's first moment) and the first decode prefill's last logits
+    at cosine >= TOL_MESH_COSINE; each rank's kernel launches a step (``want_step``; the one-rank
+    run's ``want_one``, whose route may differ by design) and its collectives a step against the
+    layer structure, none of a weight's shape; 0 kernels in a cached decode step and L flash
+    forwards a prefill. Logs the step's ms and each rank's peak beside the one-rank run's, the share
+    of the timed step in collectives and the backend; then dgrad, the batch-1 causal kernels and
+    the flash prefill at a rank's shapes against their plain versions, timed. ``tower_cases``: the
+    replicated tower's and projector's dgrad cases at a data rank's batch."""
+    import torch
+
+    from adversarialvlm_tpu_torch.parallel.sharding import local_heads
+
+    t_phase = time.perf_counter()
+    data, model = shape
+    t = vlm_cfg.text
+    n_ranks = data * model
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    mesh_cli(argv + mesh_flags, out_dir)
+    mesh_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with mesh_probe(out_dir, "one"):
+        from adversarialvlm_tpu_torch.cli import attack_model
+
+        attack_model.main(argv + ["--exp_name", f"{tag}_one"])
+    one_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = [json.load(open(os.path.join(out_dir, f"rank{r}.json"))) for r in range(n_ranks)]
+    one = json.load(open(os.path.join(out_dir, "one.json")))
+    tens = {k: torch.load(os.path.join(out_dir, f"{k}.pt")) for k in ("rank0", "one")}
+    log(tag, f"{' '.join(mesh_flags)}: {n_ranks} ranks on the one card through the CLI in {mesh_s:.1f} s, backend "
+        f"{sorted({r['backend'] for r in ranks})}; by rank, s from the launch to the rank's probe "
+        f"{[round(r['t_probe'], 1) for r in ranks]}, to its train() {[round(r['t_train'], 1) for r in ranks]}, "
+        f"train() {[round(r['wall_s'], 1) for r in ranks]}; the one-rank run in {one_s:.1f} s (train() "
+        f"{one['wall_s']:.1f} s)")
+    # every rank's p after each step, bit for bit
+    for k in range(STEPS_MESH):
+        shas = {r["steps"][k]["p_sha256"] for r in ranks}
+        if len(shas) != 1 or any(len(r["steps"]) != STEPS_MESH for r in ranks):
+            raise AssertionError(f"{tag}: the ranks' p differ after step {k + 1}: {shas}")
+    # step 1 against the one-rank run
+    l_mesh, l_one = ranks[0]["steps"][0]["loss"], one["steps"][0]["loss"]
+    rel = abs(l_mesh - l_one) / abs(l_one)
+    g_mesh, g_one = (tens[k]["exp_avg_1"].double().ravel() for k in ("rank0", "one"))
+    g_cos = float(g_mesh @ g_one / (g_mesh.norm() * g_one.norm()))
+    a, b = (tens[k]["prefill_logits"].double() for k in ("rank0", "one"))
+    logit_cos = float(torch.nn.functional.cosine_similarity(a, b, dim=-1).min())
+    log(tag, f"step 1: loss {l_mesh} against the one-rank run's {l_one} (rel {rel:.3g}, tol {TOL_MESH_LOSS}); image "
+        f"gradient cosine {g_cos:.6f}; first decode prefill's last logits, min cosine over {a.shape[0]} rows "
+        f"{logit_cos:.6f} (min {TOL_MESH_COSINE}); every rank's p equal after each of the {STEPS_MESH} steps")
+    if not (rel <= TOL_MESH_LOSS and g_cos >= TOL_MESH_COSINE and logit_cos >= TOL_MESH_COSINE):
+        raise AssertionError(f"{tag}: the mesh run and the one-rank run disagree")
+    # launches and collectives a step, from the layer structure
+    L = t.num_layers
+    want_coll = {"reduce_from_model": 1 + 2 * L if model > 1 else 0, "gather_from_model": 1 if model > 1 else 0,
+                 "copy_to_model": 2 * L + 1 if model > 1 else 0, "data": 1 if data > 1 else 0}
+    for r in ranks:
+        for k, st in enumerate(r["steps"]):
+            if st["launches"] != want_step or st["collectives"] != want_coll:
+                raise AssertionError(f"{tag}: rank {r['rank']} step {k + 1} launched {st['launches']} with "
+                                     f"collectives {st['collectives']}; expected {want_step} and {want_coll}")
+            weighty = [sh for sh in st["shapes"] if tuple(sorted(sh)) in {tuple(w) for w in r["weight_shapes"]}]
+            if weighty or not r["weight_shapes"]:
+                raise AssertionError(f"{tag}: rank {r['rank']} step {k + 1}: collectives of weight shapes {weighty}")
+        for c in r["chunks"]:
+            if c["prefill_launches"] != {**{k: 0 for k in c["prefill_launches"]}, "flash_fwd": L}:
+                raise AssertionError(f"{tag}: rank {r['rank']}: a decode prefill launched {c['prefill_launches']}")
+        if r["decode_step_launches"] or not r["chunks"]:
+            raise AssertionError(f"{tag}: rank {r['rank']}: a cached decode step launched a kernel, or no chunk ran")
+    for k, st in enumerate(one["steps"]):
+        if st["launches"] != want_one:
+            raise AssertionError(f"{tag}: the one-rank run's step {k + 1} launched {st['launches']}, expected {want_one}")
+    st0 = ranks[0]["steps"]
+    log(tag, f"a rank's step: launches {st0[0]['launches']}, by head dim {st0[0]['launches_d']}; collectives "
+        f"{st0[0]['collectives']} carrying {st0[0]['collective_bytes']} bytes, shapes {st0[0]['shapes']}; none of the "
+        f"{len(ranks[0]['weight_shapes'])} weight shapes; the one-rank step: {one['steps'][0]['launches']}")
+    share = [r["steps"][-1]["collective_s"] * 1e3 / r["steps"][-1]["ms"] for r in ranks]
+    numbers = {
+        "step_ms": [r["steps"][1]["ms"] for r in ranks], "one_step_ms": one["steps"][1]["ms"],
+        "peak_GiB": [r["step_peak_GiB"] for r in ranks], "one_peak_GiB": one["step_peak_GiB"],
+        "collective_share": share, "backend": ranks[0]["backend"], "loss_rel": rel, "grad_cosine": g_cos,
+        "logit_cosine": logit_cos, "mesh_s": mesh_s, "one_s": one_s,
+        "chunks": [(c["batch"], c["T"], round(c["prefill_ms"], 2), round(c["tokens"] / c["decode_ms"] * 1e3, 1))
+                   for c in ranks[0]["chunks"]],
+        "one_chunks": [(c["batch"], c["T"], round(c["prefill_ms"], 2), round(c["tokens"] / c["decode_ms"] * 1e3, 1))
+                       for c in one["chunks"]],
+    }
+    log(tag, f"step 2 ms by rank {[round(x, 2) for x in numbers['step_ms']]} against the one-rank run's "
+        f"{numbers['one_step_ms']:.2f}; steps' peak GiB by rank {[round(x, 3) for x in numbers['peak_GiB']]} against "
+        f"{numbers['one_peak_GiB']:.3f}; step 3 in collectives (timed after a sync): "
+        f"{[round(x, 4) for x in share]} of its ms; decode chunks (batch, T, prefill ms, tokens/s) rank 0 "
+        f"{numbers['chunks']}, one-rank {numbers['one_chunks']}")
+    # the kernels at a rank's shapes
+    hq, hkv = local_heads(t.num_heads, t.num_kv_heads, model)
+    r0 = ranks[0]
+    rows_t = len(r0["pads"]) * r0["T"]
+    cases = tower_cases + tp_decoder_dgrad_cases(t, rows_t, model)
+    if sum(c[3] for c in cases) != want_step["dgrad"]:
+        raise AssertionError(f"{tag}: the layer structure gives {sum(c[3] for c in cases)} dgrad launches a step")
+    stats = {"dgrad": check_dgrad(cases, label=f"dgrad {tag} rank")}
+    route = "attention" if len(r0["pads"]) == 1 else "flash"
+    if route == "attention":
+        stats.update(attention_case(r0["T"], hq, hkv, t.head_dim_, r0["pads"][0], timed=True))
+    stats["flash_fwd"] = flash_case(f"{tag} decode prefill", tens["rank0"]["prefill_mask"].to("cuda", torch.int32), hq,
+                                    hkv, t.head_dim_, timed=True, backward=False)["flash_fwd"]
+    log(tag, f"phase in {time.perf_counter() - t_phase:.1f} s")
+    per_step = {**want_step, "flash_fwd": L}  # the flash forward's launches are a decode prefill's
+    return {"numbers": numbers, "stats": stats, "per_step": per_step, "heads": (hq, hkv), "T": r0["T"],
+            "launches": r0["launches_run"], "seconds": time.perf_counter() - t_phase}
+
+
+def mesh_phases(ckpt_root, runs):
+    """Phases 4T (scripts/attacks/attack_clamp_tanh_qwen2vl.sh as written: Qwen2-VL-2B from 4V's
+    directory, --mesh_data 2 --mesh_model 4, batch 2) and 4TL (the main path's victim, LLaVA-1.5-7B from
+    4L's directory at bench.py's configuration, --mesh_model 2, batch 1), each beside the same command
+    on one rank, through :func:`mesh_phase`."""
+    import torch
+
+    from adversarialvlm_tpu_torch.cli.fabricate_ckpt import MODELS
+    from adversarialvlm_tpu_torch.models import llava as llava_model
+    from adversarialvlm_tpu_torch.models import qwen2vl as qwen_model
+
+    gray = os.path.join(os.path.dirname(os.path.abspath(__file__)), "images", "gray.png")
+    common = ["--img_orig", gray, "--target_text", TARGET, "--lr", "1e-2", "--num_iterations", str(STEPS_MESH),
+              "--save_steps", "10", "--checkpoint_root", ckpt_root, "--runs_path", runs]
+    out = {}
+    # 4T: a data rank's batch 1 takes the batch-1 causal kernels; the one-rank batch 2 the flash ones
+    q_cfg = MODELS["qwen2vl-2b"][1]()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = qwen_model.init_params(gen, q_cfg, torch.bfloat16, "cuda")
+    n_patch = 1296  # 512² -> 504²: a 36 x 36 grid
+    t_text_guess = 1  # the decoder rows come from the run; only the tower's cases are kept here
+    tower = [c for c in qwen_dgrad_cases(params, q_cfg, 1, t_text_guess, n_patch) if c[0] != t_text_guess]
+    del params
+    torch.cuda.empty_cache()
+    L = q_cfg.text.num_layers
+    out["4T"] = mesh_phase(
+        "4T", ["--exp_name", "qwen_mesh", "--prompt", "list", "--model_name", QWEN, "--batch_size", "2", *common],
+        ["--mesh_data", "2", "--mesh_model", "4"], (2, 4), q_cfg, tower,
+        {"dgrad": 270, "attention_fwd": L, "attention_bwd_dq": L, "attention_bwd_dkdv": L},
+        {"dgrad": 270, "flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkdv": L}, os.path.join(runs, "mesh_4T"))
+    drop_dirs(ckpt_root, (QWEN,))  # its last phase
+    # 4TL: LLaVA-1.5-7B at tp 2, its 32 MHA heads split 16 a rank
+    l_cfg = MODELS["llava-1.5-7b"][1]()
+    params = llava_model.init_params(gen, l_cfg, torch.bfloat16, "cuda")
+    tower = [c for c in llava_dgrad_cases(params, l_cfg, 1, 1) if c[0] != 1]
+    del params
+    torch.cuda.empty_cache()
+    L = l_cfg.text.num_layers
+    out["4TL"] = mesh_phase(
+        "4TL", ["--exp_name", "llava_mesh", "--prompt", QUESTION, "--model_name", LLAVA, "--batch_size", "1", *common],
+        ["--mesh_model", "2"], (1, 2), l_cfg, tower,
+        {"dgrad": 364, "attention_fwd": L, "attention_bwd_dq": L, "attention_bwd_dkdv": L},
+        {"dgrad": 364, "attention_fwd": L, "attention_bwd_dq": L, "attention_bwd_dkdv": L}, os.path.join(runs, "mesh_4TL"))
+    drop_dirs(ckpt_root, (LLAVA,))
+    return out
 
 
 def main():
@@ -4383,6 +4826,8 @@ def main():
     os.makedirs(build, exist_ok=True)
     ckpt_root = tempfile.mkdtemp(prefix="ckpt_", dir=build)
     runs = tempfile.mkdtemp(prefix="runs_", dir=build)
+    global REFS
+    REFS = CpuReferences(runs)
     try:
         llava = llava_phases(ckpt_root)
         gc.collect()
@@ -4421,22 +4866,29 @@ def main():
         torch.cuda.empty_cache()
         log("cross qwen", f"Qwen2-VL victims freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
         xq = qwen_cross_phases(ckpt_root, runs)
-        drop_dirs(ckpt_root, ("google/gemma-3-4b-it", QWEN))  # their last phase was 4XV
+        drop_dirs(ckpt_root, ("google/gemma-3-4b-it",))  # its last phase was 4XV; Qwen2-VL's stays for 4T
         gc.collect()
         torch.cuda.empty_cache()
-        log("phi", f"Qwen2-VL + Gemma-3 victims freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+        # mllama before Phi-3.5, so that 5M's CPU half, the longest, runs in the worker beside 4H, 5H and 4XH
+        log("mllama", f"Qwen2-VL + Gemma-3 victims freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+        ml = mllama_phases(ckpt_root, runs)
+        drop_dirs(ckpt_root, (MLLAMA,))
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("phi", f"mllama victim freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
         phi = phi_phases(ckpt_root, runs)
         gc.collect()
         torch.cuda.empty_cache()
         log("cross phi", f"Phi-3.5 victim freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
         xh = phi_cross_phases(ckpt_root, runs)
-        drop_dirs(ckpt_root, (LLAVA, PHI))  # their last phase was 4XH
+        drop_dirs(ckpt_root, (PHI,))  # its last phase was 4XH; LLaVA's stays for 4TL
         gc.collect()
         torch.cuda.empty_cache()
-        log("mllama", f"LLaVA + Phi-3.5 victims freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
-        ml = mllama_phases(ckpt_root, runs)
-        drop_dirs(ckpt_root, (MLLAMA,))
+        REFS.join()  # the references' CPU halves, before the mesh's ranks take the host
+        log("mesh", f"LLaVA + Phi-3.5 victims freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+        mesh = mesh_phases(ckpt_root, runs)
     finally:
+        REFS.pool.shutdown(cancel_futures=True)
         shutil.rmtree(ckpt_root)
         shutil.rmtree(runs)
 
@@ -4497,6 +4949,14 @@ def main():
         f"{ml['T']}, steps' peak {ml['step_peak_GiB']:.3f} GiB, image-gradient norms {ml['grad_norms']}, test-decode "
         f"chunks {ml['chunks']}; directory {ml['GB']:.3f} GB written in {ml['write_s']:.1f} s; depth-cut reference "
         f"{ml['reference']}")
+    for tag, m in mesh.items():
+        n = m["numbers"]
+        log("done", f"{tag} (mesh, backend {n['backend']}, {m['seconds']:.1f} s): step 2 ms by rank "
+            f"{[round(x, 2) for x in n['step_ms']]} against the one-rank run's {n['one_step_ms']:.2f}; steps' peak GiB "
+            f"by rank {[round(x, 3) for x in n['peak_GiB']]} against {n['one_peak_GiB']:.3f}; step 3 in collectives "
+            f"{[round(x, 4) for x in n['collective_share']]}; step 1 loss rel {n['loss_rel']:.3g}, gradient cosine "
+            f"{n['grad_cosine']:.6f}, prefill logits cosine {n['logit_cosine']:.6f}; decode chunks {n['chunks']} "
+            f"(one-rank {n['one_chunks']})")
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s; the blur + crop step "
         f"{llava['transforms']['median_ms']:.2f} ms at batch 1")
     sources = {"dgrad": "dgrad.cu", "attention_fwd": "causal_fwd.cu", "attention_bwd_dq": "causal_bwd.cu",
@@ -4549,6 +5009,7 @@ def main():
         st, batch1 = judge["flash"][name], judge["attention"][name.replace("flash", "attention")]
         kernels.append({
             "name": f"{name}_d256", "route": "cuda", "source": f"adversarialvlm_tpu_torch/csrc/{sources[name]}",
+            "replaces": replaces[name],
             # the forward's launches are the judge prefill's (4g), the backward's the Gemma attack's (4G)
             "launches": gem["judge"]["launches"] if name == "flash_fwd" else gem["launches_d"].get(f"{name}_d256", 0),
             "max_abs_err": st["abs"], "worst_row_rel_err": st["rel"], **pick(st, timing_keys),
@@ -4653,6 +5114,17 @@ def main():
             d = f"{name}_d72" if name.startswith("flash_full") else f"{name}_d128"
         row["launches_cross_step"] = {pair: (run["per_step"][name] if d is None else run["per_step_d"].get(d, 0))
                                       for pair, run in runs_by_pair.items()}
+    # phases 4T and 4TL: the kernels at one mesh rank's shapes (its heads, its shards, its data rank's
+    # rows), rows of their own; launches are rank 0's over its run
+    for tag, m in mesh.items():
+        for name in ("dgrad", "attention_fwd", "attention_bwd_dq", "attention_bwd_dkdv", "flash_fwd"):
+            st = m["stats"][name]
+            kernels.append({
+                "name": f"{name}_{tag}_rank", "route": "cuda", "source": f"adversarialvlm_tpu_torch/csrc/{sources[name]}",
+                "replaces": replaces[name], "launches": m["launches"][name], "max_abs_err": st["abs"],
+                "worst_row_rel_err": st["rel"], **pick(st, timing_keys), "launches_per_step": m["per_step"][name],
+                "heads": list(m["heads"]), "T": m["T"],
+            })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -304,7 +304,8 @@ def test_int8_weights_raise_naming_their_item(case, tmp_path, monkeypatch):
     """--int8_weights and ADVLM_INT8_WEIGHTS=1 build a quantized model (models/quant.py: int8
     linears) in each entry, where before this raised NotImplementedError: the eval CLIs' judge
     and victim, build_checker's, and the attack CLI's victim, each caught as the entry hands it
-    on; ADVLM_INT8_WEIGHTS=0 asks for nothing, and the mesh flags still raise naming their item."""
+    on; ADVLM_INT8_WEIGHTS=0 asks for nothing; --remat_policy still raises naming why, and the
+    mesh flags, which the port runs since its mesh landed, pass the check."""
     from adversarialvlm_tpu_torch.attack import engine
     from adversarialvlm_tpu_torch.cli import attack_model, judge_common
     from adversarialvlm_tpu_torch.cli import find_best_iter as fbi_cli
@@ -346,8 +347,9 @@ def test_int8_weights_raise_naming_their_item(case, tmp_path, monkeypatch):
     assert quantized_fraction(params) > 0.2
     monkeypatch.setenv("ADVLM_INT8_WEIGHTS", "0")
     assert quantized_fraction(judge_common.build_checker("tiny:", device="cpu").bundle.params) == 0.0
-    with pytest.raises(NotImplementedError, match="ROADMAP modules: multi-GPU mesh"):
-        attack_model.check_unported_flags(argparse.Namespace(mesh_model=2, int8_weights=True))
+    with pytest.raises(NotImplementedError, match="--remat_policy"):
+        attack_model.check_unported_flags(argparse.Namespace(remat_policy="dgrad", mesh_model=2, int8_weights=True))
+    attack_model.check_unported_flags(argparse.Namespace(mesh_model=2, mesh_data=2, int8_weights=True))
 
 
 NEW_MODULES = ["judge/__init__.py", "judge/fsm.py", "judge/safety_checker.py", "judge/tiny.py",

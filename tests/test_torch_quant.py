@@ -4,6 +4,7 @@ Inputs come from numpy with a seed; JAX runs eagerly here except in the one atta
 loss and image gradient are held against the port's on the same draws.
 """
 
+import json
 import os
 
 import jax
@@ -348,7 +349,9 @@ def test_int8_weights_halve_the_tiny_residency():
 
 def test_cross_cli_builds_int8_victims(tmp_path, monkeypatch):
     """cli/crossattack_models.py --int8_weights quantizes every victim it builds (both tiny
-    families at min_dim 8), caught as it hands them to train(); the mesh flags still raise."""
+    families at min_dim 8), caught as it hands them to train(); with --mesh_model 2 the same
+    command runs on two spawned CPU ranks (gloo) and writes the run: both victims' losses a step,
+    finite, the final image and a test decode of both victims."""
     from adversarialvlm_tpu_torch.attack import engine
     from adversarialvlm_tpu_torch.cli import crossattack_models
     from adversarialvlm_tpu_torch.utils.png import write_png
@@ -362,5 +365,12 @@ def test_cross_cli_builds_int8_victims(tmp_path, monkeypatch):
     crossattack_models.main(argv)
     (victims,) = built
     assert [quant.quantized_fraction(v.bundle.params) > 0.2 for v in victims] == [True, True]
-    with pytest.raises(NotImplementedError, match="ROADMAP modules: multi-GPU mesh"):
-        crossattack_models.main(argv + ["--mesh_model", "2"])
+    monkeypatch.undo()
+    exp = crossattack_models.main(argv + ["--mesh_model", "2", "--num_iterations", "1", "--exp_name", "mesh"])
+    steps = [json.loads(line) for line in open(os.path.join(exp, "metrics.jsonl")) if '"loss"' in line]
+    assert len(steps) == 1 and all(np.isfinite(steps[0][k]) for k in ("loss", "loss_0", "loss_1", "grad_norm"))
+    assert os.path.exists(os.path.join(exp, "optimized_image_iter_final.png"))
+    with open(os.path.join(exp, "test_results_iter_0.csv"), encoding="utf-8") as f:
+        header = f.readline().strip().split(",")
+    assert header == ["question", "tiny:llava", "tiny:gemma3"]
+    assert [d for d in os.listdir(tmp_path) if d.startswith("mesh")] == [os.path.basename(exp)]

@@ -129,6 +129,7 @@ def train(
     test_max_new_tokens: int = 64,
     device=None,
     mesh=None,
+    use_wandb: bool = True,
 ) -> str:
     """Run the attack on ``device`` (default: the card, which must hold the victims); returns
     the experiment path. ``cross`` (default: more than one victim) runs the cross-model
@@ -141,7 +142,8 @@ def train(
     with its ``step_ms``) and, with ``run_tests``, test_results_iter_<iteration>.csv at each save
     boundary (each victim's greedy answers of ``test_max_new_tokens`` tokens to the held-out
     questions, in its own compute dtype), and the attack state at each save boundary,
-    attack_state_iter_<global_iter>.pt and attack_state_latest.pt.
+    attack_state_iter_<global_iter>.pt and attack_state_latest.pt. ``use_wandb`` logs to wandb too,
+    where it is installed and a key is set (utils/logging.py).
 
     ``cfg.resume_state`` (such a file) continues that run: p, the optimizer, the counters and
     every generator as they were saved, the chunks realigned to the save grid and the
@@ -153,15 +155,15 @@ def train(
     decoder sharded over the model axis (:func:`shard_victim`, unless its setup already built its
     shards), the batch over the data axis, the test decode with each rank's cache of its heads.
     Every rank keeps p, the optimizer moments and every generator equal; rank 0 alone writes the
-    run's files, and on resume every rank reads the same state file."""
+    run's files and logs, and on resume every rank reads the same state file."""
     mesh = mesh if mesh is not None else active_mesh()
     if mesh is not None and mesh.size > 1:
         with use_mesh(mesh):
             for v in victims:
                 shard_victim(v, mesh)
             return _train(cfg, victims, x0, base_path, cross, run_tests, test_max_new_tokens, device,
-                          mesh.is_writer)
-    return _train(cfg, victims, x0, base_path, cross, run_tests, test_max_new_tokens, device, True)
+                          mesh.is_writer, use_wandb)
+    return _train(cfg, victims, x0, base_path, cross, run_tests, test_max_new_tokens, device, True, use_wandb)
 
 
 def shard_victim(victim: VictimSetup, mesh) -> None:
@@ -186,7 +188,7 @@ class _NoLogger:
         return lambda *args, **kwargs: None
 
 
-def _train(cfg, victims, x0, base_path, cross, run_tests, test_max_new_tokens, device, writer) -> str:
+def _train(cfg, victims, x0, base_path, cross, run_tests, test_max_new_tokens, device, writer, use_wandb) -> str:
     dev = resolve_device(device)
     cross = len(victims) > 1 if cross is None else cross
     if any(v.bundle.device != dev for v in victims):
@@ -219,7 +221,8 @@ def _train(cfg, victims, x0, base_path, cross, run_tests, test_max_new_tokens, d
         exp_path = create_directory(cfg.exp_name, base_path)
         save_config(dataclasses.asdict(cfg), exp_path)
         save_mask(mask, exp_path)
-        logger = RunLogger(exp_path, {**dataclasses.asdict(cfg), "models": [v.name for v in victims]})
+        logger = RunLogger(cfg.exp_name, exp_path, {**dataclasses.asdict(cfg), "models": [v.name for v in victims]},
+                           use_wandb=use_wandb)
     else:
         exp_path, logger = os.path.join(base_path, cfg.exp_name), _NoLogger()
 
@@ -313,5 +316,5 @@ def _train(cfg, victims, x0, base_path, cross, run_tests, test_max_new_tokens, d
         if writer:
             save_checkpoint(current_image(), exp_path, "final")
     finally:
-        logger.close()
+        logger.finish()
     return exp_path

@@ -1,11 +1,13 @@
 """Victim construction: model + differentiable processor + prompt pools, from random weights or
 from a local HF checkpoint directory. Counterpart of adversarialvlm_tpu/attack/setup.py::
 build_tiny_victim and build_victim_from_checkpoint for the llava, gemma3, qwen2vl, phi3v and mllama families, with int8
-weights (models/quant.py), without the HBM remat ladder, which an 80 GB card does not need."""
+weights (models/quant.py) and a forced ``remat_policy`` (models/remat.py), without the HBM remat
+ladder (``_policy_fits_hbm``, calibrated on a 15.75 GB chip), which an 80 GB card does not need."""
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 
 import torch
 
@@ -13,6 +15,7 @@ from adversarialvlm_tpu_torch.attack.engine import VictimSetup
 from adversarialvlm_tpu_torch.data import corpora
 from adversarialvlm_tpu_torch.models.configs import VLMConfig, tiny_gemma3, tiny_llava
 from adversarialvlm_tpu_torch.models.registry import make_bundle
+from adversarialvlm_tpu_torch.models.remat import check_policy, with_policy
 from adversarialvlm_tpu_torch.parallel.mesh import active_mesh
 from adversarialvlm_tpu_torch.processors import family_of, grid_hw_for, load_model_and_processor
 from adversarialvlm_tpu_torch.processors.adv_inputs import AdvInputs
@@ -69,6 +72,7 @@ def build_tiny_victim(
     device=None,
     family: str = "llava",
     int8_weights: bool = False,
+    remat_policy: str | None = None,
 ) -> VictimSetup:
     """A random-weight victim (default: the tiny config of ``family``, llava, gemma3, qwen2vl, phi3v
     or mllama; pass ``vlm_cfg=llava_1_5_7b()``, ``gemma3_4b_it()``, ``qwen2vl_2b()``,
@@ -76,7 +80,8 @@ def build_tiny_victim(
     the ByteTokenizer.
     Weights come from a ``torch.Generator`` on ``device`` (default: the card, which must exist)
     seeded with ``seed``. ``int8_weights`` quantizes every linear with both dims >= 8, tensor by
-    tensor (models/quant.py::quantize_params), so tiny runs take the int8 path too."""
+    tensor (models/quant.py::quantize_params), so tiny runs take the int8 path too.
+    ``remat_policy`` (models/remat.py; ``none`` recomputes nothing) replaces the config's."""
     dev = resolve_device(device)
     if vlm_cfg is None:
         from adversarialvlm_tpu_torch.models.mllama import tiny_mllama
@@ -86,6 +91,7 @@ def build_tiny_victim(
         tiny = {"gemma3": tiny_gemma3, "qwen2vl": tiny_qwen2vl, "phi3v": tiny_phi3v,
                 "mllama": tiny_mllama}.get(family, tiny_llava)
         vlm_cfg = tiny(vocab_size=384)
+    vlm_cfg = with_policy(vlm_cfg, remat_policy)
     family = vlm_cfg.family
     spec = spec_for_family(family)
     refusals = refuse_texts(cfg_attack, spec)
@@ -133,6 +139,7 @@ def build_victim_from_checkpoint(
     targets: list[str] | None = None,
     test_questions: list[str] | None = None,
     int8_weights: bool = False,
+    remat_policy: str | None = None,
 ) -> VictimSetup:
     """The victim of a local HF checkpoint directory (processors.load_model_and_processor): its
     weights on ``device`` (default: the card), the config patched from config.json, and the
@@ -140,15 +147,17 @@ def build_victim_from_checkpoint(
     the f32 the loader keeps the norms in. ``int8_weights`` quantizes the linears as they load
     (models/loading.py::quantize_on_load), so the card holds the int8 tree plus one dense tensor
     at most. Under a mesh with a model axis (parallel/mesh.py::active_mesh) the decoder loads as
-    this rank's shards."""
+    this rank's shards. ``remat_policy`` as :func:`build_tiny_victim`'s."""
     from adversarialvlm_tpu_torch.models.loading import quantize_on_load
 
     dev = resolve_device(device)
     family = family_of(model_name)
     spec = spec_for_family(family)
     refusals = refuse_texts(cfg_attack, spec)  # before any file is read
+    check_policy(remat_policy)
     with quantize_on_load() if int8_weights else contextlib.nullcontext():
-        bundle, tok, adv_proc = load_model_and_processor(model_name, checkpoint_path, in_hw, dtype, dev)
+        bundle, tok, adv_proc = load_model_and_processor(model_name, checkpoint_path, in_hw, dtype, dev,
+                                                         remat_policy=remat_policy)
     mesh = active_mesh()
     if mesh is not None and mesh.model > 1:  # the loader shipped this rank's shards
         bundle.model_shards = mesh.model
@@ -185,8 +194,6 @@ def image_processor(vlm_cfg: VLMConfig, in_hw, device):
             ImageProcessorConfig(tile_size=vlm_cfg.vision.image_size, max_image_tiles=vlm_cfg.vision.max_num_tiles),
             in_hw, device)
     if vlm_cfg.family == "phi3v":
-        import dataclasses
-
         pinned = MODEL_IMAGE_CONFIGS["microsoft/Phi-3.5-vision-instruct"]
         return DifferentiablePhi3VImageProcessor(
             dataclasses.replace(pinned, tile=vlm_cfg.vision.image_size), in_hw, device)

@@ -22,6 +22,8 @@ unless ``--device cpu``, at the default ``--batch_size 4`` or any other. As the 
 save boundary decodes the 50 held-out questions on the saved image and writes
 test_results_iter_<N>.csv.
 
+``--remat_policy`` recomputes each decoder layer in the backward, keeping the policy's save set
+(models/remat.py); ``--no_wandb`` keeps the metrics to metrics.jsonl (utils/logging.py).
 ``--mesh_model M`` and ``--mesh_data D`` run the attack on a (data × model) mesh
 (parallel/mesh.py): one process a rank, spawned here, the decoder tensor-parallel over M ranks
 and the batch split over D, on card ``rank % device_count`` (ranks may share a card) or, with
@@ -77,7 +79,8 @@ def add_attack_flags(parser):
     parser.add_argument("--transform_prob", type=float, default=1.0)
     parser.add_argument("--checkpoint_root", type=str, default=None)
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--no_wandb", action="store_true", help="accepted; metrics go to metrics.jsonl")
+    parser.add_argument("--no_wandb", action="store_true",
+                        help="log to metrics.jsonl only (default: wandb too, where it is installed and a key is set)")
     parser.add_argument("--runs_path", type=str, default="./runs")
     parser.add_argument("--resume_state", type=str, default=None)
     parser.add_argument("--profile_dir", type=str, default=None)
@@ -85,7 +88,9 @@ def add_attack_flags(parser):
     parser.add_argument("--mesh_data", type=int, default=None)
     parser.add_argument("--int8_weights", action="store_true")
     parser.add_argument("--remat_policy", type=str, default=None,
-                        choices=["dgrad_mid", "dgrad_lean", "gate", "gate_up", "dots", "dgrad", "none"])
+                        choices=["dgrad_mid", "dgrad_lean", "gate", "gate_up", "dots", "dgrad", "none"],
+                        help="recompute each decoder layer in the backward, keeping this save set (models/remat.py); "
+                        "'none' or no flag: recompute nothing")
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
 
 
@@ -144,11 +149,12 @@ def victim_family(model_name: str) -> str:
 
 
 def build_victim(model_name: str, cfg, in_hw, device, checkpoint_root: str | None = None,
-                 int8_weights: bool | None = None):
+                 int8_weights: bool | None = None, remat_policy: str | None = None):
     """``random:*`` and ``tiny:*`` names build random-weight victims with the byte tokenizer;
     an HF name (processors.MODEL_MAP) loads its checkpoint directory. ``int8_weights`` (None:
     ``ADVLM_INT8_WEIGHTS``) quantizes the linears (models/quant.py): the random victims after
-    their draw, a checkpoint's as it loads."""
+    their draw, a checkpoint's as it loads. ``remat_policy`` (``--remat_policy``,
+    models/remat.py) is forced on the victim's decoder."""
     from adversarialvlm_tpu_torch.attack.setup import build_tiny_victim, build_victim_from_checkpoint
 
     family = victim_family(model_name)  # names a family the port does not run before any file is read
@@ -157,19 +163,14 @@ def build_victim(model_name: str, cfg, in_hw, device, checkpoint_root: str | Non
         full_size = RANDOM_VICTIMS[model_name][1]
         if full_size is not None:
             return build_tiny_victim(model_name, cfg, in_hw, vlm_cfg=full_size(), seed=cfg.seed,
-                                     dtype=torch.bfloat16, device=device, int8_weights=int8)
+                                     dtype=torch.bfloat16, device=device, int8_weights=int8,
+                                     remat_policy=remat_policy)
         return build_tiny_victim(model_name, cfg, in_hw, seed=cfg.seed, device=device, family=family,
-                                 int8_weights=int8)
+                                 int8_weights=int8, remat_policy=remat_policy)
     dtype = torch.bfloat16 if torch.device(device).type == "cuda" else torch.float32
     return build_victim_from_checkpoint(model_name, resolve_checkpoint(model_name, checkpoint_root),
-                                        cfg, in_hw, dtype=dtype, device=device, int8_weights=int8)
-
-
-def check_unported_flags(args) -> None:
-    """The flags whose features the port does not run raise, each naming why, before any model is
-    built. ``args`` may lack the flags a CLI does not have."""
-    if getattr(args, "remat_policy", None) is not None:
-        raise NotImplementedError("not ported yet: --remat_policy (not needed on an 80 GB card)")
+                                        cfg, in_hw, dtype=dtype, device=device, int8_weights=int8,
+                                        remat_policy=remat_policy)
 
 
 def mesh_from_args(args, device) -> tuple[int, int] | None:
@@ -186,7 +187,8 @@ def mesh_from_args(args, device) -> tuple[int, int] | None:
     return mesh_shape(max(cards, asked), args.mesh_data, args.mesh_model)
 
 
-def build_rank_victim(model_name: str, cfg, in_hw, mesh, checkpoint_root=None, int8_weights=None):
+def build_rank_victim(model_name: str, cfg, in_hw, mesh, checkpoint_root=None, int8_weights=None,
+                      remat_policy=None):
     """This mesh rank's victim on its device: a checkpoint directory's decoder loads as the
     rank's shards; a random victim is drawn whole and cut (attack/engine.py::shard_victim), one
     rank at a time, so that ranks sharing a card never hold two whole models at once."""
@@ -195,11 +197,11 @@ def build_rank_victim(model_name: str, cfg, in_hw, mesh, checkpoint_root=None, i
     from adversarialvlm_tpu_torch.attack.engine import shard_victim
 
     if model_name not in RANDOM_VICTIMS or mesh.size == 1:
-        return build_victim(model_name, cfg, in_hw, mesh.device, checkpoint_root, int8_weights)
+        return build_victim(model_name, cfg, in_hw, mesh.device, checkpoint_root, int8_weights, remat_policy)
     victim = None
     for turn in range(mesh.size):
         if turn == mesh.rank:
-            victim = build_victim(model_name, cfg, in_hw, mesh.device, checkpoint_root, int8_weights)
+            victim = build_victim(model_name, cfg, in_hw, mesh.device, checkpoint_root, int8_weights, remat_policy)
             shard_victim(victim, mesh)
             if mesh.device.type == "cuda":
                 torch.cuda.empty_cache()
@@ -212,8 +214,9 @@ def _attack_rank(mesh, args, cfg, x0):
     from adversarialvlm_tpu_torch.attack.engine import train
 
     victim = build_rank_victim(args.model_name, cfg, (x0.shape[1], x0.shape[2]), mesh, args.checkpoint_root,
-                               args.int8_weights or None)
-    return train(cfg, [victim], x0, base_path=args.runs_path, cross=False, device=mesh.device, mesh=mesh)
+                               args.int8_weights or None, args.remat_policy)
+    return train(cfg, [victim], x0, base_path=args.runs_path, cross=False, device=mesh.device, mesh=mesh,
+                 use_wandb=not args.no_wandb)
 
 
 def main(argv=None):
@@ -221,7 +224,6 @@ def main(argv=None):
     add_attack_flags(parser)
     parser.add_argument("--model_name", type=str, default="random:llava-1.5-7b")
     args = parser.parse_args(argv)
-    check_unported_flags(args)
 
     from adversarialvlm_tpu_torch.attack.engine import train
     from adversarialvlm_tpu_torch.attack.io import load_image_chw
@@ -244,8 +246,9 @@ def main(argv=None):
         victim_family(args.model_name)  # a name the port does not run raises before any rank starts
         return launch(_attack_rank, *shape, device=device, args=(args, cfg, x0))
     victim = build_victim(args.model_name, cfg, in_hw, device, args.checkpoint_root,
-                          int8_weights=args.int8_weights or None)
-    return train(cfg, [victim], x0, base_path=args.runs_path, cross=False, device=device)
+                          int8_weights=args.int8_weights or None, remat_policy=args.remat_policy)
+    return train(cfg, [victim], x0, base_path=args.runs_path, cross=False, device=device,
+                 use_wandb=not args.no_wandb)
 
 
 if __name__ == "__main__":

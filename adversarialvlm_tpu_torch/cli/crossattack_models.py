@@ -25,7 +25,6 @@ from adversarialvlm_tpu_torch.cli.attack_model import (
     attack_config_from_args,
     build_rank_victim,
     build_victim,
-    check_unported_flags,
     mesh_from_args,
     victim_family,
 )
@@ -45,7 +44,6 @@ def main(argv=None):
     # None marks "--epsilon not given" in any spelling argparse accepts (--eps 0.5 included)
     parser.set_defaults(epsilon=None)
     args = parser.parse_args(argv)
-    check_unported_flags(args)
     if args.epsilon is None:
         args.epsilon = 0.4  # the cross attack's default (crossattack_models.py:553)
 
@@ -73,9 +71,10 @@ def main(argv=None):
         from adversarialvlm_tpu_torch.parallel.mesh import launch
 
         return launch(_cross_rank, *shape, device=device, args=(args, cfg, x0))
-    victims = [build_victim(name, cfg, in_hw, device, args.checkpoint_root, int8_weights=args.int8_weights or None)
+    victims = [build_victim(name, cfg, in_hw, device, args.checkpoint_root, int8_weights=args.int8_weights or None,
+                            remat_policy=args.remat_policy)
                for name in args.model_names]
-    return train(cfg, victims, x0, base_path=args.runs_path, cross=True, device=device)
+    return train(cfg, victims, x0, base_path=args.runs_path, cross=True, device=device, use_wandb=not args.no_wandb)
 
 
 def _cross_rank(mesh, args, cfg, x0):
@@ -83,9 +82,11 @@ def _cross_rank(mesh, args, cfg, x0):
     from adversarialvlm_tpu_torch.attack.engine import train
 
     in_hw = (x0.shape[1], x0.shape[2])
-    victims = [build_rank_victim(name, cfg, in_hw, mesh, args.checkpoint_root, args.int8_weights or None)
+    victims = [build_rank_victim(name, cfg, in_hw, mesh, args.checkpoint_root, args.int8_weights or None,
+                                 args.remat_policy)
                for name in args.model_names]
-    return train(cfg, victims, x0, base_path=args.runs_path, cross=True, device=mesh.device, mesh=mesh)
+    return train(cfg, victims, x0, base_path=args.runs_path, cross=True, device=mesh.device, mesh=mesh,
+                 use_wandb=not args.no_wandb)
 
 
 if __name__ == "__main__":

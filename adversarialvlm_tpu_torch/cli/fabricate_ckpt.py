@@ -652,15 +652,16 @@ def tokenizer_files(family: str, cfg: VLMConfig) -> dict[str, dict]:
 
 # ---------------------------------------------------------------- the directory
 
-def fabricate(model: str, root: str, device="cuda", params: dict | None = None) -> str:
+def fabricate(model: str, root: str, device="cuda", params: dict | None = None, cfg: VLMConfig | None = None) -> str:
     """Write ``model``'s directory under ``root`` and return its path. ``params`` (the tree of
-    ``init_params``, e.g. one already on the card) is written instead of a fresh draw."""
+    ``init_params``, e.g. one already on the card) is written instead of a fresh draw; ``cfg`` (a
+    depth cut of ``model``'s configuration, its widths and ids unchanged) instead of its own."""
     from adversarialvlm_tpu_torch.models.registry import _MODELS
     from adversarialvlm_tpu_torch.processors import family_of
     from adversarialvlm_tpu_torch.utils.safetensors import write_sharded
 
     hf_name, make_cfg, dtype = MODELS[model]
-    family, cfg = family_of(hf_name), make_cfg()
+    family, cfg = family_of(hf_name), cfg or make_cfg()
     out = os.path.join(root, hf_name)
     os.makedirs(out, exist_ok=True)
     if params is None:

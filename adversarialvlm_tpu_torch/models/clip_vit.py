@@ -39,10 +39,11 @@ def encoder_layer(x: torch.Tensor, p: dict, cfg: VisionConfig) -> torch.Tensor:
     return x + linear(h, p["mlp"]["fc2"])
 
 
-def encoder_layers(x: torch.Tensor, layers: list, cfg: VisionConfig) -> torch.Tensor:
-    """``layers`` in turn; under a mesh whose ranks share a card each one is recomputed in the
-    backward (parallel/mesh.py::recompute_replicated)."""
-    recompute = recompute_replicated()
+def encoder_layers(x: torch.Tensor, layers: list, cfg: VisionConfig, remat: bool = False) -> torch.Tensor:
+    """``layers`` in turn; with ``remat`` (Gemma-3's SigLIP under a remat policy) or under a mesh
+    whose ranks share a card each one is recomputed in the backward
+    (parallel/mesh.py::recompute_replicated)."""
+    recompute = recompute_replicated() or (remat and torch.is_grad_enabled())
     for p in layers:
         x = checkpoint(encoder_layer, x, p, cfg, use_reentrant=False) if recompute else encoder_layer(x, p, cfg)
     return x

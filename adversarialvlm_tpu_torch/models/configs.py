@@ -52,6 +52,9 @@ class TextConfig:
     rope_llama3_high_freq_factor: float = 4.0
     # embedding rows past vocab_size (mllama's <|image|> and its other specials): lookup only
     embed_vocab_extra: int = 0
+    # --remat_policy (models/remat.py): a named policy recomputes each decoder layer of the
+    # uncached forward in the backward, keeping its save set; None or "none" recomputes nothing
+    remat_policy: str | None = None
 
     @property
     def head_dim_(self) -> int:

@@ -5,7 +5,7 @@ adversarialvlm_tpu/models/gemma3.py.
 
 The decoder is models/llama.py with the config's switches; the tower reuses the CLIP encoder
 layer, whose attention takes the non-causal flash_full kernels on the card at its 4096 patches.
-The tower runs without remat: on the 80 GB card its saved activations fit.
+The tower recomputes each layer in the backward under a remat policy (JAX's ``remat_layers``).
 """
 
 from __future__ import annotations
@@ -17,17 +17,19 @@ from adversarialvlm_tpu_torch.models.clip_vit import encoder_layers, patch_embed
 from adversarialvlm_tpu_torch.models.configs import VisionConfig, VLMConfig
 from adversarialvlm_tpu_torch.models.layers import layer_norm, rms_norm
 from adversarialvlm_tpu_torch.models.llava import splice_image_embeds
+from adversarialvlm_tpu_torch.models.remat import is_remat
 
 
-def siglip_forward(params: dict, cfg: VisionConfig, pixel_values: torch.Tensor) -> torch.Tensor:
+def siglip_forward(params: dict, cfg: VisionConfig, pixel_values: torch.Tensor,
+                   remat_layers: bool = False) -> torch.Tensor:
     """SigLIP ViT: conv patch embed with bias, learned positions, no CLS, pre-LN encoder, final
     post_layernorm. pixel_values (B, C, H, W) in the siglip normalization (mean = std = 0.5) ->
-    (B, num_patches, D)."""
+    (B, num_patches, D). ``remat_layers`` recomputes each encoder layer in the backward."""
     x = patch_embed_unfold(
         pixel_values, params["patch_embedding"]["weight"], cfg.num_channels, cfg.patch_size
     ) + params["patch_embedding"]["bias"].to(pixel_values.dtype)
     x = x + params["position_embedding"]["weight"].to(x.dtype)[None, : x.shape[1], :]
-    x = encoder_layers(x, params["layers"], cfg)
+    x = encoder_layers(x, params["layers"], cfg, remat=remat_layers)
     return layer_norm(
         x, params["post_layernorm"]["weight"], params["post_layernorm"]["bias"], cfg.layer_norm_eps
     )
@@ -53,7 +55,7 @@ def image_features(params: dict, cfg: VLMConfig, pixel_values: torch.Tensor) -> 
     kernels do not take; the attack step feeds the weights' dtype in both packages.)"""
     vt = params["vision_tower"]
     pixel_values = pixel_values.to(vt["patch_embedding"]["weight"].dtype)
-    hidden = siglip_forward(vt, cfg.vision, pixel_values)
+    hidden = siglip_forward(vt, cfg.vision, pixel_values, remat_layers=is_remat(cfg.text.remat_policy))
     return multi_modal_projector(params["multi_modal_projector"], cfg, hidden)
 
 

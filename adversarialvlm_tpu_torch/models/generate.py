@@ -147,7 +147,7 @@ def max_decode_batch(
         hbm_bytes = device_memory_bytes(_first_device(params) if params is not None else "cpu")
     budget = max(256_000_000, hbm_bytes - weight_bytes - reserved_bytes - slack_bytes)
     # under a model axis a rank caches and reads its own heads (JAX: the per-device share)
-    n_heads, n_kv = heads_under_mesh(cfg_text)
+    n_heads, n_kv = heads_under_mesh(cfg_text, widest=True)
     padded_hd = -(-cfg_text.head_dim_ // 128) * 128
     per_tok_head = padded_hd * cache_bytes
     if cache_bytes == 1:

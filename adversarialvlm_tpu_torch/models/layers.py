@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from adversarialvlm_tpu_torch.models.configs import TextConfig
+from adversarialvlm_tpu_torch.models.remat import checkpoint_name
 from adversarialvlm_tpu_torch.ops.kernels.attention import fused_attention
 from adversarialvlm_tpu_torch.ops.kernels.dgrad import LinearInt8, LinearPdx, dgrad_eligible
 from adversarialvlm_tpu_torch.ops.kernels.flash import flash_sdpa
@@ -190,8 +191,8 @@ def held_heads(p_attn: dict, head_dim: int) -> tuple[int, int]:
 
 def mlp_swiglu(x: torch.Tensor, p: dict, act: str) -> torch.Tensor:
     x = copy_to_model(x)
-    gate = linear(x, p["gate_proj"])
-    up = linear(x, p["up_proj"])
+    gate = checkpoint_name(linear(x, p["gate_proj"]), "mlp_gate")
+    up = checkpoint_name(linear(x, p["up_proj"]), "mlp_up")
     return row_parallel_linear(act_fn(act)(gate) * up, p["down_proj"])
 
 
@@ -259,9 +260,9 @@ def self_attention(x, p, cfg: TextConfig, bias, cos, sin, attention_mask, kv_cac
     if route in ("fused", "flash"):
         q4 = qk_norm(linear(x, p["q_proj"]).view(b, t, nh, hd), "q_norm")
         k4 = qk_norm(linear(x, p["k_proj"]).view(b, t, nkv, hd), "k_norm")
-        q4 = apply_rope_bthd(q4, cos, sin)
-        k4 = apply_rope_bthd(k4, cos, sin)
-        v4 = linear(x, p["v_proj"]).view(b, t, nkv, hd)
+        q4 = checkpoint_name(apply_rope_bthd(q4, cos, sin), "attn_q")
+        k4 = checkpoint_name(apply_rope_bthd(k4, cos, sin), "attn_k")
+        v4 = checkpoint_name(linear(x, p["v_proj"]).view(b, t, nkv, hd), "attn_v")
         if kv_cache is not None:
             _write_cache(kv_cache, k4.transpose(1, 2), v4.transpose(1, 2), cache_index)
         if route == "fused":
@@ -273,8 +274,9 @@ def self_attention(x, p, cfg: TextConfig, bias, cos, sin, attention_mask, kv_cac
     q = linear(x, p["q_proj"]).view(b, t, nh, hd).transpose(1, 2)
     k = linear(x, p["k_proj"]).view(b, t, nkv, hd).transpose(1, 2)
     v = linear(x, p["v_proj"]).view(b, t, nkv, hd).transpose(1, 2)
-    q = apply_rope(qk_norm(q, "q_norm"), cos, sin)
-    k = apply_rope(qk_norm(k, "k_norm"), cos, sin)
+    q = checkpoint_name(apply_rope(qk_norm(q, "q_norm"), cos, sin), "attn_q")
+    k = checkpoint_name(apply_rope(qk_norm(k, "k_norm"), cos, sin), "attn_k")
+    v = checkpoint_name(v, "attn_v")
     if kv_cache is not None:
         _write_cache(kv_cache, k, v, cache_index)
         k, v = read_cache(kv_cache, x.dtype)

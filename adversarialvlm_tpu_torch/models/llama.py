@@ -24,6 +24,7 @@ from adversarialvlm_tpu_torch.models.layers import (
     rope_cos_sin,
     self_attention,
 )
+from adversarialvlm_tpu_torch.models.remat import checkpoint_name, is_remat, remat_call
 from adversarialvlm_tpu_torch.ops.kernels.attention import attention_route
 from adversarialvlm_tpu_torch.parallel.collectives import (
     copy_to_model,
@@ -136,11 +137,12 @@ def decoder_layer(x, p, cfg: TextConfig, bias, cos, sin, attention_mask, kv_cach
 
     attn_args = (p["self_attn"], cfg, bias, cos, sin, attention_mask, kv_cache, cache_index, route)
     h = norm(x, "input_layernorm")
+    # "resid_mid", the MLP half's residual input, is a mark of the remat save sets (models/remat.py)
     if cfg.post_attn_pre_mlp_norms:  # gemma3's sandwich norms
-        x = x + norm(self_attention(h, *attn_args), "post_attention_layernorm")
+        x = checkpoint_name(x + norm(self_attention(h, *attn_args), "post_attention_layernorm"), "resid_mid")
         h = norm(x, "pre_feedforward_layernorm")
         return x + norm(mlp_swiglu(h, p["mlp"], cfg.hidden_act), "post_feedforward_layernorm")
-    x = x + self_attention(h, *attn_args)
+    x = checkpoint_name(x + self_attention(h, *attn_args), "resid_mid")
     h = norm(x, "post_attention_layernorm")
     return x + mlp_swiglu(h, p["mlp"], cfg.hidden_act)
 
@@ -206,6 +208,7 @@ def forward(
     # the head counts this rank holds (all of them without a model axis)
     nh, nkv = held_heads(next(p for i, p in enumerate(params["layers"])
                                if i not in cfg.cross_attention_layers)["self_attn"], cfg.head_dim_)
+    remat = is_remat(cfg.remat_policy)
     theta_cache: dict[float, tuple] = {}
     route_cache: dict[bool, str] = {}
     # the kernels see only the new tokens, so the query-side mask is their segment mask; the
@@ -233,7 +236,11 @@ def forward(
                 bias_cache[sw] = causal_bias(k_mask, positions, k_pos, sw, bidir_mask, k_bidir_mask)
             bias = bias_cache[sw]
         kv = kv_caches[i] if kv_caches is not None else None
-        x = decoder_layer(x, p, cfg, bias, cos, sin, attention_mask, kv, cache_index, route)
+        if kv is None and remat:  # the uncached forward's layers recompute in the backward
+            x = remat_call(cfg.remat_policy, decoder_layer, x, p, cfg, bias, cos, sin, attention_mask, None,
+                           cache_index, route)
+        else:
+            x = decoder_layer(x, p, cfg, bias, cos, sin, attention_mask, kv, cache_index, route)
     return _head(params, cfg, x, logits_last_k)
 
 

@@ -184,11 +184,13 @@ def choose_backend(device_type: str, n_ranks: int, n_cards: int) -> tuple[str, s
     return "gloo", f"{n_ranks} ranks share {n_cards} card(s), which NCCL refuses"
 
 
-def _rank_main(rank, fn, args, data, model, device_type, backend, init_file, result_path, threads,
+def _rank_main(rank, call_path, data, model, device_type, backend, init_file, result_path, threads,
                n_cards):
     import torch.distributed as dist
 
     torch.set_num_threads(threads)
+    with open(call_path, "rb") as f:
+        fn, args = pickle.load(f)
     n = data * model
     if device_type == "cuda":
         device = torch.device("cuda", rank % n_cards)
@@ -217,7 +219,10 @@ def launch(fn, data: int, model: int, device="cuda", args=()):
     rank, and return rank 0's result. ``fn`` must be a module-level function (the ranks unpickle
     it). On the card the kernels are built here first, once, so the ranks find them built instead
     of each starting nvcc; each rank's torch takes 1 intra-op thread on the CPU, else the host's
-    cores over the ranks, at most 4. A mesh of one rank runs ``fn`` in this process."""
+    cores over the ranks, at most 4. ``fn`` and ``args`` reach the ranks through a file: spawn
+    writes each process's arguments into its start-up pipe, and arguments past the pipe's buffer
+    (an image as a numpy array) held the launch until that process had imported torch, so the
+    ranks started one after another. A mesh of one rank runs ``fn`` in this process."""
     import torch.multiprocessing as mp
 
     device_type = torch.device(device).type
@@ -238,8 +243,10 @@ def launch(fn, data: int, model: int, device="cuda", args=()):
     print(f"mesh: data {data} x model {model} = {n} ranks, backend {backend} ({why})", flush=True)
     tmp = tempfile.mkdtemp(prefix="advlm_mesh_")
     try:
-        result_path = os.path.join(tmp, "rank0.pkl")
-        mp.spawn(_rank_main, args=(fn, args, data, model, device_type, backend, os.path.join(tmp, "rendezvous"),
+        result_path, call_path = os.path.join(tmp, "rank0.pkl"), os.path.join(tmp, "call.pkl")
+        with open(call_path, "wb") as f:
+            pickle.dump((fn, args), f)
+        mp.spawn(_rank_main, args=(call_path, data, model, device_type, backend, os.path.join(tmp, "rendezvous"),
                                    result_path, threads, n_cards), nprocs=n, join=True)
         with open(result_path, "rb") as f:
             return pickle.load(f)

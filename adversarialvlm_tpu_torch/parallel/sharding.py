@@ -11,10 +11,11 @@ adversarialvlm_tpu/parallel/sharding.py, with its rules (sharding.py:24-128):
 
 A specification tree mirrors the parameter tree with a :class:`Split` or None (replicated) at each
 leaf; :func:`shard_params` cuts each leaf to this rank's part. The JAX package's GSPMD splits the
-k/v projections evenly even when there are fewer kv heads than model ranks (inside a head); the
-port gives each rank the whole kv head its contiguous query heads read (:func:`head_layout`), so
-two ranks may hold the same k/v rows. Each rank's k/v gradient then comes from its own query heads
-alone, and the input gradient's all-reduce sums them: the values are JAX's.
+flattened q, k/v and o dims evenly, inside a head where the heads do not divide; the port gives
+each rank a contiguous run of whole query heads and the whole kv heads they read
+(:func:`head_layout`), so ranks may hold unequal head counts, and two ranks the same k/v rows.
+Each rank's k/v gradient then comes from its own query heads alone, and the input gradient's
+all-reduce sums them: the values are JAX's.
 """
 
 from __future__ import annotations
@@ -26,9 +27,10 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class Split:
-    """How a leaf is cut: "col" (dim 0 evenly), "row" (dim 1 evenly), "vocab" (dim 0 by
-    ``tensor_split``), or "kv" (dim 0 by :func:`head_layout` of ``heads`` = (query heads, kv
-    heads, head_dim))."""
+    """How a leaf is cut: "col" (dim 0), "row" (dim 1), "vocab" (dim 0 by ``tensor_split``), or
+    "kv" (dim 0 by the kv heads of :func:`head_layout`). "col" and "row" split evenly, or, with
+    ``heads`` = (query heads, kv heads, head_dim), by the rank's query heads of
+    :func:`head_layout` (q_proj's rows, o_proj's columns)."""
 
     kind: str
     heads: tuple[int, int, int] | None = None
@@ -38,40 +40,67 @@ COL, ROW, VOCAB = Split("col"), Split("row"), Split("vocab")
 
 
 def head_layout(num_heads: int, num_kv_heads: int, model: int, rank: int) -> tuple[int, int, int, int]:
-    """(first q head, end, first kv head, end) of model rank ``rank``: contiguous query heads, and
-    the kv heads they read. With fewer kv heads than ranks each rank holds the one kv head of its
-    query heads; a layout where one rank's query heads read two kv heads raises."""
-    if num_heads % model:
-        raise ValueError(f"{num_heads} attention heads do not split over {model} model ranks")
-    hl, n_rep = num_heads // model, num_heads // num_kv_heads
-    if num_kv_heads % model == 0:
-        kl = num_kv_heads // model
-        return rank * hl, (rank + 1) * hl, rank * kl, (rank + 1) * kl
-    first, last = (rank * hl) // n_rep, ((rank + 1) * hl - 1) // n_rep
-    if first != last:
-        raise ValueError(
-            f"tensor parallelism over {model} model ranks: rank {rank}'s query heads "
-            f"{rank * hl}-{(rank + 1) * hl - 1} read kv heads {first} and {last} of {num_kv_heads} "
-            f"({num_heads} heads); the port gives a rank one kv head, so pick a model axis that "
-            f"divides {num_kv_heads} or a multiple of it that divides {num_heads}")
-    return rank * hl, (rank + 1) * hl, first, first + 1
+    """(first q head, end, first kv head, end) of model rank ``rank``: a contiguous run of whole
+    query heads and the whole kv heads they read.
+
+    * ``model`` divides the kv heads: an even split of both;
+    * the kv heads divide ``model`` (fewer kv heads than ranks): each kv head's ``n_rep`` query
+      heads split over its ``model / num_kv_heads`` ranks as evenly as whole heads allow, the
+      extra heads on the group's first ranks (Qwen2-VL-2B's 12 over 2 at 8: 2, 2, 1, 1 a group),
+      each rank holding its one kv head;
+    * more kv heads than ranks that ``model`` does not divide: the kv heads split unevenly as
+      whole groups, the extra ones on the first ranks, their query heads with them (12 over 6 at
+      4: 2, 2, 1, 1 kv heads).
+
+    Any other layout raises, fewer query heads than ranks among them (a rank would hold none;
+    JAX's GSPMD splits inside a head there)."""
+    n_rep = num_heads // num_kv_heads
+    if num_heads % num_kv_heads or num_kv_heads < 1:
+        raise ValueError(f"{num_heads} attention heads do not group over {num_kv_heads} kv heads")
+    if not 0 <= rank < model:
+        raise ValueError(f"model rank {rank} of {model}")
+    if num_kv_heads >= model:
+        base, extra = divmod(num_kv_heads, model)
+        k0 = rank * base + min(rank, extra)
+        k1 = k0 + base + (rank < extra)
+        return k0 * n_rep, k1 * n_rep, k0, k1
+    if model % num_kv_heads == 0 and model <= num_heads:
+        per = model // num_kv_heads
+        g, j = divmod(rank, per)
+        base, extra = divmod(n_rep, per)
+        q0 = g * n_rep + j * base + min(j, extra)
+        return q0, q0 + base + (j < extra), g, g + 1
+    raise ValueError(
+        f"{num_heads} attention heads over {num_kv_heads} kv heads do not split into whole heads over "
+        f"{model} model ranks: the port gives each rank whole query heads and the kv heads they read, "
+        f"so pick a model axis that divides {num_kv_heads}, or a multiple of it of at most {num_heads}")
 
 
-def local_heads(num_heads: int, num_kv_heads: int, model: int) -> tuple[int, int]:
-    """(query heads, kv heads) a model rank holds."""
-    q0, q1, k0, k1 = head_layout(num_heads, num_kv_heads, model, 0)
+def local_heads(num_heads: int, num_kv_heads: int, model: int, rank: int = 0) -> tuple[int, int]:
+    """(query heads, kv heads) model rank ``rank`` holds."""
+    q0, q1, k0, k1 = head_layout(num_heads, num_kv_heads, model, rank)
     return q1 - q0, k1 - k0
 
 
-def heads_under_mesh(text_cfg, mesh=None) -> tuple[int, int]:
+def widest_heads(num_heads: int, num_kv_heads: int, model: int) -> tuple[int, int]:
+    """(query heads, kv heads) of the widest model rank: the count every rank of a model group
+    plans a shared size with (the decode batch), so that the group agrees."""
+    layouts = [local_heads(num_heads, num_kv_heads, model, r) for r in range(model)]
+    return max(q for q, _ in layouts), max(k for _, k in layouts)
+
+
+def heads_under_mesh(text_cfg, mesh=None, widest: bool = False) -> tuple[int, int]:
     """(query heads, kv heads) of ``text_cfg``'s attention that a rank of ``mesh`` (default: the
-    active one) holds: all of them without a model axis."""
+    active one) holds: this rank's, or with ``widest`` the widest rank's; all of them without a
+    model axis."""
     from adversarialvlm_tpu_torch.parallel.mesh import active_mesh
 
     mesh = mesh if mesh is not None else active_mesh()
     if mesh is None or mesh.model == 1:
         return text_cfg.num_heads, text_cfg.num_kv_heads
-    return local_heads(text_cfg.num_heads, text_cfg.num_kv_heads, mesh.model)
+    if widest:
+        return widest_heads(text_cfg.num_heads, text_cfg.num_kv_heads, mesh.model)
+    return local_heads(text_cfg.num_heads, text_cfg.num_kv_heads, mesh.model, mesh.model_rank)
 
 
 def _proj_specs(proj: dict, weight_spec: Split, out_spec: Split | None) -> dict:
@@ -81,18 +110,19 @@ def _proj_specs(proj: dict, weight_spec: Split, out_spec: Split | None) -> dict:
 
 
 def text_param_shardings(params: dict, text_cfg) -> dict:
-    """The specification tree of a llama-family decoder tree (models/llama.py's layout), its kv
-    layout from ``text_cfg``'s head counts."""
-    kv = Split("kv", (text_cfg.num_heads, text_cfg.num_kv_heads, text_cfg.head_dim_))
+    """The specification tree of a llama-family decoder tree (models/llama.py's layout), its
+    attention split by the head groups of ``text_cfg``'s head counts (:func:`head_layout`)."""
+    heads = (text_cfg.num_heads, text_cfg.num_kv_heads, text_cfg.head_dim_)
+    q_rows, kv, o_cols = Split("col", heads), Split("kv", heads), Split("row", heads)
 
     def layer_specs(layer: dict) -> dict:
         out = {}
         for name, sub in layer.items():
             if name in ("self_attn", "cross_attn"):
                 out[name] = {
-                    pname: (_proj_specs(pv, COL, COL) if pname == "q_proj"
+                    pname: (_proj_specs(pv, q_rows, q_rows) if pname == "q_proj"
                             else _proj_specs(pv, kv, kv) if pname in ("k_proj", "v_proj")
-                            else _proj_specs(pv, ROW, None) if pname == "o_proj"
+                            else _proj_specs(pv, o_cols, None) if pname == "o_proj"
                             else _replicated(pv))  # q_norm/k_norm: the head_dim axis is not split
                     for pname, pv in sub.items()
                 }
@@ -152,11 +182,12 @@ def shard_leaf(t: torch.Tensor, spec: Split | None, model: int, rank: int) -> to
     if spec.kind == "vocab":
         lo, hi = vocab_range(t.shape[0], model, rank)
         return t[lo:hi]
-    if spec.kind == "kv":
+    dim = 0 if spec.kind in ("col", "kv") else 1
+    if spec.heads is not None:
         hq, hkv, hd = spec.heads
-        _, _, k0, k1 = head_layout(hq, hkv, model, rank)
-        return t[k0 * hd:k1 * hd]
-    dim = 0 if spec.kind == "col" else 1
+        q0, q1, k0, k1 = head_layout(hq, hkv, model, rank)
+        lo, hi = (k0, k1) if spec.kind == "kv" else (q0, q1)
+        return t.narrow(dim, lo * hd, (hi - lo) * hd)
     size = t.shape[dim]
     if size % model:
         raise ValueError(f"a {spec.kind}-parallel dimension of {size} does not split over {model} model ranks")

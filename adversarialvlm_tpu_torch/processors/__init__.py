@@ -66,17 +66,19 @@ def grid_hw_for(family: str, adv_proc, in_hw, vlm_cfg=None):
 
 
 def load_model_and_processor(model_name: str, checkpoint_path: str, in_hw, dtype=None,
-                             device="cuda"):
+                             device="cuda", remat_policy: str | None = None):
     """A local HF checkpoint directory as (ModelBundle, HFTokenizer, differentiable image
     processor): the weights on ``device`` (norms f32, the rest ``dtype``, default bf16), the
-    config patched from config.json, the tokenizer read from the directory, and the processor
-    from the name's pinned config overridden by preprocessor_config.json."""
+    config patched from config.json (and ``remat_policy``, models/remat.py), the tokenizer read
+    from the directory, and the processor from the name's pinned config overridden by
+    preprocessor_config.json."""
     import dataclasses
 
     import torch
 
     from adversarialvlm_tpu_torch.models import loading
     from adversarialvlm_tpu_torch.models.registry import make_bundle
+    from adversarialvlm_tpu_torch.models.remat import with_policy
     from adversarialvlm_tpu_torch.processors.gemma3 import DifferentiableGemma3ImageProcessor
     from adversarialvlm_tpu_torch.processors.llama32 import DifferentiableMllamaImageProcessor
     from adversarialvlm_tpu_torch.processors.llava import DifferentiableLlavaImageProcessor
@@ -115,6 +117,6 @@ def load_model_and_processor(model_name: str, checkpoint_path: str, in_hw, dtype
                          f"{proc_cfg.tile_size}² but the tower takes {vlm_cfg.vision.max_num_tiles} of "
                          f"{vlm_cfg.vision.image_size}²")
     adv_proc = proc_cls(proc_cfg, in_hw, device)
-    bundle = make_bundle(model_name, family, vlm_cfg, torch.device(device), params=params,
-                         grid_hw=grid_hw_for(family, adv_proc, in_hw, vlm_cfg))
+    bundle = make_bundle(model_name, family, with_policy(vlm_cfg, remat_policy), torch.device(device),
+                         params=params, grid_hw=grid_hw_for(family, adv_proc, in_hw, vlm_cfg))
     return bundle, tok, adv_proc

@@ -333,6 +333,9 @@ def build_pre_tokenizer(spec):
 
 # ---------------------------------------------------------------- models
 
+BPE_CACHE_WORDS = 100_000  # the words whose ids a BPE model keeps
+
+
 class BPE:
     def __init__(self, spec: dict):
         for key in ("dropout", "continuing_subword_prefix", "end_of_word_suffix"):
@@ -349,8 +352,17 @@ class BPE:
         for rank, m in enumerate(spec["merges"]):
             a, b = m.split(" ", 1) if isinstance(m, str) else m
             self.merges[(self.vocab[a], self.vocab[b])] = (rank, self.vocab[a + b])
+        self._cache: dict[str, tuple[int, ...]] = {}  # word -> its ids, as tokenizers' BPE cache
 
     def tokenize(self, word: str) -> list[int]:
+        ids = self._cache.get(word)
+        if ids is None:
+            ids = tuple(self._tokenize(word))
+            if len(self._cache) < BPE_CACHE_WORDS:
+                self._cache[word] = ids
+        return list(ids)
+
+    def _tokenize(self, word: str) -> list[int]:
         if self.ignore_merges and word in self.vocab:
             return [self.vocab[word]]
         ids: list[int] = []
@@ -640,6 +652,14 @@ class AddedToken:
         self.normalized, self.lstrip, self.rstrip = normalized, lstrip, rstrip
 
 
+def _alternation(patterns):
+    """One regex of ``patterns``, the longest first, so that a search finds the leftmost match and,
+    among those starting there, the longest (None for no patterns)."""
+    if not patterns:
+        return None
+    return re.compile("|".join(re.escape(p) for p in sorted(patterns, key=len, reverse=True)))
+
+
 def _trailing_space_start(s: str) -> int:
     i = len(s)
     while i > 0 and s[i - 1] in _WHITESPACE:
@@ -677,9 +697,9 @@ class TokenizerJson:
     def _register(self, tok: AddedToken) -> None:
         self.added[tok.content] = tok
         self.added_by_id[tok.id] = tok
-        self._raw = sorted((t.content for t in self.added.values() if not t.normalized), key=len,
-                           reverse=True)
+        self._raw = {t.content: t for t in self.added.values() if not t.normalized}
         self._norm = {self.normalize(t.content): t for t in self.added.values() if t.normalized}
+        self._patterns = None  # their _alternation, compiled at the next encode
 
     def add_token(self, content: str, special: bool) -> None:
         """AddedVocabulary::add_tokens for one token with the default options: the id the
@@ -701,15 +721,13 @@ class TokenizerJson:
         return len(set(self.model.vocab) | set(self.added))
 
     @staticmethod
-    def _find(text: str, patterns, lookup) -> list[tuple[str, AddedToken | None]]:
-        """Split ``text`` on the added tokens ``patterns`` (leftmost, then longest, never
-        overlapping), with each token's lstrip/rstrip taking the whitespace beside it."""
+    def _find(text: str, pattern, lookup) -> list[tuple[str, AddedToken | None]]:
+        """Split ``text`` on the added tokens of ``lookup`` (``pattern``, their
+        :func:`_alternation`: leftmost, then longest, never overlapping), with each token's
+        lstrip/rstrip taking the whitespace beside it."""
         out, i, last = [], 0, 0
-        while i < len(text):
-            hit = next((p for p in patterns if text.startswith(p, i)), None)
-            if hit is None:
-                i += 1
-                continue
+        while pattern is not None and (m := pattern.search(text, i)) is not None:
+            i, hit = m.start(), m.group(0)
             tok = lookup[hit]
             start, stop = i, i + len(hit)
             if tok.lstrip:
@@ -725,17 +743,18 @@ class TokenizerJson:
         return out
 
     def encode(self, text: str, add_special_tokens: bool = True) -> list[int]:
-        raw_lookup = {t: self.added[t] for t in self._raw}
-        norm_patterns = sorted(self._norm, key=len, reverse=True)
+        if self._patterns is None:
+            self._patterns = _alternation(self._raw), _alternation(self._norm)
+        raw_re, norm_re = self._patterns
         ids: list[int] = []
         offset = 0
-        for part, tok in self._find(text, self._raw, raw_lookup):
+        for part, tok in self._find(text, raw_re, self._raw):
             start, offset = offset, offset + len(part)
             if tok is not None:
                 ids.append(tok.id)
                 continue
             pos = 0  # where each piece starts in the normalized part: 0 only for its first
-            for sub, ntok in self._find(self.normalize(part), norm_patterns, self._norm):
+            for sub, ntok in self._find(self.normalize(part), norm_re, self._norm):
                 pos, at = pos + len(sub), start + pos
                 if ntok is not None:
                     ids.append(ntok.id)

@@ -48,6 +48,10 @@ Phases, in order (no exception is caught; any failure exits non-zero with no fin
      prompt pool through ``train(run_tests=True)``, whose save boundaries greedy-decode the 50
      held-out questions (64 new tokens) and write their CSVs; launches are counted over that run
      and attributed to the step, the monitor and the decode by a probe around the forward;
+  4Z. --remat_policy on the same resident weights at batch 4: one step (loss and image gradient) under none,
+     dgrad, dgrad_lean and gate on the same draws, each with its ms and its peak from an emptied cache; each
+     policy's loss within 1e-2 relative of none's and its gradient at cosine >= 0.99, and a named policy's
+     step launching the flash forward twice a layer (the recompute), the backward and dgrad as none's;
   4R. true resume and the profiler: at batch 1 with 4t's transforms and transform_prob 0.5 (every
      generator drawn from), an uninterrupted run of 6 steps against one of 3 steps resumed from its
      saved attack state to 6 with a profile directory: the resumed metrics.jsonl rows and final
@@ -86,7 +90,8 @@ those phases' peaks hold both trees:
   4X. cli/crossattack_models.py at the reference script's settings (scripts/attacks/
      attack_cross.sh: batch 1, ε 0.4 by default, the list prompts, random targets) on
      llava-hf/llava-1.5-7b-hf,google/gemma-3-4b-it: 1 warm-up + 4 steps, save boundaries at
-     iterations 0 and 4, each decoding the 50 held-out questions with both victims; counted from
+     iterations 0 and 4, each decoding MESH_TEST_QUESTIONS held-out questions (MESH_DECODE_TOKENS new tokens,
+     one chunk) with both victims; counted from
      zero after the load, per cross step exactly LLaVA's and Gemma's dgrad launches (364 + 346),
      32 of each batch-1 causal kernel and 27 of each flash_full kernel. Then every kernel of that
      run against its plain version and timed, as in 3, at the shapes the run gave it, read from
@@ -111,7 +116,7 @@ those phases' peaks hold both trees:
 Then, with the cross victims freed, the judge and the three-stage evaluation through the port's
 eval CLIs (--device cuda), the judge the full-width, full-depth Gemma-3-4B-it and the SafeBench
 victim LLaVA-1.5-7B, both from the directories of 4L and 4G (the trees 4X read):
-  4J. A: cli/find_best_iter.py over 4X's run (LLaVA's and Gemma's answers to the 50 held-out
+  4J. A: cli/find_best_iter.py over 4X's run (LLaVA's and Gemma's answers to the 8 held-out
      questions at iterations 0 and 4) at batch 16: the FSM's build (vocab_bytes, the native table,
      the distances), the table's shape and size, min_close_tokens and the budget, verdicts/s, each
      judge call's prefill and median cached step, the peak; every verdict parses, the detail rows
@@ -176,8 +181,7 @@ layers of 1536, 12 heads over 2 kv heads of 128, M-RoPE; a 32-layer tower of 128
      victims' test decodes: launches a cross step exactly each victim's own (Qwen's 270 dgrad and 28 of each batch-1
      causal kernel, Gemma's 346 dgrad and 27 of each flash_full kernel), the kernels at the run's shapes, the cross step
      beside each victim's alone in turns and under torch.profiler, the peak, and the depth-cut cross reference as 5X.
-Then, with the Qwen2-VL and Gemma-3 victims freed, the mllama phases 4M and 5M (below), then the Phi-3.5-vision family
-at full width and depth
+Then, with the Qwen2-VL and Gemma-3 victims freed, the Phi-3.5-vision family at full width and depth
 (microsoft/Phi-3.5-vision-instruct: 32 decoder layers of 3072, 32 MHA heads of 96, LongRoPE; the CLIP ViT-L/14-336
 tower over HD tiles of 336², a 2×2 merge with the sub_GN/glb_GN separators and a 2-layer projection to 3072):
   4H. its seed-0 random bf16 parameters drawn on the card and written by the fabricator (the hub's fused qkv_proj and
@@ -196,12 +200,17 @@ tower over HD tiles of 336², a 2×2 merge with the sub_GN/glb_GN separators and
      0.99);
   4XH. scripts/attacks/attack_cross_onechip_int8.sh through cli/crossattack_models.py (LLaVA-1.5-7B + Phi-3.5-vision
      from the directories of 4L and 4H, int8 weights quantized as they load, ε 0.4, random targets, batch 1), 1
-     warm-up + 3 steps with both victims' test decodes: each tree's resident GB and quantized fraction, launches a
+     warm-up + 3 steps with both victims' test decodes (cut as 4X's; 4XV's too): each tree's resident GB and
+     quantized fraction, launches a
      cross step exactly each victim's own (LLaVA's 364 dgrad and 32 of each D-128 batch-1 causal kernel, Phi's 364
      and 32 of each at D 96), dgrad at the int8 step's shapes, the D-96 batch-1 kernels at Phi's T timed, the cross
-     step beside each victim's alone in turns and under torch.profiler, and the steps' peak.
-Each checkpoint directory is deleted once its last phase is done (Gemma-3's after 4XV, mllama's after 5M,
-Phi-3.5's after 4XH, Qwen2-VL's after 4T, LLaVA's after 4TL). The mllama family runs at full width and depth
+     step beside each victim's alone in turns and under torch.profiler, and the steps' peak;
+  4TL. the mesh phase of the main path's victim (below).
+Each checkpoint directory is deleted once its last phase is done (Gemma-3's after 4XV, LLaVA's after 4XH, mllama's,
+Phi-3.5's and Qwen2-VL's after 4X3, the mesh phases' depth cuts after their phases), in an order that keeps at most
+three of the largest on the disk at once, within the script's disk budget of 45 GiB (the blocks a deleted file held
+count until they are written again): LLaVA-1.5-7B's is gone before mllama's is written. After 4XH and 4TL (below),
+the mllama family runs at full width and depth
 (alpindale/Llama-3.2-11B-Vision-Instruct: 40 decoder layers of 4096, cross-attention layers 3, 8, ..., 38,
 32 heads over 8 kv heads of 128, MLP 14336, vocabulary 128256 + 8; the tiled tower, 32 local and 8 gated global
 layers of 1280, 16 heads of 80, 4 tiles of 560², intermediates of layers 3, 7, 15, 23 and 30):
@@ -219,24 +228,48 @@ layers of 1280, 16 heads of 80, 4 tiles of 560², intermediates of layers 3, 7, 
   5M. depth-cut references (decoder layers 0-3, so cross layer 3 runs; 2 local and 1 global tower layers at the
      full T 6432, on the chunked path; the intermediate indices remapped into the cut, logged), the card in bf16
      against the CPU in f32 on the plain path: the batch-1 step (loss within 1e-2 relative, gradient cosine >=
-     0.99) and the test decode, teacher-forced (logits cosine >= 0.99).
-The f32 CPU halves of the depth-cut references 5, 5c, 5X, 4XV's, 5V, 5M and 5H run in one spawned worker process
-with its own thread count (CPU_REF_THREADS) and a lower priority, beside the card's next phases: each phase runs its
-card half, writes the CPU half's inputs under the git-ignored build/ and goes on; the worker's results are checked
-where they are joined, after 4XH. Then, with LLaVA-1.5-7B's and Qwen2-VL-2B's directories kept for them, the
-(data × model) mesh, each phase through cli/attack_model.py with its mesh flags (parallel/mesh.py::launch spawns the
-ranks; all share the one card, so the process group is gloo), each rank spied on in its own process, then the same
-command without them on one rank here; STEPS_MESH steps, each test decode MESH_DECODE_TOKENS new tokens over
-MESH_TEST_QUESTIONS questions:
-  4T. scripts/attacks/attack_clamp_tanh_qwen2vl.sh as written (4V's directory, --mesh_data 2 --mesh_model 4: 8 ranks,
-     batch 2 split into one row a data rank, the decoder's 12 heads over 2 kv heads split 3 a rank over the kv head
-     they read);
-  4TL. the main path's victim at bench.py's configuration (4L's directory, batch 1, --mesh_model 2: 16 MHA heads a
-     rank).
+     0.99) and the test decode, teacher-forced (logits cosine >= 0.99);
+  4X3. scripts/attacks/attack_cross.sh on one rank (its flags and its three model names, without its --mesh_model 8,
+     which 4T3 runs): Phi-3.5-vision, Llama-3.2-11B-Vision and Qwen2-VL-2B at full width and depth from the
+     directories of 4H, 4M and 4V, resident on the card together (about 34 GB of bf16 weights), ε 0.4, random
+     targets, batch 1, 1 warm-up + 2 steps, each save boundary's test decode of every victim cut to
+     MESH_TEST_QUESTIONS questions of MESH_DECODE_TOKENS tokens: launches a cross step exactly the three victims' own
+     (1134 dgrad: 364 + 500 + 270; 32 of each batch-1 causal kernel at head_dim 96; at 128, 32 forwards and 29 of
+     each backward of mllama (n_rep 4) and 28 of each of Qwen2-VL (n_rep 6); no flash_full), each decode prefill's
+     flash forwards those of its decoder's self-attention layers; dgrad, the batch-1 causal kernels and each test
+     decode's prefill at the run's shapes against their plain versions, timed; the steps' peak; and the depth-cut
+     cross reference (Phi-3.5's and Qwen2-VL's first 2 decoder and 2 tower layers, mllama's 5M cut; weights 1.0
+     each): each victim's loss and the total within 1e-2 relative, gradient cosine >= 0.99.
+The f32 CPU halves of the depth-cut references 5, 5c, 5X, 4XV's, 5V, 5H, 5M and 4X3's run in one spawned worker
+process with its own thread count (CPU_REF_THREADS) and a lower priority, beside the card's next phases: each phase
+runs its card half, writes the CPU half's inputs under the git-ignored build/ and goes on; the worker's results are
+checked where they are joined, after 4XH (before 4TL) and after 4T3 (before 4T; 5M's and 4X3's run beside 4X3 and
+4T3). The (data × model) mesh phases (4TL after 4XH, 4T3 and 4T last) run through an attack CLI with its mesh flags
+(parallel/mesh.py::launch spawns the ranks; all share the one card, so the process group is gloo), each rank spied
+on in its own process (the
+seconds from the launch to its process, to its probe and to its train() logged), then the same command without them
+on one rank here; each test decode MESH_DECODE_TOKENS new tokens over MESH_TEST_QUESTIONS questions. Each runs on
+depth-cut directories the fabricator writes under a root of their own from the seed-0 parameters of the cut
+configurations (CUT_TEXT: every width the configuration's; LLaVA-1.5-7B, Phi-3.5 and Qwen2-VL 4 decoder layers,
+mllama 5 with cross layer 3 and a self-attention layer after it, its tower 2 local + 1 global layers at T 6432, the
+other towers whole; 8 ranks each holding the three replicated towers at full depth would not fit the card, and the
+depth is what the script's time limit gives: PERF.md §4):
+  4T3. scripts/attacks/attack_cross.sh as written, --mesh_model 8 (8 ranks), through cli/crossattack_models.py,
+     STEPS_X3 steps: Qwen2-VL's 12 heads
+     over 2 kv heads in whole-head groups (ranks of 2 and of 1 query head over one kv head), Phi-3.5's 4 MHA heads a
+     rank, mllama's 4 over 1 and its cross-attention likewise. The checks of 4T below, each victim's step-1 loss too,
+     the collectives of the three decoders (mllama's input-gradient all-reduces from its first cross layer on), the
+     launches a step by head dim; then dgrad and the batch-1 causal kernels at each kind of rank's local shapes
+     (Qwen2-VL's two) against their plain versions, timed; STEPS_MESH steps in 4T and 4TL:
+  4T. scripts/attacks/attack_clamp_tanh_qwen2vl.sh as written (4T3's Qwen2-VL-2B cut, --mesh_data 2 --mesh_model 4:
+     8 ranks, batch 2 split into one row a data rank, the decoder's 12 heads over 2 kv heads split 3 a rank over the
+     kv head they read);
+  4TL. the main path's victim at bench.py's configuration (the LLaVA-1.5-7B cut, batch 1, --mesh_model 2: 16 MHA
+     heads a rank).
   Each checks every rank's p after each step bit for bit equal; step 1's loss within 1e-2 relative of the one-rank
   run's, its image gradient (AdamW's first moment) and the first decode prefill's last logits at cosine >= 0.99; a
-  rank's launches a step from the layer structure (4T: 270 dgrad, 28 of each batch-1 causal kernel at n_rep 3, the
-  one-rank batch 2 taking the flash ones; 4TL: 364 dgrad, 32 of each batch-1 causal kernel), L flash forwards a decode
+  rank's launches a step from the layer structure (4T: 150 dgrad, 4 of each batch-1 causal kernel at n_rep 3, the
+  one-rank batch 2 taking the flash ones; 4TL: 168 dgrad, 4 of each batch-1 causal kernel), L flash forwards a decode
   prefill and none in a cached step; the collectives a step (1 + 2L reductions, 1 gather, 2L + 1 input-gradient
   all-reduces, one data all-reduce in 4T) with none of a weight's shape; and logs the step's ms and each rank's peak
   beside the one-rank run's, the share of a step in collectives and the backend. Then dgrad (each shard routed by its
@@ -246,8 +279,8 @@ It then prints each checkpoint directory's write and load seconds and GB/s, the 
 the bench line, the cross step's numbers, the int8, baseline, Qwen2-VL, Phi-3.5 and mllama numbers and the run's total,
 the kernels' JSON line (each kernel with its launches per cross step; dgrad at the int8 step's shapes, the
 flash forward at the baseline and int8-judge prefills; the head_dim-96 instantiations as rows of their own; the
-n_rep-4 shapes of 4M with their entries; a mesh rank's dgrad, batch-1 causal and flash-prefill kernels of 4T and
-4TL as rows of their own), the
+n_rep-4 shapes of 4M and the shapes of 4X3 with their entries; a mesh rank's dgrad, batch-1 causal and flash-prefill
+kernels of 4T and 4TL, and each kind of 4T3 rank's dgrad and batch-1 causal kernels, as rows of their own), the
 card's name and power limit, and
 as its last line {"ok": true, "device": {...}}. Without a card it exits non-zero before printing
 anything.
@@ -1175,17 +1208,16 @@ class CpuReferences:
         log("reference", f"{tag}: the CPU half submitted to the worker")
 
     def join(self):
+        """Wait for every CPU half submitted so far and run its check; the worker stays for later ones."""
         import torch
 
         t0 = time.perf_counter()
-        try:
-            for tag, fut, check in self.jobs:
-                out = fut.result()
-                check(torch.load(out, weights_only=False))
-                os.remove(out)
-        finally:
-            self.pool.shutdown(cancel_futures=True)
-        log("reference", f"{len(self.jobs)} CPU references joined, {time.perf_counter() - t0:.1f} s waited")
+        jobs, self.jobs = self.jobs, []
+        for tag, fut, check in jobs:
+            out = fut.result()
+            check(torch.load(out, weights_only=False))
+            os.remove(out)
+        log("reference", f"{len(jobs)} CPU references joined, {time.perf_counter() - t0:.1f} s waited")
 
 
 def _cpu_worker_init(threads):
@@ -1482,6 +1514,85 @@ def checkpoint_victim(model, cfg, root, **prompts):
         f"peak {peak:.3f} GiB; {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
     return victim, {"GB": nbytes / 1e9, "write_s": write_s, "load_s": load_s, "peak_GiB": peak,
                     "tensors": n_tensors}
+
+
+REMAT_POLICIES = ("none", "dgrad", "dgrad_lean", "gate")  # phase 4Z
+REMAT_REPS = 3            # phase 4Z: timed steps a policy, after a warm-up and the counted one
+
+
+def remat_phase(victim, x0, cfg, dgrad_per_step):
+    """Phase 4Z: ``--remat_policy`` on the resident LLaVA-1.5-7B at batch 4 (its weights shared, the
+    policy set on the decoder's config as the CLIs set it): one step (the loss and its image
+    gradient) under each of REMAT_POLICIES on the same draws and p₀, its peak from an emptied cache
+    and its ms (median of REMAT_REPS, CUDA events); each policy's loss within TOL_REF_LOSS relative
+    of ``none``'s and its gradient at cosine >= TOL_REF_COSINE; a named policy recomputes each
+    decoder layer in the backward, so its step launches the flash forward twice a layer and the
+    backward kernels and dgrad as ``none`` does."""
+    import dataclasses
+
+    import torch
+
+    from adversarialvlm_tpu_torch.attack.engine import VictimSetup
+    from adversarialvlm_tpu_torch.attack.step import build_attack_step, sample_chunk_xs
+    from adversarialvlm_tpu_torch.models.registry import make_bundle
+    from adversarialvlm_tpu_torch.ops.kernels import launch_counts, reset_launches
+    from adversarialvlm_tpu_torch.processors import normalize_pixel_inputs
+
+    t_phase = time.perf_counter()
+    b, n_layers = victim.bundle, victim.bundle.cfg.text.num_layers
+    x0_d = torch.as_tensor(x0, device="cuda")
+    xs = sample_chunk_xs(torch.Generator().manual_seed(cfg.seed), 1, cfg, [victim.handles()])[0]
+    with torch.no_grad():
+        pv = normalize_pixel_inputs(b.family, victim.adv_processor.process(x0_d))["pixel_values"]
+    xs["noise"] = [torch.randn((cfg.batch_size, *pv.shape[1:]), generator=torch.Generator().manual_seed(11))]
+    p0 = (0.3 * torch.randn(x0.shape, generator=torch.Generator().manual_seed(12))).cuda()
+    sigma = torch.tensor(cfg.sigma, device="cuda")
+    out, ref = {}, None
+    for policy in REMAT_POLICIES:
+        cfg_p = dataclasses.replace(b.cfg, text=dataclasses.replace(b.cfg.text, remat_policy=policy))
+        v = VictimSetup(b.name, make_bundle(b.name, b.family, cfg_p, b.device, params=b.params),
+                        victim.adv_processor, victim.adv_inputs, victim.compute_dtype)
+        step = build_attack_step([v.handles()], cfg, x0_d, torch.ones_like(x0_d))
+        step.loss_and_grad(p0, xs, sigma)  # warm-up
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        loss, _, _, _, grad = step.loss_and_grad(p0, xs, sigma)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        launches = {k: n for k, n in launch_counts().items() if n}
+        loss, grad = float(loss), grad.double().cpu()
+        ms = []
+        for _ in range(REMAT_REPS):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            step.loss_and_grad(p0, xs, sigma)
+            e1.record()
+            torch.cuda.synchronize()
+            ms.append(e0.elapsed_time(e1))
+        if ref is None:
+            ref = (loss, grad)
+        rel = abs(loss - ref[0]) / abs(ref[0])
+        cos = float((grad * ref[1]).sum() / (grad.norm() * ref[1].norm()))
+        want = {"dgrad": dgrad_per_step, "flash_fwd": n_layers * (1 if policy == "none" else 2),
+                "flash_bwd_dq": n_layers, "flash_bwd_dkdv": n_layers}
+        out[policy] = {"ms": statistics.median(ms), "peak_GiB": peak / 2**30,
+                       "above_resident_GiB": (peak - resident) / 2**30, "loss": loss, "loss_rel": rel, "cosine": cos,
+                       "bitwise": bool(loss == ref[0] and torch.equal(grad, ref[1])), "launches": launches}
+        log("remat", f"--remat_policy {policy}: batch {cfg.batch_size} step ms {[round(x, 2) for x in ms]} (median "
+            f"{out[policy]['ms']:.2f}); peak {peak / 2**30:.3f} GiB, {(peak - resident) / 2**30:.3f} above the "
+            f"{resident / 2**30:.3f} resident; loss {loss} (rel {rel:.3g} to none's), gradient cosine {cos:.6f}, bit for "
+            f"bit none's: {out[policy]['bitwise']}; launches {launches} (expected {want})")
+        if rel > TOL_REF_LOSS or cos < TOL_REF_COSINE or launches != want:
+            raise AssertionError(f"remat {policy}: differs from none's step or launched {launches}")
+        del v, step, grad
+        gc.collect()
+        torch.cuda.empty_cache()
+    log("remat", f"phase 4Z in {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 def resume_phase(victim, x0, dgrad_per_step, n_layers):
@@ -1794,6 +1905,9 @@ def llava_phases(ckpt_root):
     if len(probe.chunks) != len(boundaries) * -(-len(test_qs) // decode_bs):
         raise AssertionError(f"batch-4 path: {len(probe.chunks)} decode chunks")
 
+    # 4Z. --remat_policy at batch 4, the weights resident
+    remat = remat_phase(victim4, x0, cfg4, dg4["per_step"])
+
     # 4R. true resume and the profiler trace, on the loaded victim at batch 1
     resume = resume_phase(victim, x0, dg["per_step"], t.num_layers)
 
@@ -1866,7 +1980,7 @@ def llava_phases(ckpt_root):
     log("reference", f"all references' card half in {time.perf_counter() - t0:.1f} s")
     return {
         "stats": {"dgrad": dg, **attn, **flash}, "prefill": prefill, "transforms": transforms, "dgrad4": dg4,
-        "load": load_stats, "resume": resume, "median_b1_ms": med, "peak_b1_GiB": peak,
+        "load": load_stats, "resume": resume, "median_b1_ms": med, "peak_b1_GiB": peak, "remat": remat,
         "counts": {**{k: launches[k] for k in pr3_kernels}, **{k: launches4[k] for k in flash}},
     }
 
@@ -2174,20 +2288,35 @@ def gemma_references(victim):
 
 def cross_step_share(victims, dgrad_per_step):
     """The launches a batch-1 cross step of ``victims`` must make, and the same by head dim: each
-    decoder on the batch-1 causal kernels at its head dim, but Gemma-3's, whose layers run masked
-    on the plain path while its SigLIP (4096 patches) takes flash_full; the other towers (577,
-    576 and 1296 tokens) stay on the plain sdpa; ``dgrad_per_step`` dgrad launches."""
+    decoder on the batch-1 causal kernels at its head dim (mllama's self-attention layers, the
+    backward from its first cross layer on), but Gemma-3's, whose layers run masked on the plain
+    path while its SigLIP (4096 patches) takes flash_full; the other towers (577, 576 and 1296
+    tokens, mllama's masked tiles) stay on the plain sdpa; ``dgrad_per_step`` dgrad launches."""
     want, want_d = {"dgrad": dgrad_per_step}, {}
     for v in victims:
         cfg = v.bundle.cfg
         if v.bundle.family == "gemma3":
-            entry, n, d = "flash_full", cfg.vision.num_layers, cfg.vision.hidden_size // cfg.vision.num_heads
+            entry, d = "flash_full", cfg.vision.hidden_size // cfg.vision.num_heads
+            n = (cfg.vision.num_layers,) * 3
         else:
-            entry, n, d = "attention", cfg.text.num_layers, cfg.text.head_dim_
-        for k in (f"{entry}_fwd", f"{entry}_bwd_dq", f"{entry}_bwd_dkdv"):
-            want[k] = want.get(k, 0) + n
-            want_d[f"{k}_d{d}"] = want_d.get(f"{k}_d{d}", 0) + n
+            entry, d = "attention", cfg.text.head_dim_
+            n = (n_self_layers(cfg.text), *(n_backward_layers(cfg.text),) * 2)
+        for k, nk in zip((f"{entry}_fwd", f"{entry}_bwd_dq", f"{entry}_bwd_dkdv"), n):
+            want[k] = want.get(k, 0) + nk
+            want_d[f"{k}_d{d}"] = want_d.get(f"{k}_d{d}", 0) + nk
     return want, want_d
+
+
+def n_self_layers(t):
+    """A decoder's self-attention layers: each takes a causal kernel forward a step and a decode prefill."""
+    return t.num_layers - len(t.cross_attention_layers)
+
+
+def n_backward_layers(t):
+    """A decoder's self-attention layers whose backward runs in an attack step: all of them, but in
+    mllama only those after the first cross layer (before it nothing depends on the image)."""
+    first = min(t.cross_attention_layers, default=0)
+    return sum(1 for i in range(first, t.num_layers) if i not in t.cross_attention_layers)
 
 
 def check_cross_launches(tag, per_step, per_step_d, want, want_d):
@@ -2199,25 +2328,27 @@ def check_cross_launches(tag, per_step, per_step_d, want, want_d):
         raise AssertionError(f"{tag}: launches per cross step differ from each victim's own")
 
 
-def cross_cli(args, captured=None, tests=True):
+def cross_cli(args, captured=None, tests=True, decode_cut=False):
     """cli/crossattack_models.main on ``args``, spied on as :func:`spied_cli` does."""
     from adversarialvlm_tpu_torch.cli import crossattack_models
 
-    return spied_cli(crossattack_models.main, args, captured, tests)
+    return spied_cli(crossattack_models.main, args, captured, tests, decode_cut)
 
 
-def spied_cli(main, args, captured=None, tests=True):
+def spied_cli(main, args, captured=None, tests=True, decode_cut=False):
     """An attack CLI's ``main`` on ``args``. With ``captured`` (a dict), the engine's train() is
     wrapped for that run: the victims the CLI built, a PathProbe on each, the launches counted
     from zero after the victims are loaded (also by head dim), the run's wall time and its peak device memory from an
     emptied cache go into it. ``tests=False`` runs train() without the save boundaries' test decode
-    (for runs whose decode an earlier run of the same victims already checked)."""
+    (for runs whose decode an earlier run of the same victims already checked); ``decode_cut``
+    decodes MESH_DECODE_TOKENS new tokens over the first MESH_TEST_QUESTIONS held-out questions, in
+    one chunk of that many rows."""
     import torch
 
     from adversarialvlm_tpu_torch.attack import engine
     from adversarialvlm_tpu_torch.ops.kernels import launch_counts, launch_counts_by_head_dim, reset_launches
 
-    real_train = engine.train
+    real_train, real_test = engine.train, engine.run_model_test
     if captured is None:
         if tests:
             return main(args)
@@ -2230,6 +2361,10 @@ def spied_cli(main, args, captured=None, tests=True):
     def spy(cfg, victims, x0, **kw):
         if not tests:
             kw["run_tests"] = False
+        if decode_cut:
+            kw["test_max_new_tokens"] = MESH_DECODE_TOKENS
+            for v in victims:
+                v.adv_inputs.test_questions = list(v.adv_inputs.test_questions[:MESH_TEST_QUESTIONS])
         captured["victims"] = victims
         group = []
         probes = [PathProbe(v.bundle, group) for v in victims]
@@ -2249,10 +2384,12 @@ def spied_cli(main, args, captured=None, tests=True):
             captured["launches_d"] = launch_counts_by_head_dim()
 
     engine.train = spy
+    if decode_cut:
+        engine.run_model_test = lambda *a, **kw: real_test(*a, **{**kw, "batch_size": MESH_TEST_QUESTIONS})
     try:
         return main(args)
     finally:
-        engine.train = real_train
+        engine.train, engine.run_model_test = real_train, real_test
 
 
 def read_run(exp):
@@ -2326,7 +2463,7 @@ def cross_kernels(victims, cfg, probe_l):
     pad = first_pad(victims, cfg)
     ai = llava.adv_inputs
     qs = ai.test_questions
-    decode_bs, _ = _pick_decode(llava.bundle, ai, qs, DECODE_TOKENS, 50, llava.compute_dtype)
+    decode_bs, _ = _pick_decode(llava.bundle, ai, qs, MESH_DECODE_TOKENS, MESH_TEST_QUESTIONS, llava.compute_dtype)
     probe_in = ai.get_inputs_inference_batch(qs[:decode_bs])
     _, am, _ = pad_to_buckets(probe_in["input_ids"], probe_in["attention_mask"], ai.pad_token_id, batch_to=decode_bs)
     seg = torch.as_tensor(am, dtype=torch.int32, device="cuda")
@@ -2373,7 +2510,7 @@ def cross_phases(ckpt_root, runs):
     got = {}
     t0 = time.perf_counter()
     exp = cross_cli(base + ["--exp_name", "cross", "--model_names", f"{llava},{gemma}",
-                            "--num_iterations", str(STEPS_X)], got)
+                            "--num_iterations", str(STEPS_X)], got, decode_cut=True)
     total_s = time.perf_counter() - t0
     rows, steps, csvs = read_run(exp)
     victims = got["victims"]
@@ -2877,7 +3014,7 @@ def judge_eval_phases(ckpt_root, runs, cross_exp):
     """Phase 4J: the three-stage evaluation through the port's CLIs on the card, the judge the
     full Gemma-3-4B-it and the SafeBench victim LLaVA-1.5-7B, both from the directories of 4L and
     4G. A: cli/find_best_iter over 4X's run (test_results_iter_{0,4}.csv, LLaVA's and Gemma's
-    answers to the 50 held-out questions), then the depth-cut judge against the CPU, the table's
+    answers to its 8 held-out questions), then the depth-cut judge against the CPU, the table's
     two builders on a sample of the judge's vocabulary, and the same CLI again, which judges
     nothing. B: cli/safebench_test on the saved image nearest best.txt whose iteration - 1 is a
     test iteration (>= 0). C: cli/guard_eval over B's answers. After each stage, the flash forward
@@ -3827,16 +3964,19 @@ def qwen_phases(ckpt_root, runs):
             "seconds": time.perf_counter() - t_phase, "write_s": write_s, "GB": nbytes / 1e9}
 
 
-def pair_cross_phase(tag, names, labels, ckpt_root, runs, extra, dgrad_cases, kernel_cases, reference=False):
-    """Phases 4XV and 4XH: a one-card cross attack script through cli/crossattack_models.py, the two
+def pair_cross_phase(tag, names, labels, ckpt_root, runs, extra, dgrad_cases, kernel_cases, reference=False,
+                     n_steps=STEPS_PAIR, profile=True):
+    """Phases 4XV, 4XH and 4X3: a one-card cross attack script through cli/crossattack_models.py, the
     victims ``names`` loaded from the directories of earlier phases and resident on the card (ε 0.4,
-    batch 1, random targets, the list prompts, ``extra`` arguments): a cross step launches exactly
-    each victim's own, also by head dim (:func:`cross_step_share`), the dgrad kernel at the run's
-    shapes (``dgrad_cases(victims, T)``), the test decode of each victim whose decoder runs the
-    flash kernels (Gemma-3's runs masked, on the plain path), each tree's resident GB, the
-    attention kernels at the run's shapes (``kernel_cases(victims, T, pads, probes)``), the cross
-    step beside each victim's alone (``labels``) in turns and under torch.profiler, the steps'
-    peak and, with ``reference``, the depth-cut cross reference."""
+    batch 1, random targets, the list prompts, ``extra`` arguments; ``n_steps`` steps): a cross step
+    launches exactly each victim's own, also by head dim (:func:`cross_step_share`), the dgrad
+    kernel at the run's shapes (``dgrad_cases(victims, T)``), the test decode (cut as
+    :func:`spied_cli`'s ``decode_cut``) of each victim whose decoder runs the flash kernels (Gemma-3's
+    runs masked, on the plain path), each tree's resident GB, the attention kernels at the run's shapes
+    (``kernel_cases(victims, T, pads, probes)``), with ``profile`` the cross step beside each
+    victim's alone (``labels``) in turns and under torch.profiler, the steps' peak and, with
+    ``reference`` (True: :func:`cross_reference`, or a function of the victims and x0), the depth-cut
+    cross reference."""
     import numpy as np
     import torch
 
@@ -3849,12 +3989,12 @@ def pair_cross_phase(tag, names, labels, ckpt_root, runs, extra, dgrad_cases, ke
     gray = os.path.join(os.path.dirname(os.path.abspath(__file__)), "images", "gray.png")
     x0 = load_image_chw(gray)
     argv = ["--exp_name", "cross_" + "_".join(labels), "--img_orig", gray, "--prompt", "list", "--target_text",
-            TARGET, "--model_names", ",".join(names), *extra, "--lr", "1e-2", "--num_iterations", str(STEPS_PAIR),
+            TARGET, "--model_names", ",".join(names), *extra, "--lr", "1e-2", "--num_iterations", str(n_steps),
             "--save_steps", "10", "--batch_size", "1", "--epsilon", "0.4", "--target_text_random",
             "--checkpoint_root", ckpt_root, "--runs_path", runs]
     got = {}
     t0 = time.perf_counter()
-    exp = cross_cli(argv, got)
+    exp = cross_cli(argv, got, decode_cut=True)
     cli_s = time.perf_counter() - t0
     _, steps, csvs = read_run(exp)
     victims, probes = got["victims"], got["probes"]
@@ -3868,37 +4008,39 @@ def pair_cross_phase(tag, names, labels, ckpt_root, runs, extra, dgrad_cases, ke
         f"{ {k: (round(g, 3), round(f, 4)) for k, (g, f) in resident.items()} }, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
     for r in steps:
-        log(tag, f"step {r['iteration']}: loss={r['loss']} loss_0={r['loss_0']} loss_1={r['loss_1']} "
-            f"grad_norm={r['grad_norm']} target_idx={r['target_idx']} step_ms={r['step_ms']:.2f}")
+        log(tag, f"step {r['iteration']}: loss={r['loss']} "
+            + " ".join(f"loss_{i}={r[f'loss_{i}']}" for i in range(len(names)))
+            + f" grad_norm={r['grad_norm']} target_idx={r['target_idx']} step_ms={r['step_ms']:.2f}")
     med = statistics.median(r["step_ms"] for r in steps[1:])
     step_peak = max(p.step_peak for p in probes) / 2**30
     int8 = "--int8_weights" in extra
-    if cfg.epsilon != 0.4 or len(steps) != STEPS_PAIR or not all(
+    if cfg.epsilon != 0.4 or len(steps) != n_steps or not all(
             np.isfinite(r["loss"]) and r["grad_norm"] > 0 for r in steps) or not all(
             (0.9 < f < 1.0) if int8 else f == 0 for _, f in resident.values()):
         raise AssertionError(f"{tag} path: bad steps, epsilon or quantized fraction")
     dg = check_dgrad(dgrad_cases(victims, ts), f"dgrad {tag} step")
-    per_step = per_step_launches(probes, got["launches"], STEPS_PAIR)
-    per_step_d = per_step_launches(probes, got["launches_d"], STEPS_PAIR, by_head_dim=True)
+    per_step = per_step_launches(probes, got["launches"], n_steps)
+    per_step_d = per_step_launches(probes, got["launches_d"], n_steps, by_head_dim=True)
     check_cross_launches(tag, per_step, per_step_d, *cross_step_share(victims, dg["per_step"]))
     chunks = {}
     for v, p in zip(victims, probes):
         if v.bundle.family != "gemma3":
-            chunks[v.name] = decode_chunks(tag, p, v.bundle.cfg.text.num_layers)
+            chunks[v.name] = decode_chunks(tag, p, n_self_layers(v.bundle.cfg.text))
             continue
         for c in p.chunks:  # Gemma's decoder layers are all masked: no kernel in its prefill but the tower's
             log(tag, f"Gemma test decode chunk: batch {c['batch']} T={c['T']} prefill_ms={c['prefill_ms']:.2f} "
                 f"prefill launches { {k: n for k, n in c['prefill_launches'].items() if n} }")
-    if sorted(csvs) != sorted(f"test_results_iter_{i}.csv" for i in (0, STEPS_PAIR - 1)) or not all(
+    if sorted(csvs) != sorted(f"test_results_iter_{i}.csv" for i in (0, n_steps - 1)) or not all(
             tab[0] == ["question", *names] and len(tab) == 1 + len(ai[0].test_questions) for tab in csvs.values()):
         raise AssertionError(f"{tag} path: test CSVs {sorted(csvs)}")
     xs = sample_chunk_xs(torch.Generator().manual_seed(cfg.seed), 1, cfg, [v.handles() for v in victims])[0]
     pads = [t - int(xs["lens"][i][0]) for i, t in enumerate(ts)]
     attn = kernel_cases(victims, ts, pads, probes)
     profiled = profile_cross(victims, cfg, x0, labels=labels, rounds=PAIR_ROUNDS, timed=PAIR_TIMED,
-                             profiled=PAIR_PROFILED, tag=tag)
-    ref = cross_reference(victims, x0, tag=tag) if reference else None
-    log(tag, f"median step_ms (steps 1..{STEPS_PAIR - 1})={med:.2f}; steps' peak {step_peak:.3f} GiB; "
+                             profiled=PAIR_PROFILED, tag=tag) if profile else None
+    ref = (reference(victims, x0) if callable(reference) else cross_reference(victims, x0, tag=tag) if reference
+           else None)
+    log(tag, f"median step_ms (steps 1..{n_steps - 1})={med:.2f}; steps' peak {step_peak:.3f} GiB; "
         f"phase {time.perf_counter() - t_phase:.1f} s")
     out = {"median_ms": med, "step_peak_GiB": step_peak, "per_step": per_step, "per_step_d": per_step_d,
            "launches_d": got["launches_d"], "profiled": profiled, "reference": ref, "dgrad": dg, "attention": attn,
@@ -4232,21 +4374,28 @@ def mllama_dgrad_cases(params, vlm_cfg, t_text, k_rows):
     return [(*key, n, weights[key]) for key, n in merged.items()]
 
 
-def mllama_depth_cut(params, vlm_cfg):
-    """(params, config) of phase 5M's cut: the first MLLAMA_CUT_TEXT decoder layers (cross layer 3
+def mllama_cut_config(vlm_cfg, n_text=MLLAMA_CUT_TEXT):
+    """The configuration of an mllama depth cut: the first ``n_text`` decoder layers (cross layer 3
     among them), MLLAMA_CUT_LOCAL local and MLLAMA_CUT_GLOBAL global tower layers at the full 4
-    tiles (T 6432, the chunked rank-1 path), tensors shared. The k-th intermediate index is remapped
-    to local layer min(k, MLLAMA_CUT_LOCAL - 1), so the projector keeps its 7680 inputs."""
+    tiles (T 6432, the chunked rank-1 path). The k-th intermediate index is remapped to local layer
+    min(k, MLLAMA_CUT_LOCAL - 1), so the projector keeps its 7680 inputs."""
     import dataclasses
 
     t, v = vlm_cfg.text, vlm_cfg.vision
     inter = tuple(min(k, MLLAMA_CUT_LOCAL - 1) for k in range(len(v.intermediate_layers_indices)))
-    cut = dataclasses.replace(
+    return dataclasses.replace(
         vlm_cfg,
-        text=dataclasses.replace(t, num_layers=MLLAMA_CUT_TEXT, cross_attention_layers=tuple(
-            i for i in t.cross_attention_layers if i < MLLAMA_CUT_TEXT)),
+        text=dataclasses.replace(t, num_layers=n_text, cross_attention_layers=tuple(
+            i for i in t.cross_attention_layers if i < n_text)),
         vision=dataclasses.replace(v, num_layers=MLLAMA_CUT_LOCAL, num_global_layers=MLLAMA_CUT_GLOBAL,
                                    intermediate_layers_indices=inter))
+
+
+def mllama_depth_cut(params, vlm_cfg):
+    """(params, config) of phase 5M's cut (:func:`mllama_cut_config`), tensors shared."""
+    v = vlm_cfg.vision
+    cut = mllama_cut_config(vlm_cfg)
+    inter = cut.vision.intermediate_layers_indices
     vm, lm = params["vision_model"], params["language_model"]
     out = {**params, "language_model": {**lm, "layers": lm["layers"][:MLLAMA_CUT_TEXT]},
            "vision_model": {**vm, "transformer": {"layers": vm["transformer"]["layers"][:MLLAMA_CUT_LOCAL]},
@@ -4259,7 +4408,7 @@ def mllama_depth_cut(params, vlm_cfg):
 
 def mllama_phases(ckpt_root, runs):
     """Phases 4M and 5M on Llama-3.2-11B-Vision-Instruct at full width and depth; the checkpoint
-    directory is deleted at the end. Returns the phases' numbers and kernel statistics."""
+    directory stays for 4X3. Returns the phases' numbers and kernel statistics."""
     import numpy as np
     import torch
 
@@ -4436,7 +4585,10 @@ def mesh_probe(out_dir, tag, t_launch=None):
                           dict(collectives.SHAPES))
         if not rec["steps"]:
             lens = xs["lens"][0][self.rows]
-            rec.update(T=int(xs["rows"][0].shape[1]), pads=[int(xs["rows"][0].shape[1] - n) for n in lens])
+            rec.update(T=int(xs["rows"][0].shape[1]), pads=[int(xs["rows"][0].shape[1] - n) for n in lens],
+                       Ts=[int(r.shape[1]) for r in xs["rows"]],
+                       pads_by_victim=[[int(r.shape[1] - n) for n in ls[self.rows]]
+                                       for r, ls in zip(xs["rows"], xs["lens"])])
         timed = len(rec["steps"]) == STEPS_MESH - 1
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         e0.record()
@@ -4446,6 +4598,7 @@ def mesh_probe(out_dir, tag, t_launch=None):
         torch.cuda.synchronize()
         rec["steps"].append({
             "ms": e0.elapsed_time(e1), "loss": float(out[1]["loss"]),
+            "losses": [float(out[1][f"loss_{i}"]) for i in range(len(self.victims)) if f"loss_{i}" in out[1]],
             "p_sha256": hashlib.sha256(state["p"].detach().cpu().numpy().tobytes()).hexdigest(),
             "launches": {k: n - l0[k] for k, n in launch_counts().items() if n != l0[k]},
             "launches_d": {k: n - d0.get(k, 0) for k, n in launch_counts_by_head_dim().items() if n != d0.get(k, 0)},
@@ -4513,16 +4666,23 @@ def mesh_probe(out_dir, tag, t_launch=None):
         torch.save(tensors, os.path.join(out_dir, f"{tag}.pt"))
 
 
+T_IMPORT = time.time()    # when this module was imported: in a mesh rank, when its process had started
+
+
 def mesh_rank(mesh, fn, args, out_dir, t_launch):
-    """A rank of a mesh run launched by an attack CLI, under :func:`mesh_probe`."""
-    with mesh_probe(out_dir, f"rank{mesh.rank}", t_launch):
+    """A rank of a mesh run launched by an attack CLI, under :func:`mesh_probe`; its record also
+    holds the wall seconds from the launch to this module's import in the rank's process (the
+    process start and Python's), which the rest of ``t_probe`` follows (torch, the port and the
+    process group)."""
+    with mesh_probe(out_dir, f"rank{mesh.rank}", t_launch) as rec:
+        rec["t_import"] = T_IMPORT - t_launch
         return fn(mesh, *args)
 
 
-def mesh_cli(argv, out_dir):
-    """cli/attack_model.main on ``argv`` (with its mesh flags): the CLI's own launch, each rank
-    under :func:`mesh_probe`."""
-    from adversarialvlm_tpu_torch.cli import attack_model
+def mesh_cli(argv, out_dir, cross=False):
+    """cli/attack_model.main (``cross``: cli/crossattack_models.main) on ``argv`` (with its mesh
+    flags): the CLI's own launch, each rank under :func:`mesh_probe`."""
+    from adversarialvlm_tpu_torch.cli import attack_model, crossattack_models
     from adversarialvlm_tpu_torch.parallel import mesh as pmesh
 
     real = pmesh.launch
@@ -4532,32 +4692,128 @@ def mesh_cli(argv, out_dir):
 
     pmesh.launch = probed
     try:
-        return attack_model.main(argv)
+        return (crossattack_models if cross else attack_model).main(argv)
     finally:
         pmesh.launch = real
 
 
-def tp_decoder_dgrad_cases(t, rows, tp):
-    """(rows, O, I, launches per step, weight) of a llama-family decoder's dgrad launches on one
-    model rank of ``tp``: q/k/v and gate/up at their shards' output rows, o and down at their
-    shards' input columns, each taken by its whole weight's shape (the JAX rule under pjit), the
-    weights random at the shard's shape."""
+def tp_decoder_dgrad_cases(t, rows, tp, rank=0):
+    """(rows, O, I, launches per step, weight) of a llama-family decoder's dgrad launches on model
+    rank ``rank`` of ``tp``: q/k/v and gate/up at their shards' output rows (q and k/v by the rank's
+    whole heads), o and down at their shards' input columns, each taken by its whole weight's shape
+    (the JAX rule under pjit), the weights random at the shard's shape. mllama's decoder counts the
+    launches of its layers from the first cross layer on (each cross layer's q but the first's, its
+    o and MLP; each later self-attention layer's all), not its cross k/v over the image."""
     import torch
 
     from adversarialvlm_tpu_torch.ops.kernels.dgrad import dgrad_eligible
     from adversarialvlm_tpu_torch.parallel.sharding import local_heads
 
     d, hd, inter = t.hidden_size, t.head_dim_, t.intermediate_size
-    hq, hkv = local_heads(t.num_heads, t.num_kv_heads, tp)
-    linears = [((t.num_heads * hd, d), (hq * hd, d), 1), ((t.num_kv_heads * hd, d), (hkv * hd, d), 2),
-               ((d, t.num_heads * hd), (d, hq * hd), 1), ((inter, d), (inter // tp, d), 2), ((d, inter), (d, inter // tp), 1)]
-    gen = torch.Generator(device="cuda").manual_seed(tp)
-    cases = []
+    hq, hkv = local_heads(t.num_heads, t.num_kv_heads, tp, rank)
+    n_self, n_cross = n_backward_layers(t), len(t.cross_attention_layers)
+    n_q = n_self + max(n_cross - 1, 0)
+    linears = [((t.num_heads * hd, d), (hq * hd, d), n_q), ((t.num_kv_heads * hd, d), (hkv * hd, d), 2 * n_self),
+               ((d, t.num_heads * hd), (d, hq * hd), n_self + n_cross), ((inter, d), (inter // tp, d), 2 * (n_self + n_cross)),
+               ((d, inter), (d, inter // tp), n_self + n_cross)]
+    gen = torch.Generator(device="cuda").manual_seed(tp * 100 + rank)
+    merged = {}  # shards of one shape (Phi-3.5's q and k/v at 8) are one case
     for full, local, n in linears:
         if dgrad_eligible(torch.empty(full, device="meta")):
-            w = torch.randn(local, generator=gen, device="cuda", dtype=torch.bfloat16) * local[1] ** -0.5
-            cases.append((rows, *local, n * t.num_layers, w))
-    return cases
+            merged[local] = merged.get(local, 0) + n
+    return [(rows, *local, n, torch.randn(local, generator=gen, device="cuda", dtype=torch.bfloat16) * local[1] ** -0.5)
+            for local, n in merged.items()]
+
+
+def mesh_runs(tag, argv, mesh_flags, n_ranks, out_dir, cross=False):
+    """An attack CLI (``cross``: the cross CLI) on ``argv`` with ``mesh_flags`` (every rank on the
+    one card), then the same command without them on one rank here, each under :func:`mesh_probe`;
+    logs the launch's seconds and the backend, and checks every rank's p after each step bit for bit
+    equal. Returns (the ranks' records, the one-rank run's, their tensors, the two runs' seconds)."""
+    import torch
+
+    from adversarialvlm_tpu_torch.cli import attack_model, crossattack_models
+
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    mesh_cli(argv + mesh_flags, out_dir, cross)
+    mesh_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with mesh_probe(out_dir, "one"):
+        (crossattack_models if cross else attack_model).main(argv + ["--exp_name", f"{tag}_one"])
+    one_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = [json.load(open(os.path.join(out_dir, f"rank{r}.json"))) for r in range(n_ranks)]
+    one = json.load(open(os.path.join(out_dir, "one.json")))
+    tens = {k: torch.load(os.path.join(out_dir, f"{k}.pt")) for k in ("rank0", "one")}
+    log(tag, f"{' '.join(mesh_flags)}: {n_ranks} ranks on the one card through the CLI in {mesh_s:.1f} s, backend "
+        f"{sorted({r['backend'] for r in ranks})}; by rank, s from the launch to the rank's process "
+        f"{[round(r['t_import'], 1) for r in ranks]}, to its probe {[round(r['t_probe'], 1) for r in ranks]}, "
+        f"to its train() {[round(r['t_train'], 1) for r in ranks]}, train() {[round(r['wall_s'], 1) for r in ranks]}; "
+        f"the one-rank run in {one_s:.1f} s (train() {one['wall_s']:.1f} s)")
+    for k in range(len(one["steps"])):
+        shas = {r["steps"][k]["p_sha256"] for r in ranks}
+        if len(shas) != 1 or any(len(r["steps"]) != len(one["steps"]) for r in ranks):
+            raise AssertionError(f"{tag}: the ranks' p differ after step {k + 1}: {shas}")
+    return ranks, one, tens, mesh_s, one_s
+
+
+def mesh_step1(tag, ranks, one, tens):
+    """Step 1 of rank 0 against the one-rank run's: the loss (and each victim's in a cross run) within
+    TOL_MESH_LOSS relative, the image gradient (AdamW's first moment) and the first decode prefill's
+    last logits at cosine >= TOL_MESH_COSINE. Returns (the relative differences, the two cosines)."""
+    import torch
+
+    got, want = ranks[0]["steps"][0], one["steps"][0]
+    rel = [abs(a - b) / abs(b) for a, b in zip([got["loss"], *got["losses"]], [want["loss"], *want["losses"]])]
+    g_mesh, g_one = (tens[k]["exp_avg_1"].double().ravel() for k in ("rank0", "one"))
+    g_cos = float(g_mesh @ g_one / (g_mesh.norm() * g_one.norm()))
+    a, b = (tens[k]["prefill_logits"].double() for k in ("rank0", "one"))
+    logit_cos = float(torch.nn.functional.cosine_similarity(a, b, dim=-1).min())
+    log(tag, f"step 1: loss (and each victim's) {[got['loss'], *got['losses']]} against the one-rank run's "
+        f"{[want['loss'], *want['losses']]} (rel {[f'{r:.3g}' for r in rel]}, tol {TOL_MESH_LOSS}); image gradient "
+        f"cosine {g_cos:.6f}; the first victim's first decode prefill's last logits, min cosine over {a.shape[0]} rows "
+        f"{logit_cos:.6f} (min {TOL_MESH_COSINE}); every rank's p equal after each of the {len(one['steps'])} steps")
+    if not (len(rel) == 1 + len(want["losses"]) and max(rel) <= TOL_MESH_LOSS and g_cos >= TOL_MESH_COSINE
+            and logit_cos >= TOL_MESH_COSINE):
+        raise AssertionError(f"{tag}: the mesh run and the one-rank run disagree")
+    return rel, g_cos, logit_cos
+
+
+def mesh_step_checks(tag, ranks, one, want_step, want_one, want_coll, want_d=None):
+    """Each step of every rank launched exactly ``want_step`` (by head dim ``want_d``, when given) and
+    made exactly the collectives ``want_coll``, none of a weight's shape; the one-rank run's steps
+    launched ``want_one`` (its route may differ by design)."""
+    for r in ranks:
+        for k, st in enumerate(r["steps"]):
+            if (st["launches"] != want_step or st["collectives"] != want_coll
+                    or (want_d is not None and st["launches_d"] != want_d)):
+                raise AssertionError(f"{tag}: rank {r['rank']} step {k + 1} launched {st['launches']} "
+                                     f"({st['launches_d']}) with collectives {st['collectives']}; expected "
+                                     f"{want_step} ({want_d}) and {want_coll}")
+            weighty = [sh for sh in st["shapes"] if tuple(sorted(sh)) in {tuple(w) for w in r["weight_shapes"]}]
+            if weighty or not r["weight_shapes"]:
+                raise AssertionError(f"{tag}: rank {r['rank']} step {k + 1}: collectives of weight shapes {weighty}")
+    for k, st in enumerate(one["steps"]):
+        if st["launches"] != want_one or (want_d is not None and st["launches_d"] != want_d):
+            raise AssertionError(f"{tag}: the one-rank run's step {k + 1} launched {st['launches']} "
+                                 f"({st['launches_d']}), expected {want_one} ({want_d})")
+
+
+def mesh_numbers(ranks, one, rel, g_cos, logit_cos, mesh_s, one_s):
+    """A mesh phase's numbers: each rank's step-2 ms and steps' peak beside the one-rank run's, the
+    share of each rank's last step in collectives, the backend, step 1's agreement, the seconds."""
+    return {
+        "step_ms": [r["steps"][1]["ms"] for r in ranks], "one_step_ms": one["steps"][1]["ms"],
+        "peak_GiB": [r["step_peak_GiB"] for r in ranks], "one_peak_GiB": one["step_peak_GiB"],
+        "collective_share": [r["steps"][-1]["collective_s"] * 1e3 / r["steps"][-1]["ms"] for r in ranks],
+        "backend": ranks[0]["backend"], "loss_rel": rel, "grad_cosine": g_cos, "logit_cosine": logit_cos,
+        "mesh_s": mesh_s, "one_s": one_s, "t_import": [r["t_import"] for r in ranks],
+        "t_probe": [r["t_probe"] for r in ranks], "t_train": [r["t_train"] for r in ranks],
+    }
 
 
 def mesh_phase(tag, argv, mesh_flags, shape, vlm_cfg, tower_cases, want_step, want_one, out_dir):
@@ -4579,81 +4835,31 @@ def mesh_phase(tag, argv, mesh_flags, shape, vlm_cfg, tower_cases, want_step, wa
     t_phase = time.perf_counter()
     data, model = shape
     t = vlm_cfg.text
-    n_ranks = data * model
-    os.makedirs(out_dir, exist_ok=True)
-    t0 = time.perf_counter()
-    mesh_cli(argv + mesh_flags, out_dir)
-    mesh_s = time.perf_counter() - t0
-    gc.collect()
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    with mesh_probe(out_dir, "one"):
-        from adversarialvlm_tpu_torch.cli import attack_model
-
-        attack_model.main(argv + ["--exp_name", f"{tag}_one"])
-    one_s = time.perf_counter() - t0
-    gc.collect()
-    torch.cuda.empty_cache()
-    ranks = [json.load(open(os.path.join(out_dir, f"rank{r}.json"))) for r in range(n_ranks)]
-    one = json.load(open(os.path.join(out_dir, "one.json")))
-    tens = {k: torch.load(os.path.join(out_dir, f"{k}.pt")) for k in ("rank0", "one")}
-    log(tag, f"{' '.join(mesh_flags)}: {n_ranks} ranks on the one card through the CLI in {mesh_s:.1f} s, backend "
-        f"{sorted({r['backend'] for r in ranks})}; by rank, s from the launch to the rank's probe "
-        f"{[round(r['t_probe'], 1) for r in ranks]}, to its train() {[round(r['t_train'], 1) for r in ranks]}, "
-        f"train() {[round(r['wall_s'], 1) for r in ranks]}; the one-rank run in {one_s:.1f} s (train() "
-        f"{one['wall_s']:.1f} s)")
-    # every rank's p after each step, bit for bit
-    for k in range(STEPS_MESH):
-        shas = {r["steps"][k]["p_sha256"] for r in ranks}
-        if len(shas) != 1 or any(len(r["steps"]) != STEPS_MESH for r in ranks):
-            raise AssertionError(f"{tag}: the ranks' p differ after step {k + 1}: {shas}")
-    # step 1 against the one-rank run
-    l_mesh, l_one = ranks[0]["steps"][0]["loss"], one["steps"][0]["loss"]
-    rel = abs(l_mesh - l_one) / abs(l_one)
-    g_mesh, g_one = (tens[k]["exp_avg_1"].double().ravel() for k in ("rank0", "one"))
-    g_cos = float(g_mesh @ g_one / (g_mesh.norm() * g_one.norm()))
-    a, b = (tens[k]["prefill_logits"].double() for k in ("rank0", "one"))
-    logit_cos = float(torch.nn.functional.cosine_similarity(a, b, dim=-1).min())
-    log(tag, f"step 1: loss {l_mesh} against the one-rank run's {l_one} (rel {rel:.3g}, tol {TOL_MESH_LOSS}); image "
-        f"gradient cosine {g_cos:.6f}; first decode prefill's last logits, min cosine over {a.shape[0]} rows "
-        f"{logit_cos:.6f} (min {TOL_MESH_COSINE}); every rank's p equal after each of the {STEPS_MESH} steps")
-    if not (rel <= TOL_MESH_LOSS and g_cos >= TOL_MESH_COSINE and logit_cos >= TOL_MESH_COSINE):
-        raise AssertionError(f"{tag}: the mesh run and the one-rank run disagree")
+    ranks, one, tens, mesh_s, one_s = mesh_runs(tag, argv, mesh_flags, data * model, out_dir)
+    rel, g_cos, logit_cos = mesh_step1(tag, ranks, one, tens)
     # launches and collectives a step, from the layer structure
     L = t.num_layers
     want_coll = {"reduce_from_model": 1 + 2 * L if model > 1 else 0, "gather_from_model": 1 if model > 1 else 0,
                  "copy_to_model": 2 * L + 1 if model > 1 else 0, "data": 1 if data > 1 else 0}
+    mesh_step_checks(tag, ranks, one, want_step, want_one, want_coll)
     for r in ranks:
-        for k, st in enumerate(r["steps"]):
-            if st["launches"] != want_step or st["collectives"] != want_coll:
-                raise AssertionError(f"{tag}: rank {r['rank']} step {k + 1} launched {st['launches']} with "
-                                     f"collectives {st['collectives']}; expected {want_step} and {want_coll}")
-            weighty = [sh for sh in st["shapes"] if tuple(sorted(sh)) in {tuple(w) for w in r["weight_shapes"]}]
-            if weighty or not r["weight_shapes"]:
-                raise AssertionError(f"{tag}: rank {r['rank']} step {k + 1}: collectives of weight shapes {weighty}")
         for c in r["chunks"]:
             if c["prefill_launches"] != {**{k: 0 for k in c["prefill_launches"]}, "flash_fwd": L}:
                 raise AssertionError(f"{tag}: rank {r['rank']}: a decode prefill launched {c['prefill_launches']}")
         if r["decode_step_launches"] or not r["chunks"]:
             raise AssertionError(f"{tag}: rank {r['rank']}: a cached decode step launched a kernel, or no chunk ran")
-    for k, st in enumerate(one["steps"]):
-        if st["launches"] != want_one:
-            raise AssertionError(f"{tag}: the one-rank run's step {k + 1} launched {st['launches']}, expected {want_one}")
     st0 = ranks[0]["steps"]
     log(tag, f"a rank's step: launches {st0[0]['launches']}, by head dim {st0[0]['launches_d']}; collectives "
         f"{st0[0]['collectives']} carrying {st0[0]['collective_bytes']} bytes, shapes {st0[0]['shapes']}; none of the "
         f"{len(ranks[0]['weight_shapes'])} weight shapes; the one-rank step: {one['steps'][0]['launches']}")
-    share = [r["steps"][-1]["collective_s"] * 1e3 / r["steps"][-1]["ms"] for r in ranks]
-    numbers = {
-        "step_ms": [r["steps"][1]["ms"] for r in ranks], "one_step_ms": one["steps"][1]["ms"],
-        "peak_GiB": [r["step_peak_GiB"] for r in ranks], "one_peak_GiB": one["step_peak_GiB"],
-        "collective_share": share, "backend": ranks[0]["backend"], "loss_rel": rel, "grad_cosine": g_cos,
-        "logit_cosine": logit_cos, "mesh_s": mesh_s, "one_s": one_s,
+    numbers = mesh_numbers(ranks, one, rel[0], g_cos, logit_cos, mesh_s, one_s)
+    share = numbers["collective_share"]
+    numbers.update({
         "chunks": [(c["batch"], c["T"], round(c["prefill_ms"], 2), round(c["tokens"] / c["decode_ms"] * 1e3, 1))
                    for c in ranks[0]["chunks"]],
         "one_chunks": [(c["batch"], c["T"], round(c["prefill_ms"], 2), round(c["tokens"] / c["decode_ms"] * 1e3, 1))
                        for c in one["chunks"]],
-    }
+    })
     log(tag, f"step 2 ms by rank {[round(x, 2) for x in numbers['step_ms']]} against the one-rank run's "
         f"{numbers['one_step_ms']:.2f}; steps' peak GiB by rank {[round(x, 3) for x in numbers['peak_GiB']]} against "
         f"{numbers['one_peak_GiB']:.3f}; step 3 in collectives (timed after a sync): "
@@ -4678,51 +4884,305 @@ def mesh_phase(tag, argv, mesh_flags, shape, vlm_cfg, tower_cases, want_step, wa
             "launches": r0["launches_run"], "seconds": time.perf_counter() - t_phase}
 
 
-def mesh_phases(ckpt_root, runs):
-    """Phases 4T (scripts/attacks/attack_clamp_tanh_qwen2vl.sh as written: Qwen2-VL-2B from 4V's
-    directory, --mesh_data 2 --mesh_model 4, batch 2) and 4TL (the main path's victim, LLaVA-1.5-7B from
-    4L's directory at bench.py's configuration, --mesh_model 2, batch 1), each beside the same command
-    on one rank, through :func:`mesh_phase`."""
+def mesh_args(ckpt_root, runs):
+    """The attack flags 4T and 4TL share: gray.png, the target, lr 1e-2, STEPS_MESH steps."""
+    gray = os.path.join(os.path.dirname(os.path.abspath(__file__)), "images", "gray.png")
+    return ["--img_orig", gray, "--target_text", TARGET, "--lr", "1e-2", "--num_iterations", str(STEPS_MESH),
+            "--save_steps", "10", "--checkpoint_root", ckpt_root, "--runs_path", runs]
+
+
+def qwen_mesh_phase(ckpt_root, runs, q_cfg):
+    """Phase 4T: scripts/attacks/attack_clamp_tanh_qwen2vl.sh as written (--mesh_data 2 --mesh_model 4,
+    batch 2) on the depth-cut Qwen2-VL-2B directory of configuration ``q_cfg`` under ``ckpt_root``, beside
+    the same command on one rank, through :func:`mesh_phase`: a data rank's batch 1 takes the batch-1
+    causal kernels, the one-rank batch 2 the flash ones; dgrad a step the layer structure's."""
     import torch
 
-    from adversarialvlm_tpu_torch.cli.fabricate_ckpt import MODELS
-    from adversarialvlm_tpu_torch.models import llava as llava_model
     from adversarialvlm_tpu_torch.models import qwen2vl as qwen_model
 
-    gray = os.path.join(os.path.dirname(os.path.abspath(__file__)), "images", "gray.png")
-    common = ["--img_orig", gray, "--target_text", TARGET, "--lr", "1e-2", "--num_iterations", str(STEPS_MESH),
-              "--save_steps", "10", "--checkpoint_root", ckpt_root, "--runs_path", runs]
-    out = {}
-    # 4T: a data rank's batch 1 takes the batch-1 causal kernels; the one-rank batch 2 the flash ones
-    q_cfg = MODELS["qwen2vl-2b"][1]()
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    params = qwen_model.init_params(gen, q_cfg, torch.bfloat16, "cuda")
+    params = qwen_model.init_params(torch.Generator(device="cuda").manual_seed(0), q_cfg, torch.bfloat16, "cuda")
     n_patch = 1296  # 512² -> 504²: a 36 x 36 grid
     t_text_guess = 1  # the decoder rows come from the run; only the tower's cases are kept here
-    tower = [c for c in qwen_dgrad_cases(params, q_cfg, 1, t_text_guess, n_patch) if c[0] != t_text_guess]
-    del params
+    cases = qwen_dgrad_cases(params, q_cfg, 1, t_text_guess, n_patch)
+    tower, n_dgrad = [c for c in cases if c[0] != t_text_guess], sum(c[3] for c in cases)
+    del params, cases
     torch.cuda.empty_cache()
     L = q_cfg.text.num_layers
-    out["4T"] = mesh_phase(
-        "4T", ["--exp_name", "qwen_mesh", "--prompt", "list", "--model_name", QWEN, "--batch_size", "2", *common],
+    return mesh_phase(
+        "4T", ["--exp_name", "qwen_mesh", "--prompt", "list", "--model_name", QWEN, "--batch_size", "2",
+               *mesh_args(ckpt_root, runs)],
         ["--mesh_data", "2", "--mesh_model", "4"], (2, 4), q_cfg, tower,
-        {"dgrad": 270, "attention_fwd": L, "attention_bwd_dq": L, "attention_bwd_dkdv": L},
-        {"dgrad": 270, "flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkdv": L}, os.path.join(runs, "mesh_4T"))
-    drop_dirs(ckpt_root, (QWEN,))  # its last phase
-    # 4TL: LLaVA-1.5-7B at tp 2, its 32 MHA heads split 16 a rank
-    l_cfg = MODELS["llava-1.5-7b"][1]()
-    params = llava_model.init_params(gen, l_cfg, torch.bfloat16, "cuda")
-    tower = [c for c in llava_dgrad_cases(params, l_cfg, 1, 1) if c[0] != 1]
-    del params
+        {"dgrad": n_dgrad, "attention_fwd": L, "attention_bwd_dq": L, "attention_bwd_dkdv": L},
+        {"dgrad": n_dgrad, "flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkdv": L}, os.path.join(runs, "mesh_4T"))
+
+
+def llava_mesh_phase(ckpt_root, runs, l_cfg):
+    """Phase 4TL: the main path's victim at bench.py's configuration (batch 1), --mesh_model 2 (its 32
+    MHA heads split 16 a rank), on the depth-cut LLaVA-1.5-7B directory of configuration ``l_cfg``
+    under ``ckpt_root``, beside the same command on one rank, through :func:`mesh_phase`."""
+    import torch
+
+    from adversarialvlm_tpu_torch.models import llava as llava_model
+
+    params = llava_model.init_params(torch.Generator(device="cuda").manual_seed(0), l_cfg, torch.bfloat16, "cuda")
+    cases = llava_dgrad_cases(params, l_cfg, 1, 1)
+    tower, n_dgrad = [c for c in cases if c[0] != 1], sum(c[3] for c in cases)
+    del params, cases
     torch.cuda.empty_cache()
     L = l_cfg.text.num_layers
-    out["4TL"] = mesh_phase(
-        "4TL", ["--exp_name", "llava_mesh", "--prompt", QUESTION, "--model_name", LLAVA, "--batch_size", "1", *common],
-        ["--mesh_model", "2"], (1, 2), l_cfg, tower,
-        {"dgrad": 364, "attention_fwd": L, "attention_bwd_dq": L, "attention_bwd_dkdv": L},
-        {"dgrad": 364, "attention_fwd": L, "attention_bwd_dq": L, "attention_bwd_dkdv": L}, os.path.join(runs, "mesh_4TL"))
-    drop_dirs(ckpt_root, (LLAVA,))
+    want = {"dgrad": n_dgrad, "attention_fwd": L, "attention_bwd_dq": L, "attention_bwd_dkdv": L}
+    return mesh_phase(
+        "4TL", ["--exp_name", "llava_mesh", "--prompt", QUESTION, "--model_name", LLAVA, "--batch_size", "1",
+                *mesh_args(ckpt_root, runs)],
+        ["--mesh_model", "2"], (1, 2), l_cfg, tower, want, want, os.path.join(runs, "mesh_4TL"))
+
+
+# --- scripts/attacks/attack_cross.sh: Phi-3.5-vision + Llama-3.2-11B-Vision + Qwen2-VL-2B ------------
+
+STEPS_X3 = 3              # phases 4X3 and 4T3: 1 warm-up + 2 timed; save boundaries at iterations 0 and 2
+X3_NAMES = (PHI, MLLAMA, QWEN)  # attack_cross.sh's --model_names, in its order
+X3_LABELS = ("phi3v", "mllama", "qwen2vl")
+X3_MODELS = ("phi3.5-vision", "mllama-11b", "qwen2vl-2b")  # cli/fabricate_ckpt.py's names of the three
+X3_WEIGHTS = (1.0, 1.0, 1.0)  # the script passes no --model_weights: 1.0 each
+X3_REF_TEXT = 2           # phase 4X3's depth-cut reference: Phi-3.5's and Qwen2-VL's first 2 decoder and
+X3_REF_VISION = 2         # 2 tower layers; mllama's cut is 5M's (decoder layers 0-3, 2 local + 1 global)
+# the mesh phases' depth cut (PERF.md §4): every width the configuration's; the first decoder layers of
+# each victim (mllama's: cross layer 3 and the self-attention layer after it, so its backward runs),
+# mllama's tower 2 local + 1 global layers at T 6432; the other towers whole
+CUT_TEXT = {"phi3.5-vision": 4, "mllama-11b": 5, "qwen2vl-2b": 4, "llava-1.5-7b": 4}
+T3_MODEL = 8              # attack_cross.sh's --mesh_model
+
+
+def x3_dgrad_cases(victims, ts):
+    """(rows, O, I, launches per step, weight) of a batch-1 cross step of the three victims, each
+    from its family's own (:func:`phi_dgrad_cases`, :func:`mllama_dgrad_cases`,
+    :func:`qwen_dgrad_cases`) at the run's T."""
+    from adversarialvlm_tpu_torch.processors import grid_hw_for
+
+    (hv, mv, qv), (t_h, t_m, t_q) = victims, ts
+    grid = grid_hw_for("phi3v", hv.adv_processor, (512, 512))
+    _, gh, gw = qv.adv_processor.grid_thw((512, 512))
+    k_rows = int(mv.adv_inputs.target_pool.shape[1]) + 1
+    return (phi_dgrad_cases(hv.bundle.params, hv.bundle.cfg, 1, t_h, 1 + grid[0] * grid[1],
+                            hv.adv_inputs.num_image_tokens)
+            + mllama_dgrad_cases(mv.bundle.params, mv.bundle.cfg, t_m, k_rows)
+            + qwen_dgrad_cases(qv.bundle.params, qv.bundle.cfg, 1, t_q, gh * gw))
+
+
+def cross3_phase(ckpt_root, runs):
+    """Phase 4X3: scripts/attacks/attack_cross.sh as written on one rank (its flags, its three model
+    names; no --mesh_model, whose 8 ranks 4T3 runs), the three victims at full width and depth from
+    the directories of 4H, 4M and 4V, resident on the card together, through :func:`pair_cross_phase`:
+    a cross step launches exactly each victim's own (dgrad, the batch-1 causal kernels at head_dim
+    96 and at 128 with n_rep 4 and 6, no flash_full), each kernel at the run's shapes, the test
+    decode of each victim (MESH_TEST_QUESTIONS questions of MESH_DECODE_TOKENS tokens) and its
+    prefill's flash forward, and the depth-cut cross reference (:func:`cross3_reference`)."""
+    def kernel_cases(victims, ts, pads, probes):
+        out = {}
+        for label, v, t_len, pad, probe in zip(X3_LABELS, victims, ts, pads, probes):
+            t = v.bundle.cfg.text
+            out[label] = attention_case(t_len, t.num_heads, t.num_kv_heads, t.head_dim_, pad, timed=True)
+            out[label]["flash_fwd"] = flash_case(f"cross3 {label} test-decode prefill", probe.chunks[0]["mask"].cuda(),
+                                                 t.num_heads, t.num_kv_heads, t.head_dim_, timed=True,
+                                                 backward=False)["flash_fwd"]
+        return out
+
+    return pair_cross_phase("cross3", list(X3_NAMES), X3_LABELS, ckpt_root, runs, [], x3_dgrad_cases, kernel_cases,
+                            reference=cross3_reference, n_steps=STEPS_X3, profile=False)
+
+
+def cross3_reference(victims, x0, tag="cross3"):
+    """Phase 4X3's depth-cut reference: the cross step of the three victims cut (Phi-3.5 and Qwen2-VL:
+    the first X3_REF_TEXT decoder and X3_REF_VISION tower layers; mllama: 5M's cut), from the loaded
+    weights, with the script's weights X3_WEIGHTS, on the card in bf16 through the kernels against the
+    CPU in f32 on the plain path (in the worker), with the same injected draws: each victim's loss
+    and the total within TOL_REF_LOSS relative, the perturbation gradient at cosine >=
+    TOL_REF_COSINE."""
+    import dataclasses
+
+    import torch
+
+    from adversarialvlm_tpu_torch.attack.config import AttackConfig
+    from adversarialvlm_tpu_torch.attack.engine import VictimSetup
+    from adversarialvlm_tpu_torch.attack.step import build_attack_step
+    from adversarialvlm_tpu_torch.models.registry import make_bundle
+    from adversarialvlm_tpu_torch.ops.kernels import launch_counts, reset_launches
+    from adversarialvlm_tpu_torch.processors import grid_hw_for, normalize_pixel_inputs
+    from adversarialvlm_tpu_torch.processors.adv_inputs import AdvInputs
+
+    t0 = time.perf_counter()
+    cfg = AttackConfig(exp_name="reference_cross3", batch_size=1, grad_accum_steps=1, lr=1e-2, epsilon=0.4)
+    gen = torch.Generator().manual_seed(9)
+    cut_victims, noise, cpu_victims = [], [], []
+    for v in victims:
+        vc, family = v.bundle.cfg, v.bundle.family
+        if family == "mllama":
+            params, cut = mllama_depth_cut(v.bundle.params, vc)
+        else:
+            cut = dataclasses.replace(vc, text=dataclasses.replace(vc.text, num_layers=X3_REF_TEXT),
+                                      vision=dataclasses.replace(vc.vision, num_layers=X3_REF_VISION))
+            params = depth_cut(v.bundle.params, X3_REF_TEXT, X3_REF_VISION)
+        a = v.adv_inputs
+        inputs = AdvInputs(a.spec, a.tokenizer, [QUESTION], [QUESTION], 1, [TARGET], a.num_image_tokens,
+                           a.image_token_id, a.pad_token_id, image_expansion_ids=a.image_expansion_ids)
+        grid = grid_hw_for(family, v.adv_processor, (512, 512), cut)
+        gpu = VictimSetup(f"cut-{family}", make_bundle("cut", family, cut, torch.device("cuda"), params=params,
+                                                       grid_hw=grid), v.adv_processor, inputs, torch.bfloat16)
+        cut_victims.append(gpu)
+        cpu_victims.append(reference_victim(family, cut, gpu.bundle.params, grid, inputs))
+        with torch.no_grad():
+            pv = normalize_pixel_inputs(family, v.adv_processor.process(
+                torch.as_tensor(x0, device="cuda")))["pixel_values"]
+        noise.append(torch.randn((1, *pv.shape[1:]), generator=gen))
+    p0 = 0.3 * torch.randn(x0.shape, generator=gen)
+    xs = {"t_idx": 0, "rows": [torch.from_numpy(g.adv_inputs.prompt_pool[0, [0]]) for g in cut_victims],
+          "lens": [torch.from_numpy(g.adv_inputs.prompt_lengths[0, [0]]) for g in cut_victims], "noise": noise}
+    x0_d = torch.as_tensor(x0, device="cuda")
+    step = build_attack_step([g.handles() for g in cut_victims], cfg, x0_d, torch.ones_like(x0_d),
+                             model_weights=list(X3_WEIGHTS), cross=True)
+    reset_launches()
+    loss, img_loss, ces, _, grad = step.loss_and_grad(p0.cuda(), xs, torch.tensor(cfg.sigma, device="cuda"))
+    card = ([float(loss), *[float(w * ce + img_loss) for w, ce in zip(X3_WEIGHTS, ces)]], grad.double().cpu())
+    counts = launch_counts()
+    log("reference", f"{tag} cuda: loss, loss_0..2 = {card[0]} grad_norm={float(grad.norm())} "
+        f"T={[g.adv_inputs.max_len for g in cut_victims]} launches={ {k: n for k, n in counts.items() if n} } "
+        f"in {time.perf_counter() - t0:.1f} s")
+    texts = [g.bundle.cfg.text for g in cut_victims]
+    n_fwd, n_bwd = sum(map(n_self_layers, texts)), sum(map(n_backward_layers, texts))
+    want = {"attention_fwd": n_fwd, "attention_bwd_dq": n_bwd, "attention_bwd_dkdv": n_bwd}
+    if any(counts[k] != n for k, n in want.items()) or counts["dgrad"] == 0 or any(
+            counts[k] for k in counts if k.startswith("flash")):
+        raise AssertionError(f"{tag} depth-cut step launched {counts}, expected {want}, dgrad and no flash kernel")
+    reference = {}
+    REFS.submit(tag, {"victims": cpu_victims, "x0": x0, "p0": p0, "steps": [("cross", xs, cfg, X3_WEIGHTS)]},
+                lambda out: check_step_reference(tag, card, out["steps"]["cross"], reference))
+    return reference
+
+
+def cut_directories(root, models):
+    """The mesh phases' depth-cut directories of ``models`` (CUT_TEXT; mllama's tower cut as
+    :func:`mllama_cut_config`) under ``root``, each written by the port's fabricator from the seed-0
+    parameters of its cut configuration drawn on the card; returns {model: (its cut configuration,
+    GB written)}."""
+    import dataclasses
+
+    import torch
+
+    from adversarialvlm_tpu_torch.cli.fabricate_ckpt import MODELS, fabricate
+    from adversarialvlm_tpu_torch.models.registry import _MODELS
+    from adversarialvlm_tpu_torch.processors import family_of
+
+    out = {}
+    t0 = time.perf_counter()
+    for model in models:
+        hf_name, make_cfg, dtype = MODELS[model]
+        full, family = make_cfg(), family_of(hf_name)
+        cut = (mllama_cut_config(full, CUT_TEXT[model]) if family == "mllama"
+               else dataclasses.replace(full, text=dataclasses.replace(full.text, num_layers=CUT_TEXT[model])))
+        params = _MODELS[family].init_params(torch.Generator(device="cuda").manual_seed(0), cut, dtype, "cuda")
+        path = fabricate(model, root, params=params, cfg=cut)
+        del params
+        torch.cuda.empty_cache()
+        gb = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path) if f.endswith(".safetensors")) / 1e9
+        out[model] = (cut, gb)
+        log("disk", f"{hf_name} cut to {cut.text.num_layers} decoder layers (cross {cut.text.cross_attention_layers}), "
+            f"tower {cut.vision.num_layers} + {getattr(cut.vision, 'num_global_layers', 0)} layers: {gb:.3f} GB written")
+    log("disk", f"{len(models)} depth-cut directories in {time.perf_counter() - t0:.1f} s; free disk "
+        f"{shutil.disk_usage(root).free / 1e9:.1f} GB")
     return out
+
+
+def tp_rank_kinds(t, model):
+    """{(query heads, kv heads): the model ranks holding that many} of ``t``'s decoder at ``model``."""
+    from adversarialvlm_tpu_torch.parallel.sharding import local_heads
+
+    kinds = {}
+    for r in range(model):
+        kinds.setdefault(local_heads(t.num_heads, t.num_kv_heads, model, r), []).append(r)
+    return kinds
+
+
+def mesh_cross_phase(ckpt_root, runs, cuts):
+    """Phase 4T3: scripts/attacks/attack_cross.sh as written, ``--mesh_model 8``, 8 gloo ranks sharing
+    the card, on the depth-cut directories ``cuts`` of :func:`cut_directories` under ``ckpt_root`` (full
+    width), beside the same command on one rank: every rank's p bit for bit equal after each step; step 1's loss and each
+    victim's within TOL_MESH_LOSS of the one-rank run's, its image gradient and the first decode
+    prefill's last logits (Phi-3.5's) at cosine >= TOL_MESH_COSINE; a rank's launches a step exactly
+    the three layer structures' (dgrad by each whole weight, the batch-1 causal kernels at D 96 and
+    128), its collectives a step the three decoders' (each: 1 + 2L reductions and one gather forward;
+    backward 2L + 1 input-gradient all-reduces, mllama's 2(L - first cross layer) + 1), none of a
+    weight's shape; the backend. Then the kernels at each kind of rank's local shapes (Qwen2-VL's 12
+    heads over 2 at 8: ranks of 2 and of 1 query head over one kv head; Phi-3.5's 4 MHA heads of 96;
+    mllama's 4 over 1), against their plain versions, timed."""
+    import torch
+
+    from adversarialvlm_tpu_torch.models.registry import _MODELS
+
+    t_phase = time.perf_counter()
+    argv = ["--exp_name", "gray_crossattack_phi_llama_qwen_0.4", "--img_orig",
+            os.path.join(os.path.dirname(os.path.abspath(__file__)), "images", "gray.png"), "--prompt", "list",
+            "--target_text", TARGET, "--model_names", ",".join(X3_NAMES), "--lr", "1e-2", "--num_iterations",
+            str(STEPS_X3), "--save_steps", "10", "--batch_size", "1", "--epsilon", "0.4", "--target_text_random",
+            "--checkpoint_root", ckpt_root, "--runs_path", runs]
+    ranks, one, tens, mesh_s, one_s = mesh_runs("4T3", argv, ["--mesh_model", str(T3_MODEL)], T3_MODEL,
+                                                os.path.join(runs, "mesh_4T3"), cross=True)
+    rel, g_cos, logit_cos = mesh_step1("4T3", ranks, one, tens)
+    # launches and collectives a step, from the three layer structures
+    texts = [cut.text for cut, _ in (cuts[m] for m in X3_MODELS)]
+    meta = [_MODELS[c.family].init_params(None, c, torch.bfloat16, "meta") for c, _ in (cuts[m] for m in X3_MODELS)]
+    dgrad_n = sum(c[3] for c in x3_meta_dgrad_cases(meta, [c for c, _ in (cuts[m] for m in X3_MODELS)]))
+    n_fwd, n_bwd = sum(map(n_self_layers, texts)), sum(map(n_backward_layers, texts))
+    want_step = {"dgrad": dgrad_n, "attention_fwd": n_fwd, "attention_bwd_dq": n_bwd, "attention_bwd_dkdv": n_bwd}
+    want_d = {}
+    for t in texts:
+        for k, n in (("attention_fwd", n_self_layers(t)), ("attention_bwd_dq", n_backward_layers(t)),
+                     ("attention_bwd_dkdv", n_backward_layers(t))):
+            want_d[f"{k}_d{t.head_dim_}"] = want_d.get(f"{k}_d{t.head_dim_}", 0) + n
+    want_coll = {"reduce_from_model": sum(1 + 2 * t.num_layers for t in texts), "gather_from_model": len(texts),
+                 "copy_to_model": sum(2 * (t.num_layers - min(t.cross_attention_layers, default=0)) + 1 for t in texts),
+                 "data": 0}
+    mesh_step_checks("4T3", ranks, one, want_step, want_step, want_coll, want_d)
+    for r in ranks:
+        n_pref = {c["T"]: c["prefill_launches"] for c in r["chunks"]}
+        if len(r["chunks"]) != 2 * len(texts) or r["decode_step_launches"] or any(
+                sum(c.values()) != c["flash_fwd"] or c["flash_fwd"] not in [n_self_layers(t) for t in texts]
+                for c in n_pref.values()):
+            raise AssertionError(f"4T3: rank {r['rank']}: decode chunks {len(r['chunks'])}, prefill launches "
+                                 f"{n_pref}, cached-step launches {r['decode_step_launches']}")
+    st0 = ranks[0]["steps"]
+    numbers = {**mesh_numbers(ranks, one, rel, g_cos, logit_cos, mesh_s, one_s),
+               "cut_GB": {m: round(gb, 3) for m, (_, gb) in cuts.items()}}
+    share = numbers["collective_share"]
+    log("4T3", f"a rank's step: launches {st0[0]['launches']}, by head dim {st0[0]['launches_d']}; collectives "
+        f"{st0[0]['collectives']} carrying {st0[0]['collective_bytes']} bytes; none of the "
+        f"{len(ranks[0]['weight_shapes'])} weight shapes; step 2 ms by rank {[round(x, 2) for x in numbers['step_ms']]} "
+        f"against the one-rank run's {numbers['one_step_ms']:.2f}; steps' peak GiB by rank "
+        f"{[round(x, 3) for x in numbers['peak_GiB']]} against {numbers['one_peak_GiB']:.3f}; step 3 in collectives "
+        f"(timed after a sync): {[round(x, 4) for x in share]} of its ms")
+    # the kernels at each kind of rank's local shapes, at rank 0's T of each victim (batch 1)
+    stats = {}
+    r0 = ranks[0]
+    for label, t, t_len, pads in zip(X3_LABELS, texts, r0["Ts"], r0["pads_by_victim"]):
+        for (hq, hkv), held in sorted(tp_rank_kinds(t, T3_MODEL).items(), reverse=True):
+            key = f"{label}_{hq}q{hkv}kv"
+            cases = tp_decoder_dgrad_cases(t, t_len, T3_MODEL, held[0])
+            st = {"dgrad": check_dgrad(cases, label=f"dgrad 4T3 {key} rank")}
+            st.update(attention_case(t_len, hq, hkv, t.head_dim_, pads[0], timed=True))
+            st["ranks"], st["heads"], st["T"] = held, [hq, hkv], t_len
+            stats[key] = st
+            log("4T3", f"{label} ranks {held}: {hq} query heads over {hkv} kv heads of {t.head_dim_}, T {t_len}: the "
+                f"local dgrad shapes {[(c[0], c[1], c[2]) for c in cases]} and the batch-1 causal kernels held")
+    log("4T3", f"phase in {time.perf_counter() - t_phase:.1f} s")
+    return {"numbers": numbers, "stats": stats, "per_step": want_step, "launches": r0["launches_run"],
+            "seconds": time.perf_counter() - t_phase}
+
+
+def x3_meta_dgrad_cases(params, cfgs):
+    """:func:`x3_dgrad_cases` on the three victims' meta-device trees: the launches a step of each
+    eligible shape, for counting (the rows are placeholders)."""
+    (hp, mp, qp), (hc, mc, qc) = params, cfgs
+    return (phi_dgrad_cases(hp, hc, 1, 1, 5, 1) + mllama_dgrad_cases(mp, mc, 1, 1)
+            + qwen_dgrad_cases(qp, qc, 1, 1, 1296))
 
 
 def main():
@@ -4825,6 +5285,7 @@ def main():
     build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "adversarialvlm_tpu_torch", "build")
     os.makedirs(build, exist_ok=True)
     ckpt_root = tempfile.mkdtemp(prefix="ckpt_", dir=build)
+    cut_root = tempfile.mkdtemp(prefix="ckpt_cut_", dir=build)  # the mesh phases' depth cuts, under the same names
     runs = tempfile.mkdtemp(prefix="runs_", dir=build)
     global REFS
     REFS = CpuReferences(runs)
@@ -4866,30 +5327,48 @@ def main():
         torch.cuda.empty_cache()
         log("cross qwen", f"Qwen2-VL victims freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
         xq = qwen_cross_phases(ckpt_root, runs)
-        drop_dirs(ckpt_root, ("google/gemma-3-4b-it",))  # its last phase was 4XV; Qwen2-VL's stays for 4T
+        drop_dirs(ckpt_root, ("google/gemma-3-4b-it",))  # its last phase was 4XV; Qwen2-VL's stays for 4X3 and 4T
         gc.collect()
         torch.cuda.empty_cache()
-        # mllama before Phi-3.5, so that 5M's CPU half, the longest, runs in the worker beside 4H, 5H and 4XH
-        log("mllama", f"Qwen2-VL + Gemma-3 victims freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
-        ml = mllama_phases(ckpt_root, runs)
-        drop_dirs(ckpt_root, (MLLAMA,))
-        gc.collect()
-        torch.cuda.empty_cache()
-        log("phi", f"mllama victim freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+        # the order keeps at most three of the largest directories on the disk at once (the script's disk
+        # budget, module docstring): LLaVA's goes after 4XH, before mllama's is written for 4M and 4X3
+        log("phi", f"Qwen2-VL + Gemma-3 victims freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
         phi = phi_phases(ckpt_root, runs)
         gc.collect()
         torch.cuda.empty_cache()
         log("cross phi", f"Phi-3.5 victim freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
-        xh = phi_cross_phases(ckpt_root, runs)
-        drop_dirs(ckpt_root, (PHI,))  # its last phase was 4XH; LLaVA's stays for 4TL
+        xh = phi_cross_phases(ckpt_root, runs)  # Phi-3.5's directory stays for 4X3
+        drop_dirs(ckpt_root, (LLAVA,))  # its last phase at full depth was 4XH
         gc.collect()
         torch.cuda.empty_cache()
-        REFS.join()  # the references' CPU halves, before the mesh's ranks take the host
+        REFS.join()  # the references' CPU halves so far, before the mesh's ranks take the host
         log("mesh", f"LLaVA + Phi-3.5 victims freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
-        mesh = mesh_phases(ckpt_root, runs)
+        cut = cut_directories(cut_root, ("llava-1.5-7b",))
+        mesh = {"4TL": llava_mesh_phase(cut_root, runs, cut["llava-1.5-7b"][0])}
+        drop_dirs(cut_root, (LLAVA,))
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("mllama", f"4TL's ranks done: {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+        ml = mllama_phases(ckpt_root, runs)  # its directory stays for 4X3
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("cross3", f"mllama victim freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+        x3 = cross3_phase(ckpt_root, runs)
+        drop_dirs(ckpt_root, X3_NAMES)  # their last phase at full depth was 4X3
+        gc.collect()
+        torch.cuda.empty_cache()
+        # 4T3 runs beside the worker's last CPU halves (5M's and 4X3's); 4T after them, on 4T3's Qwen2-VL cut
+        log("mesh", f"Phi-3.5 + mllama + Qwen2-VL victims freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB on "
+            "the card")
+        cut = cut_directories(cut_root, X3_MODELS)
+        t3 = mesh_cross_phase(cut_root, runs, cut)
+        REFS.join()
+        mesh["4T"] = qwen_mesh_phase(cut_root, runs, cut["qwen2vl-2b"][0])
+        drop_dirs(cut_root, X3_NAMES)
     finally:
         REFS.pool.shutdown(cancel_futures=True)
         shutil.rmtree(ckpt_root)
+        shutil.rmtree(cut_root)
         shutil.rmtree(runs)
 
     for name, st in (("llava-1.5-7b", llava["load"]), ("gemma-3-4b", gem["load"])):
@@ -4949,6 +5428,20 @@ def main():
         f"{ml['T']}, steps' peak {ml['step_peak_GiB']:.3f} GiB, image-gradient norms {ml['grad_norms']}, test-decode "
         f"chunks {ml['chunks']}; directory {ml['GB']:.3f} GB written in {ml['write_s']:.1f} s; depth-cut reference "
         f"{ml['reference']}")
+    rz = llava["remat"]
+    log("done", "--remat_policy (4Z, LLaVA-1.5-7B batch 4): " + "; ".join(
+        f"{k} {v['ms']:.2f} ms, peak {v['peak_GiB']:.3f} GiB ({v['above_resident_GiB']:.3f} above the weights), loss "
+        f"rel {v['loss_rel']:.3g}, cosine {v['cosine']:.6f}, bit for bit {v['bitwise']}" for k, v in rz.items()))
+    log("done", f"attack_cross.sh on one rank (4X3: Phi-3.5-vision + Llama-3.2-11B-Vision + Qwen2-VL-2B, batch 1, T "
+        f"{x3['T']}; {x3['seconds']:.1f} s): {x3['median_ms']:.2f} ms a cross step; resident GB {x3['resident']}; steps' "
+        f"peak {x3['step_peak_GiB']:.3f} GiB; test-decode chunks {x3['chunks']}; depth-cut reference {x3['reference']}")
+    n3 = t3["numbers"]
+    log("done", f"attack_cross.sh as written (4T3: --mesh_model {T3_MODEL}, backend {n3['backend']}, depth cut "
+        f"{CUT_TEXT}, {n3['cut_GB']} GB; {t3['seconds']:.1f} s): step 2 ms by rank {[round(x, 2) for x in n3['step_ms']]} "
+        f"against the one-rank run's {n3['one_step_ms']:.2f}; steps' peak GiB by rank "
+        f"{[round(x, 3) for x in n3['peak_GiB']]} against {n3['one_peak_GiB']:.3f}; step 3 in collectives "
+        f"{[round(x, 4) for x in n3['collective_share']]}; step 1 loss rel {[f'{r:.3g}' for r in n3['loss_rel']]}, "
+        f"gradient cosine {n3['grad_cosine']:.6f}, prefill logits cosine {n3['logit_cosine']:.6f}")
     for tag, m in mesh.items():
         n = m["numbers"]
         log("done", f"{tag} (mesh, backend {n['backend']}, {m['seconds']:.1f} s): step 2 ms by rank "
@@ -5105,7 +5598,7 @@ def main():
                                                      **pick(ml["prefill"], timing_keys)}
     # each cross run's launches a step, measured: a row of one head dim reads its instantiation's count
     # (the base causal rows are head_dim 128's, flash_full's 72's), dgrad and the fused rows their entry's
-    runs_by_pair = {"llava+gemma3": cross, "qwen2vl+gemma3": xq, "llava+phi3v int8": xh}
+    runs_by_pair = {"llava+gemma3": cross, "qwen2vl+gemma3": xq, "llava+phi3v int8": xh, "phi3v+mllama+qwen2vl": x3}
     for row in kernels:
         name, d = row["name"], None
         if re.fullmatch(r".*_d\d+", name):
@@ -5114,6 +5607,26 @@ def main():
             d = f"{name}_d72" if name.startswith("flash_full") else f"{name}_d128"
         row["launches_cross_step"] = {pair: (run["per_step"][name] if d is None else run["per_step_d"].get(d, 0))
                                       for pair, run in runs_by_pair.items()}
+    # phase 4X3: each kernel at the shapes attack_cross.sh's one-rank run gave it (dgrad over the three
+    # victims' linears; the batch-1 causal kernels and each test decode's prefill by victim)
+    kernels[0]["at_cross3_shapes"] = pick(x3["dgrad"], (*timing_keys, "per_step"))
+    for i, name in enumerate(sources):
+        if name.startswith("attention") or name == "flash_fwd":
+            kernels[i]["at_cross3_shapes"] = {
+                label: {"max_abs_err": st[name]["abs"], "worst_row_rel_err": st[name]["rel"], **pick(st[name], timing_keys)}
+                for label, st in x3["attention"].items()}
+    # phase 4T3: the kernels at each kind of mesh rank's shapes (attack_cross.sh at --mesh_model 8), rows
+    # of their own; launches are rank 0's over its run
+    for key, st3 in t3["stats"].items():
+        for name in ("dgrad", "attention_fwd", "attention_bwd_dq", "attention_bwd_dkdv"):
+            st = st3[name]
+            kernels.append({
+                "name": f"{name}_4T3_{key}_rank", "route": "cuda",
+                "source": f"adversarialvlm_tpu_torch/csrc/{sources[name]}", "replaces": replaces[name],
+                "launches": t3["launches"][name], "max_abs_err": st["abs"], "worst_row_rel_err": st["rel"],
+                **pick(st, timing_keys), "launches_per_step": t3["per_step"][name], "heads": st3["heads"],
+                "ranks": st3["ranks"], "T": st3["T"],
+            })
     # phases 4T and 4TL: the kernels at one mesh rank's shapes (its heads, its shards, its data rank's
     # rows), rows of their own; launches are rank 0's over its run
     for tag, m in mesh.items():

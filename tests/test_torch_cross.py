@@ -86,6 +86,8 @@ def _x0():
 PAIRS = {
     "llava_gemma3": (("tiny-llava", "llava", 0), ("tiny-gemma3", "gemma3", 0)),
     "llava_llava": (("tiny-llava-0", "llava", 0), ("tiny-llava-1", "llava", 1)),
+    # scripts/attacks/attack_cross.sh's three families
+    "phi3v_mllama_qwen2vl": (("tiny-phi3v", "phi3v", 0), ("tiny-mllama", "mllama", 0), ("tiny-qwen2vl", "qwen2vl", 0)),
 }
 
 
@@ -111,7 +113,9 @@ def _port_victims(pair, cfg, jvictims=None):
 
 
 def _pixel_shape(victim):
-    return tuple(victim.adv_processor.process(jnp.zeros((3, *HW)))["pixel_values"].shape[1:])
+    """The pixel batch's shape past its leading dim, as the JAX step draws its EoT noise: from the
+    engine's normalized pixel inputs (phi3v's tiles and mllama's tile slots in their own dims)."""
+    return tuple(victim.handles().process(jnp.zeros((3, *HW)))["pixel_values"].shape[1:])
 
 
 @functools.lru_cache(maxsize=None)
@@ -141,7 +145,8 @@ def _jax_records(pair, overrides=(), weights=(1.0, 0.5)):
         state, met = step(state, arrays, one)
         rec = {"t_idx": int(one["t_idx"]), "rows": [np.array(r) for r in one["rows"]],
                "lens": [np.array(n) for n in one["lens"]], "noise": noise, "p": np.asarray(state["p"]),
-               "metrics": {k: float(met[k]) for k in METRICS}, "target_idx": int(met["target_idx"])}
+               "metrics": {k: float(met[k]) for k in (*METRICS, *(f"loss_{i}" for i in range(2, m)))},
+               "target_idx": int(met["target_idx"])}
         if cfg.use_gaussian_blur:
             rec["sigma"] = sigma
         if cfg.DPO_flag:
@@ -180,18 +185,21 @@ def _port_run(pair, overrides=(), weights=(1.0, 0.5)):
     return out
 
 
-@pytest.mark.parametrize("case", ["plain", "blur"])
+@pytest.mark.parametrize("case", ["plain", "blur", "three_families"])
 def test_cross_steps_match_jax(case):
     """Three cross steps of tiny LLaVA + tiny Gemma-3 with model_weights [1.0, 0.5] (blur: the
-    cross mode's random σ, JAX's draw injected) against JAX build_attack_step(cross=True): loss,
-    loss_0 and loss_1 (wᵢ·CEᵢ + image loss), grad_norm and lr within 1e-4 relative, p within the
+    cross mode's random σ, JAX's draw injected; three_families: attack_cross.sh's tiny Phi-3.5 +
+    mllama + Qwen2-VL with [1.0, 0.5, 0.8]) against JAX build_attack_step(cross=True): loss and
+    each loss_i (wᵢ·CEᵢ + image loss), grad_norm and lr within 1e-4 relative, p within the
     single-victim test's bounds, but for the blur's largest pixel difference: a σ of 1.8 spreads
     each pixel's gradient over its 5×5 neighbourhood, and where that gradient is within a few
     Adam eps (1e-8) of zero the first update lr·g/(|g| + eps) turns its last digits into 0.7% of
     lr (3.5e-4 measured on 9 of 15360 pixels, every other pixel within 1e-5), so every pixel
     within 5e-4 there."""
     over = (("use_gaussian_blur", True),) if case == "blur" else ()
-    for rec, p, m in _port_run("llava_gemma3", over):
+    pair, weights = (("phi3v_mllama_qwen2vl", (1.0, 0.5, 0.8)) if case == "three_families"
+                     else ("llava_gemma3", (1.0, 0.5)))
+    for rec, p, m in _port_run(pair, over, weights):
         for key, want in rec["metrics"].items():
             np.testing.assert_allclose(float(m[key]), want, rtol=1e-4, err_msg=key)
         _assert_p_close(p, rec["p"], 5e-4 if case == "blur" else 2.5e-4)

@@ -10,7 +10,6 @@ run_safebench and generate_answers decode with the tiny LLaVA, JAX's random weig
 across. Inputs come from numpy with a seed.
 """
 
-import argparse
 import ast
 import contextlib
 import io
@@ -304,8 +303,8 @@ def test_int8_weights_raise_naming_their_item(case, tmp_path, monkeypatch):
     """--int8_weights and ADVLM_INT8_WEIGHTS=1 build a quantized model (models/quant.py: int8
     linears) in each entry, where before this raised NotImplementedError: the eval CLIs' judge
     and victim, build_checker's, and the attack CLI's victim, each caught as the entry hands it
-    on; ADVLM_INT8_WEIGHTS=0 asks for nothing; --remat_policy still raises naming why, and the
-    mesh flags, which the port runs since its mesh landed, pass the check."""
+    on; ADVLM_INT8_WEIGHTS=0 asks for nothing; --remat_policy, which the port runs since
+    models/remat.py landed, passes and reaches the victim's decoder config."""
     from adversarialvlm_tpu_torch.attack import engine
     from adversarialvlm_tpu_torch.cli import attack_model, judge_common
     from adversarialvlm_tpu_torch.cli import find_best_iter as fbi_cli
@@ -347,9 +346,9 @@ def test_int8_weights_raise_naming_their_item(case, tmp_path, monkeypatch):
     assert quantized_fraction(params) > 0.2
     monkeypatch.setenv("ADVLM_INT8_WEIGHTS", "0")
     assert quantized_fraction(judge_common.build_checker("tiny:", device="cpu").bundle.params) == 0.0
-    with pytest.raises(NotImplementedError, match="--remat_policy"):
-        attack_model.check_unported_flags(argparse.Namespace(remat_policy="dgrad", mesh_model=2, int8_weights=True))
-    attack_model.check_unported_flags(argparse.Namespace(mesh_model=2, mesh_data=2, int8_weights=True))
+    attack_model.main(["--model_name", "tiny:llava", "--device", "cpu", "--remat_policy", "dgrad", "--img_orig",
+                       str(runs / "e" / "optimized_image_iter_1.png"), "--runs_path", str(runs)])
+    assert built[-1][0].bundle.cfg.text.remat_policy == "dgrad"
 
 
 NEW_MODULES = ["judge/__init__.py", "judge/fsm.py", "judge/safety_checker.py", "judge/tiny.py",

@@ -47,10 +47,30 @@ CASES = {
     "mllama": ((2, 2), (("tiny-mllama", "mllama", 0),), None, False, 1e-4),
     # tiny llava's 4 heads over 2 kv heads at tp 4: each rank holds the kv head of its one q head
     "kv_fewer_than_ranks": ((1, 4), (("tiny", "llava", 0),), None, False, 5e-5),
+    # a tiny Qwen-like decoder of 6 query heads over 2 kv heads at tp 4: the ranks hold 2, 1, 2 and 1
+    # whole query heads (JAX's GSPMD splits inside a head)
+    "uneven_heads": ((1, 4), (("tiny-qwen6", "qwen2vl_6h", 0),), None, False, 5e-5),
     # the quantized products sum in another order on the two sides: one pixel of 15360, its gradient
     # near zero, takes an AdamW step 9.5e-5 off (test_parallel.py's atol for such pixels, its mllama case's)
     "int8": ((1, 2), (("tiny", "llava", 0),), None, True, 1e-4),
 }
+
+
+def _tiny_cfg(family, package):
+    """The tiny config a case's ``family`` names in ``package`` (the port's or JAX's models), or
+    None for the family's default: "qwen2vl_6h" is tiny Qwen2-VL with 6 query heads of 16 over its
+    2 kv heads."""
+    import dataclasses
+    import importlib
+
+    if family != "qwen2vl_6h":
+        return None
+    base = importlib.import_module(f"{package}.models.qwen2vl").tiny_qwen2vl(vocab_size=384)
+    return dataclasses.replace(base, text=dataclasses.replace(base.text, num_heads=6, head_dim=16))
+
+
+def _family(family):
+    return family.split("_")[0]
 
 
 def _cfg_kw(weights):
@@ -77,7 +97,8 @@ def _port_case(mesh, case, inp):
     cfg = AttackConfig(**_cfg_kw(weights))
     built = []
     for (name, family, seed), params in zip(victims, inp["params"]):
-        v = build_tiny_victim(name, cfg, HW, family=family, seed=seed, questions=QUESTIONS, targets=TARGETS,
+        v = build_tiny_victim(name, cfg, HW, vlm_cfg=_tiny_cfg(family, "adversarialvlm_tpu_torch"),
+                              family=_family(family), seed=seed, questions=QUESTIONS, targets=TARGETS,
                               test_questions=QUESTIONS, device="cpu", int8_weights=int8)
         v.bundle.params = from_jax_params(params)
         shard_victim(v, mesh)
@@ -154,7 +175,8 @@ def _jax_victim(family, seed, int8):
     from adversarialvlm_tpu.attack import AttackConfig as JaxAttackConfig
     from adversarialvlm_tpu.attack.setup import build_tiny_victim
 
-    return build_tiny_victim(f"tiny-{family}", JaxAttackConfig(**_cfg_kw(None)), in_hw=HW, family=family, seed=seed,
+    return build_tiny_victim(f"tiny-{family}", JaxAttackConfig(**_cfg_kw(None)), in_hw=HW,
+                             vlm_cfg=_tiny_cfg(family, "adversarialvlm_tpu"), family=_family(family), seed=seed,
                              questions=QUESTIONS, targets=TARGETS, test_questions=QUESTIONS, int8_weights=int8)
 
 
@@ -310,18 +332,88 @@ def test_shardings_follow_the_jax_rules(family, int8):
 
 
 def test_head_layout_gives_each_rank_one_kv_head():
-    """With fewer kv heads than model ranks each rank holds the kv head of its contiguous query
-    heads (Qwen2-VL-2B's 12 over 2 at tp 4, Gemma-3-4B's 8 over 4 at tp 8); with more, an even
-    split; a rank whose query heads read two kv heads raises by name."""
+    """Each rank holds a contiguous run of whole query heads and the kv heads they read: with
+    fewer kv heads than model ranks each rank one kv head (Qwen2-VL-2B's 12 over 2 at tp 4 and,
+    unevenly, at tp 8: 2, 2, 1, 1 query heads a kv group; Gemma-3-4B's 8 over 4 at tp 8); with more,
+    an even split, or an uneven one of whole kv groups (12 over 6 at tp 4); a layout where a rank
+    would hold no whole query head, or kv groups that neither divide nor are divided by the model
+    axis (kv 2 over 3 ranks, which JAX cannot shard either), raises by name."""
     assert [port_sharding.head_layout(12, 2, 4, r) for r in range(4)] == [
         (0, 3, 0, 1), (3, 6, 0, 1), (6, 9, 1, 2), (9, 12, 1, 2)]
     assert [port_sharding.head_layout(8, 4, 8, r)[2:] for r in range(8)] == [(r // 2, r // 2 + 1) for r in range(8)]
     assert port_sharding.head_layout(32, 8, 2, 1) == (16, 32, 4, 8)
     assert port_sharding.local_heads(12, 2, 4) == (3, 1)
-    with pytest.raises(ValueError, match="read kv heads 0 and 1"):
-        port_sharding.head_layout(12, 6, 4, 0)
-    with pytest.raises(ValueError, match="do not split"):
-        port_sharding.head_layout(12, 2, 8, 0)
+    assert [port_sharding.head_layout(12, 6, 4, r) for r in range(4)] == [
+        (0, 4, 0, 2), (4, 8, 2, 4), (8, 10, 4, 5), (10, 12, 5, 6)]
+    assert [port_sharding.head_layout(12, 2, 8, r) for r in range(8)] == [
+        (0, 2, 0, 1), (2, 4, 0, 1), (4, 5, 0, 1), (5, 6, 0, 1), (6, 8, 1, 2), (8, 10, 1, 2), (10, 11, 1, 2),
+        (11, 12, 1, 2)]
+    assert [port_sharding.local_heads(12, 2, 8, r) for r in range(8)] == [(2, 1), (2, 1), (1, 1), (1, 1)] * 2
+    assert port_sharding.widest_heads(12, 2, 8) == (2, 1)
+    for args in ((2, 2, 3), (12, 2, 3), (4, 2, 8)):
+        with pytest.raises(ValueError, match="do not split into whole heads"):
+            port_sharding.head_layout(*args, 0)
+
+
+def _real_configs():
+    from adversarialvlm_tpu_torch.models.configs import gemma3_4b_it, llava_1_5_7b
+    from adversarialvlm_tpu_torch.models.mllama import mllama_11b
+    from adversarialvlm_tpu_torch.models.phi3v import phi3_5_vision
+    from adversarialvlm_tpu_torch.models.qwen2vl import qwen2vl_2b, qwen2vl_7b
+
+    return {"llava-1.5-7b": llava_1_5_7b, "gemma-3-4b-it": gemma3_4b_it, "qwen2vl-2b": qwen2vl_2b,
+            "qwen2vl-7b": qwen2vl_7b, "phi-3.5-vision": phi3_5_vision, "llama-3.2-11b-vision": mllama_11b}
+
+
+@pytest.mark.parametrize("model", [2, 4, 8])
+@pytest.mark.parametrize("name", ["llava-1.5-7b", "gemma-3-4b-it", "qwen2vl-2b", "qwen2vl-7b", "phi-3.5-vision",
+                                  "llama-3.2-11b-vision"])
+def test_real_configs_shard_into_whole_heads(name, model):
+    """Every real config of the five families builds its shards at each model axis where the JAX
+    rule divides the flattened q, k/v, o and MLP dims (Qwen2-VL-2B's 12 heads and Qwen2-VL-7B's 28
+    at 8 among them): each rank's q_proj rows, k/v rows and o_proj columns are its whole heads of
+    :func:`head_layout`, the ranks' query heads cover each head once, each rank's query heads read
+    only the kv heads it holds, the MLP splits evenly and the vocabulary by ``tensor_split``, on
+    the self-attention and on mllama's cross-attention alike."""
+    from adversarialvlm_tpu_torch.models import registry
+    from adversarialvlm_tpu_torch.models.loading import named_leaves
+
+    cfg = _real_configs()[name]()
+    t = cfg.text
+    hd, hq, hkv = t.head_dim_, t.num_heads, t.num_kv_heads
+    assert not any(n % model for n in (hq * hd, hkv * hd, t.intermediate_size))  # the JAX rule divides them
+    params = registry._MODELS[cfg.family].init_params(None, cfg, torch.bfloat16, "meta")
+    specs = port_sharding.vlm_param_shardings(params, t)
+    whole = dict(named_leaves(params))
+    covered = []
+    for rank in range(model):
+        q0, q1, k0, k1 = port_sharding.head_layout(hq, hkv, model, rank)
+        n_rep = hq // hkv
+        assert q1 > q0 and k0 <= q0 // n_rep and (q1 - 1) // n_rep < k1
+        covered += list(range(q0, q1))
+        got = dict(named_leaves(port_sharding.shard_shapes(params, specs, model, rank)))
+        for key, leaf in got.items():
+            d = whole[key].shape
+            if not key.startswith("language_model."):  # the towers and projectors: replicated
+                assert leaf.shape == d, key
+            elif ".q_proj." in key:
+                assert leaf.shape == ((q1 - q0) * hd, *d[1:]), key
+            elif ".k_proj." in key or ".v_proj." in key:
+                assert leaf.shape == ((k1 - k0) * hd, *d[1:]), key
+            elif ".o_proj.weight" in key:
+                assert leaf.shape == (d[0], (q1 - q0) * hd), key
+            elif key.endswith(("gate_proj.weight", "up_proj.weight")):
+                assert leaf.shape == (d[0] // model, d[1]), key
+            elif key.endswith("down_proj.weight"):
+                assert leaf.shape == (d[0], d[1] // model), key
+            elif key.endswith(("embed_tokens.weight", "lm_head.weight")):
+                lo, hi = port_sharding.vocab_range(d[0], model, rank)
+                assert leaf.shape == (hi - lo, d[1]), key
+            else:
+                assert leaf.shape == d, key
+    assert covered == list(range(hq))
+    if cfg.family == "mllama":
+        assert any(".cross_attn.q_proj." in k for k in whole)
 
 
 @pytest.mark.parametrize("rank,int8", [(0, False), (1, False), (1, True)])

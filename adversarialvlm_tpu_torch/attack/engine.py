@@ -42,6 +42,7 @@ from adversarialvlm_tpu_torch.ops.image import uint8_roundtrip
 from adversarialvlm_tpu_torch.ops.masks import create_mask, default_mask
 from adversarialvlm_tpu_torch.parallel.mesh import active_mesh, use_mesh
 from adversarialvlm_tpu_torch.processors import normalize_pixel_inputs
+from adversarialvlm_tpu_torch.utils import spans
 from adversarialvlm_tpu_torch.utils.device import resolve_device
 from adversarialvlm_tpu_torch.utils.logging import RunLogger
 
@@ -85,11 +86,20 @@ class VictimSetup:
         )
 
 
+@contextlib.contextmanager
 def _profiler(device: torch.device):
+    """torch.profiler over host and, on the card, device activity, with the step's spans
+    (utils/spans.py) recorded as ranges of the trace; the spans are dropped afterwards."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(torch.profiler.ProfilerActivity.CUDA)
-    return torch.profiler.profile(activities=activities)
+    spans.enable()
+    try:
+        with torch.profiler.profile(activities=activities) as prof:
+            yield prof
+    finally:
+        spans.disable()
+        spans.drain()
 
 
 class _StepClock:
@@ -148,7 +158,8 @@ def train(
     ``cfg.resume_state`` (such a file) continues that run: p, the optimizer, the counters and
     every generator as they were saved, the chunks realigned to the save grid and the
     resaved-loss monitor's cadence kept. ``cfg.profile_dir`` traces the second chunk with
-    torch.profiler (host and, on the card, device activity) into a Chrome trace there.
+    torch.profiler (host and, on the card, device activity) into a Chrome trace there, with the
+    step's phases (``attack.*``, utils/spans.py) as ranges around their operations.
 
     ``mesh`` (default: the active one, parallel/mesh.py) runs this rank's part of a (data ×
     model) mesh, as the JAX engine runs its whole body under ``jax.set_mesh``: each victim's

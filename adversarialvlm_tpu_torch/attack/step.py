@@ -49,6 +49,7 @@ from adversarialvlm_tpu_torch.ops.losses import (
 from adversarialvlm_tpu_torch.ops.masks import random_square_mask, square_position
 from adversarialvlm_tpu_torch.parallel.collectives import all_reduce_data
 from adversarialvlm_tpu_torch.parallel.mesh import active_mesh, batch_rows, dp_size
+from adversarialvlm_tpu_torch.utils.spans import span
 
 
 @dataclasses.dataclass
@@ -269,27 +270,29 @@ class AttackStep:
         forward)."""
         v = self.victims[i]
         full_b = ids.shape[0]
-        ids = ids[self.rows].to(v.device)
-        am = _length_mask(ids, lens[self.rows].to(v.device))
+        with span("attack.inputs"):
+            ids = ids[self.rows].to(v.device)
+            am = _length_mask(ids, lens[self.rows].to(v.device))
         b = ids.shape[0]
-        processed = dict(v.process(arg_img))
-        pv = processed.pop("pixel_values")
-        pv = pv.expand(b, *pv.shape[1:]).to(v.compute_dtype)
-        if resave_std is not None:
-            if noise is None:
-                noise = torch.randn((full_b, *pv.shape[1:]), generator=self.noise_gen, device=v.device)
-            pv = pv + (noise[self.rows].to(v.device) * resave_std).to(pv.dtype)
-        # only the last target_width + 1 positions are scored by the suffix CE
-        k = v.target_pool.shape[1] + 1
-        # the processor's other inputs (mllama's aspect ids and mask) ride at the image's batch
-        logits = v.forward(v.params, ids, am, {"pixel_values": pv, **processed}, logits_last_k=k)
-        return suffix_cross_entropy(
-            logits[:, :-1, :],
-            v.target_pool[t_idx][None, :].expand(b, -1),
-            v.suffix_lengths[t_idx],
-            v.shift,
-            target_mask=v.target_mask_pool[t_idx][None, :],
-        )
+        with span("attack.forward"):
+            processed = dict(v.process(arg_img))
+            pv = processed.pop("pixel_values")
+            pv = pv.expand(b, *pv.shape[1:]).to(v.compute_dtype)
+            if resave_std is not None:
+                if noise is None:
+                    noise = torch.randn((full_b, *pv.shape[1:]), generator=self.noise_gen, device=v.device)
+                pv = pv + (noise[self.rows].to(v.device) * resave_std).to(pv.dtype)
+            # only the last target_width + 1 positions are scored by the suffix CE
+            k = v.target_pool.shape[1] + 1
+            # the processor's other inputs (mllama's aspect ids and mask) ride at the image's batch
+            logits = v.forward(v.params, ids, am, {"pixel_values": pv, **processed}, logits_last_k=k)
+            return suffix_cross_entropy(
+                logits[:, :-1, :],
+                v.target_pool[t_idx][None, :].expand(b, -1),
+                v.suffix_lengths[t_idx],
+                v.shift,
+                target_mask=v.target_mask_pool[t_idx][None, :],
+            )
 
     def loss_and_grad(self, p: torch.Tensor, xs: dict, resave_std: torch.Tensor):
         """(total loss, image loss, each victim's CE, x, d total / d p) at ``p`` for the draws
@@ -300,32 +303,37 @@ class AttackStep:
         the prefix once. x is a tensor of its own, never p's storage, which the update then
         overwrites."""
         cfg, n = self.cfg, len(self.victims)
-        p = p.detach().requires_grad_(True)
-        coins = _drawn(xs, "coins", "transform_prob < 1") if coins_drawn(cfg) else (True, True)
-        x = perturbation_clamp(p, cfg.epsilon, cfg.clamp_method)
-        if cfg.use_gaussian_blur and coins[0]:
-            if self.cross:
-                x = random_sigma_gaussian_blur(x, cfg.gblur_kernel_size,
-                                               sigma=_drawn(xs, "sigma", "the cross-mode blur"))
-            else:
-                x = gaussian_blur(x, cfg.gblur_kernel_size, cfg.gblur_sigma)
-        arg = self.x0 + x
-        if cfg.use_local_crop and coins[1]:
-            arg = crop_resize(arg, *_drawn(xs, "crop_box", "use_local_crop"))
-        img_loss = image_fit_loss(self.x0, x)
+        with span("attack.prefix"):
+            p = p.detach().requires_grad_(True)
+            coins = _drawn(xs, "coins", "transform_prob < 1") if coins_drawn(cfg) else (True, True)
+            x = perturbation_clamp(p, cfg.epsilon, cfg.clamp_method)
+            if cfg.use_gaussian_blur and coins[0]:
+                if self.cross:
+                    x = random_sigma_gaussian_blur(x, cfg.gblur_kernel_size,
+                                                   sigma=_drawn(xs, "sigma", "the cross-mode blur"))
+                else:
+                    x = gaussian_blur(x, cfg.gblur_kernel_size, cfg.gblur_sigma)
+            arg = self.x0 + x
+            if cfg.use_local_crop and coins[1]:
+                arg = crop_resize(arg, *_drawn(xs, "crop_box", "use_local_crop"))
+            img_loss = image_fit_loss(self.x0, x)
         t_list = xs.get("t_idxs", [xs["t_idx"]] * n)
         shared = arg.detach().requires_grad_(True)
         ces, g_arg = [], None
         for i in range(n):
-            noise = xs["noise"][i] if "noise" in xs else None
-            ce = self.victim_ce(i, shared, t_list[i], xs["rows"][i], xs["lens"][i], resave_std, noise)
-            (g,) = torch.autograd.grad(self.weights[i] * ce / cfg.grad_accum_steps, shared)
-            g_arg = g if g_arg is None else g_arg + g
-            ces.append(ce.detach())
+            with span("attack.victim", name=self.victims[i].name):
+                noise = xs["noise"][i] if "noise" in xs else None
+                ce = self.victim_ce(i, shared, t_list[i], xs["rows"][i], xs["lens"][i], resave_std, noise)
+                with span("attack.backward"):
+                    (g,) = torch.autograd.grad(self.weights[i] * ce / cfg.grad_accum_steps, shared)
+                g_arg = g if g_arg is None else g_arg + g
+                ces.append(ce.detach())
         if self.dp > 1:
-            g_arg, ces = self.mean_over_data(g_arg, ces)
-        (grad,) = torch.autograd.grad((arg, img_loss * (n / cfg.grad_accum_steps)), p,
-                                      grad_outputs=(g_arg, None))
+            with span("attack.data_allreduce"):
+                g_arg, ces = self.mean_over_data(g_arg, ces)
+        with span("attack.prefix_backward"):
+            (grad,) = torch.autograd.grad((arg, img_loss * (n / cfg.grad_accum_steps)), p,
+                                          grad_outputs=(g_arg, None))
         img_loss = img_loss.detach()
         if self.cross:
             total = sum(self.weights[i] * ces[i] + img_loss for i in range(n)) / cfg.grad_accum_steps
@@ -345,63 +353,69 @@ class AttackStep:
         return g, [flat[n + j].to(c.dtype) for j, c in enumerate(ces)]
 
     def __call__(self, state: dict, xs: dict):
+        with span("attack.step", step=state["iteration"], victims=len(self.victims), batch=self.cfg.batch_size):
+            return self._step(state, xs)
+
+    def _step(self, state: dict, xs: dict):
         cfg = self.cfg
         p = state["p"]
         loss, img_loss, ces, x, grad = self.loss_and_grad(p, xs, state["resave_std"])
-        mask = self.grad_mask
-        if moving_square(cfg):
-            mask = random_square_mask(self.x0.shape, int(cfg.mask_size),
-                                      position=_drawn(xs, "mask_pos", "the moving square"),
-                                      device=self.x0.device)
-        g = grad * mask
-        grad_norm = torch.linalg.vector_norm(g)
-        accum_loss = state["accum_loss"] + loss
-        # the lr the optimizer applies in this step (schedule count = applies before it)
-        lr_now = cfg.lr * cfg.scheduler_gamma ** (state["global_iteration"] // cfg.scheduler_step_size)
+        with span("attack.update"):
+            mask = self.grad_mask
+            if moving_square(cfg):
+                mask = random_square_mask(self.x0.shape, int(cfg.mask_size),
+                                          position=_drawn(xs, "mask_pos", "the moving square"),
+                                          device=self.x0.device)
+            g = grad * mask
+            grad_norm = torch.linalg.vector_norm(g)
+            accum_loss = state["accum_loss"] + loss
+            # the lr the optimizer applies in this step (schedule count = applies before it)
+            lr_now = cfg.lr * cfg.scheduler_gamma ** (state["global_iteration"] // cfg.scheduler_step_size)
 
-        if cfg.grad_accum_steps > 1:
-            state["grad_buf"] += g
-            do_step = (state["iteration"] + 1) % cfg.grad_accum_steps == 0
-            update = state["grad_buf"]
-        else:
-            do_step, update = True, g
-        if do_step:
-            p.grad = update.clone()
-            state["optimizer"].step()
-            state["scheduler"].step()
-            p.grad = None
-            state["global_iteration"] += 1
-            if "grad_buf" in state:
-                state["grad_buf"].zero_()
+            if cfg.grad_accum_steps > 1:
+                state["grad_buf"] += g
+                do_step = (state["iteration"] + 1) % cfg.grad_accum_steps == 0
+                update = state["grad_buf"]
+            else:
+                do_step, update = True, g
+            if do_step:
+                p.grad = update.clone()
+                state["optimizer"].step()
+                state["scheduler"].step()
+                p.grad = None
+                state["global_iteration"] += 1
+                if "grad_buf" in state:
+                    state["grad_buf"].zero_()
 
-        # resave monitoring on the pre-update image: the on-device uint8 round trip
-        x_mod = self.x0 + x
-        x_resaved = uint8_roundtrip(x_mod)
-        resave_abs = torch.abs(x_resaved - x_mod)
-        resave_std_new = _std_unbiased(resave_abs)
-        fix_err = torch.abs((x_resaved - self.x0) - x)
+        with span("attack.monitor"):
+            # resave monitoring on the pre-update image: the on-device uint8 round trip
+            x_mod = self.x0 + x
+            x_resaved = uint8_roundtrip(x_mod)
+            resave_abs = torch.abs(x_resaved - x_mod)
+            resave_std_new = _std_unbiased(resave_abs)
+            fix_err = torch.abs((x_resaved - self.x0) - x)
 
-        metrics = {
-            "loss": loss,
-            "image_loss": img_loss,
-            "adversarial_mean": x.mean(),
-            "adversarial_std": _std_unbiased(x),
-            "lr": lr_now,
-            "resave_error_mean": resave_abs.mean(),
-            "resave_error_std": resave_std_new,
-            "resave_error_l1": resave_abs.sum(),
-            "grad_norm": grad_norm,
-            "accumulated_loss": accum_loss if do_step else math.nan,
-            "global_iteration": state["global_iteration"],
-            "fix_error_mean": fix_err.mean(),
-            "fix_error_std": _std_unbiased(fix_err),
-            # -1 on a refusing step: no shared target was trained
-            "target_idx": -1 if xs.get("refuse") else xs["t_idx"],
-        }
-        if cfg.DPO_flag:
-            metrics["refuse_flag"] = int(xs["refuse"])
-        for i, ce in enumerate(ces):
-            metrics[f"loss_{i}"] = self.weights[i] * ce + img_loss if self.cross else ce
+            metrics = {
+                "loss": loss,
+                "image_loss": img_loss,
+                "adversarial_mean": x.mean(),
+                "adversarial_std": _std_unbiased(x),
+                "lr": lr_now,
+                "resave_error_mean": resave_abs.mean(),
+                "resave_error_std": resave_std_new,
+                "resave_error_l1": resave_abs.sum(),
+                "grad_norm": grad_norm,
+                "accumulated_loss": accum_loss if do_step else math.nan,
+                "global_iteration": state["global_iteration"],
+                "fix_error_mean": fix_err.mean(),
+                "fix_error_std": _std_unbiased(fix_err),
+                # -1 on a refusing step: no shared target was trained
+                "target_idx": -1 if xs.get("refuse") else xs["t_idx"],
+            }
+            if cfg.DPO_flag:
+                metrics["refuse_flag"] = int(xs["refuse"])
+            for i, ce in enumerate(ces):
+                metrics[f"loss_{i}"] = self.weights[i] * ce + img_loss if self.cross else ce
         state["resave_std"] = resave_std_new
         state["accum_loss"] = torch.zeros_like(accum_loss) if do_step else accum_loss
         state["iteration"] += 1

@@ -14,14 +14,11 @@ Over the data group (attack/step.py): :func:`all_reduce_data`, the image gradien
 
 Each collective counts its calls, bytes and shape under its kind in :data:`COUNTS`,
 :data:`BYTES` and :data:`SHAPES`, where it runs, so a run can check how many a step made and that
-none carried a weight (the counters grow with the distinct shapes, not with the run); with
-:func:`timing` on, its host seconds too, after a device sync.
+none carried a weight (the counters grow with the distinct shapes, not with the run).
 """
 
 from __future__ import annotations
 
-import contextlib
-import time
 from collections import Counter
 
 import torch
@@ -31,16 +28,13 @@ from adversarialvlm_tpu_torch.parallel.mesh import active_mesh
 KINDS = ("copy_to_model", "reduce_from_model", "gather_from_model", "data")
 COUNTS: Counter[str] = Counter()
 BYTES: Counter[str] = Counter()
-SECONDS: Counter[str] = Counter()
 #: (kind, shape) -> collectives of that kind and shape since the last reset
 SHAPES: Counter[tuple[str, tuple[int, ...]]] = Counter()
-_TIMING = [False]
 
 
 def reset_counts() -> None:
     COUNTS.clear()
     BYTES.clear()
-    SECONDS.clear()
     SHAPES.clear()
 
 
@@ -48,29 +42,10 @@ def collective_counts() -> dict[str, int]:
     return {k: COUNTS[k] for k in KINDS}
 
 
-@contextlib.contextmanager
-def timing(on: bool = True):
-    """Time each collective on the host, after a sync of its device so that the window holds the
-    collective alone (this changes the overlap it measures; use it for a share, not a step time)."""
-    prev = _TIMING[0]
-    _TIMING[0] = on
-    try:
-        yield
-    finally:
-        _TIMING[0] = prev
-
-
 def _all_reduce(kind: str, t: torch.Tensor, group) -> torch.Tensor:
     import torch.distributed as dist
 
-    if _TIMING[0] and t.is_cuda:
-        torch.cuda.synchronize(t.device)
-    t0 = time.perf_counter()
     dist.all_reduce(t, group=group)
-    if _TIMING[0]:
-        if t.is_cuda:
-            torch.cuda.synchronize(t.device)
-        SECONDS[kind] += time.perf_counter() - t0
     COUNTS[kind] += 1
     BYTES[kind] += t.numel() * t.element_size()
     SHAPES[(kind, tuple(t.shape))] += 1

@@ -272,7 +272,7 @@ depth is what the script's time limit gives: PERF.md §4):
   one-rank batch 2 taking the flash ones; 4TL: 168 dgrad, 4 of each batch-1 causal kernel), L flash forwards a decode
   prefill and none in a cached step; the collectives a step (1 + 2L reductions, 1 gather, 2L + 1 input-gradient
   all-reduces, one data all-reduce in 4T) with none of a weight's shape; and logs the step's ms and each rank's peak
-  beside the one-rank run's, the share of a step in collectives and the backend. Then dgrad (each shard routed by its
+  beside the one-rank run's and the backend. Then dgrad (each shard routed by its
   whole weight's shape), the batch-1 causal kernels and the flash prefill at a rank's shapes against their plain
   versions, timed.
 It then prints each checkpoint directory's write and load seconds and GB/s, the resume verdict,
@@ -4539,7 +4539,7 @@ def mllama_phases(ckpt_root, runs):
             "write_s": write_s, "GB": nbytes / 1e9, "T": t_text, "grad_norms": [r["grad_norm"] for r in steps]}
 
 
-STEPS_MESH = 3            # phases 4T and 4TL: a warm-up, a timed step, a step with its collectives timed
+STEPS_MESH = 3            # phases 4T and 4TL: a warm-up, a timed step and one more, p checked after each
 MESH_DECODE_TOKENS = 8    # phases 4T and 4TL: each test decode's new tokens and held-out questions (the
 MESH_TEST_QUESTIONS = 8   # engine's 64 and 50, cut: a mesh rank's prefill and each cached step make 2L + 2
                           # all-reduces of the chunk's activations, through the host under gloo)
@@ -4554,7 +4554,7 @@ def mesh_probe(out_dir, tag, t_launch=None):
     engine.train is wrapped with a PathProbe on each victim (decode chunks, the steps' peak) and
     each step (AttackStep.__call__, from a drained queue) records its device ms, loss, the
     SHA-256 of p after it, its kernel launches (by head dim too), its collectives (count, bytes,
-    shapes; the last step's host seconds, timed after a sync of the card), and after step 1 the
+    shapes), and after step 1 the
     AdamW first moment (0.1·g); the first decode prefill's last logits, the rank's coordinates
     and backend, the shapes of its tensor-parallel weights (whole and sharded) and its rows' pads
     go in too, with the wall seconds from ``t_launch`` (the launch's ``time.time()``) to this
@@ -4581,19 +4581,16 @@ def mesh_probe(out_dir, tag, t_launch=None):
     def call(self, state, xs):
         torch.cuda.synchronize()
         l0, d0 = launch_counts(), launch_counts_by_head_dim()
-        c0, b0, s0, n0 = (collectives.collective_counts(), dict(collectives.BYTES), sum(collectives.SECONDS.values()),
-                          dict(collectives.SHAPES))
+        c0, b0, n0 = collectives.collective_counts(), dict(collectives.BYTES), dict(collectives.SHAPES)
         if not rec["steps"]:
             lens = xs["lens"][0][self.rows]
             rec.update(T=int(xs["rows"][0].shape[1]), pads=[int(xs["rows"][0].shape[1] - n) for n in lens],
                        Ts=[int(r.shape[1]) for r in xs["rows"]],
                        pads_by_victim=[[int(r.shape[1] - n) for n in ls[self.rows]]
                                        for r, ls in zip(xs["rows"], xs["lens"])])
-        timed = len(rec["steps"]) == STEPS_MESH - 1
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         e0.record()
-        with collectives.timing(timed):
-            out = real_call(self, state, xs)
+        out = real_call(self, state, xs)
         e1.record()
         torch.cuda.synchronize()
         rec["steps"].append({
@@ -4604,7 +4601,6 @@ def mesh_probe(out_dir, tag, t_launch=None):
             "launches_d": {k: n - d0.get(k, 0) for k, n in launch_counts_by_head_dim().items() if n != d0.get(k, 0)},
             "collectives": {k: n - c0[k] for k, n in collectives.collective_counts().items()},
             "collective_bytes": {k: n - b0.get(k, 0) for k, n in collectives.BYTES.items() if n != b0.get(k, 0)},
-            "collective_s": sum(collectives.SECONDS.values()) - s0 if timed else None,
             "shapes": sorted({sh for (kind, sh), n in collectives.SHAPES.items() if n != n0.get((kind, sh), 0)}),
         })
         if len(rec["steps"]) == 1:
@@ -4805,11 +4801,10 @@ def mesh_step_checks(tag, ranks, one, want_step, want_one, want_coll, want_d=Non
 
 def mesh_numbers(ranks, one, rel, g_cos, logit_cos, mesh_s, one_s):
     """A mesh phase's numbers: each rank's step-2 ms and steps' peak beside the one-rank run's, the
-    share of each rank's last step in collectives, the backend, step 1's agreement, the seconds."""
+    backend, step 1's agreement, the seconds."""
     return {
         "step_ms": [r["steps"][1]["ms"] for r in ranks], "one_step_ms": one["steps"][1]["ms"],
         "peak_GiB": [r["step_peak_GiB"] for r in ranks], "one_peak_GiB": one["step_peak_GiB"],
-        "collective_share": [r["steps"][-1]["collective_s"] * 1e3 / r["steps"][-1]["ms"] for r in ranks],
         "backend": ranks[0]["backend"], "loss_rel": rel, "grad_cosine": g_cos, "logit_cosine": logit_cos,
         "mesh_s": mesh_s, "one_s": one_s, "t_import": [r["t_import"] for r in ranks],
         "t_probe": [r["t_probe"] for r in ranks], "t_train": [r["t_train"] for r in ranks],
@@ -4824,8 +4819,8 @@ def mesh_phase(tag, argv, mesh_flags, shape, vlm_cfg, tower_cases, want_step, wa
     at cosine >= TOL_MESH_COSINE; each rank's kernel launches a step (``want_step``; the one-rank
     run's ``want_one``, whose route may differ by design) and its collectives a step against the
     layer structure, none of a weight's shape; 0 kernels in a cached decode step and L flash
-    forwards a prefill. Logs the step's ms and each rank's peak beside the one-rank run's, the share
-    of the timed step in collectives and the backend; then dgrad, the batch-1 causal kernels and
+    forwards a prefill. Logs the step's ms and each rank's peak beside the one-rank run's and the
+    backend; then dgrad, the batch-1 causal kernels and
     the flash prefill at a rank's shapes against their plain versions, timed. ``tower_cases``: the
     replicated tower's and projector's dgrad cases at a data rank's batch."""
     import torch
@@ -4853,7 +4848,6 @@ def mesh_phase(tag, argv, mesh_flags, shape, vlm_cfg, tower_cases, want_step, wa
         f"{st0[0]['collectives']} carrying {st0[0]['collective_bytes']} bytes, shapes {st0[0]['shapes']}; none of the "
         f"{len(ranks[0]['weight_shapes'])} weight shapes; the one-rank step: {one['steps'][0]['launches']}")
     numbers = mesh_numbers(ranks, one, rel[0], g_cos, logit_cos, mesh_s, one_s)
-    share = numbers["collective_share"]
     numbers.update({
         "chunks": [(c["batch"], c["T"], round(c["prefill_ms"], 2), round(c["tokens"] / c["decode_ms"] * 1e3, 1))
                    for c in ranks[0]["chunks"]],
@@ -4862,8 +4856,7 @@ def mesh_phase(tag, argv, mesh_flags, shape, vlm_cfg, tower_cases, want_step, wa
     })
     log(tag, f"step 2 ms by rank {[round(x, 2) for x in numbers['step_ms']]} against the one-rank run's "
         f"{numbers['one_step_ms']:.2f}; steps' peak GiB by rank {[round(x, 3) for x in numbers['peak_GiB']]} against "
-        f"{numbers['one_peak_GiB']:.3f}; step 3 in collectives (timed after a sync): "
-        f"{[round(x, 4) for x in share]} of its ms; decode chunks (batch, T, prefill ms, tokens/s) rank 0 "
+        f"{numbers['one_peak_GiB']:.3f}; decode chunks (batch, T, prefill ms, tokens/s) rank 0 "
         f"{numbers['chunks']}, one-rank {numbers['one_chunks']}")
     # the kernels at a rank's shapes
     hq, hkv = local_heads(t.num_heads, t.num_kv_heads, model)
@@ -5152,13 +5145,11 @@ def mesh_cross_phase(ckpt_root, runs, cuts):
     st0 = ranks[0]["steps"]
     numbers = {**mesh_numbers(ranks, one, rel, g_cos, logit_cos, mesh_s, one_s),
                "cut_GB": {m: round(gb, 3) for m, (_, gb) in cuts.items()}}
-    share = numbers["collective_share"]
     log("4T3", f"a rank's step: launches {st0[0]['launches']}, by head dim {st0[0]['launches_d']}; collectives "
         f"{st0[0]['collectives']} carrying {st0[0]['collective_bytes']} bytes; none of the "
         f"{len(ranks[0]['weight_shapes'])} weight shapes; step 2 ms by rank {[round(x, 2) for x in numbers['step_ms']]} "
         f"against the one-rank run's {numbers['one_step_ms']:.2f}; steps' peak GiB by rank "
-        f"{[round(x, 3) for x in numbers['peak_GiB']]} against {numbers['one_peak_GiB']:.3f}; step 3 in collectives "
-        f"(timed after a sync): {[round(x, 4) for x in share]} of its ms")
+        f"{[round(x, 3) for x in numbers['peak_GiB']]} against {numbers['one_peak_GiB']:.3f}")
     # the kernels at each kind of rank's local shapes, at rank 0's T of each victim (batch 1)
     stats = {}
     r0 = ranks[0]
@@ -5439,15 +5430,13 @@ def main():
     log("done", f"attack_cross.sh as written (4T3: --mesh_model {T3_MODEL}, backend {n3['backend']}, depth cut "
         f"{CUT_TEXT}, {n3['cut_GB']} GB; {t3['seconds']:.1f} s): step 2 ms by rank {[round(x, 2) for x in n3['step_ms']]} "
         f"against the one-rank run's {n3['one_step_ms']:.2f}; steps' peak GiB by rank "
-        f"{[round(x, 3) for x in n3['peak_GiB']]} against {n3['one_peak_GiB']:.3f}; step 3 in collectives "
-        f"{[round(x, 4) for x in n3['collective_share']]}; step 1 loss rel {[f'{r:.3g}' for r in n3['loss_rel']]}, "
+        f"{[round(x, 3) for x in n3['peak_GiB']]} against {n3['one_peak_GiB']:.3f}; step 1 loss rel {[f'{r:.3g}' for r in n3['loss_rel']]}, "
         f"gradient cosine {n3['grad_cosine']:.6f}, prefill logits cosine {n3['logit_cosine']:.6f}")
     for tag, m in mesh.items():
         n = m["numbers"]
         log("done", f"{tag} (mesh, backend {n['backend']}, {m['seconds']:.1f} s): step 2 ms by rank "
             f"{[round(x, 2) for x in n['step_ms']]} against the one-rank run's {n['one_step_ms']:.2f}; steps' peak GiB "
-            f"by rank {[round(x, 3) for x in n['peak_GiB']]} against {n['one_peak_GiB']:.3f}; step 3 in collectives "
-            f"{[round(x, 4) for x in n['collective_share']]}; step 1 loss rel {n['loss_rel']:.3g}, gradient cosine "
+            f"by rank {[round(x, 3) for x in n['peak_GiB']]} against {n['one_peak_GiB']:.3f}; step 1 loss rel {n['loss_rel']:.3g}, gradient cosine "
             f"{n['grad_cosine']:.6f}, prefill logits cosine {n['logit_cosine']:.6f}; decode chunks {n['chunks']} "
             f"(one-rank {n['one_chunks']})")
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s; the blur + crop step "

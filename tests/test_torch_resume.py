@@ -150,6 +150,7 @@ def test_profile_dir_writes_a_trace_of_the_second_chunk(victim, tmp_path):
     assert traces == ["trace_iter_1-2.json"]  # chunks: [0], [1, 2], [3]
     trace = json.load(open(tmp_path / "profile" / traces[0]))
     assert any("aten::" in e.get("name", "") for e in trace["traceEvents"])
+    assert any(e.get("name") == "attack.forward" for e in trace["traceEvents"])  # the step's phases
 
 
 def test_grad_accum_warning(victim, tmp_path):
